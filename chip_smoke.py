@@ -24,7 +24,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
              the launch counts set to 0 just before and read just after;
              answers must equal the device-BFS oracle for every start,
              the §4.2 meters must equal the host meter on 32 sampled
-             starts, and the kernel launches must equal the BFS levels.
+             starts, and the kernel launches must equal the BFS levels;
+* trace    — each query again, its per-call set-up
+             (``make_s2_step_fn``: Stage B and the meters' degree
+             vectors) timed apart from its run, and the run traced with
+             ``torch.profiler``: device busy time, idle share, and device
+             time per kernel.
 
 The last two lines are a JSON object with one entry per kernel, then
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -152,8 +157,10 @@ def graph_ms(fn, iters: int, flush: torch.Tensor | None) -> float:
 
 
 def events_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean ms of ``fn`` between CUDA events, L2 flushed before each call
-    (for the plain version, whose nonzero() syncs rule out a graph)."""
+    """Mean ms of ``fn`` between CUDA events, L2 flushed before each call,
+    with the host's launch work and syncs inside the window: the one
+    footing on which the plain version, whose nonzero() syncs rule out a
+    graph, and the kernel compare."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -166,6 +173,54 @@ def events_ms(fn, iters: int, flush: torch.Tensor) -> float:
         torch.cuda.synchronize()
         total += t0.elapsed_time(t1)
     return total / iters
+
+
+def trace_query(placement, ca, starts, staged, dev) -> dict:
+    """One query's per-call set-up timed apart from its run, and the run
+    traced with ``torch.profiler``: device busy time (the union of the
+    device events' intervals), its share of the traced wall time, and the
+    device time and count of each kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = strategies.make_s2_step_fn(
+        ca, placement.graph.n_nodes, backend="frontier_kernel", graph=placement.graph,
+        replication_factor=placement.replication_factor, staged=staged, device=dev,
+    )
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    strategies.s2_execute(placement, ca, starts, step_fn=step)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        strategies.s2_execute(placement, ca, starts, step_fn=step)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    spans, per_kernel = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        k = per_kernel.setdefault(e.name, {"count": 0, "us": 0.0})
+        k["count"] += 1
+        k["us"] += e.time_range.end - e.time_range.start
+    if not spans:
+        raise AssertionError("the trace holds no device event")
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return {
+        "setup_ms": setup_ms, "run_ms": run_ms, "traced_ms": traced_ms,
+        "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1.0 - busy_us / 1e3 / traced_ms,
+        "idle_share_of_untraced_run": 1.0 - busy_us / 1e3 / run_ms,
+        "kernels": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1]["us"])),
+    }
 
 
 def main() -> int:
@@ -192,7 +247,9 @@ def main() -> int:
     record["env"] = {"kind": kind, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # ---- build -----------------------------------------------------------
-    for name, info in _build.build_all().items():
+    for name in _build.SOURCES:
+        _build.load(name)
+        info = _build.BUILD_LOG[name]
         took = "cached" if info["seconds"] is None else f"nvcc {info['seconds']:.2f} s"
         log("build", f"{name}: {took}")
         for line in info["ptxas"].splitlines():
@@ -274,11 +331,13 @@ def main() -> int:
         t = level_times[q] = {
             "ms": graph_ms(kernel_level, 50, flush),
             "warm_ms": graph_ms(kernel_level, 50, None),
+            "events_ms": events_ms(kernel_level, 20, flush),
             "plain_ms": events_ms(plain_level, 20, flush),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
         }
-        log("kernels", f"{q} level: kernel {t['ms'] * 1e3:.2f} us (L2 flushed; {t['warm_ms'] * 1e3:.2f} us warm), "
-            f"plain {t['plain_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+        log("kernels", f"{q} level: kernel {t['ms'] * 1e3:.2f} us (L2 flushed; {t['warm_ms'] * 1e3:.2f} us warm; "
+            f"{t['events_ms'] * 1e3:.2f} us one call between events), "
+            f"plain {t['plain_ms'] * 1e3:.2f} us between events, bound {bound_ms * 1e3:.2f} us by {bound_by} "
             f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
     record["level_times"] = level_times
 
@@ -342,6 +401,17 @@ def main() -> int:
             f"{r['host_syncs']} host syncs, {r['wall_ms']:.1f} ms, {r['queries_per_s']:.1f} queries/s; "
             f"answers == oracle, meters == host meter on {min(N_METER_SAMPLES, len(starts))} starts")
     record["path"] = per_query
+
+    record["trace"] = {}
+    for q in QUERIES:
+        tr = record["trace"][q] = trace_query(placement, cas[q], paa.valid_start_nodes(cas[q], g),
+                                              staged, dev)
+        log("trace", f"{q}: set-up {tr['setup_ms']:.1f} ms, run {tr['run_ms']:.1f} ms "
+            f"({tr['traced_ms']:.1f} ms traced); device busy {tr['device_busy_ms']:.1f} ms, "
+            f"idle share {tr['idle_share']:.4f} of the traced run, "
+            f"{tr['idle_share_of_untraced_run']:.4f} of the untraced one")
+        for name, k in list(tr["kernels"].items())[:8]:
+            log("trace", f"  {k['us'] / 1e3:9.3f} ms {k['count']:6d}x  {name[:90]}")
 
     kernels = [{
         "name": "fused_level_blocks",

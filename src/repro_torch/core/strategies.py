@@ -194,7 +194,7 @@ def make_s2_step_fn(
     ca: CompiledAutomaton,
     n_nodes: int,
     max_levels: int | None = None,
-    backend: str = "reference",
+    backend: str = "frontier_kernel",
     graph: LabeledGraph | None = None,
     replication_factor: float = 1.0,
     block_size: int = 128,
@@ -333,7 +333,7 @@ def s2_execute(
     start_nodes: np.ndarray,
     max_levels: int | None = None,
     step_fn=None,
-    backend: str = "reference",
+    backend: str = "frontier_kernel",
     block_size: int = 128,
     semantics: str = "pairs",
     tile_dtype: str = "f32",

@@ -6,7 +6,7 @@ use with ``nvcc`` for ``sm_90a`` into a shared library and opens it with
 ``ctypes``.  Libraries go to ``build/repro_torch/`` at the root of the
 checkout (listed in ``.gitignore``), named by a hash of the source and
 the flags, so an edited source builds anew and an unchanged one loads
-from disk.  :func:`build_all` starts one ``nvcc`` per source at once.
+from disk.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -58,43 +58,26 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, float]:
-    out = _lib_path(name)
+def _compile(name: str, out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG_ROOT / SOURCES[name])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, time.perf_counter()
-
-
-def _finish(name: str, proc: subprocess.Popen, tmp: Path, t0: float) -> None:
-    log, _ = proc.communicate()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-    os.replace(tmp, _lib_path(name))  # atomic: a reader never sees half a file
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": log.strip()}
-
-
-def build_all(names=None) -> dict[str, dict]:
-    """Build every kernel (or ``names``) not yet on disk, one ``nvcc`` per
-    source, all started together.  Returns :data:`BUILD_LOG`."""
-    names = list(SOURCES if names is None else names)
-    running = []
-    for name in names:
-        if _lib_path(name).exists():
-            BUILD_LOG.setdefault(name, {"seconds": None, "ptxas": ""})
-        else:
-            running.append((name, *_start(name)))
-    for name, proc, tmp, t0 in running:
-        _finish(name, proc, tmp, t0)
-    return BUILD_LOG
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a reader never sees half a file
+    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stdout.strip()}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _LIBS[name] = lib
+        path = _lib_path(name)
+        if path.exists():
+            BUILD_LOG[name] = {"seconds": None, "ptxas": ""}
+        else:
+            _compile(name, path)
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib

@@ -38,14 +38,6 @@ _I32 = ("firsts", "valids", "tile_ids", "f_rows", "f_cols", "o_rows", "o_cols")
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def runs_from_firsts(firsts: torch.Tensor) -> torch.Tensor:
-    """CSR offsets of the output-block runs: the step index of every
-    ``firsts == 1`` plus the step count, as int32."""
-    starts = torch.nonzero(firsts).flatten()
-    end = torch.tensor([firsts.shape[0]], dtype=starts.dtype, device=firsts.device)
-    return torch.cat([starts, end]).to(torch.int32)
-
-
 def fused_level_blocks_plain(
     frontier: torch.Tensor,
     tiles: torch.Tensor,
@@ -127,16 +119,16 @@ def fused_level_blocks(
     block_size: int,
     q_pad: int,
     *,
+    run_ptr: torch.Tensor,  # (n_runs + 1,) int32 run offsets (FusedLevelPlan.run_ptr)
     n_out_rows: int | None = None,  # output height; default = frontier height
-    run_ptr: torch.Tensor | None = None,  # (n_runs + 1,) int32 run offsets
 ) -> torch.Tensor:
     """One BFS level over ALL transitions: raw f32 counts (n_out_rows, v_pad).
 
     Steps must be sorted by (o_rows, o_cols) and cover every output block
     (the plan builder adds zero-tile cover steps).  ``run_ptr`` are the
-    CSR offsets of the output-block runs (``FusedLevelPlan.run_ptr``);
-    without it they are derived from ``firsts`` on the device, which
-    costs a host sync.  On CPU tensors this is
+    CSR offsets of the output-block runs (``FusedLevelPlan.run_ptr``),
+    which the kernel walks in place of ``firsts``; ``firsts`` stays in
+    the signature for parity with ``repro``.  On CPU tensors this is
     :func:`fused_level_blocks_plain`; on CUDA tensors it launches the
     CUDA kernel or raises."""
     global LAUNCHES
@@ -150,8 +142,6 @@ def fused_level_blocks(
         )
     if frontier.device.type != "cuda":
         raise ValueError(f"fused_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
-    if run_ptr is None:
-        run_ptr = runs_from_firsts(firsts)
     ints = dict(zip(_I32, (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)))
     _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr)
     n_runs = run_ptr.shape[0] - 1

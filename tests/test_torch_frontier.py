@@ -155,7 +155,8 @@ def test_cpu_calls_leave_launches_unchanged():
     frontier.fused_level_blocks(
         torch.zeros(((rca.n_states + len(rp.union_members)) * tp.q_pad, tp.v_pad)),
         tp.tiles, tp.firsts, tp.valids, tp.tile_ids, tp.f_rows, tp.f_cols, tp.o_rows,
-        tp.o_cols, tp.block_size, tp.q_pad, n_out_rows=rca.n_states * tp.q_pad,
+        tp.o_cols, tp.block_size, tp.q_pad, run_ptr=tp.run_ptr,
+        n_out_rows=rca.n_states * tp.q_pad,
     )
     assert frontier.LAUNCHES == before
 
@@ -188,5 +189,6 @@ def test_wrapper_refuses_other_devices():
     ids = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         frontier.fused_level_blocks(
-            f, torch.zeros((1, 8, 8), device="meta"), ids, ids, ids, ids, ids, ids, ids, 8, 8
+            f, torch.zeros((1, 8, 8), device="meta"), ids, ids, ids, ids, ids, ids, ids, 8, 8,
+            run_ptr=ids,
         )
