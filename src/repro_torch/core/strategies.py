@@ -1,20 +1,22 @@
 """S2 (bottom-up) RPQ processing on the fused frontier kernel, with the
 paper's §4.2 message accounting.
 
-Port of ``repro/core/strategies.py`` for the ``frontier_kernel`` backend
-on one device.  S2 runs the PAA at the querying site; each BFS level's
-neighbour lookup is a broadcast search answered by the sites holding
-matching edges, with a local cache deduplicating repeated searches.  The
-meters count message symbols with the paper's conventions (a symbol = one
-node id or label; an edge = 3 symbols).
+Port of ``repro/core/strategies.py`` for the two global fused backends,
+``frontier_kernel`` (8 stacked queries in f32 rows) and
+``frontier_kernel_packed`` (256 query lanes in int32 words), on either
+tile store, on one device.  S2 runs the PAA at the querying site; each
+BFS level's neighbour lookup is a broadcast search answered by the sites
+holding matching edges, with a local cache deduplicating repeated
+searches.  The meters count message symbols with the paper's conventions
+(a symbol = one node id or label; an edge = 3 symbols).
 
 What waits for later slices (each raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item): the ``reference`` and ``frontier_kernel_sharded``
-backends (A12), ``frontier_kernel_packed`` (A7), the uint32 tile store
-(A8), witness semantics (A9), and the plan store's shared Stage A (A10;
-until then ``staged=`` passes a prebuilt Stage A in).  S1, S3 and S4 come
-with planning (A6).  The ``mesh``, ``site_axes`` and ``batch_axis``
-parameters of ``repro`` are dropped: nothing on this path uses them.
+backends (A12), witness semantics (A9), and the plan store's shared
+Stage A (A10; until then ``staged=`` passes a prebuilt Stage A in).
+S1, S3 and S4 come with planning (A6).  The ``mesh``, ``site_axes`` and
+``batch_axis`` parameters of ``repro`` are dropped: nothing on this path
+uses them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.core import paa
 from repro_torch.core.automaton import FWD, CompiledAutomaton
 from repro_torch.graph.partition import Placement
 from repro_torch.graph.structure import LabeledGraph
+from repro_torch.kernels.frontier import frontier as fkernel
 from repro_torch.kernels.frontier import ops as fops
 
 # ---------------------------------------------------------------------------
@@ -162,31 +165,28 @@ def _site_symbol_degrees(
     return deg, payloads
 
 
+_PORTED = {
+    "backend": ("frontier_kernel", "frontier_kernel_packed"),
+    "semantics": ("pairs",),
+    "tile_dtype": fops.TILE_DTYPES,
+}
 _NOT_PORTED = {
-    "backend": {
-        "reference": "A12",
-        "frontier_kernel_packed": "A7",
-        "frontier_kernel_sharded": "A12",
-    },
+    "backend": {"reference": "A12", "frontier_kernel_sharded": "A12"},
     "semantics": {"witness": "A9"},
-    "tile_dtype": {"uint32": "A8"},
+    "tile_dtype": {},
 }
 
 
 def _require_ported(backend: str, semantics: str, tile_dtype: str) -> None:
-    for name, value, ported in (
-        ("backend", backend, "frontier_kernel"),
-        ("semantics", semantics, "pairs"),
-        ("tile_dtype", tile_dtype, "f32"),
-    ):
-        if value == ported:
+    for name, value in (("backend", backend), ("semantics", semantics), ("tile_dtype", tile_dtype)):
+        if value in _PORTED[name]:
             continue
         item = _NOT_PORTED[name].get(value)
         if item is None:
             raise ValueError(f"unknown {name}={value!r}")
         raise NotImplementedError(
             f"{name}={value!r} is not ported yet (ROADMAP.md {item}); "
-            f"this package runs {name}={ported!r}"
+            f"this package runs {name} in {_PORTED[name]}"
         )
 
 
@@ -208,15 +208,19 @@ def make_s2_step_fn(
     ``backend="frontier_kernel"`` — the fused level kernel: the whole BFS
     level over all transitions is ONE launch on the block-sparse tiles of
     ``graph`` (required), with up to 8 queries stacked into the rows of
-    each automaton state.  ``replication_factor`` scales the unicast
-    symbols to ``repro``'s summed-per-site convention (in f32, as
-    ``repro`` does) so :func:`s2_execute` can divide it back out.
+    each automaton state.  ``backend="frontier_kernel_packed"`` — the
+    same level on int32 lane words: 256 queries per fixpoint, one bit
+    each.  ``tile_dtype`` picks the tile store either backend reads:
+    ``"f32"`` or the ``"uint32"`` bit-planes.  ``replication_factor``
+    scales the unicast symbols to ``repro``'s summed-per-site convention
+    (in f32, as ``repro`` does) so :func:`s2_execute` can divide it back
+    out.
     Retrieval is modeled on the deduplicated *global* graph.
 
     ``staged`` takes a prebuilt Stage A
     (:func:`repro_torch.kernels.frontier.ops.stage_graph` of ``graph`` at
-    ``block_size``); without it the executor stages its own on
-    ``device`` (``None``: the GPU).
+    ``block_size`` and ``tile_dtype``); without it the executor stages
+    its own on ``device`` (``None``: the GPU).
 
     Returns ``fn(starts) -> (answers, q_bc, d_s2, n_bc)``: ``starts``
     (B,) int node ids; answers (B, n_nodes) bool, and per start the
@@ -226,9 +230,52 @@ def make_s2_step_fn(
     §4.2.2 cache key, so they agree with the host meter.
     """
     _require_ported(backend, semantics, tile_dtype)
-    return _make_frontier_step_fn(
-        ca, n_nodes, max_levels, graph, replication_factor, block_size, staged, device
+    make = (
+        _make_frontier_packed_step_fn
+        if backend == "frontier_kernel_packed"
+        else _make_frontier_step_fn
     )
+    return make(
+        ca, n_nodes, max_levels, graph, replication_factor, block_size, tile_dtype,
+        staged, device,
+    )
+
+
+def _frontier_setup(
+    ca: CompiledAutomaton,
+    n_nodes: int,
+    graph: LabeledGraph | None,
+    block_size: int,
+    tile_dtype: str,
+    staged,
+    device,
+    backend: str,
+):
+    """What both fused executors build before their first call: the
+    Stage-B plan over ``staged`` (staged here when ``None``), and the
+    meters' symbol-set groups with their degree vectors and payloads on
+    the plan's device."""
+    if graph is None:
+        raise ValueError(
+            f"backend={backend!r} requires graph= (the placement's global graph)"
+        )
+    if graph.n_nodes != n_nodes:
+        raise ValueError(f"graph has {graph.n_nodes} nodes, executor built for {n_nodes}")
+    if staged is None:
+        staged = fops.stage_graph(graph, block_size, tile_dtype=tile_dtype, device=device)
+    elif (staged.n_nodes, staged.block_size, staged.tile_dtype) != (n_nodes, block_size, tile_dtype):
+        raise ValueError(
+            f"staged graph is ({staged.n_nodes} nodes, block {staged.block_size}, "
+            f"tile_dtype {staged.tile_dtype!r}), executor built for ({n_nodes} nodes, "
+            f"block {block_size}, tile_dtype {tile_dtype!r})"
+        )
+    plan = fops.build_level_schedule(ca, staged)
+    dev = plan.tiles.device
+    sgroups = symbol_set_groups(ca)
+    deg, payloads = _site_symbol_degrees(sgroups, [graph], plan.v_pad)
+    deg_c = torch.from_numpy(deg[0]).to(dev)
+    pay_c = torch.from_numpy(payloads).to(dev)
+    return plan, sgroups, deg_c, pay_c
 
 
 def _make_frontier_step_fn(
@@ -238,6 +285,7 @@ def _make_frontier_step_fn(
     graph: LabeledGraph | None,
     replication_factor: float,
     block_size: int,
+    tile_dtype: str = "f32",
     staged=None,
     device: str | torch.device | None = None,
 ):
@@ -255,28 +303,12 @@ def _make_frontier_step_fn(
     bitmap carried across levels — the same cache semantics as the host
     meter.  Every sum is of integers below 2^24 in f32, so it is exact.
     """
-    if graph is None:
-        raise ValueError(
-            "backend='frontier_kernel' requires graph= (the placement's global graph)"
-        )
-    if graph.n_nodes != n_nodes:
-        raise ValueError(f"graph has {graph.n_nodes} nodes, executor built for {n_nodes}")
-    if staged is None:
-        staged = fops.stage_graph(graph, block_size, device=device)
-    elif staged.n_nodes != n_nodes or staged.block_size != block_size:
-        raise ValueError(
-            f"staged graph is ({staged.n_nodes} nodes, block {staged.block_size}), "
-            f"executor built for ({n_nodes} nodes, block {block_size})"
-        )
-    plan = fops.build_level_schedule(ca, staged)
+    plan, sgroups, deg_c, pay_c = _frontier_setup(
+        ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel"
+    )
     dev = plan.tiles.device
     n_states, q_pad, v_pad = ca.n_states, plan.q_pad, plan.v_pad
     levels = max_levels if max_levels is not None else n_states * n_nodes
-
-    sgroups = symbol_set_groups(ca)
-    deg, payloads = _site_symbol_degrees(sgroups, [graph], v_pad)
-    deg_c = torch.from_numpy(deg[0]).to(dev)
-    pay_c = torch.from_numpy(payloads).to(dev)
     rep = torch.tensor(replication_factor, dtype=torch.float32, device=dev)
 
     def fixpoint(f0: torch.Tensor):  # (n_states, q_pad, v_pad) f32 0/1
@@ -321,6 +353,87 @@ def _make_frontier_step_fn(
             f0 = torch.zeros((n_states, q_pad, v_pad), device=dev)
             f0[ca.start, torch.arange(chunk.shape[0], device=dev), chunk] = 1.0
             outs.append(fixpoint(f0))
+        acc, q_bc, d_s2, n_bc = (torch.cat(col)[: starts.shape[0]] for col in zip(*outs))
+        return acc, q_bc, d_s2, n_bc.to(torch.int32)
+
+    return fn
+
+
+def _make_frontier_packed_step_fn(
+    ca: CompiledAutomaton,
+    n_nodes: int,
+    max_levels: int | None,
+    graph: LabeledGraph | None,
+    replication_factor: float,
+    block_size: int,
+    tile_dtype: str = "f32",
+    staged=None,
+    device: str | torch.device | None = None,
+):
+    """The lane-packed S2 executor (``backend="frontier_kernel_packed"``).
+
+    Same Stage A and Stage B as :func:`_make_frontier_step_fn`, but the
+    frontier is int32 lane words: chunk lane ``q`` lives in word row
+    ``q // 32``, bit ``q % 32``, so one fixpoint answers ``QPACK`` = 256
+    starts, one packed kernel launch and one host sync per BFS level.
+    The start words are built on the host in numpy uint32
+    (:func:`~repro_torch.kernels.frontier.ops.stack_start_nodes_packed`)
+    and viewed as int32.  Lanes of a last, short chunk stay empty, where
+    ``repro`` starts them at node 0 and discards them.
+
+    The §4.2 meters stay per lane: the (group, node) dedup bitmap is
+    carried packed, and each level's newly broadcast words are unpacked
+    to 256 f32 lanes only for the per-lane count and degree sums — the
+    same integers below 2^24, in the same f32, as the f32 backend.
+    """
+    plan, sgroups, deg_c, pay_c = _frontier_setup(
+        ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel_packed"
+    )
+    dev = plan.tiles.device
+    n_states, q_pad, v_pad = ca.n_states, plan.q_pad, plan.v_pad
+    q_pack = fops.QPACK
+    levels = max_levels if max_levels is not None else n_states * n_nodes
+    rep = torch.tensor(replication_factor, dtype=torch.float32, device=dev)
+
+    def fixpoint(f0: torch.Tensor):  # (n_states * q_pad, v_pad) int32 lane words
+        visited = frontier = f0
+        done = [torch.zeros((q_pad, v_pad), dtype=torch.int32, device=dev) for _ in sgroups]
+        q_bc = torch.zeros(q_pack, device=dev)
+        d_s2 = torch.zeros(q_pack, device=dev)
+        n_bc = torch.zeros(q_pack, device=dev)
+        lev = 0
+        while lev < levels and fops.frontier_nonempty(frontier):
+            fr3 = frontier.reshape(n_states, q_pad, v_pad)
+            for gi, (_, states) in enumerate(sgroups):
+                now_g = functools.reduce(torch.bitwise_or, (fr3[s] for s in states))
+                bits = fkernel.unpack_lane_rows(now_g & ~done[gi])  # (q_pack, v_pad)
+                cnt = bits.sum(dim=1)
+                q_bc = q_bc + pay_c[gi] * cnt
+                n_bc = n_bc + cnt
+                d_s2 = d_s2 + EDGE_SYMBOLS * (bits * deg_c[gi]).sum(dim=1)
+                done[gi] = done[gi] | now_g
+            new = fops.expand_level_packed(plan, frontier) & ~visited
+            visited = visited | new
+            frontier = new
+            lev += 1
+            fops.FIXPOINT_COUNTERS["levels"] += 1
+        vis3 = visited.reshape(n_states, q_pad, v_pad)
+        acc = torch.zeros((q_pad, v_pad), dtype=torch.int32, device=dev)
+        for qf in ca.accepting:
+            acc = acc | vis3[qf]
+        return fkernel.unpack_lane_rows(acc)[:, :n_nodes] > 0, q_bc, d_s2 * rep, n_bc
+
+    def fn(starts) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        starts = np.asarray(starts, np.int64)
+        outs = [
+            (
+                torch.zeros((0, n_nodes), dtype=torch.bool, device=dev),
+                *(torch.zeros(0, device=dev) for _ in range(3)),
+            )
+        ]
+        for lo in range(0, starts.shape[0], q_pack):
+            f0 = fops.stack_start_nodes_packed(plan, ca.start, starts[lo : lo + q_pack])
+            outs.append(fixpoint(torch.from_numpy(f0.view(np.int32)).to(dev)))
         acc, q_bc, d_s2, n_bc = (torch.cat(col)[: starts.shape[0]] for col in zip(*outs))
         return acc, q_bc, d_s2, n_bc.to(torch.int32)
 

@@ -37,11 +37,16 @@ def staged_from_numpy(
     offsets: dict[tuple[int, int], tuple[int, np.ndarray, np.ndarray]],
     device: str | torch.device | None = None,
 ) -> StagedGraph:
-    """A ``repro`` f32 ``StagedGraph`` given by its tile tensor and offset
-    table, moved to ``device`` (``None``: the GPU)."""
+    """A ``repro`` ``StagedGraph`` given by its tile tensor and offset
+    table, moved to ``device`` (``None``: the GPU).  A uint32 bit-plane
+    store becomes the port's int32 store with the same bits."""
     tiles = np.asarray(tiles)
-    if tiles.dtype != np.float32:
-        raise NotImplementedError("only the f32 tile store is ported (uint32 is ROADMAP.md A8)")
+    if tiles.dtype == np.uint32:
+        tile_dtype, tiles = "uint32", tiles.view(np.int32)
+    elif tiles.dtype == np.float32:
+        tile_dtype = "f32"
+    else:
+        raise TypeError(f"tiles must be float32 or uint32, got {tiles.dtype}")
     return StagedGraph(
         n_nodes=int(n_nodes),
         v_pad=-(-int(n_nodes) // block_size) * block_size,
@@ -51,6 +56,7 @@ def staged_from_numpy(
             (int(d), int(l)): (int(base), np.asarray(r), np.asarray(c))
             for (d, l), (base, r, c) in offsets.items()
         },
+        tile_dtype=tile_dtype,
     )
 
 
@@ -97,4 +103,5 @@ def plan_from_numpy(
         o_rows=put(o_rows),
         o_cols=put(o_cols),
         run_ptr=put(run_ptr),
+        tile_dtype=staged.tile_dtype,
     )

@@ -8,8 +8,10 @@ checkout (listed in ``.gitignore``), named by a hash of the source and
 the flags, so an edited source builds anew and an unchanged one loads
 from disk.
 
-Nothing here runs at import: the CPU tests import every module, and this
-machine may have no ``nvcc``.
+Nothing here runs at import: the CPU tests import every module, and a
+machine without a GPU may have no ``nvcc``.  :func:`build_all` starts one
+``nvcc`` per source at once, so a fresh checkout builds in the time of
+the slowest source.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG_ROOT = Path(__file__).resolve().parents[1]  # src/repro_torch
@@ -33,6 +36,7 @@ NVCC_FLAGS = (
 # kernel name -> source, relative to src/repro_torch
 SOURCES = {
     "fused_level": "kernels/frontier/csrc/fused_level.cu",
+    "packed_level": "kernels/frontier/csrc/packed_level.cu",
 }
 
 # kernel name -> {"seconds": nvcc wall time or None when loaded from disk,
@@ -81,3 +85,11 @@ def load(name: str) -> ctypes.CDLL:
             _compile(name, path)
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def build_all() -> None:
+    """Load every kernel of :data:`SOURCES`, building the missing ones in
+    parallel: one ``nvcc`` process per source, all started together."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        for fut in [pool.submit(load, name) for name in SOURCES]:
+            fut.result()

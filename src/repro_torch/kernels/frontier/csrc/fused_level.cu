@@ -1,12 +1,15 @@
-// One fused BFS level of the S2 frontier path, on f32 tiles, for Hopper.
+// One fused BFS level of the S2 frontier path, on f32 frontier rows, for
+// Hopper: kernel B1 on f32 tiles, kernel B3 on bit-plane tiles.
 //
 // Replaces the TPU kernel repro/kernels/frontier/frontier.py:
-// fused_level_blocks with its f32 body _fused_level_kernel.  That kernel
-// walks a sequential Pallas grid, one step per (output block, tile), and
-// keeps the output block in VMEM across the consecutive steps of its run.
-// Here blocks run in parallel, so the grid is one CTA per run: the steps
-// of output block k are run_ptr[k] .. run_ptr[k+1] (sorted by
-// (o_row, o_col), exactly one run per output block, built by Stage B).
+// fused_level_blocks with its bodies _fused_level_kernel (f32 tiles) and
+// _fused_level_kernel_u32 (uint32 bit-plane tiles, unpacked by
+// _unpack_tile_bits).  That kernel walks a sequential Pallas grid, one
+// step per (output block, tile), and keeps the output block in VMEM
+// across the consecutive steps of its run.  Here blocks run in parallel,
+// so the grid is one CTA per run: the steps of output block k are
+// run_ptr[k] .. run_ptr[k+1] (sorted by (o_row, o_col), exactly one run
+// per output block, built by Stage B).
 //
 // A CTA has B * G threads in G groups of B, G = min(8, 1024 / B) rounded
 // down to a power of two, so G divides B.  Thread j of group g owns
@@ -23,11 +26,19 @@
 // so the result is deterministic.  A run made only of cover steps
 // (valids == 0) stores zeros.
 //
-// Bound on the H100: bytes.  A level reads each real tile once (B*B*4
+// The two kernels differ only in how thread j reads tile element (v, j):
+// B1 reads the f32 value; B3 reads word j / 32 of bit-plane row v (the
+// same word for the 32 threads of a warp: one broadcast load) and takes
+// bit j % 32 as 0 or 1.  Columns past B in the last word are pad bits
+// and are never read.  The FMAs and the fixed-order sum are the same.
+//
+// Bound on the H100: bytes.  A B1 level reads each real tile once (B*B*4
 // bytes) and does 2*8 flops per tile element, 4 flops per byte, far below
-// the card's ratio of flops to bytes.  The design reads every tile byte
-// once and the frontier block once per step; tensor cores, TMA and
-// persistent CTAs are left for later work.
+// the card's ratio of flops to bytes.  B3 reads 1/32 of the tile bytes
+// for the same flops, so its bound moves towards the frontier blocks and
+// the output.  The design reads every tile byte once and the frontier
+// block once per step; tensor cores, TMA and persistent CTAs are left for
+// later work.
 //
 // Exact: operands are {0,1} and sums are integers below 2^24, so fp32 is
 // exact in any order and equals the plain PyTorch version bit for bit.
@@ -39,9 +50,18 @@ namespace {
 
 constexpr int kQPad = 8;
 
-__global__ void fused_level_f32_kernel(
+// Tile element (v, j) as f32, given the start of tile row v.
+__device__ __forceinline__ float tile_value(const float* row, int j) { return row[j]; }
+__device__ __forceinline__ float tile_value(const uint32_t* row, int j) {
+  return (float)((row[j >> 5] >> (j & 31)) & 1u);
+}
+
+// TileT = float: rows of B f32 values; TileT = uint32_t: rows of
+// row_len = ceil(B / 32) bit-plane words.
+template <typename TileT>
+__global__ void fused_level_kernel(
     const float* __restrict__ frontier,   // (n_rows * 8, v_pad)
-    const float* __restrict__ tiles,      // (n_tiles, B, B)
+    const TileT* __restrict__ tiles,      // (n_tiles, B, row_len)
     const int32_t* __restrict__ valids,   // (n_steps,)
     const int32_t* __restrict__ tile_ids, // (n_steps,)
     const int32_t* __restrict__ f_rows,   // (n_steps,)
@@ -50,7 +70,7 @@ __global__ void fused_level_f32_kernel(
     const int32_t* __restrict__ o_cols,   // (n_steps,)
     const int32_t* __restrict__ run_ptr,  // (n_runs + 1,)
     float* __restrict__ out,              // (n_out_rows, v_pad)
-    int v_pad, int block_size) {
+    int v_pad, int block_size, int row_len) {
   // f_s: the 8 x B frontier block; part: the partial sums of groups 1..G-1
   extern __shared__ float smem[];
   float* f_s = smem;
@@ -75,11 +95,10 @@ __global__ void fused_level_f32_kernel(
     for (int k = threadIdx.x; k < kQPad * block_size; k += blockDim.x)
       f_s[k] = f_blk[(size_t)(k / block_size) * v_pad + k % block_size];
     __syncthreads();
-    const float* tile = tiles + (size_t)tile_ids[i] * block_size * block_size +
-                        (size_t)v0 * block_size + j;
+    const TileT* tile = tiles + ((size_t)tile_ids[i] * block_size + v0) * row_len;
 #pragma unroll 16
     for (int v = 0; v < n_v; ++v) {
-      const float a = tile[(size_t)v * block_size];
+      const float a = tile_value(tile + (size_t)v * row_len, j);
 #pragma unroll
       for (int r = 0; r < kQPad; ++r) acc[r] = fmaf(f_s[r * block_size + v0 + v], a, acc[r]);
     }
@@ -100,21 +119,41 @@ __global__ void fused_level_f32_kernel(
   for (int r = 0; r < kQPad; ++r) o_blk[(size_t)r * v_pad + j] = acc[r];
 }
 
-}  // namespace
-
 // Launches one CTA of B * G threads per run on `stream`.  Returns
 // cudaGetLastError() after the launch: nonzero means the launch was refused.
+template <typename TileT>
+int launch(const void* frontier, const void* tiles, const void* valids, const void* tile_ids,
+           const void* f_rows, const void* f_cols, const void* o_rows, const void* o_cols,
+           const void* run_ptr, void* out, int n_runs, int v_pad, int block_size, int row_len,
+           void* stream) {
+  int n_groups = 1;
+  while (n_groups < 8 && block_size * n_groups * 2 <= 1024) n_groups *= 2;
+  const size_t smem = sizeof(float) * kQPad * (size_t)block_size * n_groups;
+  fused_level_kernel<TileT><<<n_runs, block_size * n_groups, smem, (cudaStream_t)stream>>>(
+      (const float*)frontier, (const TileT*)tiles, (const int32_t*)valids,
+      (const int32_t*)tile_ids, (const int32_t*)f_rows, (const int32_t*)f_cols,
+      (const int32_t*)o_rows, (const int32_t*)o_cols, (const int32_t*)run_ptr,
+      (float*)out, v_pad, block_size, row_len);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// B1: tiles (n_tiles, B, B) f32.
 extern "C" int fused_level_f32(
     const void* frontier, const void* tiles, const void* valids, const void* tile_ids,
     const void* f_rows, const void* f_cols, const void* o_rows, const void* o_cols,
     const void* run_ptr, void* out, int n_runs, int v_pad, int block_size, void* stream) {
-  int n_groups = 1;
-  while (n_groups < 8 && block_size * n_groups * 2 <= 1024) n_groups *= 2;
-  const size_t smem = sizeof(float) * kQPad * (size_t)block_size * n_groups;
-  fused_level_f32_kernel<<<n_runs, block_size * n_groups, smem, (cudaStream_t)stream>>>(
-      (const float*)frontier, (const float*)tiles, (const int32_t*)valids,
-      (const int32_t*)tile_ids, (const int32_t*)f_rows, (const int32_t*)f_cols,
-      (const int32_t*)o_rows, (const int32_t*)o_cols, (const int32_t*)run_ptr,
-      (float*)out, v_pad, block_size);
-  return (int)cudaGetLastError();
+  return launch<float>(frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
+                       run_ptr, out, n_runs, v_pad, block_size, block_size, stream);
+}
+
+// B3: tiles (n_tiles, B, ceil(B / 32)) uint32 bit-planes.
+extern "C" int fused_level_f32_u32tiles(
+    const void* frontier, const void* tiles, const void* valids, const void* tile_ids,
+    const void* f_rows, const void* f_cols, const void* o_rows, const void* o_cols,
+    const void* run_ptr, void* out, int n_runs, int v_pad, int block_size, void* stream) {
+  return launch<uint32_t>(frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
+                          run_ptr, out, n_runs, v_pad, block_size, (block_size + 31) / 32,
+                          stream);
 }

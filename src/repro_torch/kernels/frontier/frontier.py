@@ -1,26 +1,42 @@
 """The fused frontier level: one BFS level over all transitions.
 
-Port of ``repro/kernels/frontier/frontier.py::fused_level_blocks`` (the
-f32 body ``_fused_level_kernel``).  The frontier operand is
+Port of ``repro/kernels/frontier/frontier.py::fused_level_blocks`` and
+``packed_level_blocks`` with their four bodies.  The frontier operand is
 ``(n_rows · q_pad, v_pad)``: row-block s < n_states is automaton state s,
 row-blocks past n_states are fan-in union rows (``ops.extend_frontier``),
-and the q_pad (= 8) rows inside a block carry up to 8 stacked queries.
-For each output block (dst state ``o``, block column ``c``) the kernel
-sums, over the steps of its run with ``valids == 1``::
+and the q_pad (= 8) rows inside a block carry 8 stacked queries as f32
+0/1 rows, or 256 query lanes as int32 lane words (lane q = bit q % 32 of
+word row q // 32).  For each output block (dst state ``o``, block column
+``c``) the kernels fold, over the steps of its run with ``valids == 1``::
 
-    F[f_rows[i]·8 : +8, f_cols[i]·B : +B] @ tiles[tile_ids[i]]
+    F[f_rows[i]·8 : +8, f_cols[i]·B : +B]  ⊗  tiles[tile_ids[i]]
 
-and returns the raw f32 counts ``(n_out_rows, v_pad)``; callers threshold.
+where ⊗ is the f32 product (:func:`fused_level_blocks`, raw counts, the
+callers threshold) or the OR of ANDs on lane words
+(:func:`packed_level_blocks`, words already boolean per bit).  Either
+takes either tile store: f32 (n_tiles, B, B) 0/1, or bit-plane
+(n_tiles, B, ⌈B/32⌉) words with dst d at bit d % 32 of word d // 32.
+Lane words and bit-plane words live in torch as int32 with ``repro``'s
+uint32 bits; the kernels read them as ``uint32_t``.
 
-:func:`fused_level_blocks` launches the hand-written CUDA kernel
-``csrc/fused_level.cu`` for CUDA tensors and raises on anything it does
-not take; for CPU tensors it runs :func:`fused_level_blocks_plain`, the
-same function in plain PyTorch.  There is no fallback from the one to
-the other.  :data:`LAUNCHES` counts kernel launches.
+=====================  ===========  ===========  =========================
+wrapper                frontier     tiles        CUDA entry point
+=====================  ===========  ===========  =========================
+fused_level_blocks     f32          f32          B1 ``fused_level_f32``
+fused_level_blocks     f32          int32 bits   B3 ``fused_level_f32_u32tiles``
+packed_level_blocks    int32 lanes  f32          B2 ``packed_level_f32tiles``
+packed_level_blocks    int32 lanes  int32 bits   B4 ``packed_level_u32tiles``
+=====================  ===========  ===========  =========================
+
+For CUDA tensors the wrappers launch the hand-written kernels of
+``csrc/fused_level.cu`` and ``csrc/packed_level.cu`` and raise on
+anything they do not take; for CPU tensors they run the plain PyTorch
+versions.  There is no fallback from the one to the other.  Each kernel
+has its own launch count (:func:`launch_counts`).
 
 Exact: operands are {0,1} and sums are integers below 2^24, so f32 sums
-are exact in any order and the kernel equals the plain version bit for
-bit.
+are exact in any order, and OR is exact in any order: each kernel equals
+its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -30,12 +46,100 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.frontier.ref import tile_words
 
-# CUDA launches of the fused level kernel; the wrapper adds one per launch
-LAUNCHES = 0
+# CUDA launches per kernel; each wrapper adds one where it launches
+LAUNCHES = 0  # B1: fused_level_blocks on f32 tiles
+LAUNCHES_U32 = 0  # B3: fused_level_blocks on bit-plane tiles
+PACKED_LAUNCHES = 0  # B2: packed_level_blocks on f32 tiles
+PACKED_LAUNCHES_U32 = 0  # B4: packed_level_blocks on bit-plane tiles
 
 _I32 = ("firsts", "valids", "tile_ids", "f_rows", "f_cols", "o_rows", "o_cols")
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel's CUDA launches so far, by the name ``chip_smoke.py``
+    reports it under."""
+    return {
+        "fused_level_blocks": LAUNCHES,
+        "fused_level_blocks_u32": LAUNCHES_U32,
+        "packed_level_blocks": PACKED_LAUNCHES,
+        "packed_level_blocks_u32": PACKED_LAUNCHES_U32,
+    }
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    global LAUNCHES, LAUNCHES_U32, PACKED_LAUNCHES, PACKED_LAUNCHES_U32
+    LAUNCHES = LAUNCHES_U32 = PACKED_LAUNCHES = PACKED_LAUNCHES_U32 = 0
+
+
+def _shifts(device: torch.device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    return torch.arange(32, dtype=dtype, device=device)
+
+
+def unpack_tile_bits(tiles: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Bit-plane tiles (n, B, ⌈B/32⌉) int32 as dense (n, B, B) f32 0/1:
+    dst d is bit d % 32 of word d // 32 (the torch twin of
+    ``ref.unpack_tiles``).  ``>>`` on int32 sign-extends, so every bit is
+    taken with ``& 1``; the pad bits past column B are sliced off."""
+    bits = (tiles.unsqueeze(-1) >> _shifts(tiles.device)) & 1
+    return bits.reshape(*tiles.shape[:-1], -1)[..., :block_size].float()
+
+
+def unpack_lane_rows(words: torch.Tensor) -> torch.Tensor:
+    """Lane words (R, n) int32 as (32·R, n) f32 0/1 lanes: bit k of word
+    row w becomes row 32·w + k, so a packed frontier (n_rows · 8, v_pad)
+    unpacks to (n_rows · 256, v_pad) with lane q of row-block s at row
+    256·s + q."""
+    r, n = words.shape
+    bits = (words.reshape(r, 1, n) >> _shifts(words.device).reshape(1, 32, 1)) & 1
+    return bits.reshape(r * 32, n).float()
+
+
+def pack_lane_rows(lanes: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`unpack_lane_rows`: (32·R, n) 0/1 rows as (R, n)
+    int32 words.  The 32 bits are summed in int64 and cast down, which
+    keeps bit 31 as int32's sign bit."""
+    r32, n = lanes.shape
+    bits = lanes.reshape(r32 // 32, 32, n).to(torch.int64)
+    words = (bits << _shifts(lanes.device, torch.int64).reshape(1, 32, 1)).sum(dim=1)
+    return words.to(torch.int32)
+
+
+def _plain_level(
+    frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
+    block_size, q_pad, n_out_rows, boolean_tiles,
+) -> torch.Tensor:
+    """The f32 level in plain PyTorch: gather the frontier blocks and
+    tiles of the valid steps (bit-plane tiles unpacked, and with
+    ``boolean_tiles`` f32 tiles thresholded ``!= 0``), ``bmm``, then
+    ``index_add_`` into the output blocks.  Only the gathered tiles are
+    unpacked, never the whole store."""
+    n_rows, v_pad = frontier.shape
+    nb = v_pad // block_size
+    sel = torch.nonzero(valids).flatten()
+    # (n_rows, q_pad, nb, B) -> block (row, col) at [row * nb + col]
+    fb = frontier.reshape(n_rows // q_pad, q_pad, nb, block_size).permute(0, 2, 1, 3)
+    fb = fb.reshape(-1, q_pad, block_size)
+    f_idx = f_rows[sel].long() * nb + f_cols[sel].long()
+    a = tiles[tile_ids[sel].long()]
+    if a.dtype == torch.int32:
+        a = unpack_tile_bits(a, block_size)
+    elif boolean_tiles:
+        a = (a != 0).float()
+    prods = torch.bmm(fb[f_idx], a)  # (n_valid, q_pad, B)
+    out = torch.zeros(
+        (n_out_rows // q_pad) * nb, q_pad, block_size,
+        dtype=torch.float32, device=frontier.device,
+    )
+    out.index_add_(0, o_rows[sel].long() * nb + o_cols[sel].long(), prods)
+    return (
+        out.reshape(n_out_rows // q_pad, nb, q_pad, block_size)
+        .permute(0, 2, 1, 3)
+        .reshape(n_out_rows, v_pad)
+    )
 
 
 def fused_level_blocks_plain(
@@ -53,36 +157,46 @@ def fused_level_blocks_plain(
     *,
     n_out_rows: int | None = None,
 ) -> torch.Tensor:
-    """:func:`fused_level_blocks` in plain PyTorch: gather the frontier
-    blocks and tiles of the valid steps, ``bmm``, then ``index_add_``
-    into the output blocks.  Output blocks that only cover steps reach
-    stay zero (``firsts`` zero-init)."""
+    """:func:`fused_level_blocks` in plain PyTorch, on either tile store:
+    gather, ``bmm``, ``index_add_``.  Output blocks that only cover steps
+    reach stay zero (``firsts`` zero-init)."""
     del firsts  # every output block starts at zero here
-    n_rows, v_pad = frontier.shape
-    if n_out_rows is None:
-        n_out_rows = n_rows
-    nb = v_pad // block_size
-    sel = torch.nonzero(valids).flatten()
-    # (n_rows, q_pad, nb, B) -> block (row, col) at [row * nb + col]
-    fb = frontier.reshape(n_rows // q_pad, q_pad, nb, block_size).permute(0, 2, 1, 3)
-    fb = fb.reshape(-1, q_pad, block_size)
-    f_idx = f_rows[sel].long() * nb + f_cols[sel].long()
-    prods = torch.bmm(fb[f_idx], tiles[tile_ids[sel].long()])  # (n_valid, q_pad, B)
-    out = torch.zeros(
-        (n_out_rows // q_pad) * nb, q_pad, block_size,
-        dtype=torch.float32, device=frontier.device,
-    )
-    out.index_add_(0, o_rows[sel].long() * nb + o_cols[sel].long(), prods)
-    return (
-        out.reshape(n_out_rows // q_pad, nb, q_pad, block_size)
-        .permute(0, 2, 1, 3)
-        .reshape(n_out_rows, v_pad)
+    return _plain_level(
+        frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
+        block_size, q_pad, n_out_rows or frontier.shape[0], boolean_tiles=False,
     )
 
 
-def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr) -> None:
+def packed_level_blocks_plain(
+    frontier: torch.Tensor,
+    tiles: torch.Tensor,
+    firsts: torch.Tensor,
+    valids: torch.Tensor,
+    tile_ids: torch.Tensor,
+    f_rows: torch.Tensor,
+    f_cols: torch.Tensor,
+    o_rows: torch.Tensor,
+    o_cols: torch.Tensor,
+    block_size: int,
+    q_pad: int,
+    *,
+    n_out_rows: int | None = None,
+) -> torch.Tensor:
+    """:func:`packed_level_blocks` in plain PyTorch: unpack the lane words
+    to 32 · q_pad {0,1} f32 rows per row-block, run the f32 level on the
+    boolean tiles, threshold ``> 0`` and repack the words."""
+    del firsts
+    n_out_rows = n_out_rows or frontier.shape[0]
+    counts = _plain_level(
+        unpack_lane_rows(frontier), tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
+        block_size, q_pad * 32, n_out_rows * 32, boolean_tiles=True,
+    )
+    return pack_lane_rows(counts > 0)
+
+
+def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, frontier_dtype) -> None:
     if q_pad != 8:
-        raise ValueError(f"the CUDA fused level takes q_pad=8, got {q_pad}")
+        raise ValueError(f"the CUDA level kernels take q_pad=8, got {q_pad}")
     if block_size % 8 or not 8 <= block_size <= 1024:
         raise ValueError(f"block_size must be a multiple of 8 up to 1024, got {block_size}")
     n_rows, v_pad = frontier.shape
@@ -91,10 +205,18 @@ def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr) -> Non
             f"frontier {tuple(frontier.shape)} / n_out_rows={n_out_rows} do not tile "
             f"into ({q_pad}, {block_size}) blocks"
         )
-    if frontier.dtype != torch.float32 or tiles.dtype != torch.float32:
-        raise TypeError("frontier and tiles must be float32")
-    if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (block_size, block_size):
-        raise ValueError(f"tiles must be (n_tiles, {block_size}, {block_size}), got {tuple(tiles.shape)}")
+    if frontier.dtype != frontier_dtype:
+        raise TypeError(f"frontier must be {frontier_dtype}, got {frontier.dtype}")
+    if tiles.dtype == torch.float32:
+        row = block_size
+    elif tiles.dtype == torch.int32:
+        row = tile_words(block_size)
+    else:
+        raise TypeError(f"tiles must be float32 or int32 bit-planes, got {tiles.dtype}")
+    if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (block_size, row):
+        raise ValueError(
+            f"{tiles.dtype} tiles must be (n_tiles, {block_size}, {row}), got {tuple(tiles.shape)}"
+        )
     named = {"frontier": frontier, "tiles": tiles, "run_ptr": run_ptr, **ints}
     for name, t in named.items():
         if t.device != frontier.device:
@@ -104,11 +226,32 @@ def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr) -> Non
     for name, t in (*ints.items(), ("run_ptr", run_ptr)):
         if t.dtype != torch.int32 or t.dim() != 1:
             raise TypeError(f"{name} must be a 1-D int32 tensor")
+    n_runs = run_ptr.shape[0] - 1
+    if n_runs != (n_out_rows // q_pad) * (v_pad // block_size):
+        raise ValueError(
+            f"{n_runs} runs for {(n_out_rows // q_pad) * (v_pad // block_size)} output "
+            "blocks: the schedule must hold exactly one run per output block"
+        )
+
+
+def _launch(lib_name, fn_name, out, frontier, tiles, valids, tile_ids, f_rows, f_cols,
+            o_rows, o_cols, run_ptr, block_size) -> None:
+    fn = getattr(_build.load(lib_name), fn_name)
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(frontier.device):
+        err = fn(
+            frontier.data_ptr(), tiles.data_ptr(), valids.data_ptr(), tile_ids.data_ptr(),
+            f_rows.data_ptr(), f_cols.data_ptr(), o_rows.data_ptr(), o_cols.data_ptr(),
+            run_ptr.data_ptr(), out.data_ptr(), run_ptr.shape[0] - 1, frontier.shape[1],
+            block_size, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
 
 
 def fused_level_blocks(
     frontier: torch.Tensor,  # (n_rows * q_pad, v_pad) f32 0/1 (union rows appended)
-    tiles: torch.Tensor,  # (n_tiles, B, B) f32 0/1; index 0 is the zero cover tile
+    tiles: torch.Tensor,  # (n_tiles, B, B) f32 0/1 or (n_tiles, B, ⌈B/32⌉) int32 bits
     firsts: torch.Tensor,  # (n_steps,) int32 ∈ {0,1}: first step of an output block
     valids: torch.Tensor,  # (n_steps,) int32 ∈ {0,1}: 0 = cover step, no product
     tile_ids: torch.Tensor,  # (n_steps,) int32 into tiles
@@ -128,13 +271,13 @@ def fused_level_blocks(
     (the plan builder adds zero-tile cover steps).  ``run_ptr`` are the
     CSR offsets of the output-block runs (``FusedLevelPlan.run_ptr``),
     which the kernel walks in place of ``firsts``; ``firsts`` stays in
-    the signature for parity with ``repro``.  On CPU tensors this is
+    the signature for parity with ``repro``.  The tile store picks the
+    kernel, as ``repro`` dispatches on ``tiles.dtype``: f32 tiles B1,
+    int32 bit-planes B3.  On CPU tensors this is
     :func:`fused_level_blocks_plain`; on CUDA tensors it launches the
-    CUDA kernel or raises."""
-    global LAUNCHES
-    n_rows, v_pad = frontier.shape
-    if n_out_rows is None:
-        n_out_rows = n_rows
+    kernel or raises."""
+    global LAUNCHES, LAUNCHES_U32
+    n_out_rows = n_out_rows or frontier.shape[0]
     if frontier.device.type == "cpu":
         return fused_level_blocks_plain(
             frontier, tiles, firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
@@ -143,25 +286,62 @@ def fused_level_blocks(
     if frontier.device.type != "cuda":
         raise ValueError(f"fused_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
     ints = dict(zip(_I32, (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)))
-    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr)
-    n_runs = run_ptr.shape[0] - 1
-    if n_runs != (n_out_rows // q_pad) * (v_pad // block_size):
-        raise ValueError(
-            f"{n_runs} runs for {(n_out_rows // q_pad) * (v_pad // block_size)} output "
-            "blocks: the schedule must hold exactly one run per output block"
+    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, torch.float32)
+    bits = tiles.dtype == torch.int32
+    out = torch.empty((n_out_rows, frontier.shape[1]), dtype=torch.float32, device=frontier.device)
+    _launch(
+        "fused_level", "fused_level_f32_u32tiles" if bits else "fused_level_f32", out,
+        frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols, run_ptr, block_size,
+    )
+    if bits:
+        LAUNCHES_U32 += 1
+    else:
+        LAUNCHES += 1
+    return out
+
+
+def packed_level_blocks(
+    frontier: torch.Tensor,  # (n_rows * q_pad, v_pad) int32 lane words
+    tiles: torch.Tensor,  # (n_tiles, B, B) f32 0/1 or (n_tiles, B, ⌈B/32⌉) int32 bits
+    firsts: torch.Tensor,  # (n_steps,) int32 ∈ {0,1}
+    valids: torch.Tensor,  # (n_steps,) int32 ∈ {0,1}
+    tile_ids: torch.Tensor,  # (n_steps,) int32 into tiles
+    f_rows: torch.Tensor,  # (n_steps,) int32
+    f_cols: torch.Tensor,  # (n_steps,) int32
+    o_rows: torch.Tensor,  # (n_steps,) int32
+    o_cols: torch.Tensor,  # (n_steps,) int32
+    block_size: int,
+    q_pad: int,
+    *,
+    run_ptr: torch.Tensor,  # (n_runs + 1,) int32 run offsets
+    n_out_rows: int | None = None,
+) -> torch.Tensor:
+    """One lane-packed BFS level over ALL transitions: the OR-accumulated
+    int32 words (n_out_rows, v_pad), ``out[r, j] |= f[r, v]`` for every
+    tile entry ``a[v, j] != 0`` — :func:`fused_level_blocks` with 32
+    query lanes per word.  Same schedule and checks as
+    :func:`fused_level_blocks`; f32 tiles launch B2, int32 bit-planes B4.
+    On CPU tensors this is :func:`packed_level_blocks_plain`; on CUDA
+    tensors it launches the kernel or raises."""
+    global PACKED_LAUNCHES, PACKED_LAUNCHES_U32
+    n_out_rows = n_out_rows or frontier.shape[0]
+    if frontier.device.type == "cpu":
+        return packed_level_blocks_plain(
+            frontier, tiles, firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
+            block_size, q_pad, n_out_rows=n_out_rows,
         )
-    lib = _build.load("fused_level")
-    fn = lib.fused_level_f32
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    out = torch.empty((n_out_rows, v_pad), dtype=torch.float32, device=frontier.device)
-    with torch.cuda.device(frontier.device):
-        err = fn(
-            frontier.data_ptr(), tiles.data_ptr(), valids.data_ptr(), tile_ids.data_ptr(),
-            f_rows.data_ptr(), f_cols.data_ptr(), o_rows.data_ptr(), o_cols.data_ptr(),
-            run_ptr.data_ptr(), out.data_ptr(), n_runs, v_pad, block_size,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_level_f32 launch failed with CUDA error {err}")
-    LAUNCHES += 1
+    if frontier.device.type != "cuda":
+        raise ValueError(f"packed_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
+    ints = dict(zip(_I32, (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)))
+    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, torch.int32)
+    bits = tiles.dtype == torch.int32
+    out = torch.empty((n_out_rows, frontier.shape[1]), dtype=torch.int32, device=frontier.device)
+    _launch(
+        "packed_level", "packed_level_u32tiles" if bits else "packed_level_f32tiles", out,
+        frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols, run_ptr, block_size,
+    )
+    if bits:
+        PACKED_LAUNCHES_U32 += 1
+    else:
+        PACKED_LAUNCHES += 1
     return out

@@ -16,10 +16,18 @@ path.  Compilation is **two-stage**, as in ``repro``:
   (dst_state, direction, label) fuse into ONE pass over a *fan-in union
   row* appended to the frontier by :func:`extend_frontier`.
 
-The fixpoint (:func:`reach_fixpoint`) runs one fused level launch per
-BFS level.  ``repro`` runs it in a ``lax.while_loop`` with no host sync;
-here a Python loop reads ``frontier.any()`` once per level, and
-:data:`FIXPOINT_COUNTERS` counts the levels and those host syncs.
+Stage A stages either tile store: ``tile_dtype="f32"`` (dense 0/1
+B×B tiles) or ``"uint32"`` (the dst axis packed into ⌈B/32⌉ bit-plane
+words per tile row, 1/32 of the bytes), held in torch as int32 with the
+same bits.  One Stage-B schedule serves both, and the level kernels pick
+their variant off the tile dtype.
+
+The fixpoints (:func:`reach_fixpoint` on f32 rows of 8 stacked queries,
+:func:`reach_fixpoint_packed` on int32 lane words of 256) run one fused
+level launch per BFS level.  ``repro`` runs them in a
+``lax.while_loop`` with no host sync; here a Python loop reads
+``frontier.any()`` once per level, and :data:`FIXPOINT_COUNTERS` counts
+the levels and those host syncs.
 """
 
 from __future__ import annotations
@@ -35,12 +43,23 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.automaton import FWD, INV, CompiledAutomaton
 from repro_torch.graph.structure import LabeledGraph
-from repro_torch.kernels.frontier.frontier import fused_level_blocks
-from repro_torch.kernels.frontier.ref import pack_blocks, pack_blocks_chunked
+from repro_torch.kernels.frontier.frontier import (
+    fused_level_blocks,
+    packed_level_blocks,
+    unpack_lane_rows,
+)
+from repro_torch.kernels.frontier.ref import (
+    TILE_DTYPES,
+    pack_blocks,
+    pack_blocks_chunked,
+    tile_words,
+)
 
 # f32 sublane minimum of the TPU tile, kept as the query stack height: up
 # to QPAD independent queries' frontiers ride each automaton state's rows.
 QPAD = 8
+# query lanes of the packed path: QPAD word rows of 32 bits per state
+QPACK = QPAD * 32
 
 # offset-table key for the any-label union store (wildcard transitions);
 # real label ids are >= 0 so the key space is disjoint.
@@ -68,32 +87,45 @@ class StagedGraph:
     label_id)] = (base, block_rows, block_cols)`` says where that label
     store's tiles start and which (row, col) block each occupies.  The
     ``(direction, ANY_LABEL)`` entries are the any-label union stores.
-    Byte-identical to ``repro``'s staging of the same graph."""
+    Byte-identical to ``repro``'s staging of the same graph (the uint32
+    store through ``.view(np.uint32)``)."""
 
     n_nodes: int
     v_pad: int
     block_size: int
-    tiles: torch.Tensor  # (1 + sum nnz, B, B) f32; index 0 = zero cover tile
+    # "f32": (1 + sum nnz, B, B) float32 0/1; "uint32": (1 + sum nnz, B,
+    # ⌈B/32⌉) int32 bit-plane words (dst d = bit d % 32 of word d // 32).
+    # Index 0 is the zero cover tile.
+    tiles: torch.Tensor
     offsets: dict[tuple[int, int], tuple[int, np.ndarray, np.ndarray]]
     # total edge-list slices consumed by chunked packing (0 when one-shot)
     staging_chunks: int = 0
+    tile_dtype: str = "f32"
 
     @property
     def tile_store_bytes(self) -> int:
         """Total staged tile-tensor bytes (cover tile included)."""
         return self.tiles.numel() * self.tiles.element_size()
 
+    def slab_bytes(self) -> dict[tuple[int, int], int]:
+        """Per-(direction, label) staged bytes: each store's tile count
+        times the per-tile footprint of this store's dtype."""
+        per_tile = self.tile_store_bytes // max(int(self.tiles.shape[0]), 1)
+        return {k: len(rows) * per_tile for k, (_, rows, _) in self.offsets.items()}
 
-def _pack(src, dst, n_nodes, block_size, chunk_edges):
+
+def _pack(src, dst, n_nodes, block_size, chunk_edges, tile_dtype):
     """One store's (tiles, rows, cols, n_chunks), one-shot or chunked."""
     if chunk_edges is None:
-        t, r, c, _ = pack_blocks(src, dst, n_nodes, block_size)
+        t, r, c, _ = pack_blocks(src, dst, n_nodes, block_size, tile_dtype)
         return t, r, c, 0
-    t, r, c, _, nc = pack_blocks_chunked(src, dst, n_nodes, block_size, chunk_edges)
+    t, r, c, _, nc = pack_blocks_chunked(src, dst, n_nodes, block_size, chunk_edges, tile_dtype)
     return t, r, c, nc
 
 
-def _label_tile_lists(graph: LabeledGraph, block_size: int, chunk_edges: int | None = None):
+def _label_tile_lists(
+    graph: LabeledGraph, block_size: int, chunk_edges: int | None, tile_dtype: str
+):
     """Host tile lists per (direction, label), packed one store at a time:
     yields ``((direction, label_id), (tiles, rows, cols), n_chunks)``.
     Labels with no edges yield nothing (no offset key, as in ``repro``).
@@ -104,26 +136,32 @@ def _label_tile_lists(graph: LabeledGraph, block_size: int, chunk_edges: int | N
             continue
         BUILD_COUNTERS["pack_blocks"] += 2
         for direction, (s, d) in ((FWD, (src, dst)), (INV, (dst, src))):
-            t, r, c, nc = _pack(s, d, graph.n_nodes, block_size, chunk_edges)
+            t, r, c, nc = _pack(s, d, graph.n_nodes, block_size, chunk_edges, tile_dtype)
             yield (direction, lid), (t, r, c), nc
 
 
 def _union_store(
-    graph: LabeledGraph, direction: int, block_size: int, chunk_edges: int | None = None
+    graph: LabeledGraph,
+    direction: int,
+    block_size: int,
+    chunk_edges: int | None,
+    tile_dtype: str,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray] | None:
     """The any-label union store of one direction: the block-sparse OR of
     every label store's tiles (an edge with any label is an edge), so a
     wildcard grounds to ONE tile list instead of |labels|.
 
-    ``repro`` ORs the packed label stores tile by tile; packing every
-    edge of the direction at once gives the same bytes (both sort blocks
-    by (col, row) and store binary presence — ``repro``'s own
-    ``pack_label_store(ANY_LABEL)`` relies on this) without holding all
-    label stores on the host.  ``None`` when the graph has no edges."""
+    ``repro`` ORs the packed label stores tile by tile (``np.maximum`` on
+    f32, ``np.bitwise_or`` on bit-plane words); packing every edge of the
+    direction at once gives the same bytes (both sort blocks by (col,
+    row) and store binary presence, and the bit-plane scatter ORs
+    repeated edges — ``repro``'s own ``pack_label_store(ANY_LABEL)``
+    relies on this) without holding all label stores on the host.
+    ``None`` when the graph has no edges."""
     if graph.n_edges == 0:
         return None
     src, dst = (graph.src, graph.dst) if direction == FWD else (graph.dst, graph.src)
-    t, r, c, _ = _pack(src, dst, graph.n_nodes, block_size, chunk_edges)
+    t, r, c, _ = _pack(src, dst, graph.n_nodes, block_size, chunk_edges, tile_dtype)
     return t, r, c
 
 
@@ -148,17 +186,21 @@ def _store_sizes(graph: LabeledGraph, block_size: int) -> dict[tuple[int, int], 
 
 
 def _concat_stores(
-    sizes: dict[tuple[int, int], int], block_size: int, device: torch.device
+    sizes: dict[tuple[int, int], int], block_size: int, tile_dtype: str, device: torch.device
 ) -> tuple[torch.Tensor, dict[tuple[int, int], int]]:
     """The concatenated layout: the zero cover tile at index 0, then every
     store in sorted key order (``repro``'s order).  Allocates the device
-    tile tensor once, zeroed, and returns it with each store's base."""
+    tile tensor once, zeroed, and returns it with each store's base: f32
+    (n, B, B), or int32 (n, B, ⌈B/32⌉) holding ``repro``'s uint32 bits."""
     bases, off = {}, 1
     for key in sorted(sizes):
         bases[key] = off
         off += sizes[key]
-    tiles = torch.zeros((off, block_size, block_size), dtype=torch.float32, device=device)
-    return tiles, bases
+    if tile_dtype == "uint32":
+        shape, dtype = (off, block_size, tile_words(block_size)), torch.int32
+    else:
+        shape, dtype = (off, block_size, block_size), torch.float32
+    return torch.zeros(shape, dtype=dtype, device=device), bases
 
 
 def stage_graph(
@@ -179,15 +221,14 @@ def stage_graph(
     packed: the host peaks at one store — the largest is a union store.
     ``chunk_edges`` streams each store's packing in edge slices
     (:func:`~repro_torch.kernels.frontier.ref.pack_blocks_chunked`).
-    Only ``tile_dtype="f32"`` is ported (uint32 is ROADMAP A8)."""
-    if tile_dtype != "f32":
-        raise NotImplementedError(
-            f"tile_dtype={tile_dtype!r}: the uint32 tile store is ROADMAP.md A8"
-        )
+    ``tile_dtype="uint32"`` stages the bit-plane store (1/32 the bytes,
+    boolean semiring only) as int32 words with ``repro``'s uint32 bits."""
+    if tile_dtype not in TILE_DTYPES:
+        raise ValueError(f"tile_dtype must be one of {TILE_DTYPES}, got {tile_dtype!r}")
     device = resolve_device(device)
     BUILD_COUNTERS["stage_graph"] += 1
     sizes = _store_sizes(graph, block_size)
-    tiles, bases = _concat_stores(sizes, block_size, device)
+    tiles, bases = _concat_stores(sizes, block_size, tile_dtype, device)
     offsets: dict[tuple[int, int], tuple[int, np.ndarray, np.ndarray]] = {}
     staging_chunks = 0
 
@@ -196,14 +237,16 @@ def stage_graph(
         base = bases[key]
         if len(r) != sizes[key]:
             raise RuntimeError(f"store {key} packed {len(r)} tiles, sized {sizes[key]}")
+        if t.dtype == np.uint32:
+            t = t.view(np.int32)  # torch has no uint32 bit ops on the CPU
         tiles[base : base + len(r)].copy_(torch.from_numpy(t))
         offsets[key] = (base, r, c)
 
-    for key, store, nc in _label_tile_lists(graph, block_size, chunk_edges):
+    for key, store, nc in _label_tile_lists(graph, block_size, chunk_edges, tile_dtype):
         put(key, store)
         staging_chunks += nc
     for direction in (FWD, INV):
-        u = _union_store(graph, direction, block_size, chunk_edges)
+        u = _union_store(graph, direction, block_size, chunk_edges, tile_dtype)
         if u is not None:
             put((direction, ANY_LABEL), u)
     BUILD_COUNTERS["staging_chunks"] += staging_chunks
@@ -215,6 +258,7 @@ def stage_graph(
         tiles=tiles,
         offsets=dict(sorted(offsets.items())),
         staging_chunks=staging_chunks,
+        tile_dtype=tile_dtype,
     )
 
 
@@ -302,6 +346,9 @@ class FusedLevelPlan:
     o_rows: torch.Tensor  # (n_steps,) int32: dst automaton state
     o_cols: torch.Tensor  # (n_steps,) int32: tile block col
     run_ptr: torch.Tensor  # (n_states · nb + 1,) int32 run offsets
+    # dtype of the aliased tile store ("f32" or "uint32"); the kernels
+    # dispatch off the tensor's dtype, executors check it against theirs
+    tile_dtype: str = "f32"
 
 
 def required_offset_keys(ca: CompiledAutomaton) -> tuple[tuple[int, int], ...]:
@@ -409,6 +456,7 @@ def build_level_schedule(
         o_rows=put(arr[:, 0]),
         o_cols=put(arr[:, 1]),
         run_ptr=put(run_ptr),
+        tile_dtype=staged.tile_dtype,
     )
 
 
@@ -436,9 +484,9 @@ def build_level_plan(
 
 
 def expand_level_fused(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Tensor:
-    """One BFS level over all grounded transitions — ONE kernel launch.
-    ``frontier`` is (n_states · q_pad, v_pad) f32 0/1; returns the same
-    shape, thresholded to 0/1."""
+    """One BFS level over all grounded transitions — ONE kernel launch,
+    on either tile store.  ``frontier`` is (n_states · q_pad, v_pad) f32
+    0/1; returns the same shape, thresholded to 0/1."""
     fre = extend_frontier(frontier, plan.union_members, plan.n_states, plan.q_pad)
     counts = fused_level_blocks(
         fre, plan.tiles, plan.firsts, plan.valids, plan.tile_ids,
@@ -450,10 +498,12 @@ def expand_level_fused(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Te
 
 
 def frontier_nonempty(frontier: torch.Tensor) -> bool:
-    """``(frontier > 0).any()`` read on the host: the fixpoint's one
-    host sync per level, counted in :data:`FIXPOINT_COUNTERS`."""
+    """``(frontier != 0).any()`` read on the host — f32 0/1 rows and int32
+    lane words alike (a word with only bit 31 set is negative): the
+    fixpoint's one host sync per level, counted in
+    :data:`FIXPOINT_COUNTERS`."""
     FIXPOINT_COUNTERS["host_syncs"] += 1
-    return bool((frontier > 0).any())
+    return bool(frontier.any())
 
 
 def reach_fixpoint(
@@ -529,3 +579,151 @@ def multi_source_reach(
         ca, staged, np.asarray(start_mask, np.float32)[None, :],
         max_levels=max_levels, plan=plan,
     )[0]
+
+
+# ---------------------------------------------------------------------------
+# Lane-packed path: 256 query lanes per fixpoint (int32 lane words)
+# ---------------------------------------------------------------------------
+
+
+def pack_lane_masks(masks: np.ndarray) -> np.ndarray:
+    """Pack Q ≤ QPACK per-lane 0/1 masks (Q, n) into QPAD uint32 word
+    rows (QPAD, n): lane q lands in word row ``q // 32``, bit ``q % 32``.
+    Lanes past Q stay zero — the cross-lane leakage invariant starts
+    here and the bitwise level/fixpoint ops preserve it."""
+    masks = np.atleast_2d(np.asarray(masks))
+    q, n = masks.shape
+    if q > QPACK:
+        raise ValueError(f"at most QPACK={QPACK} packed lanes, got {q}")
+    words = np.zeros((QPAD, n), np.uint32)
+    bits = masks != 0
+    for lane in range(q):
+        words[lane // 32] |= bits[lane].astype(np.uint32) << np.uint32(lane % 32)
+    return words
+
+
+def unpack_lane_words(words: np.ndarray, n_lanes: int) -> np.ndarray:
+    """Inverse of :func:`pack_lane_masks`: the first ``n_lanes`` lanes of
+    (QPAD, n) word rows, uint32 or the port's int32, as (n_lanes, n) bool."""
+    words = np.asarray(words).view(np.uint32)
+    out = np.zeros((n_lanes, words.shape[1]), bool)
+    for lane in range(n_lanes):
+        out[lane] = (words[lane // 32] >> np.uint32(lane % 32)) & 1 != 0
+    return out
+
+
+def stack_start_masks_packed(
+    plan: FusedLevelPlan, start_state: int, start_masks: np.ndarray
+) -> np.ndarray:
+    """Pack Q ≤ QPACK per-query start masks (Q, n_nodes) into the packed
+    frontier layout (n_states * q_pad, v_pad) uint32: word row
+    s·q_pad + w carries lanes [32w, 32w+32) of automaton state s.  The
+    caller views it as int32 to hand it to torch."""
+    q = start_masks.shape[0]
+    if q > QPACK:
+        raise ValueError(f"at most QPACK={QPACK} stacked queries, got {q}")
+    f0 = np.zeros((plan.n_states, plan.q_pad, plan.v_pad), np.uint32)
+    f0[start_state, :, : start_masks.shape[1]] = pack_lane_masks(start_masks)
+    return f0.reshape(plan.n_states * plan.q_pad, plan.v_pad)
+
+
+def stack_start_nodes_packed(
+    plan: FusedLevelPlan, start_state: int, start_nodes: np.ndarray
+) -> np.ndarray:
+    """:func:`stack_start_masks_packed` of one-hot masks, lane q starting
+    at node ``start_nodes[q]``, scattered straight into the words: O(Q)
+    host work where packing (Q, n_nodes) masks is O(Q · n_nodes).  Lanes
+    carry distinct bits, so OR-scattering two lanes onto one node keeps
+    both."""
+    q = len(start_nodes)
+    if q > QPACK:
+        raise ValueError(f"at most QPACK={QPACK} stacked queries, got {q}")
+    lanes = np.arange(q)
+    f0 = np.zeros((plan.n_states, plan.q_pad, plan.v_pad), np.uint32)
+    bits = np.uint32(1) << (lanes % 32).astype(np.uint32)
+    np.bitwise_or.at(f0, (start_state, lanes // 32, np.asarray(start_nodes)), bits)
+    return f0.reshape(plan.n_states * plan.q_pad, plan.v_pad)
+
+
+def extend_frontier_packed(
+    frontier: torch.Tensor,  # (n_states * q_pad, v_pad) int32 lane words
+    union_members: tuple[tuple[int, ...], ...],
+    n_states: int,
+    q_pad: int,
+) -> torch.Tensor:
+    """:func:`extend_frontier` on lane words: the fan-in union of member
+    states is the bitwise OR of their word rows (each query lane unions
+    independently in its own bit).  torch has no bitwise-OR reduction,
+    so the members fold pairwise."""
+    if not union_members:
+        return frontier
+    v_pad = frontier.shape[-1]
+    fr3 = frontier.reshape(n_states, q_pad, v_pad)
+    ext = [fr3] + [
+        functools.reduce(torch.bitwise_or, (fr3[s] for s in m)).unsqueeze(0)
+        for m in union_members
+    ]
+    return torch.cat(ext, dim=0).reshape((n_states + len(union_members)) * q_pad, v_pad)
+
+
+def expand_level_packed(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Tensor:
+    """One packed BFS level over all grounded transitions — ONE kernel
+    launch on the SAME Stage-B plan the f32 path uses, on either tile
+    store.  ``frontier`` is (n_states · q_pad, v_pad) int32 lane words;
+    returns the OR-accumulated words, boolean per bit already."""
+    fre = extend_frontier_packed(frontier, plan.union_members, plan.n_states, plan.q_pad)
+    return packed_level_blocks(
+        fre, plan.tiles, plan.firsts, plan.valids, plan.tile_ids,
+        plan.f_rows, plan.f_cols, plan.o_rows, plan.o_cols,
+        plan.block_size, plan.q_pad,
+        n_out_rows=plan.n_states * plan.q_pad, run_ptr=plan.run_ptr,
+    )
+
+
+def reach_fixpoint_packed(
+    plan: FusedLevelPlan,
+    frontier0: torch.Tensor,  # (n_states * q_pad, v_pad) int32 lane words
+    max_levels: int = 64,
+) -> torch.Tensor:
+    """Visited lane words (same layout as ``frontier0``) at fixpoint: all
+    256 lanes advance together, ``new = nxt & ~visited`` per bit, and the
+    loop ends when every word of the frontier is zero."""
+    visited = frontier = frontier0
+    level = 0
+    while level < max_levels and frontier_nonempty(frontier):
+        new = expand_level_packed(plan, frontier) & ~visited
+        visited = visited | new
+        frontier = new
+        level += 1
+        FIXPOINT_COUNTERS["levels"] += 1
+    return visited
+
+
+def multi_query_reach_packed(
+    ca: CompiledAutomaton,
+    staged: StagedGraph,
+    start_masks: np.ndarray,  # (Q, n_nodes) 0/1 — one row per query lane
+    max_levels: int = 64,
+    plan: FusedLevelPlan | None = None,
+) -> np.ndarray:
+    """Fixpoint reachability for Q lane-packed queries; returns (Q,
+    n_nodes) bool answer masks, bit-exact against :func:`multi_query_reach`.
+    Queries ride the bit axis in chunks of QPACK = 256, one fixpoint per
+    chunk, on the staged tiles' device; the same ``plan`` serves both."""
+    start_masks = np.atleast_2d(np.asarray(start_masks))
+    if plan is None:
+        plan = build_level_schedule(ca, staged)
+    n_q = start_masks.shape[0]
+    out = np.zeros((n_q, staged.n_nodes), bool)
+    for lo in range(0, n_q, QPACK):
+        chunk = start_masks[lo : lo + QPACK]
+        f0 = stack_start_masks_packed(plan, ca.start, chunk).view(np.int32)
+        visited = reach_fixpoint_packed(
+            plan, torch.from_numpy(f0).to(plan.tiles.device), max_levels
+        ).reshape(plan.n_states, plan.q_pad, plan.v_pad)
+        acc = functools.reduce(
+            torch.bitwise_or, (visited[qf] for qf in ca.accepting), torch.zeros_like(visited[0])
+        )
+        lanes = unpack_lane_rows(acc)[: chunk.shape[0], : staged.n_nodes]
+        out[lo : lo + chunk.shape[0]] = lanes.cpu().numpy() > 0
+    return out

@@ -151,5 +151,12 @@ def test_stage_graph_without_device_needs_a_gpu(monkeypatch):
 
 
 def test_uint32_store_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.stage_graph(structure.example_graph(), 8, tile_dtype="uint32", device="cpu")
+    """The uint32 store stages: int32 words (B, ⌈B/32⌉) per tile with
+    ``repro``'s uint32 bits, over the f32 store's offsets (byte for byte
+    against ``repro`` in tests/test_torch_tile_store.py)."""
+    g = structure.example_graph()
+    staged = ops.stage_graph(g, 8, tile_dtype="uint32", device="cpu")
+    f32 = ops.stage_graph(g, 8, device="cpu")
+    assert staged.tile_dtype == "uint32" and staged.tiles.dtype == torch.int32
+    assert staged.tiles.shape == (f32.tiles.shape[0], 8, ref.tile_words(8))
+    assert staged.offsets.keys() == f32.offsets.keys()

@@ -94,10 +94,10 @@ def test_executor_structure_equals_repro():
     "kw, item",
     [
         ({"backend": "reference"}, "A12"),
-        ({"backend": "frontier_kernel_packed"}, "A7"),
+        ({"backend": "frontier_kernel_packed", "semantics": "witness"}, "A9"),
         ({"backend": "frontier_kernel_sharded"}, "A12"),
         ({"backend": "frontier_kernel", "semantics": "witness"}, "A9"),
-        ({"backend": "frontier_kernel", "tile_dtype": "uint32"}, "A8"),
+        ({"backend": "frontier_kernel_sharded", "tile_dtype": "uint32"}, "A12"),
     ],
 )
 def test_paths_not_ported_yet_raise(kw, item):
