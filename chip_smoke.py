@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the port's S2 frontier paths end to end on one NVIDIA GPU.
+"""Drive every path of the port end to end on one NVIDIA GPU, through
+each of its seven hand-written CUDA kernels.
 
     python3 chip_smoke.py [--out FILE]
 
-Four paths, one per (backend, tile store) pair, each carried by one
-hand-written CUDA kernel:
+Four S2 frontier paths, one per (backend, tile store) pair, each carried
+by one kernel:
 
 =========================  ========  =================================
 backend                    tiles     kernel
@@ -46,10 +47,36 @@ Phases, each of which raises on failure (the run then exits non-zero):
              (``make_s2_step_fn``: Stage B and the meters' degree
              vectors) timed apart from a warm run, and the run traced
              with ``torch.profiler``: device busy time, idle share, and
-             device time per kernel.
+             device time per kernel;
+* baseline — the per-transition baseline path, carried by B5
+             ``frontier_step_blocks``: the twin as per-label tile lists
+             (``make_blocked_graph``) and Stage A again from them (equal
+             to the graph's f32 store); B5 against its plain version on
+             cases a to c as tile lists; 32 sampled starts of q1, q9 and
+             q12, one ``multi_source_reach_baseline`` each, whose answers
+             must equal the fused path on the same BlockedGraph (B1) and
+             the device BFS, and whose B5 launches must equal levels x
+             (transition, store) entries with no other kernel launched;
+             one ``expand_level`` timed beside one ``expand_level_fused``,
+             and each of its B5 launches, at the path's own operands,
+             equal to the plain version;
+* embedbag — B6 ``embedding_bag_sorted`` through ``embedding_bag`` at
+             dlrm-mlperf's largest table (39,979,771 x 128 bf16) and
+             through ``gnn_aggregate`` at ogb_products (2,449,029 nodes,
+             61,859,140 uniform edges, 100 f32 features), each against
+             its plain version and ``F.embedding_bag``;
+* decode   — B7 ``flash_decode_gqa`` through ``decode_attention`` at
+             qwen3-14b's attention widths at decode_32k and long_500k,
+             against its plain version (max |diff| at most 2e-2 of the
+             largest |output|, which an all-zero output and the kernel on
+             half the cache must both miss) and SDPA.
 
-The last two lines are a JSON object with one entry per kernel, then
-``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
+Each phase logs its seconds and peak device memory and frees its tensors
+before the next.  B5, B6 and B7 are timed as B1-B4 are (CUDA graph, L2
+flushed and warm; one call between events) beside their plain versions,
+their bounds and, where one PyTorch call computes the same function, that
+call.  The last two lines are a JSON object with one entry per kernel,
+then ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 when no GPU is present or when run without the repository's ``src/``.
 """
 
@@ -72,22 +99,50 @@ from repro_torch.graph.generators import (  # noqa: E402
 )
 from repro_torch.graph.partition import distribute  # noqa: E402
 from repro_torch.graph.structure import LabeledGraph, to_device_graph  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attn import decode_attn  # noqa: E402
+from repro_torch.kernels.decode_attn import ops as da_ops  # noqa: E402
+from repro_torch.kernels.embedbag import embedbag  # noqa: E402
+from repro_torch.kernels.embedbag import ops as eb_ops  # noqa: E402
 from repro_torch.kernels.frontier import frontier as fkernel  # noqa: E402
 from repro_torch.kernels.frontier import ops as fops  # noqa: E402
 from repro_torch.kernels.frontier.ref import tile_words  # noqa: E402
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and
-# float32 FLOP/s outside the tensor cores; INT32 lanes are half the FP32
-# lanes of an SM (64 against 128), so int32 operations run at half that
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores, and dense bf16 FLOP/s on the
+# tensor cores; INT32 lanes are half the FP32 lanes of an SM (64 against
+# 128), so int32 operations run at half the float32 rate
 INT32_OPS = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 QUERIES = ("q1", "q9", "q12")
 N_METER_SAMPLES = 32
 SEED = 0
 CSRC = "src/repro_torch/kernels/frontier/csrc"
 FRONTIER_PY = "src/repro/kernels/frontier/frontier.py"
+N_BASELINE_STARTS = 32
+# dlrm-mlperf's largest Criteo table (src/repro/models/dlrm.py:30),
+# embed_dim 128, table_dtype bf16 (dlrm.py:52); serve_bulk batch 262,144
+# x multi_hot 1 (configs/registry.py:110)
+DLRM_ROWS, DLRM_DIM, DLRM_LOOKUPS = 39_979_771, 128, 262_144
+# ogb_products (configs/registry.py:99)
+OGB_NODES, OGB_EDGES, OGB_FEAT = 2_449_029, 61_859_140, 100
+# qwen3-14b attention (configs/qwen3_14b.py): 40 q-heads, 8 kv heads,
+# head dim 128, bf16; decode_32k and long_500k (configs/registry.py:83)
+QWEN_HEADS, QWEN_KV_HEADS, QWEN_DH = 40, 8, 128
+DECODE_SHAPES = {"decode_32k": (128, 32_768), "long_500k": (1, 524_288)}
+# B7 against its plain version: max |diff| at most BF16_TOL (the bf16
+# tolerance of tests/test_kernels.py:140) times the largest |output|.  The
+# outputs average ~kv_len V rows, so their size falls as 1/sqrt(kv_len)
+# (largest ~4e-2 at decode_32k, ~1e-2 at long_500k): an absolute 2e-2
+# would pass an all-zero output.  Relative to the largest output it is a
+# few bf16 ulps there, the most by which the two roundings of p and of
+# the output to bf16 may part.  Two controls on the same inputs must fail
+# it: an all-zero output, and the kernel run on half the cache.
+BF16_TOL = 2e-2
 
 # kernel name -> what drives and describes it; "lanes" marks the packed
 # kernels, whose frontier is int32 lane words
@@ -351,6 +406,362 @@ def time_levels(stores, cas, gen, flush) -> dict:
     return times
 
 
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches so far, by the name the JSON line uses."""
+    return {**fkernel.launch_counts(), "embedding_bag_sorted": embedbag.LAUNCHES,
+            "flash_decode_gqa": decode_attn.LAUNCHES}
+
+
+def reset_launches() -> None:
+    fkernel.reset_launches()
+    embedbag.LAUNCHES = decode_attn.LAUNCHES = 0
+
+
+def only_launched(name: str, what: str) -> int:
+    """The launches of kernel ``name`` since the last reset; raises if it
+    launched none or another kernel launched."""
+    counts = launch_counts()
+    if counts[name] == 0:
+        raise AssertionError(f"{what} launched no {name} kernel")
+    if sum(counts.values()) != counts[name]:
+        raise AssertionError(f"{what} launched other kernels: {counts}")
+    return counts[name]
+
+
+def free() -> None:
+    """Return the card's cached blocks after the caller dropped its
+    tensors (``del``), so the next phase starts from a clean pool."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def timed(fn, graph_iters: int, event_iters: int, flush) -> dict:
+    """A kernel wrapper's times, as for the level kernels: a CUDA graph
+    with L2 flushed, the same warm, and one call between events."""
+    return {"ms": graph_ms(fn, graph_iters, flush), "warm_ms": graph_ms(fn, graph_iters, None),
+            "events_ms": events_ms(fn, event_iters, flush)}
+
+
+def bound(nbytes: float, ops: float, rate: float) -> tuple[float, str]:
+    """(ms, binding resource): the larger of bytes over HBM bandwidth and
+    operations over ``rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def step_level(ca, bg, f: torch.Tensor):
+    """The B5 launches of one baseline level on frontier ``f`` (n_states,
+    v_pad): for each (transition, store), the path's own operand
+    (``ops.expand_operand`` of the source state's row) and the store."""
+    return [(fops.expand_operand(f[t.src]), entry) for t, entry in fops.baseline_entries(ca, bg)]
+
+
+def check_step_calls(calls, block: int, q: str) -> float:
+    """B5 against its plain version, ``torch.equal``, on each launch of a
+    baseline level at the path's own operands; returns max |diff|."""
+    max_err = 0.0
+    for i, (rows, (tiles, r, c, rp)) in enumerate(calls):
+        got = fkernel.frontier_step_blocks(rows, tiles, r, c, block, run_ptr=rp)
+        want = fkernel.frontier_step_blocks_plain(rows, tiles, r, c, block)
+        max_err = max(max_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{q} level, launch {i}: frontier_step_blocks != plain")
+    return max_err
+
+
+def step_bound(calls, block: int) -> tuple[float, str, int, int]:
+    """The least time of a level's B5 launches: each distinct store's
+    tiles and index arrays read once, each launch's distinct frontier
+    blocks read and its output written once (bytes), against 2·8·B²
+    f32 FMAs per tile per launch (operations)."""
+    stores = {id(e[0]): e for _, e in calls}
+    nbytes = sum(sum(a.numel() * a.element_size() for a in e) for e in stores.values())
+    ops = 0
+    for rows, (tiles, r, _, _) in calls:
+        nbytes += len(set(r.tolist())) * 8 * block * 4 + rows.numel() * 4
+        ops += 2 * 8 * block * block * tiles.shape[0]
+    return (*bound(nbytes, ops, FP32_FLOPS), nbytes, ops)
+
+
+def check_step_kernel(bg, cas, dev, gen) -> float:
+    """B5 against its plain version, ``torch.equal``, on every store of
+    cases a, b and c rebuilt as per-label tile lists; returns max |diff|."""
+    case_b = (sparse_label_graph(), "(l0|l2)+ .^-1 l3^-1", 16)
+    case_c = (random_labeled_graph(300, 500, 3, seed=11), "l0 l1", 32)
+    cases = {"a: q1, full scale, 16 rows": (bg, cas["q1"], 16)}
+    for label, (graph, expr, block) in (("b: block 16, empty store, wildcard, inverse", case_b),
+                                        ("c: the level kernels' cover-only case", case_c)):
+        cases[label] = (fops.make_blocked_graph(graph, block, device=dev),
+                        paa.compile_query(expr, graph), 8)
+    max_err, all_unvisited = 0.0, 0
+    for label, (b_g, ca, m_pad) in cases.items():
+        stores = {id(e[0]): e for _, e in fops.baseline_entries(ca, b_g)}
+        unvisited = 0
+        for tiles, rows, cols, run_ptr in stores.values():
+            f = (torch.rand((m_pad, b_g.v_pad), generator=gen, device=dev) < 0.3).float()
+            f[:, b_g.n_nodes :] = 0
+            got = fkernel.frontier_step_blocks(f, tiles, rows, cols, b_g.block_size, run_ptr=run_ptr)
+            want = fkernel.frontier_step_blocks_plain(f, tiles, rows, cols, b_g.block_size)
+            torch.cuda.synchronize()
+            max_err = max(max_err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"frontier_step_blocks != plain on case {label}")
+            unvisited += b_g.v_pad // b_g.block_size - (run_ptr.shape[0] - 1)
+        n_tiles = sum(e[0].shape[0] for e in stores.values())
+        log("baseline", f"frontier_step_blocks == plain on case {label}: {len(stores)} stores, "
+            f"{n_tiles} tiles, B={b_g.block_size}, {m_pad} frontier rows, {unvisited} column "
+            "blocks unvisited (zero in both)")
+        all_unvisited += unvisited
+    if all_unvisited == 0:
+        raise AssertionError("no case has an unvisited column block")
+    return max_err
+
+
+def phase_baseline(g, cas, dg, stores, dev, gen, flush, record) -> dict:
+    """The per-transition baseline path (B5) on the full twin: its
+    answers against the fused path (B1) on the same BlockedGraph and the
+    device BFS, its launch count, and its times."""
+    t0 = time.perf_counter()
+    bg = fops.make_blocked_graph(g, block_size=128, device=dev)
+    torch.cuda.synchronize()
+    n_tiles = sum(e[0].shape[0] for st in (bg.fwd, bg.inv) for e in st.values())
+    log("baseline", f"make_blocked_graph: {len(bg.fwd)} labels x 2 directions, {n_tiles} tiles, "
+        f"{n_tiles * 128 * 128 * 4 / 1e9:.4f} GB ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    staged = fops.stage_graph(bg)
+    torch.cuda.synchronize()
+    same = torch.equal(staged.tiles, stores["f32"].tiles) and list(staged.offsets) == list(
+        stores["f32"].offsets) and all(
+        (a[0], a[1].tobytes(), a[2].tobytes()) == (b[0], b[1].tobytes(), b[2].tobytes())
+        for a, b in zip(staged.offsets.values(), stores["f32"].offsets.values()))
+    if not same:
+        raise AssertionError("Stage A from the BlockedGraph differs from Stage A from the graph")
+    log("baseline", f"stage_graph(BlockedGraph): {staged.tiles.shape[0]} tiles, equal to the "
+        f"graph's f32 store byte for byte ({time.perf_counter() - t0:.1f} s)")
+    rec = record["baseline"] = {"tiles": n_tiles}
+    max_err = check_step_kernel(bg, cas, dev, gen)
+
+    rng = np.random.default_rng(SEED + 1)
+    launches, calls = 0, {}
+    for q in QUERIES:
+        ca = cas[q]
+        starts = paa.valid_start_nodes(ca, g)
+        sample = np.sort(rng.choice(starts, size=min(N_BASELINE_STARTS, len(starts)), replace=False))
+        o_src, o_dst = paa.answers_multi_source(ca, dg, sample)
+        plan = fops.build_level_plan(ca, staged)
+        entries = len(list(fops.baseline_entries(ca, bg)))
+        reset_launches()
+        fops.FIXPOINT_COUNTERS.clear()
+        answers, t_base = [], 0.0
+        for s in sample:
+            mask = np.zeros(g.n_nodes, np.float32)
+            mask[s] = 1.0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            answers.append(fops.multi_source_reach_baseline(ca, bg, mask))
+            t_base += time.perf_counter() - t1
+        n = only_launched("frontier_step_blocks", f"the baseline path on {q}")
+        levels = fops.FIXPOINT_COUNTERS["levels"]
+        if n != levels * entries:
+            raise AssertionError(f"{q}: {n} B5 launches for {levels} levels x {entries} entries")
+        launches += n
+        t_fused = 0.0
+        for s, got in zip(sample, answers):
+            mask = np.zeros(g.n_nodes, np.float32)
+            mask[s] = 1.0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fused = fops.multi_source_reach(ca, staged, mask, plan=plan)
+            t_fused += time.perf_counter() - t1
+            want = np.zeros(g.n_nodes, bool)
+            want[o_dst[o_src == s]] = True
+            if not (np.array_equal(got, fused) and np.array_equal(got, want)):
+                raise AssertionError(f"{q} start {s}: baseline, fused and device BFS answers differ")
+        f = (torch.rand((ca.n_states, bg.v_pad), generator=gen, device=dev) < 0.3).float()
+        f[:, g.n_nodes :] = 0
+        f8 = torch.zeros((ca.n_states, plan.q_pad, plan.v_pad), device=dev)
+        f8[:, 0] = f
+        f8 = f8.reshape(-1, plan.v_pad)
+        calls[q] = step_level(ca, bg, f)
+        max_err = max(max_err, check_step_calls(calls[q], bg.block_size, q))
+        r = rec[q] = {
+            "starts": len(sample), "levels": levels, "entries": entries, "launches": n,
+            "pairs": int(len(o_src)), "baseline_wall_ms": t_base * 1e3, "fused_wall_ms": t_fused * 1e3,
+            "expand_level_ms": events_ms(lambda: fops.expand_level(ca, bg, f), 5, flush),
+            "expand_level_fused_ms": events_ms(lambda: fops.expand_level_fused(plan, f8), 20, flush),
+        }
+        log("baseline", f"{q}: {len(sample)} starts, {r['pairs']} answer pairs; {levels} levels x "
+            f"{entries} (transition, store) entries = {n} B5 launches, no other kernel; answers == "
+            f"fused (B1, same BlockedGraph) == device BFS; {r['baseline_wall_ms']:.1f} ms baseline, "
+            f"{r['fused_wall_ms']:.1f} ms fused; one level: expand_level {r['expand_level_ms']:.3f} ms "
+            f"({entries} launches), expand_level_fused {r['expand_level_fused_ms']:.3f} ms (1 launch); "
+            f"its {entries} B5 launches at the path's operands == plain")
+
+    q1 = calls["q1"]
+
+    def kernel_level():
+        for rows, (tiles, r_, c_, rp) in q1:
+            fkernel.frontier_step_blocks(rows, tiles, r_, c_, bg.block_size, run_ptr=rp)
+
+    def plain_level():
+        for rows, (tiles, r_, c_, _) in q1:
+            fkernel.frontier_step_blocks_plain(rows, tiles, r_, c_, bg.block_size)
+
+    t = rec["q1_level"] = timed(kernel_level, 20, 10, flush)
+    t["plain_ms"] = events_ms(plain_level, 5, flush)
+    t["bound_ms"], t["bound_by"], nbytes, ops = step_bound(q1, bg.block_size)
+    log("baseline", f"B5, the {len(q1)} launches of one q1 level: {t['ms'] * 1e3:.2f} us (L2 "
+        f"flushed; {t['warm_ms'] * 1e3:.2f} us warm; {t['events_ms'] * 1e3:.2f} us one call between "
+        f"events), plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
+        f"{t['bound_by']} ({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M ops)")
+    return {"name": "frontier_step_blocks", "route": "cuda", "source": f"{CSRC}/fused_level.cu",
+            "replaces": f"{FRONTIER_PY}:121", "launches": launches, "max_abs_err": max_err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None}
+
+
+def embedbag_case(name, table, idx, bags, n_bags, entry, flush, exact: bool) -> dict:
+    """One EmbeddingBag workload: the entry point once with the counts at
+    0 (B6 must launch, nothing else), the kernel against its plain version
+    on the same sorted lookups, the times, the bound and F.embedding_bag."""
+    reset_launches()
+    out = entry(table, idx, bags, n_bags)
+    torch.cuda.synchronize()
+    launches = only_launched("embedding_bag_sorted", f"{entry.__name__} ({name})")
+    sorted_bags, order = torch.sort(bags, stable=True)
+    s_idx = idx[order]
+    want = embedbag.embedding_bag_sorted_plain(table, s_idx, sorted_bags, n_bags)
+    visited = torch.zeros(n_bags, dtype=torch.bool, device=table.device)
+    visited[bags.long()] = True
+    got = embedbag.embedding_bag_sorted(table, s_idx, sorted_bags, n_bags)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    equal = torch.equal(got, want)
+    if not torch.equal(out[~visited], torch.zeros_like(out[~visited])) or not torch.equal(
+            out[visited], got[visited]):
+        raise AssertionError(f"{name}: {entry.__name__} differs from the kernel on the sorted lookups")
+    # exact: bags of one lookup copy a row; otherwise the same f32 sums in
+    # the same order as the plain version, held to 1e-6 of the largest |sum|
+    if (not equal) if exact else err > 1e-6 * max(scale, 1.0):
+        raise AssertionError(f"{name}: B6 != plain, max |diff| {err} (largest |sum| {scale})")
+    t = timed(lambda: embedbag.embedding_bag_sorted(table, s_idx, sorted_bags, n_bags), 10, 5, flush)
+    t["plain_ms"] = events_ms(lambda: embedbag.embedding_bag_sorted_plain(table, s_idx, sorted_bags, n_bags), 3, flush)
+    offsets = embedbag.bag_offsets(sorted_bags, n_bags)[:-1]
+    t["library_ms"] = events_ms(lambda: F.embedding_bag(s_idx, table, offsets, mode="sum"), 5, flush)
+    esize = table.element_size()
+    d = table.shape[1]
+    rows = int(torch.unique(idx).numel())
+    nbytes = rows * d * esize + 2 * idx.numel() * 4 + n_bags * d * esize
+    t["bound_ms"], t["bound_by"] = bound(nbytes, idx.numel() * d, FP32_FLOPS)
+    t["gathered_bound_ms"] = (idx.numel() * d * esize + 2 * idx.numel() * 4 + n_bags * d * esize) / HBM_BYTES_PER_S * 1e3
+    t.update({"launches": launches, "max_abs_err": err, "bit_equal": equal, "largest_abs_sum": scale,
+              "distinct_rows": rows, "bytes": nbytes})
+    log("embedbag", f"{name}: table {tuple(table.shape)} {table.dtype} ({table.numel() * esize / 1e9:.2f} GB), "
+        f"{idx.numel()} lookups into {n_bags} bags; {launches} B6 launch, no other kernel; kernel "
+        f"{'==' if equal else '~='} plain (max |diff| {err}, largest |sum| {scale:.3f}); "
+        f"{t['ms']:.4f} ms (L2 flushed; {t['warm_ms']:.4f} warm; {t['events_ms']:.4f} one call), plain "
+        f"{t['plain_ms']:.4f} ms, F.embedding_bag {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+        f"by {t['bound_by']} ({rows} distinct rows once, {nbytes / 1e9:.3f} GB; every gathered row "
+        f"from HBM: {t['gathered_bound_ms']:.4f} ms)")
+    return t
+
+
+def phase_embedbag(dev, gen, flush, record) -> dict:
+    """B6 through ``embedding_bag`` at dlrm-mlperf's largest table and
+    through ``gnn_aggregate`` at ogb_products."""
+    rec = record["embedbag"] = {}
+    table = torch.randn((DLRM_ROWS, DLRM_DIM), generator=gen, device=dev, dtype=torch.bfloat16)
+    idx = torch.randint(0, DLRM_ROWS, (DLRM_LOOKUPS,), generator=gen, device=dev, dtype=torch.int32)
+    bags = torch.randperm(DLRM_LOOKUPS, generator=gen, device=dev).to(torch.int32)
+    rec["dlrm"] = embedbag_case("dlrm-mlperf table 20, serve_bulk", table, idx, bags, DLRM_LOOKUPS,
+                                eb_ops.embedding_bag, flush, exact=True)
+    del table, idx, bags
+    free()
+    feats = torch.randn((OGB_NODES, OGB_FEAT), generator=gen, device=dev)
+    src = torch.randint(0, OGB_NODES, (OGB_EDGES,), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, OGB_NODES, (OGB_EDGES,), generator=gen, device=dev, dtype=torch.int32)
+    rec["ogb"] = embedbag_case("ogb_products, uniform edges", feats, src, dst, OGB_NODES,
+                               eb_ops.gnn_aggregate, flush, exact=False)
+    del feats, src, dst
+    free()
+    t = rec["ogb"]
+    return {"name": "embedding_bag_sorted", "route": "cuda",
+            "source": "src/repro_torch/kernels/embedbag/csrc/embedbag.cu",
+            "replaces": "src/repro/kernels/embedbag/embedbag.py:34",
+            "launches": rec["dlrm"]["launches"] + t["launches"],
+            "max_abs_err": max(rec["dlrm"]["max_abs_err"], t["max_abs_err"]), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+def phase_decode(dev, gen, flush, record) -> dict:
+    """B7 through ``decode_attention`` at qwen3-14b's attention widths, at
+    decode_32k and long_500k: kernel against plain version, times, bound,
+    and F.scaled_dot_product_attention on the kv_len prefix."""
+    rec = record["decode"] = {}
+    for name, (batch, seq) in DECODE_SHAPES.items():
+        kv = seq - 17
+        q = torch.randn((batch, QWEN_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
+        k = torch.randn((batch, seq, QWEN_KV_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
+        v = torch.randn((batch, seq, QWEN_KV_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
+        kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+        reset_launches()
+        out = da_ops.decode_attention(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        launches = only_launched("flash_decode_gqa", f"decode_attention ({name})")
+        want = decode_attn.flash_decode_gqa_plain(q, k, v, kv_len)
+        scale = float(want.float().abs().max())
+        limit = BF16_TOL * scale
+
+        def diff(got: torch.Tensor) -> float:
+            return float((got.float() - want.float()).abs().max())
+
+        err = diff(out)
+        if out.dtype != torch.bfloat16 or not torch.isfinite(out.float()).all() or err > limit:
+            raise AssertionError(f"{name}: B7 != plain: max |diff| {err} > {limit} "
+                                 f"({BF16_TOL} of the largest |output| {scale})")
+        half = decode_attn.flash_decode_gqa(q, k, v, torch.tensor(kv // 2, dtype=torch.int32, device=dev))
+        controls = {"zeros": diff(torch.zeros_like(out)), "half_cache": diff(half)}
+        del half
+        if min(controls.values()) <= limit:
+            raise AssertionError(f"{name}: a wrong output passes the B7 check: {controls} <= {limit}")
+        t = rec[name] = timed(lambda: decode_attn.flash_decode_gqa(q, k, v, kv_len), 3, 3, flush)
+        t["plain_ms"] = events_ms(lambda: decode_attn.flash_decode_gqa_plain(q, k, v, kv_len), 2, flush)
+        nbytes = 2 * batch * kv * QWEN_KV_HEADS * QWEN_DH * 2 + 2 * q.numel() * 2
+        ops = 4 * batch * QWEN_HEADS * kv * QWEN_DH
+        t["bound_ms"], t["bound_by"] = bound(nbytes, ops, BF16_FLOPS)
+        t.update({"launches": launches, "max_abs_err": err, "limit": limit, "largest_abs_out": scale,
+                  "rms_out": float(want.float().square().mean().sqrt()), "controls": controls,
+                  "bytes": nbytes, "ops": ops})
+        del want, out
+        # the library call on its own layout: (B, G, kv_len, Dh) contiguous
+        kt = k[:, :kv].transpose(1, 2).contiguous()
+        del k
+        vt = v[:, :kv].transpose(1, 2).contiguous()
+        del v
+        q4 = q.unsqueeze(2)
+        t["library_ms"] = events_ms(
+            lambda: F.scaled_dot_product_attention(q4, kt, vt, enable_gqa=True), 3, flush)
+        del q, q4, kt, vt, kv_len
+        free()
+        log("decode", f"{name}: B={batch}, S={seq}, kv_len={kv}, H={QWEN_HEADS}, G={QWEN_KV_HEADS}, "
+            f"Dh={QWEN_DH} bf16 (K and V {nbytes / 1e9:.2f} GB); {launches} B7 launch, no other kernel; "
+            f"kernel ~= plain (max |diff| {err} <= {limit} = {BF16_TOL} x largest |output| {scale}; "
+            f"rms output {t['rms_out']}; controls miss it: all-zero {controls['zeros']}, half the "
+            f"cache {controls['half_cache']}); {t['ms']:.4f} ms (L2 flushed; "
+            f"{t['warm_ms']:.4f} warm; {t['events_ms']:.4f} one call), plain {t['plain_ms']:.4f} ms, "
+            f"SDPA {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']}")
+    t = rec["decode_32k"]
+    return {"name": "flash_decode_gqa", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
+            "replaces": "src/repro/kernels/decode_attn/decode_attn.py:61",
+            "launches": sum(r["launches"] for r in rec.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rec.values()), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON to this file")
@@ -361,7 +772,18 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' bmm in full f32
-    record: dict = {}
+    record: dict = {"seconds": {}}
+    t_start = t_phase = time.perf_counter()
+
+    def phase_end(name: str) -> None:
+        nonlocal t_phase
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        record["seconds"][name] = now - t_phase
+        log(name, f"phase took {now - t_phase:.1f} s; {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            "peak allocated in it")
+        torch.cuda.reset_peak_memory_stats()
+        t_phase = now
 
     # ---- env -------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -373,6 +795,7 @@ def main() -> int:
     log("env", f"device {kind}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
         f"{torch.cuda.device_count()} card(s); {total_mem / 1e9:.2f} GB")
     record["env"] = {"kind": kind, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    phase_end("env")
 
     # ---- build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -386,6 +809,7 @@ def main() -> int:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log("build", f"  {line.strip()}")
     record["build"] = _build.BUILD_LOG
+    phase_end("build")
 
     # ---- setup: the twin, its placement, both Stage-A stores -------------
     t0 = time.perf_counter()
@@ -417,6 +841,7 @@ def main() -> int:
     if not torch.equal(fkernel.unpack_tile_bits(su.tiles[q1_tids], 128), s32.tiles[q1_tids]):
         raise AssertionError("q1's uint32 tiles do not unpack to its f32 tiles")
     log("setup", f"uint32 offsets == f32 offsets; q1's {len(q1_tids)} tiles unpack to the f32 tiles")
+    phase_end("setup")
 
     # ---- kernels: each CUDA level kernel against its plain version ---------
     gen = torch.Generator(device=dev)
@@ -424,6 +849,7 @@ def main() -> int:
     flush = torch.empty(16 * 2**20, dtype=torch.float32, device=dev)  # 64 MB > L2
     max_err = check_kernels(stores, cas, dev, gen)
     level_times = record["level_times"] = time_levels(stores, cas, gen, flush)
+    phase_end("kernels")
 
     # ---- path: s2_execute on q1, q9, q12 for each (backend, tiles) -------
     dg = to_device_graph(g, dev)
@@ -443,12 +869,12 @@ def main() -> int:
     for name, k in KERNELS.items():
         backend, td = k["backend"], k["tile_dtype"]
         per_query = record["path"][f"{backend}/{td}"] = {}
-        fkernel.reset_launches()
+        reset_launches()
         fops.FIXPOINT_COUNTERS.clear()
         for q in QUERIES:
             ca, t = cas[q], truth[q]
             lev0, sync0 = fops.FIXPOINT_COUNTERS["levels"], fops.FIXPOINT_COUNTERS["host_syncs"]
-            launch0 = fkernel.launch_counts()[name]
+            launch0 = launch_counts()[name]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             answers, costs = strategies.s2_execute(
@@ -460,7 +886,7 @@ def main() -> int:
             r = per_query[q] = {
                 "starts": len(t["starts"]),
                 "levels": fops.FIXPOINT_COUNTERS["levels"] - lev0,
-                "launches": fkernel.launch_counts()[name] - launch0,
+                "launches": launch_counts()[name] - launch0,
                 "host_syncs": fops.FIXPOINT_COUNTERS["host_syncs"] - sync0,
                 "wall_ms": wall * 1e3,
                 "queries_per_s": len(t["starts"]) / wall,
@@ -483,15 +909,12 @@ def main() -> int:
                 f"{r['launches']} launches, {r['host_syncs']} host syncs, {r['wall_ms']:.1f} ms, "
                 f"{r['queries_per_s']:.1f} queries/s; answers == oracle, meters == host meter on "
                 f"{len(t['meters'])} starts")
-        counts = fkernel.launch_counts()
+        n = only_launched(name, f"the {backend}/{td} path")
         levels = fops.FIXPOINT_COUNTERS["levels"]
-        if counts[name] == 0:
-            raise AssertionError(f"the {backend}/{td} path launched no {name} kernel")
-        if counts[name] != levels:
-            raise AssertionError(f"{counts[name]} {name} launches for {levels} BFS levels")
-        if sum(counts.values()) != counts[name]:
-            raise AssertionError(f"the {backend}/{td} path launched other kernels: {counts}")
-        launches[name] = counts[name]
+        if n != levels:
+            raise AssertionError(f"{n} {name} launches for {levels} BFS levels")
+        launches[name] = n
+    phase_end("path")
 
     record["trace"] = {}
     for k in KERNELS.values():
@@ -508,6 +931,17 @@ def main() -> int:
             for kname, kt in list(tr["kernels"].items())[:8]:
                 log("trace", f"  {kt['us'] / 1e3:9.3f} ms {kt['count']:6d}x  {kname[:90]}")
 
+    phase_end("trace")
+
+    new_kernels = [phase_baseline(g, cas, dg, stores, dev, gen, flush, record)]
+    del stores, dg
+    free()
+    phase_end("baseline")
+    new_kernels.append(phase_embedbag(dev, gen, flush, record))
+    phase_end("embedbag")
+    new_kernels.append(phase_decode(dev, gen, flush, record))
+    phase_end("decode")
+
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -520,8 +954,9 @@ def main() -> int:
         "bound_ms": level_times[name]["q1"]["bound_ms"],
         "bound_by": level_times[name]["q1"]["bound_by"],
         "library_ms": None,
-    } for name, k in KERNELS.items()]
+    } for name, k in KERNELS.items()] + new_kernels
     record["kernels"] = kernels
+    log("end", f"phases (s): {record['seconds']}; total {time.perf_counter() - t_start:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1, default=str))

@@ -17,8 +17,10 @@ from repro_torch import resolve_device
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier.ops import (
     QPAD,
+    BlockedGraph,
     FusedLevelPlan,
     StagedGraph,
+    blocked_entry,
     run_offsets,
 )
 
@@ -28,6 +30,28 @@ def graph_from_numpy(
 ) -> LabeledGraph:
     """A ``repro`` ``LabeledGraph`` given by its fields."""
     return LabeledGraph(int(n_nodes), np.asarray(src), np.asarray(lbl), np.asarray(dst), list(labels))
+
+
+def blocked_graph_from_numpy(
+    n_nodes: int,
+    block_size: int,
+    fwd: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray]],
+    inv: dict[int, tuple[np.ndarray, np.ndarray, np.ndarray]],
+    device: str | torch.device | None = None,
+) -> BlockedGraph:
+    """A ``repro`` ``BlockedGraph`` given by its per-label ``(tiles, rows,
+    cols)`` stores, moved to ``device`` (``None``: the GPU), each with the
+    port's ``run_ptr``."""
+    device = resolve_device(device)
+
+    def carry(store):
+        return {
+            int(lid): blocked_entry(np.asarray(t, np.float32), np.asarray(r), np.asarray(c), device)
+            for lid, (t, r, c) in store.items()
+        }
+
+    v_pad = -(-int(n_nodes) // block_size) * block_size
+    return BlockedGraph(int(n_nodes), v_pad, block_size, carry(fwd), carry(inv), device)
 
 
 def staged_from_numpy(

@@ -37,6 +37,8 @@ NVCC_FLAGS = (
 SOURCES = {
     "fused_level": "kernels/frontier/csrc/fused_level.cu",
     "packed_level": "kernels/frontier/csrc/packed_level.cu",
+    "embedbag": "kernels/embedbag/csrc/embedbag.cu",
+    "decode_attn": "kernels/decode_attn/csrc/decode_attn.cu",
 }
 
 # kernel name -> {"seconds": nvcc wall time or None when loaded from disk,

@@ -1,5 +1,7 @@
 // One fused BFS level of the S2 frontier path, on f32 frontier rows, for
-// Hopper: kernel B1 on f32 tiles, kernel B3 on bit-plane tiles.
+// Hopper: kernel B1 on f32 tiles, kernel B3 on bit-plane tiles; and the
+// same device code on the trivial schedule of one label store: kernel B5,
+// the per-transition step of the baseline path.
 //
 // Replaces the TPU kernel repro/kernels/frontier/frontier.py:
 // fused_level_blocks with its bodies _fused_level_kernel (f32 tiles) and
@@ -32,6 +34,21 @@
 // bit j % 32 as 0 or 1.  Columns past B in the last word are pad bits
 // and are never read.  The FMAs and the fixed-order sum are the same.
 //
+// B5 replaces repro/kernels/frontier/frontier.py: frontier_step_blocks
+// with its body _frontier_kernel, which walks one step per tile i of one
+// label store and adds F[:, rows[i]] @ tiles[i] into output column block
+// cols[i], zeroing the block at its first visit (cols is non-decreasing,
+// so the tiles of one output block are consecutive).  Its schedule is
+// trivial: step i reads frontier column block rows[i] and tile i, every
+// step is valid, and run k (run_ptr[k] .. run_ptr[k+1], built once on the
+// host with the store) writes column block cols[run_ptr[k]].  Its frontier
+// has m_pad rows, any multiple of 8 (the baseline fills row 0 of 8), so
+// the grid is one CTA per (run, 8-row block): blockIdx.y picks the rows
+// the CTA reads and writes.  Column blocks that no run visits are never
+// written: the wrapper allocates the output zeroed.  A Schedule type says
+// where a step reads and where a run writes; the kernel body is the same
+// for B1, B3 and B5.
+//
 // Bound on the H100: bytes.  A B1 level reads each real tile once (B*B*4
 // bytes) and does 2*8 flops per tile element, 4 flops per byte, far below
 // the card's ratio of flops to bytes.  B3 reads 1/32 of the tile bytes
@@ -56,18 +73,44 @@ __device__ __forceinline__ float tile_value(const uint32_t* row, int j) {
   return (float)((row[j >> 5] >> (j & 31)) & 1u);
 }
 
+// B1 and B3: Stage B's schedule over all transitions.  Step i is valid
+// when valids[i] != 0 and reads tile tile_ids[i] and frontier block
+// (f_rows[i], f_cols[i]); the run that starts at step lo writes output
+// block (o_rows[lo], o_cols[lo]).  Row blocks hold 8 rows, column blocks B.
+struct LevelSchedule {
+  const int32_t* __restrict__ valids;
+  const int32_t* __restrict__ tile_ids;
+  const int32_t* __restrict__ f_rows;
+  const int32_t* __restrict__ f_cols;
+  const int32_t* __restrict__ o_rows;
+  const int32_t* __restrict__ o_cols;
+  __device__ bool valid(int i) const { return valids[i] != 0; }
+  __device__ size_t tile(int i) const { return (size_t)tile_ids[i]; }
+  __device__ size_t f_row(int i) const { return (size_t)f_rows[i]; }
+  __device__ size_t f_col(int i) const { return (size_t)f_cols[i]; }
+  __device__ size_t o_row(int lo) const { return (size_t)o_rows[lo]; }
+  __device__ size_t o_col(int lo) const { return (size_t)o_cols[lo]; }
+};
+
+// B5: tile i of one label store, on the frontier's 8-row block blockIdx.y.
+struct StepSchedule {
+  const int32_t* __restrict__ rows;
+  const int32_t* __restrict__ cols;
+  __device__ bool valid(int) const { return true; }
+  __device__ size_t tile(int i) const { return (size_t)i; }
+  __device__ size_t f_row(int) const { return blockIdx.y; }
+  __device__ size_t f_col(int i) const { return (size_t)rows[i]; }
+  __device__ size_t o_row(int) const { return blockIdx.y; }
+  __device__ size_t o_col(int lo) const { return (size_t)cols[lo]; }
+};
+
 // TileT = float: rows of B f32 values; TileT = uint32_t: rows of
 // row_len = ceil(B / 32) bit-plane words.
-template <typename TileT>
+template <typename TileT, typename Schedule>
 __global__ void fused_level_kernel(
     const float* __restrict__ frontier,   // (n_rows * 8, v_pad)
     const TileT* __restrict__ tiles,      // (n_tiles, B, row_len)
-    const int32_t* __restrict__ valids,   // (n_steps,)
-    const int32_t* __restrict__ tile_ids, // (n_steps,)
-    const int32_t* __restrict__ f_rows,   // (n_steps,)
-    const int32_t* __restrict__ f_cols,   // (n_steps,)
-    const int32_t* __restrict__ o_rows,   // (n_steps,)
-    const int32_t* __restrict__ o_cols,   // (n_steps,)
+    const Schedule sched,
     const int32_t* __restrict__ run_ptr,  // (n_runs + 1,)
     float* __restrict__ out,              // (n_out_rows, v_pad)
     int v_pad, int block_size, int row_len) {
@@ -88,14 +131,13 @@ __global__ void fused_level_kernel(
   for (int r = 0; r < kQPad; ++r) acc[r] = 0.0f;
 
   for (int i = lo; i < hi; ++i) {
-    if (valids[i] == 0) continue;  // the same i for every thread: uniform
-    const float* f_blk = frontier + (size_t)f_rows[i] * kQPad * v_pad +
-                         (size_t)f_cols[i] * block_size;
+    if (!sched.valid(i)) continue;  // the same i for every thread: uniform
+    const float* f_blk = frontier + sched.f_row(i) * kQPad * v_pad + sched.f_col(i) * block_size;
     __syncthreads();  // the previous step's reads of f_s are done
     for (int k = threadIdx.x; k < kQPad * block_size; k += blockDim.x)
       f_s[k] = f_blk[(size_t)(k / block_size) * v_pad + k % block_size];
     __syncthreads();
-    const TileT* tile = tiles + ((size_t)tile_ids[i] * block_size + v0) * row_len;
+    const TileT* tile = tiles + (sched.tile(i) * block_size + v0) * row_len;
 #pragma unroll 16
     for (int v = 0; v < n_v; ++v) {
       const float a = tile_value(tile + (size_t)v * row_len, j);
@@ -114,46 +156,63 @@ __global__ void fused_level_kernel(
 #pragma unroll
     for (int r = 0; r < kQPad; ++r) acc[r] += part[((h - 1) * kQPad + r) * block_size + j];
   }
-  float* o_blk = out + (size_t)o_rows[lo] * kQPad * v_pad + (size_t)o_cols[lo] * block_size;
+  float* o_blk = out + sched.o_row(lo) * kQPad * v_pad + sched.o_col(lo) * block_size;
 #pragma unroll
   for (int r = 0; r < kQPad; ++r) o_blk[(size_t)r * v_pad + j] = acc[r];
 }
 
-// Launches one CTA of B * G threads per run on `stream`.  Returns
-// cudaGetLastError() after the launch: nonzero means the launch was refused.
-template <typename TileT>
-int launch(const void* frontier, const void* tiles, const void* valids, const void* tile_ids,
-           const void* f_rows, const void* f_cols, const void* o_rows, const void* o_cols,
-           const void* run_ptr, void* out, int n_runs, int v_pad, int block_size, int row_len,
-           void* stream) {
+// Launches one CTA of B * G threads per cell of `grid` on `stream`.
+// Returns cudaGetLastError() after the launch: nonzero means the launch
+// was refused.
+template <typename TileT, typename Schedule>
+int launch(const void* frontier, const void* tiles, const Schedule& sched, const void* run_ptr,
+           void* out, dim3 grid, int v_pad, int block_size, int row_len, void* stream) {
   int n_groups = 1;
   while (n_groups < 8 && block_size * n_groups * 2 <= 1024) n_groups *= 2;
   const size_t smem = sizeof(float) * kQPad * (size_t)block_size * n_groups;
-  fused_level_kernel<TileT><<<n_runs, block_size * n_groups, smem, (cudaStream_t)stream>>>(
-      (const float*)frontier, (const TileT*)tiles, (const int32_t*)valids,
-      (const int32_t*)tile_ids, (const int32_t*)f_rows, (const int32_t*)f_cols,
-      (const int32_t*)o_rows, (const int32_t*)o_cols, (const int32_t*)run_ptr,
-      (float*)out, v_pad, block_size, row_len);
+  fused_level_kernel<TileT, Schedule><<<grid, block_size * n_groups, smem, (cudaStream_t)stream>>>(
+      (const float*)frontier, (const TileT*)tiles, sched, (const int32_t*)run_ptr, (float*)out,
+      v_pad, block_size, row_len);
   return (int)cudaGetLastError();
+}
+
+LevelSchedule level_schedule(const void* valids, const void* tile_ids, const void* f_rows,
+                             const void* f_cols, const void* o_rows, const void* o_cols) {
+  return {(const int32_t*)valids, (const int32_t*)tile_ids, (const int32_t*)f_rows,
+          (const int32_t*)f_cols, (const int32_t*)o_rows, (const int32_t*)o_cols};
 }
 
 }  // namespace
 
-// B1: tiles (n_tiles, B, B) f32.
+// B1: tiles (n_tiles, B, B) f32; one CTA per run.
 extern "C" int fused_level_f32(
     const void* frontier, const void* tiles, const void* valids, const void* tile_ids,
     const void* f_rows, const void* f_cols, const void* o_rows, const void* o_cols,
     const void* run_ptr, void* out, int n_runs, int v_pad, int block_size, void* stream) {
-  return launch<float>(frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
-                       run_ptr, out, n_runs, v_pad, block_size, block_size, stream);
+  return launch<float>(frontier, tiles,
+                       level_schedule(valids, tile_ids, f_rows, f_cols, o_rows, o_cols), run_ptr,
+                       out, dim3(n_runs), v_pad, block_size, block_size, stream);
 }
 
-// B3: tiles (n_tiles, B, ceil(B / 32)) uint32 bit-planes.
+// B3: tiles (n_tiles, B, ceil(B / 32)) uint32 bit-planes; one CTA per run.
 extern "C" int fused_level_f32_u32tiles(
     const void* frontier, const void* tiles, const void* valids, const void* tile_ids,
     const void* f_rows, const void* f_cols, const void* o_rows, const void* o_cols,
     const void* run_ptr, void* out, int n_runs, int v_pad, int block_size, void* stream) {
-  return launch<uint32_t>(frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
-                          run_ptr, out, n_runs, v_pad, block_size, (block_size + 31) / 32,
+  return launch<uint32_t>(frontier, tiles,
+                          level_schedule(valids, tile_ids, f_rows, f_cols, o_rows, o_cols),
+                          run_ptr, out, dim3(n_runs), v_pad, block_size, (block_size + 31) / 32,
                           stream);
+}
+
+// B5: frontier (m_pad, v_pad) with m_pad a multiple of 8, tiles (nnz, B, B)
+// f32 of one label store, out (m_pad, v_pad) zeroed by the caller; one
+// CTA per (run, 8-row block).
+extern "C" int frontier_step_f32(
+    const void* frontier, const void* tiles, const void* rows, const void* cols,
+    const void* run_ptr, void* out, int n_runs, int m_pad, int v_pad, int block_size,
+    void* stream) {
+  const StepSchedule sched{(const int32_t*)rows, (const int32_t*)cols};
+  return launch<float>(frontier, tiles, sched, run_ptr, out, dim3(n_runs, m_pad / kQPad), v_pad,
+                       block_size, block_size, stream);
 }

@@ -1,7 +1,9 @@
-"""The fused frontier level: one BFS level over all transitions.
+"""The frontier level kernels: the fused level over all transitions, and
+the per-transition step of the baseline path.
 
 Port of ``repro/kernels/frontier/frontier.py::fused_level_blocks`` and
-``packed_level_blocks`` with their four bodies.  The frontier operand is
+``packed_level_blocks`` with their four bodies, and of
+``frontier_step_blocks`` (B5, at the end of this module).  The frontier operand is
 ``(n_rows · q_pad, v_pad)``: row-block s < n_states is automaton state s,
 row-blocks past n_states are fan-in union rows (``ops.extend_frontier``),
 and the q_pad (= 8) rows inside a block carry 8 stacked queries as f32
@@ -26,10 +28,12 @@ fused_level_blocks     f32          f32          B1 ``fused_level_f32``
 fused_level_blocks     f32          int32 bits   B3 ``fused_level_f32_u32tiles``
 packed_level_blocks    int32 lanes  f32          B2 ``packed_level_f32tiles``
 packed_level_blocks    int32 lanes  int32 bits   B4 ``packed_level_u32tiles``
+frontier_step_blocks   f32          f32          B5 ``frontier_step_f32``
 =====================  ===========  ===========  =========================
 
 For CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/fused_level.cu`` and ``csrc/packed_level.cu`` and raise on
+``csrc/fused_level.cu`` (B1, B3 and B5, one kernel body on two
+schedules) and ``csrc/packed_level.cu`` (B2, B4) and raise on
 anything they do not take; for CPU tensors they run the plain PyTorch
 versions.  There is no fallback from the one to the other.  Each kernel
 has its own launch count (:func:`launch_counts`).
@@ -53,6 +57,7 @@ LAUNCHES = 0  # B1: fused_level_blocks on f32 tiles
 LAUNCHES_U32 = 0  # B3: fused_level_blocks on bit-plane tiles
 PACKED_LAUNCHES = 0  # B2: packed_level_blocks on f32 tiles
 PACKED_LAUNCHES_U32 = 0  # B4: packed_level_blocks on bit-plane tiles
+STEP_LAUNCHES = 0  # B5: frontier_step_blocks
 
 _I32 = ("firsts", "valids", "tile_ids", "f_rows", "f_cols", "o_rows", "o_cols")
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -66,13 +71,14 @@ def launch_counts() -> dict[str, int]:
         "fused_level_blocks_u32": LAUNCHES_U32,
         "packed_level_blocks": PACKED_LAUNCHES,
         "packed_level_blocks_u32": PACKED_LAUNCHES_U32,
+        "frontier_step_blocks": STEP_LAUNCHES,
     }
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    global LAUNCHES, LAUNCHES_U32, PACKED_LAUNCHES, PACKED_LAUNCHES_U32
-    LAUNCHES = LAUNCHES_U32 = PACKED_LAUNCHES = PACKED_LAUNCHES_U32 = 0
+    global LAUNCHES, LAUNCHES_U32, PACKED_LAUNCHES, PACKED_LAUNCHES_U32, STEP_LAUNCHES
+    LAUNCHES = LAUNCHES_U32 = PACKED_LAUNCHES = PACKED_LAUNCHES_U32 = STEP_LAUNCHES = 0
 
 
 def _shifts(device: torch.device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
@@ -344,4 +350,104 @@ def packed_level_blocks(
         PACKED_LAUNCHES_U32 += 1
     else:
         PACKED_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B5: the per-transition step of the baseline path
+# ---------------------------------------------------------------------------
+
+
+def frontier_step_blocks_plain(
+    frontier: torch.Tensor,
+    tiles: torch.Tensor,
+    block_rows: torch.Tensor,
+    block_cols: torch.Tensor,
+    block_size: int,
+) -> torch.Tensor:
+    """:func:`frontier_step_blocks` in plain PyTorch: gather the frontier
+    block of every tile, ``bmm``, ``index_add_`` into the output column
+    blocks.  Column blocks no tile visits stay zero."""
+    m_pad, v_pad = frontier.shape
+    nb = v_pad // block_size
+    fb = frontier.reshape(m_pad, nb, block_size).permute(1, 0, 2)  # (nb, m_pad, B)
+    prods = torch.bmm(fb[block_rows.long()], tiles)  # (nnz, m_pad, B)
+    out = torch.zeros((nb, m_pad, block_size), dtype=torch.float32, device=frontier.device)
+    out.index_add_(0, block_cols.long(), prods)
+    return out.permute(1, 0, 2).reshape(m_pad, v_pad)
+
+
+def _check_step(frontier, tiles, block_rows, block_cols, block_size, run_ptr) -> None:
+    if block_size % 8 or not 8 <= block_size <= 1024:
+        raise ValueError(f"block_size must be a multiple of 8 up to 1024, got {block_size}")
+    if frontier.dtype != torch.float32 or frontier.dim() != 2:
+        raise TypeError(f"frontier must be a 2-D float32 tensor, got {frontier.dtype}")
+    m_pad, v_pad = frontier.shape
+    if m_pad % 8 or v_pad % block_size:
+        raise ValueError(
+            f"frontier {tuple(frontier.shape)} does not tile into (8, {block_size}) blocks"
+        )
+    if tiles.dtype != torch.float32:
+        raise TypeError(f"tiles must be float32, got {tiles.dtype}")
+    nnz = tiles.shape[0]
+    if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (block_size, block_size):
+        raise ValueError(f"tiles must be (nnz, {block_size}, {block_size}), got {tuple(tiles.shape)}")
+    named = {"frontier": frontier, "tiles": tiles, "block_rows": block_rows,
+             "block_cols": block_cols, "run_ptr": run_ptr}
+    for name, t in named.items():
+        if t.device != frontier.device:
+            raise ValueError(f"{name} is on {t.device}, frontier on {frontier.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in ("block_rows", "block_cols", "run_ptr"):
+        if named[name].dtype != torch.int32 or named[name].dim() != 1:
+            raise TypeError(f"{name} must be a 1-D int32 tensor")
+    if block_rows.shape[0] != nnz or block_cols.shape[0] != nnz:
+        raise ValueError(f"block_rows and block_cols must hold one entry per tile ({nnz})")
+    if nnz == 0:
+        raise ValueError("an empty tile list: stores with no edges are not blocked")
+    if not 2 <= run_ptr.shape[0] <= v_pad // block_size + 1:
+        raise ValueError(
+            f"run_ptr of {run_ptr.shape[0]} offsets for {v_pad // block_size} column blocks"
+        )
+
+
+def frontier_step_blocks(
+    frontier: torch.Tensor,  # (m_pad, v_pad) f32 0/1, m_pad a multiple of 8
+    tiles: torch.Tensor,  # (nnz, B, B) f32 0/1, sorted by block col
+    block_rows: torch.Tensor,  # (nnz,) int32
+    block_cols: torch.Tensor,  # (nnz,) int32, non-decreasing
+    block_size: int,
+    *,
+    run_ptr: torch.Tensor,  # (n_runs + 1,) int32: offsets of each column's run
+) -> torch.Tensor:
+    """One (transition × label store) block product: the raw f32 counts
+    (m_pad, v_pad), ``out[:, cols[i]] += F[:, rows[i]] @ tiles[i]``; the
+    caller thresholds.  ``run_ptr[k] .. run_ptr[k+1]`` are the tiles of
+    the k-th distinct column of ``block_cols`` (``ops.column_runs``,
+    built once with the store), which the kernel gives one CTA each.
+    Column blocks no tile visits are zero, where ``repro``'s Pallas
+    kernel leaves them unwritten.  On CPU tensors this is
+    :func:`frontier_step_blocks_plain`; on CUDA tensors it launches B5
+    or raises."""
+    global STEP_LAUNCHES
+    if frontier.device.type == "cpu":
+        return frontier_step_blocks_plain(frontier, tiles, block_rows, block_cols, block_size)
+    if frontier.device.type != "cuda":
+        raise ValueError(f"frontier_step_blocks runs on cuda or cpu tensors, got {frontier.device}")
+    _check_step(frontier, tiles, block_rows, block_cols, block_size, run_ptr)
+    m_pad, v_pad = frontier.shape
+    out = torch.zeros((m_pad, v_pad), dtype=torch.float32, device=frontier.device)
+    fn = _build.load("fused_level").frontier_step_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(frontier.device):
+        err = fn(
+            frontier.data_ptr(), tiles.data_ptr(), block_rows.data_ptr(), block_cols.data_ptr(),
+            run_ptr.data_ptr(), out.data_ptr(), run_ptr.shape[0] - 1, m_pad, v_pad, block_size,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"frontier_step_f32 launch failed with CUDA error {err}")
+    STEP_LAUNCHES += 1
     return out

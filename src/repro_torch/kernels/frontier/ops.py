@@ -28,6 +28,11 @@ level launch per BFS level.  ``repro`` runs them in a
 ``lax.while_loop`` with no host sync; here a Python loop reads
 ``frontier.any()`` once per level, and :data:`FIXPOINT_COUNTERS` counts
 the levels and those host syncs.
+
+The per-transition baseline (:func:`make_blocked_graph`,
+:func:`expand_level`, :func:`multi_source_reach_baseline`) is the
+pre-fusion path: one ``frontier_step_blocks`` launch per (transition,
+label store) and level, and a host loop, as in ``repro``.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from repro_torch import resolve_device
 from repro_torch.core.automaton import FWD, INV, CompiledAutomaton
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier.frontier import (
+    frontier_step_blocks,
     fused_level_blocks,
     packed_level_blocks,
     unpack_lane_rows,
@@ -72,6 +78,65 @@ BUILD_COUNTERS: collections.Counter = collections.Counter()
 # Fixpoint instrumentation: "levels" counts BFS levels run (one fused
 # kernel launch each), "host_syncs" the frontier.any() reads.
 FIXPOINT_COUNTERS: collections.Counter = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# Per-label block stores (the baseline path's graph)
+# ---------------------------------------------------------------------------
+
+
+def column_runs(cols: np.ndarray) -> np.ndarray:
+    """The offsets of each distinct column's run in a non-decreasing
+    ``cols`` (``pack_blocks`` order), closed by ``len(cols)``: the CSR
+    ``run_ptr`` that ``frontier_step_blocks`` gives one CTA per run."""
+    cols = np.asarray(cols)
+    if (cols[1:] < cols[:-1]).any():
+        raise ValueError("block cols must be non-decreasing")
+    starts = np.flatnonzero(np.r_[True, cols[1:] != cols[:-1]]) if len(cols) else []
+    return np.append(starts, len(cols)).astype(np.int32)
+
+
+@dataclasses.dataclass
+class BlockedGraph:
+    """Every label's adjacency as its own block-sparse tile list, forward
+    and inverse (``repro``'s ``BlockedGraph``).  Unlike ``repro``'s, each
+    entry is ``(tiles, rows, cols, run_ptr)`` on the device: ``run_ptr``
+    (:func:`column_runs`) is built once here, so a step launch needs no
+    host work on the tile list.  ``device`` is where the tiles live."""
+
+    n_nodes: int
+    v_pad: int
+    block_size: int
+    fwd: dict[int, tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+    inv: dict[int, tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
+    device: torch.device
+
+
+def blocked_entry(
+    tiles: np.ndarray, rows: np.ndarray, cols: np.ndarray, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One label store of a :class:`BlockedGraph`, with its ``run_ptr``,
+    moved to ``device``."""
+    run_ptr = column_runs(cols)
+    return tuple(
+        torch.from_numpy(np.array(a)).to(device)  # a writable copy
+        for a in (tiles, np.asarray(rows, np.int32), np.asarray(cols, np.int32), run_ptr)
+    )
+
+
+def make_blocked_graph(
+    graph: LabeledGraph, block_size: int = 128, device: str | torch.device | None = None
+) -> BlockedGraph:
+    """Pack every label's edges into f32 tiles, forward and inverse, one
+    store at a time on the host, each moved to ``device`` (``None``: the
+    GPU) as soon as it is packed.  Labels with no edges get no entry."""
+    device = resolve_device(device)
+    BUILD_COUNTERS["make_blocked_graph"] += 1
+    fwd, inv = {}, {}
+    for (direction, lid), (t, r, c), _ in _label_tile_lists(graph, block_size, None, "f32"):
+        (fwd if direction == FWD else inv)[lid] = blocked_entry(t, r, c, device)
+    v_pad = -(-graph.n_nodes // block_size) * block_size
+    return BlockedGraph(graph.n_nodes, v_pad, block_size, fwd, inv, device)
 
 
 # ---------------------------------------------------------------------------
@@ -203,8 +268,51 @@ def _concat_stores(
     return torch.zeros(shape, dtype=dtype, device=device), bases
 
 
+def _stage_blocked(bg: BlockedGraph) -> StagedGraph:
+    """Stage A from a :class:`BlockedGraph`, on its device: the label
+    stores are copied into one tensor device to device, and each union
+    store is the ``index_add_`` of its direction's label tiles onto their
+    (row, col) block, clamped to 1 — on {0,1} tiles the same bytes as
+    ``repro``'s ``np.maximum`` fold, in ``pack_blocks``' (col, row)
+    order."""
+    nb = bg.v_pad // bg.block_size
+    host = {
+        (direction, lid): (e[0], e[1].cpu().numpy(), e[2].cpu().numpy())
+        for direction, store in ((FWD, bg.fwd), (INV, bg.inv))
+        for lid, e in store.items()
+    }
+    union_keys = {}
+    for direction in (FWD, INV):
+        keys = [c.astype(np.int64) * nb + r for (d, _), (_, r, c) in host.items() if d == direction]
+        if keys:
+            union_keys[direction] = np.unique(np.concatenate(keys))
+    sizes = {key: len(r) for key, (_, r, _) in host.items()}
+    sizes.update({(d, ANY_LABEL): len(k) for d, k in union_keys.items()})
+    tiles, bases = _concat_stores(sizes, bg.block_size, "f32", bg.device)
+    offsets = {}
+    for key, (t, r, c) in host.items():
+        base = bases[key]
+        tiles[base : base + len(r)].copy_(t)
+        offsets[key] = (base, r, c)
+        ukeys, ubase = union_keys[key[0]], bases[(key[0], ANY_LABEL)]
+        pos = np.searchsorted(ukeys, c.astype(np.int64) * nb + r) + ubase
+        tiles.index_add_(0, torch.from_numpy(pos).to(bg.device), t)
+    for direction, ukeys in union_keys.items():
+        base = bases[(direction, ANY_LABEL)]
+        tiles[base : base + len(ukeys)].clamp_(max=1.0)
+        rows, cols = (ukeys % nb).astype(np.int32), (ukeys // nb).astype(np.int32)
+        offsets[(direction, ANY_LABEL)] = (base, rows, cols)
+    return StagedGraph(
+        n_nodes=bg.n_nodes,
+        v_pad=bg.v_pad,
+        block_size=bg.block_size,
+        tiles=tiles,
+        offsets=dict(sorted(offsets.items())),
+    )
+
+
 def stage_graph(
-    graph: LabeledGraph,
+    source: LabeledGraph | BlockedGraph,
     block_size: int = 128,
     chunk_edges: int | None = None,
     tile_dtype: str = "f32",
@@ -213,6 +321,10 @@ def stage_graph(
     """Stage A for the fused backend: pack every label's tiles — plus the
     per-direction any-label union stores — into one device tensor +
     offsets, byte-identical to ``repro``'s ``stage_graph``.
+
+    A :class:`BlockedGraph` source is staged on its own device from its
+    f32 tiles (``block_size``, ``chunk_edges`` and ``device`` are then
+    not read), and, as in ``repro``, refuses ``tile_dtype="uint32"``.
 
     ``repro`` packs every store on the host and then concatenates them,
     so the host peaks at twice the store.  Here the device tensor is
@@ -225,6 +337,15 @@ def stage_graph(
     boolean semiring only) as int32 words with ``repro``'s uint32 bits."""
     if tile_dtype not in TILE_DTYPES:
         raise ValueError(f"tile_dtype must be one of {TILE_DTYPES}, got {tile_dtype!r}")
+    if isinstance(source, BlockedGraph):
+        if tile_dtype != "f32":
+            raise ValueError(
+                "a BlockedGraph carries pre-packed f32 tiles; stage from the "
+                "LabeledGraph to get a tile_dtype='uint32' store"
+            )
+        BUILD_COUNTERS["stage_graph"] += 1
+        return _stage_blocked(source)
+    graph = source
     device = resolve_device(device)
     BUILD_COUNTERS["stage_graph"] += 1
     sizes = _store_sizes(graph, block_size)
@@ -462,19 +583,22 @@ def build_level_schedule(
 
 def build_level_plan(
     ca: CompiledAutomaton,
-    source: LabeledGraph | StagedGraph,
+    source: LabeledGraph | BlockedGraph | StagedGraph,
     q_pad: int = QPAD,
     block_size: int = 128,
     device: str | torch.device | None = None,
 ) -> FusedLevelPlan:
-    """One-shot wrapper: stage (Stage A, when given a graph) then
-    schedule (Stage B).  Pass a :class:`StagedGraph` to skip straight to
-    Stage B (``block_size`` and ``device`` then come from it)."""
-    staged = (
-        source
-        if isinstance(source, StagedGraph)
-        else stage_graph(source, block_size, device=device)
-    )
+    """One-shot wrapper: stage (Stage A, when given a graph or a
+    :class:`BlockedGraph`) then schedule (Stage B).  Pass a
+    :class:`StagedGraph` to skip straight to Stage B.  ``block_size`` and
+    ``device`` are read only for a :class:`LabeledGraph`; the other
+    sources carry their own."""
+    if isinstance(source, StagedGraph):
+        staged = source
+    elif isinstance(source, BlockedGraph):
+        staged = stage_graph(source)
+    else:
+        staged = stage_graph(source, block_size, device=device)
     return build_level_schedule(ca, staged, q_pad)
 
 
@@ -540,7 +664,7 @@ def stack_start_masks(
 
 def multi_query_reach(
     ca: CompiledAutomaton,
-    staged: StagedGraph,
+    bg: BlockedGraph | StagedGraph,
     start_masks: np.ndarray,  # (Q, n_nodes) f32 0/1 — one row per query
     max_levels: int = 64,
     plan: FusedLevelPlan | None = None,
@@ -548,12 +672,13 @@ def multi_query_reach(
     """Fixpoint reachability for Q stacked queries; returns (Q, n_nodes)
     bool answer masks (nodes reached in an accepting state, per query).
     Queries ride the q_pad row dim in chunks of 8, one fixpoint per
-    chunk, on the staged tiles' device."""
+    chunk, on the tiles' device.  Without a ``plan`` one is built
+    (:func:`build_level_plan`: a :class:`BlockedGraph` is staged first)."""
     start_masks = np.atleast_2d(np.asarray(start_masks, np.float32))
     if plan is None:
-        plan = build_level_schedule(ca, staged)
+        plan = build_level_plan(ca, bg)
     n_q = start_masks.shape[0]
-    out = np.zeros((n_q, staged.n_nodes), bool)
+    out = np.zeros((n_q, bg.n_nodes), bool)
     for lo in range(0, n_q, plan.q_pad):
         chunk = start_masks[lo : lo + plan.q_pad]
         f0 = torch.from_numpy(stack_start_masks(plan, ca.start, chunk)).to(plan.tiles.device)
@@ -563,20 +688,20 @@ def multi_query_reach(
         acc = torch.zeros_like(visited[0])
         for qf in ca.accepting:
             acc = torch.maximum(acc, visited[qf])
-        out[lo : lo + chunk.shape[0]] = acc[: chunk.shape[0], : staged.n_nodes].cpu().numpy() > 0
+        out[lo : lo + chunk.shape[0]] = acc[: chunk.shape[0], : bg.n_nodes].cpu().numpy() > 0
     return out
 
 
 def multi_source_reach(
     ca: CompiledAutomaton,
-    staged: StagedGraph,
+    bg: BlockedGraph | StagedGraph,
     start_mask: np.ndarray,
     max_levels: int = 64,
     plan: FusedLevelPlan | None = None,
 ) -> np.ndarray:
     """Single-query fixpoint reachability on the fused level kernel."""
     return multi_query_reach(
-        ca, staged, np.asarray(start_mask, np.float32)[None, :],
+        ca, bg, np.asarray(start_mask, np.float32)[None, :],
         max_levels=max_levels, plan=plan,
     )[0]
 
@@ -727,3 +852,85 @@ def multi_query_reach_packed(
         lanes = unpack_lane_rows(acc)[: chunk.shape[0], : staged.n_nodes]
         out[lo : lo + chunk.shape[0]] = lanes.cpu().numpy() > 0
     return out
+
+
+# ---------------------------------------------------------------------------
+# Per-transition baseline (one launch per transition × label store)
+# ---------------------------------------------------------------------------
+
+
+def expand_operand(frontier_row: torch.Tensor) -> torch.Tensor:
+    """B5's frontier operand for one transition: the source state's row
+    in row 0 of an 8-row frontier (the f32 row-block minimum, so the
+    launch shape does not grow with the automaton), the other rows 0."""
+    row_sel = torch.zeros((8, frontier_row.shape[0]), dtype=torch.float32, device=frontier_row.device)
+    row_sel[0] = frontier_row
+    return row_sel
+
+
+def _expand_one(frontier_row: torch.Tensor, entry, block_size: int) -> torch.Tensor:
+    """One (transition × label store) block product: one B5 launch on
+    :func:`expand_operand`, and row 0 of the counts clamped to 0/1."""
+    tiles, rows, cols, run_ptr = entry
+    counts = frontier_step_blocks(
+        expand_operand(frontier_row), tiles, rows, cols, block_size, run_ptr=run_ptr
+    )
+    return torch.clamp(counts[0], max=1.0)
+
+
+def baseline_entries(ca: CompiledAutomaton, bg: BlockedGraph):
+    """The (transition, label store) pairs one baseline level launches,
+    in launch order: a labelled transition reads its label's store, a
+    wildcard every store of its direction; labels with no edges have no
+    store and launch nothing."""
+    for t in ca.transitions:
+        store = bg.fwd if t.direction == FWD else bg.inv
+        entries = [store.get(t.label_id)] if t.label_id >= 0 else list(store.values())
+        for entry in entries:
+            if entry is not None:
+                yield t, entry
+
+
+def expand_level(
+    ca: CompiledAutomaton,
+    bg: BlockedGraph,
+    frontier: torch.Tensor,  # (n_states, v_pad) f32 0/1 — rows = automaton states
+) -> torch.Tensor:
+    """One BFS level over all grounded transitions; returns the new 0/1
+    mask (n_states, v_pad).  Baseline path: one B5 launch per transition
+    × label store, each merged into its destination state's row with
+    ``amax`` — see :func:`expand_level_fused` for the one-launch form."""
+    out = torch.zeros((ca.n_states, bg.v_pad), dtype=torch.float32, device=frontier.device)
+    for t, entry in baseline_entries(ca, bg):
+        out[t.dst] = torch.maximum(out[t.dst], _expand_one(frontier[t.src], entry, bg.block_size))
+    return (out > 0).float()
+
+
+def multi_source_reach_baseline(
+    ca: CompiledAutomaton,
+    bg: BlockedGraph,
+    start_mask: np.ndarray,
+    max_levels: int = 64,
+) -> np.ndarray:
+    """Fixpoint reachability with per-transition level launches and a
+    host loop — the pre-fusion path, kept as the benchmark baseline.
+    Frontier and visited set stay on the device; each level reads
+    ``new.any()`` once on the host.  :data:`FIXPOINT_COUNTERS` counts the
+    levels (one :func:`expand_level` each) and those syncs."""
+    frontier = torch.zeros((ca.n_states, bg.v_pad), dtype=torch.float32, device=bg.device)
+    frontier[ca.start, : len(start_mask)] = torch.as_tensor(
+        np.asarray(start_mask, np.float32), device=bg.device
+    )
+    visited = frontier.clone()
+    for _ in range(max_levels):
+        nxt = expand_level(ca, bg, frontier)
+        FIXPOINT_COUNTERS["levels"] += 1
+        new = nxt * (1.0 - visited)  # exact on {0,1} floats
+        if not frontier_nonempty(new):
+            break
+        visited = torch.maximum(visited, new)
+        frontier = new
+    acc = torch.zeros(bg.v_pad, dtype=torch.bool, device=bg.device)
+    for qf in ca.accepting:
+        acc |= visited[qf] > 0
+    return acc[: bg.n_nodes].cpu().numpy()
