@@ -33,8 +33,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
              in any order) on (a) the q1 plan at full scale, (b) a
              block-16 plan with an empty label store, a wildcard and an
              inverse transition, (c) a plan with output blocks made only
-             of cover steps; the packed kernels on random lane words over
-             all 32 bits.  Then the time of one level of each query's
+             of cover steps, (d) the q1 plan with a cover step after
+             every second valid step of each run (runs of more than
+             2 x ``WORK_CHUNK`` valid steps with cover steps between
+             them); the packed kernels on random lane words over all 32
+             bits.  Each plan's work-list size (B3's CTAs) and longest
+             run are logged.  Then the time of one level of each query's
              plan for each kernel, the plain version's, and the bound;
 * path     — ``s2_execute`` on Table-2 queries q1, q9 and q12 over all
              their valid starts, for each of the four paths, with the
@@ -69,7 +73,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
              qwen3-14b's attention widths at decode_32k and long_500k,
              against its plain version (max |diff| at most 2e-2 of the
              largest |output|, which an all-zero output and the kernel on
-             half the cache must both miss) and SDPA.
+             half the cache must both miss) and SDPA; each shape's
+             kv split (n_split, split length, partials' bytes) is logged.
 
 Each phase logs its seconds and peak device memory and frees its tensors
 before the next.  B5, B6 and B7 are timed as B1-B4 are (CUDA graph, L2
@@ -93,6 +98,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch import interop  # noqa: E402
 from repro_torch.core import paa, strategies  # noqa: E402
 from repro_torch.graph.generators import (  # noqa: E402
     TABLE2_PAPER, TABLE2_QUERIES, alibaba_like, random_labeled_graph,
@@ -192,6 +198,43 @@ def level_args(plan, frontier):
         plan.f_rows, plan.f_cols, plan.o_rows, plan.o_cols,
         plan.block_size, plan.q_pad,
     )
+
+
+def level_kw(plan, k) -> dict:
+    """The keywords of one kernel level on ``plan``: run_ptr, and for
+    ``fused_level_blocks`` (B3 on bit-plane tiles) the work list."""
+    kw = {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr}
+    if k["wrapper"] is fkernel.fused_level_blocks:
+        kw["work"] = plan.work
+    return kw
+
+
+SCHEDULE = ("firsts", "valids", "tile_ids", "f_rows", "f_cols", "o_rows", "o_cols")
+
+
+def with_cover_steps(staged, plan):
+    """``plan`` with a cover step (valids 0, tile 0) after every second
+    valid step of each run, carried in through ``interop.plan_from_numpy``,
+    which derives run_ptr and the work list anew."""
+    cols = {k: getattr(plan, k).cpu().numpy() for k in SCHEDULE}
+    ptr = plan.run_ptr.cpu().numpy()
+    keep = []
+    for lo, hi in zip(ptr[:-1], ptr[1:]):
+        for n, i in enumerate(range(lo, hi)):
+            keep.append(i)
+            if n % 2 == 1 and i + 1 < hi and cols["valids"][i]:
+                keep.append(-1 - i)  # a cover step in the output block of step i
+    idx = np.array(keep)
+    arrays = {k: a[np.where(idx >= 0, idx, -1 - idx)].copy() for k, a in cols.items()}
+    for k in ("firsts", "valids", "tile_ids", "f_rows", "f_cols"):
+        arrays[k][idx < 0] = 0
+    return interop.plan_from_numpy(staged, plan.n_states, *(arrays[k] for k in SCHEDULE),
+                                   plan.union_members)
+
+
+def runs_of(plan) -> np.ndarray:
+    """The valid steps of each output block's run."""
+    return np.add.reduceat(plan.valids.cpu().numpy(), plan.run_ptr.cpu().numpy()[:-1])
 
 
 def random_frontier(plan, gen, lanes: bool) -> torch.Tensor:
@@ -336,7 +379,7 @@ def trace_query(placement, ca, starts, staged, dev, backend: str) -> dict:
 
 
 def check_kernels(stores, cas, dev, gen) -> dict[str, float]:
-    """Each kernel against its plain version on cases a, b and c; returns
+    """Each kernel against its plain version on cases a to d; returns
     each kernel's max |kernel − plain| (0 when equal, else it raises)."""
     case_b_graph = sparse_label_graph()
     case_c_graph = random_labeled_graph(300, 500, 3, seed=11)
@@ -352,13 +395,14 @@ def check_kernels(stores, cas, dev, gen) -> dict[str, float]:
         for label, (g, expr, block) in small.items():
             staged = fops.stage_graph(g, block, tile_dtype=td, device=dev)
             cases[label] = fops.build_level_schedule(paa.compile_query(expr, g), staged)
+        cases["d: q1 with cover steps inside its runs"] = with_cover_steps(
+            stores[td], cases["a: q1, full scale"])
         for label, plan in cases.items():
             valids = plan.valids.cpu().numpy()
-            ptr = plan.run_ptr.cpu().numpy()
-            cover_only = int(sum(valids[lo:hi].sum() == 0 for lo, hi in zip(ptr[:-1], ptr[1:])))
+            runs = runs_of(plan)
             f = random_frontier(plan, gen, k["lanes"])
             n_out = plan.n_states * plan.q_pad
-            got = k["wrapper"](*level_args(plan, f), n_out_rows=n_out, run_ptr=plan.run_ptr)
+            got = k["wrapper"](*level_args(plan, f), **level_kw(plan, k))
             want = k["plain"](*level_args(plan, f), n_out_rows=n_out)
             torch.cuda.synchronize()
             err = float((got.double() - want.double()).abs().max())
@@ -367,9 +411,15 @@ def check_kernels(stores, cas, dev, gen) -> dict[str, float]:
                 raise AssertionError(f"{name} != plain on case {label}: max |diff| {err}")
             log("kernels", f"{name} == plain on case {label}: {plan.n_states} states, "
                 f"B={plan.block_size}, {td} tiles, {len(valids)} steps ({int(valids.sum())} with a "
-                f"tile), {cover_only} of {len(ptr) - 1} output blocks cover-only")
-        if cover_only == 0:
+                f"tile), {int((runs == 0).sum())} of {len(runs)} output blocks cover-only, longest "
+                f"run {int(runs.max())} valid steps, work list {plan.work.shape[0]} chunks of <= "
+                f"{plan.work.shape[1]}")
+        if not (runs_of(cases["c: cover-only output blocks"]) == 0).any():
             raise AssertionError("case c has no cover-only output block")
+        d = cases["d: q1 with cover steps inside its runs"]
+        runs, steps = runs_of(d), np.diff(d.run_ptr.cpu().numpy())
+        if not ((runs > 2 * fops.WORK_CHUNK) & (steps > runs)).any():
+            raise AssertionError("case d has no run of more than two chunks with cover steps inside")
     return max_err
 
 
@@ -383,13 +433,13 @@ def time_levels(stores, cas, gen, flush) -> dict:
         for name, k in KERNELS.items():
             plan = plans[k["tile_dtype"]]
             f = random_frontier(plan, gen, k["lanes"])
-            kw = {"n_out_rows": plan.n_states * plan.q_pad}
+            kw = level_kw(plan, k)
 
             def kernel_level(k=k, plan=plan, f=f, kw=kw):
-                return k["wrapper"](*level_args(plan, f), **kw, run_ptr=plan.run_ptr)
+                return k["wrapper"](*level_args(plan, f), **kw)
 
-            def plain_level(k=k, plan=plan, f=f, kw=kw):
-                return k["plain"](*level_args(plan, f), **kw)
+            def plain_level(k=k, plan=plan, f=f):
+                return k["plain"](*level_args(plan, f), n_out_rows=plan.n_states * plan.q_pad)
 
             bound_ms, bound_by, nbytes, ops = level_bound(plan, k["lanes"])
             t = times.setdefault(name, {})[q] = {
@@ -399,6 +449,13 @@ def time_levels(stores, cas, gen, flush) -> dict:
                 "plain_ms": events_ms(plain_level, 10, flush),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
             }
+            if name == "fused_level_blocks_u32":
+                want = plain_level()
+                if not torch.equal(kernel_level(), want):
+                    raise AssertionError(f"{name} != plain at the timed {q} level")
+                t["chunks"] = int(plan.work.shape[0])
+                log("kernels", f"{name} {q} level == plain; {t['chunks']} chunks = CTAs, longest "
+                    f"run {int(runs_of(plan).max())} valid steps")
             log("kernels", f"{name} {q} level: kernel {t['ms'] * 1e3:.2f} us (L2 flushed; "
                 f"{t['warm_ms'] * 1e3:.2f} us warm; {t['events_ms'] * 1e3:.2f} us one call between "
                 f"events), plain {t['plain_ms'] * 1e3:.2f} us between events, bound "
@@ -706,6 +763,10 @@ def phase_decode(dev, gen, flush, record) -> dict:
         k = torch.randn((batch, seq, QWEN_KV_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
         v = torch.randn((batch, seq, QWEN_KV_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
         kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+        n_split, split_len = decode_attn.decode_splits(batch, QWEN_KV_HEADS, seq)
+        part_bytes = 0 if n_split == 1 else batch * QWEN_HEADS * n_split * (QWEN_DH + 2) * 4
+        log("decode", f"{name}: {n_split} kv split(s) of {split_len} positions: a grid of "
+            f"{batch * QWEN_KV_HEADS} x {n_split} CTAs, {part_bytes} bytes of f32 partials")
         reset_launches()
         out = da_ops.decode_attention(q, k, v, kv_len)
         torch.cuda.synchronize()
@@ -731,7 +792,8 @@ def phase_decode(dev, gen, flush, record) -> dict:
         nbytes = 2 * batch * kv * QWEN_KV_HEADS * QWEN_DH * 2 + 2 * q.numel() * 2
         ops = 4 * batch * QWEN_HEADS * kv * QWEN_DH
         t["bound_ms"], t["bound_by"] = bound(nbytes, ops, BF16_FLOPS)
-        t.update({"launches": launches, "max_abs_err": err, "limit": limit, "largest_abs_out": scale,
+        t.update({"n_split": n_split, "split_len": split_len, "partial_bytes": part_bytes,
+                  "launches": launches, "max_abs_err": err, "limit": limit, "largest_abs_out": scale,
                   "rms_out": float(want.float().square().mean().sqrt()), "controls": controls,
                   "bytes": nbytes, "ops": ops})
         del want, out

@@ -21,6 +21,7 @@ from repro_torch.kernels.frontier.ops import (
     FusedLevelPlan,
     StagedGraph,
     blocked_entry,
+    level_work,
     run_offsets,
 )
 
@@ -99,7 +100,8 @@ def plan_from_numpy(
 ) -> FusedLevelPlan:
     """A ``repro`` ``FusedLevelPlan`` given by its seven schedule arrays and
     ``union_members``, over ``staged`` (its device and tiles).  The port's
-    ``run_ptr`` is derived and checked here."""
+    ``run_ptr`` is derived and checked here, and its ``work`` list built
+    from it as Stage B builds it."""
     cols = [np.asarray(a, np.int32) for a in (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)]
     firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols = cols
     nb = staged.v_pad // staged.block_size
@@ -127,5 +129,6 @@ def plan_from_numpy(
         o_rows=put(o_rows),
         o_cols=put(o_cols),
         run_ptr=put(run_ptr),
+        work=put(level_work(valids, run_ptr)),
         tile_dtype=staged.tile_dtype,
     )

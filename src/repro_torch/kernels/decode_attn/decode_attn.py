@@ -6,17 +6,21 @@ Port of ``repro/kernels/decode_attn/decode_attn.py::flash_decode_gqa``
 the kv-block axis sequential, with the online softmax's running max,
 sum and f32 accumulator in VMEM scratch across it; one instance holds
 all r = H / G q-heads of its group.  Here, on CUDA tensors,
-:func:`flash_decode_gqa` launches the hand-written kernel of
-``csrc/decode_attn.cu``: one CTA per (batch, kv group) that loops over
-the kv positions itself, reading ``kv_len`` from device memory.  On CPU
-tensors it runs :func:`flash_decode_gqa_plain`, the same online softmax
-over ``block_kv`` blocks in plain PyTorch; there is no fallback from the
-one to the other.
+:func:`flash_decode_gqa` launches the hand-written kernels of
+``csrc/decode_attn.cu``: split-KV, a grid of (batch × kv group,
+``n_split``) CTAs that each walk ``split_len`` positions through an
+async ring of K/V tiles, with bf16 products on tensor cores, and a
+combine kernel that merges the splits' f32 partials in a fixed order.
+:func:`decode_splits` picks the split from B, G and S alone; ``kv_len``
+stays on the device.  On CPU tensors it runs
+:func:`flash_decode_gqa_plain`, the same online softmax over
+``block_kv`` blocks in plain PyTorch; there is no fallback from the one
+to the other.
 
-The two agree to rounding, not bit for bit: the kernel walks kv tiles of
-64 positions where the plain version walks ``block_kv``, so p is
-rounded to V's dtype relative to a different running max, and the sums
-run in another order.
+The two agree to rounding, not bit for bit: the kernel walks other kv
+tiles than ``block_kv`` (16 positions per warp in bf16) and merges
+splits, so p is rounded to V's dtype relative to a different running
+max, and the sums run in another order.
 """
 
 from __future__ import annotations
@@ -33,7 +37,21 @@ LAUNCHES = 0  # B7: flash_decode_gqa
 _DTYPES = {torch.float32: "decode_attn_f32", torch.bfloat16: "decode_attn_bf16"}
 _MASKED = -1e30
 MAX_GROUP_ROWS = 16  # q-heads per kv group the kernel holds
-MAX_HEAD_DIM = 256
+HEAD_DIMS = (64, 128, 256)  # the kernel's instantiations
+SPLIT_TARGET_CTAS = 264  # twice the H100's 132 SMs
+SPLIT_ALIGN = 64  # positions; a multiple of both kernels' kv tiles (64 bf16, 32 f32)
+
+
+def decode_splits(batch: int, n_groups: int, seq: int) -> tuple[int, int]:
+    """(n_split, split_len): the kernel's split of the S positions of each
+    (batch, kv group) into ``n_split`` runs of ``split_len`` (a multiple of
+    :data:`SPLIT_ALIGN`; the last may be shorter), the fewest that give
+    the grid :data:`SPLIT_TARGET_CTAS` CTAs.  From B, G and S alone:
+    ``kv_len`` stays on the device."""
+    chunks = -(-seq // SPLIT_ALIGN)
+    want = max(1, min(-(-SPLIT_TARGET_CTAS // (batch * n_groups)), chunks))
+    split_len = -(-chunks // want) * SPLIT_ALIGN
+    return -(-seq // split_len), split_len
 
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_kv: int):
@@ -89,11 +107,14 @@ def _check(q, k, v, kv_len, h, g, dh) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if h // g > MAX_GROUP_ROWS or dh % 8 or dh > MAX_HEAD_DIM:
+    if h // g > MAX_GROUP_ROWS or dh not in HEAD_DIMS:
         raise ValueError(
-            f"the kernel takes up to {MAX_GROUP_ROWS} q-heads per kv group and Dh a multiple "
-            f"of 8 up to {MAX_HEAD_DIM}; got H/G={h // g}, Dh={dh}"
+            f"the kernel takes up to {MAX_GROUP_ROWS} q-heads per kv group and Dh in "
+            f"{HEAD_DIMS}; got H/G={h // g}, Dh={dh}"
         )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (cp.async)")
 
 
 def flash_decode_gqa(
@@ -106,7 +127,8 @@ def flash_decode_gqa(
     """(B, H, Dh) attention output of one query token per sequence, in
     q's dtype.  Requires ``S % block_kv == 0``, as ``repro`` does.  On
     CPU tensors this is :func:`flash_decode_gqa_plain`; on CUDA tensors it
-    launches B7 or raises."""
+    launches B7 (its split kernel, then, with more than one split, its
+    combine kernel: one launch in :data:`LAUNCHES`) or raises."""
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_decode_gqa_plain(q, k, v, kv_len, block_kv)
@@ -114,14 +136,20 @@ def flash_decode_gqa(
         raise ValueError(f"flash_decode_gqa runs on cuda or cpu tensors, got {q.device}")
     b, h, dh, s, g = _shapes(q, k, v, block_kv)
     _check(q, k, v, kv_len, h, g, dh)
+    n_split, split_len = decode_splits(b, g, s)
     out = torch.empty_like(q)
+    # the splits' f32 partials: m and l per q row, then the accumulators
+    part = None
+    if n_split > 1:
+        part = torch.empty(b * h * n_split * (dh + 2), dtype=torch.float32, device=q.device)
     fn = getattr(_build.load("decode_attn"), _DTYPES[q.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            b, s, g, h // g, dh, 1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream,
+            None if part is None else part.data_ptr(), b, s, g, h // g, dh, n_split, split_len,
+            1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{_DTYPES[q.dtype]} launch failed with CUDA error {err}")

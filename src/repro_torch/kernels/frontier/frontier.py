@@ -32,15 +32,16 @@ frontier_step_blocks   f32          f32          B5 ``frontier_step_f32``
 =====================  ===========  ===========  =========================
 
 For CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/fused_level.cu`` (B1, B3 and B5, one kernel body on two
-schedules) and ``csrc/packed_level.cu`` (B2, B4) and raise on
-anything they do not take; for CPU tensors they run the plain PyTorch
-versions.  There is no fallback from the one to the other.  Each kernel
-has its own launch count (:func:`launch_counts`).
+``csrc/fused_level.cu`` (B1 and B5, one kernel body on two schedules;
+B3, a kernel of its own over the plan's work list) and
+``csrc/packed_level.cu`` (B2, B4) and raise on anything they do not
+take; for CPU tensors they run the plain PyTorch versions.  There is no
+fallback from the one to the other.  Each kernel has its own launch
+count (:func:`launch_counts`).
 
 Exact: operands are {0,1} and sums are integers below 2^24, so f32 sums
-are exact in any order, and OR is exact in any order: each kernel equals
-its plain version bit for bit.
+are exact in any order (B3 adds its chunks' sums with atomics), and OR
+is exact in any order: each kernel equals its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -255,6 +256,36 @@ def _launch(lib_name, fn_name, out, frontier, tiles, valids, tile_ids, f_rows, f
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
 
 
+def _launch_bitplane(out, frontier, tiles, tile_ids, f_rows, f_cols, o_rows, o_cols, work,
+                     block_size) -> None:
+    fn = _build.load("fused_level").fused_level_f32_u32tiles
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(frontier.device):
+        err = fn(
+            frontier.data_ptr(), tiles.data_ptr(), tile_ids.data_ptr(), f_rows.data_ptr(),
+            f_cols.data_ptr(), o_rows.data_ptr(), o_cols.data_ptr(), work.data_ptr(),
+            out.data_ptr(), work.shape[0], work.shape[1], frontier.shape[1], block_size,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_level_f32_u32tiles launch failed with CUDA error {err}")
+
+
+def _check_work(work: torch.Tensor | None, frontier: torch.Tensor, tiles: torch.Tensor) -> None:
+    if work is None:
+        raise ValueError("bit-plane tiles on CUDA need the plan's work list: work=plan.work")
+    if work.dtype != torch.int32 or work.dim() != 2 or not 1 <= work.shape[1] <= 8:
+        raise TypeError(f"work must be a 2-D int32 tensor of 1 to 8 columns, got {work.dtype} "
+                        f"{tuple(work.shape)}")
+    if work.device != frontier.device:
+        raise ValueError(f"work is on {work.device}, frontier on {frontier.device}")
+    if not work.is_contiguous():
+        raise ValueError("work must be contiguous")
+    if frontier.data_ptr() % 16 or tiles.data_ptr() % 16:
+        raise ValueError("frontier and tiles must start on 16-byte boundaries (cp.async)")
+
+
 def fused_level_blocks(
     frontier: torch.Tensor,  # (n_rows * q_pad, v_pad) f32 0/1 (union rows appended)
     tiles: torch.Tensor,  # (n_tiles, B, B) f32 0/1 or (n_tiles, B, ⌈B/32⌉) int32 bits
@@ -269,6 +300,7 @@ def fused_level_blocks(
     q_pad: int,
     *,
     run_ptr: torch.Tensor,  # (n_runs + 1,) int32 run offsets (FusedLevelPlan.run_ptr)
+    work: torch.Tensor | None = None,  # (n_chunks, C) int32 (FusedLevelPlan.work)
     n_out_rows: int | None = None,  # output height; default = frontier height
 ) -> torch.Tensor:
     """One BFS level over ALL transitions: raw f32 counts (n_out_rows, v_pad).
@@ -276,12 +308,14 @@ def fused_level_blocks(
     Steps must be sorted by (o_rows, o_cols) and cover every output block
     (the plan builder adds zero-tile cover steps).  ``run_ptr`` are the
     CSR offsets of the output-block runs (``FusedLevelPlan.run_ptr``),
-    which the kernel walks in place of ``firsts``; ``firsts`` stays in
-    the signature for parity with ``repro``.  The tile store picks the
-    kernel, as ``repro`` dispatches on ``tiles.dtype``: f32 tiles B1,
-    int32 bit-planes B3.  On CPU tensors this is
-    :func:`fused_level_blocks_plain`; on CUDA tensors it launches the
-    kernel or raises."""
+    which B1 walks in place of ``firsts``; ``firsts`` stays in the
+    signature for parity with ``repro``.  ``work`` is the plan's work
+    list (``FusedLevelPlan.work``, :func:`ops.level_work`), which B3
+    walks: required for bit-plane tiles on CUDA, unread otherwise.  The
+    tile store picks the kernel, as ``repro`` dispatches on
+    ``tiles.dtype``: f32 tiles B1, int32 bit-planes B3.  On CPU tensors
+    this is :func:`fused_level_blocks_plain`; on CUDA tensors it
+    launches the kernel or raises."""
     global LAUNCHES, LAUNCHES_U32
     n_out_rows = n_out_rows or frontier.shape[0]
     if frontier.device.type == "cpu":
@@ -293,16 +327,23 @@ def fused_level_blocks(
         raise ValueError(f"fused_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
     ints = dict(zip(_I32, (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)))
     _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, torch.float32)
-    bits = tiles.dtype == torch.int32
-    out = torch.empty((n_out_rows, frontier.shape[1]), dtype=torch.float32, device=frontier.device)
+    shape = (n_out_rows, frontier.shape[1])
+    if tiles.dtype == torch.int32:
+        _check_work(work, frontier, tiles)
+        # B3 adds each chunk's sums into a zeroed output; cover-only blocks
+        # have no chunk, and a plan with no valid step launches nothing
+        out = torch.zeros(shape, dtype=torch.float32, device=frontier.device)
+        if work.shape[0]:
+            _launch_bitplane(out, frontier, tiles, tile_ids, f_rows, f_cols, o_rows, o_cols,
+                             work, block_size)
+            LAUNCHES_U32 += 1
+        return out
+    out = torch.empty(shape, dtype=torch.float32, device=frontier.device)
     _launch(
-        "fused_level", "fused_level_f32_u32tiles" if bits else "fused_level_f32", out,
+        "fused_level", "fused_level_f32", out,
         frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols, run_ptr, block_size,
     )
-    if bits:
-        LAUNCHES_U32 += 1
-    else:
-        LAUNCHES += 1
+    LAUNCHES += 1
     return out
 
 

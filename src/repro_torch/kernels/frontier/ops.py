@@ -12,7 +12,8 @@ path.  Compilation is **two-stage**, as in ``repro``:
 * **Stage B — automaton-dependent, cheap.**  :func:`build_level_schedule`
   only computes the step order and the seven id arrays over the Stage-A
   offsets, plus the port's ``run_ptr`` (the CSR offsets of the output
-  block runs the CUDA kernel gives one CTA each).  Transitions sharing
+  block runs kernels B1, B2 and B4 give one CTA each) and ``work`` (the
+  chunks of at most two valid steps kernel B3 gives one CTA each).  Transitions sharing
   (dst_state, direction, label) fuse into ONE pass over a *fan-in union
   row* appended to the frontier by :func:`extend_frontier`.
 
@@ -449,7 +450,9 @@ class FusedLevelPlan:
     block's first step and ``valids`` the steps that carry a real tile.
     The seven id arrays are byte-identical to ``repro``'s; ``run_ptr`` is
     the port's own: ``run_ptr[k] .. run_ptr[k+1]`` are the steps of output
-    block ``k = dst_state · nb + block_col``."""
+    block ``k = dst_state · nb + block_col``.  ``work`` is the port's
+    too: kernel B3's work list (:func:`level_work`), the valid steps of
+    every run cut into chunks of at most :data:`WORK_CHUNK`."""
 
     n_states: int
     n_nodes: int
@@ -467,6 +470,7 @@ class FusedLevelPlan:
     o_rows: torch.Tensor  # (n_steps,) int32: dst automaton state
     o_cols: torch.Tensor  # (n_steps,) int32: tile block col
     run_ptr: torch.Tensor  # (n_states · nb + 1,) int32 run offsets
+    work: torch.Tensor  # (n_chunks, WORK_CHUNK) int32 valid steps, -1 past a chunk's end
     # dtype of the aliased tile store ("f32" or "uint32"); the kernels
     # dispatch off the tensor's dtype, executors check it against theirs
     tile_dtype: str = "f32"
@@ -544,6 +548,32 @@ def run_offsets(arr: np.ndarray, firsts: np.ndarray, n_states: int, nb: int) -> 
     return np.append(starts, len(firsts)).astype(np.int32)
 
 
+# valid steps per chunk of kernel B3's work list: the Alibaba twin's
+# q1/q9/q12 levels hold 241-370 valid steps in runs of up to 24, so
+# chunks of 2 give 121-190 CTAs, about one per SM, each with two steps'
+# operands in flight
+WORK_CHUNK = 2
+
+
+def level_work(valids: np.ndarray, run_ptr: np.ndarray, chunk: int = WORK_CHUNK) -> np.ndarray:
+    """Kernel B3's work list: the valid steps of each run, in step order,
+    cut into chunks of at most ``chunk``, each inside one run.  Cover
+    steps (``valids == 0``) get no entry, so an output block made only
+    of cover steps has no chunk.  Returns (n_chunks, chunk) int32 step
+    indices, -1 past a chunk's end; chunk c's output block is that of
+    its first step.  Built once per plan, in numpy."""
+    steps = np.nonzero(np.asarray(valids))[0]
+    run = np.searchsorted(np.asarray(run_ptr), steps, side="right") - 1
+    idx = np.arange(len(steps))
+    run_start = np.ones(len(steps), bool)
+    run_start[1:] = run[1:] != run[:-1]
+    rank = idx - np.maximum.accumulate(np.where(run_start, idx, 0))
+    chunk_id = np.cumsum(rank % chunk == 0) - 1
+    work = np.full((int(chunk_id[-1]) + 1 if len(steps) else 0, chunk), -1, np.int32)
+    work[chunk_id, rank % chunk] = steps
+    return work
+
+
 def build_level_schedule(
     ca: CompiledAutomaton, staged: StagedGraph, q_pad: int = QPAD
 ) -> FusedLevelPlan:
@@ -577,6 +607,7 @@ def build_level_schedule(
         o_rows=put(arr[:, 0]),
         o_cols=put(arr[:, 1]),
         run_ptr=put(run_ptr),
+        work=put(level_work(valids, run_ptr)),
         tile_dtype=staged.tile_dtype,
     )
 
@@ -616,7 +647,7 @@ def expand_level_fused(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Te
         fre, plan.tiles, plan.firsts, plan.valids, plan.tile_ids,
         plan.f_rows, plan.f_cols, plan.o_rows, plan.o_cols,
         plan.block_size, plan.q_pad,
-        n_out_rows=plan.n_states * plan.q_pad, run_ptr=plan.run_ptr,
+        n_out_rows=plan.n_states * plan.q_pad, run_ptr=plan.run_ptr, work=plan.work,
     )
     return torch.clamp(counts, max=1.0)
 

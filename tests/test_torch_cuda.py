@@ -10,11 +10,12 @@ with one:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 The frontier comparisons are exact: operands are {0,1} and every sum is
-an integer below 2^24, so f32 is exact in any order, and OR is exact in
-any order.  B6 adds the same f32 values in the same order as its plain
-version, so it is exact too.  B7 walks other kv tiles than its plain
-version, so it is held to ``repro``'s own tolerances (2e-5 f32, 2e-2
-bf16, ``tests/test_kernels.py``)."""
+an integer below 2^24, so f32 is exact in any order (B3 adds its chunks
+with atomics), and OR is exact in any order.  B6 adds the same f32
+values in the same order as its plain version, so it is exact too.  B7
+walks other kv tiles than its plain version and merges kv splits, so it
+is held to ``repro``'s own tolerances (2e-5 f32, 2e-2 bf16,
+``tests/test_kernels.py``)."""
 
 import numpy as np
 import pytest
@@ -104,6 +105,15 @@ KERNELS = {
 }
 
 
+def _kw(plan, wrapper):
+    """The keywords of one level: B1-B4 take run_ptr, fused_level_blocks
+    (B3 on bit-plane tiles) the work list too."""
+    kw = {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr}
+    if wrapper is frontier.fused_level_blocks:
+        kw["work"] = plan.work
+    return kw
+
+
 def _frontier_operand(plan, wrapper, seed, device):
     """A seeded frontier with its union rows, padded columns empty: f32
     0/1 rows, or lane words over all 32 bits for the packed kernels."""
@@ -126,7 +136,7 @@ def test_bitplane_and_packed_kernels_equal_plain(cuda, kernel, case):
     f = _frontier_operand(plan, wrapper, case, cuda)
     n_out = plan.n_states * plan.q_pad
     before = frontier.launch_counts()
-    got = wrapper(*_args(plan, f), n_out_rows=n_out, run_ptr=plan.run_ptr)
+    got = wrapper(*_args(plan, f), **_kw(plan, wrapper))
     want = plain(*_args(plan, f), n_out_rows=n_out)
     torch.cuda.synchronize()
     after = frontier.launch_counts()
@@ -134,12 +144,65 @@ def test_bitplane_and_packed_kernels_equal_plain(cuda, kernel, case):
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+# (graph, block, query) for B3's work list: runs of more than WORK_CHUNK
+# valid steps beside output blocks made only of cover steps, at B = 16,
+# 32 and 128 (the 5,000-node Alibaba twin's q1: runs of up to 24)
+LONG_RUNS = [
+    (lambda: generators.random_labeled_graph(200, 3000, 2, seed=3), 16, "(l0|l1)+ .^-1"),
+    (lambda: generators.random_labeled_graph(300, 500, 3, seed=11), 32, "l0 l1"),
+    (lambda: generators.alibaba_like(n_nodes=5000, n_edges=34000), 128,
+     generators.TABLE2_QUERIES["q1"]),
+]
+@pytest.mark.parametrize("case", range(len(LONG_RUNS)))
+@pytest.mark.parametrize("kernel", ["B1", *KERNELS])
+def test_level_kernels_on_long_runs_equal_plain(cuda, kernel, case):
+    """B3 equals its plain version where runs outgrow two chunks and
+    blocks hold only cover steps, and so does every other level kernel on
+    the same plans (``chip_smoke.py``'s case d adds cover steps inside
+    the runs)."""
+    wrapper, plain, tile_dtype, count = KERNELS.get(
+        kernel, (frontier.fused_level_blocks, frontier.fused_level_blocks_plain, "f32",
+                 "fused_level_blocks"))
+    factory, block, expr = LONG_RUNS[case]
+    g = factory()
+    staged = ops.stage_graph(g, block, tile_dtype=tile_dtype, device=cuda)
+    plan = ops.build_level_schedule(paa.compile_query(expr, g), staged)
+    valids, ptr = plan.valids.cpu().numpy(), plan.run_ptr.cpu().numpy()
+    runs = np.add.reduceat(valids, ptr[:-1])
+    assert runs.max() > 2 * ops.WORK_CHUNK and (runs == 0).any()
+    f = _frontier_operand(plan, wrapper, case, cuda)
+    before = frontier.launch_counts()
+    got = wrapper(*_args(plan, f), **_kw(plan, wrapper))
+    want = plain(*_args(plan, f), n_out_rows=plan.n_states * plan.q_pad)
+    torch.cuda.synchronize()
+    assert frontier.launch_counts() == {**before, count: before[count] + 1}
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_bitplane_wrapper_refuses_without_a_work_list(cuda):
+    plan = _plan(1, cuda, "uint32")
+    f = _frontier_operand(plan, frontier.fused_level_blocks, 0, cuda)
+    kw = _kw(plan, frontier.fused_level_blocks)
+    before = frontier.launch_counts()
+    with pytest.raises(ValueError, match="work list"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": None})
+    with pytest.raises(TypeError, match="work must be"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.long()})
+    with pytest.raises(TypeError, match="work must be"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.flatten()})
+    with pytest.raises(ValueError, match="work is on"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.cpu()})
+    with pytest.raises(ValueError, match="contiguous"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.t().contiguous().t()})
+    assert frontier.launch_counts() == before
+
+
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_bitplane_and_packed_wrappers_refuse(cuda, kernel):
     wrapper, _, tile_dtype, _ = KERNELS[kernel]
     plan = _plan(1, cuda, tile_dtype)
     f = _frontier_operand(plan, wrapper, 0, cuda)
-    kw = {"n_out_rows": plan.n_states * 8, "run_ptr": plan.run_ptr}
+    kw = _kw(plan, wrapper)
     args = list(_args(plan, f))
     other = f.float() if f.dtype == torch.int32 else f.to(torch.int32)
     with pytest.raises(TypeError, match="frontier must be"):
@@ -152,7 +215,7 @@ def test_bitplane_and_packed_wrappers_refuse(cuda, kernel):
     with pytest.raises(ValueError, match="q_pad=8"):
         wrapper(*args[:-1], 16, **kw)
     with pytest.raises(ValueError, match="one run per output block"):
-        wrapper(*args, n_out_rows=plan.n_states * 8, run_ptr=plan.run_ptr[:-1])
+        wrapper(*args, **{**kw, "run_ptr": plan.run_ptr[:-1]})
     with pytest.raises(ValueError, match="contiguous"):
         wrapper(f.t().contiguous().t(), *args[1:], **kw)
     with pytest.raises(TypeError, match="int32"):
@@ -360,3 +423,47 @@ def test_decode_wrapper_refuses(cuda):
     q32, k32, v32 = _qkv((1, 64, 2, 64, 256), torch.float32, cuda, 0)
     with pytest.raises(ValueError, match="q-heads per kv group"):
         decode_attn.flash_decode_gqa(q32, k32, v32, n, block_kv=128)
+
+
+# kv_len at the edges of a split of length L, and of the cache
+KV_EDGES = {
+    "-1": lambda L, S: -1, "0": lambda L, S: 0, "1": lambda L, S: 1, "L-1": lambda L, S: L - 1,
+    "L": lambda L, S: L, "L+1": lambda L, S: L + 1, "S-17": lambda L, S: S - 17, "S": lambda L, S: S,
+}
+
+
+@pytest.mark.parametrize("kv_name", list(KV_EDGES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape, block",
+    # r = 5 over 128 splits of 128 positions (two bf16 tiles, four f32
+    # tiles); r = 8 over 16 splits of 64 whose last holds 40 of 1,000
+    [((1, 10, 2, 128, 16_384), 512), ((2, 16, 2, 64, 1_000), 8)],
+)
+def test_decode_kernel_splits_at_kv_len_edges(cuda, shape, block, dtype, kv_name):
+    b, h, g, dh, s = shape
+    n_split, split_len = decode_attn.decode_splits(b, g, s)
+    assert n_split > 1
+    q, k, v = _qkv(shape, dtype, cuda, s + h)
+    n = torch.tensor(KV_EDGES[kv_name](split_len, s), dtype=torch.int32, device=cuda)
+    before = decode_attn.LAUNCHES
+    got = decode_attn.flash_decode_gqa(q, k, v, n, block_kv=block)
+    want = decode_attn.flash_decode_gqa_plain(q, k, v, n, block_kv=block)
+    torch.cuda.synchronize()
+    assert decode_attn.LAUNCHES == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
+
+
+def test_decode_wrapper_refuses_shapes_outside_the_kernel(cuda):
+    n = torch.tensor(100, dtype=torch.int32, device=cuda)
+    for shape in ((1, 8, 2, 32, 256), (1, 8, 2, 96, 256), (1, 34, 2, 64, 256)):
+        q, k, v = _qkv(shape, torch.bfloat16, cuda, 0)
+        with pytest.raises(ValueError, match="q-heads per kv group and Dh in"):
+            decode_attn.flash_decode_gqa(q, k, v, n, block_kv=128)
+    q, k, v = _qkv((1, 8, 2, 64, 256), torch.bfloat16, cuda, 0)
+    shifted = torch.zeros(k.numel() + 4, dtype=k.dtype, device=cuda)[4:].view(k.shape)  # 8 bytes in
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        decode_attn.flash_decode_gqa(q, shifted, v, n, block_kv=128)

@@ -3,7 +3,15 @@
 interpret mode, and the plain softmax oracles, at ``repro``'s tolerances
 (``tests/test_kernels.py``: 2e-5 in f32, 2e-2 in bf16).  Both run the
 same online softmax over the same ``block_kv`` blocks; what remains is
-the order of f32 sums."""
+the order of f32 sums.
+
+B7's kernel splits the kv positions (split-KV) and merges the splits'
+partials in a fixed order.  :func:`_split_kv_plain`, a plain twin of that
+arithmetic used only here, is held against ``repro``'s
+``flash_decode_gqa`` at the ``kv_len`` edges of a split, with splits that
+divide S and splits that do not."""
+
+import math
 
 import numpy as np
 import pytest
@@ -102,3 +110,121 @@ def test_wrapper_refuses_other_devices():
     q, k = torch.zeros((1, 4, 8), device="meta"), torch.zeros((1, 128, 2, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         decode_attn.flash_decode_gqa(q, k, k, torch.zeros((), dtype=torch.int32), block_kv=128)
+
+
+# ---------------------------------------------------------------------------
+# B7's split-KV arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _split_kv_plain(q, k, v, kv_len: int, split_len: int, tile: int = 64) -> torch.Tensor:
+    """B7's arithmetic in plain PyTorch.  Split s walks positions
+    [s·L, min(S, (s+1)·L)) in tiles of ``tile`` with an online softmax
+    (f32 statistics; p rounded to V's dtype before P·V; l sums the
+    unrounded p).  With kv_len >= 1 it stops at kv_len, and a split that
+    starts there writes m = -1e30, l = 0, acc = 0; with kv_len <= 0 every
+    position scores -1e30.  Positions past the split's end are absent
+    (-inf).  The partials merge in the order 0 .. n_split-1."""
+    b, h, dh = q.shape
+    s, g = k.shape[1], k.shape[2]
+    r = h // g
+    qg = q.reshape(b, g, r, dh).float()
+    all_masked = kv_len <= 0
+    parts = []
+    for lo in range(0, s, split_len):
+        hi = min(s, lo + split_len)
+        end = hi if all_masked else min(kv_len, hi)
+        m = torch.full((b, g, r, 1), -1e30)
+        l = torch.zeros((b, g, r, 1))
+        acc = torch.zeros((b, g, r, dh))
+        for t0 in range(lo, end, tile):
+            t1 = min(t0 + tile, s)
+            x = torch.einsum("bgrd,bsgd->bgrs", qg, k[:, t0:t1].float()) / math.sqrt(dh)
+            present = torch.arange(t0, t1) < end
+            x = torch.where(present, torch.tensor(-1e30) if all_masked else x, torch.tensor(-math.inf))
+            m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+            p = torch.exp(x - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bgrs,bsgd->bgrd", p.to(v.dtype).float(), v[:, t0:t1].float())
+            m = m_new
+        parts.append((m, l, acc))
+    m_star = torch.stack([p[0] for p in parts]).amax(dim=0)
+    l = torch.zeros_like(m_star)
+    acc = torch.zeros((b, g, r, dh))
+    for m_s, l_s, acc_s in parts:  # the fixed order
+        w = torch.exp(m_s - m_star)
+        l = l + l_s * w
+        acc = acc + acc_s * w
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype).reshape(b, h, dh)
+
+
+SPLIT_S, SPLIT_BLOCK = 256, 64
+# split lengths: 64 divides S; 96 does not (96, 96, 64), and its second
+# tile of 64 is partial (32 positions)
+SPLIT_LENS = (64, 96)
+# kv_len at the edges of a split of length L, and of the cache
+KV_LENS = {
+    "-1": lambda L: -1, "0": lambda L: 0, "1": lambda L: 1, "L-1": lambda L: L - 1,
+    "L": lambda L: L, "L+1": lambda L: L + 1, "S-17": lambda L: SPLIT_S - 17, "S": lambda L: SPLIT_S,
+}
+
+
+_REPRO: dict = {}
+
+
+def _split_inputs(dtype, r, kv_len):
+    """Seeded (B=2, G=2, r, Dh=64, S=256) inputs in both frameworks, and
+    repro's output on them (cached per kv_len)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(100 + r)
+    q = rng.normal(size=(2, 2 * r, 64)).astype(np.float32)
+    k = rng.normal(size=(2, SPLIT_S, 2, 64)).astype(np.float32)
+    v = rng.normal(size=(2, SPLIT_S, 2, 64)).astype(np.float32)
+    key = (dtype, r, kv_len)
+    if key not in _REPRO:
+        jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+        _REPRO[key] = np.asarray(r_ops.decode_attention(
+            jq, jk, jv, jnp.int32(kv_len), block_kv=SPLIT_BLOCK, interpret=True), np.float32)
+    return tuple(torch.from_numpy(x).to(tdt) for x in (q, k, v)), _REPRO[key]
+
+
+@pytest.mark.parametrize("kv_name", KV_LENS)
+@pytest.mark.parametrize("split_len", SPLIT_LENS)
+@pytest.mark.parametrize("r", [1, 5, 8])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_split_kv_matches_repro(dtype, r, split_len, kv_name):
+    kv_len = KV_LENS[kv_name](split_len)
+    (q, k, v), want = _split_inputs(dtype, r, kv_len)
+    got = _split_kv_plain(q, k, v, kv_len, split_len)
+    assert got.dtype == q.dtype
+    _close(got.float().numpy(), want, DTYPES[dtype][2])
+    n = torch.tensor(kv_len, dtype=torch.int32)
+    _close(got.float().numpy(), decode_attn.flash_decode_gqa_plain(q, k, v, n, SPLIT_BLOCK).float().numpy(),
+           DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_split_past_kv_len_weighs_nothing(dtype):
+    """A split that starts at or past kv_len (>= 1) contributes m = -1e30,
+    l = 0, acc = 0: the merge equals the merge of the splits before it."""
+    (q, k, v), want = _split_inputs(dtype, 5, 60)
+    short = _split_kv_plain(q, k[:, :64], v[:, :64], 60, 64)
+    _close(_split_kv_plain(q, k, v, 60, 64).float().numpy(), short.float().numpy(), 0.0)
+    _close(short.float().numpy(), want, DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize(
+    "batch, groups, seq, want",
+    [(128, 8, 32_768, (1, 32_768)), (1, 8, 524_288, (33, 15_936)), (2, 4, 512, (8, 64)),
+     (1, 2, 1_000, (16, 64)), (3, 1, 256, (4, 64)), (40, 8, 4_096, (1, 4_096))],
+)
+def test_decode_splits(batch, groups, seq, want):
+    """From B, G and S alone: the fewest splits that give the grid 264
+    CTAs, each a multiple of 64 positions, covering S exactly once."""
+    n_split, split_len = decode_attn.decode_splits(batch, groups, seq)
+    assert (n_split, split_len) == want
+    assert split_len % decode_attn.SPLIT_ALIGN == 0
+    assert (n_split - 1) * split_len < seq <= n_split * split_len
+    most = batch * groups * -(-seq // decode_attn.SPLIT_ALIGN)  # one split per 64 positions
+    assert batch * groups * n_split >= min(decode_attn.SPLIT_TARGET_CTAS, most)
