@@ -37,9 +37,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
              every second valid step of each run (runs of more than
              2 x ``WORK_CHUNK`` valid steps with cover steps between
              them); the packed kernels on random lane words over all 32
-             bits.  Each plan's work-list size (B3's CTAs) and longest
-             run are logged.  Then the time of one level of each query's
-             plan for each kernel, the plain version's, and the bound;
+             bits.  Each plan's work-list size (the CTAs of B1 and B3)
+             and longest run are logged.  Then the time of one level of
+             each query's plan for each kernel, the plain version's, and
+             the bound; B1 and B3 again equal to plain at every timed
+             level, with their chunks and the time of their output's
+             zero fill alone;
 * path     — ``s2_execute`` on Table-2 queries q1, q9 and q12 over all
              their valid starts, for each of the four paths, with the
              launch counts set to 0 just before each path and read just
@@ -50,8 +53,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
 * trace    — each query again on each path, its per-call set-up
              (``make_s2_step_fn``: Stage B and the meters' degree
              vectors) timed apart from a warm run, and the run traced
-             with ``torch.profiler``: device busy time, idle share, and
-             device time per kernel;
+             with ``torch.profiler``: device busy time, idle share,
+             device time per kernel, and the path's level kernel looked
+             up by its device symbol, which must launch once per level;
 * baseline — the per-transition baseline path, carried by B5
              ``frontier_step_blocks``: the twin as per-label tile lists
              (``make_blocked_graph``) and Stage A again from them (equal
@@ -63,7 +67,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
              (transition, store) entries with no other kernel launched;
              one ``expand_level`` timed beside one ``expand_level_fused``,
              and each of its B5 launches, at the path's own operands,
-             equal to the plain version;
+             equal to the plain version; the tiles, chunks (CTAs) and
+             longest column run of each launch of the q1 level;
 * embedbag — B6 ``embedding_bag_sorted`` through ``embedding_bag`` at
              dlrm-mlperf's largest table (39,979,771 x 128 bf16) and
              through ``gnn_aggregate`` at ogb_products (2,449,029 nodes,
@@ -151,27 +156,32 @@ DECODE_SHAPES = {"decode_32k": (128, 32_768), "long_500k": (1, 524_288)}
 BF16_TOL = 2e-2
 
 # kernel name -> what drives and describes it; "lanes" marks the packed
-# kernels, whose frontier is int32 lane words
+# kernels, whose frontier is int32 lane words; "symbol" holds the pieces
+# of the kernel's device symbol that the trace phase looks it up by
 KERNELS = {
     "fused_level_blocks": {
         "wrapper": fkernel.fused_level_blocks, "plain": fkernel.fused_level_blocks_plain,
         "tile_dtype": "f32", "lanes": False, "backend": "frontier_kernel",
         "source": f"{CSRC}/fused_level.cu", "replaces": f"{FRONTIER_PY}:209",
+        "symbol": ("f32_chunk_kernel<", "LevelSchedule"),
     },
     "fused_level_blocks_u32": {
         "wrapper": fkernel.fused_level_blocks, "plain": fkernel.fused_level_blocks_plain,
         "tile_dtype": "uint32", "lanes": False, "backend": "frontier_kernel",
         "source": f"{CSRC}/fused_level.cu", "replaces": f"{FRONTIER_PY}:188",
+        "symbol": ("bitplane_level_kernel",),
     },
     "packed_level_blocks": {
         "wrapper": fkernel.packed_level_blocks, "plain": fkernel.packed_level_blocks_plain,
         "tile_dtype": "f32", "lanes": True, "backend": "frontier_kernel_packed",
         "source": f"{CSRC}/packed_level.cu", "replaces": f"{FRONTIER_PY}:337",
+        "symbol": ("packed_level_kernel<float>",),
     },
     "packed_level_blocks_u32": {
         "wrapper": fkernel.packed_level_blocks, "plain": fkernel.packed_level_blocks_plain,
         "tile_dtype": "uint32", "lanes": True, "backend": "frontier_kernel_packed",
         "source": f"{CSRC}/packed_level.cu", "replaces": f"{FRONTIER_PY}:311",
+        "symbol": ("packed_level_kernel<unsigned int>",),
     },
 }
 
@@ -202,7 +212,7 @@ def level_args(plan, frontier):
 
 def level_kw(plan, k) -> dict:
     """The keywords of one kernel level on ``plan``: run_ptr, and for
-    ``fused_level_blocks`` (B3 on bit-plane tiles) the work list."""
+    ``fused_level_blocks`` (B1 and B3) the work list."""
     kw = {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr}
     if k["wrapper"] is fkernel.fused_level_blocks:
         kw["work"] = plan.work
@@ -329,11 +339,13 @@ def events_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return total / iters
 
 
-def trace_query(placement, ca, starts, staged, dev, backend: str) -> dict:
+def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[str, ...]) -> dict:
     """One query's per-call set-up timed apart from its run, and the run
     traced with ``torch.profiler``: device busy time (the union of the
-    device events' intervals), its share of the traced wall time, and the
-    device time and count of each kernel."""
+    device events' intervals), its share of the traced wall time, the
+    device time and count of each kernel, and those of the path's level
+    kernel, found by the pieces of its device symbol (``symbol``), and of
+    every fill kernel (the level kernels' zeroed outputs among them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -369,7 +381,14 @@ def trace_query(placement, ca, starts, staged, dev, backend: str) -> dict:
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
+
+    def total(match) -> dict:
+        hits = [kt for name, kt in per_kernel.items() if match(name)]
+        return {"ms": sum(kt["us"] for kt in hits) / 1e3, "count": sum(kt["count"] for kt in hits)}
+
     return {
+        "level_kernel": total(lambda name: all(piece in name for piece in symbol)),
+        "fills": total(lambda name: "FillFunctor" in name),
         "setup_ms": setup_ms, "run_ms": run_ms, "traced_ms": traced_ms,
         "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / 1e3 / traced_ms,
@@ -449,13 +468,17 @@ def time_levels(stores, cas, gen, flush) -> dict:
                 "plain_ms": events_ms(plain_level, 10, flush),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
             }
-            if name == "fused_level_blocks_u32":
+            if "work" in kw:  # B1 and B3: the work list's kernels
                 want = plain_level()
                 if not torch.equal(kernel_level(), want):
                     raise AssertionError(f"{name} != plain at the timed {q} level")
-                t["chunks"] = int(plan.work.shape[0])
-                log("kernels", f"{name} {q} level == plain; {t['chunks']} chunks = CTAs, longest "
-                    f"run {int(runs_of(plan).max())} valid steps")
+                t["chunks"], t["longest_run"] = int(plan.work.shape[0]), int(runs_of(plan).max())
+                shape = (plan.n_states * plan.q_pad, plan.v_pad)
+                t["fill_ms"] = graph_ms(lambda shape=shape: torch.zeros(shape, device=f.device), 50, flush)
+                log("kernels", f"{name} {q} level == plain; {t['chunks']} chunks of <= "
+                    f"{plan.work.shape[1]} = CTAs, longest run {t['longest_run']} valid steps; the "
+                    f"output's zero fill alone {t['fill_ms'] * 1e3:.2f} us (L2 flushed), inside the "
+                    "kernel times below")
             log("kernels", f"{name} {q} level: kernel {t['ms'] * 1e3:.2f} us (L2 flushed; "
                 f"{t['warm_ms'] * 1e3:.2f} us warm; {t['events_ms'] * 1e3:.2f} us one call between "
                 f"events), plain {t['plain_ms'] * 1e3:.2f} us between events, bound "
@@ -517,8 +540,8 @@ def check_step_calls(calls, block: int, q: str) -> float:
     """B5 against its plain version, ``torch.equal``, on each launch of a
     baseline level at the path's own operands; returns max |diff|."""
     max_err = 0.0
-    for i, (rows, (tiles, r, c, rp)) in enumerate(calls):
-        got = fkernel.frontier_step_blocks(rows, tiles, r, c, block, run_ptr=rp)
+    for i, (rows, (tiles, r, c, w)) in enumerate(calls):
+        got = fkernel.frontier_step_blocks(rows, tiles, r, c, block, work=w)
         want = fkernel.frontier_step_blocks_plain(rows, tiles, r, c, block)
         max_err = max(max_err, float((got - want).abs().max()))
         if not torch.equal(got, want):
@@ -553,21 +576,23 @@ def check_step_kernel(bg, cas, dev, gen) -> float:
     max_err, all_unvisited = 0.0, 0
     for label, (b_g, ca, m_pad) in cases.items():
         stores = {id(e[0]): e for _, e in fops.baseline_entries(ca, b_g)}
-        unvisited = 0
-        for tiles, rows, cols, run_ptr in stores.values():
+        unvisited, longest = 0, 0
+        for tiles, rows, cols, work in stores.values():
             f = (torch.rand((m_pad, b_g.v_pad), generator=gen, device=dev) < 0.3).float()
             f[:, b_g.n_nodes :] = 0
-            got = fkernel.frontier_step_blocks(f, tiles, rows, cols, b_g.block_size, run_ptr=run_ptr)
+            got = fkernel.frontier_step_blocks(f, tiles, rows, cols, b_g.block_size, work=work)
             want = fkernel.frontier_step_blocks_plain(f, tiles, rows, cols, b_g.block_size)
             torch.cuda.synchronize()
             max_err = max(max_err, float((got - want).abs().max()))
             if not torch.equal(got, want):
                 raise AssertionError(f"frontier_step_blocks != plain on case {label}")
-            unvisited += b_g.v_pad // b_g.block_size - (run_ptr.shape[0] - 1)
+            runs = np.diff(fops.column_runs(cols.cpu().numpy()))
+            unvisited += b_g.v_pad // b_g.block_size - len(runs)
+            longest = max(longest, int(runs.max()))
         n_tiles = sum(e[0].shape[0] for e in stores.values())
         log("baseline", f"frontier_step_blocks == plain on case {label}: {len(stores)} stores, "
-            f"{n_tiles} tiles, B={b_g.block_size}, {m_pad} frontier rows, {unvisited} column "
-            "blocks unvisited (zero in both)")
+            f"{n_tiles} tiles, B={b_g.block_size}, {m_pad} frontier rows, longest column run "
+            f"{longest} tiles, {unvisited} column blocks unvisited (zero in both)")
         all_unvisited += unvisited
     if all_unvisited == 0:
         raise AssertionError("no case has an unvisited column block")
@@ -655,22 +680,35 @@ def phase_baseline(g, cas, dg, stores, dev, gen, flush, record) -> dict:
             f"its {entries} B5 launches at the path's operands == plain")
 
     q1 = calls["q1"]
+    rec["q1_launches"] = [
+        {"tiles": int(tiles.shape[0]), "chunks": int(work.shape[0]),
+         "longest_run": int(np.diff(fops.column_runs(cols.cpu().numpy())).max())}
+        for _, (tiles, _, cols, work) in q1
+    ]
+    log("baseline", "B5, the q1 level's launches as (tiles, chunks = CTAs, longest column run): "
+        + ", ".join(f"({x['tiles']}, {x['chunks']}, {x['longest_run']})" for x in rec["q1_launches"]))
 
     def kernel_level():
-        for rows, (tiles, r_, c_, rp) in q1:
-            fkernel.frontier_step_blocks(rows, tiles, r_, c_, bg.block_size, run_ptr=rp)
+        for rows, (tiles, r_, c_, w) in q1:
+            fkernel.frontier_step_blocks(rows, tiles, r_, c_, bg.block_size, work=w)
 
     def plain_level():
         for rows, (tiles, r_, c_, _) in q1:
             fkernel.frontier_step_blocks_plain(rows, tiles, r_, c_, bg.block_size)
 
+    def fills():
+        for rows, _ in q1:
+            torch.zeros_like(rows)
+
     t = rec["q1_level"] = timed(kernel_level, 20, 10, flush)
     t["plain_ms"] = events_ms(plain_level, 5, flush)
+    t["fill_ms"] = graph_ms(fills, 20, flush)
     t["bound_ms"], t["bound_by"], nbytes, ops = step_bound(q1, bg.block_size)
     log("baseline", f"B5, the {len(q1)} launches of one q1 level: {t['ms'] * 1e3:.2f} us (L2 "
         f"flushed; {t['warm_ms'] * 1e3:.2f} us warm; {t['events_ms'] * 1e3:.2f} us one call between "
         f"events), plain {t['plain_ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us by "
-        f"{t['bound_by']} ({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M ops)")
+        f"{t['bound_by']} ({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M ops); the {len(q1)} outputs' "
+        f"zero fills alone {t['fill_ms'] * 1e3:.2f} us (L2 flushed), inside the kernel times")
     return {"name": "frontier_step_blocks", "route": "cuda", "source": f"{CSRC}/fused_level.cu",
             "replaces": f"{FRONTIER_PY}:121", "launches": launches, "max_abs_err": max_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -983,13 +1021,19 @@ def main() -> int:
         backend, td = k["backend"], k["tile_dtype"]
         for q in QUERIES:
             tr = record["trace"][f"{backend}/{td}/{q}"] = trace_query(
-                placement, cas[q], truth[q]["starts"], stores[td], dev, backend
+                placement, cas[q], truth[q]["starts"], stores[td], dev, backend, k["symbol"]
             )
+            lk = tr["level_kernel"]
+            if lk["count"] != record["path"][f"{backend}/{td}"][q]["levels"]:
+                raise AssertionError(f"{backend}/{td} {q}: the trace holds {lk['count']} launches of "
+                                     f"the level kernel {k['symbol']}, not one per level")
             log("trace", f"{backend}/{td} {q}: set-up {tr['setup_ms']:.1f} ms, run {tr['run_ms']:.1f} ms "
                 f"= {len(truth[q]['starts']) / tr['run_ms'] * 1e3:.1f} queries/s "
                 f"({tr['traced_ms']:.1f} ms traced); device busy {tr['device_busy_ms']:.1f} ms, "
                 f"idle share {tr['idle_share']:.4f} of the traced run, "
-                f"{tr['idle_share_of_untraced_run']:.4f} of the untraced one")
+                f"{tr['idle_share_of_untraced_run']:.4f} of the untraced one; level kernel "
+                f"{lk['ms']:.3f} ms device time in {lk['count']} launches; fills "
+                f"{tr['fills']['ms']:.3f} ms in {tr['fills']['count']}")
             for kname, kt in list(tr["kernels"].items())[:8]:
                 log("trace", f"  {kt['us'] / 1e3:9.3f} ms {kt['count']:6d}x  {kname[:90]}")
 

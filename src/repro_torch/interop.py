@@ -23,6 +23,7 @@ from repro_torch.kernels.frontier.ops import (
     blocked_entry,
     level_work,
     run_offsets,
+    work_chunk,
 )
 
 
@@ -42,7 +43,7 @@ def blocked_graph_from_numpy(
 ) -> BlockedGraph:
     """A ``repro`` ``BlockedGraph`` given by its per-label ``(tiles, rows,
     cols)`` stores, moved to ``device`` (``None``: the GPU), each with the
-    port's ``run_ptr``."""
+    port's work list (``ops.store_work``)."""
     device = resolve_device(device)
 
     def carry(store):
@@ -101,7 +102,7 @@ def plan_from_numpy(
     """A ``repro`` ``FusedLevelPlan`` given by its seven schedule arrays and
     ``union_members``, over ``staged`` (its device and tiles).  The port's
     ``run_ptr`` is derived and checked here, and its ``work`` list built
-    from it as Stage B builds it."""
+    from it as Stage B builds it, in chunks of the tile store's length."""
     cols = [np.asarray(a, np.int32) for a in (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)]
     firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols = cols
     nb = staged.v_pad // staged.block_size
@@ -129,6 +130,6 @@ def plan_from_numpy(
         o_rows=put(o_rows),
         o_cols=put(o_cols),
         run_ptr=put(run_ptr),
-        work=put(level_work(valids, run_ptr)),
+        work=put(level_work(valids, run_ptr, work_chunk(staged.tile_dtype))),
         tile_dtype=staged.tile_dtype,
     )

@@ -1,6 +1,6 @@
 // One fused BFS level of the S2 frontier path, on f32 frontier rows, for
 // Hopper: kernel B1 on f32 tiles, kernel B3 on bit-plane tiles; and B1's
-// device code on the trivial schedule of one label store: kernel B5, the
+// kernel body on the schedule of one label store: kernel B5, the
 // per-transition step of the baseline path.
 //
 // B1 and B3 replace the TPU kernel repro/kernels/frontier/frontier.py:
@@ -8,55 +8,68 @@
 // _fused_level_kernel_u32 (uint32 bit-plane tiles, unpacked by
 // _unpack_tile_bits).  That kernel walks a sequential Pallas grid, one
 // step per (output block, tile), and keeps the output block in VMEM
-// across the consecutive steps of its run.
+// across the consecutive steps of its run.  B5 replaces
+// repro/kernels/frontier/frontier.py: frontier_step_blocks with its body
+// _frontier_kernel, which walks one step per tile i of one label store and
+// adds F[:, rows[i]] @ tiles[i] into output column block cols[i], zeroing
+// the block at its first visit (cols is non-decreasing, so the tiles of
+// one output block are consecutive).
 //
-// B1 (fused_level_kernel): blocks run in parallel, so the grid is one CTA
-// per run: the steps of output block k are run_ptr[k] .. run_ptr[k+1]
-// (sorted by (o_row, o_col), exactly one run per output block, built by
-// Stage B).  A CTA has B * G threads in G groups of B, G = min(8, 1024 /
-// B) rounded down to a power of two, so G divides B.  Thread j of group g
-// owns output column j for the 8 stacked query rows and rows
-// [g*B/G, (g+1)*B/G) of every tile; it keeps its 8 partial sums in
-// registers across the whole run.  For each valid step the CTA stages the
-// 8 x B frontier block in shared memory, then each thread walks its B/G
-// tile rows: row v of the tile is contiguous, so neighbouring threads read
-// neighbouring addresses, and f[r][v] is a shared-memory broadcast.  At
-// the end the groups' partial sums meet in shared memory and group 0 adds
-// them in the fixed order g = 0 .. G-1 and stores the block once, with no
-// atomics.  A run made only of cover steps (valids == 0) stores zeros.
+// Why the grid is not one CTA per run.  A level of the Alibaba twin (q1)
+// holds 241 valid steps, all in 19 runs, the longest 24 steps; a baseline
+// store's hub column runs as long.  Walking a run step by step in one CTA
+// makes every step a chain of dependent global loads (schedule, frontier
+// block, tile) behind a barrier, so the longest run set the time (~100 us
+// a level, 17x the byte bound).  So Stage B cuts each run into chunks and
+// the grid is one CTA per chunk (the work list: ops.level_work, built once
+// per plan or per store on the host; cover steps get no entry).
 //
-// B5 replaces repro/kernels/frontier/frontier.py: frontier_step_blocks
-// with its body _frontier_kernel, which walks one step per tile i of one
-// label store and adds F[:, rows[i]] @ tiles[i] into output column block
-// cols[i], zeroing the block at its first visit (cols is non-decreasing,
-// so the tiles of one output block are consecutive).  Its schedule is
-// trivial: step i reads frontier column block rows[i] and tile i, every
-// step is valid, and run k (run_ptr[k] .. run_ptr[k+1], built once on the
-// host with the store) writes column block cols[run_ptr[k]].  Its frontier
-// has m_pad rows, any multiple of 8 (the baseline fills row 0 of 8), so
-// the grid is one CTA per (run, 8-row block): blockIdx.y picks the rows
-// the CTA reads and writes.  Column blocks that no run visits are never
-// written: the wrapper allocates the output zeroed.  A Schedule type says
-// where a step reads and where a run writes; the kernel body is the same
-// for B1 and B5.
+// B1 and B5 (f32_chunk_kernel, one body, templated on the schedule):
 //
-// Bound on the H100, B1: bytes.  A B1 level reads each real tile once
-// (B*B*4 bytes) and does 2*8 flops per tile element, 4 flops per byte,
-// far below the card's ratio of flops to bytes.
+// - Bound on the H100: bytes.  A step reads one B x B f32 tile (64 KB at
+//   B = 128) and an 8 x B frontier block, and does 8 * B * B FMAs: 4 flops
+//   per byte, far below the card's ratio, so tensor cores buy nothing.
+// - Chunk length: 1 step for f32 tiles (ops.WORK_CHUNK_F32), so a q1-q12
+//   level is 241-370 CTAs of 68 KB of shared memory, three per SM: one wave
+//   on 132 SMs, every CTA's operands in flight at once.  A longer chunk
+//   (a hand-built work list) is taken too: its steps run through the same
+//   ring, each output block's steps summed in registers.
+// - Entries first: the CTA reads its chunk's schedule entries (tile,
+//   frontier block, and the output block of its first step) in one pass.
+// - Prefetch: each step's tile is cut into slabs of R rows (R = 64 at
+//   B = 128: 32 KB of tile, 2 KB of frontier), and the (step, slab) stages
+//   run through a ring of two slots in shared memory, filled by 16-byte
+//   cp.async: stage t + 1's copy is in flight while stage t is computed.
+//   Slabs keep a slot under 36 KB, so any B up to 1024 fits.
+// - Column parts: a grid far below three CTAs per SM (a baseline store of
+//   6-23 tiles, the B5 launches of a q1 level) splits each tile's columns
+//   over 2 or 4 CTAs (grid.z), so each moves and multiplies a part of the
+//   tile and the launch's latency falls; their outputs are disjoint, so
+//   no atomic is added.  A level's grid (241-370 CTAs) keeps whole tiles.
+// - Compute: thread (g, q) of G row groups owns output columns 4q..4q+3
+//   of its part for the 8 stacked frontier rows (32 sums in registers) and
+//   every G-th row quad of each slab; per tile row it reads one float4
+//   (a warp reads 512 contiguous bytes) and eight frontier broadcasts, and
+//   does 32 FMAs.  Rows go one at a time, so the kernel stays within 80
+//   registers (three CTAs of 256 threads per SM) with no spill.
+// - Meeting of the sums: the G groups' sums meet in shared memory (the
+//   ring, reused), are added in the order g = 0 .. G-1, and each nonzero
+//   sum goes into the output by one atomicAdd.  The wrapper zeroes the
+//   output, so cover-only blocks need no CTA, and a plan with no valid
+//   step launches nothing.
 //
-// B3 (bitplane_level_kernel) has a design of its own.  Its bound is bytes
-// too, but its bytes are few: a q1 level of the Alibaba twin reads 0.5 MB
-// of bit-plane tiles and writes a 6.4 MB output, 2.1 us at 3.35 TB/s.
-// What held B1's design at ~100 us there is latency, not bytes: 19 runs
-// carry all 241 valid steps, the longest 24, and each step was a chain
-// of dependent global loads (schedule, frontier block, tile word) behind
-// a __syncthreads, while 1,545 cover-only CTAs stored zeros.  So B3
-// trades the run for parallelism:
+// B1's schedule is Stage B's level schedule (step i reads tile
+// tile_ids[i] and frontier block (f_rows[i], f_cols[i]), output block
+// (o_rows[i], o_cols[i])); B5's is trivial: step i reads tile i and
+// frontier column block rows[i] and writes column block cols[i], on the
+// frontier's 8-row block blockIdx.y (m_pad is any multiple of 8; the
+// baseline fills row 0 of 8).
 //
-// - Stage B cuts every run's valid steps into chunks of at most C (= 2,
-//   ops.WORK_CHUNK) steps, each chunk inside one run; cover steps get no
-//   entry (ops.level_work, the plan's `work`, built once per plan).  The
-//   grid is one CTA of <= 256 threads per chunk: 121-190 CTAs at q1-q12.
+// B3 (bitplane_level_kernel) walks the same kind of work list, in chunks
+// of at most 2 (ops.WORK_CHUNK).  Its bytes are few: a q1 level reads
+// 0.5 MB of bit-plane tiles and writes a 6.4 MB output, 2.1 us at 3.35
+// TB/s.
+//
 // - A CTA reads its chunk's schedule entries (tile, frontier block,
 //   output block of each step) in one pass, one thread per step, then
 //   issues every frontier block (8 x B f32) and every bit-plane tile
@@ -70,14 +83,16 @@
 //   float4 broadcast and takes bit j % 32 of word j / 32 of each tile
 //   row in registers (the 32 threads of a warp read the same word).
 // - Each thread adds its 8 nonzero sums into the output with atomicAdd.
-//   The wrapper zeroes the output, so cover-only blocks need no CTA.
 //
-// Exact in any order: B3's callers (reach_fixpoint, multi_query_reach)
-// pass {0,1} frontiers, and repro's counting path refuses bit-plane tiles
-// (_require_f32_tiles, ROADMAP A9), so every operand is 0 or 1 and every
-// sum an integer below 2^24, which f32 adds exactly in any order.  The
-// atomics therefore give the plain PyTorch version's result bit for bit,
-// every run.  Tensor cores buy nothing here: a q1 level is 63 MFLOP.
+// Exact in any order, for all three kernels, when every frontier entry
+// and every tile entry is a non-negative integer and every output sum is
+// below 2^24: then every partial sum is an integer below 2^24 too, which
+// f32 adds exactly in any order, so the atomics give the plain PyTorch
+// version's result bit for bit, every run.  That is repro's own caveat
+// for counts (repro/kernels/frontier/ops.py count_paths_bounded: "exact
+// f32 integers only below 2**24").  Every caller today (reach_fixpoint,
+// multi_query_reach, expand_level) passes {0,1}; repro's counting path
+// refuses bit-plane tiles (_require_f32_tiles, ROADMAP A9).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,108 +103,252 @@ namespace {
 
 constexpr int kQPad = 8;
 
-// Tile element (v, j) as f32, given the start of tile row v.
-__device__ __forceinline__ float tile_value(const float* row, int j) { return row[j]; }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
 
-// B1: Stage B's schedule over all transitions.  Step i is valid
-// when valids[i] != 0 and reads tile tile_ids[i] and frontier block
-// (f_rows[i], f_cols[i]); the run that starts at step lo writes output
-// block (o_rows[lo], o_cols[lo]).  Row blocks hold 8 rows, column blocks B.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- B1 and B5 -----------------------------------------------------------
+
+constexpr int kF32Threads = 256;
+constexpr int kF32SlotBytes = 36 * 1024;  // one ring slot: a tile slab and its frontier slice
+
+// B1: Stage B's schedule over all transitions.  step() writes the tile,
+// frontier row block and frontier column block of step i; out_block()
+// the output block (row, column) of step i.
 struct LevelSchedule {
-  const int32_t* __restrict__ valids;
   const int32_t* __restrict__ tile_ids;
   const int32_t* __restrict__ f_rows;
   const int32_t* __restrict__ f_cols;
   const int32_t* __restrict__ o_rows;
   const int32_t* __restrict__ o_cols;
-  __device__ bool valid(int i) const { return valids[i] != 0; }
-  __device__ size_t tile(int i) const { return (size_t)tile_ids[i]; }
-  __device__ size_t f_row(int i) const { return (size_t)f_rows[i]; }
-  __device__ size_t f_col(int i) const { return (size_t)f_cols[i]; }
-  __device__ size_t o_row(int lo) const { return (size_t)o_rows[lo]; }
-  __device__ size_t o_col(int lo) const { return (size_t)o_cols[lo]; }
+  __device__ void step(int i, int* e) const {
+    e[0] = tile_ids[i];
+    e[1] = f_rows[i];
+    e[2] = f_cols[i];
+  }
+  __device__ void out_block(int i, int* e) const {
+    e[0] = o_rows[i];
+    e[1] = o_cols[i];
+  }
 };
 
 // B5: tile i of one label store, on the frontier's 8-row block blockIdx.y.
 struct StepSchedule {
   const int32_t* __restrict__ rows;
   const int32_t* __restrict__ cols;
-  __device__ bool valid(int) const { return true; }
-  __device__ size_t tile(int i) const { return (size_t)i; }
-  __device__ size_t f_row(int) const { return blockIdx.y; }
-  __device__ size_t f_col(int i) const { return (size_t)rows[i]; }
-  __device__ size_t o_row(int) const { return blockIdx.y; }
-  __device__ size_t o_col(int lo) const { return (size_t)cols[lo]; }
+  __device__ void step(int i, int* e) const {
+    e[0] = i;
+    e[1] = blockIdx.y;
+    e[2] = rows[i];
+  }
+  __device__ void out_block(int i, int* e) const {
+    e[0] = blockIdx.y;
+    e[1] = cols[i];
+  }
 };
 
-// TileT = float: rows of B f32 values (row_len = B).
-template <typename TileT, typename Schedule>
-__global__ void fused_level_kernel(
-    const float* __restrict__ frontier,   // (n_rows * 8, v_pad)
-    const TileT* __restrict__ tiles,      // (n_tiles, B, row_len)
-    const Schedule sched,
-    const int32_t* __restrict__ run_ptr,  // (n_runs + 1,)
-    float* __restrict__ out,              // (n_out_rows, v_pad)
-    int v_pad, int block_size, int row_len) {
-  // f_s: the 8 x B frontier block; part: the partial sums of groups 1..G-1
-  extern __shared__ float smem[];
-  float* f_s = smem;
-  float* part = smem + kQPad * block_size;
-  const int n_groups = blockDim.x / block_size;
-  const int j = threadIdx.x % block_size;
-  const int g = threadIdx.x / block_size;
-  const int n_v = block_size / n_groups;
-  const int v0 = g * n_v;
-  const int lo = run_ptr[blockIdx.x];
-  const int hi = run_ptr[blockIdx.x + 1];
-
-  float acc[kQPad];
-#pragma unroll
-  for (int r = 0; r < kQPad; ++r) acc[r] = 0.0f;
-
-  for (int i = lo; i < hi; ++i) {
-    if (!sched.valid(i)) continue;  // the same i for every thread: uniform
-    const float* f_blk = frontier + sched.f_row(i) * kQPad * v_pad + sched.f_col(i) * block_size;
-    __syncthreads();  // the previous step's reads of f_s are done
-    for (int k = threadIdx.x; k < kQPad * block_size; k += blockDim.x)
-      f_s[k] = f_blk[(size_t)(k / block_size) * v_pad + k % block_size];
-    __syncthreads();
-    const TileT* tile = tiles + (sched.tile(i) * block_size + v0) * row_len;
-#pragma unroll 16
-    for (int v = 0; v < n_v; ++v) {
-      const float a = tile_value(tile + (size_t)v * row_len, j);
-#pragma unroll
-      for (int r = 0; r < kQPad; ++r) acc[r] = fmaf(f_s[r * block_size + v0 + v], a, acc[r]);
+// Starts the copies of stage t (step t / n_slabs, tile rows [r0, r0 + nr)
+// of its slab, columns [c0, c0 + C) of the CTA's column part) into ring
+// slot t % 2 and commits them as one copy group: the frontier slice
+// (8 x nr, row stride R in the slot), then the nr x C tile rows (row
+// stride C).
+__device__ __forceinline__ void start_stage(
+    float* smem, const int* entry, const float* __restrict__ frontier,
+    const float* __restrict__ tiles, int t, int n_slabs, int R, int C, int c0, int slot_floats,
+    int v_pad, int block_size) {
+  const int s = t / n_slabs, r0 = (t % n_slabs) * R;
+  const int nr = min(R, block_size - r0);
+  const int* e = entry + 3 * s;
+  float* f_s = smem + (t & 1) * slot_floats;
+  float* t_s = f_s + kQPad * R;
+  const float* f_src = frontier + (size_t)e[1] * kQPad * v_pad + (size_t)e[2] * block_size + r0;
+  const float* t_src = tiles + ((size_t)e[0] * block_size + r0) * block_size + c0;
+  const int row_vecs = nr / 4, c_vecs = C / 4;
+  for (int k = threadIdx.x; k < kQPad * row_vecs; k += blockDim.x) {
+    const int r = k / row_vecs, x = k % row_vecs;
+    cp_async16(f_s + r * R + 4 * x, f_src + (size_t)r * v_pad + 4 * x);
+  }
+  // tile row v, 16-byte column x: (v, x) steps by blockDim.x vectors
+  // without a division in the loop
+  const int dv = blockDim.x / c_vecs, dx = blockDim.x % c_vecs;
+  for (int v = threadIdx.x / c_vecs, x = threadIdx.x % c_vecs; v < nr;) {
+    cp_async16(t_s + v * C + 4 * x, t_src + (size_t)v * block_size + 4 * x);
+    v += dv;
+    x += dx;
+    if (x >= c_vecs) {
+      x -= c_vecs;
+      ++v;
     }
   }
-
-  if (g > 0) {
-#pragma unroll
-    for (int r = 0; r < kQPad; ++r) part[((g - 1) * kQPad + r) * block_size + j] = acc[r];
-  }
-  __syncthreads();
-  if (g > 0) return;
-  for (int h = 1; h < n_groups; ++h) {
-#pragma unroll
-    for (int r = 0; r < kQPad; ++r) acc[r] += part[((h - 1) * kQPad + r) * block_size + j];
-  }
-  float* o_blk = out + sched.o_row(lo) * kQPad * v_pad + sched.o_col(lo) * block_size;
-#pragma unroll
-  for (int r = 0; r < kQPad; ++r) o_blk[(size_t)r * v_pad + j] = acc[r];
+  cp_async_commit();
 }
 
-// Launches one CTA of B * G threads per cell of `grid` on `stream`.
-// Returns cudaGetLastError() after the launch: nonzero means the launch
-// was refused.
-template <typename TileT, typename Schedule>
-int launch(const void* frontier, const void* tiles, const Schedule& sched, const void* run_ptr,
-           void* out, dim3 grid, int v_pad, int block_size, int row_len, void* stream) {
-  int n_groups = 1;
-  while (n_groups < 8 && block_size * n_groups * 2 <= 1024) n_groups *= 2;
-  const size_t smem = sizeof(float) * kQPad * (size_t)block_size * n_groups;
-  fused_level_kernel<TileT, Schedule><<<grid, block_size * n_groups, smem, (cudaStream_t)stream>>>(
-      (const float*)frontier, (const TileT*)tiles, sched, (const int32_t*)run_ptr, (float*)out,
-      v_pad, block_size, row_len);
+// One CTA per chunk of the work list (grid.x), frontier row block (grid.y,
+// B5 only) and column part (grid.z: columns [z * C, (z + 1) * C) of every
+// tile).  Shared memory: up to two ring slots of (8 x R frontier floats,
+// R x C tile floats), also the G x 8 x C sums at the end, then the chunk's
+// entries: 3 ints per step (tile, frontier row block, frontier column
+// block), the output block (row, column), the step count.
+template <typename Schedule>
+__global__ void __launch_bounds__(kF32Threads, 3) f32_chunk_kernel(
+    const float* __restrict__ frontier,  // (n_rows * 8, v_pad)
+    const float* __restrict__ tiles,     // (n_tiles, B, B)
+    const Schedule sched,
+    const int32_t* __restrict__ work,    // (n_chunks, chunk), -1 past the end
+    float* __restrict__ out,             // (n_out_rows, v_pad), zeroed
+    int v_pad, int block_size, int chunk, int slab_rows, int part_cols, int n_groups,
+    int ring_floats) {
+  extern __shared__ __align__(16) float f32_smem[];
+  const int R = slab_rows, C = part_cols, c0 = blockIdx.z * part_cols;
+  const int slot_floats = kQPad * R + R * C;  // a multiple of 4
+  int* entry = reinterpret_cast<int*>(f32_smem + ring_floats);
+  const int tid = threadIdx.x;
+
+  // the chunk's schedule entries, in one pass
+  const int32_t* w = work + (size_t)blockIdx.x * chunk;
+  for (int s = tid; s < chunk; s += blockDim.x) {
+    const int i = w[s];
+    if (i >= 0) {
+      sched.step(i, entry + 3 * s);
+      if (s == 0) sched.out_block(i, entry + 3 * chunk);
+    }
+  }
+  if (tid == 0) {  // steps fill a chunk from its start: the first -1 ends it
+    int n = 0;
+    while (n < chunk && w[n] >= 0) ++n;
+    entry[3 * chunk + 2] = n;
+  }
+  __syncthreads();
+  const int n = entry[3 * chunk + 2];
+  if (n == 0) return;
+
+  const int n_slabs = (block_size + R - 1) / R;
+  const int n_stages = n * n_slabs;
+  const int quads = C / 4;
+  const int q = tid % quads, g = tid / quads;  // blockDim.x = quads * n_groups
+  float acc[kQPad][4];
+#pragma unroll
+  for (int r = 0; r < kQPad; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+
+  start_stage(f32_smem, entry, frontier, tiles, 0, n_slabs, R, C, c0, slot_floats, v_pad,
+              block_size);
+  if (n_stages > 1)
+    start_stage(f32_smem, entry, frontier, tiles, 1, n_slabs, R, C, c0, slot_floats, v_pad,
+                block_size);
+  for (int t = 0; t < n_stages; ++t) {
+    // stage t has landed; stage t + 1, where there is one, stays in flight
+    if (t + 1 < n_stages)
+      cp_async_wait_group<1>();
+    else
+      cp_async_wait_group<0>();
+    __syncthreads();
+    const int nr = min(R, block_size - (t % n_slabs) * R);
+    const float* f_s = f32_smem + (t & 1) * slot_floats;
+    const float* t_s = f_s + kQPad * R;
+    // one tile row at a time (not unrolled: 32 sums, the row and the 8
+    // frontier values stay within 80 registers, three CTAs per SM)
+    for (int vq = g; vq < nr / 4; vq += n_groups) {
+#pragma unroll 1
+      for (int v = 4 * vq; v < 4 * vq + 4; ++v) {
+        const float4 a = *reinterpret_cast<const float4*>(t_s + v * C + 4 * q);
+#pragma unroll
+        for (int r = 0; r < kQPad; ++r) {
+          const float f = f_s[r * R + v];
+          acc[r][0] = fmaf(f, a.x, acc[r][0]);
+          acc[r][1] = fmaf(f, a.y, acc[r][1]);
+          acc[r][2] = fmaf(f, a.z, acc[r][2]);
+          acc[r][3] = fmaf(f, a.w, acc[r][3]);
+        }
+      }
+    }
+    __syncthreads();  // every read of slot t % 2 is done: refill it
+    if (t + 2 < n_stages)
+      start_stage(f32_smem, entry, frontier, tiles, t + 2, n_slabs, R, C, c0, slot_floats,
+                  v_pad, block_size);
+  }
+
+  // the groups' sums meet in the ring (every copy landed, every read done)
+  float* red = f32_smem;
+#pragma unroll
+  for (int r = 0; r < kQPad; ++r)
+    *reinterpret_cast<float4*>(red + (g * kQPad + r) * C + 4 * q) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  __syncthreads();
+  float* o_blk = out + (size_t)entry[3 * chunk] * kQPad * v_pad +
+                 (size_t)entry[3 * chunk + 1] * block_size + c0;
+  for (int o = tid; o < kQPad * C; o += blockDim.x) {
+    const int r = o / C, j = o % C;
+    float sum = 0.0f;
+    for (int h = 0; h < n_groups; ++h) sum += red[(h * kQPad + r) * C + j];
+    if (sum != 0.0f) atomicAdd(o_blk + (size_t)r * v_pad + j, sum);
+  }
+}
+
+// Launches one CTA per (chunk, frontier row block, column part) of the
+// work list (n_chunks, chunk) on `stream`.  Returns cudaGetLastError()
+// after the launch: nonzero means the launch was refused.
+template <typename Schedule>
+int launch_f32(const void* frontier, const void* tiles, const Schedule& sched, const void* work,
+               void* out, int n_chunks, int chunk, int row_blocks, int v_pad, int block_size,
+               void* stream) {
+  if (n_chunks < 1 || chunk < 1 || chunk > 8 || row_blocks < 1 || row_blocks > 65535 ||
+      block_size % 8 || block_size < 8 || block_size > 1024)
+    return (int)cudaErrorInvalidValue;
+  static int n_sms = 0;
+  if (n_sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  // Column parts: a grid far smaller than the card (a baseline store of
+  // 6-23 tiles) splits each tile's columns over up to 4 CTAs, which add
+  // into disjoint outputs, so each CTA moves and multiplies a quarter of
+  // the tile; a level's grid (241-370 CTAs) already fills three CTAs per SM
+  // and keeps whole tiles.
+  int parts = 1;
+  while (parts < 4 && 2L * parts * n_chunks * row_blocks <= 3L * n_sms &&
+         (block_size / (2 * parts)) % 4 == 0)
+    parts *= 2;
+  const int part_cols = block_size / parts;
+  // slabs of R rows, R a multiple of 4, as even as the slot's size allows:
+  // R = 64 at B = 128 in one part, 8 at B = 1024
+  const int max_rows = kF32SlotBytes / (int)sizeof(float) / (kQPad + part_cols) / 4 * 4;
+  const int n_slabs = (block_size + max_rows - 1) / max_rows;
+  const int slab_rows = ((block_size + n_slabs - 1) / n_slabs + 3) / 4 * 4;
+  const int quads = part_cols / 4;
+  const int n_groups = std::min(kF32Threads / quads, slab_rows / 4);
+  const int slots = std::min(2, chunk * n_slabs);
+  const int ring_floats = std::max(slots * (kQPad * slab_rows + slab_rows * part_cols),
+                                   n_groups * kQPad * part_cols);
+  const size_t smem = sizeof(float) * ring_floats + sizeof(int) * (3 * chunk + 3);
+  // Raise the dynamic shared memory limit once per size, on the first
+  // launch: a later launch may be inside a CUDA graph capture.
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        f32_chunk_kernel<Schedule>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  f32_chunk_kernel<Schedule><<<dim3(n_chunks, row_blocks, parts), quads * n_groups, smem,
+                               (cudaStream_t)stream>>>(
+      (const float*)frontier, (const float*)tiles, sched, (const int32_t*)work, (float*)out, v_pad,
+      block_size, chunk, slab_rows, part_cols, n_groups, ring_floats);
   return (int)cudaGetLastError();
 }
 
@@ -197,15 +356,6 @@ int launch(const void* frontier, const void* tiles, const Schedule& sched, const
 
 constexpr int kB3Threads = 256;
 constexpr int kB3StageBytes = 96 * 1024;  // operands staged at once, at most
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // One CTA per chunk of the work list.  Shared memory: per_pass staged
 // steps of (8 x B frontier floats, then B x row_len tile words), then
@@ -308,22 +458,19 @@ __global__ void __launch_bounds__(kB3Threads) bitplane_level_kernel(
   }
 }
 
-LevelSchedule level_schedule(const void* valids, const void* tile_ids, const void* f_rows,
-                             const void* f_cols, const void* o_rows, const void* o_cols) {
-  return {(const int32_t*)valids, (const int32_t*)tile_ids, (const int32_t*)f_rows,
-          (const int32_t*)f_cols, (const int32_t*)o_rows, (const int32_t*)o_cols};
-}
-
 }  // namespace
 
-// B1: tiles (n_tiles, B, B) f32; one CTA per run.
+// B1: tiles (n_tiles, B, B) f32; one CTA per chunk of the work list
+// (n_chunks, chunk), out zeroed by the caller.
 extern "C" int fused_level_f32(
-    const void* frontier, const void* tiles, const void* valids, const void* tile_ids,
-    const void* f_rows, const void* f_cols, const void* o_rows, const void* o_cols,
-    const void* run_ptr, void* out, int n_runs, int v_pad, int block_size, void* stream) {
-  return launch<float>(frontier, tiles,
-                       level_schedule(valids, tile_ids, f_rows, f_cols, o_rows, o_cols), run_ptr,
-                       out, dim3(n_runs), v_pad, block_size, block_size, stream);
+    const void* frontier, const void* tiles, const void* tile_ids, const void* f_rows,
+    const void* f_cols, const void* o_rows, const void* o_cols, const void* work, void* out,
+    int n_chunks, int chunk, int v_pad, int block_size, void* stream) {
+  const LevelSchedule sched{(const int32_t*)tile_ids, (const int32_t*)f_rows,
+                            (const int32_t*)f_cols, (const int32_t*)o_rows,
+                            (const int32_t*)o_cols};
+  return launch_f32(frontier, tiles, sched, work, out, n_chunks, chunk, 1, v_pad, block_size,
+                    stream);
 }
 
 // B3: tiles (n_tiles, B, ceil(B / 32)) uint32 bit-planes; one CTA per
@@ -361,12 +508,12 @@ extern "C" int fused_level_f32_u32tiles(
 
 // B5: frontier (m_pad, v_pad) with m_pad a multiple of 8, tiles (nnz, B, B)
 // f32 of one label store, out (m_pad, v_pad) zeroed by the caller; one
-// CTA per (run, 8-row block).
+// CTA per (chunk of the store's work list, 8-row block).
 extern "C" int frontier_step_f32(
     const void* frontier, const void* tiles, const void* rows, const void* cols,
-    const void* run_ptr, void* out, int n_runs, int m_pad, int v_pad, int block_size,
+    const void* work, void* out, int n_chunks, int chunk, int m_pad, int v_pad, int block_size,
     void* stream) {
   const StepSchedule sched{(const int32_t*)rows, (const int32_t*)cols};
-  return launch<float>(frontier, tiles, sched, run_ptr, out, dim3(n_runs, m_pad / kQPad), v_pad,
-                       block_size, block_size, stream);
+  return launch_f32(frontier, tiles, sched, work, out, n_chunks, chunk, m_pad / kQPad, v_pad,
+                    block_size, stream);
 }

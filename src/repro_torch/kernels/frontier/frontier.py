@@ -31,17 +31,28 @@ packed_level_blocks    int32 lanes  int32 bits   B4 ``packed_level_u32tiles``
 frontier_step_blocks   f32          f32          B5 ``frontier_step_f32``
 =====================  ===========  ===========  =========================
 
+B1, B3 and B5 walk a work list: the valid steps of each run cut into
+chunks (``ops.level_work``; chunks of 1 on f32 tiles, of 2 on bit-planes),
+one CTA per chunk, built once per plan (``FusedLevelPlan.work``) or per
+label store (``BlockedGraph`` entries).  B2 and B4 give each output
+block's run one CTA (``run_ptr``).
+
 For CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/fused_level.cu`` (B1 and B5, one kernel body on two schedules;
-B3, a kernel of its own over the plan's work list) and
+``csrc/fused_level.cu`` (B1 and B5, one kernel body on two schedules,
+one CTA per chunk of a work list with its operands prefetched by
+``cp.async``; B3, a kernel of its own over the plan's work list) and
 ``csrc/packed_level.cu`` (B2, B4) and raise on anything they do not
 take; for CPU tensors they run the plain PyTorch versions.  There is no
 fallback from the one to the other.  Each kernel has its own launch
 count (:func:`launch_counts`).
 
-Exact: operands are {0,1} and sums are integers below 2^24, so f32 sums
-are exact in any order (B3 adds its chunks' sums with atomics), and OR
-is exact in any order: each kernel equals its plain version bit for bit.
+Exact: B1, B3 and B5 add their chunks' sums into a zeroed output with
+atomics, in no fixed order.  That gives the plain version's bits when
+every frontier and tile entry is a non-negative integer and every output
+sum is below 2^24: every partial sum is then an integer below 2^24,
+which f32 adds exactly in any order (``repro``'s caveat for counts,
+``count_paths_bounded``).  Every caller today passes {0,1}.  OR is exact
+in any order: B2 and B4 equal their plain versions bit for bit too.
 """
 
 from __future__ import annotations
@@ -256,9 +267,9 @@ def _launch(lib_name, fn_name, out, frontier, tiles, valids, tile_ids, f_rows, f
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
 
 
-def _launch_bitplane(out, frontier, tiles, tile_ids, f_rows, f_cols, o_rows, o_cols, work,
-                     block_size) -> None:
-    fn = _build.load("fused_level").fused_level_f32_u32tiles
+def _launch_work(fn_name, out, frontier, tiles, tile_ids, f_rows, f_cols, o_rows, o_cols, work,
+                 block_size) -> None:
+    fn = getattr(_build.load("fused_level"), fn_name)
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(frontier.device):
@@ -269,12 +280,13 @@ def _launch_bitplane(out, frontier, tiles, tile_ids, f_rows, f_cols, o_rows, o_c
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_level_f32_u32tiles launch failed with CUDA error {err}")
+        raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
 
 
 def _check_work(work: torch.Tensor | None, frontier: torch.Tensor, tiles: torch.Tensor) -> None:
     if work is None:
-        raise ValueError("bit-plane tiles on CUDA need the plan's work list: work=plan.work")
+        raise ValueError("a kernel on CUDA needs its work list: work=plan.work, or a "
+                         "BlockedGraph entry's")
     if work.dtype != torch.int32 or work.dim() != 2 or not 1 <= work.shape[1] <= 8:
         raise TypeError(f"work must be a 2-D int32 tensor of 1 to 8 columns, got {work.dtype} "
                         f"{tuple(work.shape)}")
@@ -308,14 +320,19 @@ def fused_level_blocks(
     Steps must be sorted by (o_rows, o_cols) and cover every output block
     (the plan builder adds zero-tile cover steps).  ``run_ptr`` are the
     CSR offsets of the output-block runs (``FusedLevelPlan.run_ptr``),
-    which B1 walks in place of ``firsts``; ``firsts`` stays in the
-    signature for parity with ``repro``.  ``work`` is the plan's work
-    list (``FusedLevelPlan.work``, :func:`ops.level_work`), which B3
-    walks: required for bit-plane tiles on CUDA, unread otherwise.  The
-    tile store picks the kernel, as ``repro`` dispatches on
+    checked to hold exactly one run per output block; ``firsts`` stays
+    in the signature for parity with ``repro``.  ``work`` is the plan's
+    work list (``FusedLevelPlan.work``, :func:`ops.level_work`), which B1
+    and B3 walk: required on CUDA for both tile stores, unread on the
+    CPU.  The tile store picks the kernel, as ``repro`` dispatches on
     ``tiles.dtype``: f32 tiles B1, int32 bit-planes B3.  On CPU tensors
     this is :func:`fused_level_blocks_plain`; on CUDA tensors it
-    launches the kernel or raises."""
+    launches the kernel or raises.
+
+    Exact, as the plain version is, while every frontier and tile entry
+    is a non-negative integer and every output sum is below 2^24: the
+    kernels add their chunks' sums with atomics, in no fixed order, and
+    f32 adds integers below 2^24 exactly in any order."""
     global LAUNCHES, LAUNCHES_U32
     n_out_rows = n_out_rows or frontier.shape[0]
     if frontier.device.type == "cpu":
@@ -327,23 +344,18 @@ def fused_level_blocks(
         raise ValueError(f"fused_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
     ints = dict(zip(_I32, (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)))
     _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, torch.float32)
-    shape = (n_out_rows, frontier.shape[1])
-    if tiles.dtype == torch.int32:
-        _check_work(work, frontier, tiles)
-        # B3 adds each chunk's sums into a zeroed output; cover-only blocks
-        # have no chunk, and a plan with no valid step launches nothing
-        out = torch.zeros(shape, dtype=torch.float32, device=frontier.device)
-        if work.shape[0]:
-            _launch_bitplane(out, frontier, tiles, tile_ids, f_rows, f_cols, o_rows, o_cols,
-                             work, block_size)
+    _check_work(work, frontier, tiles)
+    # B1 and B3 add each chunk's sums into a zeroed output; cover-only
+    # blocks have no chunk, and a plan with no valid step launches nothing
+    out = torch.zeros((n_out_rows, frontier.shape[1]), dtype=torch.float32, device=frontier.device)
+    if work.shape[0]:
+        bits = tiles.dtype == torch.int32
+        _launch_work("fused_level_f32_u32tiles" if bits else "fused_level_f32", out, frontier,
+                     tiles, tile_ids, f_rows, f_cols, o_rows, o_cols, work, block_size)
+        if bits:
             LAUNCHES_U32 += 1
-        return out
-    out = torch.empty(shape, dtype=torch.float32, device=frontier.device)
-    _launch(
-        "fused_level", "fused_level_f32", out,
-        frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols, run_ptr, block_size,
-    )
-    LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return out
 
 
@@ -418,13 +430,13 @@ def frontier_step_blocks_plain(
     return out.permute(1, 0, 2).reshape(m_pad, v_pad)
 
 
-def _check_step(frontier, tiles, block_rows, block_cols, block_size, run_ptr) -> None:
+def _check_step(frontier, tiles, block_rows, block_cols, block_size, work) -> None:
     if block_size % 8 or not 8 <= block_size <= 1024:
         raise ValueError(f"block_size must be a multiple of 8 up to 1024, got {block_size}")
     if frontier.dtype != torch.float32 or frontier.dim() != 2:
         raise TypeError(f"frontier must be a 2-D float32 tensor, got {frontier.dtype}")
     m_pad, v_pad = frontier.shape
-    if m_pad % 8 or v_pad % block_size:
+    if m_pad % 8 or v_pad % block_size or m_pad > 8 * 65535:
         raise ValueError(
             f"frontier {tuple(frontier.shape)} does not tile into (8, {block_size}) blocks"
         )
@@ -434,23 +446,22 @@ def _check_step(frontier, tiles, block_rows, block_cols, block_size, run_ptr) ->
     if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (block_size, block_size):
         raise ValueError(f"tiles must be (nnz, {block_size}, {block_size}), got {tuple(tiles.shape)}")
     named = {"frontier": frontier, "tiles": tiles, "block_rows": block_rows,
-             "block_cols": block_cols, "run_ptr": run_ptr}
+             "block_cols": block_cols}
     for name, t in named.items():
         if t.device != frontier.device:
             raise ValueError(f"{name} is on {t.device}, frontier on {frontier.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("block_rows", "block_cols", "run_ptr"):
+    for name in ("block_rows", "block_cols"):
         if named[name].dtype != torch.int32 or named[name].dim() != 1:
             raise TypeError(f"{name} must be a 1-D int32 tensor")
     if block_rows.shape[0] != nnz or block_cols.shape[0] != nnz:
         raise ValueError(f"block_rows and block_cols must hold one entry per tile ({nnz})")
     if nnz == 0:
         raise ValueError("an empty tile list: stores with no edges are not blocked")
-    if not 2 <= run_ptr.shape[0] <= v_pad // block_size + 1:
-        raise ValueError(
-            f"run_ptr of {run_ptr.shape[0]} offsets for {v_pad // block_size} column blocks"
-        )
+    _check_work(work, frontier, tiles)
+    if not 1 <= work.shape[0] <= nnz:
+        raise ValueError(f"a work list of {work.shape[0]} chunks for {nnz} tiles")
 
 
 def frontier_step_blocks(
@@ -460,33 +471,37 @@ def frontier_step_blocks(
     block_cols: torch.Tensor,  # (nnz,) int32, non-decreasing
     block_size: int,
     *,
-    run_ptr: torch.Tensor,  # (n_runs + 1,) int32: offsets of each column's run
+    work: torch.Tensor,  # (n_chunks, C) int32: the store's work list
 ) -> torch.Tensor:
     """One (transition × label store) block product: the raw f32 counts
     (m_pad, v_pad), ``out[:, cols[i]] += F[:, rows[i]] @ tiles[i]``; the
-    caller thresholds.  ``run_ptr[k] .. run_ptr[k+1]`` are the tiles of
-    the k-th distinct column of ``block_cols`` (``ops.column_runs``,
-    built once with the store), which the kernel gives one CTA each.
-    Column blocks no tile visits are zero, where ``repro``'s Pallas
-    kernel leaves them unwritten.  On CPU tensors this is
-    :func:`frontier_step_blocks_plain`; on CUDA tensors it launches B5
-    or raises."""
+    caller thresholds.  ``work`` is the store's work list, built once
+    with the store (``ops.store_work``): its tiles in order, cut into
+    chunks inside each column's run, which the kernel gives one CTA per
+    8-row block each.  Column blocks no tile visits are zero, where
+    ``repro``'s Pallas kernel leaves them unwritten.  On CPU tensors this
+    is :func:`frontier_step_blocks_plain` and ``work`` is unread; on CUDA
+    tensors it launches B5 or raises.
+
+    Exact, as the plain version is, while every frontier and tile entry
+    is a non-negative integer and every output sum is below 2^24: the
+    kernel adds its chunks' sums with atomics, in no fixed order."""
     global STEP_LAUNCHES
     if frontier.device.type == "cpu":
         return frontier_step_blocks_plain(frontier, tiles, block_rows, block_cols, block_size)
     if frontier.device.type != "cuda":
         raise ValueError(f"frontier_step_blocks runs on cuda or cpu tensors, got {frontier.device}")
-    _check_step(frontier, tiles, block_rows, block_cols, block_size, run_ptr)
+    _check_step(frontier, tiles, block_rows, block_cols, block_size, work)
     m_pad, v_pad = frontier.shape
     out = torch.zeros((m_pad, v_pad), dtype=torch.float32, device=frontier.device)
     fn = _build.load("fused_level").frontier_step_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(frontier.device):
         err = fn(
             frontier.data_ptr(), tiles.data_ptr(), block_rows.data_ptr(), block_cols.data_ptr(),
-            run_ptr.data_ptr(), out.data_ptr(), run_ptr.shape[0] - 1, m_pad, v_pad, block_size,
-            torch.cuda.current_stream().cuda_stream,
+            work.data_ptr(), out.data_ptr(), work.shape[0], work.shape[1], m_pad, v_pad,
+            block_size, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"frontier_step_f32 launch failed with CUDA error {err}")

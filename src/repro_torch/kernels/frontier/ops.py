@@ -12,8 +12,8 @@ path.  Compilation is **two-stage**, as in ``repro``:
 * **Stage B — automaton-dependent, cheap.**  :func:`build_level_schedule`
   only computes the step order and the seven id arrays over the Stage-A
   offsets, plus the port's ``run_ptr`` (the CSR offsets of the output
-  block runs kernels B1, B2 and B4 give one CTA each) and ``work`` (the
-  chunks of at most two valid steps kernel B3 gives one CTA each).  Transitions sharing
+  block runs kernels B2 and B4 give one CTA each) and ``work`` (the
+  chunks of valid steps kernels B1 and B3 give one CTA each).  Transitions sharing
   (dst_state, direction, label) fuse into ONE pass over a *fan-in union
   row* appended to the frontier by :func:`extend_frontier`.
 
@@ -88,8 +88,8 @@ FIXPOINT_COUNTERS: collections.Counter = collections.Counter()
 
 def column_runs(cols: np.ndarray) -> np.ndarray:
     """The offsets of each distinct column's run in a non-decreasing
-    ``cols`` (``pack_blocks`` order), closed by ``len(cols)``: the CSR
-    ``run_ptr`` that ``frontier_step_blocks`` gives one CTA per run."""
+    ``cols`` (``pack_blocks`` order), closed by ``len(cols)``: the runs
+    inside which :func:`store_work` cuts a store's chunks."""
     cols = np.asarray(cols)
     if (cols[1:] < cols[:-1]).any():
         raise ValueError("block cols must be non-decreasing")
@@ -101,9 +101,10 @@ def column_runs(cols: np.ndarray) -> np.ndarray:
 class BlockedGraph:
     """Every label's adjacency as its own block-sparse tile list, forward
     and inverse (``repro``'s ``BlockedGraph``).  Unlike ``repro``'s, each
-    entry is ``(tiles, rows, cols, run_ptr)`` on the device: ``run_ptr``
-    (:func:`column_runs`) is built once here, so a step launch needs no
-    host work on the tile list.  ``device`` is where the tiles live."""
+    entry is ``(tiles, rows, cols, work)`` on the device: ``work``
+    (:func:`store_work`, kernel B5's work list) is built once here, so a
+    step launch needs no host work on the tile list.  ``device`` is where
+    the tiles live."""
 
     n_nodes: int
     v_pad: int
@@ -113,15 +114,24 @@ class BlockedGraph:
     device: torch.device
 
 
+def store_work(cols: np.ndarray) -> np.ndarray:
+    """Kernel B5's work list for one label store: its tiles, in order, cut
+    into chunks of :data:`WORK_CHUNK_F32` inside each column's run
+    (:func:`level_work` with every step valid).  Built once per store by
+    :func:`blocked_entry`, counted in :data:`BUILD_COUNTERS`."""
+    BUILD_COUNTERS["store_work"] += 1
+    return level_work(np.ones(len(cols), np.int32), column_runs(cols), WORK_CHUNK_F32)
+
+
 def blocked_entry(
     tiles: np.ndarray, rows: np.ndarray, cols: np.ndarray, device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One label store of a :class:`BlockedGraph`, with its ``run_ptr``,
+    """One label store of a :class:`BlockedGraph`, with its work list,
     moved to ``device``."""
-    run_ptr = column_runs(cols)
+    work = store_work(cols)
     return tuple(
         torch.from_numpy(np.array(a)).to(device)  # a writable copy
-        for a in (tiles, np.asarray(rows, np.int32), np.asarray(cols, np.int32), run_ptr)
+        for a in (tiles, np.asarray(rows, np.int32), np.asarray(cols, np.int32), work)
     )
 
 
@@ -451,8 +461,9 @@ class FusedLevelPlan:
     The seven id arrays are byte-identical to ``repro``'s; ``run_ptr`` is
     the port's own: ``run_ptr[k] .. run_ptr[k+1]`` are the steps of output
     block ``k = dst_state · nb + block_col``.  ``work`` is the port's
-    too: kernel B3's work list (:func:`level_work`), the valid steps of
-    every run cut into chunks of at most :data:`WORK_CHUNK`."""
+    too: the work list of kernels B1 and B3 (:func:`level_work`), the
+    valid steps of every run cut into chunks of at most
+    ``work_chunk(tile_dtype)``."""
 
     n_states: int
     n_nodes: int
@@ -470,7 +481,7 @@ class FusedLevelPlan:
     o_rows: torch.Tensor  # (n_steps,) int32: dst automaton state
     o_cols: torch.Tensor  # (n_steps,) int32: tile block col
     run_ptr: torch.Tensor  # (n_states · nb + 1,) int32 run offsets
-    work: torch.Tensor  # (n_chunks, WORK_CHUNK) int32 valid steps, -1 past a chunk's end
+    work: torch.Tensor  # (n_chunks, work_chunk(tile_dtype)) int32 valid steps, -1 past a chunk's end
     # dtype of the aliased tile store ("f32" or "uint32"); the kernels
     # dispatch off the tensor's dtype, executors check it against theirs
     tile_dtype: str = "f32"
@@ -548,20 +559,34 @@ def run_offsets(arr: np.ndarray, firsts: np.ndarray, n_states: int, nb: int) -> 
     return np.append(starts, len(firsts)).astype(np.int32)
 
 
-# valid steps per chunk of kernel B3's work list: the Alibaba twin's
-# q1/q9/q12 levels hold 241-370 valid steps in runs of up to 24, so
-# chunks of 2 give 121-190 CTAs, about one per SM, each with two steps'
-# operands in flight
+# valid steps per chunk of kernel B3's work list (bit-plane tiles): the
+# Alibaba twin's q1/q9/q12 levels hold 241-370 valid steps in runs of up
+# to 24, so chunks of 2 give 121-190 CTAs, about one per SM, each with two
+# steps' operands (2 KB tiles) in flight
 WORK_CHUNK = 2
+# valid steps per chunk of kernels B1 and B5 (f32 tiles).  A step there
+# moves a 64 KB tile and a 4 KB frontier block (B = 128); a CTA's ring of
+# two 34 KB slots holds one step's operands in flight, and three CTAs fit
+# on an SM.  Chunks of 1 make a q1, q9 or q12 level 241, 370 or 245 CTAs:
+# one wave on 132 SMs (396 slots), every step's tile in flight at once.
+# Chunks of 2 would make 124, 188 or 128 CTAs, half the bytes in flight,
+# and each CTA would wait for its second tile after its first.
+WORK_CHUNK_F32 = 1
+
+
+def work_chunk(tile_dtype: str) -> int:
+    """The chunk length of a level's work list on ``tile_dtype`` tiles."""
+    return WORK_CHUNK if tile_dtype == "uint32" else WORK_CHUNK_F32
 
 
 def level_work(valids: np.ndarray, run_ptr: np.ndarray, chunk: int = WORK_CHUNK) -> np.ndarray:
-    """Kernel B3's work list: the valid steps of each run, in step order,
-    cut into chunks of at most ``chunk``, each inside one run.  Cover
-    steps (``valids == 0``) get no entry, so an output block made only
-    of cover steps has no chunk.  Returns (n_chunks, chunk) int32 step
-    indices, -1 past a chunk's end; chunk c's output block is that of
-    its first step.  Built once per plan, in numpy."""
+    """The work list of kernels B1, B3 and B5: the valid steps of each
+    run, in step order, cut into chunks of at most ``chunk``, each inside
+    one run.  Cover steps (``valids == 0``) get no entry, so an output
+    block made only of cover steps has no chunk.  Returns (n_chunks,
+    chunk) int32 step indices, -1 past a chunk's end; chunk c's output
+    block is that of its first step.  Built once per plan or per label
+    store, in numpy."""
     steps = np.nonzero(np.asarray(valids))[0]
     run = np.searchsorted(np.asarray(run_ptr), steps, side="right") - 1
     idx = np.arange(len(steps))
@@ -607,7 +632,7 @@ def build_level_schedule(
         o_rows=put(arr[:, 0]),
         o_cols=put(arr[:, 1]),
         run_ptr=put(run_ptr),
-        work=put(level_work(valids, run_ptr)),
+        work=put(level_work(valids, run_ptr, work_chunk(staged.tile_dtype))),
         tile_dtype=staged.tile_dtype,
     )
 
@@ -902,9 +927,9 @@ def expand_operand(frontier_row: torch.Tensor) -> torch.Tensor:
 def _expand_one(frontier_row: torch.Tensor, entry, block_size: int) -> torch.Tensor:
     """One (transition × label store) block product: one B5 launch on
     :func:`expand_operand`, and row 0 of the counts clamped to 0/1."""
-    tiles, rows, cols, run_ptr = entry
+    tiles, rows, cols, work = entry
     counts = frontier_step_blocks(
-        expand_operand(frontier_row), tiles, rows, cols, block_size, run_ptr=run_ptr
+        expand_operand(frontier_row), tiles, rows, cols, block_size, work=work
     )
     return torch.clamp(counts[0], max=1.0)
 

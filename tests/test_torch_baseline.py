@@ -73,11 +73,13 @@ def test_make_blocked_graph_byte_identical(case):
         device="cpu",
     )
     for key, (tiles, rows, cols) in r_stores.items():
-        t, r, c, run_ptr = t_stores[key]
+        t, r, c, work = t_stores[key]
         assert t.dtype == torch.float32 and t.numpy().tobytes() == np.asarray(tiles).tobytes()
         assert r.numpy().tobytes() == np.asarray(rows).tobytes()
         assert c.numpy().tobytes() == np.asarray(cols).tobytes()
-        assert run_ptr.numpy().tobytes() == ops.column_runs(np.asarray(cols)).tobytes()
+        want = ops.level_work(np.ones(len(cols), np.int32), ops.column_runs(np.asarray(cols)),
+                              ops.WORK_CHUNK_F32)
+        assert work.numpy().tobytes() == want.tobytes()
         for a, b in zip(_stores(carried)[key], t_stores[key]):
             assert a.numpy().tobytes() == b.numpy().tobytes()
     if case == 3:
@@ -88,7 +90,7 @@ def test_make_blocked_graph_counts_builds():
     ops.BUILD_COUNTERS.clear()
     g = _sparse_label_graph(structure)
     ops.make_blocked_graph(g, 8, device="cpu")
-    assert ops.BUILD_COUNTERS == {"make_blocked_graph": 1, "pack_blocks": 6}
+    assert ops.BUILD_COUNTERS == {"make_blocked_graph": 1, "pack_blocks": 6, "store_work": 6}
 
 
 def test_column_runs():
@@ -107,13 +109,13 @@ def test_step_plain_equals_pallas_kernel(case, m_pad):
     _, _, rbg, tbg, _, _ = _both(case)
     rng = np.random.default_rng(m_pad + case)
     b = tbg.block_size
-    for key, (tiles, rows, cols, run_ptr) in _stores(tbg).items():
+    for key, (tiles, rows, cols, work) in _stores(tbg).items():
         f = (rng.random((m_pad, tbg.v_pad)) < 0.3).astype(np.float32)
         want = np.asarray(r_frontier.frontier_step_blocks(
             jnp.asarray(f), *(jnp.asarray(a.numpy()) for a in (tiles, rows, cols)), b, interpret=True,
         ))
         got = frontier.frontier_step_blocks(
-            torch.from_numpy(f), tiles, rows, cols, b, run_ptr=run_ptr
+            torch.from_numpy(f), tiles, rows, cols, b, work=work
         ).numpy()
         visited = np.zeros(tbg.v_pad // b, bool)
         visited[cols.numpy()] = True
@@ -222,3 +224,121 @@ def test_make_blocked_graph_without_device_needs_a_gpu(monkeypatch):
         ops.make_blocked_graph(structure.example_graph(), 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         interop.blocked_graph_from_numpy(9, 8, {}, {})
+
+
+# ---------------------------------------------------------------------------
+# Kernel B5's work list: each store's tiles in chunks inside column runs
+# ---------------------------------------------------------------------------
+
+
+def _hub_graph(mod):
+    """Every node has an l0 edge into node 3, so at block 8 the column
+    block of node 3 holds a run of 25 tiles in the l0 store (and a row of
+    25 in its inverse), beside random l1 edges."""
+    rng = np.random.default_rng(21)
+    n = 200
+    src = np.concatenate([np.arange(n), rng.integers(0, n, 300)]).astype(np.int32)
+    dst = np.concatenate([np.full(n, 3), rng.integers(0, n, 300)]).astype(np.int32)
+    lbl = np.concatenate([np.zeros(n), np.ones(300)]).astype(np.int32)
+    return mod.LabeledGraph(n, src, lbl, dst, ["l0", "l1"])
+
+
+# the CASES, then the hub graph (block 8, query "l0 l1^-1")
+WORK_CASES = list(range(len(CASES))) + ["hub"]
+
+
+def _blocked_pair(case):
+    if case == "hub":
+        rg, tg = _hub_graph(r_struct), _hub_graph(structure)
+        return rg, r_ops.make_blocked_graph(rg, 8), ops.make_blocked_graph(tg, 8, device="cpu")
+    rg, _, rbg, tbg, _, _ = _both(case)
+    return rg, rbg, tbg
+
+
+@pytest.mark.parametrize("case", WORK_CASES)
+def test_store_work_covers_every_tile_once_in_runs(case):
+    """Each store's work list holds every tile exactly once, in order, in
+    chunks of at most WORK_CHUNK_F32 that each stay inside one column's
+    run and fill from their start."""
+    _, _, tbg = _blocked_pair(case)
+    longest = 0
+    for key, (tiles, rows, cols, work) in _stores(tbg).items():
+        w, c = work.numpy(), cols.numpy()
+        assert work.dtype == torch.int32 and w.ndim == 2 and w.shape[1] == ops.WORK_CHUNK_F32, key
+        filled = w >= 0
+        assert filled[:, 0].all() and (np.diff(filled.astype(np.int8), axis=1) <= 0).all(), key
+        assert np.array_equal(w[filled], np.arange(tiles.shape[0])), key
+        assert all(len(set(c[row[row >= 0]].tolist())) == 1 for row in w), key
+        longest = max(longest, int(np.diff(ops.column_runs(c)).max()))
+    if case == "hub":
+        assert longest > 2 * ops.WORK_CHUNK_F32
+
+
+def test_store_work_chunks_inside_column_runs():
+    cols = np.array([0, 0, 0, 0, 0, 2, 3, 3], np.int32)
+    assert ops.store_work(cols).tolist() == [[i] for i in range(8)]
+    runs = ops.column_runs(cols)
+    assert ops.level_work(np.ones(8, np.int32), runs, 2).tolist() == [
+        [0, 1], [2, 3], [4, -1], [5, -1], [6, 7]]
+
+
+def test_baseline_builds_no_work_list():
+    """make_blocked_graph builds each store's work list once; the levels
+    of the baseline fixpoint read it and build nothing."""
+    _, _, tbg = _blocked_pair("hub")
+    ca = paa.compile_query("l0 l1^-1", _hub_graph(structure))
+    ops.BUILD_COUNTERS.clear()
+    mask = np.zeros(tbg.n_nodes, np.float32)
+    mask[7] = 1.0
+    ops.FIXPOINT_COUNTERS.clear()
+    ops.multi_source_reach_baseline(ca, tbg, mask)
+    assert ops.FIXPOINT_COUNTERS["levels"] >= 2 and not ops.BUILD_COUNTERS
+
+
+def _step_by_chunks(f, tiles, rows, cols, work, b):
+    """frontier_step_blocks as B5 runs it: for each 8-row block of the
+    frontier and each chunk of the work list, the chunk's products summed
+    into an 8 × B block, added into a zeroed output."""
+    out = torch.zeros(f.shape)
+    r_, c_ = rows.numpy(), cols.numpy()
+    for rb in range(f.shape[0] // 8):
+        fr = f[rb * 8 : rb * 8 + 8]
+        for row in work.numpy():
+            steps = row[row >= 0]
+            acc = torch.zeros((8, b))
+            for i in steps:
+                acc += fr[:, r_[i] * b : r_[i] * b + b] @ tiles[i]
+            col = c_[steps[0]]
+            out[rb * 8 : rb * 8 + 8, col * b : col * b + b] += acc
+    return out
+
+
+@pytest.mark.parametrize("chunk", [ops.WORK_CHUNK_F32, 3])
+@pytest.mark.parametrize("m_pad", [8, 24])
+@pytest.mark.parametrize("case", WORK_CASES)
+def test_step_summed_by_chunks_equals_plain_and_repro(case, m_pad, chunk):
+    """The chunk-by-chunk twin of B5, on each store's own work list and on
+    one of chunks of 3, equals frontier_step_blocks_plain bit for bit and
+    repro's frontier_step_blocks (interpret mode) on every visited column
+    block; unvisited blocks are zero."""
+    _, _, tbg = _blocked_pair(case)
+    rng = np.random.default_rng(m_pad + chunk)
+    b = tbg.block_size
+    for key, (tiles, rows, cols, work) in _stores(tbg).items():
+        if chunk != ops.WORK_CHUNK_F32:
+            work = torch.from_numpy(ops.level_work(
+                np.ones(tiles.shape[0], np.int32), ops.column_runs(cols.numpy()), chunk))
+        f = (rng.random((m_pad, tbg.v_pad)) < 0.3).astype(np.float32)
+        f[:, tbg.n_nodes :] = 0.0
+        ft = torch.from_numpy(f)
+        got = _step_by_chunks(ft, tiles, rows, cols, work, b)
+        plain = frontier.frontier_step_blocks_plain(ft, tiles, rows, cols, b)
+        assert got.numpy().tobytes() == plain.numpy().tobytes(), key
+        want = np.asarray(r_frontier.frontier_step_blocks(
+            jnp.asarray(f), *(jnp.asarray(a.numpy()) for a in (tiles, rows, cols)), b, interpret=True,
+        ))
+        visited = np.zeros(tbg.v_pad // b, bool)
+        visited[cols.numpy()] = True
+        got3, want3 = (x.reshape(m_pad, -1, b) for x in (got.numpy(), want))
+        assert got3[:, visited].tobytes() == want3[:, visited].tobytes(), key
+        assert not got3[:, ~visited].any(), key

@@ -70,7 +70,7 @@ def test_kernel_equals_plain(cuda, case):
     f = torch.from_numpy(f).to(cuda)
     n_out = plan.n_states * plan.q_pad
     before = frontier.LAUNCHES
-    got = frontier.fused_level_blocks(*_args(plan, f), n_out_rows=n_out, run_ptr=plan.run_ptr)
+    got = frontier.fused_level_blocks(*_args(plan, f), **_kw(plan, frontier.fused_level_blocks))
     want = frontier.fused_level_blocks_plain(*_args(plan, f), n_out_rows=n_out)
     torch.cuda.synchronize()
     assert frontier.LAUNCHES == before + 1
@@ -80,7 +80,7 @@ def test_kernel_equals_plain(cuda, case):
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     plan = _plan(0, cuda)
     f = torch.zeros(((plan.n_states + len(plan.union_members)) * 8, plan.v_pad), device=cuda)
-    kw = {"n_out_rows": plan.n_states * 8, "run_ptr": plan.run_ptr}
+    kw = _kw(plan, frontier.fused_level_blocks)
     args = list(_args(plan, f))
     with pytest.raises(ValueError, match="q_pad=8"):
         frontier.fused_level_blocks(*args[:-1], 16, **kw)
@@ -91,7 +91,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         frontier.fused_level_blocks(f.t().contiguous().t(), *args[1:], **kw)
     with pytest.raises(ValueError, match="one run per output block"):
-        frontier.fused_level_blocks(*args, n_out_rows=plan.n_states * 8, run_ptr=plan.run_ptr[:-1])
+        frontier.fused_level_blocks(*args, **{**kw, "run_ptr": plan.run_ptr[:-1]})
 
 
 # kernel -> (wrapper, plain version, tile store, launch count name)
@@ -107,7 +107,7 @@ KERNELS = {
 
 def _kw(plan, wrapper):
     """The keywords of one level: B1-B4 take run_ptr, fused_level_blocks
-    (B3 on bit-plane tiles) the work list too."""
+    (B1 and B3) the work list too."""
     kw = {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr}
     if wrapper is frontier.fused_level_blocks:
         kw["work"] = plan.work
@@ -197,6 +197,54 @@ def test_bitplane_wrapper_refuses_without_a_work_list(cuda):
     assert frontier.launch_counts() == before
 
 
+def test_f32_level_wrapper_refuses_without_a_work_list(cuda):
+    """B1 on CUDA takes only a well-formed work list, and frontier and
+    tiles on 16-byte boundaries (cp.async), and launches nothing else."""
+    plan = _plan(1, cuda)
+    f = _frontier_operand(plan, frontier.fused_level_blocks, 0, cuda)
+    kw = _kw(plan, frontier.fused_level_blocks)
+    before = frontier.launch_counts()
+    with pytest.raises(ValueError, match="work list"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": None})
+    with pytest.raises(ValueError, match="work list"):
+        frontier.fused_level_blocks(*_args(plan, f), n_out_rows=kw["n_out_rows"], run_ptr=plan.run_ptr)
+    with pytest.raises(TypeError, match="work must be"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.long()})
+    with pytest.raises(TypeError, match="work must be"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.flatten()})
+    with pytest.raises(TypeError, match="work must be"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.repeat(1, 9)})
+    with pytest.raises(ValueError, match="work is on"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.cpu()})
+    with pytest.raises(ValueError, match="contiguous"):
+        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.repeat(1, 2)[:, ::2]})
+    shifted = torch.zeros(f.numel() + 1, device=cuda)[1:].view(f.shape)  # 4 bytes in
+    with pytest.raises(ValueError, match="16-byte"):
+        frontier.fused_level_blocks(shifted, *_args(plan, f)[1:], **kw)
+    assert frontier.launch_counts() == before
+
+
+@pytest.mark.parametrize("chunk", [2, 3, 8])
+@pytest.mark.parametrize("case", range(len(LONG_RUNS)))
+def test_f32_level_kernel_on_longer_chunks_equals_plain(cuda, case, chunk):
+    """B1 on work lists of longer chunks than Stage B's (a chunk's steps
+    then pass through the ring one after another): torch.equal to plain,
+    and two calls give the same bits."""
+    factory, block, expr = LONG_RUNS[case]
+    g = factory()
+    plan = ops.build_level_schedule(paa.compile_query(expr, g), ops.stage_graph(g, block, device=cuda))
+    assert plan.work.shape[1] == ops.WORK_CHUNK_F32
+    work = torch.from_numpy(ops.level_work(
+        plan.valids.cpu().numpy(), plan.run_ptr.cpu().numpy(), chunk)).to(cuda)
+    f = _frontier_operand(plan, frontier.fused_level_blocks, case, cuda)
+    kw = {**_kw(plan, frontier.fused_level_blocks), "work": work}
+    got = frontier.fused_level_blocks(*_args(plan, f), **kw)
+    again = frontier.fused_level_blocks(*_args(plan, f), **kw)
+    want = frontier.fused_level_blocks_plain(*_args(plan, f), n_out_rows=kw["n_out_rows"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_bitplane_and_packed_wrappers_refuse(cuda, kernel):
     wrapper, _, tile_dtype, _ = KERNELS[kernel]
@@ -282,12 +330,12 @@ def _blocked(case, device):
 def test_step_kernel_equals_plain(cuda, case, m_pad):
     _, bg, ca = _blocked(case, cuda)
     rng = np.random.default_rng(case)
-    for t, (tiles, rows, cols, run_ptr) in ops.baseline_entries(ca, bg):
+    for t, (tiles, rows, cols, work) in ops.baseline_entries(ca, bg):
         f = (rng.random((m_pad, bg.v_pad)) < 0.3).astype(np.float32)
         f[:, bg.n_nodes :] = 0.0
         f = torch.from_numpy(f).to(cuda)
         before = frontier.launch_counts()
-        got = frontier.frontier_step_blocks(f, tiles, rows, cols, bg.block_size, run_ptr=run_ptr)
+        got = frontier.frontier_step_blocks(f, tiles, rows, cols, bg.block_size, work=work)
         want = frontier.frontier_step_blocks_plain(f, tiles, rows, cols, bg.block_size)
         torch.cuda.synchronize()
         assert frontier.launch_counts() == {**before, "frontier_step_blocks": before["frontier_step_blocks"] + 1}
@@ -296,23 +344,77 @@ def test_step_kernel_equals_plain(cuda, case, m_pad):
 
 def test_step_wrapper_refuses(cuda):
     _, bg, _ = _blocked(1, cuda)
-    tiles, rows, cols, run_ptr = next(iter(bg.fwd.values()))
+    tiles, rows, cols, work = next(iter(bg.fwd.values()))
     f = torch.zeros((8, bg.v_pad), device=cuda)
     b = bg.block_size
     with pytest.raises(ValueError, match="tile into"):
-        frontier.frontier_step_blocks(f[:4], tiles, rows, cols, b, run_ptr=run_ptr)
+        frontier.frontier_step_blocks(f[:4], tiles, rows, cols, b, work=work)
     with pytest.raises(TypeError, match="frontier must be"):
-        frontier.frontier_step_blocks(f.double(), tiles, rows, cols, b, run_ptr=run_ptr)
+        frontier.frontier_step_blocks(f.double(), tiles, rows, cols, b, work=work)
     with pytest.raises(TypeError, match="tiles must be float32"):
-        frontier.frontier_step_blocks(f, tiles.to(torch.int32), rows, cols, b, run_ptr=run_ptr)
+        frontier.frontier_step_blocks(f, tiles.to(torch.int32), rows, cols, b, work=work)
     with pytest.raises(TypeError, match="int32"):
-        frontier.frontier_step_blocks(f, tiles, rows.long(), cols, b, run_ptr=run_ptr)
+        frontier.frontier_step_blocks(f, tiles, rows.long(), cols, b, work=work)
     with pytest.raises(ValueError, match="one entry per tile"):
-        frontier.frontier_step_blocks(f, tiles, rows[:-1], cols, b, run_ptr=run_ptr)
+        frontier.frontier_step_blocks(f, tiles, rows[:-1], cols, b, work=work)
     with pytest.raises(ValueError, match="frontier on"):
-        frontier.frontier_step_blocks(f, tiles.cpu(), rows, cols, b, run_ptr=run_ptr)
+        frontier.frontier_step_blocks(f, tiles.cpu(), rows, cols, b, work=work)
     with pytest.raises(ValueError, match="contiguous"):
-        frontier.frontier_step_blocks(f.t().contiguous().t(), tiles, rows, cols, b, run_ptr=run_ptr)
+        frontier.frontier_step_blocks(f.t().contiguous().t(), tiles, rows, cols, b, work=work)
+    before = frontier.launch_counts()
+    with pytest.raises(ValueError, match="work list"):
+        frontier.frontier_step_blocks(f, tiles, rows, cols, b, work=None)
+    with pytest.raises(TypeError, match="work must be"):
+        frontier.frontier_step_blocks(f, tiles, rows, cols, b, work=work.long())
+    with pytest.raises(ValueError, match="work is on"):
+        frontier.frontier_step_blocks(f, tiles, rows, cols, b, work=work.cpu())
+    with pytest.raises(ValueError, match="chunks for"):
+        frontier.frontier_step_blocks(f, tiles, rows, cols, b, work=torch.cat([work, work]))
+    assert frontier.launch_counts() == before
+
+
+def _hub_graph(n: int) -> structure.LabeledGraph:
+    """Every node has an l0 edge into node 3, beside 300 random l1 edges:
+    the l0 store's column block 0 is one run of every row block."""
+    rng = np.random.default_rng(21)
+    src = np.concatenate([np.arange(n), rng.integers(0, n, 300)]).astype(np.int32)
+    dst = np.concatenate([np.full(n, 3), rng.integers(0, n, 300)]).astype(np.int32)
+    lbl = np.concatenate([np.zeros(n), np.ones(300)]).astype(np.int32)
+    return structure.LabeledGraph(n, src, lbl, dst, ["l0", "l1"])
+
+
+@pytest.mark.parametrize("chunk", [None, 2, 3])
+@pytest.mark.parametrize("m_pad", [8, 24])
+@pytest.mark.parametrize("n_nodes, block", [(200, 8), (2000, 128)])
+def test_step_kernel_on_long_runs_and_single_tiles(cuda, n_nodes, block, m_pad, chunk):
+    """B5 on the hub graph's stores (a column run of 25 tiles at block 8,
+    of 16 at block 128), on each store cut to a single tile, and on work
+    lists of longer chunks than the store's own: torch.equal to plain,
+    and two calls give the same bits."""
+    bg = ops.make_blocked_graph(_hub_graph(n_nodes), block, device=cuda)
+    runs = [np.diff(ops.column_runs(e[2].cpu().numpy())).max() for e in bg.fwd.values()]
+    assert max(runs) > 2 * ops.WORK_CHUNK_F32
+    rng = np.random.default_rng(block + m_pad)
+    stores = list(bg.fwd.values()) + list(bg.inv.values())
+    singles = [(t[i : i + 1], r[i : i + 1], c[i : i + 1], torch.zeros((1, 1), dtype=torch.int32,
+                                                                     device=cuda))
+               for t, r, c, _ in stores for i in (0, t.shape[0] - 1)]
+    for tiles, rows, cols, work in stores + singles:
+        if chunk is not None:
+            work = torch.from_numpy(ops.level_work(
+                np.ones(tiles.shape[0], np.int32), ops.column_runs(cols.cpu().numpy()), chunk)).to(cuda)
+        f = (rng.random((m_pad, bg.v_pad)) < 0.3).astype(np.float32)
+        f[:, bg.n_nodes :] = 0.0
+        f = torch.from_numpy(f).to(cuda)
+        before = frontier.STEP_LAUNCHES
+        got = frontier.frontier_step_blocks(f, tiles.contiguous(), rows.contiguous(),
+                                            cols.contiguous(), block, work=work)
+        again = frontier.frontier_step_blocks(f, tiles.contiguous(), rows.contiguous(),
+                                              cols.contiguous(), block, work=work)
+        want = frontier.frontier_step_blocks_plain(f, tiles, rows, cols, block)
+        torch.cuda.synchronize()
+        assert frontier.STEP_LAUNCHES == before + 2
+        assert torch.equal(got, want) and torch.equal(got, again)
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))

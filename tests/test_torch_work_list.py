@@ -163,3 +163,104 @@ def test_cpu_level_on_bitplane_tiles_needs_no_work_list():
     with_work = frontier.fused_level_blocks(*args, **kw, work=tp.work)
     assert frontier.launch_counts() == before
     assert torch.equal(without, with_work) and torch.equal(without, _level_by_chunks(tp, f, rca.n_states * 8))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1's work list: f32 tiles, chunks of WORK_CHUNK_F32
+# ---------------------------------------------------------------------------
+
+# (case, query, block) on f32 tiles: every SWEEP query, and a dense graph
+# at block 16 whose runs are far longer than two chunks
+F32_GRAPHS = {"dense": (lambda s, g: g.random_labeled_graph(200, 3000, 2, seed=3), 16)}
+F32_PLANS = [(c, e, b) for c, e, b in PLANS if c != "twin"] + [("dense", "(l0|l1)+ .^-1", 16)]
+
+_STAGED_F32: dict = {}
+
+
+def _plans_f32(case, expr, block):
+    """repro's f32 store and plan, and the port's plan over the same store
+    carried in and built by Stage B."""
+    if (case, block) not in _STAGED_F32:
+        factory = F32_GRAPHS[case][0] if case in F32_GRAPHS else SWEEP[case][0]
+        rg, tg = factory(r_struct, r_gen), factory(structure, generators)
+        rs = r_ops.stage_graph(rg, block)
+        ts = interop.staged_from_numpy(rg.n_nodes, block, np.asarray(rs.tiles), rs.offsets, "cpu")
+        _STAGED_F32[case, block] = (rg, tg, rs, ts)
+    rg, tg, rs, ts = _STAGED_F32[case, block]
+    rca = r_paa.compile_query(expr, rg)
+    return rca, r_ops.build_level_schedule(rca, rs), ops.build_level_schedule(paa.compile_query(expr, tg), ts)
+
+
+def _f32_level_by_chunks(plan, f: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The plain level as B1 runs it: each chunk's steps summed into an
+    8 × B block, added into a zeroed output."""
+    b = plan.block_size
+    out = torch.zeros((n_out, plan.v_pad))
+    ids = {k: getattr(plan, k).numpy() for k in SCHEDULE_FIELDS[2:]}
+    for row in plan.work.numpy():
+        steps = row[row >= 0]
+        acc = torch.zeros((8, b))
+        for i in steps:
+            fr, fc = ids["f_rows"][i], ids["f_cols"][i]
+            acc += f[fr * 8 : fr * 8 + 8, fc * b : fc * b + b] @ plan.tiles[ids["tile_ids"][i]]
+        o_r, o_c = ids["o_rows"][steps[0]], ids["o_cols"][steps[0]]
+        out[o_r * 8 : o_r * 8 + 8, o_c * b : o_c * b + b] += acc
+    return out
+
+
+@pytest.mark.parametrize("case, expr, block", F32_PLANS)
+def test_f32_work_list_partitions_the_valid_steps_of_each_run(case, expr, block):
+    """On f32 tiles the work list has chunks of WORK_CHUNK_F32: every valid
+    step its own chunk, in step order, cover steps none."""
+    _, _, plan = _plans_f32(case, expr, block)
+    assert plan.tile_dtype == "f32" and ops.work_chunk("f32") == ops.WORK_CHUNK_F32
+    work = plan.work.numpy()
+    valids, ptr = plan.valids.numpy(), plan.run_ptr.numpy()
+    assert plan.work.dtype == torch.int32 and work.shape[1] == ops.WORK_CHUNK_F32
+    assert np.array_equal(work, ops.level_work(valids, ptr, ops.WORK_CHUNK_F32))
+    filled = work >= 0
+    assert filled[:, 0].all() and np.array_equal(work[filled], np.nonzero(valids)[0])
+    run_of = np.searchsorted(ptr, np.arange(len(valids)), side="right") - 1
+    assert all(len(set(run_of[row[row >= 0]].tolist())) == 1 for row in work)
+    if case == "dense":
+        assert np.add.reduceat(valids, ptr[:-1]).max() > 2 * ops.WORK_CHUNK_F32
+
+
+@pytest.mark.parametrize("case, expr, block", F32_PLANS)
+def test_f32_level_summed_by_chunks_equals_plain_and_repro(case, expr, block):
+    rca, rp, tp = _plans_f32(case, expr, block)
+    n_rows = rca.n_states + len(rp.union_members)
+    f = (np.random.default_rng(block + 1).random((n_rows * 8, rp.v_pad)) < 0.3).astype(np.float32)
+    f[:, tp.n_nodes :] = 0.0
+    n_out = rca.n_states * 8
+    want = np.asarray(r_frontier.fused_level_blocks(
+        jnp.asarray(f), rp.tiles, rp.firsts, rp.valids, rp.tile_ids, rp.f_rows,
+        rp.f_cols, rp.o_rows, rp.o_cols, block, 8, interpret=True, n_out_rows=n_out,
+    ))
+    ft = torch.from_numpy(f)
+    plain = frontier.fused_level_blocks_plain(
+        ft, tp.tiles, tp.firsts, tp.valids, tp.tile_ids, tp.f_rows, tp.f_cols, tp.o_rows,
+        tp.o_cols, block, 8, n_out_rows=n_out,
+    )
+    got = _f32_level_by_chunks(tp, ft, n_out)
+    assert got.numpy().tobytes() == plain.numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("case, expr, block", F32_PLANS)
+def test_plan_from_numpy_builds_the_f32_work_list(case, expr, block):
+    _, rp, tp = _plans_f32(case, expr, block)
+    arrays = (np.asarray(getattr(rp, k)) for k in SCHEDULE_FIELDS)
+    carried = interop.plan_from_numpy(_STAGED_F32[case, block][3], rp.n_states, *arrays, rp.union_members)
+    assert carried.work.shape[1] == ops.WORK_CHUNK_F32 and torch.equal(carried.work, tp.work)
+
+
+def test_work_list_is_built_once_per_plan():
+    """Stage B builds the work list with the plan; a level reads it and
+    builds nothing."""
+    rca, _, tp = _plans_f32(0, SWEEP[0][2][0], SWEEP[0][1])
+    ops.BUILD_COUNTERS.clear()
+    f = torch.zeros(((rca.n_states + len(tp.union_members)) * 8, tp.v_pad))
+    f[:, : tp.n_nodes] = 1.0
+    work = tp.work.clone()
+    ops.expand_level_fused(tp, f[: rca.n_states * 8])
+    assert not ops.BUILD_COUNTERS and torch.equal(tp.work, work)
