@@ -37,12 +37,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
              every second valid step of each run (runs of more than
              2 x ``WORK_CHUNK`` valid steps with cover steps between
              them); the packed kernels on random lane words over all 32
-             bits.  Each plan's work-list size (the CTAs of B1 and B3)
-             and longest run are logged.  Then the time of one level of
-             each query's plan for each kernel, the plain version's, and
-             the bound; B1 and B3 again equal to plain at every timed
-             level, with their chunks and the time of their output's
-             zero fill alone;
+             bits.  Each plan's work-list size (the CTAs of B1-B4) and
+             longest run are logged.  Then the time of one level of each
+             query's plan for each kernel, the plain version's, and the
+             bound; each kernel again equal to plain at every timed
+             level, with its chunks and the time of its output's zero
+             fill alone;
 * path     — ``s2_execute`` on Table-2 queries q1, q9 and q12 over all
              their valid starts, for each of the four paths, with the
              launch counts set to 0 just before each path and read just
@@ -55,7 +55,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
              vectors) timed apart from a warm run, and the run traced
              with ``torch.profiler``: device busy time, idle share,
              device time per kernel, and the path's level kernel looked
-             up by its device symbol, which must launch once per level;
+             up by pieces of its device symbol, which must match exactly
+             one kernel, launched as often as in the path phase;
 * baseline — the per-transition baseline path, carried by B5
              ``frontier_step_blocks``: the twin as per-label tile lists
              (``make_blocked_graph``) and Stage A again from them (equal
@@ -157,31 +158,33 @@ BF16_TOL = 2e-2
 
 # kernel name -> what drives and describes it; "lanes" marks the packed
 # kernels, whose frontier is int32 lane words; "symbol" holds the pieces
-# of the kernel's device symbol that the trace phase looks it up by
+# of the kernel's device symbol that the trace phase looks it up by, which
+# together match its symbol only (B1 and B2 are instantiations of one
+# body, as are B3 and B4; B5 is B1's body on another schedule)
 KERNELS = {
     "fused_level_blocks": {
         "wrapper": fkernel.fused_level_blocks, "plain": fkernel.fused_level_blocks_plain,
         "tile_dtype": "f32", "lanes": False, "backend": "frontier_kernel",
         "source": f"{CSRC}/fused_level.cu", "replaces": f"{FRONTIER_PY}:209",
-        "symbol": ("f32_chunk_kernel<", "LevelSchedule"),
+        "symbol": ("f32_chunk_kernel<", "LevelSchedule", "AddF32"),
     },
     "fused_level_blocks_u32": {
         "wrapper": fkernel.fused_level_blocks, "plain": fkernel.fused_level_blocks_plain,
         "tile_dtype": "uint32", "lanes": False, "backend": "frontier_kernel",
         "source": f"{CSRC}/fused_level.cu", "replaces": f"{FRONTIER_PY}:188",
-        "symbol": ("bitplane_level_kernel",),
+        "symbol": ("bitplane_level_kernel<", "AddF32"),
     },
     "packed_level_blocks": {
         "wrapper": fkernel.packed_level_blocks, "plain": fkernel.packed_level_blocks_plain,
         "tile_dtype": "f32", "lanes": True, "backend": "frontier_kernel_packed",
-        "source": f"{CSRC}/packed_level.cu", "replaces": f"{FRONTIER_PY}:337",
-        "symbol": ("packed_level_kernel<float>",),
+        "source": f"{CSRC}/fused_level.cu", "replaces": f"{FRONTIER_PY}:337",
+        "symbol": ("f32_chunk_kernel<", "LevelSchedule", "OrLanes"),
     },
     "packed_level_blocks_u32": {
         "wrapper": fkernel.packed_level_blocks, "plain": fkernel.packed_level_blocks_plain,
         "tile_dtype": "uint32", "lanes": True, "backend": "frontier_kernel_packed",
-        "source": f"{CSRC}/packed_level.cu", "replaces": f"{FRONTIER_PY}:311",
-        "symbol": ("packed_level_kernel<unsigned int>",),
+        "source": f"{CSRC}/fused_level.cu", "replaces": f"{FRONTIER_PY}:311",
+        "symbol": ("bitplane_level_kernel<", "OrLanes"),
     },
 }
 
@@ -210,13 +213,10 @@ def level_args(plan, frontier):
     )
 
 
-def level_kw(plan, k) -> dict:
-    """The keywords of one kernel level on ``plan``: run_ptr, and for
-    ``fused_level_blocks`` (B1 and B3) the work list."""
-    kw = {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr}
-    if k["wrapper"] is fkernel.fused_level_blocks:
-        kw["work"] = plan.work
-    return kw
+def level_kw(plan) -> dict:
+    """The keywords of one kernel level on ``plan``: run_ptr and the work
+    list, which B1-B4 all walk."""
+    return {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr, "work": plan.work}
 
 
 SCHEDULE = ("firsts", "valids", "tile_ids", "f_rows", "f_cols", "o_rows", "o_cols")
@@ -344,8 +344,9 @@ def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[
     traced with ``torch.profiler``: device busy time (the union of the
     device events' intervals), its share of the traced wall time, the
     device time and count of each kernel, and those of the path's level
-    kernel, found by the pieces of its device symbol (``symbol``), and of
-    every fill kernel (the level kernels' zeroed outputs among them)."""
+    kernel, found by the pieces of its device symbol (``symbol``), which
+    must match exactly one kernel name, and of every fill kernel (the
+    level kernels' zeroed outputs among them)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -386,8 +387,11 @@ def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[
         hits = [kt for name, kt in per_kernel.items() if match(name)]
         return {"ms": sum(kt["us"] for kt in hits) / 1e3, "count": sum(kt["count"] for kt in hits)}
 
+    names = [name for name in per_kernel if all(piece in name for piece in symbol)]
+    if len(names) != 1:
+        raise AssertionError(f"the pieces {symbol} match {len(names)} kernel names: {names}")
     return {
-        "level_kernel": total(lambda name: all(piece in name for piece in symbol)),
+        "level_kernel": {**total(lambda name: name == names[0]), "name": names[0]},
         "fills": total(lambda name: "FillFunctor" in name),
         "setup_ms": setup_ms, "run_ms": run_ms, "traced_ms": traced_ms,
         "device_busy_ms": busy_us / 1e3,
@@ -421,7 +425,7 @@ def check_kernels(stores, cas, dev, gen) -> dict[str, float]:
             runs = runs_of(plan)
             f = random_frontier(plan, gen, k["lanes"])
             n_out = plan.n_states * plan.q_pad
-            got = k["wrapper"](*level_args(plan, f), **level_kw(plan, k))
+            got = k["wrapper"](*level_args(plan, f), **level_kw(plan))
             want = k["plain"](*level_args(plan, f), n_out_rows=n_out)
             torch.cuda.synchronize()
             err = float((got.double() - want.double()).abs().max())
@@ -452,7 +456,7 @@ def time_levels(stores, cas, gen, flush) -> dict:
         for name, k in KERNELS.items():
             plan = plans[k["tile_dtype"]]
             f = random_frontier(plan, gen, k["lanes"])
-            kw = level_kw(plan, k)
+            kw = level_kw(plan)
 
             def kernel_level(k=k, plan=plan, f=f, kw=kw):
                 return k["wrapper"](*level_args(plan, f), **kw)
@@ -468,17 +472,18 @@ def time_levels(stores, cas, gen, flush) -> dict:
                 "plain_ms": events_ms(plain_level, 10, flush),
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
             }
-            if "work" in kw:  # B1 and B3: the work list's kernels
-                want = plain_level()
-                if not torch.equal(kernel_level(), want):
-                    raise AssertionError(f"{name} != plain at the timed {q} level")
-                t["chunks"], t["longest_run"] = int(plan.work.shape[0]), int(runs_of(plan).max())
-                shape = (plan.n_states * plan.q_pad, plan.v_pad)
-                t["fill_ms"] = graph_ms(lambda shape=shape: torch.zeros(shape, device=f.device), 50, flush)
-                log("kernels", f"{name} {q} level == plain; {t['chunks']} chunks of <= "
-                    f"{plan.work.shape[1]} = CTAs, longest run {t['longest_run']} valid steps; the "
-                    f"output's zero fill alone {t['fill_ms'] * 1e3:.2f} us (L2 flushed), inside the "
-                    "kernel times below")
+            if not torch.equal(kernel_level(), plain_level()):
+                raise AssertionError(f"{name} != plain at the timed {q} level")
+            t["chunks"], t["longest_run"] = int(plan.work.shape[0]), int(runs_of(plan).max())
+            shape = (plan.n_states * plan.q_pad, plan.v_pad)
+            def fill(shape=shape, f=f):
+                return torch.zeros(shape, dtype=f.dtype, device=f.device)
+
+            t["fill_ms"] = graph_ms(fill, 50, flush)
+            log("kernels", f"{name} {q} level == plain; {t['chunks']} chunks of <= "
+                f"{plan.work.shape[1]} = CTAs, longest run {t['longest_run']} valid steps; the "
+                f"output's zero fill alone {t['fill_ms'] * 1e3:.2f} us (L2 flushed), inside the "
+                "kernel times below")
             log("kernels", f"{name} {q} level: kernel {t['ms'] * 1e3:.2f} us (L2 flushed; "
                 f"{t['warm_ms'] * 1e3:.2f} us warm; {t['events_ms'] * 1e3:.2f} us one call between "
                 f"events), plain {t['plain_ms'] * 1e3:.2f} us between events, bound "
@@ -1023,10 +1028,11 @@ def main() -> int:
             tr = record["trace"][f"{backend}/{td}/{q}"] = trace_query(
                 placement, cas[q], truth[q]["starts"], stores[td], dev, backend, k["symbol"]
             )
-            lk = tr["level_kernel"]
-            if lk["count"] != record["path"][f"{backend}/{td}"][q]["levels"]:
+            lk, path_q = tr["level_kernel"], record["path"][f"{backend}/{td}"][q]
+            if not lk["count"] == path_q["launches"] == path_q["levels"]:
                 raise AssertionError(f"{backend}/{td} {q}: the trace holds {lk['count']} launches of "
-                                     f"the level kernel {k['symbol']}, not one per level")
+                                     f"the level kernel {lk['name']}, the path phase "
+                                     f"{path_q['launches']} in {path_q['levels']} levels")
             log("trace", f"{backend}/{td} {q}: set-up {tr['setup_ms']:.1f} ms, run {tr['run_ms']:.1f} ms "
                 f"= {len(truth[q]['starts']) / tr['run_ms'] * 1e3:.1f} queries/s "
                 f"({tr['traced_ms']:.1f} ms traced); device busy {tr['device_busy_ms']:.1f} ms, "

@@ -36,7 +36,6 @@ NVCC_FLAGS = (
 # kernel name -> source, relative to src/repro_torch
 SOURCES = {
     "fused_level": "kernels/frontier/csrc/fused_level.cu",
-    "packed_level": "kernels/frontier/csrc/packed_level.cu",
     "embedbag": "kernels/embedbag/csrc/embedbag.cu",
     "decode_attn": "kernels/decode_attn/csrc/decode_attn.cu",
 }

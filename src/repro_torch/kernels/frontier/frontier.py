@@ -31,28 +31,29 @@ packed_level_blocks    int32 lanes  int32 bits   B4 ``packed_level_u32tiles``
 frontier_step_blocks   f32          f32          B5 ``frontier_step_f32``
 =====================  ===========  ===========  =========================
 
-B1, B3 and B5 walk a work list: the valid steps of each run cut into
-chunks (``ops.level_work``; chunks of 1 on f32 tiles, of 2 on bit-planes),
-one CTA per chunk, built once per plan (``FusedLevelPlan.work``) or per
-label store (``BlockedGraph`` entries).  B2 and B4 give each output
-block's run one CTA (``run_ptr``).
+All five kernels walk a work list: the valid steps of each run cut into
+chunks (``ops.level_work``; chunks of 1 on f32 tiles, of 2 on
+bit-planes), one CTA per chunk, built once per plan
+(``FusedLevelPlan.work``, which the fused and the packed level share) or
+per label store (``BlockedGraph`` entries).
 
 For CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/fused_level.cu`` (B1 and B5, one kernel body on two schedules,
-one CTA per chunk of a work list with its operands prefetched by
-``cp.async``; B3, a kernel of its own over the plan's work list) and
-``csrc/packed_level.cu`` (B2, B4) and raise on anything they do not
-take; for CPU tensors they run the plain PyTorch versions.  There is no
-fallback from the one to the other.  Each kernel has its own launch
-count (:func:`launch_counts`).
+``csrc/fused_level.cu``, two bodies that prefetch their operands by
+``cp.async``: B1, B2 and B5 on f32 tiles (one body on two schedules and
+two combine policies), B3 and B4 on bit-planes (one body on the two
+policies); they raise on anything the kernels do not take.  For CPU
+tensors they run the plain PyTorch versions.  There is no fallback from
+the one to the other.  Each kernel has its own launch count
+(:func:`launch_counts`).
 
-Exact: B1, B3 and B5 add their chunks' sums into a zeroed output with
-atomics, in no fixed order.  That gives the plain version's bits when
-every frontier and tile entry is a non-negative integer and every output
-sum is below 2^24: every partial sum is then an integer below 2^24,
-which f32 adds exactly in any order (``repro``'s caveat for counts,
-``count_paths_bounded``).  Every caller today passes {0,1}.  OR is exact
-in any order: B2 and B4 equal their plain versions bit for bit too.
+Exact: every kernel puts its chunks' results into a zeroed output with
+atomics, in no fixed order.  B2 and B4 OR lane words, which is exact in
+any order: they equal their plain versions bit for bit.  B1, B3 and B5
+add sums, which gives the plain version's bits when every frontier and
+tile entry is a non-negative integer and every output sum is below
+2^24: every partial sum is then an integer below 2^24, which f32 adds
+exactly in any order (``repro``'s caveat for counts,
+``count_paths_bounded``).  Every caller today passes {0,1}.
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ PACKED_LAUNCHES_U32 = 0  # B4: packed_level_blocks on bit-plane tiles
 STEP_LAUNCHES = 0  # B5: frontier_step_blocks
 
 _I32 = ("firsts", "valids", "tile_ids", "f_rows", "f_cols", "o_rows", "o_cols")
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def launch_counts() -> dict[str, int]:
@@ -252,35 +252,32 @@ def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, fronti
         )
 
 
-def _launch(lib_name, fn_name, out, frontier, tiles, valids, tile_ids, f_rows, f_cols,
-            o_rows, o_cols, run_ptr, block_size) -> None:
-    fn = getattr(_build.load(lib_name), fn_name)
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    with torch.cuda.device(frontier.device):
-        err = fn(
-            frontier.data_ptr(), tiles.data_ptr(), valids.data_ptr(), tile_ids.data_ptr(),
-            f_rows.data_ptr(), f_cols.data_ptr(), o_rows.data_ptr(), o_cols.data_ptr(),
-            run_ptr.data_ptr(), out.data_ptr(), run_ptr.shape[0] - 1, frontier.shape[1],
-            block_size, torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
-
-
-def _launch_work(fn_name, out, frontier, tiles, tile_ids, f_rows, f_cols, o_rows, o_cols, work,
-                 block_size) -> None:
-    fn = getattr(_build.load("fused_level"), fn_name)
+def _launch_level(entry, frontier_dtype, frontier, tiles, ints, block_size, q_pad, n_out_rows,
+                  run_ptr, work) -> tuple[torch.Tensor, bool]:
+    """Checks one level's operands (a ``frontier_dtype`` frontier), zeroes
+    its output and launches level kernel ``entry`` of
+    ``csrc/fused_level.cu`` over the work list, one CTA per chunk; returns
+    the output and whether it launched.  Every level kernel puts its
+    chunks into the zeroed output with atomics: cover-only blocks have no
+    chunk, and a plan with no valid step launches nothing."""
+    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, frontier_dtype)
+    _check_work(work, frontier, tiles)
+    out = torch.zeros((n_out_rows, frontier.shape[1]), dtype=frontier.dtype, device=frontier.device)
+    if not work.shape[0]:
+        return out, False
+    fn = getattr(_build.load("fused_level"), entry)
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(frontier.device):
         err = fn(
-            frontier.data_ptr(), tiles.data_ptr(), tile_ids.data_ptr(), f_rows.data_ptr(),
-            f_cols.data_ptr(), o_rows.data_ptr(), o_cols.data_ptr(), work.data_ptr(),
-            out.data_ptr(), work.shape[0], work.shape[1], frontier.shape[1], block_size,
-            torch.cuda.current_stream().cuda_stream,
+            frontier.data_ptr(), tiles.data_ptr(), ints["tile_ids"].data_ptr(),
+            ints["f_rows"].data_ptr(), ints["f_cols"].data_ptr(), ints["o_rows"].data_ptr(),
+            ints["o_cols"].data_ptr(), work.data_ptr(), out.data_ptr(), work.shape[0],
+            work.shape[1], frontier.shape[1], block_size, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
+    return out, True
 
 
 def _check_work(work: torch.Tensor | None, frontier: torch.Tensor, tiles: torch.Tensor) -> None:
@@ -343,19 +340,15 @@ def fused_level_blocks(
     if frontier.device.type != "cuda":
         raise ValueError(f"fused_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
     ints = dict(zip(_I32, (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)))
-    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, torch.float32)
-    _check_work(work, frontier, tiles)
-    # B1 and B3 add each chunk's sums into a zeroed output; cover-only
-    # blocks have no chunk, and a plan with no valid step launches nothing
-    out = torch.zeros((n_out_rows, frontier.shape[1]), dtype=torch.float32, device=frontier.device)
-    if work.shape[0]:
-        bits = tiles.dtype == torch.int32
-        _launch_work("fused_level_f32_u32tiles" if bits else "fused_level_f32", out, frontier,
-                     tiles, tile_ids, f_rows, f_cols, o_rows, o_cols, work, block_size)
-        if bits:
-            LAUNCHES_U32 += 1
-        else:
-            LAUNCHES += 1
+    bits = tiles.dtype == torch.int32
+    out, launched = _launch_level(
+        "fused_level_f32_u32tiles" if bits else "fused_level_f32", torch.float32, frontier,
+        tiles, ints, block_size, q_pad, n_out_rows, run_ptr, work,
+    )
+    if launched and bits:
+        LAUNCHES_U32 += 1
+    elif launched:
+        LAUNCHES += 1
     return out
 
 
@@ -373,15 +366,19 @@ def packed_level_blocks(
     q_pad: int,
     *,
     run_ptr: torch.Tensor,  # (n_runs + 1,) int32 run offsets
+    work: torch.Tensor | None = None,  # (n_chunks, C) int32 (FusedLevelPlan.work)
     n_out_rows: int | None = None,
 ) -> torch.Tensor:
     """One lane-packed BFS level over ALL transitions: the OR-accumulated
     int32 words (n_out_rows, v_pad), ``out[r, j] |= f[r, v]`` for every
     tile entry ``a[v, j] != 0`` — :func:`fused_level_blocks` with 32
-    query lanes per word.  Same schedule and checks as
-    :func:`fused_level_blocks`; f32 tiles launch B2, int32 bit-planes B4.
-    On CPU tensors this is :func:`packed_level_blocks_plain`; on CUDA
-    tensors it launches the kernel or raises."""
+    query lanes per word.  Same schedule, work list and checks as
+    :func:`fused_level_blocks`: ``work`` (``FusedLevelPlan.work``) is
+    required on CUDA for both tile stores and unread on the CPU; f32
+    tiles launch B2, int32 bit-planes B4.  On CPU tensors this is
+    :func:`packed_level_blocks_plain`; on CUDA tensors it launches the
+    kernel or raises.  The kernels OR their chunks' words into a zeroed
+    output with atomics: exact in any order."""
     global PACKED_LAUNCHES, PACKED_LAUNCHES_U32
     n_out_rows = n_out_rows or frontier.shape[0]
     if frontier.device.type == "cpu":
@@ -392,16 +389,14 @@ def packed_level_blocks(
     if frontier.device.type != "cuda":
         raise ValueError(f"packed_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
     ints = dict(zip(_I32, (firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols)))
-    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, torch.int32)
     bits = tiles.dtype == torch.int32
-    out = torch.empty((n_out_rows, frontier.shape[1]), dtype=torch.int32, device=frontier.device)
-    _launch(
-        "packed_level", "packed_level_u32tiles" if bits else "packed_level_f32tiles", out,
-        frontier, tiles, valids, tile_ids, f_rows, f_cols, o_rows, o_cols, run_ptr, block_size,
+    out, launched = _launch_level(
+        "packed_level_u32tiles" if bits else "packed_level_f32tiles", torch.int32, frontier,
+        tiles, ints, block_size, q_pad, n_out_rows, run_ptr, work,
     )
-    if bits:
+    if launched and bits:
         PACKED_LAUNCHES_U32 += 1
-    else:
+    elif launched:
         PACKED_LAUNCHES += 1
     return out
 

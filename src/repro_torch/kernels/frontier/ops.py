@@ -12,8 +12,8 @@ path.  Compilation is **two-stage**, as in ``repro``:
 * **Stage B — automaton-dependent, cheap.**  :func:`build_level_schedule`
   only computes the step order and the seven id arrays over the Stage-A
   offsets, plus the port's ``run_ptr`` (the CSR offsets of the output
-  block runs kernels B2 and B4 give one CTA each) and ``work`` (the
-  chunks of valid steps kernels B1 and B3 give one CTA each).  Transitions sharing
+  block runs) and ``work`` (the runs' valid steps in chunks, which the
+  level kernels B1-B4 give one CTA each).  Transitions sharing
   (dst_state, direction, label) fuse into ONE pass over a *fan-in union
   row* appended to the frontier by :func:`extend_frontier`.
 
@@ -461,9 +461,9 @@ class FusedLevelPlan:
     The seven id arrays are byte-identical to ``repro``'s; ``run_ptr`` is
     the port's own: ``run_ptr[k] .. run_ptr[k+1]`` are the steps of output
     block ``k = dst_state · nb + block_col``.  ``work`` is the port's
-    too: the work list of kernels B1 and B3 (:func:`level_work`), the
+    too: the work list of kernels B1-B4 (:func:`level_work`), the
     valid steps of every run cut into chunks of at most
-    ``work_chunk(tile_dtype)``."""
+    ``work_chunk(tile_dtype)``; the fused and the packed level share it."""
 
     n_states: int
     n_nodes: int
@@ -546,9 +546,9 @@ def _schedule_steps(
 def run_offsets(arr: np.ndarray, firsts: np.ndarray, n_states: int, nb: int) -> np.ndarray:
     """``run_ptr``: the CSR offsets of the output-block runs of a step
     table, checked to hold exactly one run per output block, in block
-    order — the contract that lets the CUDA kernel give each output
-    block one CTA and store it once.  ``repro``'s cover steps guarantee
-    it; a schedule that breaks it raises."""
+    order — the contract that lets :func:`level_work` cut the runs into
+    chunks that each write one output block.  ``repro``'s cover steps
+    guarantee it; a schedule that breaks it raises."""
     starts = np.nonzero(firsts)[0]
     blocks = arr[starts, 0].astype(np.int64) * nb + arr[starts, 1]
     if len(starts) != n_states * nb or not (blocks == np.arange(n_states * nb)).all():
@@ -559,12 +559,12 @@ def run_offsets(arr: np.ndarray, firsts: np.ndarray, n_states: int, nb: int) -> 
     return np.append(starts, len(firsts)).astype(np.int32)
 
 
-# valid steps per chunk of kernel B3's work list (bit-plane tiles): the
+# valid steps per chunk of kernels B3 and B4 (bit-plane tiles): the
 # Alibaba twin's q1/q9/q12 levels hold 241-370 valid steps in runs of up
 # to 24, so chunks of 2 give 121-190 CTAs, about one per SM, each with two
 # steps' operands (2 KB tiles) in flight
 WORK_CHUNK = 2
-# valid steps per chunk of kernels B1 and B5 (f32 tiles).  A step there
+# valid steps per chunk of kernels B1, B2 and B5 (f32 tiles).  A step there
 # moves a 64 KB tile and a 4 KB frontier block (B = 128); a CTA's ring of
 # two 34 KB slots holds one step's operands in flight, and three CTAs fit
 # on an SM.  Chunks of 1 make a q1, q9 or q12 level 241, 370 or 245 CTAs:
@@ -580,7 +580,7 @@ def work_chunk(tile_dtype: str) -> int:
 
 
 def level_work(valids: np.ndarray, run_ptr: np.ndarray, chunk: int = WORK_CHUNK) -> np.ndarray:
-    """The work list of kernels B1, B3 and B5: the valid steps of each
+    """The work list of kernels B1-B5: the valid steps of each
     run, in step order, cut into chunks of at most ``chunk``, each inside
     one run.  Cover steps (``valids == 0``) get no entry, so an output
     block made only of cover steps has no chunk.  Returns (n_chunks,
@@ -849,15 +849,15 @@ def extend_frontier_packed(
 
 def expand_level_packed(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Tensor:
     """One packed BFS level over all grounded transitions — ONE kernel
-    launch on the SAME Stage-B plan the f32 path uses, on either tile
-    store.  ``frontier`` is (n_states · q_pad, v_pad) int32 lane words;
+    launch on the SAME Stage-B plan and work list the f32 path uses, on
+    either tile store.  ``frontier`` is (n_states · q_pad, v_pad) int32 lane words;
     returns the OR-accumulated words, boolean per bit already."""
     fre = extend_frontier_packed(frontier, plan.union_members, plan.n_states, plan.q_pad)
     return packed_level_blocks(
         fre, plan.tiles, plan.firsts, plan.valids, plan.tile_ids,
         plan.f_rows, plan.f_cols, plan.o_rows, plan.o_cols,
         plan.block_size, plan.q_pad,
-        n_out_rows=plan.n_states * plan.q_pad, run_ptr=plan.run_ptr,
+        n_out_rows=plan.n_states * plan.q_pad, run_ptr=plan.run_ptr, work=plan.work,
     )
 
 

@@ -10,8 +10,9 @@ with one:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 The frontier comparisons are exact: operands are {0,1} and every sum is
-an integer below 2^24, so f32 is exact in any order (B3 adds its chunks
-with atomics), and OR is exact in any order.  B6 adds the same f32
+an integer below 2^24, so f32 is exact in any order (B1, B3 and B5 add
+their chunks with atomics), and OR is exact in any order (B2 and B4 OR
+theirs).  B6 adds the same f32
 values in the same order as its plain version, so it is exact too.  B7
 walks other kv tiles than its plain version and merges kv splits, so it
 is held to ``repro``'s own tolerances (2e-5 f32, 2e-2 bf16,
@@ -105,13 +106,18 @@ KERNELS = {
 }
 
 
+# B1 beside them: every level kernel walks the plan's work list
+LEVEL_KERNELS = {
+    "B1": (frontier.fused_level_blocks, frontier.fused_level_blocks_plain, "f32",
+           "fused_level_blocks"),
+    **KERNELS,
+}
+
+
 def _kw(plan, wrapper):
-    """The keywords of one level: B1-B4 take run_ptr, fused_level_blocks
-    (B1 and B3) the work list too."""
-    kw = {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr}
-    if wrapper is frontier.fused_level_blocks:
-        kw["work"] = plan.work
-    return kw
+    """The keywords of one level on the card: run_ptr and the plan's work
+    list, which B1-B4 all walk."""
+    return {"n_out_rows": plan.n_states * plan.q_pad, "run_ptr": plan.run_ptr, "work": plan.work}
 
 
 def _frontier_operand(plan, wrapper, seed, device):
@@ -154,15 +160,12 @@ LONG_RUNS = [
      generators.TABLE2_QUERIES["q1"]),
 ]
 @pytest.mark.parametrize("case", range(len(LONG_RUNS)))
-@pytest.mark.parametrize("kernel", ["B1", *KERNELS])
+@pytest.mark.parametrize("kernel", list(LEVEL_KERNELS))
 def test_level_kernels_on_long_runs_equal_plain(cuda, kernel, case):
-    """B3 equals its plain version where runs outgrow two chunks and
-    blocks hold only cover steps, and so does every other level kernel on
-    the same plans (``chip_smoke.py``'s case d adds cover steps inside
-    the runs)."""
-    wrapper, plain, tile_dtype, count = KERNELS.get(
-        kernel, (frontier.fused_level_blocks, frontier.fused_level_blocks_plain, "f32",
-                 "fused_level_blocks"))
+    """Each level kernel equals its plain version where runs outgrow two
+    chunks and blocks hold only cover steps (``chip_smoke.py``'s case d
+    adds cover steps inside the runs)."""
+    wrapper, plain, tile_dtype, count = LEVEL_KERNELS[kernel]
     factory, block, expr = LONG_RUNS[case]
     g = factory()
     staged = ops.stage_graph(g, block, tile_dtype=tile_dtype, device=cuda)
@@ -179,70 +182,98 @@ def test_level_kernels_on_long_runs_equal_plain(cuda, kernel, case):
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
-def test_bitplane_wrapper_refuses_without_a_work_list(cuda):
-    plan = _plan(1, cuda, "uint32")
-    f = _frontier_operand(plan, frontier.fused_level_blocks, 0, cuda)
-    kw = _kw(plan, frontier.fused_level_blocks)
+@pytest.mark.parametrize("kernel", list(LEVEL_KERNELS))
+def test_level_wrapper_refuses_without_a_work_list(cuda, kernel):
+    """B1-B4 on CUDA take only a well-formed work list, and frontier and
+    tiles on 16-byte boundaries (cp.async), and launch nothing else."""
+    wrapper, _, tile_dtype, _ = LEVEL_KERNELS[kernel]
+    plan = _plan(1, cuda, tile_dtype)
+    f = _frontier_operand(plan, wrapper, 0, cuda)
+    kw = _kw(plan, wrapper)
     before = frontier.launch_counts()
     with pytest.raises(ValueError, match="work list"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": None})
-    with pytest.raises(TypeError, match="work must be"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.long()})
-    with pytest.raises(TypeError, match="work must be"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.flatten()})
-    with pytest.raises(ValueError, match="work is on"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.cpu()})
-    with pytest.raises(ValueError, match="contiguous"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.t().contiguous().t()})
-    assert frontier.launch_counts() == before
-
-
-def test_f32_level_wrapper_refuses_without_a_work_list(cuda):
-    """B1 on CUDA takes only a well-formed work list, and frontier and
-    tiles on 16-byte boundaries (cp.async), and launches nothing else."""
-    plan = _plan(1, cuda)
-    f = _frontier_operand(plan, frontier.fused_level_blocks, 0, cuda)
-    kw = _kw(plan, frontier.fused_level_blocks)
-    before = frontier.launch_counts()
+        wrapper(*_args(plan, f), **{**kw, "work": None})
     with pytest.raises(ValueError, match="work list"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": None})
-    with pytest.raises(ValueError, match="work list"):
-        frontier.fused_level_blocks(*_args(plan, f), n_out_rows=kw["n_out_rows"], run_ptr=plan.run_ptr)
+        wrapper(*_args(plan, f), n_out_rows=kw["n_out_rows"], run_ptr=plan.run_ptr)
     with pytest.raises(TypeError, match="work must be"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.long()})
+        wrapper(*_args(plan, f), **{**kw, "work": plan.work.long()})
     with pytest.raises(TypeError, match="work must be"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.flatten()})
+        wrapper(*_args(plan, f), **{**kw, "work": plan.work.flatten()})
     with pytest.raises(TypeError, match="work must be"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.repeat(1, 9)})
+        wrapper(*_args(plan, f), **{**kw, "work": plan.work.repeat(1, 9)})
     with pytest.raises(ValueError, match="work is on"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.cpu()})
+        wrapper(*_args(plan, f), **{**kw, "work": plan.work.cpu()})
     with pytest.raises(ValueError, match="contiguous"):
-        frontier.fused_level_blocks(*_args(plan, f), **{**kw, "work": plan.work.repeat(1, 2)[:, ::2]})
-    shifted = torch.zeros(f.numel() + 1, device=cuda)[1:].view(f.shape)  # 4 bytes in
+        wrapper(*_args(plan, f), **{**kw, "work": plan.work.repeat(1, 2)[:, ::2]})
+    shifted = torch.zeros(f.numel() + 1, dtype=f.dtype, device=cuda)[1:].view(f.shape)  # 4 bytes in
     with pytest.raises(ValueError, match="16-byte"):
-        frontier.fused_level_blocks(shifted, *_args(plan, f)[1:], **kw)
+        wrapper(shifted, *_args(plan, f)[1:], **kw)
     assert frontier.launch_counts() == before
 
 
-@pytest.mark.parametrize("chunk", [2, 3, 8])
+# (kernel, chunk): work lists of other chunk lengths than Stage B's
+# (1 on f32 tiles, 2 on bit-planes)
+LONGER_CHUNKS = [("B1", 2), ("B1", 3), ("B1", 8), ("B2", 2), ("B2", 3), ("B2", 8),
+                 ("B4", 1), ("B4", 3), ("B4", 8)]
+
+
+@pytest.mark.parametrize("kernel, chunk", LONGER_CHUNKS)
 @pytest.mark.parametrize("case", range(len(LONG_RUNS)))
-def test_f32_level_kernel_on_longer_chunks_equals_plain(cuda, case, chunk):
-    """B1 on work lists of longer chunks than Stage B's (a chunk's steps
-    then pass through the ring one after another): torch.equal to plain,
-    and two calls give the same bits."""
+def test_f32_level_kernel_on_longer_chunks_equals_plain(cuda, case, kernel, chunk):
+    """B1 and B2 on work lists of longer chunks than Stage B's (a chunk's
+    steps then pass through the ring one after another), and B4 on
+    chunks of 1, 3 and 8: torch.equal to plain, and two calls give the
+    same bits."""
+    wrapper, plain, tile_dtype, _ = LEVEL_KERNELS[kernel]
     factory, block, expr = LONG_RUNS[case]
     g = factory()
-    plan = ops.build_level_schedule(paa.compile_query(expr, g), ops.stage_graph(g, block, device=cuda))
-    assert plan.work.shape[1] == ops.WORK_CHUNK_F32
+    staged = ops.stage_graph(g, block, tile_dtype=tile_dtype, device=cuda)
+    plan = ops.build_level_schedule(paa.compile_query(expr, g), staged)
+    assert plan.work.shape[1] == ops.work_chunk(tile_dtype) != chunk
     work = torch.from_numpy(ops.level_work(
         plan.valids.cpu().numpy(), plan.run_ptr.cpu().numpy(), chunk)).to(cuda)
-    f = _frontier_operand(plan, frontier.fused_level_blocks, case, cuda)
-    kw = {**_kw(plan, frontier.fused_level_blocks), "work": work}
-    got = frontier.fused_level_blocks(*_args(plan, f), **kw)
-    again = frontier.fused_level_blocks(*_args(plan, f), **kw)
-    want = frontier.fused_level_blocks_plain(*_args(plan, f), n_out_rows=kw["n_out_rows"])
+    f = _frontier_operand(plan, wrapper, case, cuda)
+    kw = {**_kw(plan, wrapper), "work": work}
+    got = wrapper(*_args(plan, f), **kw)
+    again = wrapper(*_args(plan, f), **kw)
+    want = plain(*_args(plan, f), n_out_rows=kw["n_out_rows"])
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def _complete_graph(n: int) -> structure.LabeledGraph:
+    """Every ordered pair of n nodes joined by an l0 edge: every tile of
+    the store is full."""
+    s, d = np.meshgrid(np.arange(n, dtype=np.int32), np.arange(n, dtype=np.int32), indexing="ij")
+    return structure.LabeledGraph(n, s.ravel(), np.zeros(n * n, np.int32), d.ravel(), ["l0"])
+
+
+@pytest.mark.parametrize("kernel", ["B2", "B4"])
+def test_packed_kernels_or_into_words_already_set(cuda, kernel):
+    """B2 and B4 on runs of 8 full tiles (8 chunks of 1, or 4 of 2) from
+    a frontier of all-ones words: every chunk after a block's first sets
+    only bits an earlier chunk already set, and the atomicOrs leave every
+    word of those blocks exactly all ones, as the plain version does."""
+    wrapper, plain, tile_dtype, count = KERNELS[kernel]
+    g = _complete_graph(128)
+    staged = ops.stage_graph(g, 16, tile_dtype=tile_dtype, device=cuda)
+    plan = ops.build_level_schedule(paa.compile_query("l0+", g), staged)
+    runs = np.add.reduceat(plan.valids.cpu().numpy(), plan.run_ptr.cpu().numpy()[:-1])
+    long_runs = np.nonzero(runs > 2 * plan.work.shape[1])[0]
+    assert len(long_runs)
+    rows = (plan.n_states + len(plan.union_members)) * plan.q_pad
+    f = torch.full((rows, plan.v_pad), -1, dtype=torch.int32, device=cuda)
+    before = frontier.launch_counts()
+    got = wrapper(*_args(plan, f), **_kw(plan, wrapper))
+    again = wrapper(*_args(plan, f), **_kw(plan, wrapper))
+    want = plain(*_args(plan, f), n_out_rows=plan.n_states * plan.q_pad)
+    torch.cuda.synchronize()
+    assert frontier.launch_counts() == {**before, count: before[count] + 2}
+    assert torch.equal(got, want) and torch.equal(got, again)
+    nb, b = plan.v_pad // plan.block_size, plan.block_size
+    for k in long_runs:
+        o, c = divmod(int(k), nb)
+        assert bool((got[o * 8 : o * 8 + 8, c * b : (c + 1) * b] == -1).all())
 
 
 @pytest.mark.parametrize("kernel", list(KERNELS))

@@ -1,14 +1,20 @@
-"""Kernel B3's work list (``FusedLevelPlan.work``, ``ops.level_work``)
-against the Stage-B schedule it cuts, and the level it drives against
-``repro``'s.  The chunks must partition the valid steps of each run, in
-step order, none crossing a run or holding more than ``WORK_CHUNK``
-steps, and cover steps get none.  The plain level summed chunk by chunk
-into a zeroed output, as B3 adds its chunks on the card, must equal
-``fused_level_blocks_plain`` and ``repro``'s ``fused_level_blocks`` on
-uint32 tiles (interpret mode) bit for bit: {0,1} operands and integer
-sums below 2^24 are exact in f32 in any order.  Graphs: the SWEEP of
-``tests/test_torch_stage.py`` and a 5,000-node Alibaba twin at block
-128, whose q1, q9 and q12 plans have runs of up to 24 valid steps."""
+"""The level kernels' work list (``FusedLevelPlan.work``,
+``ops.level_work``) against the Stage-B schedule it cuts, and the levels
+it drives against ``repro``'s.  The chunks must partition the valid steps
+of each run, in step order, none crossing a run or holding more than
+``work_chunk(tile_dtype)`` steps, and cover steps get none.  The plain
+level summed chunk by chunk into a zeroed output, as B1 and B3 add their
+chunks on the card, must equal ``fused_level_blocks_plain`` and
+``repro``'s ``fused_level_blocks`` (interpret mode) bit for bit: {0,1}
+operands and integer sums below 2^24 are exact in f32 in any order.  The
+packed level ORed chunk by chunk into a zeroed output, as B2 and B4 OR
+their chunks on the card, must equal ``packed_level_blocks_plain`` and
+``repro``'s ``packed_level_blocks`` byte for byte on both tile stores.
+Graphs: the SWEEP of ``tests/test_torch_stage.py`` and a 5,000-node
+Alibaba twin at block 128, whose q1, q9 and q12 plans have runs of up to
+24 valid steps."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -179,7 +185,11 @@ _STAGED_F32: dict = {}
 
 def _plans_f32(case, expr, block):
     """repro's f32 store and plan, and the port's plan over the same store
-    carried in and built by Stage B."""
+    carried in and built by Stage B.  The twin's f32 store would be 1 GB,
+    so its plans are the uint32 plans on f32 tiles: the tiles they use
+    unpacked (:func:`_twin_on_f32_tiles`)."""
+    if case == "twin":
+        return _twin_on_f32_tiles(expr)
     if (case, block) not in _STAGED_F32:
         factory = F32_GRAPHS[case][0] if case in F32_GRAPHS else SWEEP[case][0]
         rg, tg = factory(r_struct, r_gen), factory(structure, generators)
@@ -189,6 +199,29 @@ def _plans_f32(case, expr, block):
     rg, tg, rs, ts = _STAGED_F32[case, block]
     rca = r_paa.compile_query(expr, rg)
     return rca, r_ops.build_level_schedule(rca, rs), ops.build_level_schedule(paa.compile_query(expr, tg), ts)
+
+
+def _unpack_bits(words: np.ndarray, block: int) -> np.ndarray:
+    """Bit-plane tiles (n, B, ⌈B/32⌉) as (n, B, B) f32 0/1, in numpy."""
+    bits = (words.view(np.uint32)[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(*words.shape[:-1], -1)[..., :block].astype(np.float32)
+
+
+def _twin_on_f32_tiles(expr):
+    """The twin's Stage-B plan for ``expr`` on f32 tiles: repro's uint32
+    plan with the tiles it uses (the zero cover tile first) unpacked to
+    f32 and ``tile_ids`` renumbered into them, and the port's plan over
+    the same tiles carried in by ``plan_from_numpy``, which cuts the f32
+    work list (chunks of ``WORK_CHUNK_F32``) as Stage B does."""
+    rca, rp, _ = _plans("twin", expr, 128)
+    used, ids = np.unique(np.asarray(rp.tile_ids), return_inverse=True)
+    tiles = _unpack_bits(np.asarray(rp.tiles)[used], 128)
+    ids = ids.astype(np.int32)
+    rp32 = dataclasses.replace(rp, tiles=jnp.asarray(tiles), tile_ids=jnp.asarray(ids),
+                               tile_dtype="f32")
+    ts = interop.staged_from_numpy(rp.n_nodes, 128, tiles, {}, "cpu")
+    arrays = [np.asarray(getattr(rp32, k)) for k in SCHEDULE_FIELDS]
+    return rca, rp32, interop.plan_from_numpy(ts, rp.n_states, *arrays, rp.union_members)
 
 
 def _f32_level_by_chunks(plan, f: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -264,3 +297,82 @@ def test_work_list_is_built_once_per_plan():
     work = tp.work.clone()
     ops.expand_level_fused(tp, f[: rca.n_states * 8])
     assert not ops.BUILD_COUNTERS and torch.equal(tp.work, work)
+
+
+# ---------------------------------------------------------------------------
+# Kernels B2 and B4: the packed level on the same work lists
+# ---------------------------------------------------------------------------
+
+
+def _packed_level_by_chunks(plan, f: np.ndarray, n_out: int) -> np.ndarray:
+    """The packed level as B2 and B4 run it, in numpy uint32: each
+    chunk's steps ORed into an 8 × B block of words, ``acc[r, j] |=
+    f[r, v]`` for every tile entry ``a[v, j] != 0``, and the block ORed
+    into a zeroed output."""
+    b = plan.block_size
+    out = np.zeros((n_out, plan.v_pad), np.uint32)
+    ids = {k: getattr(plan, k).numpy() for k in SCHEDULE_FIELDS[2:]}
+    tiles = plan.tiles.numpy()
+    for row in plan.work.numpy():
+        steps = row[row >= 0]
+        acc = np.zeros((8, b), np.uint32)
+        for i in steps:
+            fr, fc, t = ids["f_rows"][i], ids["f_cols"][i], ids["tile_ids"][i]
+            a = (_unpack_bits(tiles[t : t + 1], b)[0] if tiles.dtype == np.int32 else tiles[t]) != 0
+            blk = f[fr * 8 : fr * 8 + 8, fc * b : fc * b + b]
+            acc |= np.bitwise_or.reduce(np.where(a[None], blk[:, :, None], np.uint32(0)), axis=1)
+        o_r, o_c = ids["o_rows"][steps[0]], ids["o_cols"][steps[0]]
+        out[o_r * 8 : o_r * 8 + 8, o_c * b : o_c * b + b] |= acc
+    return out
+
+
+def _lane_words(plan, n_rows: int, seed: int) -> np.ndarray:
+    """Seeded lane words over all 32 bits (bit 31 included), padded
+    columns empty."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, size=(n_rows, plan.v_pad), dtype=np.uint64).astype(np.uint32)
+    w[:, plan.n_nodes :] = 0
+    return w
+
+
+@pytest.mark.parametrize("case, expr, block", PLANS)
+@pytest.mark.parametrize("tile_dtype", ["f32", "uint32"])
+def test_packed_level_ored_by_chunks_equals_plain_and_repro(tile_dtype, case, expr, block):
+    """B2 (f32 tiles, chunks of 1) and B4 (bit-planes, chunks of 2): the
+    chunks ORed into a zeroed output == ``packed_level_blocks_plain`` ==
+    ``repro``'s ``packed_level_blocks`` in interpret mode, byte for byte."""
+    rca, rp, tp = (_plans_f32 if tile_dtype == "f32" else _plans)(case, expr, block)
+    assert tp.tile_dtype == tile_dtype and tp.work.shape[1] == ops.work_chunk(tile_dtype)
+    n_rows = (rca.n_states + len(rp.union_members)) * 8
+    f = _lane_words(tp, n_rows, block + 2)
+    n_out = rca.n_states * 8
+    want = np.asarray(r_frontier.packed_level_blocks(
+        jnp.asarray(f), rp.tiles, rp.firsts, rp.valids, rp.tile_ids, rp.f_rows,
+        rp.f_cols, rp.o_rows, rp.o_cols, block, 8, interpret=True, n_out_rows=n_out,
+    ))
+    plain = frontier.packed_level_blocks_plain(
+        torch.from_numpy(f.view(np.int32)), tp.tiles, tp.firsts, tp.valids, tp.tile_ids,
+        tp.f_rows, tp.f_cols, tp.o_rows, tp.o_cols, block, 8, n_out_rows=n_out,
+    )
+    got = _packed_level_by_chunks(tp, f, n_out)
+    assert want.dtype == np.uint32 and (got >> 31).any()
+    assert got.tobytes() == plain.numpy().view(np.uint32).tobytes() == want.tobytes()
+
+
+def test_cpu_packed_level_needs_no_work_list():
+    """The work list is B2's and B4's: on CPU tensors packed_level_blocks
+    runs the plain version, with or without it, and launches nothing."""
+    for tile_dtype, plans in (("f32", _plans_f32), ("uint32", _plans)):
+        rca, _, tp = plans(1, SWEEP[1][2][0], SWEEP[1][1])
+        n_rows = (rca.n_states + len(tp.union_members)) * 8
+        f = _lane_words(tp, n_rows, 5)
+        args = (torch.from_numpy(f.view(np.int32)), tp.tiles, tp.firsts, tp.valids, tp.tile_ids,
+                tp.f_rows, tp.f_cols, tp.o_rows, tp.o_cols, tp.block_size, tp.q_pad)
+        kw = {"run_ptr": tp.run_ptr, "n_out_rows": rca.n_states * 8}
+        before = frontier.launch_counts()
+        without = frontier.packed_level_blocks(*args, **kw)
+        with_work = frontier.packed_level_blocks(*args, **kw, work=tp.work)
+        assert frontier.launch_counts() == before
+        assert torch.equal(without, with_work), tile_dtype
+        assert without.numpy().view(np.uint32).tobytes() == _packed_level_by_chunks(
+            tp, f, rca.n_states * 8).tobytes()
