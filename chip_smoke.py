@@ -73,8 +73,11 @@ Phases, each of which raises on failure (the run then exits non-zero):
 * embedbag — B6 ``embedding_bag_sorted`` through ``embedding_bag`` at
              dlrm-mlperf's largest table (39,979,771 x 128 bf16) and
              through ``gnn_aggregate`` at ogb_products (2,449,029 nodes,
-             61,859,140 uniform edges, 100 f32 features), each against
-             its plain version and ``F.embedding_bag``;
+             61,859,140 uniform edges, 100 f32 features), each
+             ``torch.equal`` to its plain version, with its launch
+             geometry (lane groups, lanes, load width, lookups a group),
+             bounds by distinct rows, by gathered rows and by gathered
+             32-byte sectors, and ``F.embedding_bag``;
 * decode   — B7 ``flash_decode_gqa`` through ``decode_attention`` at
              qwen3-14b's attention widths at decode_32k and long_500k,
              against its plain version (max |diff| at most 2e-2 of the
@@ -720,10 +723,19 @@ def phase_baseline(g, cas, dg, stores, dev, gen, flush, record) -> dict:
             "bound_by": t["bound_by"], "library_ms": None}
 
 
-def embedbag_case(name, table, idx, bags, n_bags, entry, flush, exact: bool) -> dict:
+def gathered_sectors(idx: torch.Tensor, row_bytes: int) -> int:
+    """The 32-byte sectors that the gathered rows span: row ``i`` lies at
+    bytes ``i·row_bytes .. (i + 1)·row_bytes - 1`` of the table."""
+    start = idx.long() * row_bytes
+    return int(((start + row_bytes - 1) // 32 - start // 32 + 1).sum())
+
+
+def embedbag_case(name, table, idx, bags, n_bags, entry, flush) -> dict:
     """One EmbeddingBag workload: the entry point once with the counts at
     0 (B6 must launch, nothing else), the kernel against its plain version
-    on the same sorted lookups, the times, the bound and F.embedding_bag."""
+    on the same sorted lookups (``torch.equal``: the same adds in the same
+    order), the launch geometry, the times, the bounds and
+    F.embedding_bag."""
     reset_launches()
     out = entry(table, idx, bags, n_bags)
     torch.cuda.synchronize()
@@ -737,33 +749,39 @@ def embedbag_case(name, table, idx, bags, n_bags, entry, flush, exact: bool) -> 
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
-    equal = torch.equal(got, want)
     if not torch.equal(out[~visited], torch.zeros_like(out[~visited])) or not torch.equal(
             out[visited], got[visited]):
         raise AssertionError(f"{name}: {entry.__name__} differs from the kernel on the sorted lookups")
-    # exact: bags of one lookup copy a row; otherwise the same f32 sums in
-    # the same order as the plain version, held to 1e-6 of the largest |sum|
-    if (not equal) if exact else err > 1e-6 * max(scale, 1.0):
+    if not torch.equal(got, want):
         raise AssertionError(f"{name}: B6 != plain, max |diff| {err} (largest |sum| {scale})")
+    del out, got, want
+    d, esize = table.shape[1], table.element_size()
+    geo = embedbag.launch_geometry(d, esize, table.data_ptr(), idx.numel())
     t = timed(lambda: embedbag.embedding_bag_sorted(table, s_idx, sorted_bags, n_bags), 10, 5, flush)
     t["plain_ms"] = events_ms(lambda: embedbag.embedding_bag_sorted_plain(table, s_idx, sorted_bags, n_bags), 3, flush)
     offsets = embedbag.bag_offsets(sorted_bags, n_bags)[:-1]
     t["library_ms"] = events_ms(lambda: F.embedding_bag(s_idx, table, offsets, mode="sum"), 5, flush)
-    esize = table.element_size()
-    d = table.shape[1]
     rows = int(torch.unique(idx).numel())
-    nbytes = rows * d * esize + 2 * idx.numel() * 4 + n_bags * d * esize
+    side = 2 * idx.numel() * 4 + n_bags * d * esize  # index arrays and the output
+    nbytes = rows * d * esize + side
     t["bound_ms"], t["bound_by"] = bound(nbytes, idx.numel() * d, FP32_FLOPS)
-    t["gathered_bound_ms"] = (idx.numel() * d * esize + 2 * idx.numel() * 4 + n_bags * d * esize) / HBM_BYTES_PER_S * 1e3
-    t.update({"launches": launches, "max_abs_err": err, "bit_equal": equal, "largest_abs_sum": scale,
-              "distinct_rows": rows, "bytes": nbytes})
+    t["gathered_bound_ms"] = (idx.numel() * d * esize + side) / HBM_BYTES_PER_S * 1e3
+    sectors = gathered_sectors(idx, d * esize)
+    t["sector_bound_ms"] = (sectors * 32 + side) / HBM_BYTES_PER_S * 1e3
+    units = idx.numel() // geo["per_unit"] + 1
+    t.update({"launches": launches, "max_abs_err": err, "largest_abs_sum": scale,
+              "distinct_rows": rows, "bytes": nbytes, "gathered_sectors": sectors, "geometry": geo,
+              "lane_groups": units * geo["n_chunks"]})
     log("embedbag", f"{name}: table {tuple(table.shape)} {table.dtype} ({table.numel() * esize / 1e9:.2f} GB), "
-        f"{idx.numel()} lookups into {n_bags} bags; {launches} B6 launch, no other kernel; kernel "
-        f"{'==' if equal else '~='} plain (max |diff| {err}, largest |sum| {scale:.3f}); "
-        f"{t['ms']:.4f} ms (L2 flushed; {t['warm_ms']:.4f} warm; {t['events_ms']:.4f} one call), plain "
-        f"{t['plain_ms']:.4f} ms, F.embedding_bag {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
-        f"by {t['bound_by']} ({rows} distinct rows once, {nbytes / 1e9:.3f} GB; every gathered row "
-        f"from HBM: {t['gathered_bound_ms']:.4f} ms)")
+        f"{idx.numel()} lookups into {n_bags} bags; {launches} B6 launch, no other kernel, no offsets "
+        f"pass; kernel == plain (largest |sum| {scale:.3f}); schedule: table rows, {units} lane groups of "
+        f"{geo['lanes']} lanes x {geo['n_chunks']} column chunk(s), {geo['vec_bytes']}-byte loads, "
+        f"{geo['per_unit']} lookups a group; {t['ms']:.4f} ms (L2 flushed; {t['warm_ms']:.4f} warm; "
+        f"{t['events_ms']:.4f} one call), plain {t['plain_ms']:.4f} ms, F.embedding_bag "
+        f"{t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({rows} distinct "
+        f"rows once, {nbytes / 1e9:.3f} GB); every gathered row from HBM: {t['gathered_bound_ms']:.4f} "
+        f"ms; at 32-byte sectors ({sectors} sectors, {sectors * 32 / 1e9:.3f} GB): "
+        f"{t['sector_bound_ms']:.4f} ms")
     return t
 
 
@@ -775,14 +793,14 @@ def phase_embedbag(dev, gen, flush, record) -> dict:
     idx = torch.randint(0, DLRM_ROWS, (DLRM_LOOKUPS,), generator=gen, device=dev, dtype=torch.int32)
     bags = torch.randperm(DLRM_LOOKUPS, generator=gen, device=dev).to(torch.int32)
     rec["dlrm"] = embedbag_case("dlrm-mlperf table 20, serve_bulk", table, idx, bags, DLRM_LOOKUPS,
-                                eb_ops.embedding_bag, flush, exact=True)
+                                eb_ops.embedding_bag, flush)
     del table, idx, bags
     free()
     feats = torch.randn((OGB_NODES, OGB_FEAT), generator=gen, device=dev)
     src = torch.randint(0, OGB_NODES, (OGB_EDGES,), generator=gen, device=dev, dtype=torch.int32)
     dst = torch.randint(0, OGB_NODES, (OGB_EDGES,), generator=gen, device=dev, dtype=torch.int32)
     rec["ogb"] = embedbag_case("ogb_products, uniform edges", feats, src, dst, OGB_NODES,
-                               eb_ops.gnn_aggregate, flush, exact=False)
+                               eb_ops.gnn_aggregate, flush)
     del feats, src, dst
     free()
     t = rec["ogb"]

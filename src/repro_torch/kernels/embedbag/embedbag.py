@@ -4,19 +4,24 @@ sorted by bag.
 Port of ``repro/kernels/embedbag/embedbag.py::embedding_bag_sorted``
 (kernel B6).  ``repro``'s Pallas grid takes one lookup per step, DMAs
 the table row in and adds it into the output row of its bag, zeroing a
-bag at its first lookup and accumulating in the table's dtype.  Here, on
-a CUDA tensor, :func:`embedding_bag_sorted` launches the hand-written
-kernel of ``csrc/embedbag.cu``: one warp per (bag, 128-column chunk),
-which finds its run of lookups from bag offsets computed on the device
-(``torch.searchsorted``, no host sync), sums the rows in sorted order in
-f32 and rounds once to the table's dtype.  Every bag is written, empty
-ones as zeros.  On a CPU tensor it runs :func:`embedding_bag_sorted_plain`,
-which adds the rows in the same order in f32; there is no fallback from
-the one to the other.
+bag at its first lookup and accumulating in the table's dtype: a bag
+sums its rows in sorted order, and a bf16 sum is rounded to bf16 after
+every lookup.  The port computes the same: f32 sums in f32, bf16 sums
+rounded to bf16 (round to nearest even) after every lookup, so both
+dtypes equal ``repro`` bit for bit.  Every bag is written, and one no
+lookup visits is zero.
 
-f32 tables equal the plain version bit for bit (the same f32 additions
-in the same order), and so do bags of one lookup in any dtype.  On bf16
-tables the port rounds once where ``repro`` rounds after every lookup.
+On a CUDA tensor :func:`embedding_bag_sorted` launches the hand-written
+kernel of ``csrc/embedbag.cu``.  Its work is split by lookups, not bags:
+a group of lanes owns a range of sorted lookups, sums the bags that
+start there (reading past the range to finish its last one) and zeroes
+the empty bag ids before each of them, so no offsets are computed and
+no atomics are needed.  :func:`launch_geometry` picks the vector width
+of a lane's load, the lanes of a row and the lookups of a range from the
+shapes.  The gathered rows bound its time where the table is many times
+the L2, as at ogb_products.  On a CPU tensor it runs
+:func:`embedding_bag_sorted_plain`; there is no fallback from the one to
+the other.
 """
 
 from __future__ import annotations
@@ -33,7 +38,14 @@ LAUNCHES = 0  # B6: embedding_bag_sorted
 # (chunk, D) rows
 PLAIN_CHUNK = 1 << 22
 
+# a range of lookups per lane group: enough groups to fill the card
+# (~32K), at most MAX_PER_UNIT lookups each
+UNITS = 1 << 15
+MAX_PER_UNIT = 256
+MAX_LOOKUPS = 2**31 - 2 * MAX_PER_UNIT  # positions stay in int32 inside the kernel
+
 _DTYPES = {torch.float32: "embedding_bag_f32", torch.bfloat16: "embedding_bag_bf16"}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def bag_offsets(bags: torch.Tensor, n_bags: int) -> torch.Tensor:
@@ -47,12 +59,12 @@ def embedding_bag_sorted_plain(
     table: torch.Tensor, idx: torch.Tensor, bags: torch.Tensor, n_bags: int
 ) -> torch.Tensor:
     """:func:`embedding_bag_sorted` in plain PyTorch: the lookups are taken
-    rank by rank (rank = position inside the bag), so each ``index_add_``
-    adds at most one row to a bag and every bag sums its rows in sorted
-    order in f32, as the kernel does; then one rounding to the table's
-    dtype.  Gathers at most :data:`PLAIN_CHUNK` rows at once."""
+    rank by rank (rank = position inside the bag), so each step adds at
+    most one row to a bag, and every bag sums its rows in sorted order in
+    f32, rounding to the table's dtype after every lookup, as the kernel
+    and ``repro`` do.  Gathers at most :data:`PLAIN_CHUNK` rows at once."""
     n, d = idx.shape[0], table.shape[1]
-    acc = torch.zeros((n_bags, d), dtype=torch.float32, device=table.device)
+    acc = torch.zeros((n_bags, d), dtype=table.dtype, device=table.device)
     if n:
         bags64 = bags.long()
         rank = torch.arange(n, device=bags.device) - bag_offsets(bags, n_bags)[bags64]
@@ -61,9 +73,26 @@ def embedding_bag_sorted_plain(
         for count in torch.bincount(rank).tolist():
             for start in range(lo, lo + count, PLAIN_CHUNK):
                 sel = order[start : min(start + PLAIN_CHUNK, lo + count)]
-                acc.index_add_(0, bags64[sel], table[idx[sel].long()].float())
+                rows = bags64[sel]  # distinct: one lookup per bag at a rank
+                acc[rows] = (acc[rows].float() + table[idx[sel].long()].float()).to(table.dtype)
             lo += count
-    return acc.to(table.dtype)
+    return acc
+
+
+def launch_geometry(d: int, itemsize: int, align: int, n: int) -> dict:
+    """How B6 walks a table of ``d`` columns of ``itemsize`` bytes at an
+    address aligned to ``align`` bytes, over ``n`` lookups: ``vec_bytes``,
+    the widest load (16, 8, 4, or 2 for bf16) that divides a row and the
+    alignment; ``lanes``, a power of two from 2 to 32 that covers a row in
+    such loads, else 32 lanes per column chunk; ``n_chunks``; and
+    ``per_unit``, the lookups a lane group owns."""
+    row_bytes = d * itemsize
+    vec = next(v for v in (16, 8, 4, 2) if v >= itemsize and row_bytes % v == 0 and align % v == 0)
+    lanes_needed = row_bytes // vec
+    lanes = min(32, max(2, 1 << (lanes_needed - 1).bit_length()))
+    per_unit = min(MAX_PER_UNIT, max(lanes, 1 << (-(-n // UNITS) - 1).bit_length()))
+    return {"vec_bytes": vec, "lanes": lanes, "n_chunks": -(-lanes_needed // lanes),
+            "per_unit": per_unit}
 
 
 def _check(table, idx, bags) -> None:
@@ -81,6 +110,8 @@ def _check(table, idx, bags) -> None:
             raise TypeError(f"{name} must be a 1-D int32 tensor")
     if idx.shape != bags.shape:
         raise ValueError(f"idx {tuple(idx.shape)} and bags {tuple(bags.shape)} differ")
+    if idx.shape[0] > MAX_LOOKUPS:
+        raise ValueError(f"{idx.shape[0]} lookups exceed the kernel's {MAX_LOOKUPS}")
 
 
 def embedding_bag_sorted(
@@ -103,13 +134,15 @@ def embedding_bag_sorted(
     out = torch.empty((n_bags, d), dtype=table.dtype, device=table.device)
     if n_bags == 0 or d == 0:
         return out
-    offsets = bag_offsets(bags, n_bags)
+    n = idx.shape[0]
+    geo = launch_geometry(d, table.element_size(), table.data_ptr(), n)
     fn = getattr(_build.load("embedbag"), _DTYPES[table.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(table.device):
         err = fn(
-            table.data_ptr(), idx.data_ptr(), offsets.data_ptr(), out.data_ptr(), n_bags, d,
+            table.data_ptr(), idx.data_ptr(), bags.data_ptr(), out.data_ptr(), n, n_bags, d,
+            geo["n_chunks"], geo["vec_bytes"], geo["lanes"], geo["per_unit"],
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

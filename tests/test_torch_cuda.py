@@ -12,8 +12,9 @@ with one:
 The frontier comparisons are exact: operands are {0,1} and every sum is
 an integer below 2^24, so f32 is exact in any order (B1, B3 and B5 add
 their chunks with atomics), and OR is exact in any order (B2 and B4 OR
-theirs).  B6 adds the same f32
-values in the same order as its plain version, so it is exact too.  B7
+theirs).  B6 adds the same values in the same order as its plain
+version, rounding bf16 sums after every lookup as it does, so it is
+exact too.  B7
 walks other kv tiles than its plain version and merges kv splits, so it
 is held to ``repro``'s own tolerances (2e-5 f32, 2e-2 bf16,
 ``tests/test_kernels.py``)."""
@@ -471,20 +472,46 @@ def test_baseline_on_gpu_equals_cpu_and_fused(cuda, case):
 # ---------------------------------------------------------------------------
 
 
+# rows, D, lookups, bags, layout of the bag ids: D 1, 100, 128, 129 and
+# 300 (column chunks); bags of one lookup; bags longer than a window and
+# than 1,000 lookups, across many lane groups' ranges; leading, trailing
+# and interior empty bags; N = 0; n_bags = 0
+EB_CASES = [
+    (64, 8, 40, 10, "random"), (128, 128, 96, 16, "random"), (300, 300, 2000, 50, "random"),
+    (50, 1, 500, 20, "random"), (400, 100, 5000, 300, "random"), (1000, 128, 800, 800, "one"),
+    (200, 129, 3000, 12, "long"), (100, 100, 1500, 240, "gaps"), (64, 100, 0, 7, "random"),
+    (64, 100, 0, 0, "random"),
+]
+
+
+def _eb_bags(layout, n_lookup, n_bags, rng):
+    if layout == "one":
+        return rng.permutation(n_bags).astype(np.int32)
+    if layout == "long":  # 1,200, 40 and 1,760 lookups; bags 0, 2, 3, 5-8, 10, 11 empty
+        return rng.permutation(np.repeat(np.array([1, 4, 9], np.int32), [1200, 40, 1760]))
+    if layout == "gaps":  # ids 0-2 and 230-239 empty, and ~half of those between
+        return rng.choice(np.arange(3, n_bags - 10), n_lookup).astype(np.int32)
+    return rng.integers(0, max(n_bags, 1), n_lookup).astype(np.int32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows, dim, n_lookup, n_bags", [(64, 8, 40, 10), (128, 128, 96, 16), (300, 300, 2000, 50)])
-def test_embedding_bag_kernel_equals_plain(cuda, rows, dim, n_lookup, n_bags, dtype):
-    rng = np.random.default_rng(rows)
+@pytest.mark.parametrize("rows, dim, n_lookup, n_bags, layout", EB_CASES)
+def test_embedding_bag_kernel_equals_plain(cuda, rows, dim, n_lookup, n_bags, layout, dtype):
+    """B6 equals its plain version bit for bit: the same adds in the same
+    order, bf16 rounded after every lookup."""
+    rng = np.random.default_rng(rows + n_lookup)
     table = torch.from_numpy(rng.normal(size=(rows, dim)).astype(np.float32)).to(cuda, dtype)
     idx = torch.from_numpy(rng.integers(0, rows, n_lookup).astype(np.int32)).to(cuda)
-    bags = torch.from_numpy(rng.integers(0, n_bags, n_lookup).astype(np.int32)).to(cuda)
+    bags = torch.from_numpy(_eb_bags(layout, n_lookup, n_bags, rng)).to(cuda)
     sorted_bags, order = torch.sort(bags, stable=True)
+    s_idx = idx[order].contiguous()
     before = embedbag.LAUNCHES
-    got = embedbag.embedding_bag_sorted(table, idx[order].contiguous(), sorted_bags, n_bags)
-    want = embedbag.embedding_bag_sorted_plain(table, idx[order], sorted_bags, n_bags)
+    got = embedbag.embedding_bag_sorted(table, s_idx, sorted_bags, n_bags)
+    want = embedbag.embedding_bag_sorted_plain(table, s_idx, sorted_bags, n_bags)
     torch.cuda.synchronize()
-    assert embedbag.LAUNCHES == before + 1
-    assert got.dtype == dtype and torch.equal(got, want)
+    assert embedbag.LAUNCHES == before + (n_bags > 0)
+    assert got.dtype == dtype and got.shape == (n_bags, dim)
+    assert torch.equal(got, want)
     cpu = eb_ops.embedding_bag(table.cpu(), idx.cpu(), bags.cpu(), n_bags)
     assert torch.equal(eb_ops.embedding_bag(table, idx, bags, n_bags).cpu(), cpu)
 
