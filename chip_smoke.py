@@ -57,6 +57,21 @@ Phases, each of which raises on failure (the run then exits non-zero):
              device time per kernel, and the path's level kernel looked
              up by pieces of its device symbol, which must match exactly
              one kernel, launched as often as in the path phase;
+* plan     — the paper's §6 workflow on the same twin: a 256-peer overlay
+             of mean degree 3 (``random_overlay``) probed for N_p, N_c and
+             k, the Bayesian model fitted once, each of the 12 Table-2
+             queries estimated (300 rollouts) and decided; then on 8
+             sampled valid starts of each, S1 (``s1_execute`` on the
+             padded site arrays staged once, its gather, dedup and device
+             BFS also timed apart) and S2 (``s2_execute`` on B1 under the
+             query class's fast path: reduced automaton, level cap).
+             Answers of both must equal the device-BFS oracle, S1's
+             deduped subgraph must be the graph's edges of the query's
+             labels and its cost ``s1_costs``, B1's launches must equal
+             the S2 levels, and no other kernel may launch; each
+             strategy's observed ``cost_of`` is logged beside the plan's
+             forecast (whether the choice was the cheaper one is not
+             checked: the plan is an estimate);
 * baseline — the per-transition baseline path, carried by B5
              ``frontier_step_blocks``: the twin as per-label tile lists
              (``make_blocked_graph``) and Stage A again from them (equal
@@ -108,11 +123,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import interop  # noqa: E402
-from repro_torch.core import paa, strategies  # noqa: E402
+from repro_torch.core import cost_model, paa, planner, strategies  # noqa: E402
+from repro_torch.core import regex as rx  # noqa: E402
 from repro_torch.graph.generators import (  # noqa: E402
     TABLE2_PAPER, TABLE2_QUERIES, alibaba_like, random_labeled_graph,
 )
-from repro_torch.graph.partition import distribute  # noqa: E402
+from repro_torch.graph.partition import distribute, random_overlay  # noqa: E402
 from repro_torch.graph.structure import LabeledGraph, to_device_graph  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -139,6 +155,9 @@ SEED = 0
 CSRC = "src/repro_torch/kernels/frontier/csrc"
 FRONTIER_PY = "src/repro/kernels/frontier/frontier.py"
 N_BASELINE_STARTS = 32
+# the plan phase (§6): a 256-peer overlay of mean degree d = 3, as the
+# paper's worked example; rollouts per estimate; starts per query
+PLAN_SEED, PLAN_DEGREE, PLAN_ROLLOUTS, N_PLAN_STARTS = 6, 3.0, 300, 8
 # dlrm-mlperf's largest Criteo table (src/repro/models/dlrm.py:30),
 # embed_dim 128, table_dtype bf16 (dlrm.py:52); serve_bulk batch 262,144
 # x multi_hot 1 (configs/registry.py:110)
@@ -723,6 +742,143 @@ def phase_baseline(g, cas, dg, stores, dev, gen, flush, record) -> dict:
             "bound_by": t["bound_by"], "library_ms": None}
 
 
+def plan_query_phase(q, g, placement, net, model, arrays, dg, staged, dev, rng) -> dict:
+    """One Table-2 query through the planner, then on the same sampled
+    starts through S1 (gather, dedup and device BFS timed apart, then
+    ``s1_execute``) and through S2 on B1 under the query class's fast
+    path; raises on any failed check."""
+    expr = TABLE2_QUERIES[q]
+    t0 = time.perf_counter()
+    est = planner.estimate_query(expr, g, model=model, n_rollouts=PLAN_ROLLOUTS, seed=PLAN_SEED)
+    plan = planner.decide_strategy(est, net)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    c, qc = plan.choice, est.query_class
+    r = {"strategy": c.strategy, "reason": c.reason, "discr": c.discr, "k_over_d": c.k_over_d,
+         "p_s2_optimal": plan.p_s2_optimal, "q_bc_p50_p90": [plan.q_bc_quantiles[x] for x in (0.5, 0.9)],
+         "d_s2_p50_p90": [plan.d_s2_quantiles[x] for x in (0.5, 0.9)],
+         "forecast": plan.forecast_symbols, "plan_ms": plan_ms, "query_class": [qc.kind, qc.length]}
+    log("plan", f"{q}: {c.strategy} ({c.reason}); discr {c.discr:.6g}, k/d {c.k_over_d:.6g}, "
+        f"p_s2_optimal {plan.p_s2_optimal:.4f}; Q_bc p50/p90 {r['q_bc_p50_p90']}, D_s2 p50/p90 "
+        f"{r['d_s2_p50_p90']}; forecast S1 {plan.forecast_symbols['S1']:.1f}, S2 "
+        f"{plan.forecast_symbols['S2']:.1f} symbols; class {qc.kind} (length {qc.length}); "
+        f"{plan_ms:.1f} ms on the host ({PLAN_ROLLOUTS} rollouts)")
+    ca = paa.compile_query(expr, g)
+    starts = paa.valid_start_nodes(ca, g)
+    if len(starts) == 0:
+        log("plan", f"{q}: no valid start; executed on neither strategy")
+        return r
+    sample = np.sort(rng.choice(starts, size=min(N_PLAN_STARTS, len(starts)), replace=False))
+    o_src, o_dst = paa.answers_multi_source(ca, dg, sample)
+    oracle = [set(o_dst[o_src == s].tolist()) for s in sample]
+
+    # S1: the pieces of s1_execute timed apart, then s1_execute itself
+    ast = rx.parse(expr)
+    lmask = strategies.query_label_mask(ast, g)
+    want_cost = strategies.s1_costs(ast, g)
+    truth = g.dedup().subgraph_with_labels(set(np.nonzero(lmask)[0].tolist()))
+    truth_edges = set(zip(truth.src.tolist(), truth.lbl.tolist(), truth.dst.tolist()))
+    max_e = arrays["src"].shape[1]
+    gather_ms, dedup_ms, bfs_ms, exec_ms = [], [], [], []
+    bfs_levels = bfs_syncs = 0
+    for s, want in zip(sample.tolist(), oracle):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        src, lbl, dst, valid, overflow = strategies.s1_gather(arrays, lmask, max_e)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sub = strategies.gathered_subgraph(g, src, lbl, dst, valid)
+        t2 = time.perf_counter()
+        lev0, sync0 = paa.BFS_COUNTERS["levels"], paa.BFS_COUNTERS["host_syncs"]
+        acc = paa.answers_single_source(ca, paa.device_form(sub, dev), s).cpu().numpy()
+        t3 = time.perf_counter()
+        bfs_levels += paa.BFS_COUNTERS["levels"] - lev0
+        bfs_syncs += paa.BFS_COUNTERS["host_syncs"] - sync0
+        gather_ms.append((t1 - t0) * 1e3)
+        dedup_ms.append((t2 - t1) * 1e3)
+        bfs_ms.append((t3 - t2) * 1e3)
+        gathered = int(valid.sum())
+        if overflow or set(zip(sub.src.tolist(), sub.lbl.tolist(), sub.dst.tolist())) != truth_edges \
+                or sub.n_edges != truth.n_edges or sub.n_edges != want_cost.edges_retrieved:
+            raise AssertionError(f"{q}: S1's deduped subgraph ({sub.n_edges} edges, overflow {overflow}) "
+                                 f"is not the graph's {truth.n_edges} edges of the query's labels")
+        t0 = time.perf_counter()
+        answers, cost = strategies.s1_execute(placement, ast, ca, s, device_arrays=arrays)
+        exec_ms.append((time.perf_counter() - t0) * 1e3)
+        if answers != want or set(np.nonzero(acc)[0].tolist()) != want:
+            raise AssertionError(f"{q} start {s}: S1 answers differ from the device-BFS oracle")
+        if cost != want_cost:
+            raise AssertionError(f"{q}: S1 cost {cost} != s1_costs {want_cost}")
+    r["s1"] = {"starts": len(sample), "gathered": gathered, "edges": sub.n_edges, "gather_ms": gather_ms,
+               "dedup_ms": dedup_ms, "bfs_ms": bfs_ms, "execute_ms": exec_ms,
+               "bfs_levels": bfs_levels, "bfs_host_syncs": bfs_syncs}
+    log("plan", f"{q}: S1 on {len(sample)} starts: gather {np.median(gather_ms):.2f} ms (median; "
+        f"{gathered} matching copies from {placement.n_sites} sites), dedup {np.median(dedup_ms):.2f} ms "
+        f"(host, to {sub.n_edges} edges == the graph's edges of its labels == s1_costs), device form + "
+        f"BFS {np.median(bfs_ms):.2f} ms ({r['s1']['bfs_levels']} levels, {r['s1']['bfs_host_syncs']} "
+        f"host syncs over the starts); s1_execute {np.median(exec_ms):.2f} ms; answers == oracle")
+
+    # S2 on B1, at the query class's fast path
+    exec_ca, cap = planner.reduce_automaton(ca, qc), planner.fast_path_max_levels(qc)
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc2, costs = strategies.s2_execute(
+        placement, exec_ca, sample, max_levels=cap, backend="frontier_kernel", tile_dtype="f32",
+        staged=staged, device=dev)
+    torch.cuda.synchronize()
+    s2_ms = (time.perf_counter() - t0) * 1e3
+    n = only_launched("fused_level_blocks", f"the plan phase's S2 leg of {q}")
+    levels = fops.FIXPOINT_COUNTERS["levels"]
+    if n != levels:
+        raise AssertionError(f"{q}: {n} B1 launches for {levels} levels")
+    for i, want in enumerate(oracle):
+        if set(np.nonzero(acc2[i])[0].tolist()) != want:
+            raise AssertionError(f"{q} start {sample[i]}: S2 answers differ from the oracle and S1")
+    obs_s1 = cost_model.cost_of(net, want_cost)
+    obs_s2 = [cost_model.cost_of(net, c2) for c2 in costs]
+    cheaper = "S1" if obs_s1 < np.mean(obs_s2) else "S2"
+    r["s2"] = {"levels": levels, "launches": n, "max_levels": cap, "states": exec_ca.n_states,
+               "wall_ms": s2_ms}
+    r["observed_cost"] = {"S1": obs_s1, "S2_mean": float(np.mean(obs_s2)), "S2_max": max(obs_s2),
+                          "cheaper": cheaper, "choice_matches": cheaper == c.strategy}
+    log("plan", f"{q}: S2 (frontier_kernel/f32, {exec_ca.n_states} states, max_levels {cap}) on the "
+        f"same starts: {levels} levels = {n} B1 launches, no other kernel, {s2_ms:.1f} ms; answers == "
+        f"oracle == S1; observed cost_of S1 {obs_s1:.1f}, S2 mean {np.mean(obs_s2):.1f} (max "
+        f"{max(obs_s2):.1f}) against the forecast S1 {plan.forecast_symbols['S1']:.1f}, S2 "
+        f"{plan.forecast_symbols['S2']:.1f}: cheaper observed {cheaper}, plan chose {c.strategy}")
+    return r
+
+
+def phase_plan(g, placement, dg, staged, dev, record) -> None:
+    """The §6 workflow on the full twin: probe a 256-peer overlay, fit the
+    Bayesian model once, plan each Table-2 query, and run both strategies
+    on the card for 8 sampled starts of each."""
+    rec = record["plan"] = {}
+    t0 = time.perf_counter()
+    overlay = random_overlay(placement.n_sites, PLAN_DEGREE, seed=PLAN_SEED)
+    net = planner.probe_network(overlay, placement, seed=PLAN_SEED)
+    model = planner.fit_model(g)
+    fit_s = time.perf_counter() - t0
+    arrays = strategies.stage_site_arrays(placement, dev)
+    nbytes = sum(a.numel() * a.element_size() for a in arrays.values())
+    rec["net"] = {"n_peers": net.n_peers, "n_connections": net.n_connections,
+                  "replication_rate": net.replication_rate, "probe_and_fit_s": fit_s,
+                  "site_array_bytes": nbytes}
+    log("plan", f"overlay {net.n_peers} peers, {net.n_connections} connections (d = "
+        f"{net.mean_degree:.3f}), probed k = {net.replication_rate:.6f}; probes and the Bayesian fit "
+        f"{fit_s:.1f} s on the host; padded site arrays {tuple(arrays['src'].shape)} staged once: "
+        f"{nbytes / 1e6:.1f} MB")
+    rng = np.random.default_rng(PLAN_SEED)
+    for q in TABLE2_QUERIES:
+        rec[q] = plan_query_phase(q, g, placement, net, model, arrays, dg, staged, dev, rng)
+    matches = sum(r["observed_cost"]["choice_matches"] for r in rec.values() if "observed_cost" in r)
+    ran = sum("observed_cost" in r for r in rec.values())
+    log("plan", f"{len(TABLE2_QUERIES)} queries planned, {ran} run on both strategies; the plan's "
+        f"choice is the cheaper observed one on {matches} of {ran} (an estimate: not checked)")
+    del arrays
+
+
 def gathered_sectors(idx: torch.Tensor, row_bytes: int) -> int:
     """The 32-byte sectors that the gathered rows span: row ``i`` lies at
     bytes ``i·row_bytes .. (i + 1)·row_bytes - 1`` of the table."""
@@ -1062,6 +1218,9 @@ def main() -> int:
                 log("trace", f"  {kt['us'] / 1e3:9.3f} ms {kt['count']:6d}x  {kname[:90]}")
 
     phase_end("trace")
+
+    phase_plan(g, placement, dg, stores["f32"], dev, record)
+    phase_end("plan")
 
     new_kernels = [phase_baseline(g, cas, dg, stores, dev, gen, flush, record)]
     del stores, dg

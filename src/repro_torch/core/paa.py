@@ -9,8 +9,9 @@ Port of ``repro/core/paa.py``.  Two implementations with one semantics:
   grounded NFA transition as a gather over the label's contiguous edge
   slice followed by ``scatter_reduce(amax)`` onto the edge destinations.
   The level loop runs in Python and reads ``frontier.any()`` once per
-  level.  It shares no code with the frontier kernel path, so it is that
-  path's oracle on the card.
+  level (:data:`BFS_COUNTERS` counts the levels and those host syncs).
+  It shares no code with the frontier kernel path, so it is that path's
+  oracle on the card, and it is S1's local PAA.
 
 * :func:`run_instrumented` — a host (numpy) BFS that additionally performs
   the paper's §4.2 message accounting for strategy S2: per-product-state
@@ -25,6 +26,7 @@ materialized.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -34,11 +36,14 @@ import torch
 from repro_torch.core import automaton as am
 from repro_torch.core import regex as rxmod
 from repro_torch.core.automaton import FWD, CompiledAutomaton
-from repro_torch.graph.structure import DeviceGraph, LabeledGraph
+from repro_torch.graph.structure import DeviceGraph, LabeledGraph, to_device_graph
 
 # ---------------------------------------------------------------------------
 # Device frontier-expansion PAA
 # ---------------------------------------------------------------------------
+
+# levels expanded and ``frontier.any()`` host reads, over every device BFS
+BFS_COUNTERS: collections.Counter = collections.Counter()
 
 
 def _expand_once(
@@ -67,6 +72,11 @@ def _expand_once(
     return nxt
 
 
+def _nonempty(frontier: torch.Tensor) -> bool:
+    BFS_COUNTERS["host_syncs"] += 1
+    return bool(frontier.any())
+
+
 def _accepted(
     ca: CompiledAutomaton,
     g: DeviceGraph,
@@ -86,11 +96,12 @@ def _accepted(
     visited[torch.arange(b, device=g.device), ca.start, starts] = 1
     frontier = visited
     level = 0
-    while level < max_levels and bool(frontier.any()):
+    while level < max_levels and _nonempty(frontier):
         new = _expand_once(ca, g, frontier) * (1 - visited)
         visited = visited | new
         frontier = new
         level += 1
+        BFS_COUNTERS["levels"] += 1
     acc = torch.zeros((b, v), dtype=torch.bool, device=g.device)
     for qf in ca.accepting:
         acc |= visited[:, qf] > 0
@@ -287,3 +298,9 @@ def run_instrumented(
 def compile_query(regex_src: str, graph: LabeledGraph) -> CompiledAutomaton:
     """Parse + NFA-compile + ground a query against a graph's vocabulary."""
     return am.ground(am.build_nfa(rxmod.parse(regex_src)), graph.label_to_id)
+
+
+def device_form(graph: LabeledGraph, device: str | torch.device | None = None) -> DeviceGraph:
+    """``graph`` in the device PAA's form (:func:`to_device_graph`) on
+    ``device`` (``None``: the GPU)."""
+    return to_device_graph(graph, device)

@@ -1,22 +1,31 @@
-"""S2 (bottom-up) RPQ processing on the fused frontier kernel, with the
-paper's §4.2 message accounting.
+"""Distributed RPQ processing strategies (paper §3) and message
+accounting, on one device.
 
-Port of ``repro/core/strategies.py`` for the two global fused backends,
-``frontier_kernel`` (8 stacked queries in f32 rows) and
-``frontier_kernel_packed`` (256 query lanes in int32 words), on either
-tile store, on one device.  S2 runs the PAA at the querying site; each
-BFS level's neighbour lookup is a broadcast search answered by the sites
-holding matching edges, with a local cache deduplicating repeated
-searches.  The meters count message symbols with the paper's conventions
-(a symbol = one node id or label; an edge = 3 symbols).
+Port of ``repro/core/strategies.py``:
+
+* **S1 — top-down** (§3.3, §4.2.1): one broadcast of the query's distinct
+  labels; every site unicasts its label-matching edges; the PAA then runs
+  locally on the collected (deduplicated) subgraph.  The sites are the
+  leading dimension of the placement's padded arrays on the device.
+* **S2 — bottom-up** (§3.3, §4.2.2): the PAA runs at the querying site;
+  each BFS level's neighbour lookup is a broadcast search answered by the
+  sites holding matching edges, with a local cache deduplicating repeated
+  searches.  Two global fused backends: ``frontier_kernel`` (8 stacked
+  queries in f32 rows) and ``frontier_kernel_packed`` (256 query lanes in
+  int32 words), on either tile store.
+* **S3 — query shipping** (§3.1/§3.5.5) and **S4 — query decomposition**
+  (§3.2/§3.5.6) are meters only, as in ``repro``.
+
+The meters count message symbols with the paper's conventions (a symbol
+= one node id or label; an edge = 3 symbols; broadcasting b symbols costs
+2·N_c·b messages).
 
 What waits for later slices (each raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item): the ``reference`` and ``frontier_kernel_sharded``
-backends (A12), witness semantics (A9), and the plan store's shared
-Stage A (A10; until then ``staged=`` passes a prebuilt Stage A in).
-S1, S3 and S4 come with planning (A6).  The ``mesh``, ``site_axes`` and
-``batch_axis`` parameters of ``repro`` are dropped: nothing on this path
-uses them.
+backends and the multi-device S1 gather (A12), witness semantics (A9),
+and the plan store's shared Stage A (A10; until then ``staged=`` passes a
+prebuilt Stage A in).  The ``mesh``, ``site_axes`` and ``batch_axis``
+parameters of ``repro`` are dropped: on one device nothing uses them.
 """
 
 from __future__ import annotations
@@ -28,8 +37,10 @@ import numpy as np
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import paa
 from repro_torch.core.automaton import FWD, CompiledAutomaton
+from repro_torch.core.regex import Node, has_wildcard, labels_of, query_size
 from repro_torch.graph.partition import Placement
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier import frontier as fkernel
@@ -60,6 +71,28 @@ class StrategyCost:
     site_unicast_symbols: tuple[float, ...] = ()
 
 
+def s1_costs(ast: Node, graph: LabeledGraph) -> StrategyCost:
+    """§4.2.1: broadcast = #distinct labels; unicast = 3 × matching edges.
+
+    A wildcard forces the full edge set (§3.6 — 'the mere presence of a
+    wildcard is enough' to hit the worst case)."""
+    lbls = labels_of(ast)
+    lmap = graph.label_to_id
+    if has_wildcard(ast):
+        n_match = graph.n_edges
+    else:
+        ids = [lmap[l] for l in lbls if l in lmap]
+        counts = graph.label_counts()
+        n_match = int(sum(counts[i] for i in ids))
+    return StrategyCost(
+        strategy="S1",
+        broadcast_symbols=float(len(lbls)),
+        unicast_symbols=float(EDGE_SYMBOLS * n_match),
+        n_broadcasts=1,
+        edges_retrieved=n_match,
+    )
+
+
 def s2_costs(
     ca: CompiledAutomaton,
     index: paa.HostIndex,
@@ -76,6 +109,204 @@ def s2_costs(
         n_broadcasts=tr.n_broadcasts,
         edges_retrieved=tr.edges_traversed,
     )
+
+
+def s3_costs(ca: CompiledAutomaton, index: paa.HostIndex, start_node: int) -> StrategyCost:
+    """§3.5.5: query shipping = S2's traversal with no cache (each hop's
+    broadcast is issued by a different site, so nothing deduplicates)."""
+    tr = _run_uncached(ca, index, start_node)
+    return StrategyCost(
+        strategy="S3",
+        broadcast_symbols=float(tr.q_bc),
+        unicast_symbols=float(tr.d_s2),
+        n_broadcasts=tr.n_broadcasts,
+        edges_retrieved=tr.edges_traversed,
+    )
+
+
+def s4_costs(ast: Node, graph: LabeledGraph, placement: Placement) -> StrategyCost:
+    """§3.5.6 at the non-localized degenerate bound: sites must exchange
+    their potentially-outgoing edges (all of them — K·|E| copies, 3 symbols
+    each) before the one-round query; responses may carry the full traversed
+    subgraph.  We charge the label-restricted subgraph as the response
+    (the best case S4 could do with the paper's label selection)."""
+    m = query_size(ast)
+    K = placement.replication_factor
+    bc = EDGE_SYMBOLS * K * graph.n_edges + m
+    s1 = s1_costs(ast, graph)
+    return StrategyCost(
+        strategy="S4",
+        broadcast_symbols=float(bc),
+        unicast_symbols=float(s1.unicast_symbols),
+        n_broadcasts=1 + placement.n_sites,
+        edges_retrieved=s1.edges_retrieved,
+    )
+
+
+def _run_uncached(ca, index, start_node):
+    """Instrumented PAA variant with the broadcast cache disabled (S3)."""
+    graph = index.graph
+    tr = paa.S2Trace()
+    outs: dict[int, list] = {}
+    for t in ca.transitions:
+        outs.setdefault(t.src, []).append(t)
+    state_symbols = {q: sorted({(t.label_id, t.direction) for t in ts}) for q, ts in outs.items()}
+    visited = {(ca.start, int(start_node))}
+    queue = [(ca.start, int(start_node))]
+    accepting = set(ca.accepting)
+    if ca.start in accepting:
+        tr.answers.add(int(start_node))
+    seen_edges: set[int] = set()
+    while queue:
+        q, v = queue.pop()
+        tr.nodes_visited += 1
+        symbols = state_symbols.get(q)
+        if not symbols:
+            continue
+        tr.n_broadcasts += 1
+        tr.q_bc += 1 + len(symbols)
+        for (label_id, direction) in symbols:
+            if label_id >= 0:
+                eids = index.out_edges(v, label_id) if direction == FWD else index.in_edges(v, label_id)
+            else:
+                eids = index.all_out_edges(v) if direction == FWD else index.all_in_edges(v)
+            tr.d_s2 += EDGE_SYMBOLS * len(eids)
+            for e in eids:
+                seen_edges.add(int(e) if direction == FWD else -int(e) - 1)
+        for t in outs[q]:
+            if t.label_id >= 0:
+                eids = index.out_edges(v, t.label_id) if t.direction == FWD else index.in_edges(v, t.label_id)
+            else:
+                eids = index.all_out_edges(v) if t.direction == FWD else index.all_in_edges(v)
+            nbrs = graph.dst[eids] if t.direction == FWD else graph.src[eids]
+            for nb in nbrs:
+                key = (t.dst, int(nb))
+                if key not in visited:
+                    visited.add(key)
+                    queue.append(key)
+                if t.dst in accepting:
+                    tr.answers.add(int(nb))
+    tr.edges_traversed = len(seen_edges)
+    return tr
+
+
+# ---------------------------------------------------------------------------
+# S1 executor — one broadcast, one gather, local PAA
+# ---------------------------------------------------------------------------
+
+
+def stage_site_arrays(
+    placement: Placement, device: str | torch.device | None = None
+) -> dict[str, torch.Tensor]:
+    """The placement's padded per-site arrays
+    (:meth:`~repro_torch.graph.partition.Placement.padded_device_arrays`)
+    on ``device`` (``None``: the GPU), staged once for every S1 gather."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(a).to(dev) for k, a in placement.padded_device_arrays().items()}
+
+
+def s1_gather(
+    site_arrays: dict[str, torch.Tensor],
+    label_mask: np.ndarray,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """Collect, from every site, its edges whose label is in ``label_mask``.
+
+    Each site compacts matches to a static ``cap``-sized buffer (matched
+    edges sorted first) — the unicast response phase of S1 with static
+    shapes.  ``cap`` is chosen by the planner from the D_s1 estimate
+    (§5.2.2); the returned ``overflow`` count is non-zero if any site had
+    more matches than the buffer, in which case the caller re-runs with a
+    larger cap.
+
+    ``site_arrays`` holds the (n_sites, max_e) arrays on one device
+    (:func:`stage_site_arrays`).  The compaction is a stable sort of each
+    site's row on a uint8 ``~match`` key, so the buffers hold ``repro``'s
+    ``argsort(stable=True)`` order.  Returns (src, lbl, dst, valid_mask)
+    of shape (n_sites, min(cap, max_e)) on that device plus the global
+    overflow count, read on the host (one sync).
+    """
+    src, lbl, dst, mask = (site_arrays[k] for k in ("src", "lbl", "dst", "mask"))
+    lblmask = torch.as_tensor(label_mask, dtype=torch.bool, device=src.device)
+    match = mask & lblmask.index_select(0, lbl.reshape(-1)).reshape(lbl.shape)
+    take = torch.sort((~match).to(torch.uint8), dim=1, stable=True).indices[:, :cap]
+    overflow = int((match.sum(dim=1) - cap).clamp_min(0).sum())
+    return src.gather(1, take), lbl.gather(1, take), dst.gather(1, take), match.gather(1, take), overflow
+
+
+def query_label_mask(ast: Node, graph: LabeledGraph) -> np.ndarray:
+    """(n_labels,) bool mask of the query's labels; all-True on wildcard
+    (§3.6 — a wildcard defeats S1's label selection)."""
+    mask = np.zeros(graph.n_labels, bool)
+    if has_wildcard(ast):
+        mask[:] = True
+    else:
+        lbl_ids = {graph.label_to_id[l] for l in labels_of(ast) if l in graph.label_to_id}
+        mask[sorted(lbl_ids)] = True
+    return mask
+
+
+def gathered_subgraph(
+    graph: LabeledGraph,
+    src: torch.Tensor,
+    lbl: torch.Tensor,
+    dst: torch.Tensor,
+    valid: torch.Tensor,
+) -> LabeledGraph:
+    """The querying site's view of one gather: the valid entries, in site
+    order, copied to the host and deduplicated there (replicated copies
+    collapse, §3.5.1), as ``repro``'s :func:`s1_collect` does."""
+    v = valid.reshape(-1)
+    sub = LabeledGraph(
+        graph.n_nodes, *(a.reshape(-1)[v].cpu().numpy() for a in (src, lbl, dst)), graph.labels
+    )
+    return sub.dedup()
+
+
+def s1_collect(
+    placement: Placement,
+    label_mask: np.ndarray,
+    cap: int | None = None,
+    device_arrays: dict[str, torch.Tensor] | None = None,
+    device: str | torch.device | None = None,
+) -> LabeledGraph:
+    """S1's retrieval phase: gather every site's ``label_mask``-matching
+    edges and deduplicate the replicated copies at the querying site.
+
+    ``device_arrays`` accepts the placement's already-staged padded site
+    arrays (:func:`stage_site_arrays`), so serving loops skip the
+    per-call rebuild; without them they are staged on ``device``
+    (``None``: the GPU)."""
+    site_arrays = device_arrays if device_arrays is not None else stage_site_arrays(placement, device)
+    if cap is None:
+        cap = site_arrays["src"].shape[1]
+    while True:
+        src, lbl, dst, valid, overflow = s1_gather(site_arrays, label_mask, cap)
+        if overflow == 0:
+            break
+        cap = min(2 * cap, site_arrays["src"].shape[1])  # planner underestimated: grow
+    return gathered_subgraph(placement.graph, src, lbl, dst, valid)
+
+
+def s1_execute(
+    placement: Placement,
+    ast: Node,
+    ca: CompiledAutomaton,
+    start_node: int,
+    cap: int | None = None,
+    device_arrays: dict[str, torch.Tensor] | None = None,
+    device: str | torch.device | None = None,
+) -> tuple[set[int], StrategyCost]:
+    """Full S1: broadcast labels → gather matching edges → dedup → local
+    PAA (the device BFS, :func:`repro_torch.core.paa.answers_single_source`,
+    on the sites' device)."""
+    graph = placement.graph
+    site_arrays = device_arrays if device_arrays is not None else stage_site_arrays(placement, device)
+    sub = s1_collect(placement, query_label_mask(ast, graph), cap, site_arrays)
+    dg = paa.device_form(sub, site_arrays["src"].device)
+    acc = paa.answers_single_source(ca, dg, start_node).cpu().numpy()
+    answers = set(np.nonzero(acc)[0].tolist())
+    return answers, s1_costs(ast, graph)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Carry ``repro``'s artifacts into the port, as numpy arrays.
 
 The port has no weights; what the reference builds — graphs, staged tile
-tensors, level schedules — stands in for them.  Each function takes the
-numpy form of a ``repro`` object (the caller converts, so this module
-imports nothing of ``repro``) and returns the port's object, so the
-port's fixpoint can run on the exact tiles and schedule ``repro`` built.
+tensors, level schedules, placements, overlays, fitted statistical models
+and plan estimates — stands in for them.  Each function takes the numpy
+form of a ``repro`` object (the caller converts, so this module imports
+nothing of ``repro``) and returns the port's object, so the port's
+fixpoint can run on the exact tiles and schedule ``repro`` built, and
+its rollouts and strategy decisions on ``repro``'s fitted model and
+estimates.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.estimation import BayesianModel, GilbertModel
+from repro_torch.core.planner import PlanEstimates, QueryClass
+from repro_torch.graph.partition import OverlayNetwork, Placement
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier.ops import (
     QPAD,
@@ -132,4 +138,59 @@ def plan_from_numpy(
         run_ptr=put(run_ptr),
         work=put(level_work(valids, run_ptr, work_chunk(staged.tile_dtype))),
         tile_dtype=staged.tile_dtype,
+    )
+
+
+def placement_from_numpy(
+    graph: LabeledGraph, n_sites: int, site_edges: list[np.ndarray], replication: np.ndarray
+) -> Placement:
+    """A ``repro`` ``Placement`` given by its per-site edge id lists and
+    its per-edge replication counts, over the port's ``graph``."""
+    return Placement(
+        graph, int(n_sites), [np.asarray(e) for e in site_edges], np.asarray(replication)
+    )
+
+
+def overlay_from_numpy(n_peers: int, adj_src: np.ndarray, adj_dst: np.ndarray) -> OverlayNetwork:
+    """A ``repro`` ``OverlayNetwork`` given by its fields."""
+    return OverlayNetwork(int(n_peers), np.asarray(adj_src), np.asarray(adj_dst))
+
+
+def gilbert_from_numpy(n_nodes: int, lam: np.ndarray, lam_in: np.ndarray) -> GilbertModel:
+    """A fitted ``repro`` ``GilbertModel`` given by its rate arrays."""
+    return GilbertModel(int(n_nodes), np.asarray(lam), np.asarray(lam_in))
+
+
+def bayesian_from_numpy(
+    n_nodes: int,
+    lam0: np.ndarray,
+    lam_cond: np.ndarray,
+    lam0_in: np.ndarray,
+    lam_cond_in: np.ndarray,
+) -> BayesianModel:
+    """A fitted ``repro`` ``BayesianModel`` given by its rate arrays."""
+    return BayesianModel(
+        int(n_nodes), *(np.asarray(a) for a in (lam0, lam_cond, lam0_in, lam_cond_in))
+    )
+
+
+def estimates_from_numpy(
+    query: str,
+    q_lbl: float,
+    d_s1: float,
+    q_bc_samples: np.ndarray,
+    d_s2_samples: np.ndarray,
+    wildcard: bool,
+    query_class: tuple[str, tuple, int] | None = None,
+) -> PlanEstimates:
+    """A ``repro`` ``PlanEstimates`` given by its fields; ``query_class``
+    as its ``(kind, atoms, length)``."""
+    return PlanEstimates(
+        query=query,
+        q_lbl=float(q_lbl),
+        d_s1=float(d_s1),
+        q_bc_samples=np.asarray(q_bc_samples),
+        d_s2_samples=np.asarray(d_s2_samples),
+        wildcard=bool(wildcard),
+        query_class=None if query_class is None else QueryClass(*query_class),
     )

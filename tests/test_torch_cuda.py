@@ -2,10 +2,10 @@
 ``fused_level_blocks``, B2 and B4 behind ``packed_level_blocks``), the
 baseline step B5 (``frontier_step_blocks``), EmbeddingBag B6 and flash
 decode B7 against their plain PyTorch versions, the wrappers' refusals,
-and the S2 executors and the baseline fixpoint on the GPU against the
-same code on the CPU.  A CUDA kernel has no CPU mode, so every test here
-is marked ``gpu`` and skips without a CUDA device; run them on a machine
-with one:
+and the S1 and S2 executors, the branching estimator and the baseline
+fixpoint on the GPU against the same code on the CPU.  A CUDA kernel
+has no CPU mode, so every test here is marked ``gpu`` and skips without
+a CUDA device; run them on a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import paa, strategies
+from repro_torch.core import estimation, paa, regex, strategies
 from repro_torch.graph import generators, partition, structure
 from repro_torch.kernels.decode_attn import decode_attn
 from repro_torch.kernels.embedbag import embedbag
@@ -344,6 +344,66 @@ def test_s2_execute_on_gpu_equals_cpu(cuda, expr):
     oracle = paa.answers_multi_source(ca, structure.to_device_graph(g, cuda), starts)
     bs, vs = np.nonzero(a_gpu)
     assert sorted(zip(starts[bs].tolist(), vs.tolist())) == sorted(zip(*(o.tolist() for o in oracle)))
+
+
+# ---------------------------------------------------------------------------
+# S1 and the branching estimator: plain PyTorch on the card against the CPU
+# ---------------------------------------------------------------------------
+
+S1_CASES = [
+    (lambda: structure.example_graph(), 4, 0.4, 1, "(a|b)+"),
+    (lambda: generators.random_labeled_graph(200, 700, 4, seed=9), 6, 0.3, 2, "(l0|l1)+ l2"),
+    (lambda: generators.random_labeled_graph(3000, 20000, 6, seed=3), 16, 0.25, 5, "l0 . l3^-1*"),
+]
+
+
+@pytest.mark.parametrize("cap", [None, 1, 5])
+@pytest.mark.parametrize("case", range(len(S1_CASES)))
+def test_s1_gather_and_collect_on_gpu_equal_cpu(cuda, case, cap):
+    """The gather's buffers and overflow byte for byte (the stable sort on
+    the card orders as on the CPU), and s1_collect's retry from a small
+    cap to the same subgraph; then s1_execute's answers and cost."""
+    factory, n_sites, rate, seed, expr = S1_CASES[case]
+    g = factory()
+    placement = partition.distribute(g, n_sites, replication_rate=rate, seed=seed)
+    ast = regex.parse(expr)
+    lmask = strategies.query_label_mask(ast, g)
+    arrays = {dev: strategies.stage_site_arrays(placement, dev) for dev in ("cpu", cuda)}
+    c = arrays["cpu"]["src"].shape[1] if cap is None else cap
+    cpu, gpu = (strategies.s1_gather(arrays[dev], lmask, c) for dev in ("cpu", cuda))
+    per_site = (arrays["cpu"]["mask"] & torch.as_tensor(lmask)[arrays["cpu"]["lbl"].long()]).sum(1)
+    assert cpu[4] == gpu[4] == int((per_site - c).clamp_min(0).sum())
+    assert (cpu[4] > 0) == (cap == 1 or (cap == 5 and case > 0))
+    for a, b in zip(cpu[:4], gpu[:4]):
+        assert b.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b.cpu())
+    subs = [strategies.s1_collect(placement, lmask, cap, device_arrays=arrays[dev]) for dev in ("cpu", cuda)]
+    for f in ("src", "lbl", "dst"):
+        assert getattr(subs[0], f).tobytes() == getattr(subs[1], f).tobytes()
+    ca = paa.compile_query(expr, g)
+    for s in paa.valid_start_nodes(ca, g)[:4].tolist():
+        want = strategies.s1_execute(placement, ast, ca, s, cap, device_arrays=arrays["cpu"])
+        assert strategies.s1_execute(placement, ast, ca, s, cap, device_arrays=arrays[cuda]) == want
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+@pytest.mark.parametrize("graph, expr", [
+    (lambda: structure.example_graph(), "a b"),
+    (lambda: generators.random_labeled_graph(300, 1500, 5, seed=4), "l0 l1* l2"),
+])
+def test_branching_tail_on_gpu_matches_cpu_in_distribution(cuda, graph, expr, seed):
+    """The card's Poisson stream is not the CPU's: each mean within 5
+    standard errors of the difference of the two means, over 4096
+    rollouts, as tests/test_torch_planner.py holds the CPU to repro."""
+    g = graph()
+    ca = paa.compile_query(expr, g)
+    gm = estimation.GilbertModel.fit(g)
+    n = 4096
+    cpu = estimation.branching_tail(ca, gm, n_rollouts=n, seed=seed, device="cpu")
+    gpu = estimation.branching_tail(ca, gm, n_rollouts=n, seed=seed, device=cuda)
+    for c, d in zip(cpu, gpu):
+        assert d.shape == (n,) and d.dtype == np.float32
+        se = float(np.sqrt(c.var() / n + d.var() / n))
+        assert abs(float(d.mean()) - float(c.mean())) <= 5 * se + 1e-6
 
 
 # ---------------------------------------------------------------------------
