@@ -72,6 +72,24 @@ Phases, each of which raises on failure (the run then exits non-zero):
              strategy's observed ``cost_of`` is logged beside the plan's
              forecast (whether the choice was the cheaper one is not
              checked: the plan is an estimate);
+* witness  — witness semantics and bounded counting on the same twin:
+             every valid start of q1, q9 and q12 through ``s2_execute(
+             semantics="witness")`` on B1 and on B2 over the f32 store,
+             each beside the pairs run of the same executor (wall times
+             logged side by side) and a third run taken apart (set-up,
+             executor, the levels' copy to pageable and to pinned host
+             memory).  Answers and meters must equal the
+             pairs run and the device BFS, the packed levels the f32
+             ones, the levels of 4 sampled starts with answers the host
+             product BFS (``witness.host_levels``), and 8 witnesses per
+             query walked back from the levels must pass the label-store
+             check and the automaton re-match; each run must launch its
+             kernel once a level and nothing else.  q1 again asks for the
+             uint32 store without a Stage A: it must restage f32 and
+             launch B1, not B3.  ``count_paths_bounded`` on q1 (8 levels,
+             4 starts) must equal the host DP exactly, and B1 on a count
+             frontier whose sums reach 2^24 - 1 (runs of 8 full tiles)
+             must be ``torch.equal`` to its plain version;
 * baseline — the per-transition baseline path, carried by B5
              ``frontier_step_blocks``: the twin as per-label tile lists
              (``make_blocked_graph``) and Stage A again from them (equal
@@ -123,7 +141,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import interop  # noqa: E402
-from repro_torch.core import cost_model, paa, planner, strategies  # noqa: E402
+from repro_torch.core import cost_model, paa, planner, strategies, witness  # noqa: E402
 from repro_torch.core import regex as rx  # noqa: E402
 from repro_torch.graph.generators import (  # noqa: E402
     TABLE2_PAPER, TABLE2_QUERIES, alibaba_like, random_labeled_graph,
@@ -158,6 +176,10 @@ N_BASELINE_STARTS = 32
 # the plan phase (§6): a 256-peer overlay of mean degree d = 3, as the
 # paper's worked example; rollouts per estimate; starts per query
 PLAN_SEED, PLAN_DEGREE, PLAN_ROLLOUTS, N_PLAN_STARTS = 6, 3.0, 300, 8
+# the witness phase: witnesses walked back per query and backend; the
+# count_paths_bounded length on q1; nodes of the complete digraph on which
+# B1 sums counts to 2^24 - 1 (8 blocks of 128: runs of 8 full tiles)
+N_WITNESSES, COUNT_LEVELS, COUNT_NODES = 8, 8, 1024
 # dlrm-mlperf's largest Criteo table (src/repro/models/dlrm.py:30),
 # embed_dim 128, table_dtype bf16 (dlrm.py:52); serve_bulk batch 262,144
 # x multi_hot 1 (configs/registry.py:110)
@@ -879,6 +901,219 @@ def phase_plan(g, placement, dg, staged, dev, record) -> None:
     del arrays
 
 
+def complete_graph(n: int) -> LabeledGraph:
+    """Every ordered pair of n nodes joined by an l0 edge: every tile of
+    the store is full."""
+    s, d = np.meshgrid(np.arange(n, dtype=np.int32), np.arange(n, dtype=np.int32), indexing="ij")
+    return LabeledGraph(n, s.ravel(), np.zeros(n * n, np.int32), d.ravel(), ["l0"])
+
+
+def check_counts_at_bound(dev) -> float:
+    """B1 on a count frontier at the edge of its contract: the complete
+    digraph of COUNT_NODES nodes at block 128 gives every output block a
+    run of 8 full tiles (8 chunks, added by atomics in no fixed order);
+    the frontier's first query row sums to exactly 2^24 - 1, which every
+    output of that row then holds, the other rows below it.  Must be
+    ``torch.equal`` to the plain version; returns max |diff| (0)."""
+    g = complete_graph(COUNT_NODES)
+    plan = fops.build_level_schedule(paa.compile_query("l0", g), fops.stage_graph(g, 128, device=dev))
+    rng = np.random.default_rng(SEED)
+    rows = (plan.n_states + len(plan.union_members)) * plan.q_pad
+    f = np.zeros((rows, plan.v_pad), np.float32)
+    f[: plan.q_pad, :COUNT_NODES] = rng.integers(0, 2**24 // COUNT_NODES, (plan.q_pad, COUNT_NODES))
+    f[0, :COUNT_NODES] = rng.multinomial(2**24 - 1, np.full(COUNT_NODES, 1 / COUNT_NODES))
+    f = torch.from_numpy(f).to(dev)
+    got = fkernel.fused_level_blocks(*level_args(plan, f), **level_kw(plan))
+    want = fkernel.fused_level_blocks_plain(*level_args(plan, f), n_out_rows=plan.n_states * plan.q_pad)
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    top = float(got.max())
+    if not torch.equal(got, want) or top != 2**24 - 1:
+        raise AssertionError(f"B1 on counts: max |diff| {err} from plain, largest sum {top}")
+    runs = runs_of(plan)
+    log("witness", f"B1 on counts == plain: complete digraph of {COUNT_NODES} nodes, B=128, "
+        f"{int((runs > 0).sum())} runs of {int(runs.max())} full tiles in {plan.work.shape[0]} chunks "
+        f"(CTAs); largest output sum {top:.0f} = 2^24 - 1")
+    return err
+
+
+def witness_run(placement, ca, starts, dev, **kw) -> tuple:
+    """One ``s2_execute`` of ``starts`` with its wall ms, levels and launches."""
+    lev0, launch0 = fops.FIXPOINT_COUNTERS["levels"], launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = strategies.s2_execute(placement, ca, starts, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    launched = {k: counts[k] - launch0[k] for k in counts if counts[k] != launch0[k]}
+    return out, wall_ms, fops.FIXPOINT_COUNTERS["levels"] - lev0, launched
+
+
+def witness_breakdown(placement, ca, starts, backend, staged, dev) -> dict[str, float]:
+    """A witness run taken apart: the executor's set-up (Stage B, the
+    meters' degree vectors), its run until the level plane is ready on
+    the card, and that plane's copy to the host as ``s2_execute`` makes
+    it (pageable memory) and into pinned memory."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = strategies.make_s2_step_fn(
+        ca, placement.graph.n_nodes, backend=backend, graph=placement.graph,
+        replication_factor=placement.replication_factor, staged=staged, device=dev,
+        semantics="witness")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    levels = step(starts)[4]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    levels.cpu()
+    t3 = time.perf_counter()
+    pinned = torch.empty(levels.shape, dtype=levels.dtype, pin_memory=True)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    pinned.copy_(levels)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    return {"setup_ms": (t1 - t0) * 1e3, "executor_ms": (t2 - t1) * 1e3, "copy_ms": (t3 - t2) * 1e3,
+            "pinned_copy_ms": (t5 - t4) * 1e3}
+
+
+def check_witness_levels(q, ca, g, index, starts, answers, levels, rng, what) -> int:
+    """A witness run's levels: answers must be the pairs reached in an
+    accepting state; 4 sampled starts with answers must have the host
+    product BFS's levels; 8 sampled (start, answer) pairs must walk back
+    to witnesses that pass the label-store check and the automaton
+    re-match.  Returns the total witness length."""
+    reached = np.zeros_like(answers)
+    for qf in ca.accepting:
+        reached |= witness.reached(levels[:, qf])
+    if not np.array_equal(reached, answers):
+        raise AssertionError(f"{what} {q}: the levels' accepting pairs differ from the answers")
+    with_answers = np.nonzero(answers.any(axis=1))[0]
+    for i in rng.choice(with_answers, size=min(4, len(with_answers)), replace=False):
+        if not np.array_equal(levels[i], witness.host_levels(ca, index, int(starts[i]))):
+            raise AssertionError(f"{what} {q} start {starts[i]}: levels differ from host_levels")
+    bs, vs = np.nonzero(answers)
+    length = 0
+    for j in rng.choice(len(bs), size=min(N_WITNESSES, len(bs)), replace=False):
+        s, t = int(starts[bs[j]]), int(vs[j])
+        path = witness.reconstruct_path(ca, index, levels[bs[j]], s, t)
+        ok, why = witness.validate_witness(path, g)
+        if not ok or not witness.nfa_accepts_symbols(ca, path.steps) or path.nodes[0] != s \
+                or path.nodes[-1] != t:
+            raise AssertionError(f"{what} {q}: the witness {path} of ({s}, {t}) fails: {why}")
+        length += len(path)
+    return length
+
+
+def phase_witness(g, placement, cas, truth, staged, dev, record) -> dict[str, int]:
+    """Witness semantics and bounded counting on the full twin: every
+    valid start of q1, q9 and q12 through ``s2_execute(semantics=
+    "witness")`` on B1 and on B2 over the f32 store, beside the pairs run
+    of the same executor; q1 again asking for the uint32 store without a
+    Stage A, which must restage f32 and launch B1; ``count_paths_bounded``
+    on q1 against the host DP; B1 on counts at 2^24 - 1.  Returns each
+    level kernel's launches on the path."""
+    rec = record["witness"] = {}
+    index = paa.HostIndex(g)
+    rng = np.random.default_rng(SEED + 2)
+    launches, f32_levels = {}, {}
+    for name in ("fused_level_blocks", "packed_level_blocks"):
+        backend = KERNELS[name]["backend"]
+        reset_launches()
+        fops.FIXPOINT_COUNTERS.clear()
+        for q in QUERIES:
+            ca, t = cas[q], truth[q]
+            kw = {"backend": backend, "tile_dtype": "f32", "staged": staged}
+            (p_ans, p_costs), pairs_ms, _, _ = witness_run(placement, ca, t["starts"], dev, **kw)
+            (ans, costs, levels), wit_ms, levels_run, launched = witness_run(
+                placement, ca, t["starts"], dev, semantics="witness", **kw)
+            bs, vs = np.nonzero(ans)
+            got = np.unique(np.stack([t["starts"][bs], vs]).T, axis=0)
+            if not np.array_equal(got, t["pairs"]) or not np.array_equal(ans, p_ans) or costs != p_costs:
+                raise AssertionError(f"{backend} {q}: witness answers or meters differ from the pairs "
+                                     "run or the device BFS")
+            if launched != {name: levels_run}:
+                raise AssertionError(f"{backend} {q}: the witness run launched {launched} in "
+                                     f"{levels_run} levels")
+            if levels.shape != (len(t["starts"]), ca.n_states, g.n_nodes) or levels.dtype != np.float32:
+                raise AssertionError(f"{backend} {q}: levels of shape {levels.shape} {levels.dtype}")
+            if name == "fused_level_blocks":
+                f32_levels[q] = levels
+            elif not np.array_equal(levels, f32_levels[q]):
+                raise AssertionError(f"{q}: the packed levels differ from the f32 executor's")
+            length = check_witness_levels(q, ca, g, index, t["starts"], ans, levels, rng, backend)
+            finite = levels[witness.reached(levels)]
+            r = rec[f"{backend}/{q}"] = {
+                "starts": len(t["starts"]), "levels": levels_run, "launches": launched[name],
+                "pairs_ms": pairs_ms, "witness_ms": wit_ms, "level_bytes": levels.nbytes,
+                "deepest_level": float(finite.max()), "witness_hops": length,
+                **witness_breakdown(placement, ca, t["starts"], backend, staged, dev),
+            }
+            log("witness", f"{backend}/f32 {q}: {r['starts']} starts; witness run {wit_ms:.1f} ms against "
+                f"{pairs_ms:.1f} ms for pairs ({r['levels']} levels = {r['launches']} {name} launches, no "
+                f"other kernel); answers and meters == pairs run == device BFS; levels "
+                f"{levels.shape} ({levels.nbytes / 1e6:.1f} MB, deepest {r['deepest_level']:.0f})"
+                f"{' == the f32 executor' if name != 'fused_level_blocks' else ''} == host_levels on 4 "
+                f"starts with answers; {min(N_WITNESSES, len(bs))} witnesses ({length} hops) valid and "
+                "accepted")
+            log("witness", f"{backend}/f32 {q}, a third run taken apart: set-up {r['setup_ms']:.1f} ms, "
+                f"executor to levels on the card {r['executor_ms']:.1f} ms, levels to pageable host "
+                f"memory {r['copy_ms']:.1f} ms ({levels.nbytes / r['copy_ms'] / 1e6:.2f} GB/s), to pinned "
+                f"host memory {r['pinned_copy_ms']:.1f} ms")
+        launches[name] = only_launched(name, f"the witness phase on {backend}")
+        if launches[name] != fops.FIXPOINT_COUNTERS["levels"]:
+            raise AssertionError(f"{launches[name]} {name} launches for "
+                                 f"{fops.FIXPOINT_COUNTERS['levels']} levels")
+
+    # a uint32 request without a Stage A restages f32 and launches B1, not B3
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    (ans, _, levels), ms, levels_run, launched = witness_run(
+        placement, cas["q1"], truth["q1"]["starts"], dev, backend="frontier_kernel",
+        tile_dtype="uint32", semantics="witness")
+    if launched != {"fused_level_blocks": levels_run} or not np.array_equal(levels, f32_levels["q1"]):
+        raise AssertionError(f"q1 asking for uint32 tiles: launched {launched} in {levels_run} levels, "
+                             "or levels differ from the f32 store's")
+    launches["fused_level_blocks"] += launched["fused_level_blocks"]
+    rec["restaged_q1"] = {"ms": ms, "levels": levels_run}
+    log("witness", f"frontier_kernel q1 asking for tile_dtype='uint32', no Stage A: restaged f32 and ran "
+        f"{levels_run} levels = B1 launches, no B3, in {ms:.1f} ms (Stage A of the f32 store inside); "
+        "levels == the f32 run's")
+    del ans, levels, f32_levels
+    free()
+
+    # bounded counting on q1 (8 levels) against the host DP
+    ca = cas["q1"]
+    with_answers = np.unique(truth["q1"]["pairs"][:, 0])
+    sample = np.sort(rng.choice(with_answers, size=min(4, len(with_answers)), replace=False))
+    plan = fops.build_level_schedule(ca, staged)
+    masks = np.zeros((len(sample), g.n_nodes), np.float32)
+    masks[np.arange(len(sample)), sample] = 1.0
+    f0 = torch.from_numpy(fops.stack_start_masks(plan, ca.start, masks))
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = fops.count_paths_bounded(plan, f0.to(dev), ca.accepting, COUNT_LEVELS).cpu().numpy()
+    count_ms = (time.perf_counter() - t0) * 1e3
+    n = only_launched("fused_level_blocks", "count_paths_bounded")
+    if n != COUNT_LEVELS:
+        raise AssertionError(f"count_paths_bounded launched B1 {n} times for {COUNT_LEVELS} levels")
+    launches["fused_level_blocks"] += n
+    dedup = paa.HostIndex(g.dedup())  # the tile store holds each (src, label, dst) once
+    for i, s in enumerate(sample.tolist()):
+        host = witness.count_paths(ca, dedup, s, COUNT_LEVELS)
+        if host.max() >= 2**24 or not np.array_equal(counts[i, : g.n_nodes], host.astype(np.float32)):
+            raise AssertionError(f"q1 start {s}: count_paths_bounded differs from the host DP")
+    top = float(counts[: len(sample)].max())
+    rec["count_q1"] = {"starts": sample.tolist(), "levels": COUNT_LEVELS, "ms": count_ms, "largest": top}
+    log("witness", f"count_paths_bounded q1, {COUNT_LEVELS} levels = {n} B1 launches, starts "
+        f"{sample.tolist()}: == the host DP exactly; largest count {top:.0f}; {count_ms:.1f} ms")
+    rec["b1_counts_at_bound_max_abs_err"] = check_counts_at_bound(dev)
+    return launches
+
+
 def gathered_sectors(idx: torch.Tensor, row_bytes: int) -> int:
     """The 32-byte sectors that the gathered rows span: row ``i`` lies at
     bytes ``i·row_bytes .. (i + 1)·row_bytes - 1`` of the table."""
@@ -1199,10 +1434,19 @@ def main() -> int:
     for k in KERNELS.values():
         backend, td = k["backend"], k["tile_dtype"]
         for q in QUERIES:
-            tr = record["trace"][f"{backend}/{td}/{q}"] = trace_query(
-                placement, cas[q], truth[q]["starts"], stores[td], dev, backend, k["symbol"]
-            )
-            lk, path_q = tr["level_kernel"], record["path"][f"{backend}/{td}"][q]
+            query_args = (placement, cas[q], truth[q]["starts"], stores[td], dev, backend, k["symbol"])
+            tr, path_q = trace_query(*query_args), record["path"][f"{backend}/{td}"][q]
+            if tr["level_kernel"]["count"] != path_q["launches"]:
+                # the tracer may drop a few of a run's ~10^4 device records (a
+                # chip run has traced 1,085 of q9's 1,088 B1 launches, which the
+                # wrapper counted exactly): trace a second run, which must match
+                lost = tr["level_kernel"]["count"]
+                log("trace", f"{backend}/{td} {q}: the trace holds {lost} of {path_q['launches']} "
+                    "level-kernel launches; tracing another run")
+                tr = trace_query(*query_args)
+                tr["first_trace_count"] = lost
+            record["trace"][f"{backend}/{td}/{q}"] = tr
+            lk = tr["level_kernel"]
             if not lk["count"] == path_q["launches"] == path_q["levels"]:
                 raise AssertionError(f"{backend}/{td} {q}: the trace holds {lk['count']} launches of "
                                      f"the level kernel {lk['name']}, the path phase "
@@ -1221,6 +1465,12 @@ def main() -> int:
 
     phase_plan(g, placement, dg, stores["f32"], dev, record)
     phase_end("plan")
+
+    for name, n in phase_witness(g, placement, cas, truth, stores["f32"], dev, record).items():
+        launches[name] += n
+    max_err["fused_level_blocks"] = max(max_err["fused_level_blocks"],
+                                        record["witness"]["b1_counts_at_bound_max_abs_err"])
+    phase_end("witness")
 
     new_kernels = [phase_baseline(g, cas, dg, stores, dev, gen, flush, record)]
     del stores, dg

@@ -20,11 +20,15 @@ The meters count message symbols with the paper's conventions (a symbol
 = one node id or label; an edge = 3 symbols; broadcasting b symbols costs
 2·N_c·b messages).
 
+Both fused backends also run ``semantics="witness"``: the fixpoint
+carries each product state's discovery level, the implicit parent
+pointers of :mod:`repro_torch.core.witness`.
+
 What waits for later slices (each raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item): the ``reference`` and ``frontier_kernel_sharded``
-backends and the multi-device S1 gather (A12), witness semantics (A9),
-and the plan store's shared Stage A (A10; until then ``staged=`` passes a
-prebuilt Stage A in).  The ``mesh``, ``site_axes`` and ``batch_axis``
+backends and the multi-device S1 gather (A12), and the plan store's
+shared Stage A (A10; until then ``staged=`` passes a prebuilt Stage A
+in).  The ``mesh``, ``site_axes`` and ``batch_axis``
 parameters of ``repro`` are dropped: on one device nothing uses them.
 """
 
@@ -398,12 +402,12 @@ def _site_symbol_degrees(
 
 _PORTED = {
     "backend": ("frontier_kernel", "frontier_kernel_packed"),
-    "semantics": ("pairs",),
+    "semantics": ("pairs", "witness"),
     "tile_dtype": fops.TILE_DTYPES,
 }
 _NOT_PORTED = {
     "backend": {"reference": "A12", "frontier_kernel_sharded": "A12"},
-    "semantics": {"witness": "A9"},
+    "semantics": {},
     "tile_dtype": {},
 }
 
@@ -459,8 +463,25 @@ def make_s2_step_fn(
     (× K) and distinct broadcast searches — all torch tensors on the
     device.  The meters dedup broadcasts by (symbol-set, node), the
     §4.2.2 cache key, so they agree with the host meter.
+
+    ``semantics="witness"`` grows the fixpoint's carry by one f32
+    *discovery level* plane (see :mod:`repro_torch.core.witness`) and
+    appends one output, last: ``levels`` (B, n_states, n_nodes) f32 on
+    the device — level 1 at the start pair, +1 per expansion,
+    ``INF_LEVEL`` when unreached.  Answers and meters are unchanged.  The
+    bit-plane store is boolean-only, so witness semantics stages f32
+    whatever ``tile_dtype`` asks for, as ``repro`` does; a prebuilt
+    ``staged`` that is not the f32 store raises ``ValueError`` rather
+    than being restaged behind the caller's back.
     """
     _require_ported(backend, semantics, tile_dtype)
+    if semantics == "witness":
+        if staged is not None and staged.tile_dtype != "f32":
+            raise ValueError(
+                "semantics='witness' needs the f32 tile store; the staged graph holds "
+                f"tile_dtype {staged.tile_dtype!r} (pass an f32 Stage A, or none)"
+            )
+        tile_dtype = "f32"
     make = (
         _make_frontier_packed_step_fn
         if backend == "frontier_kernel_packed"
@@ -468,7 +489,7 @@ def make_s2_step_fn(
     )
     return make(
         ca, n_nodes, max_levels, graph, replication_factor, block_size, tile_dtype,
-        staged, device,
+        staged, device, semantics,
     )
 
 
@@ -519,6 +540,7 @@ def _make_frontier_step_fn(
     tile_dtype: str = "f32",
     staged=None,
     device: str | torch.device | None = None,
+    semantics: str = "pairs",
 ):
     """The fused-kernel S2 executor (``backend="frontier_kernel"``).
 
@@ -533,11 +555,17 @@ def _make_frontier_step_fn(
     per-(symbol-set group) degree vectors, with a (group, node) dedup
     bitmap carried across levels — the same cache semantics as the host
     meter.  Every sum is of integers below 2^24 in f32, so it is exact.
+
+    With ``semantics="witness"`` the loop also stamps each newly reached
+    (state, query, node) with its level, where ``repro`` stamps it, and
+    ``fn`` writes each chunk's real rows of that plane into one
+    (B, n_states, n_nodes) tensor.
     """
     plan, sgroups, deg_c, pay_c = _frontier_setup(
         ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel"
     )
     dev = plan.tiles.device
+    witness = semantics == "witness"
     n_states, q_pad, v_pad = ca.n_states, plan.q_pad, plan.v_pad
     levels = max_levels if max_levels is not None else n_states * n_nodes
     rep = torch.tensor(replication_factor, dtype=torch.float32, device=dev)
@@ -548,6 +576,7 @@ def _make_frontier_step_fn(
         q_bc = torch.zeros(q_pad, device=dev)
         d_s2 = torch.zeros(q_pad, device=dev)
         n_bc = torch.zeros(q_pad, device=dev)
+        levmap = fops.initial_levels(visited > 0) if witness else None
         lev = 0
         while lev < levels and fops.frontier_nonempty(frontier):
             fr3 = frontier.reshape(n_states, q_pad, v_pad)
@@ -561,6 +590,8 @@ def _make_frontier_step_fn(
                 done[gi] = torch.maximum(done[gi], now_g)
             nxt = fops.expand_level_fused(plan, frontier)
             new = nxt * (1.0 - visited)
+            if witness:
+                levmap.masked_fill_(new > 0, lev + 2.0)
             visited = torch.maximum(visited, new)
             frontier = new
             lev += 1
@@ -569,10 +600,14 @@ def _make_frontier_step_fn(
         acc = torch.zeros((q_pad, v_pad), device=dev)
         for qf in ca.accepting:
             acc = torch.maximum(acc, vis3[qf])
-        return acc[:, :n_nodes] > 0, q_bc, d_s2 * rep, n_bc
+        out = (acc[:, :n_nodes] > 0, q_bc, d_s2 * rep, n_bc)
+        if witness:  # (n_states, q_pad, v_pad) -> (q_pad, n_states, n_nodes)
+            out += (levmap.reshape(n_states, q_pad, v_pad).transpose(0, 1)[:, :, :n_nodes],)
+        return out
 
-    def fn(starts) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    def fn(starts) -> tuple[torch.Tensor, ...]:
         starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+        lev_out = torch.empty((len(starts), n_states, n_nodes), device=dev) if witness else None
         outs = [
             (
                 torch.zeros((0, n_nodes), dtype=torch.bool, device=dev),
@@ -583,9 +618,13 @@ def _make_frontier_step_fn(
             chunk = starts[lo : lo + q_pad]
             f0 = torch.zeros((n_states, q_pad, v_pad), device=dev)
             f0[ca.start, torch.arange(chunk.shape[0], device=dev), chunk] = 1.0
-            outs.append(fixpoint(f0))
+            out = fixpoint(f0)
+            if witness:
+                lev_out[lo : lo + chunk.shape[0]] = out[4][: chunk.shape[0]]
+            outs.append(out[:4])
         acc, q_bc, d_s2, n_bc = (torch.cat(col)[: starts.shape[0]] for col in zip(*outs))
-        return acc, q_bc, d_s2, n_bc.to(torch.int32)
+        result = (acc, q_bc, d_s2, n_bc.to(torch.int32))
+        return result + (lev_out,) if witness else result
 
     return fn
 
@@ -600,6 +639,7 @@ def _make_frontier_packed_step_fn(
     tile_dtype: str = "f32",
     staged=None,
     device: str | torch.device | None = None,
+    semantics: str = "pairs",
 ):
     """The lane-packed S2 executor (``backend="frontier_kernel_packed"``).
 
@@ -616,11 +656,17 @@ def _make_frontier_packed_step_fn(
     carried packed, and each level's newly broadcast words are unpacked
     to 256 f32 lanes only for the per-lane count and degree sums — the
     same integers below 2^24, in the same f32, as the f32 backend.
+
+    With ``semantics="witness"`` the level plane is per lane, (n_states,
+    QPACK, v_pad) f32 a chunk — 32× the lane words' bytes — stamped from
+    the newly set bits of each expansion, unpacked
+    (:func:`~repro_torch.kernels.frontier.ops.lane_states`).
     """
     plan, sgroups, deg_c, pay_c = _frontier_setup(
         ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel_packed"
     )
     dev = plan.tiles.device
+    witness = semantics == "witness"
     n_states, q_pad, v_pad = ca.n_states, plan.q_pad, plan.v_pad
     q_pack = fops.QPACK
     levels = max_levels if max_levels is not None else n_states * n_nodes
@@ -632,6 +678,7 @@ def _make_frontier_packed_step_fn(
         q_bc = torch.zeros(q_pack, device=dev)
         d_s2 = torch.zeros(q_pack, device=dev)
         n_bc = torch.zeros(q_pack, device=dev)
+        levmap = fops.initial_levels(fops.lane_states(f0, n_states)) if witness else None
         lev = 0
         while lev < levels and fops.frontier_nonempty(frontier):
             fr3 = frontier.reshape(n_states, q_pad, v_pad)
@@ -644,6 +691,8 @@ def _make_frontier_packed_step_fn(
                 d_s2 = d_s2 + EDGE_SYMBOLS * (bits * deg_c[gi]).sum(dim=1)
                 done[gi] = done[gi] | now_g
             new = fops.expand_level_packed(plan, frontier) & ~visited
+            if witness:
+                levmap.masked_fill_(fops.lane_states(new, n_states), lev + 2.0)
             visited = visited | new
             frontier = new
             lev += 1
@@ -652,10 +701,14 @@ def _make_frontier_packed_step_fn(
         acc = torch.zeros((q_pad, v_pad), dtype=torch.int32, device=dev)
         for qf in ca.accepting:
             acc = acc | vis3[qf]
-        return fkernel.unpack_lane_rows(acc)[:, :n_nodes] > 0, q_bc, d_s2 * rep, n_bc
+        out = (fkernel.unpack_lane_rows(acc)[:, :n_nodes] > 0, q_bc, d_s2 * rep, n_bc)
+        if witness:  # (n_states, q_pack, v_pad) -> (q_pack, n_states, n_nodes)
+            out += (levmap.transpose(0, 1)[:, :, :n_nodes],)
+        return out
 
-    def fn(starts) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    def fn(starts) -> tuple[torch.Tensor, ...]:
         starts = np.asarray(starts, np.int64)
+        lev_out = torch.empty((len(starts), n_states, n_nodes), device=dev) if witness else None
         outs = [
             (
                 torch.zeros((0, n_nodes), dtype=torch.bool, device=dev),
@@ -663,10 +716,15 @@ def _make_frontier_packed_step_fn(
             )
         ]
         for lo in range(0, starts.shape[0], q_pack):
-            f0 = fops.stack_start_nodes_packed(plan, ca.start, starts[lo : lo + q_pack])
-            outs.append(fixpoint(torch.from_numpy(f0.view(np.int32)).to(dev)))
+            chunk = starts[lo : lo + q_pack]
+            f0 = fops.stack_start_nodes_packed(plan, ca.start, chunk)
+            out = fixpoint(torch.from_numpy(f0.view(np.int32)).to(dev))
+            if witness:
+                lev_out[lo : lo + len(chunk)] = out[4][: len(chunk)]
+            outs.append(out[:4])
         acc, q_bc, d_s2, n_bc = (torch.cat(col)[: starts.shape[0]] for col in zip(*outs))
-        return acc, q_bc, d_s2, n_bc.to(torch.int32)
+        result = (acc, q_bc, d_s2, n_bc.to(torch.int32))
+        return result + (lev_out,) if witness else result
 
     return fn
 
@@ -683,11 +741,14 @@ def s2_execute(
     tile_dtype: str = "f32",
     staged=None,
     device: str | torch.device | None = None,
-) -> tuple[np.ndarray, list[StrategyCost]]:
+) -> tuple[np.ndarray, list[StrategyCost]] | tuple[np.ndarray, list[StrategyCost], np.ndarray]:
     """Run the batched S2 executor for ``start_nodes``.
 
     Returns ``(answers, costs)``: answers (B, V) bool, plus one *observed*
     :class:`StrategyCost` per start node, measured by the executor itself.
+    Under ``semantics="witness"`` it returns ``(answers, costs, levels)``,
+    levels (B, n_states, V) f32 numpy, copied from the device once
+    (:func:`repro_torch.core.witness.reconstruct_path` walks them).
     Unicast symbols are converted back to the meters' single-copy
     convention by dividing the summed per-site responses by the
     placement's replication factor K (in float64, as ``repro`` does; the
@@ -704,7 +765,10 @@ def s2_execute(
             block_size=block_size, semantics=semantics, tile_dtype=tile_dtype,
             staged=staged, device=device,
         )
-    acc, q_bc, d_s2, n_bc = (t.cpu().numpy() for t in step_fn(start_nodes))
+    out = step_fn(start_nodes)
+    if len(out) != (5 if semantics == "witness" else 4):
+        raise ValueError(f"semantics={semantics!r} needs a step_fn built with it")
+    acc, q_bc, d_s2, n_bc = (t.cpu().numpy() for t in out[:4])
     k_rep = max(placement.replication_factor, 1e-9)
     costs = [
         StrategyCost(
@@ -716,4 +780,6 @@ def s2_execute(
         )
         for i in range(len(q_bc))
     ]
+    if semantics == "witness":
+        return acc, costs, out[4].cpu().numpy()
     return acc, costs

@@ -111,9 +111,10 @@
 // then every partial sum is an integer below 2^24 too, which f32 adds
 // exactly in any order.  That is repro's own caveat for counts
 // (repro/kernels/frontier/ops.py count_paths_bounded: "exact f32 integers
-// only below 2**24").  Every caller today (reach_fixpoint,
-// multi_query_reach, expand_level) passes {0,1}; repro's counting path
-// refuses bit-plane tiles (_require_f32_tiles, ROADMAP A9).
+// only below 2**24").  The BFS levels (reach_fixpoint, the S2
+// executors, expand_level) pass {0,1}; count_paths_bounded passes run
+// counts, exact while its length bound keeps them below 2^24, and, as
+// repro's, refuses bit-plane tiles (_require_f32_tiles).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

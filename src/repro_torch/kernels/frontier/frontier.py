@@ -53,7 +53,9 @@ add sums, which gives the plain version's bits when every frontier and
 tile entry is a non-negative integer and every output sum is below
 2^24: every partial sum is then an integer below 2^24, which f32 adds
 exactly in any order (``repro``'s caveat for counts,
-``count_paths_bounded``).  Every caller today passes {0,1}.
+``count_paths_bounded``).  The BFS levels pass {0,1};
+``ops.count_paths_bounded`` passes run counts, exact while its length
+bound keeps them below 2^24.
 """
 
 from __future__ import annotations

@@ -28,7 +28,11 @@ The fixpoints (:func:`reach_fixpoint` on f32 rows of 8 stacked queries,
 level launch per BFS level.  ``repro`` runs them in a
 ``lax.while_loop`` with no host sync; here a Python loop reads
 ``frontier.any()`` once per level, and :data:`FIXPOINT_COUNTERS` counts
-the levels and those host syncs.
+the levels and those host syncs.  Their witness forms
+(:func:`reach_fixpoint_levels`, :func:`reach_fixpoint_packed_levels`)
+also carry each product state's discovery level, and
+:func:`count_paths_bounded` runs the same level on run counts (the
+counting semiring); the three take the f32 tile store only.
 
 The per-transition baseline (:func:`make_blocked_graph`,
 :func:`expand_level`, :func:`multi_source_reach_baseline`) is the
@@ -48,6 +52,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.automaton import FWD, INV, CompiledAutomaton
+from repro_torch.core.witness import INF_LEVEL
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier.frontier import (
     frontier_step_blocks,
@@ -450,6 +455,27 @@ def extend_frontier(
     return torch.cat(ext, dim=0).reshape((n_states + len(union_members)) * q_pad, v_pad)
 
 
+def extend_frontier_sum(
+    frontier: torch.Tensor,  # (n_states * q_pad, v_pad) f32 run counts
+    union_members: tuple[tuple[int, ...], ...],
+    n_states: int,
+    q_pad: int,
+) -> torch.Tensor:
+    """:func:`extend_frontier` on the counting semiring: fan-in union
+    rows are the SUM of the member states' count rows, not the max —
+    ``Σ_src f[src] @ A`` is literal there (no saturation to hide under).
+    Used by :func:`count_paths_bounded`; the boolean fixpoints keep the
+    max form."""
+    if not union_members:
+        return frontier
+    v_pad = frontier.shape[-1]
+    fr3 = frontier.reshape(n_states, q_pad, v_pad)
+    ext = [fr3] + [
+        functools.reduce(torch.add, (fr3[s] for s in m)).unsqueeze(0) for m in union_members
+    ]
+    return torch.cat(ext, dim=0).reshape((n_states + len(union_members)) * q_pad, v_pad)
+
+
 @dataclasses.dataclass
 class FusedLevelPlan:
     """Host-built schedule for :func:`fused_level_blocks`, on the device.
@@ -663,18 +689,25 @@ def build_level_plan(
 # ---------------------------------------------------------------------------
 
 
+def level_counts(plan: FusedLevelPlan, extended: torch.Tensor) -> torch.Tensor:
+    """One fused level launch on ``plan``: the raw f32 sums
+    (n_states · q_pad, v_pad) of a frontier that already carries its
+    fan-in union rows (:func:`extend_frontier` or
+    :func:`extend_frontier_sum`)."""
+    return fused_level_blocks(
+        extended, plan.tiles, plan.firsts, plan.valids, plan.tile_ids,
+        plan.f_rows, plan.f_cols, plan.o_rows, plan.o_cols,
+        plan.block_size, plan.q_pad,
+        n_out_rows=plan.n_states * plan.q_pad, run_ptr=plan.run_ptr, work=plan.work,
+    )
+
+
 def expand_level_fused(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Tensor:
     """One BFS level over all grounded transitions — ONE kernel launch,
     on either tile store.  ``frontier`` is (n_states · q_pad, v_pad) f32
     0/1; returns the same shape, thresholded to 0/1."""
     fre = extend_frontier(frontier, plan.union_members, plan.n_states, plan.q_pad)
-    counts = fused_level_blocks(
-        fre, plan.tiles, plan.firsts, plan.valids, plan.tile_ids,
-        plan.f_rows, plan.f_cols, plan.o_rows, plan.o_cols,
-        plan.block_size, plan.q_pad,
-        n_out_rows=plan.n_states * plan.q_pad, run_ptr=plan.run_ptr, work=plan.work,
-    )
-    return torch.clamp(counts, max=1.0)
+    return torch.clamp(level_counts(plan, fre), max=1.0)
 
 
 def frontier_nonempty(frontier: torch.Tensor) -> bool:
@@ -702,6 +735,94 @@ def reach_fixpoint(
         level += 1
         FIXPOINT_COUNTERS["levels"] += 1
     return visited
+
+
+def _require_f32_tiles(plan: FusedLevelPlan, what: str) -> None:
+    """The uint32 tile store carries one boolean bit per edge slot — a
+    contract the witness-level and counting entry points refuse rather
+    than silently extend: callers wanting those semirings restage at
+    ``tile_dtype="f32"`` (the S2 executor's witness semantics does
+    exactly that — see :mod:`repro_torch.core.strategies`)."""
+    if plan.tile_dtype != "f32":
+        raise ValueError(
+            f"{what} requires the f32 tile store; this plan aliases the "
+            f"boolean-only tile_dtype={plan.tile_dtype!r} staging — restage "
+            "with tile_dtype='f32' or use the boolean fixpoints"
+        )
+
+
+def initial_levels(started: torch.Tensor) -> torch.Tensor:
+    """The discovery-level plane of a fixpoint's start: 1 where
+    ``started`` is true, :data:`~repro_torch.core.witness.INF_LEVEL`
+    elsewhere, f32."""
+    levels = torch.full(started.shape, float(INF_LEVEL), dtype=torch.float32, device=started.device)
+    return levels.masked_fill_(started, 1.0)
+
+
+def reach_fixpoint_levels(
+    plan: FusedLevelPlan,
+    frontier0: torch.Tensor,  # (n_states * q_pad, v_pad) f32 0/1
+    max_levels: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`reach_fixpoint` + BFS discovery levels (same layout, f32,
+    ``INF_LEVEL`` = unreached) for host-side witness reconstruction:
+    start pairs at level 1, a pair first reached by expansion ``i`` at
+    level ``i + 1``.  Refuses a ``tile_dtype="uint32"`` plan
+    (boolean-only store)."""
+    _require_f32_tiles(plan, "reach_fixpoint_levels")
+    visited = frontier = frontier0
+    levels = initial_levels(frontier0 > 0)
+    level = 0
+    while level < max_levels and frontier_nonempty(frontier):
+        nxt = expand_level_fused(plan, frontier)
+        new = nxt * (1.0 - visited)  # exact on {0,1} floats
+        levels.masked_fill_(new > 0, level + 2.0)
+        visited = torch.maximum(visited, new)
+        frontier = new
+        level += 1
+        FIXPOINT_COUNTERS["levels"] += 1
+    return visited, levels
+
+
+def count_paths_bounded(
+    plan: FusedLevelPlan,
+    frontier0: torch.Tensor,  # (n_states * q_pad, v_pad) f32 start counts
+    accepting: tuple[int, ...],
+    n_levels: int,
+) -> torch.Tensor:
+    """Bounded-length counting-semiring sum over the SAME Stage-B level
+    schedule the boolean fixpoint runs: drop the saturating ``min(·, 1)``
+    clamp so the fused tile products accumulate run counts, sum fan-in
+    unions instead of maxing them (:func:`extend_frontier_sum`), and
+    total the accepting rows after every one of ``n_levels`` expansions.
+    Returns (q_pad, v_pad) f32: per stacked query, the number of
+    accepting *runs* of length ≤ ``n_levels`` from its starts to each
+    node (see :func:`repro_torch.core.witness.count_paths`, the host
+    oracle).  ``n_levels`` level launches, no host sync.
+
+    Caveats, as ``repro``'s: counts are exact f32 integers only below
+    2**24 — the level kernel adds its chunks' sums with atomics in no
+    fixed order, which is exact only there — so bound the length
+    accordingly; and wildcard transitions ride the saturated any-label
+    union store, so a wildcard hop counts parallel edges that carry
+    different labels once, not per label — match the oracle on
+    wildcard-free automata.  Refuses a ``tile_dtype="uint32"`` plan
+    (the counting semiring is contracted to the f32 store)."""
+    _require_f32_tiles(plan, "count_paths_bounded")
+    n_states, q_pad = plan.n_states, plan.q_pad
+
+    def accept_sum(counts: torch.Tensor) -> torch.Tensor:
+        c3 = counts.reshape(n_states, q_pad, -1)
+        return functools.reduce(torch.add, (c3[qf] for qf in accepting))
+
+    counts = frontier0
+    total = accept_sum(counts)
+    for _ in range(n_levels):
+        fre = extend_frontier_sum(counts, plan.union_members, n_states, q_pad)
+        counts = level_counts(plan, fre)
+        total = total + accept_sum(counts)
+        FIXPOINT_COUNTERS["levels"] += 1
+    return total
 
 
 def stack_start_masks(
@@ -878,6 +999,40 @@ def reach_fixpoint_packed(
         level += 1
         FIXPOINT_COUNTERS["levels"] += 1
     return visited
+
+
+def lane_states(words: torch.Tensor, n_states: int) -> torch.Tensor:
+    """Packed lane words (n_states · q_pad, v_pad) as a bool mask
+    (n_states, q_pad · 32, v_pad): lane q of word row ``q // 32``, bit
+    ``q % 32``, at row q of its state — the layout of the packed level
+    plane."""
+    return unpack_lane_rows(words).reshape(n_states, -1, words.shape[-1]) > 0
+
+
+def reach_fixpoint_packed_levels(
+    plan: FusedLevelPlan,
+    frontier0: torch.Tensor,  # (n_states * q_pad, v_pad) int32 lane words
+    max_levels: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`reach_fixpoint_packed` + per-lane discovery levels: returns
+    (visited lane words, levels) where levels is (n_states, QPACK, v_pad)
+    f32 — lane q of word row ``q // 32``, bit ``q % 32`` unpacks to level
+    row q, 32× the lane words' bytes.  The newly set bits of each
+    expansion are unpacked to stamp their lanes' levels.  Refuses a
+    ``tile_dtype="uint32"`` plan (witness levels are contracted to the
+    f32 store)."""
+    _require_f32_tiles(plan, "reach_fixpoint_packed_levels")
+    visited = frontier = frontier0
+    levels = initial_levels(lane_states(frontier0, plan.n_states))
+    level = 0
+    while level < max_levels and frontier_nonempty(frontier):
+        new = expand_level_packed(plan, frontier) & ~visited
+        levels.masked_fill_(lane_states(new, plan.n_states), level + 2.0)
+        visited = visited | new
+        frontier = new
+        level += 1
+        FIXPOINT_COUNTERS["levels"] += 1
+    return visited, levels
 
 
 def multi_query_reach_packed(

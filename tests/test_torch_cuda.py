@@ -2,17 +2,18 @@
 ``fused_level_blocks``, B2 and B4 behind ``packed_level_blocks``), the
 baseline step B5 (``frontier_step_blocks``), EmbeddingBag B6 and flash
 decode B7 against their plain PyTorch versions, the wrappers' refusals,
-and the S1 and S2 executors, the branching estimator and the baseline
-fixpoint on the GPU against the same code on the CPU.  A CUDA kernel
+and the S1 and S2 executors (witness semantics and bounded counting
+too), the branching estimator and the baseline fixpoint on the GPU
+against the same code on the CPU.  A CUDA kernel
 has no CPU mode, so every test here is marked ``gpu`` and skips without
 a CUDA device; run them on a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-The frontier comparisons are exact: operands are {0,1} and every sum is
-an integer below 2^24, so f32 is exact in any order (B1, B3 and B5 add
-their chunks with atomics), and OR is exact in any order (B2 and B4 OR
-theirs).  B6 adds the same values in the same order as its plain
+The frontier comparisons are exact: operands are {0,1}, or counts, and
+every sum is an integer below 2^24, so f32 is exact in any order (B1,
+B3 and B5 add their chunks with atomics), and OR is exact in any order
+(B2 and B4 OR theirs).  B6 adds the same values in the same order as its plain
 version, rounding bf16 sums after every lookup as it does, so it is
 exact too.  B7
 walks other kv tiles than its plain version and merges kv splits, so it
@@ -344,6 +345,77 @@ def test_s2_execute_on_gpu_equals_cpu(cuda, expr):
     oracle = paa.answers_multi_source(ca, structure.to_device_graph(g, cuda), starts)
     bs, vs = np.nonzero(a_gpu)
     assert sorted(zip(starts[bs].tolist(), vs.tolist())) == sorted(zip(*(o.tolist() for o in oracle)))
+
+
+@pytest.mark.parametrize("n_nodes, block", [(64, 16), (1024, 128)])
+def test_fused_level_on_counts_at_two_to_the_24_minus_1(cuda, n_nodes, block):
+    """B1 on a count frontier, the contract ``count_paths_bounded`` relies
+    on: every tile of the complete digraph is full, so each output block
+    sums a run of n_nodes / block steps (chunks of 1, one CTA each, added
+    by atomics in no fixed order), and the frontier's first row sums to
+    exactly 2^24 - 1, which every output of that row then holds; the
+    other rows sum below it.  torch.equal to the plain version, twice."""
+    g = _complete_graph(n_nodes)
+    staged = ops.stage_graph(g, block, device=cuda)
+    plan = ops.build_level_schedule(paa.compile_query("l0", g), staged)
+    rng = np.random.default_rng(4)
+    rows = (plan.n_states + len(plan.union_members)) * plan.q_pad
+    f = np.zeros((rows, plan.v_pad), np.float32)
+    f[: plan.q_pad, :n_nodes] = rng.integers(0, 2**24 // n_nodes, (plan.q_pad, n_nodes))
+    f[0, :n_nodes] = rng.multinomial(2**24 - 1, np.full(n_nodes, 1 / n_nodes))
+    f = torch.from_numpy(f).to(cuda)
+    wrapper = frontier.fused_level_blocks
+    got = wrapper(*_args(plan, f), **_kw(plan, wrapper))
+    again = wrapper(*_args(plan, f), **_kw(plan, wrapper))
+    want = frontier.fused_level_blocks_plain(*_args(plan, f), n_out_rows=plan.n_states * plan.q_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    out = got.reshape(plan.n_states, plan.q_pad, -1)[1]
+    assert bool((out[0, :n_nodes] == 2**24 - 1).all()) and float(got.max()) == 2**24 - 1
+
+
+@pytest.mark.parametrize("backend", ["frontier_kernel", "frontier_kernel_packed"])
+def test_witness_executors_on_gpu_equal_cpu(cuda, backend):
+    """Both witness step functions on the card equal their CPU run:
+    answers, meters and level planes, on 20 starts (short last chunks)
+    and on every valid start; a uint32 request restages f32 and launches
+    B1 or B2, never B3 or B4."""
+    g = generators.random_labeled_graph(200, 700, 3, seed=9)
+    g = structure.LabeledGraph(g.n_nodes, g.src, g.lbl, g.dst, ["a", "b", "c"])
+    placement = partition.distribute(g, n_sites=4, replication_rate=0.5, seed=2)
+    count = "fused_level_blocks" if backend == "frontier_kernel" else "packed_level_blocks"
+    for expr in ("a c (a|b)", "(a|b)+", "a* b^-1"):
+        ca = paa.compile_query(expr, g)
+        for starts in (paa.valid_start_nodes(ca, g)[:20], paa.valid_start_nodes(ca, g)):
+            run = {}
+            for dev in ("cpu", cuda):
+                frontier.reset_launches()
+                run[dev] = strategies.s2_execute(
+                    placement, ca, starts, backend=backend, tile_dtype="uint32", block_size=32,
+                    semantics="witness", device=dev,
+                )
+            launches = frontier.launch_counts()
+            assert launches[count] > 0 and sum(launches.values()) == launches[count]
+            (a_cpu, c_cpu, l_cpu), (a_gpu, c_gpu, l_gpu) = run["cpu"], run[cuda]
+            assert (a_cpu == a_gpu).all() and c_cpu == c_gpu, expr
+            assert l_gpu.shape == (len(starts), ca.n_states, g.n_nodes)
+            assert np.array_equal(l_cpu, l_gpu), expr
+
+
+def test_count_paths_bounded_on_gpu_equals_cpu(cuda):
+    """count_paths_bounded on the card (B1 on counts through
+    extend_frontier_sum) equals its CPU run exactly, counts below 2^24."""
+    g = generators.random_labeled_graph(200, 1400, 3, seed=9)
+    for expr in ("(l0|l1)+ l2", "l0 (l1|l2^-1)* l0"):
+        ca = paa.compile_query(expr, g)
+        starts = paa.valid_start_nodes(ca, g)[:8]
+        out = {}
+        for dev in ("cpu", cuda):
+            plan = ops.build_level_schedule(ca, ops.stage_graph(g, 32, device=dev))
+            f0 = ops.stack_start_masks(plan, ca.start, np.eye(g.n_nodes, dtype=np.float32)[starts])
+            out[dev] = ops.count_paths_bounded(plan, torch.from_numpy(f0).to(dev), ca.accepting, 8)
+        assert 1 < float(out["cpu"].max()) < 2**24
+        assert torch.equal(out["cpu"], out[cuda].cpu()), expr
 
 
 # ---------------------------------------------------------------------------

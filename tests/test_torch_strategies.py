@@ -94,9 +94,9 @@ def test_executor_structure_equals_repro():
     "kw, item",
     [
         ({"backend": "reference"}, "A12"),
-        ({"backend": "frontier_kernel_packed", "semantics": "witness"}, "A9"),
+        ({"backend": "reference", "semantics": "witness"}, "A12"),
         ({"backend": "frontier_kernel_sharded"}, "A12"),
-        ({"backend": "frontier_kernel", "semantics": "witness"}, "A9"),
+        ({"backend": "frontier_kernel_sharded", "semantics": "witness"}, "A12"),
         ({"backend": "frontier_kernel_sharded", "tile_dtype": "uint32"}, "A12"),
     ],
 )
