@@ -90,6 +90,27 @@ Phases, each of which raises on failure (the run then exits non-zero):
              4 starts) must equal the host DP exactly, and B1 on a count
              frontier whose sums reach 2^24 - 1 (runs of 8 full tiles)
              must be ``torch.equal`` to its plain version;
+* serve    — the serving runtime on the same twin and placement (the plan
+             phase's overlay; ``ServeConfig(n_rollouts=150, seed=0)``, the
+             planner deciding): a 144-request ``workloads.generate``
+             stream (8 hot classes, 80% hot, 1-8 starts) through
+             ``QueryService`` in windows of 16 (enqueue, flush): (a) on
+             ``frontier_kernel_packed`` over the uint32 store (B4), cold
+             then warm; (d) its first 8 as witness requests, forced to S2,
+             which restage f32 and run B2, 3 sampled pairs of each walked
+             back and validated; (e) ``AsyncQueryService`` on the warm
+             service, open loop (Poisson arrivals, serve_async.py's
+             tenants, SLO mix and knobs) at 1x and 2x (a)'s warm q/s over
+             the first 48, accepted answers == the sync ones; (b) the
+             first 48 on ``frontier_kernel`` over the f32 store (B1) in a
+             fresh service; (f) (b)'s Stage A saved and restored into a
+             fresh service, whose first S2 request must pack no tile; (c)
+             (b) again under a 1 GiB out-of-core budget, answers == (b)'s,
+             spills and reloads nonzero.  Every answer == the device BFS;
+             each run's level kernel launches once a level and no other
+             kernel; the summary's keys == ``repro``'s schema
+             (``SUMMARY_KEYS``).  Each run logs q/s, latency p50 and p99
+             and the host ms of the service's layers;
 * baseline — the per-transition baseline path, carried by B5
              ``frontier_step_blocks``: the twin as per-label tile lists
              (``make_blocked_graph``) and Stage A again from them (equal
@@ -130,9 +151,13 @@ when no GPU is present or when run without the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import asyncio
+import collections
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -148,6 +173,9 @@ from repro_torch.graph.generators import (  # noqa: E402
 )
 from repro_torch.graph.partition import distribute, random_overlay  # noqa: E402
 from repro_torch.graph.structure import LabeledGraph, to_device_graph  # noqa: E402
+from repro_torch.graph.workloads import WorkloadConfig, generate  # noqa: E402
+from repro_torch.serve import QueryService, ServeConfig, batcher  # noqa: E402
+from repro_torch.serve.aio import AdmissionRejected, AioConfig, AsyncQueryService  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
@@ -180,6 +208,16 @@ PLAN_SEED, PLAN_DEGREE, PLAN_ROLLOUTS, N_PLAN_STARTS = 6, 3.0, 300, 8
 # count_paths_bounded length on q1; nodes of the complete digraph on which
 # B1 sums counts to 2^24 - 1 (8 blocks of 128: runs of 8 full tiles)
 N_WITNESSES, COUNT_LEVELS, COUNT_NODES = 8, 8, 1024
+# the serve phase: the stream of benchmarks/serve_async.py's default size
+# (144 requests, 8 hot classes, 1-8 starts); requests per sync window; the
+# prefix of the f32, budgeted and async runs; witness requests and the
+# pairs walked back from each; the out-of-core budget, about a tenth of the
+# f32 store's 10.551 GB; the async mix and knobs of serve_async.py
+SERVE_QUERIES, SERVE_WINDOW, SERVE_PREFIX, SERVE_WITNESS, SERVE_WALKS = 144, 16, 48, 8, 3
+SERVE_ROLLOUTS, SERVE_BUDGET = 150, 2**30
+SERVE_TENANTS, SERVE_LATENCY_SHARE = ("tenant-a", "tenant-b", "tenant-c"), 0.7
+SERVE_AIO = {"max_window_s": {"latency": 0.25, "throughput": 1.0}, "window_gain": 2.0,
+             "min_window_s": 0.01, "queue_depth": {"latency": 48, "throughput": 96}}
 # dlrm-mlperf's largest Criteo table (src/repro/models/dlrm.py:30),
 # embed_dim 128, table_dtype bf16 (dlrm.py:52); serve_bulk batch 262,144
 # x multi_hot 1 (configs/registry.py:110)
@@ -199,6 +237,44 @@ DECODE_SHAPES = {"decode_32k": (128, 32_768), "long_500k": (1, 524_288)}
 # the output to bf16 may part.  Two controls on the same inputs must fail
 # it: an all-zero output, and the kernel run on half the cache.
 BF16_TOL = 2e-2
+
+# the serve phase's summary schema: repro's ServiceMetrics summary with the
+# service's extras, key for key (a None leaf is any value, {} any keys).
+# This script cannot import repro; tests/test_torch_serve.py holds this
+# literal to repro's schema.
+def _leaves(*names: str) -> dict:
+    return dict.fromkeys(names)
+
+
+_ADMISSION = _leaves("accepted", "rejected_rate_limited", "rejected_queue_full", "completed",
+                     "failed", "cancelled_before_batch", "cancelled_mid_batch", "timed_out")
+_HIST = _leaves("bucket_upper_ms", "counts", "n", "p50_ms", "p99_ms", "p999_ms")
+_BY_FRONTIER = _leaves("f32", "packed")
+SUMMARY_KEYS = {
+    **_leaves("n_queries", "wall_s", "queries_per_sec", "p50_latency_s", "p95_latency_s",
+              "plan_cache_hit_rate", "total_broadcast_symbols", "total_unicast_symbols",
+              "stats_epoch"),
+    "strategies": {},
+    "exec_cache": _leaves("size", "graphs", "hits", "misses", "hit_rate", "builds", "releases"),
+    "plan_store": _leaves("size", "hits", "misses", "hit_rate", "evictions"),
+    "plan_pad_waste": {**_leaves("useful_steps", "padded_steps", "pad_waste_ratio"),
+                       "bucket_grid_steps": {}},
+    "frontier_mem": {
+        "executors": _BY_FRONTIER, "frontier_bytes": _BY_FRONTIER, "lane_capacity": _BY_FRONTIER,
+        "bytes_per_lane": _BY_FRONTIER, "staging_chunks": None,
+        "tile_store": {"bytes_by_dtype": _leaves("f32", "uint32"),
+                       **_leaves("slabs_resident", "slabs_spilled", "spills", "reloads")},
+    },
+    "aio": {
+        "queue_depth": _leaves("latency", "throughput"),
+        "admission": {"latency": _ADMISSION, "throughput": _ADMISSION},
+        "batch_window": _leaves("flushes", "lanes_flushed", "fill_ratio", "deadline_flushes",
+                                "fill_flushes", "window_s_p50"),
+        "latency_hist": {"latency": _HIST, "throughput": _HIST},
+    },
+    "plan_cache": _leaves("size", "hits", "misses", "hit_rate"),
+    "calibration": {**_leaves("n_observations", "n_label_classes"), "factors": {}},
+}
 
 # kernel name -> what drives and describes it; "lanes" marks the packed
 # kernels, whose frontier is int32 lane words; "symbol" holds the pieces
@@ -1114,6 +1190,330 @@ def phase_witness(g, placement, cas, truth, staged, dev, record) -> dict[str, in
     return launches
 
 
+def check_schema(d: dict, schema: dict, path: str = "summary") -> None:
+    """``d`` has exactly the keys of ``schema``, recursively where the
+    schema holds keys (a None leaf is any value, {} any keys)."""
+    if set(d) != set(schema):
+        raise AssertionError(f"{path}: keys {sorted(d)} != repro's {sorted(schema)}")
+    for k, sub in schema.items():
+        if sub:
+            check_schema(d[k], sub, f"{path}.{k}")
+
+
+def serve_oracle(g, dg, stream) -> dict:
+    """The device BFS's answer set of every (query, start) of ``stream``."""
+    starts_of: dict[str, set] = {}
+    for wq in stream:
+        starts_of.setdefault(wq.query, set()).update(wq.starts.tolist())
+    out = {}
+    for q, starts in starts_of.items():
+        s = np.array(sorted(starts), np.int32)
+        src, dst = paa.answers_multi_source(paa.compile_query(q, g), dg, s)
+        out.update({(q, v): set() for v in s.tolist()})
+        for a, b in zip(src.tolist(), dst.tolist()):
+            out[(q, a)].add(b)
+    return out
+
+
+def check_serve_answers(answers, stream, oracle, what: str) -> None:
+    for wq, ans in zip(stream, answers, strict=True):
+        for s, got in zip(wq.starts.tolist(), ans.answers, strict=True):
+            if got != oracle[(wq.query, s)]:
+                raise AssertionError(f"{what}: {wq.query!r} from {s} differs from the device BFS")
+
+
+class ServeTimers:
+    """Host ms of the service's layers over one run, by wrapping its
+    calls: plan (``_plan``), Stage A (the plan store's ``staged_graph``,
+    and the bytes of the distinct staged graphs it returned: the full
+    store once, or each out-of-core assembly), S2 batching
+    (``run_s2_group`` less the executions inside it), S2 execution
+    (``s2_execute``), the S1 gather (``s1_collect``) and feedback
+    (``calibrator.observe``)."""
+
+    def __init__(self, svc):
+        self.ms = collections.Counter()
+        self.staged: dict[int, int] = {}
+        self._undo = []
+        self._wrap(svc, "_plan", "plan")
+        self._wrap(svc.calibrator, "observe", "feedback")
+        self._wrap(svc.plan_store, "staged_graph", "stage_a")
+        self._wrap(strategies, "s2_execute", "s2_execute")
+        self._wrap(strategies, "s1_collect", "s1_gather")
+        self._wrap(batcher, "run_s2_group", "s2_group")
+
+    def _wrap(self, obj, attr: str, key: str) -> None:
+        fn = getattr(obj, attr)
+
+        def timed_fn(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+            if key == "stage_a":
+                self.staged[id(out)] = out.tile_store_bytes
+            return out
+
+        self._undo.append((obj, attr, obj.__dict__.get(attr)))  # a module's own, or None
+        setattr(obj, attr, timed_fn)
+
+    def stop(self) -> dict:
+        for obj, attr, own in self._undo:
+            if own is None:
+                delattr(obj, attr)  # the instance's method again
+            else:
+                setattr(obj, attr, own)
+        out = {k: self.ms[k] for k in ("plan", "stage_a", "s2_execute", "s1_gather", "feedback")}
+        out["s2_batch"] = self.ms["s2_group"] - self.ms["s2_execute"]
+        out["staged_bytes"] = sum(self.staged.values())
+        return out
+
+
+def serve_stats(answers, wall_s: float) -> dict:
+    lat = np.array([a.latency_s for a in answers]) * 1e3
+    return {"requests": len(answers), "wall_s": wall_s, "queries_per_s": len(answers) / wall_s,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "strategies": dict(collections.Counter(a.strategy for a in answers)),
+            "plan_cache_hits": sum(a.plan_cache_hit for a in answers)}
+
+
+def serve_sync(svc, stream, **kw) -> tuple[list, dict]:
+    """``stream`` through ``svc`` in windows of SERVE_WINDOW requests
+    (enqueue the window, flush), timed and with its layers timed apart;
+    the launch counts are set to 0 just before."""
+    timers = ServeTimers(svc)
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = []
+    for lo in range(0, len(stream), SERVE_WINDOW):
+        tickets = [svc.enqueue(wq.query, wq.starts, **kw) for wq in stream[lo : lo + SERVE_WINDOW]]
+        svc.flush()
+        answers += [t.result() for t in tickets]
+    torch.cuda.synchronize()
+    r = serve_stats(answers, time.perf_counter() - t0)
+    r["layers_ms"] = timers.stop()
+    return answers, r
+
+
+def serve_launched(name: str, what: str) -> dict:
+    """The run's launches of level kernel ``name``: nonzero, one per
+    fixpoint level, and no other kernel."""
+    n = only_launched(name, what)
+    levels = fops.FIXPOINT_COUNTERS["levels"]
+    if n != levels:
+        raise AssertionError(f"{what}: {n} {name} launches for {levels} levels")
+    return {"kernel": name, "launches": n, "levels": levels}
+
+
+def log_serve(run: str, r: dict) -> None:
+    lay = r.get("layers_ms", {})
+    log("serve", f"({run}): {r['requests']} requests in {r['wall_s']:.2f} s = {r['queries_per_s']:.2f} q/s, "
+        f"latency p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms; strategies {r['strategies']}, "
+        f"{r['plan_cache_hits']} plan-cache hits; {r.get('launches', 0)} {r.get('kernel', '-')} launches = "
+        f"levels; host ms: plan {lay.get('plan', 0):.1f}, Stage A {lay.get('stage_a', 0):.1f} "
+        f"({lay.get('staged_bytes', 0) / 1e9:.3f} GB staged), S2 batch {lay.get('s2_batch', 0):.1f}, "
+        f"S2 execute {lay.get('s2_execute', 0):.1f}, S1 gather {lay.get('s1_gather', 0):.1f}, "
+        f"feedback {lay.get('feedback', 0):.1f}")
+
+
+async def serve_open_loop(svc, stream, rate_qps: float, seed: int) -> tuple:
+    """``stream`` at Poisson arrivals of ``rate_qps`` through an
+    ``AsyncQueryService`` (serve_async.py's tenants, SLO mix and knobs);
+    the generator never waits for the server."""
+    rng = np.random.default_rng(seed)
+    answers, rejected = [None] * len(stream), collections.Counter()
+    async with AsyncQueryService(svc, AioConfig(**SERVE_AIO)) as aio:
+
+        async def one(i, wq, tenant, slo):
+            try:
+                answers[i] = await aio.submit(wq.query, wq.starts, tenant=tenant, slo=slo)
+            except AdmissionRejected as e:
+                rejected[e.reason] += 1
+
+        tasks = []
+        t0 = time.perf_counter()
+        for i, wq in enumerate(stream):
+            await asyncio.sleep(float(rng.exponential(1.0 / rate_qps)))
+            slo = "latency" if rng.random() < SERVE_LATENCY_SHARE else "throughput"
+            tasks.append(asyncio.ensure_future(one(i, wq, SERVE_TENANTS[i % len(SERVE_TENANTS)], slo)))
+        await asyncio.gather(*tasks)
+        wall = time.perf_counter() - t0
+        stats = aio.aio_stats()
+    return answers, rejected, wall, stats
+
+
+def phase_serve(g, placement, dg, dev, record) -> dict[str, int]:
+    """The serving runtime on the full twin (ROADMAP A10, A11): a 144-request
+    stream through ``QueryService`` on B4, its first 48 on B1 with the
+    whole f32 store and again under a 1 GiB out-of-core budget, 8 witness
+    requests on B2, the async front end at 1x and 2x the sync rate, and a
+    warm restart from a Stage-A snapshot.  Returns each level kernel's
+    launches on the path."""
+    rec = record["serve"] = {}
+    overlay = random_overlay(placement.n_sites, PLAN_DEGREE, seed=PLAN_SEED)
+    net = planner.probe_network(overlay, placement, seed=PLAN_SEED)
+    stream = generate(g, WorkloadConfig(n_queries=SERVE_QUERIES, hot_pool=8, hot_fraction=0.8,
+                                        min_starts=1, max_starts=8, seed=SEED))
+    prefix = stream[:SERVE_PREFIX]
+    t0 = time.perf_counter()
+    oracle = serve_oracle(g, dg, stream)
+    log("serve", f"stream: {len(stream)} requests, {len({w.query for w in stream})} distinct queries, "
+        f"{sum(len(w.starts) for w in stream)} starts, {sum(w.hot for w in stream)} hot; device-BFS "
+        f"answers of its {len(oracle)} (query, start) pairs in {time.perf_counter() - t0:.1f} s")
+    launches = collections.Counter()
+
+    def config(**kw) -> ServeConfig:
+        return ServeConfig(n_rollouts=SERVE_ROLLOUTS, seed=SEED, **kw)
+
+    # (a) the whole stream on the packed backend over the bit-plane store: B4
+    svc = QueryService(placement, net, config=config(s2_backend="frontier_kernel_packed",
+                                                    s2_tile_dtype="uint32"), device=dev)
+    cold, r = serve_sync(svc, stream)
+    r.update(serve_launched("packed_level_blocks_u32", "serve run (a)"))
+    check_serve_answers(cold, stream, oracle, "serve run (a)")
+    check_schema(svc.summary(), SUMMARY_KEYS)
+    rec["a_cold"] = r
+    log_serve("a, packed/uint32, cold", r)
+    warm, r = serve_sync(svc, stream)
+    r.update(serve_launched("packed_level_blocks_u32", "serve run (a), warm"))
+    check_serve_answers(warm, stream, oracle, "serve run (a), warm")
+    rec["a_warm"] = r
+    launches[r["kernel"]] += r["launches"] + rec["a_cold"]["launches"]
+    log_serve("a, packed/uint32, warm", r)
+
+    # (d) witness requests on the packed backend: they restage f32 and run B2
+    witness_stream = stream[:SERVE_WITNESS]
+    wit, r = serve_sync(svc, witness_stream, strategy="S2", semantics="witness")
+    r.update(serve_launched("packed_level_blocks", "serve run (d)"))
+    check_serve_answers(wit, witness_stream, oracle, "serve run (d)")
+    rng = np.random.default_rng(SEED + 3)
+    walked = hops = 0
+    for ans in wit:
+        pairs = [(i, t) for i, ts in enumerate(ans.answers) for t in sorted(ts)]
+        for j in rng.choice(len(pairs), size=min(SERVE_WALKS, len(pairs)), replace=False):
+            i, t = pairs[j]
+            path = svc.witness_path(ans, i, t)
+            ok, why = witness.validate_witness(path, g)
+            if not ok or not witness.nfa_accepts_symbols(ans.exec_ca, path.steps) \
+                    or (path.nodes[0], path.nodes[-1]) != (int(ans.starts[i]), t):
+                raise AssertionError(f"serve run (d): the witness {path} of {ans.query!r} fails: {why}")
+            walked += 1
+            hops += len(path)
+    bytes_by_dtype = svc.plan_store.tile_store_stats()["bytes_by_dtype"]
+    if bytes_by_dtype["f32"] == 0:
+        raise AssertionError("serve run (d): the witness requests did not restage f32")
+    r.update({"walked": walked, "hops": hops, "store_bytes": bytes_by_dtype})
+    rec["d_witness"] = r
+    launches[r["kernel"]] += r["launches"]
+    log_serve("d, witness on packed", r)
+    log("serve", f"(d): {walked} witnesses ({hops} hops) walked back, valid on the label store and "
+        f"accepted; the store holds {bytes_by_dtype} bytes (f32 restaged for witness)")
+
+    # (e) the async front end, open loop, at 1x and 2x run (a)'s warm rate
+    sync_rate = rec["a_warm"]["queries_per_s"]
+    for mult in (1, 2):
+        reset_launches()
+        fops.FIXPOINT_COUNTERS.clear()
+        got, rejected, wall, stats = asyncio.run(serve_open_loop(svc, prefix, mult * sync_rate, SEED + mult))
+        accepted = [(wq, a) for wq, a in zip(prefix, got) if a is not None]
+        for wq, a, want in zip(prefix, got, warm):
+            if a is not None and a.answers != want.answers:
+                raise AssertionError(f"serve run (e) {mult}x: async answers of {wq.query!r} differ from sync")
+        check_serve_answers([a for _, a in accepted], [wq for wq, _ in accepted], oracle,
+                            f"serve run (e) {mult}x")
+        r = {"offered_qps": mult * sync_rate, "offered": len(prefix), "completed": len(accepted),
+             "goodput_qps": len(accepted) / wall, "reject_rate": sum(rejected.values()) / len(prefix),
+             "rejected": dict(rejected), "wall_s": wall,
+             "latency": {c: {k: stats["latency_hist"][c][k] for k in ("n", "p50_ms", "p99_ms", "p999_ms")}
+                         for c in stats["latency_hist"]},
+             "batch_window": stats["batch_window"]}
+        if accepted and any(a.strategy == "S2" for _, a in accepted):
+            r.update(serve_launched("packed_level_blocks_u32", f"serve run (e) {mult}x"))
+            launches[r["kernel"]] += r["launches"]
+        rec[f"e_async_{mult}x"] = r
+        lat = r["latency"]
+        log("serve", f"(e, async {mult}x = {r['offered_qps']:.2f} q/s offered): {r['completed']} of "
+            f"{r['offered']} completed in {wall:.2f} s, goodput {r['goodput_qps']:.2f} q/s, reject rate "
+            f"{r['reject_rate']:.4f} {r['rejected']}; latency class p50/p99/p999 ms "
+            f"{lat['latency']['p50_ms']:.1f}/{lat['latency']['p99_ms']:.1f}/{lat['latency']['p999_ms']:.1f} "
+            f"(n {lat['latency']['n']}), throughput class {lat['throughput']['p50_ms']:.1f}/"
+            f"{lat['throughput']['p99_ms']:.1f}/{lat['throughput']['p999_ms']:.1f} (n {lat['throughput']['n']}); "
+            f"{r.get('launches', 0)} B4 launches = levels; {stats['batch_window']['flushes']} flushes; "
+            "answers == sync == device BFS")
+    check_schema(svc.summary(), SUMMARY_KEYS)
+    rec["summary_a"] = svc.summary()
+    del svc, cold, warm, wit
+    free()
+
+    # (b) the first 48 on the f32 backend over the whole f32 store: B1
+    svc = QueryService(placement, net, config=config(s2_backend="frontier_kernel"), device=dev)
+    b_answers, r = serve_sync(svc, prefix)
+    r.update(serve_launched("fused_level_blocks", "serve run (b)"))
+    check_serve_answers(b_answers, prefix, oracle, "serve run (b)")
+    check_schema(svc.summary(), SUMMARY_KEYS)
+    rec["b_f32"] = r
+    launches[r["kernel"]] += r["launches"]
+    log_serve("b, f32/f32", r)
+
+    # (f) a warm restart from (b)'s Stage-A snapshot: zero tiles packed
+    with tempfile.TemporaryDirectory(prefix="repro-stage-a-") as tmp:
+        path = os.path.join(tmp, "stage_a.pkl")
+        t0 = time.perf_counter()
+        manifest = svc.save_plan_store(path)
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        del svc
+        free()
+        svc = QueryService(placement, net, config=config(s2_backend="frontier_kernel"), device=dev)
+        t0 = time.perf_counter()
+        if not svc.restore_plan_store(path):
+            raise AssertionError("serve run (f): the snapshot of run (b) did not restore")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    fops.reset_build_counters()
+    first, r = serve_sync(svc, stream[:1], strategy="S2")
+    r.update(serve_launched("fused_level_blocks", "serve run (f)"))
+    check_serve_answers(first, stream[:1], oracle, "serve run (f)")
+    packed = {k: fops.BUILD_COUNTERS[k] for k in ("pack_blocks", "stage_graph")}
+    if any(packed.values()):
+        raise AssertionError(f"serve run (f): the restored service packed tiles: {packed}")
+    r.update({"manifest": manifest, "snapshot_bytes": size, "save_s": save_s, "restore_s": restore_s,
+              "build_counters": dict(fops.BUILD_COUNTERS)})
+    rec["f_restore"] = r
+    launches[r["kernel"]] += r["launches"]
+    log("serve", f"(f): run (b)'s Stage A saved ({manifest['n_entries']} entries, {size / 1e9:.3f} GB) in "
+        f"{save_s:.1f} s, restored into a fresh service in {restore_s:.1f} s; its first S2 request "
+        f"packed 0 tiles ({dict(fops.BUILD_COUNTERS)}), {r['launches']} B1 launches = levels, "
+        f"{r['wall_s'] * 1e3:.1f} ms; answers == device BFS")
+    del svc, first
+    free()
+
+    # (c) run (b) again under a 1 GiB out-of-core budget
+    svc = QueryService(placement, net, config=config(s2_backend="frontier_kernel",
+                                                    tile_store_budget_bytes=SERVE_BUDGET), device=dev)
+    c_answers, r = serve_sync(svc, prefix)
+    r.update(serve_launched("fused_level_blocks", "serve run (c)"))
+    check_serve_answers(c_answers, prefix, oracle, "serve run (c)")
+    if [a.answers for a in c_answers] != [a.answers for a in b_answers]:
+        raise AssertionError("serve run (c): budgeted answers differ from run (b)'s")
+    ts = svc.plan_store.tile_store_stats()
+    if not (ts["spills"] and ts["reloads"]):
+        raise AssertionError(f"serve run (c): the budgeted store did not spill and reload: {ts}")
+    r["tile_store"] = ts
+    rec["c_budget"] = r
+    launches[r["kernel"]] += r["launches"]
+    log_serve("c, f32/f32 under a 1 GiB budget", r)
+    log("serve", f"(c): answers == run (b)'s; {ts['spills']} spills, {ts['reloads']} reloads, "
+        f"{ts['slabs_resident']} slabs resident ({ts['bytes_by_dtype']['f32'] / 1e9:.3f} GB of host "
+        f"slabs), {ts['slabs_spilled']} spilled")
+    check_schema(svc.summary(), SUMMARY_KEYS)
+    del svc, b_answers, c_answers
+    free()
+    return dict(launches)
+
+
 def gathered_sectors(idx: torch.Tensor, row_bytes: int) -> int:
     """The 32-byte sectors that the gathered rows span: row ``i`` lies at
     bytes ``i·row_bytes .. (i + 1)·row_bytes - 1`` of the table."""
@@ -1471,6 +1871,10 @@ def main() -> int:
     max_err["fused_level_blocks"] = max(max_err["fused_level_blocks"],
                                         record["witness"]["b1_counts_at_bound_max_abs_err"])
     phase_end("witness")
+
+    for name, n in phase_serve(g, placement, dg, dev, record).items():
+        launches[name] += n
+    phase_end("serve")
 
     new_kernels = [phase_baseline(g, cas, dg, stores, dev, gen, flush, record)]
     del stores, dg

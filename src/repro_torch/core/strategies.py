@@ -24,12 +24,17 @@ Both fused backends also run ``semantics="witness"``: the fixpoint
 carries each product state's discovery level, the implicit parent
 pointers of :mod:`repro_torch.core.witness`.
 
-What waits for later slices (each raises ``NotImplementedError`` naming
+Executor builds are two-stage: with ``plan_store`` (a
+:class:`repro_torch.core.plans.GraphPlanStore`) the fused backends fetch
+their Stage A — the staged tiles, under a ``tile_store_budget_bytes``
+the out-of-core subset, and the per-label degree vectors — from the
+shared store, and only Stage B is built per executor.
+
+What waits for a later slice (each raises ``NotImplementedError`` naming
 its ``ROADMAP.md`` item): the ``reference`` and ``frontier_kernel_sharded``
-backends and the multi-device S1 gather (A12), and the plan store's
-shared Stage A (A10; until then ``staged=`` passes a prebuilt Stage A
-in).  The ``mesh``, ``site_axes`` and ``batch_axis``
-parameters of ``repro`` are dropped: on one device nothing uses them.
+backends and the multi-device S1 gather (A12).  The ``mesh``,
+``site_axes`` and ``batch_axis`` parameters of ``repro`` are dropped: on
+one device nothing uses them.
 """
 
 from __future__ import annotations
@@ -377,7 +382,7 @@ def symbol_set_groups(
 
 
 def _site_symbol_degrees(
-    sgroups, site_graphs: list[LabeledGraph], v_pad: int
+    sgroups, site_graphs: list[LabeledGraph], v_pad: int, label_deg: np.ndarray | None = None
 ) -> tuple[np.ndarray, np.ndarray]:
     """Per-site, per-symbol-set-group matching-edge counts by node.
 
@@ -385,13 +390,26 @@ def _site_symbol_degrees(
     group ``g``'s symbol set and are incident (in the search direction)
     to node ``v`` — the unicast response size site ``s`` contributes to
     one broadcast at ``v`` (§4.2.2).  ``payloads[g]`` is the broadcast
-    payload 1 + |symset|.  (``repro``'s Stage-A label-degree shortcut
-    comes with the plan store, A10.)"""
+    payload 1 + |symset|.
+
+    ``label_deg`` accepts the Stage-A per-(site, label, direction)
+    vectors of :func:`repro_torch.core.plans.label_degree_vectors`: the
+    group vectors then reduce to row sums (a wildcard sums every label —
+    each edge has exactly one), so warm executor builds skip the
+    per-edge ``np.add.at`` scans."""
     n_groups = max(len(sgroups), 1)
     deg = np.zeros((len(site_graphs), n_groups, v_pad), np.float32)
     payloads = np.zeros(n_groups, np.float32)
     for gi, (symset, _) in enumerate(sgroups):
         payloads[gi] = 1 + len(symset)
+        if label_deg is not None:
+            for lid, dirn in symset:
+                d = 0 if dirn == FWD else 1
+                if lid < 0:
+                    deg[:, gi] += label_deg[:, :, d].sum(axis=1)
+                else:
+                    deg[:, gi] += label_deg[:, lid, d]
+            continue
         for s, g_s in enumerate(site_graphs):
             for lid, dirn in symset:
                 sel = slice(None) if lid < 0 else g_s.lbl == lid
@@ -437,6 +455,9 @@ def make_s2_step_fn(
     tile_dtype: str = "f32",
     staged=None,
     device: str | torch.device | None = None,
+    plan_store=None,
+    stats_epoch: int = 0,
+    tile_store_budget_bytes: int | None = None,
 ):
     """Build the batched S2 executor.
 
@@ -452,10 +473,18 @@ def make_s2_step_fn(
     out.
     Retrieval is modeled on the deduplicated *global* graph.
 
-    ``staged`` takes a prebuilt Stage A
-    (:func:`repro_torch.kernels.frontier.ops.stage_graph` of ``graph`` at
-    ``block_size`` and ``tile_dtype``); without it the executor stages
-    its own on ``device`` (``None``: the GPU).
+    Stage A comes from one of three places: ``staged``, a prebuilt
+    Stage A (:func:`repro_torch.kernels.frontier.ops.stage_graph` of
+    ``graph`` at ``block_size`` and ``tile_dtype``); ``plan_store``, the
+    shared :class:`~repro_torch.core.plans.GraphPlanStore`, keyed by
+    ``stats_epoch`` (its device is the executor's, and it also serves the
+    meters' per-label degree vectors); or neither, and the executor
+    stages its own on ``device`` (``None``: the GPU).
+    ``tile_store_budget_bytes`` turns on the out-of-core tile store and
+    needs ``plan_store``: Stage A is assembled from only the automaton's
+    required (direction, label) slabs, cold host slabs spilling to disk
+    beyond the budget (see
+    :meth:`repro_torch.core.plans.GraphPlanStore.staged_graph`).
 
     Returns ``fn(starts) -> (answers, q_bc, d_s2, n_bc)``: ``starts``
     (B,) int node ids; answers (B, n_nodes) bool, and per start the
@@ -489,8 +518,38 @@ def make_s2_step_fn(
     )
     return make(
         ca, n_nodes, max_levels, graph, replication_factor, block_size, tile_dtype,
-        staged, device, semantics,
+        staged, device, semantics, plan_store, stats_epoch, tile_store_budget_bytes,
     )
+
+
+def _fetch_staged_graph(
+    ca: CompiledAutomaton,
+    graph: LabeledGraph,
+    block_size: int,
+    plan_store,
+    stats_epoch: int,
+    tile_dtype: str,
+    budget_bytes: int | None,
+    device,
+):
+    """Stage-A fetch shared by the two global fused executors: from the
+    plan store when one is passed (the budgeted path assembles only the
+    automaton's required (direction, label) slabs), staged locally on
+    ``device`` otherwise.  The budget requires a store: the out-of-core
+    slab cache lives in the :class:`~repro_torch.core.plans.GraphPlanStore`."""
+    if plan_store is not None:
+        if budget_bytes is not None:
+            return plan_store.staged_graph(
+                graph, block_size, epoch=stats_epoch, tile_dtype=tile_dtype,
+                budget_bytes=budget_bytes, keys=fops.required_offset_keys(ca),
+            )
+        return plan_store.staged_graph(graph, block_size, epoch=stats_epoch, tile_dtype=tile_dtype)
+    if budget_bytes is not None:
+        raise ValueError(
+            "tile_store_budget_bytes requires plan_store= (the out-of-core "
+            "slab cache lives in the GraphPlanStore)"
+        )
+    return fops.stage_graph(graph, block_size, tile_dtype=tile_dtype, device=device)
 
 
 def _frontier_setup(
@@ -502,11 +561,14 @@ def _frontier_setup(
     staged,
     device,
     backend: str,
+    plan_store=None,
+    stats_epoch: int = 0,
+    budget_bytes: int | None = None,
 ):
     """What both fused executors build before their first call: the
-    Stage-B plan over ``staged`` (staged here when ``None``), and the
-    meters' symbol-set groups with their degree vectors and payloads on
-    the plan's device."""
+    Stage-B plan over ``staged`` (fetched by :func:`_fetch_staged_graph`
+    when ``None``), and the meters' symbol-set groups with their degree
+    vectors and payloads on the plan's device."""
     if graph is None:
         raise ValueError(
             f"backend={backend!r} requires graph= (the placement's global graph)"
@@ -514,7 +576,11 @@ def _frontier_setup(
     if graph.n_nodes != n_nodes:
         raise ValueError(f"graph has {graph.n_nodes} nodes, executor built for {n_nodes}")
     if staged is None:
-        staged = fops.stage_graph(graph, block_size, tile_dtype=tile_dtype, device=device)
+        staged = _fetch_staged_graph(
+            ca, graph, block_size, plan_store, stats_epoch, tile_dtype, budget_bytes, device
+        )
+    elif plan_store is not None or budget_bytes is not None:
+        raise ValueError("pass staged= or plan_store= (with its budget), not both")
     elif (staged.n_nodes, staged.block_size, staged.tile_dtype) != (n_nodes, block_size, tile_dtype):
         raise ValueError(
             f"staged graph is ({staged.n_nodes} nodes, block {staged.block_size}, "
@@ -524,7 +590,12 @@ def _frontier_setup(
     plan = fops.build_level_schedule(ca, staged)
     dev = plan.tiles.device
     sgroups = symbol_set_groups(ca)
-    deg, payloads = _site_symbol_degrees(sgroups, [graph], plan.v_pad)
+    label_deg = (
+        plan_store.label_degrees(graph, [graph], graph.n_labels, plan.v_pad, epoch=stats_epoch)
+        if plan_store is not None
+        else None
+    )
+    deg, payloads = _site_symbol_degrees(sgroups, [graph], plan.v_pad, label_deg)
     deg_c = torch.from_numpy(deg[0]).to(dev)
     pay_c = torch.from_numpy(payloads).to(dev)
     return plan, sgroups, deg_c, pay_c
@@ -541,6 +612,9 @@ def _make_frontier_step_fn(
     staged=None,
     device: str | torch.device | None = None,
     semantics: str = "pairs",
+    plan_store=None,
+    stats_epoch: int = 0,
+    tile_store_budget_bytes: int | None = None,
 ):
     """The fused-kernel S2 executor (``backend="frontier_kernel"``).
 
@@ -562,7 +636,8 @@ def _make_frontier_step_fn(
     (B, n_states, n_nodes) tensor.
     """
     plan, sgroups, deg_c, pay_c = _frontier_setup(
-        ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel"
+        ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel",
+        plan_store, stats_epoch, tile_store_budget_bytes,
     )
     dev = plan.tiles.device
     witness = semantics == "witness"
@@ -640,6 +715,9 @@ def _make_frontier_packed_step_fn(
     staged=None,
     device: str | torch.device | None = None,
     semantics: str = "pairs",
+    plan_store=None,
+    stats_epoch: int = 0,
+    tile_store_budget_bytes: int | None = None,
 ):
     """The lane-packed S2 executor (``backend="frontier_kernel_packed"``).
 
@@ -663,7 +741,8 @@ def _make_frontier_packed_step_fn(
     (:func:`~repro_torch.kernels.frontier.ops.lane_states`).
     """
     plan, sgroups, deg_c, pay_c = _frontier_setup(
-        ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel_packed"
+        ca, n_nodes, graph, block_size, tile_dtype, staged, device, "frontier_kernel_packed",
+        plan_store, stats_epoch, tile_store_budget_bytes,
     )
     dev = plan.tiles.device
     witness = semantics == "witness"
@@ -741,6 +820,9 @@ def s2_execute(
     tile_dtype: str = "f32",
     staged=None,
     device: str | torch.device | None = None,
+    plan_store=None,
+    stats_epoch: int = 0,
+    tile_store_budget_bytes: int | None = None,
 ) -> tuple[np.ndarray, list[StrategyCost]] | tuple[np.ndarray, list[StrategyCost], np.ndarray]:
     """Run the batched S2 executor for ``start_nodes``.
 
@@ -756,14 +838,17 @@ def s2_execute(
     less than one symbol).
 
     ``step_fn`` accepts a prebuilt executor from :func:`make_s2_step_fn`;
-    ``staged`` a prebuilt Stage A for the executor built here."""
+    ``staged``, or ``plan_store`` keyed by ``stats_epoch`` (with
+    ``tile_store_budget_bytes`` for the out-of-core store), the Stage A
+    of the executor built here."""
     if step_fn is None:
         step_fn = make_s2_step_fn(
             ca, placement.graph.n_nodes, max_levels,
             backend=backend, graph=placement.graph,
             replication_factor=placement.replication_factor,
             block_size=block_size, semantics=semantics, tile_dtype=tile_dtype,
-            staged=staged, device=device,
+            staged=staged, device=device, plan_store=plan_store, stats_epoch=stats_epoch,
+            tile_store_budget_bytes=tile_store_budget_bytes,
         )
     out = step_fn(start_nodes)
     if len(out) != (5 if semantics == "witness" else 4):

@@ -12,6 +12,11 @@ Nothing here runs at import: the CPU tests import every module, and a
 machine without a GPU may have no ``nvcc``.  :func:`build_all` starts one
 ``nvcc`` per source at once, so a fresh checkout builds in the time of
 the slowest source.
+
+:func:`load` is thread-safe: a lock per kernel name covers the check,
+the build and the open, so two threads that ask for the same kernel
+first (the async serving runtime's flush worker beside the caller's
+thread) build it once, while different kernels still build at once.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -46,6 +52,10 @@ BUILD_LOG: dict[str, dict] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+# _LOCK guards _NAME_LOCKS; each name's lock serializes that kernel's build
+_LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -65,7 +75,7 @@ def _lib_path(name: str) -> Path:
 
 def _compile(name: str, out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_PKG_ROOT / SOURCES[name])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -76,15 +86,23 @@ def _compile(name: str, out: Path) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if path.exists():
-            BUILD_LOG[name] = {"seconds": None, "ptxas": ""}
-        else:
-            _compile(name, path)
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    """The loaded library of kernel ``name``, built first if needed.  A
+    second thread asking for the same name while the first builds waits
+    for that build and gets its library."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if path.exists():
+                BUILD_LOG[name] = {"seconds": None, "ptxas": ""}
+            else:
+                _compile(name, path)
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
 
 

@@ -17,6 +17,12 @@ path.  Compilation is **two-stage**, as in ``repro``:
   (dst_state, direction, label) fuse into ONE pass over a *fan-in union
   row* appended to the frontier by :func:`extend_frontier`.
 
+The out-of-core tile store (:class:`repro_torch.core.plans._SlabCache`)
+builds Stage A one (direction, label) slab at a time on the host
+(:func:`pack_label_store`) and assembles a subset of slabs on the device
+(:func:`assemble_staged`), byte-identical to the same keys of the full
+staging.
+
 Stage A stages either tile store: ``tile_dtype="f32"`` (dense 0/1
 B×B tiles) or ``"uint32"`` (the dst axis packed into ⌈B/32⌉ bit-plane
 words per tile row, 1/32 of the bytes), held in torch as int32 with the
@@ -84,6 +90,10 @@ BUILD_COUNTERS: collections.Counter = collections.Counter()
 # Fixpoint instrumentation: "levels" counts BFS levels run (one fused
 # kernel launch each), "host_syncs" the frontier.any() reads.
 FIXPOINT_COUNTERS: collections.Counter = collections.Counter()
+
+
+def reset_build_counters() -> None:
+    BUILD_COUNTERS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +404,74 @@ def stage_graph(
         block_size=block_size,
         tiles=tiles,
         offsets=dict(sorted(offsets.items())),
+        staging_chunks=staging_chunks,
+        tile_dtype=tile_dtype,
+    )
+
+
+def pack_label_store(
+    graph: LabeledGraph,
+    direction: int,
+    label_id: int,
+    block_size: int,
+    chunk_edges: int | None = None,
+    tile_dtype: str = "f32",
+) -> tuple[tuple[np.ndarray, np.ndarray, np.ndarray] | None, int]:
+    """Pack ONE (direction, label) slab on the host straight from the edge
+    stream — the out-of-core tile store's build and rebuild unit (see
+    :meth:`repro_torch.core.plans.GraphPlanStore.staged_graph`).
+
+    ``label_id == ANY_LABEL`` packs every edge of the direction: the same
+    packing as :func:`stage_graph`'s union store, so the same bytes.
+    Returns ``(slab | None, n_chunks)``, the slab as numpy ``(tiles,
+    rows, cols)`` (bit-plane tiles in ``repro``'s uint32); ``None`` when
+    the graph has no matching edges (full staging omits that offset key
+    too)."""
+    if label_id == ANY_LABEL:
+        src, dst = graph.src, graph.dst
+    else:
+        src, dst = graph.edges_with_label(label_id)
+    if direction == INV:
+        src, dst = dst, src
+    if len(src) == 0:
+        return None, 0
+    BUILD_COUNTERS["pack_blocks"] += 1
+    t, r, c, nc = _pack(src, dst, graph.n_nodes, block_size, chunk_edges, tile_dtype)
+    BUILD_COUNTERS["staging_chunks"] += nc
+    return (t, r, c), nc
+
+
+def assemble_staged(
+    stores: dict[tuple[int, int], tuple[np.ndarray, np.ndarray, np.ndarray]],
+    n_nodes: int,
+    block_size: int,
+    tile_dtype: str = "f32",
+    staging_chunks: int = 0,
+    device: str | torch.device | None = None,
+) -> StagedGraph:
+    """A :class:`StagedGraph` on ``device`` (``None``: the GPU) from
+    already-packed host slabs — the label-subset assembly path of the
+    byte-budgeted tile store.  Packs nothing (slabs come from
+    :func:`pack_label_store` or a spill file); the stores land behind the
+    zero cover tile in sorted key order, as in ``repro``, so a schedule
+    built against the subset sees exactly the offset keys in ``stores``,
+    which must cover the automaton's :func:`required_offset_keys`."""
+    device = resolve_device(device)
+    sizes = {key: len(r) for key, (_, r, _) in stores.items()}
+    tiles, bases = _concat_stores(sizes, block_size, tile_dtype, device)
+    offsets = {}
+    for key in sorted(stores):
+        t, r, c = stores[key]
+        if t.dtype == np.uint32:
+            t = t.view(np.int32)
+        tiles[bases[key] : bases[key] + len(r)].copy_(torch.from_numpy(np.ascontiguousarray(t)))
+        offsets[key] = (bases[key], r, c)
+    return StagedGraph(
+        n_nodes=n_nodes,
+        v_pad=-(-n_nodes // block_size) * block_size,
+        block_size=block_size,
+        tiles=tiles,
+        offsets=offsets,
         staging_chunks=staging_chunks,
         tile_dtype=tile_dtype,
     )

@@ -3,8 +3,10 @@
 baseline step B5 (``frontier_step_blocks``), EmbeddingBag B6 and flash
 decode B7 against their plain PyTorch versions, the wrappers' refusals,
 and the S1 and S2 executors (witness semantics and bounded counting
-too), the branching estimator and the baseline fixpoint on the GPU
-against the same code on the CPU.  A CUDA kernel
+too), the branching estimator, the baseline fixpoint and the serving
+runtime (``QueryService``, its plan store's device memory,
+``AsyncQueryService``'s flush worker) on the GPU against the same code
+on the CPU.  A CUDA kernel
 has no CPU mode, so every test here is marked ``gpu`` and skips without
 a CUDA device; run them on a machine with one:
 
@@ -20,16 +22,22 @@ walks other kv tiles than its plain version and merges kv splits, so it
 is held to ``repro``'s own tolerances (2e-5 f32, 2e-2 bf16,
 ``tests/test_kernels.py``)."""
 
+import asyncio
+import dataclasses
+import gc
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import estimation, paa, regex, strategies
-from repro_torch.graph import generators, partition, structure
+from repro_torch.core.cost_model import NetworkParams
+from repro_torch.graph import generators, partition, structure, workloads
 from repro_torch.kernels.decode_attn import decode_attn
 from repro_torch.kernels.embedbag import embedbag
 from repro_torch.kernels.embedbag import ops as eb_ops
 from repro_torch.kernels.frontier import frontier, ops
+from repro_torch.serve import AsyncQueryService, QueryService, ServeConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -759,3 +767,103 @@ def test_decode_wrapper_refuses_shapes_outside_the_kernel(cuda):
     shifted = torch.zeros(k.numel() + 4, dtype=k.dtype, device=cuda)[4:].view(k.shape)  # 8 bytes in
     with pytest.raises(ValueError, match="16-byte boundary"):
         decode_attn.flash_decode_gqa(q, shifted, v, n, block_kv=128)
+
+
+# ---------------------------------------------------------------------------
+# the serving runtime on the card
+# ---------------------------------------------------------------------------
+
+SERVE_NET = NetworkParams(n_peers=150, n_connections=450, replication_rate=0.2)
+SERVE_KERNEL = {
+    ("frontier_kernel", "f32"): "fused_level_blocks",
+    ("frontier_kernel", "uint32"): "fused_level_blocks_u32",
+    ("frontier_kernel_packed", "f32"): "packed_level_blocks",
+    ("frontier_kernel_packed", "uint32"): "packed_level_blocks_u32",
+}
+
+
+def _serve_setup():
+    g = generators.random_labeled_graph(300, 1400, 5, seed=4)
+    return g, partition.distribute(g, n_sites=6, replication_rate=0.3, seed=1)
+
+
+def _serve(placement, device, backend="frontier_kernel", tile_dtype="f32", **kw):
+    cfg = ServeConfig(n_rollouts=40, seed=0, s2_backend=backend, s2_block_size=16,
+                      s2_tile_dtype=tile_dtype, **kw)
+    return QueryService(placement, SERVE_NET, config=cfg, device=device)
+
+
+@pytest.mark.parametrize("backend, tile_dtype", list(SERVE_KERNEL))
+def test_service_on_gpu_equals_cpu(cuda, backend, tile_dtype):
+    """A mixed stream: every request's answers, strategy, plan-cache hit,
+    batch size and observed costs equal on the card and on the CPU, and
+    the path's level kernel launched once a level."""
+    g, placement = _serve_setup()
+    stream = workloads.generate(g, workloads.WorkloadConfig(n_queries=24, hot_pool=4, seed=1))
+    out = {}
+    for device in ("cpu", cuda):
+        svc = _serve(placement, device, backend, tile_dtype)
+        frontier.reset_launches()
+        ops.FIXPOINT_COUNTERS.clear()
+        tickets = [svc.enqueue(q.query, q.starts, strategy=("S2", None)[i % 2])
+                   for i, q in enumerate(stream)]
+        svc.flush()
+        res = [t.result() for t in tickets]
+        out[str(device)] = [(a.answers, a.strategy, a.plan_cache_hit,
+                             [dataclasses.astuple(c) for c in a.observed]) for a in res]
+        out[str(device) + "/batches"] = [r.exec_batch_size for r in svc.metrics.records]
+        counts = frontier.launch_counts()
+        if device == cuda:
+            name = SERVE_KERNEL[(backend, tile_dtype)]
+            assert counts[name] == ops.FIXPOINT_COUNTERS["levels"] > 0
+            assert sum(counts.values()) == counts[name]
+    assert out["cpu"] == out["cuda"]
+    assert out["cpu/batches"] == out["cuda/batches"]
+
+
+def test_drop_epoch_frees_device_memory_to_the_stores_bytes(cuda):
+    g, placement = _serve_setup()
+    queries = ("l0 l1* l2", "(l3|l4)+", "l2 . l0")
+    warm = _serve(placement, cuda)  # whatever the first run allocates for good
+    for q in queries:
+        warm.submit(q, [0, 5, 17], strategy="S2")
+    del warm
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    svc = _serve(placement, cuda)
+    for q in queries:
+        svc.submit(q, [0, 5, 17], strategy="S2")
+    held = sum(svc.plan_store.tile_store_stats()["bytes_by_dtype"].values())
+    assert held > 0 and torch.cuda.memory_allocated() - base >= held
+    svc.exec_cache.drop_epoch(1)
+    gc.collect()
+    torch.cuda.synchronize()
+    # the caching allocator hands out blocks in multiples of 512 bytes
+    site = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in svc._device_arrays.values())
+    left = sum(svc.plan_store.tile_store_stats()["bytes_by_dtype"].values())
+    assert left == 0
+    # the service itself still holds the placement's staged site arrays
+    assert torch.cuda.memory_allocated() - base == site + left
+
+
+@pytest.mark.parametrize("backend, tile_dtype", [("frontier_kernel", "f32"),
+                                                 ("frontier_kernel_packed", "uint32")])
+def test_async_flush_on_the_worker_thread_launches_the_kernel(cuda, backend, tile_dtype):
+    g, placement = _serve_setup()
+    svc = _serve(placement, cuda, backend, tile_dtype)
+    want = _serve(placement, "cpu", backend, tile_dtype)
+    queries = [("l0 l1* l2", [0, 5]), ("(l3|l4)+", [9]), ("l0 l1* l2", [17, 3, 40])]
+
+    async def drive():
+        async with AsyncQueryService(svc) as aio:
+            return await asyncio.gather(*[aio.submit(q, s, strategy="S2") for q, s in queries])
+
+    frontier.reset_launches()
+    ops.FIXPOINT_COUNTERS.clear()
+    got = asyncio.run(drive())
+    counts = frontier.launch_counts()
+    name = SERVE_KERNEL[(backend, tile_dtype)]
+    assert counts[name] == ops.FIXPOINT_COUNTERS["levels"] > 0
+    for (q, s), a in zip(queries, got):
+        assert a.answers == want.submit(q, s, strategy="S2").answers
