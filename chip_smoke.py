@@ -5,7 +5,8 @@ each of its seven hand-written CUDA kernels.
     python3 chip_smoke.py [--out FILE]
 
 Four S2 frontier paths, one per (backend, tile store) pair, each carried
-by one kernel:
+by one kernel (the sharded backend runs B1 and B3 again, in the sharded
+phase; the reference backend runs none):
 
 =========================  ========  =================================
 backend                    tiles     kernel
@@ -90,6 +91,34 @@ Phases, each of which raises on failure (the run then exits non-zero):
              4 starts) must equal the host DP exactly, and B1 on a count
              frontier whose sums reach 2^24 - 1 (runs of 8 full tiles)
              must be ``torch.equal`` to its plain version;
+* sharded  — the site-sharded backend (B3 and B1, one launch per shape
+             bucket and level, on a work list that concatenates the
+             bucket's member sites') and the reference backend (no
+             kernel), each check raising: (i) the twin on 16 sites at
+             replication rate 0.2 over the bit-plane store, Stage A per
+             site, merged into 1 and 4 groups and bucketed (each step
+             timed, bytes and bucket shapes logged); q1, q9, q12 over all
+             valid starts at both group counts: answers == the device
+             BFS, q_bc and n_bc == the host meter on the path phase's 32
+             sampled starts, B3 launches == levels x buckets, per-site
+             meters equal at 1 and 4; (iv) B3 on the 4-row bucket of q1's
+             plan ``torch.equal`` to the members' plain levels summed,
+             and q1's per-site meters unchanged with ``allow_tf32 =
+             True``; (iii) the reference backend on (i)'s placement, whose
+             d_s2 must equal the sharded per-site meters summed, exactly,
+             and on the setup's 256-site placement, 64 starts of each
+             query (the 32 metered and 32 sampled): answers == the device
+             BFS, meters == the host meter, no kernel launched; (ii) an
+             8,000-node twin (``alibaba_like(8000, 52000)``) on 16 sites
+             over the f32 store, at 1 and 4 groups, pairs and witness
+             runs: the checks of (i), witness answers and meters == the
+             pairs run, levels == ``host_levels`` on 4 starts and 8
+             walked-back witnesses valid, then B1 on its 4-row bucket ==
+             plain; the host's MemAvailable is logged before staging.
+             The 16 sites and the f32 graph are cut for host memory: per
+             site Stage A of the twin's 256 sites would be 15.7 M tiles
+             (1.03 TB f32, 32.2 GB of bit-planes), and its f32 slabs at 16
+             sites 64.6 GB;
 * serve    — the serving runtime on the same twin and placement (the plan
              phase's overlay; ``ServeConfig(n_rollouts=150, seed=0)``, the
              planner deciding): a 144-request ``workloads.generate``
@@ -106,7 +135,14 @@ Phases, each of which raises on failure (the run then exits non-zero):
              fresh service; (f) (b)'s Stage A saved and restored into a
              fresh service, whose first S2 request must pack no tile; (c)
              (b) again under a 1 GiB out-of-core budget, answers == (b)'s,
-             spills and reloads nonzero.  Every answer == the device BFS;
+             spills and reloads nonzero; (g) the first 48 on the default
+             ``ServeConfig`` (the reference backend, no kernel launched),
+             the first window forced to S1; (h) the first 48 on
+             ``frontier_kernel_sharded`` over the bit-plane store on the
+             sharded phase's 16-site placement (B3, launches == levels x
+             buckets), its per-site Stage A saved and restored into a
+             fresh service whose first S2 request must pack no tile.
+             Every answer == the device BFS;
              each run's level kernel launches once a level and no other
              kernel; the summary's keys == ``repro``'s schema
              (``SUMMARY_KEYS``).  Each run logs q/s, latency p50 and p99
@@ -166,7 +202,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import interop  # noqa: E402
-from repro_torch.core import cost_model, paa, planner, strategies, witness  # noqa: E402
+from repro_torch.core import cost_model, paa, planner, plans, strategies, witness  # noqa: E402
 from repro_torch.core import regex as rx  # noqa: E402
 from repro_torch.graph.generators import (  # noqa: E402
     TABLE2_PAPER, TABLE2_QUERIES, alibaba_like, random_labeled_graph,
@@ -218,6 +254,15 @@ SERVE_ROLLOUTS, SERVE_BUDGET = 150, 2**30
 SERVE_TENANTS, SERVE_LATENCY_SHARE = ("tenant-a", "tenant-b", "tenant-c"), 0.7
 SERVE_AIO = {"max_window_s": {"latency": 0.25, "throughput": 1.0}, "window_gain": 2.0,
              "min_window_s": 0.01, "queue_depth": {"latency": 48, "throughput": 96}}
+# the sharded phase: per-site Stage A holds every site's own copy of its
+# edges' tiles, so the paper's 256 sites of the twin would stage 15.7 M
+# tiles (1.03 TB f32, 32.2 GB of bit-planes); the phase cuts the site count
+# to 16 (0.99 M bit-plane tiles, 2.0 GB of host slabs) and, for the f32
+# store (64.6 GB of host slabs at 16 sites on the twin), the graph too.
+# The group sizes it runs; the f32 graph; the reference run's starts a query
+SHARD_SITES, SHARD_AXES = 16, (1, 4)
+SHARD_F32_NODES, SHARD_F32_EDGES = 8000, 52000
+N_REFERENCE_STARTS = 64
 # dlrm-mlperf's largest Criteo table (src/repro/models/dlrm.py:30),
 # embed_dim 128, table_dtype bf16 (dlrm.py:52); serve_bulk batch 262,144
 # x multi_hot 1 (configs/registry.py:110)
@@ -1190,6 +1235,286 @@ def phase_witness(g, placement, cas, truth, staged, dev, record) -> dict[str, in
     return launches
 
 
+def mem_available_gb() -> float:
+    """The host's MemAvailable, GB (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def query_truth(ca, g, dg, rng) -> dict:
+    """A query's valid starts, their device-BFS answer pairs and the host
+    meter of N_METER_SAMPLES sampled starts (the path phase's ``truth``)."""
+    starts = paa.valid_start_nodes(ca, g)
+    o_src, o_dst = paa.answers_multi_source(ca, dg, starts)
+    sample = rng.choice(len(starts), size=min(N_METER_SAMPLES, len(starts)), replace=False)
+    index = paa.HostIndex(g)
+    return {"starts": starts, "pairs": np.unique(np.stack([o_src, o_dst]).T, axis=0),
+            "meters": {int(i): paa.run_instrumented(ca, index, int(starts[i])) for i in sample}}
+
+
+def check_answers_and_meters(what, starts, t, answers, costs) -> int:
+    """``answers`` of ``starts`` against the device BFS's pairs in ``t``,
+    and the broadcast meters of ``t``'s sampled starts (indices into
+    ``t["starts"]``) against the host meter.  Returns the answer pairs."""
+    bs, vs = np.nonzero(answers)
+    got = np.unique(np.stack([starts[bs], vs]).T, axis=0)
+    want = t["pairs"][np.isin(t["pairs"][:, 0], starts)]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: answers differ from the device-BFS oracle")
+    pos = {int(s): i for i, s in enumerate(starts)}
+    for i, tr in t["meters"].items():
+        s = int(t["starts"][i])
+        if s in pos and (costs[pos[s]].broadcast_symbols, costs[pos[s]].n_broadcasts) != (tr.q_bc, tr.n_broadcasts):
+            raise AssertionError(f"{what} start {s}: q_bc/n_bc {costs[pos[s]]} != host {tr}")
+    return len(got)
+
+
+def sharded_run(what, placement, ca, starts, t, store, dev, axis_size, tile_dtype, **kw) -> tuple:
+    """``s2_execute`` on the sharded backend over ``store``'s Stage A, with
+    the launch counts set to 0 just before and read just after: answers
+    and broadcast meters checked against ``t``, and the level kernel's
+    launches == levels x buckets, no other kernel launched."""
+    name = "fused_level_blocks_u32" if tile_dtype == "uint32" else "fused_level_blocks"
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = strategies.s2_execute(placement, ca, starts, backend="frontier_kernel_sharded",
+                                tile_dtype=tile_dtype, plan_store=store, device=dev,
+                                axis_size=axis_size, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    staged_dtype = "f32" if kw.get("semantics") == "witness" else tile_dtype
+    n_buckets = len(store.tile_buckets(placement, 128, axis_size, tile_dtype=staged_dtype).buckets)
+    levels = fops.FIXPOINT_COUNTERS["levels"]
+    n = only_launched(name, what)
+    if n != levels * n_buckets:
+        raise AssertionError(f"{what}: {n} {name} launches for {levels} levels x {n_buckets} buckets")
+    pairs = check_answers_and_meters(what, starts, t, out[0], out[1])
+    return out, {"kernel": name, "starts": len(starts), "pairs": pairs, "levels": levels,
+                 "buckets": n_buckets, "launches": n, "host_syncs": fops.FIXPOINT_COUNTERS["host_syncs"],
+                 "wall_ms": wall * 1e3, "queries_per_s": len(starts) / wall}
+
+
+def stage_sharded(store, placement, tile_dtype, axes) -> dict:
+    """The sharded Stage A of ``placement`` through ``store``, each step
+    timed: the per-site slabs (host), their merge into each of ``axes``
+    groups (host) and the groups' shape buckets (device)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = store.staged_sharded(placement, 128, tile_dtype=tile_dtype)
+    rec = {"per_site_s": time.perf_counter() - t0, "per_site_tiles": sum(staged.site_n_tiles),
+           "per_site_bytes": staged.tile_store_bytes}
+    for ax in axes:
+        t0 = time.perf_counter()
+        merged = store.staged_merged(placement, 128, ax, tile_dtype=tile_dtype)
+        t1 = time.perf_counter()
+        tb = store.tile_buckets(placement, 128, ax, tile_dtype=tile_dtype)
+        torch.cuda.synchronize()
+        rec[f"axis_{ax}"] = {
+            "merge_s": t1 - t0, "buckets_s": time.perf_counter() - t1,
+            "group_tiles": list(merged.site_n_tiles), "group_bytes": merged.tile_store_bytes,
+            "bucket_shapes": [(b.n_tiles, len(b.sites)) for b in tb.buckets],
+            "device_bytes": sum(b.tiles.numel() * b.tiles.element_size() for b in tb.buckets)}
+    return rec
+
+
+def log_staging(tag: str, r: dict) -> None:
+    log("sharded", f"{tag}: per-site Stage A {r['per_site_tiles']} tiles, {r['per_site_bytes'] / 1e9:.3f} GB "
+        f"of host slabs in {r['per_site_s']:.1f} s")
+    for k, a in r.items():
+        if k.startswith("axis_"):
+            log("sharded", f"{tag} {k}: merged into {len(a['group_tiles'])} grid(s) of {a['group_tiles']} "
+                f"tiles ({a['group_bytes'] / 1e9:.3f} GB) in {a['merge_s']:.1f} s; buckets (n_tiles, rows) "
+                f"{a['bucket_shapes']}, {a['device_bytes'] / 1e9:.3f} GB on the device in {a['buckets_s']:.1f} s")
+
+
+def check_bucket_launch(what, store, placement, ca, axis_size, tile_dtype, dev, flush) -> dict:
+    """B1 or B3 on one multi-row bucket's concatenated work list against
+    the plain version (the members' plain levels summed), on a random
+    {0,1} frontier: ``torch.equal``; both timed between events."""
+    plan = fops.build_sharded_level_schedule(
+        ca, store.staged_merged(placement, 128, axis_size, tile_dtype=tile_dtype),
+        store.tile_buckets(placement, 128, axis_size, tile_dtype=tile_dtype), axis_size=axis_size)
+    b = max(plan.buckets, key=lambda b: len(b.sites))
+    if len(b.sites) < 2:
+        raise AssertionError(f"{what}: no bucket of several rows at axis size {axis_size}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    f = (torch.rand((plan.n_states * plan.q_pad, plan.v_pad), generator=gen, device=dev) < 0.3).float()
+    fre = fops.extend_frontier(f, plan.union_members, plan.n_states, plan.q_pad)
+    seven = [getattr(b, n) for n in SCHEDULE]
+    n_out = plan.n_states * plan.q_pad
+
+    def kernel():
+        return fkernel.bucket_level_blocks(
+            fre, b.tiles, *seven, plan.block_size, plan.q_pad, run_ptr=b.run_ptr, work=b.work,
+            flat_tile_ids=b.flat_tile_ids, n_out_rows=n_out)
+
+    def plain():
+        return fkernel.bucket_level_blocks_plain(fre, b.tiles, *seven, plan.block_size, plan.q_pad,
+                                                 n_out_rows=n_out)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: the bucket launch differs from the members' plain levels")
+    r = {"rows": len(b.sites), "chunks": int(b.work.shape[0]), "max_sum": float(want.max()),
+         "max_abs_err": float((got - want).abs().max()),
+         "ms": events_ms(kernel, 10, flush), "plain_ms": events_ms(plain, 3, flush)}
+    log("sharded", f"{what}: one {'B3' if tile_dtype == 'uint32' else 'B1'} launch over a bucket of "
+        f"{r['rows']} rows ({r['chunks']} chunks, sums up to {r['max_sum']:.0f}) == the members' plain "
+        f"levels summed; {r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us (events, L2 flushed)")
+    return r
+
+
+def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dict, object]:
+    """The site-sharded backend (B3 and B1 once per bucket and level) and
+    the reference backend (no kernel): (i) the twin on 16 sites over the
+    bit-plane store at axis sizes 1 and 4; (ii) an 8,000-node twin on 16
+    sites over the f32 store, pairs and witness; (iii) the reference
+    backend on the 256-site placement, and on (i)'s placement against
+    the sharded per-site meters; (iv) the bucket launches against their
+    plain versions, and the per-site meter with TF32 on.  Returns each
+    level kernel's launches and (i)'s placement."""
+    rec = record["sharded"] = {}
+    launches = collections.Counter()
+    rng = np.random.default_rng(SEED + 7)
+
+    # (i) the twin on 16 sites, bit-plane tiles: B3
+    pl16 = distribute(g, n_sites=SHARD_SITES, replication_rate=0.2, seed=SEED)
+    store = plans.GraphPlanStore(device=dev)
+    rec["i_staging"] = stage_sharded(store, pl16, "uint32", SHARD_AXES)
+    log_staging(f"(i) twin, {SHARD_SITES} sites, K = {pl16.replication_factor:.4f}, uint32", rec["i_staging"])
+    site_meters = {}
+    for ax in SHARD_AXES:
+        for q in QUERIES:
+            t = truth[q]
+            (answers, costs), r = sharded_run(f"sharded (i) uint32 axis {ax} {q}", pl16, cas[q],
+                                              t["starts"], t, store, dev, ax, "uint32")
+            launches[r["kernel"]] += r["launches"]
+            site_meters[(ax, q)] = [c.site_unicast_symbols for c in costs]
+            rec[f"i_axis{ax}_{q}"] = r
+            log("sharded", f"(i) uint32 axis {ax} {q}: {r['starts']} starts, {r['pairs']} pairs == oracle, "
+                f"q_bc/n_bc == host on {len(t['meters'])}; {r['levels']} levels x {r['buckets']} bucket(s) = "
+                f"{r['launches']} B3 launches, {r['host_syncs']} host syncs, {r['wall_ms']:.1f} ms, "
+                f"{r['queries_per_s']:.1f} queries/s")
+    for q in QUERIES:
+        if site_meters[(1, q)] != site_meters[(SHARD_AXES[-1], q)]:
+            raise AssertionError(f"sharded (i) {q}: per-site meters differ between axis sizes")
+    plan_pad = store.pad_stats()
+    rec["i_pad"] = plan_pad
+    log("sharded", f"(i) per-site meters equal at axis sizes {SHARD_AXES}; pad waste {plan_pad['pad_waste_ratio']:.4f} "
+        f"({plan_pad['padded_steps']} executed / {plan_pad['useful_steps']} useful steps)")
+
+    # (iv) B3 on a bucket of 4 rows; the per-site meter with TF32 on
+    rec["iv_b3"] = check_bucket_launch("(iv) q1 axis 4 uint32", store, pl16, cas["q1"], SHARD_AXES[-1],
+                                       "uint32", dev, flush)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        (_, costs), _ = sharded_run("sharded (iv) TF32 on", pl16, cas["q1"], truth["q1"]["starts"],
+                                    truth["q1"], store, dev, 1, "uint32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if [c.site_unicast_symbols for c in costs] != site_meters[(1, "q1")]:
+        raise AssertionError("sharded (iv): per-site meters changed with allow_tf32 = True")
+    hub = max(int(np.bincount(g_s.src, minlength=g.n_nodes).max()) for g_s in store.local_graphs(pl16))
+    log("sharded", f"(iv) q1's per-site meters with allow_tf32 = True == with it off (the largest "
+        f"out-degree on one site is {hub}; TF32 holds integers exactly only to 2048)")
+
+    # (iii) the reference backend on (i)'s placement: d_s2 == the sharded per-site sum
+    arrays16 = strategies.stage_site_arrays(pl16, dev)
+    for q in QUERIES:
+        starts = truth[q]["starts"][:N_REFERENCE_STARTS]
+        ref = strategies.make_s2_step_fn(cas[q], g.n_nodes, backend="reference")(starts, arrays16)
+        shard = strategies.make_s2_step_fn(cas[q], g.n_nodes, backend="frontier_kernel_sharded",
+                                           placement=pl16, tile_dtype="uint32", plan_store=store)(starts)
+        if not torch.equal(ref[2], shard[4].sum(dim=0)) or not torch.equal(ref[0], shard[0]):
+            raise AssertionError(f"reference on (i)'s placement {q}: d_s2 != the sharded per-site sum")
+    log("sharded", f"(iii) reference on (i)'s {SHARD_SITES} sites: answers and d_s2 == the sharded "
+        f"backend's answers and per-site meters summed, exactly, on {N_REFERENCE_STARTS} starts a query")
+    del store, arrays16
+    free()
+
+    # (iii) the reference backend on the 256-site placement: no kernel
+    t0 = time.perf_counter()
+    arrays = strategies.stage_site_arrays(placement, dev)
+    torch.cuda.synchronize()
+    slots = arrays["src"].numel()
+    log("sharded", f"(iii) the 256-site placement's padded site arrays: {slots} edge slots "
+        f"({sum(a.numel() * a.element_size() for a in arrays.values()) / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for q in QUERIES:
+        t = truth[q]
+        metered = t["starts"][sorted(t["meters"])]
+        rest = np.setdiff1d(t["starts"], metered)
+        starts = np.concatenate([metered, rng.choice(rest, size=min(len(rest), N_REFERENCE_STARTS - len(metered)),
+                                                     replace=False)]).astype(np.int32)
+        reset_launches()
+        fops.FIXPOINT_COUNTERS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers, costs = strategies.s2_execute(placement, cas[q], starts, backend="reference",
+                                               device_arrays=arrays, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if sum(launch_counts().values()):
+            raise AssertionError(f"reference {q}: kernels launched: {launch_counts()}")
+        pairs = check_answers_and_meters(f"reference {q}", starts, t, answers, costs)
+        r = rec[f"iii_reference_{q}"] = {
+            "starts": len(starts), "pairs": pairs, "levels": fops.FIXPOINT_COUNTERS["levels"],
+            "host_syncs": fops.FIXPOINT_COUNTERS["host_syncs"], "wall_ms": wall * 1e3,
+            "queries_per_s": len(starts) / wall}
+        log("sharded", f"(iii) reference {q}: {r['starts']} starts, {r['pairs']} pairs == oracle, q_bc/n_bc "
+            f"== host on {len(metered)}; {r['levels']} levels, {r['host_syncs']} host syncs, 0 kernel "
+            f"launches, {r['wall_ms']:.1f} ms, {r['queries_per_s']:.1f} queries/s")
+    del arrays
+    free()
+
+    # (ii) an 8,000-node twin on 16 sites, f32 tiles: B1, pairs and witness
+    g2 = alibaba_like(n_nodes=SHARD_F32_NODES, n_edges=SHARD_F32_EDGES, seed=SEED)
+    pl2 = distribute(g2, n_sites=SHARD_SITES, replication_rate=0.2, seed=SEED)
+    dg2 = to_device_graph(g2, dev)
+    index2 = paa.HostIndex(g2)
+    cas2 = {q: paa.compile_query(TABLE2_QUERIES[q], g2) for q in QUERIES}
+    truth2 = {q: query_truth(cas2[q], g2, dg2, rng) for q in QUERIES}
+    rec["ii_mem_available_gb"] = mem_available_gb()
+    log("sharded", f"(ii) twin of {g2.n_nodes} nodes, {g2.n_edges} edges on {SHARD_SITES} sites, K = "
+        f"{pl2.replication_factor:.4f}; MemAvailable {rec['ii_mem_available_gb']:.1f} GB before staging")
+    store = plans.GraphPlanStore(device=dev)
+    rec["ii_staging"] = stage_sharded(store, pl2, "f32", SHARD_AXES)
+    log_staging("(ii) f32", rec["ii_staging"])
+    for ax in SHARD_AXES:
+        for q in QUERIES:
+            t = truth2[q]
+            (answers, costs), r = sharded_run(f"sharded (ii) f32 axis {ax} {q}", pl2, cas2[q], t["starts"], t,
+                                              store, dev, ax, "f32")
+            launches[r["kernel"]] += r["launches"]
+            (w_answers, w_costs, levels), rw = sharded_run(
+                f"sharded (ii) f32 witness axis {ax} {q}", pl2, cas2[q], t["starts"], t, store, dev, ax,
+                "f32", semantics="witness")
+            launches[rw["kernel"]] += rw["launches"]
+            if not np.array_equal(w_answers, answers) or w_costs != costs:
+                raise AssertionError(f"sharded (ii) axis {ax} {q}: the witness run differs from the pairs run")
+            hops = check_witness_levels(q, cas2[q], g2, index2, t["starts"], answers, levels, rng,
+                                        f"sharded (ii) axis {ax}")
+            r["witness"] = {k: rw[k] for k in ("levels", "launches", "wall_ms")} | {"hops": hops}
+            rec[f"ii_axis{ax}_{q}"] = r
+            log("sharded", f"(ii) f32 axis {ax} {q}: {r['starts']} starts, {r['pairs']} pairs == oracle; "
+                f"{r['levels']} levels x {r['buckets']} bucket(s) = {r['launches']} B1 launches, "
+                f"{r['wall_ms']:.1f} ms, {r['queries_per_s']:.1f} queries/s; witness run {rw['wall_ms']:.1f} ms, "
+                f"levels == host_levels on 4 starts, {N_WITNESSES} witnesses ({hops} hops) valid")
+    rec["ii_pad"] = store.pad_stats()
+    rec["iv_b1"] = check_bucket_launch("(iv) q1 axis 4 f32", store, pl2, cas2["q1"], SHARD_AXES[-1], "f32",
+                                       dev, flush)
+    del store, dg2
+    free()
+    return dict(launches), pl16
+
+
 def check_schema(d: dict, schema: dict, path: str = "summary") -> None:
     """``d`` has exactly the keys of ``schema``, recursively where the
     schema holds keys (a None leaf is any value, {} any keys)."""
@@ -1224,9 +1549,10 @@ def check_serve_answers(answers, stream, oracle, what: str) -> None:
 
 class ServeTimers:
     """Host ms of the service's layers over one run, by wrapping its
-    calls: plan (``_plan``), Stage A (the plan store's ``staged_graph``,
-    and the bytes of the distinct staged graphs it returned: the full
-    store once, or each out-of-core assembly), S2 batching
+    calls: plan (``_plan``), Stage A (the plan store's ``staged_graph``
+    and ``staged_sharded``, and the bytes of the distinct stagings they
+    returned: the full store once, each out-of-core assembly, or the
+    per-site slabs), S2 batching
     (``run_s2_group`` less the executions inside it), S2 execution
     (``s2_execute``), the S1 gather (``s1_collect``) and feedback
     (``calibrator.observe``)."""
@@ -1238,6 +1564,7 @@ class ServeTimers:
         self._wrap(svc, "_plan", "plan")
         self._wrap(svc.calibrator, "observe", "feedback")
         self._wrap(svc.plan_store, "staged_graph", "stage_a")
+        self._wrap(svc.plan_store, "staged_sharded", "stage_a")
         self._wrap(strategies, "s2_execute", "s2_execute")
         self._wrap(strategies, "s1_collect", "s1_gather")
         self._wrap(batcher, "run_s2_group", "s2_group")
@@ -1278,10 +1605,11 @@ def serve_stats(answers, wall_s: float) -> dict:
             "plan_cache_hits": sum(a.plan_cache_hit for a in answers)}
 
 
-def serve_sync(svc, stream, **kw) -> tuple[list, dict]:
+def serve_sync(svc, stream, first_window: dict | None = None, **kw) -> tuple[list, dict]:
     """``stream`` through ``svc`` in windows of SERVE_WINDOW requests
     (enqueue the window, flush), timed and with its layers timed apart;
-    the launch counts are set to 0 just before."""
+    the launch counts are set to 0 just before.  ``first_window`` adds
+    its keywords to the first window's enqueues (``strategy="S1"``)."""
     timers = ServeTimers(svc)
     reset_launches()
     fops.FIXPOINT_COUNTERS.clear()
@@ -1289,7 +1617,8 @@ def serve_sync(svc, stream, **kw) -> tuple[list, dict]:
     t0 = time.perf_counter()
     answers = []
     for lo in range(0, len(stream), SERVE_WINDOW):
-        tickets = [svc.enqueue(wq.query, wq.starts, **kw) for wq in stream[lo : lo + SERVE_WINDOW]]
+        win_kw = {**kw, **(first_window or {})} if lo == 0 else kw
+        tickets = [svc.enqueue(wq.query, wq.starts, **win_kw) for wq in stream[lo : lo + SERVE_WINDOW]]
         svc.flush()
         answers += [t.result() for t in tickets]
     torch.cuda.synchronize()
@@ -1298,13 +1627,14 @@ def serve_sync(svc, stream, **kw) -> tuple[list, dict]:
     return answers, r
 
 
-def serve_launched(name: str, what: str) -> dict:
+def serve_launched(name: str, what: str, buckets: int = 1) -> dict:
     """The run's launches of level kernel ``name``: nonzero, one per
-    fixpoint level, and no other kernel."""
+    fixpoint level (and per shape bucket, on the sharded backend), and no
+    other kernel."""
     n = only_launched(name, what)
     levels = fops.FIXPOINT_COUNTERS["levels"]
-    if n != levels:
-        raise AssertionError(f"{what}: {n} {name} launches for {levels} levels")
+    if n != levels * buckets:
+        raise AssertionError(f"{what}: {n} {name} launches for {levels} levels x {buckets} buckets")
     return {"kernel": name, "launches": n, "levels": levels}
 
 
@@ -1345,13 +1675,16 @@ async def serve_open_loop(svc, stream, rate_qps: float, seed: int) -> tuple:
     return answers, rejected, wall, stats
 
 
-def phase_serve(g, placement, dg, dev, record) -> dict[str, int]:
-    """The serving runtime on the full twin (ROADMAP A10, A11): a 144-request
-    stream through ``QueryService`` on B4, its first 48 on B1 with the
-    whole f32 store and again under a 1 GiB out-of-core budget, 8 witness
-    requests on B2, the async front end at 1x and 2x the sync rate, and a
-    warm restart from a Stage-A snapshot.  Returns each level kernel's
-    launches on the path."""
+def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
+    """The serving runtime on the full twin (ROADMAP A10, A11, A12): a
+    144-request stream through ``QueryService`` on B4, its first 48 on B1
+    with the whole f32 store and again under a 1 GiB out-of-core budget,
+    8 witness requests on B2, the async front end at 1x and 2x the sync
+    rate, a warm restart from a Stage-A snapshot, the first 48 on the
+    default config (the reference backend, no kernel, one window forced
+    to S1), and the first 48 on the sharded backend over (i)'s 16-site
+    placement (B3) with a warm restart from its per-site snapshot.
+    Returns each level kernel's launches on the path."""
     rec = record["serve"] = {}
     overlay = random_overlay(placement.n_sites, PLAN_DEGREE, seed=PLAN_SEED)
     net = planner.probe_network(overlay, placement, seed=PLAN_SEED)
@@ -1510,6 +1843,65 @@ def phase_serve(g, placement, dg, dev, record) -> dict[str, int]:
         f"slabs), {ts['slabs_spilled']} spilled")
     check_schema(svc.summary(), SUMMARY_KEYS)
     del svc, b_answers, c_answers
+    free()
+
+    # (g) the first 48 on the default config: the reference backend, no kernel
+    svc = QueryService(placement, net, config=config(), device=dev)
+    g_answers, r = serve_sync(svc, prefix, first_window={"strategy": "S1"})
+    if sum(launch_counts().values()):
+        raise AssertionError(f"serve run (g): the reference backend launched kernels: {launch_counts()}")
+    check_serve_answers(g_answers, prefix, oracle, "serve run (g)")
+    if not {"S1", "S2"} <= set(r["strategies"]):
+        raise AssertionError(f"serve run (g): strategies {r['strategies']}, want S1 and S2 both")
+    check_schema(svc.summary(), SUMMARY_KEYS)
+    r["levels"] = fops.FIXPOINT_COUNTERS["levels"]
+    rec["g_reference"] = r
+    log_serve("g, default config = reference, first window S1", r)
+    del svc, g_answers
+    free()
+
+    # (h) the first 48 on the sharded backend over (i)'s placement: B3
+    overlay16 = random_overlay(pl16.n_sites, PLAN_DEGREE, seed=PLAN_SEED)
+    net16 = planner.probe_network(overlay16, pl16, seed=PLAN_SEED)
+    sharded_cfg = config(s2_backend="frontier_kernel_sharded", s2_tile_dtype="uint32")
+    svc = QueryService(pl16, net16, config=sharded_cfg, device=dev)
+    h_answers, r = serve_sync(svc, prefix)
+    n_buckets = len(svc.plan_store.tile_buckets(pl16, 128, 1, tile_dtype="uint32").buckets)
+    r.update(serve_launched("fused_level_blocks_u32", "serve run (h)", n_buckets))
+    check_serve_answers(h_answers, prefix, oracle, "serve run (h)")
+    check_schema(svc.summary(), SUMMARY_KEYS)
+    r["plan_pad_waste"] = svc.summary()["plan_pad_waste"]
+    rec["h_sharded"] = r
+    launches[r["kernel"]] += r["launches"]
+    log_serve("h, sharded/uint32 on 16 sites", r)
+    with tempfile.TemporaryDirectory(prefix="repro-stage-a-") as tmp:
+        path = os.path.join(tmp, "stage_a.pkl")
+        t0 = time.perf_counter()
+        manifest = svc.save_plan_store(path)
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        del svc
+        free()
+        svc = QueryService(pl16, net16, config=sharded_cfg, device=dev)
+        t0 = time.perf_counter()
+        if not svc.restore_plan_store(path):
+            raise AssertionError("serve run (h): the per-site snapshot did not restore")
+        restore_s = time.perf_counter() - t0
+    fops.reset_build_counters()
+    first, r = serve_sync(svc, stream[:1], strategy="S2")
+    r.update(serve_launched("fused_level_blocks_u32", "serve run (h), restored", n_buckets))
+    check_serve_answers(first, stream[:1], oracle, "serve run (h), restored")
+    packed = {k: fops.BUILD_COUNTERS[k] for k in ("pack_blocks", "stage_sharded_graph")}
+    if any(packed.values()):
+        raise AssertionError(f"serve run (h): the restored service packed tiles: {packed}")
+    r.update({"manifest": manifest, "snapshot_bytes": size, "save_s": save_s, "restore_s": restore_s,
+              "build_counters": dict(fops.BUILD_COUNTERS)})
+    rec["h_restore"] = r
+    launches[r["kernel"]] += r["launches"]
+    log("serve", f"(h): the per-site Stage A saved ({manifest['n_entries']} entries, {size / 1e9:.3f} GB) in "
+        f"{save_s:.1f} s, restored into a fresh service in {restore_s:.1f} s; its first S2 request packed "
+        f"0 tiles ({dict(fops.BUILD_COUNTERS)}), {r['launches']} B3 launches = levels x buckets, "
+        f"{r['wall_s'] * 1e3:.1f} ms; answers == device BFS")
+    del svc, first, h_answers
     free()
     return dict(launches)
 
@@ -1872,7 +2264,14 @@ def main() -> int:
                                         record["witness"]["b1_counts_at_bound_max_abs_err"])
     phase_end("witness")
 
-    for name, n in phase_serve(g, placement, dg, dev, record).items():
+    sharded_launches, pl16 = phase_sharded(g, placement, cas, truth, dg, dev, flush, record)
+    for name, n in sharded_launches.items():
+        launches[name] += n
+    for name, check in (("fused_level_blocks", "iv_b1"), ("fused_level_blocks_u32", "iv_b3")):
+        max_err[name] = max(max_err[name], record["sharded"][check]["max_abs_err"])
+    phase_end("sharded")
+
+    for name, n in phase_serve(g, placement, pl16, dg, dev, record).items():
         launches[name] += n
     phase_end("serve")
 

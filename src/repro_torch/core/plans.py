@@ -2,8 +2,8 @@
 
 Port of ``repro/core/plans.py``.  Everything here is **graph-dependent
 and automaton-independent**, built once per ``(graph-stats epoch,
-block_size, placement)`` and shared by every automaton signature, both
-fused backends, and all sites:
+block_size, placement)`` and shared by every automaton signature, every
+kernel backend, and all sites:
 
 * the staged global tile tensor —
   :func:`repro_torch.kernels.frontier.ops.stage_graph`, keyed by tile
@@ -11,8 +11,15 @@ fused backends, and all sites:
   ``tile_store_budget_bytes``, backed by the byte-budgeted out-of-core
   :class:`_SlabCache` (cold per-(direction, label) host slabs spill to
   disk and reload on touch),
-* the placement's padded site edge arrays on the device (S1's gather
-  operands),
+* staged per-site tile slabs —
+  :func:`repro_torch.kernels.frontier.ops.stage_sharded_graph` (the
+  ``frontier_kernel_sharded`` backend), their group-granular merges and
+  their power-of-two shape buckets on the device —
+  :func:`~repro_torch.kernels.frontier.ops.bucket_staged_sites`, keyed by
+  (axis_size, floor) on top of the staging key; the resulting
+  ``bucket_id`` also joins the executor cache's graph key,
+* the placement's padded site edge arrays on the device (the
+  ``reference`` executor's and S1's gather operands),
 * per-site site-local graph views,
 * per-(site, label, direction) degree vectors — the §4.2.2 meter vectors
   of :func:`repro_torch.core.strategies._site_symbol_degrees` reduce to
@@ -20,7 +27,8 @@ fused backends, and all sites:
 
 The store holds its artifacts on its ``device``.  The automaton-dependent
 half (Stage B) stays in
-:func:`repro_torch.kernels.frontier.ops.build_level_schedule`; it packs
+:func:`repro_torch.kernels.frontier.ops.build_level_schedule` and
+:func:`~repro_torch.kernels.frontier.ops.build_sharded_level_schedule`; it packs
 no tile, so a warm executor build for a new query signature on a hot
 graph packs zero tiles.
 
@@ -31,10 +39,6 @@ executor already built against the old epoch keeps its staged tensors
 alive through its own closure and completes normally.  The device memory
 frees once the last executor holding them is released too (see
 :class:`repro_torch.serve.plancache.ExecutorCache`).
-
-The site-sharded artifacts (``staged_sharded``, ``staged_merged``,
-``tile_buckets``) raise ``NotImplementedError``: they come with the
-site-sharded backend (``ROADMAP.md`` A12).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import os
 import shutil
 import tempfile
 import weakref
-from collections import Counter, OrderedDict
+from collections import OrderedDict
 from typing import Any, Callable, Hashable
 
 import numpy as np
@@ -227,17 +231,14 @@ class GraphPlanStore:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
-        # grid-step padding accounting of sharded plans (A12 fills it;
-        # the serve summary reads it)
+        # grid-step padding accounting of every sharded plan built
+        # against this store (see record_plan_pad_waste)
         self._pad_useful = 0
         self._pad_padded = 0
         self._bucket_steps: dict[str, int] = {}
         # edge-list slices consumed by chunked Stage-A packing through
         # this store; feeds the serve `frontier_mem` block
         self._staging_chunks = 0
-        # snapshot entries a restore skipped, by kind (staged_sharded until
-        # A12; see repro_torch.serve.persist)
-        self.skipped_on_restore: Counter = Counter()
 
     # -- core get-or-build --------------------------------------------------
 
@@ -324,25 +325,68 @@ class GraphPlanStore:
             lambda: [placement.local_graph(s) for s in range(placement.n_sites)],
         )
 
-    def staged_sharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GraphPlanStore.staged_sharded (per-site staging) is not ported yet (ROADMAP.md A12)"
+    def staged_sharded(
+        self, placement: Placement, block_size: int = 128, epoch: int = 0, tile_dtype: str = "f32"
+    ) -> fops.StagedShardedGraph:
+        """The sharded backend's per-site staged host slabs (keyed by tile
+        dtype like :meth:`staged_graph`; the sharded path stages whole
+        placements, so it gets the dtype but not the byte budget, as in
+        ``repro``)."""
+        key = ("staged_sharded", id(placement), epoch, block_size, tile_dtype)
+        return self._get(
+            key, placement, epoch,
+            lambda: fops.stage_sharded_graph(
+                self.local_graphs(placement, epoch), block_size, tile_dtype
+            ),
         )
 
-    def staged_merged(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GraphPlanStore.staged_merged (device-granular site merges) is not ported yet "
-            "(ROADMAP.md A12)"
+    def staged_merged(
+        self,
+        placement: Placement,
+        block_size: int = 128,
+        n_groups: int = 1,
+        epoch: int = 0,
+        tile_dtype: str = "f32",
+    ) -> fops.StagedShardedGraph:
+        """Group-granular staging: each group's co-located sites merged
+        into one deduplicated union slab
+        (:func:`~repro_torch.kernels.frontier.ops.merge_staged_sites`), the
+        sharded executor's expansion operand.  When every site is its own
+        group this is the per-site staging itself (no copy)."""
+        key = ("staged_merged", id(placement), epoch, block_size, n_groups, tile_dtype)
+        return self._get(
+            key, placement, epoch,
+            lambda: fops.merge_staged_sites(
+                self.staged_sharded(placement, block_size, epoch, tile_dtype), n_groups
+            ),
         )
 
-    def tile_buckets(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GraphPlanStore.tile_buckets (sharded shape buckets) is not ported yet (ROADMAP.md A12)"
+    def tile_buckets(
+        self,
+        placement: Placement,
+        block_size: int = 128,
+        axis_size: int = 1,
+        epoch: int = 0,
+        floor: int = fops.BUCKET_FLOOR,
+        tile_dtype: str = "f32",
+    ) -> fops.ShardedTileBuckets:
+        """The sharded backend's Stage-A shape buckets: the merged slabs
+        grouped into power-of-two tile classes and stacked on the store's
+        device per bucket.  Keyed by (placement, axis_size, floor) on top
+        of the staging key; the resulting ``bucket_id`` joins the executor
+        cache's graph key."""
+        key = ("tile_buckets", id(placement), epoch, block_size, axis_size, floor, tile_dtype)
+        return self._get(
+            key, placement, epoch,
+            lambda: fops.bucket_staged_sites(
+                self.staged_merged(placement, block_size, axis_size, epoch, tile_dtype),
+                axis_size, floor, self.device,
+            ),
         )
 
     def site_device_arrays(self, placement: Placement, epoch: int = 0) -> dict[str, torch.Tensor]:
         """The placement's padded per-site edge arrays on the store's
-        device (S1's gather operands)."""
+        device (the ``reference`` executor's and S1's gather operands)."""
         key = ("site_arrays", id(placement), epoch)
         return self._get(
             key, placement, epoch,
@@ -408,10 +452,10 @@ class GraphPlanStore:
     # -- padding accounting --------------------------------------------------
 
     def record_plan_pad_waste(self, plan) -> None:
-        """Accumulate one sharded plan's grid-step padding accounting
-        (``useful_steps``, ``padded_steps``, and per bucket
-        ``"<n_steps>x<n_tiles>"`` the executed steps).  Accounting only:
-        the sharded plans that call it come with A12."""
+        """Accumulate one sharded plan's grid-step padding accounting:
+        ``useful`` counts each site's own (unpadded) schedule length,
+        ``padded`` the grid slots its shape bucket executes, and per bucket
+        ``"<n_steps>x<n_tiles>"`` the executed steps."""
         self._pad_useful += int(plan.useful_steps)
         self._pad_padded += int(plan.padded_steps)
         for b in plan.buckets:
@@ -428,7 +472,9 @@ class GraphPlanStore:
         """Staged tile-store accounting across every live entry: bytes per
         tile dtype (full stagings count their device tensor, slab caches
         their resident host slabs) plus the out-of-core spill and reload
-        counters.  Entries are deduplicated by artifact identity."""
+        counters.  Entries are deduplicated by artifact identity
+        (``staged_merged`` may be ``staged_sharded`` itself); per-site
+        stagings count their host slabs, as ``repro``'s do."""
         bytes_by_dtype = {d: 0 for d in fops.TILE_DTYPES}
         slabs_resident = slabs_spilled = spills = reloads = 0
         seen: set[int] = set()
@@ -442,7 +488,7 @@ class GraphPlanStore:
                 slabs_spilled += v.spilled_slabs()
                 spills += v.spills
                 reloads += v.reloads
-            elif isinstance(v, fops.StagedGraph):
+            elif isinstance(v, (fops.StagedGraph, fops.StagedShardedGraph)):
                 bytes_by_dtype[v.tile_dtype] += v.tile_store_bytes
         return {
             "bytes_by_dtype": bytes_by_dtype,

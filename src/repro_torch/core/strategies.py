@@ -10,9 +10,12 @@ Port of ``repro/core/strategies.py``:
 * **S2 — bottom-up** (§3.3, §4.2.2): the PAA runs at the querying site;
   each BFS level's neighbour lookup is a broadcast search answered by the
   sites holding matching edges, with a local cache deduplicating repeated
-  searches.  Two global fused backends: ``frontier_kernel`` (8 stacked
-  queries in f32 rows) and ``frontier_kernel_packed`` (256 query lanes in
-  int32 words), on either tile store.
+  searches.  Four backends: ``reference`` (plain torch on the padded
+  site arrays, no kernel; ``repro``'s default), the global fused
+  ``frontier_kernel`` (8 stacked queries in f32 rows) and
+  ``frontier_kernel_packed`` (256 query lanes in int32 words), and the
+  site-sharded fused ``frontier_kernel_sharded`` with per-site meters;
+  the kernel backends on either tile store.
 * **S3 — query shipping** (§3.1/§3.5.5) and **S4 — query decomposition**
   (§3.2/§3.5.6) are meters only, as in ``repro``.
 
@@ -20,21 +23,23 @@ The meters count message symbols with the paper's conventions (a symbol
 = one node id or label; an edge = 3 symbols; broadcasting b symbols costs
 2·N_c·b messages).
 
-Both fused backends also run ``semantics="witness"``: the fixpoint
-carries each product state's discovery level, the implicit parent
-pointers of :mod:`repro_torch.core.witness`.
+Every backend also runs ``semantics="witness"``: the fixpoint carries
+each product state's discovery level, the implicit parent pointers of
+:mod:`repro_torch.core.witness`.
 
 Executor builds are two-stage: with ``plan_store`` (a
-:class:`repro_torch.core.plans.GraphPlanStore`) the fused backends fetch
-their Stage A — the staged tiles, under a ``tile_store_budget_bytes``
-the out-of-core subset, and the per-label degree vectors — from the
-shared store, and only Stage B is built per executor.
+:class:`repro_torch.core.plans.GraphPlanStore`) the kernel backends fetch
+their Stage A — the staged tiles (under a ``tile_store_budget_bytes``
+the out-of-core subset; per site, merged and bucketed for the sharded
+backend) and the per-label degree vectors — from the shared store, and
+only Stage B is built per executor.
 
-What waits for a later slice (each raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item): the ``reference`` and ``frontier_kernel_sharded``
-backends and the multi-device S1 gather (A12).  The ``mesh``,
-``site_axes`` and ``batch_axis`` parameters of ``repro`` are dropped: on
-one device nothing uses them.
+Everything runs on one device.  ``repro``'s ``mesh``, ``site_axes`` and
+``batch_axis`` are dropped; the sharded backend takes ``axis_size``, the
+product of ``repro``'s site-axis sizes, in their place, and merges its
+sites' discoveries synchronously each level where ``repro`` runs a
+``ppermute`` ring.  The multi-device S1 gather and that ring wait for a
+multi-GPU slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -70,7 +75,9 @@ class StrategyCost:
     ``unicast_symbols`` is D_s1 / D_s2 — *single-copy* data, the K
     replication multiplier is applied by the cost functions (Eqs. 1–2).
     ``site_unicast_symbols`` is the measured per-site response breakdown
-    that only the site-sharded backend (A12) fills in."""
+    (raw symbols each site unicast, copies included) that only the
+    site-sharded backend fills in; its sum is the K-weighted response
+    total."""
 
     strategy: str
     broadcast_symbols: float
@@ -418,29 +425,20 @@ def _site_symbol_degrees(
     return deg, payloads
 
 
-_PORTED = {
-    "backend": ("frontier_kernel", "frontier_kernel_packed"),
-    "semantics": ("pairs", "witness"),
-    "tile_dtype": fops.TILE_DTYPES,
-}
-_NOT_PORTED = {
-    "backend": {"reference": "A12", "frontier_kernel_sharded": "A12"},
-    "semantics": {},
-    "tile_dtype": {},
-}
+BACKENDS = ("reference", "frontier_kernel", "frontier_kernel_packed", "frontier_kernel_sharded")
+SEMANTICS = ("pairs", "witness")
 
 
 def _require_ported(backend: str, semantics: str, tile_dtype: str) -> None:
-    for name, value in (("backend", backend), ("semantics", semantics), ("tile_dtype", tile_dtype)):
-        if value in _PORTED[name]:
-            continue
-        item = _NOT_PORTED[name].get(value)
-        if item is None:
-            raise ValueError(f"unknown {name}={value!r}")
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported yet (ROADMAP.md {item}); "
-            f"this package runs {name} in {_PORTED[name]}"
-        )
+    """Raise ``ValueError`` for a backend, semantics or tile dtype this
+    package does not know."""
+    for name, value, known in (
+        ("backend", backend, BACKENDS),
+        ("semantics", semantics, SEMANTICS),
+        ("tile_dtype", tile_dtype, fops.TILE_DTYPES),
+    ):
+        if value not in known:
+            raise ValueError(f"unknown {name}={value!r}; this package runs {name} in {known}")
 
 
 def make_s2_step_fn(
@@ -458,25 +456,48 @@ def make_s2_step_fn(
     plan_store=None,
     stats_epoch: int = 0,
     tile_store_budget_bytes: int | None = None,
+    placement: Placement | None = None,
+    axis_size: int = 1,
+    bucket_floor: int | None = None,
 ):
     """Build the batched S2 executor.
 
-    ``backend="frontier_kernel"`` — the fused level kernel: the whole BFS
-    level over all transitions is ONE launch on the block-sparse tiles of
-    ``graph`` (required), with up to 8 queries stacked into the rows of
-    each automaton state.  ``backend="frontier_kernel_packed"`` — the
-    same level on int32 lane words: 256 queries per fixpoint, one bit
-    each.  ``tile_dtype`` picks the tile store either backend reads:
-    ``"f32"`` or the ``"uint32"`` bit-planes.  ``replication_factor``
-    scales the unicast symbols to ``repro``'s summed-per-site convention
-    (in f32, as ``repro`` does) so :func:`s2_execute` can divide it back
-    out.
-    Retrieval is modeled on the deduplicated *global* graph.
+    Four backends share one call contract:
 
-    Stage A comes from one of three places: ``staged``, a prebuilt
-    Stage A (:func:`repro_torch.kernels.frontier.ops.stage_graph` of
-    ``graph`` at ``block_size`` and ``tile_dtype``); ``plan_store``, the
-    shared :class:`~repro_torch.core.plans.GraphPlanStore`, keyed by
+    * ``"reference"`` — plain torch on the placement's padded site edge
+      arrays, no kernel (``repro``'s is plain ``jnp`` under ``shard_map``):
+      per BFS level each transition run gathers the frontier at one end
+      of the matching edges and OR-scatters it into the other.  On one
+      device the sites are one edge set, so ``repro``'s ``pmax`` and
+      ``psum`` over the site axes vanish.  It reads the site arrays at
+      call time (see below), and nothing at build time.
+    * ``"frontier_kernel"`` — the fused level kernel: the whole BFS level
+      over all transitions is ONE launch on the block-sparse tiles of
+      ``graph`` (required), with up to 8 queries stacked into the rows of
+      each automaton state.
+    * ``"frontier_kernel_packed"`` — the same level on int32 lane words:
+      256 queries per fixpoint, one bit each.
+    * ``"frontier_kernel_sharded"`` — the fused level on *site-local*
+      tiles (``placement`` required): each site's tiles come from its own
+      edges, the sites of each of ``axis_size`` groups are merged into one
+      grid (as ``repro``'s ``shard_map`` blocks them over its site axes,
+      whose size product ``axis_size`` stands for) and padded only to
+      their power-of-two shape bucket (``bucket_floor`` sets the smallest
+      class), and each level is one B1 or B3 launch per bucket, merged
+      synchronously.  Its meters run per site.
+
+    ``tile_dtype`` picks the tile store the kernel backends read: ``"f32"``
+    or the ``"uint32"`` bit-planes.  ``replication_factor`` scales the
+    global fused backends' unicast symbols to ``repro``'s summed-per-site
+    convention (in f32, as ``repro`` does) so :func:`s2_execute` can
+    divide it back out; the reference and sharded backends count every
+    site's matched edges, replicas included.
+
+    The global fused backends take Stage A from one of three places:
+    ``staged``, a prebuilt Stage A
+    (:func:`repro_torch.kernels.frontier.ops.stage_graph` of ``graph`` at
+    ``block_size`` and ``tile_dtype``); ``plan_store``, the shared
+    :class:`~repro_torch.core.plans.GraphPlanStore`, keyed by
     ``stats_epoch`` (its device is the executor's, and it also serves the
     meters' per-label degree vectors); or neither, and the executor
     stages its own on ``device`` (``None``: the GPU).
@@ -484,14 +505,22 @@ def make_s2_step_fn(
     needs ``plan_store``: Stage A is assembled from only the automaton's
     required (direction, label) slabs, cold host slabs spilling to disk
     beyond the budget (see
-    :meth:`repro_torch.core.plans.GraphPlanStore.staged_graph`).
+    :meth:`repro_torch.core.plans.GraphPlanStore.staged_graph`).  The
+    sharded backend takes its per-site staging, merges and buckets from
+    ``plan_store`` or builds them on ``device``; it honours the dtype but
+    not the budget, as ``repro``'s does.
 
     Returns ``fn(starts) -> (answers, q_bc, d_s2, n_bc)``: ``starts``
     (B,) int node ids; answers (B, n_nodes) bool, and per start the
     observed §4.2 meters — broadcast symbols, unicast response symbols
     (× K) and distinct broadcast searches — all torch tensors on the
-    device.  The meters dedup broadcasts by (symbol-set, node), the
-    §4.2.2 cache key, so they agree with the host meter.
+    device.  The reference backend's is ``fn(starts, site_arrays)``,
+    ``site_arrays`` the placement's padded site arrays on the device
+    (:func:`stage_site_arrays`).  The sharded backend
+    appends a fifth output, ``d_s2_sites`` (n_sites, B): each site's
+    unicast symbols.  The meters dedup broadcasts by (symbol-set, node),
+    the §4.2.2 cache key, so they agree with the host meter.  ``fn.backend``
+    names the backend.
 
     ``semantics="witness"`` grows the fixpoint's carry by one f32
     *discovery level* plane (see :mod:`repro_torch.core.witness`) and
@@ -511,15 +540,152 @@ def make_s2_step_fn(
                 f"tile_dtype {staged.tile_dtype!r} (pass an f32 Stage A, or none)"
             )
         tile_dtype = "f32"
-    make = (
-        _make_frontier_packed_step_fn
-        if backend == "frontier_kernel_packed"
-        else _make_frontier_step_fn
-    )
-    return make(
-        ca, n_nodes, max_levels, graph, replication_factor, block_size, tile_dtype,
-        staged, device, semantics, plan_store, stats_epoch, tile_store_budget_bytes,
-    )
+    if backend in ("reference", "frontier_kernel_sharded") and staged is not None:
+        raise ValueError(f"staged= is the global Stage A; backend={backend!r} does not read it")
+    if backend == "reference":
+        fn = _make_reference_step_fn(ca, n_nodes, max_levels, semantics)
+    elif backend == "frontier_kernel_sharded":
+        fn = _make_frontier_sharded_step_fn(
+            ca, n_nodes, max_levels, placement, block_size, tile_dtype, device, semantics,
+            plan_store, stats_epoch, axis_size,
+            fops.BUCKET_FLOOR if bucket_floor is None else bucket_floor,
+        )
+    else:
+        make = (
+            _make_frontier_packed_step_fn
+            if backend == "frontier_kernel_packed"
+            else _make_frontier_step_fn
+        )
+        fn = make(
+            ca, n_nodes, max_levels, graph, replication_factor, block_size, tile_dtype,
+            staged, device, semantics, plan_store, stats_epoch, tile_store_budget_bytes,
+        )
+    fn.backend = backend
+    return fn
+
+
+# the reference executor's budget for its (query chunk, matched edge)
+# temporaries: a bool gather and an int32 scatter operand per pair
+REFERENCE_CHUNK_BYTES = 2**30
+_REFERENCE_BYTES_PER_PAIR = 5
+
+
+def _reference_edge_sets(ca, runs, sgroups, site_arrays: dict[str, torch.Tensor], n_nodes: int):
+    """The reference executor's loop-invariant edge sets over the padded
+    site arrays, flattened into one edge set (``repro``'s ``local`` on one
+    device): per transition run the (src, dst) ids of its matching valid
+    edges, compacted; per symbol-set group and direction selection (in
+    ``repro``'s order) the count of matching edges at each node of the
+    search end, as f64 for an exact product with the broadcast bitmap."""
+    src, lbl, dst, mask = (site_arrays[k].reshape(-1) for k in ("src", "lbl", "dst", "mask"))
+
+    def range_sel(lo, hi):
+        return mask if lo is None else mask & (lbl >= lo) & (lbl <= hi)
+
+    run_edges = []
+    for _, _, _, lo, hi in runs:
+        idx = torch.nonzero(range_sel(lo, hi)).flatten()
+        run_edges.append((src[idx].long(), dst[idx].long()))
+    group_degs = []
+    for symset, _ in sgroups:
+        by_dir: dict[int, list[int]] = {}
+        for lid, dirn in symset:
+            by_dir.setdefault(dirn, []).append(lid)
+        degs = []
+        for dirn in sorted(by_dir):
+            for lo, hi in _fuse_label_runs(by_dir[dirn]):
+                end = (src if dirn == FWD else dst)[range_sel(lo, hi)].long()
+                degs.append(torch.bincount(end, minlength=n_nodes).double())
+        group_degs.append(degs)
+    return run_edges, group_degs
+
+
+def _make_reference_step_fn(
+    ca: CompiledAutomaton, n_nodes: int, max_levels: int | None, semantics: str = "pairs"
+):
+    """The reference S2 executor (``backend="reference"``), the body of
+    ``repro``'s ``make_s2_step_fn`` in plain torch on the padded site
+    arrays, with no kernel.
+
+    Each call batches its starts, in chunks sized so that the (chunk,
+    edges) temporaries of the largest transition run stay under
+    :data:`REFERENCE_CHUNK_BYTES` (edges: the run's matching valid edges,
+    compacted once per call), and runs one fixpoint per chunk, with one
+    host sync per level.  A level gathers, per transition run, the
+    frontier at one end of the run's edges and OR-scatters it into the
+    other with an int32 ``scatter_add_`` (a count, never a wrapping
+    uint8 sum), thresholded ``> 0``.
+
+    The §4.2 meters run before each expansion, as ``repro``'s: per
+    symbol-set group the newly broadcast nodes (the (group, node) dedup
+    bitmap), their count, and per direction selection the matching edges
+    at them, added in f32 in ``repro``'s order — per level, per group, per
+    selection — so the sums are bit-exact while below 2^24.  Each edge
+    count is a float64 product of the bitmap with the selection's degree
+    vector: exact whatever TF32 setting is on.  ``d_s2`` sums every
+    site's copies.  Witness levels are stamped after the merge, so there
+    is one plane, as in ``repro``."""
+    witness = semantics == "witness"
+    n_states = ca.n_states
+    levels = max_levels if max_levels is not None else n_states * n_nodes
+    runs = transition_runs(ca)
+    sgroups = symbol_set_groups(ca)
+
+    def fixpoint(starts: torch.Tensor, run_edges, group_degs):
+        dev, b = starts.device, starts.shape[0]
+        rows = torch.arange(b, device=dev)
+        visited = torch.zeros((b, n_states, n_nodes), dtype=torch.bool, device=dev)
+        visited[rows, ca.start, starts] = True
+        frontier = visited
+        done = [torch.zeros((b, n_nodes), dtype=torch.bool, device=dev) for _ in sgroups]
+        q_bc = torch.zeros(b, device=dev)
+        d_s2 = torch.zeros(b, device=dev)
+        n_bc = torch.zeros(b, dtype=torch.int64, device=dev)
+        levmap = fops.initial_levels(visited) if witness else None
+        lev = 0
+        while lev < levels and fops.frontier_nonempty(frontier):
+            for gi, (symset, states) in enumerate(sgroups):
+                now_g = frontier[:, list(states)].any(dim=1)
+                new_g = now_g & ~done[gi]
+                n_new = new_g.sum(dim=1)
+                q_bc = q_bc + (1 + len(symset)) * n_new.float()
+                n_bc = n_bc + n_new
+                for deg in group_degs[gi]:
+                    d_s2 = d_s2 + EDGE_SYMBOLS * (new_g.double() @ deg).float()
+                done[gi] = done[gi] | now_g
+            nxt = torch.zeros_like(frontier)
+            for (s_st, d_st, direction, _, _), (e_src, e_dst) in zip(runs, run_edges):
+                at, to = (e_src, e_dst) if direction == FWD else (e_dst, e_src)
+                hits = torch.zeros((b, n_nodes), dtype=torch.int32, device=dev)
+                hits.scatter_add_(1, to.expand(b, -1), frontier[:, s_st, at].int())
+                nxt[:, d_st] |= hits > 0
+            new = nxt & ~visited
+            if witness:
+                levmap.masked_fill_(new, lev + 2.0)
+            visited = visited | new
+            frontier = new
+            lev += 1
+            fops.FIXPOINT_COUNTERS["levels"] += 1
+        acc = visited[:, list(ca.accepting)].any(dim=1)
+        out = (acc, q_bc, d_s2, n_bc.to(torch.int32))
+        return out + (levmap,) if witness else out
+
+    def fn(starts, site_arrays=None) -> tuple[torch.Tensor, ...]:
+        if site_arrays is None:
+            raise ValueError("backend='reference' reads the placement's padded site arrays: "
+                             "pass site_arrays (stage_site_arrays, or s2_execute's device_arrays=)")
+        dev = site_arrays["src"].device
+        run_edges, group_degs = _reference_edge_sets(ca, runs, sgroups, site_arrays, n_nodes)
+        widest = max([len(e) for e, _ in run_edges], default=0)
+        chunk = max(1, REFERENCE_CHUNK_BYTES // max(_REFERENCE_BYTES_PER_PAIR * widest, 1))
+        starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+        outs = [fixpoint(starts[lo : lo + chunk], run_edges, group_degs)
+                for lo in range(0, starts.shape[0], chunk)]
+        if not outs:
+            outs = [fixpoint(starts, run_edges, group_degs)]
+        return tuple(torch.cat(col) for col in zip(*outs))
+
+    return fn
 
 
 def _fetch_staged_graph(
@@ -808,12 +974,163 @@ def _make_frontier_packed_step_fn(
     return fn
 
 
+def _make_frontier_sharded_step_fn(
+    ca: CompiledAutomaton,
+    n_nodes: int,
+    max_levels: int | None,
+    placement: Placement | None,
+    block_size: int,
+    tile_dtype: str,
+    device,
+    semantics: str,
+    plan_store,
+    stats_epoch: int,
+    axis_size: int,
+    bucket_floor: int,
+):
+    """The site-sharded S2 executor (``backend="frontier_kernel_sharded"``),
+    ``repro``'s ``_make_frontier_sharded_step_fn`` on one device.
+
+    Stage A — the per-site slabs, their merge into ``axis_size`` groups,
+    the groups' shape buckets on the device, the site-local graphs and
+    their per-label degree vectors — comes from ``plan_store`` when one
+    is passed; only Stage B is built per executor, and the plan's padding
+    feeds ``plan_store.record_plan_pad_waste``.  ``repro`` blocks the sites
+    over its mesh's site axes; ``axis_size`` is the product of their
+    sizes, and the sites block over it the same way, so the merged grids
+    and buckets are ``repro``'s.
+
+    One level (:func:`~repro_torch.kernels.frontier.ops.expand_level_sharded`):
+    the frontier is extended once, each bucket is one B1 or B3 launch
+    over its members' work list, and the buckets are max-merged and
+    clamped — a synchronous OR merge, where ``repro`` forwards each
+    iteration's discoveries around a ``ppermute`` ring.  So a level is a
+    BFS level at every ``axis_size``: ``max_levels`` bounds BFS levels
+    (``repro`` multiplies it by ``axis_size`` for its ring), and witness
+    levels are BFS levels (``repro`` stamps ring iterations above
+    ``axis_size = 1``, equal to BFS levels at 1).
+
+    The §4.2 meters run on the merged frontier with the (group, node)
+    dedup bitmap, per site: ``d_site`` (n_sites, q_pad) adds each site's
+    matching edges at the newly broadcast nodes, as an f64 product of the
+    site's degree vectors with the bitmap — exact whatever TF32 setting
+    is on, where an f32 product would round through TF32 on the card —
+    cast to f32 and added in ``repro``'s order.  Every product state
+    enters the merged frontier once, as it enters each of ``repro``'s
+    per-device pending streams once, so the per-site meters are
+    ``repro``'s at every ``axis_size``.  ``d_s2`` is their sum over
+    sites."""
+    if placement is None:
+        raise ValueError(
+            "backend='frontier_kernel_sharded' requires placement= (the site partition)"
+        )
+    if placement.graph.n_nodes != n_nodes:
+        raise ValueError(f"placement has {placement.graph.n_nodes} nodes, executor built for {n_nodes}")
+    if placement.n_sites % axis_size:
+        raise ValueError(
+            f"n_sites={placement.n_sites} must be divisible by axis_size={axis_size} "
+            "(sites are blocked over the site axes)"
+        )
+    if plan_store is not None:
+        site_graphs = plan_store.local_graphs(placement, epoch=stats_epoch)
+        exec_staged = plan_store.staged_merged(
+            placement, block_size, axis_size, epoch=stats_epoch, tile_dtype=tile_dtype
+        )
+        tile_buckets = plan_store.tile_buckets(
+            placement, block_size, axis_size, epoch=stats_epoch, floor=bucket_floor,
+            tile_dtype=tile_dtype,
+        )
+    else:
+        site_graphs = [placement.local_graph(s) for s in range(placement.n_sites)]
+        staged = fops.stage_sharded_graph(site_graphs, block_size, tile_dtype)
+        exec_staged = fops.merge_staged_sites(staged, axis_size)
+        tile_buckets = fops.bucket_staged_sites(exec_staged, axis_size, bucket_floor, device)
+    plan = fops.build_sharded_level_schedule(
+        ca, exec_staged, tile_buckets, axis_size=axis_size, bucket_floor=bucket_floor
+    )
+    if plan_store is not None:
+        plan_store.record_plan_pad_waste(plan)
+    dev = plan.buckets[0].tiles.device
+    witness = semantics == "witness"
+    n_states, q_pad, v_pad = ca.n_states, plan.q_pad, plan.v_pad
+    levels = max_levels if max_levels is not None else n_states * n_nodes
+    sgroups = symbol_set_groups(ca)
+    label_deg = (
+        plan_store.label_degrees(
+            placement, site_graphs, placement.graph.n_labels, v_pad, epoch=stats_epoch
+        )
+        if plan_store is not None
+        else None
+    )
+    deg, payloads = _site_symbol_degrees(sgroups, site_graphs, v_pad, label_deg)
+    deg64 = torch.from_numpy(deg).to(dev, torch.float64)  # (n_sites, n_groups, v_pad)
+    pay_c = torch.from_numpy(payloads).to(dev)
+    n_sites = placement.n_sites
+
+    def fixpoint(f0: torch.Tensor):  # (n_states, q_pad, v_pad) f32 0/1
+        visited = frontier = f0.reshape(n_states * q_pad, v_pad)
+        done = [torch.zeros((q_pad, v_pad), device=dev) for _ in sgroups]
+        q_bc = torch.zeros(q_pad, device=dev)
+        n_bc = torch.zeros(q_pad, device=dev)
+        d_site = torch.zeros((n_sites, q_pad), device=dev)
+        levmap = fops.initial_levels(visited > 0) if witness else None
+        lev = 0
+        while lev < levels and fops.frontier_nonempty(frontier):
+            fr3 = frontier.reshape(n_states, q_pad, v_pad)
+            for gi, (_, states) in enumerate(sgroups):
+                now_g = functools.reduce(torch.maximum, (fr3[s] for s in states))
+                new_g = now_g * (1.0 - done[gi])
+                cnt = new_g.sum(dim=1)
+                q_bc = q_bc + pay_c[gi] * cnt
+                n_bc = n_bc + cnt
+                d_site = d_site + EDGE_SYMBOLS * (deg64[:, gi] @ new_g.double().T).float()
+                done[gi] = torch.maximum(done[gi], now_g)
+            nxt = fops.expand_level_sharded(plan, frontier)
+            new = nxt * (1.0 - visited)
+            if witness:
+                levmap.masked_fill_(new > 0, lev + 2.0)
+            visited = torch.maximum(visited, new)
+            frontier = new
+            lev += 1
+            fops.FIXPOINT_COUNTERS["levels"] += 1
+        vis3 = visited.reshape(n_states, q_pad, v_pad)
+        acc = torch.zeros((q_pad, v_pad), device=dev)
+        for qf in ca.accepting:
+            acc = torch.maximum(acc, vis3[qf])
+        out = (acc[:, :n_nodes] > 0, q_bc, n_bc, d_site)
+        if witness:  # (n_states, q_pad, v_pad) -> (q_pad, n_states, n_nodes)
+            out += (levmap.reshape(n_states, q_pad, v_pad).transpose(0, 1)[:, :, :n_nodes],)
+        return out
+
+    def fn(starts) -> tuple[torch.Tensor, ...]:
+        starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+        b = starts.shape[0]
+        outs = [(
+            torch.zeros((0, n_nodes), dtype=torch.bool, device=dev),
+            torch.zeros(0, device=dev), torch.zeros(0, device=dev),
+            torch.zeros((n_sites, 0), device=dev),
+        ) + ((torch.zeros((0, n_states, n_nodes), device=dev),) if witness else ())]
+        for lo in range(0, b, q_pad):
+            chunk = starts[lo : lo + q_pad]
+            f0 = torch.zeros((n_states, q_pad, v_pad), device=dev)
+            f0[ca.start, torch.arange(chunk.shape[0], device=dev), chunk] = 1.0
+            outs.append(fixpoint(f0))
+        cols = list(zip(*outs))
+        acc, q_bc, n_bc = (torch.cat(c)[:b] for c in cols[:3])
+        d_site = torch.cat(cols[3], dim=1)[:, :b]
+        result = (acc, q_bc, d_site.sum(dim=0), n_bc.to(torch.int32), d_site)
+        return result + (torch.cat(cols[4])[:b],) if witness else result
+
+    return fn
+
+
 def s2_execute(
     placement: Placement,
     ca: CompiledAutomaton,
     start_nodes: np.ndarray,
     max_levels: int | None = None,
     step_fn=None,
+    device_arrays: dict[str, torch.Tensor] | None = None,
     backend: str = "frontier_kernel",
     block_size: int = 128,
     semantics: str = "pairs",
@@ -823,6 +1140,8 @@ def s2_execute(
     plan_store=None,
     stats_epoch: int = 0,
     tile_store_budget_bytes: int | None = None,
+    axis_size: int = 1,
+    bucket_floor: int | None = None,
 ) -> tuple[np.ndarray, list[StrategyCost]] | tuple[np.ndarray, list[StrategyCost], np.ndarray]:
     """Run the batched S2 executor for ``start_nodes``.
 
@@ -835,12 +1154,19 @@ def s2_execute(
     convention by dividing the summed per-site responses by the
     placement's replication factor K (in float64, as ``repro`` does; the
     f32 ×K and ÷K round trip may leave them off the integer count by far
-    less than one symbol).
+    less than one symbol).  The sharded backend's per-site responses land
+    on each cost's ``site_unicast_symbols``.
 
     ``step_fn`` accepts a prebuilt executor from :func:`make_s2_step_fn`;
     ``staged``, or ``plan_store`` keyed by ``stats_epoch`` (with
     ``tile_store_budget_bytes`` for the out-of-core store), the Stage A
-    of the executor built here."""
+    of the executor built here; ``axis_size`` and ``bucket_floor`` the
+    sharded backend's groups and smallest shape class.
+    ``device_arrays`` accepts the placement's padded site arrays already
+    on the device (:func:`stage_site_arrays`), so a serving loop does not
+    stage them per call; the reference backend reads them, and without
+    them they come from ``plan_store`` or are staged on ``device``.  The
+    kernel backends skip them."""
     if step_fn is None:
         step_fn = make_s2_step_fn(
             ca, placement.graph.n_nodes, max_levels,
@@ -848,12 +1174,24 @@ def s2_execute(
             replication_factor=placement.replication_factor,
             block_size=block_size, semantics=semantics, tile_dtype=tile_dtype,
             staged=staged, device=device, plan_store=plan_store, stats_epoch=stats_epoch,
-            tile_store_budget_bytes=tile_store_budget_bytes,
+            tile_store_budget_bytes=tile_store_budget_bytes, placement=placement,
+            axis_size=axis_size, bucket_floor=bucket_floor,
         )
-    out = step_fn(start_nodes)
-    if len(out) != (5 if semantics == "witness" else 4):
+    if getattr(step_fn, "backend", None) == "reference":
+        if device_arrays is None:
+            device_arrays = (
+                plan_store.site_device_arrays(placement, epoch=stats_epoch)
+                if plan_store is not None
+                else stage_site_arrays(placement, device)
+            )
+        out = step_fn(start_nodes, device_arrays)
+    else:
+        out = step_fn(start_nodes)
+    extras = 1 if getattr(step_fn, "backend", None) == "frontier_kernel_sharded" else 0
+    if len(out) != 4 + extras + (semantics == "witness"):
         raise ValueError(f"semantics={semantics!r} needs a step_fn built with it")
     acc, q_bc, d_s2, n_bc = (t.cpu().numpy() for t in out[:4])
+    d_sites = out[4].cpu().numpy() if extras else None  # (n_sites, B)
     k_rep = max(placement.replication_factor, 1e-9)
     costs = [
         StrategyCost(
@@ -862,9 +1200,12 @@ def s2_execute(
             unicast_symbols=float(d_s2[i]) / k_rep,
             n_broadcasts=int(n_bc[i]),
             edges_retrieved=int(round(float(d_s2[i]) / (EDGE_SYMBOLS * k_rep))),
+            site_unicast_symbols=(
+                tuple(float(x) for x in d_sites[:, i]) if d_sites is not None else ()
+            ),
         )
         for i in range(len(q_bc))
     ]
     if semantics == "witness":
-        return acc, costs, out[4].cpu().numpy()
+        return acc, costs, out[-1].cpu().numpy()
     return acc, costs

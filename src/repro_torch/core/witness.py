@@ -36,11 +36,13 @@ is accepted by the query automaton.
 Level convention (shared by every backend): the start pair
 ``(ca.start, start_node)`` has level 1; a pair first discovered by the
 ``i``-th BFS expansion (``i`` counted from 1) has level ``i + 1``.
-``repro``'s sharded ring backend (not ported yet: ROADMAP A12) counts
-ring iterations rather than BFS levels, but its levels remain *valid*
-for reconstruction: at the device achieving a pair's minimum level, the
-pair was discovered by local expansion from a pair with a strictly
-smaller level, so the strict-decrease walk below terminates on them too.
+The port's sharded backend merges every site's discoveries each level,
+so its levels are BFS levels too.  ``repro``'s sharded ring backend
+counts ring iterations rather than BFS levels above one device, but its
+levels remain *valid* for reconstruction: at the device achieving a
+pair's minimum level, the pair was discovered by local expansion from a
+pair with a strictly smaller level, so the strict-decrease walk below
+terminates on them too.
 """
 
 from __future__ import annotations
@@ -140,8 +142,8 @@ def reconstruct_path(
     At each step, pick the predecessor pair with the smallest level among
     all in-transitions of the current pair whose level is *strictly*
     smaller than the current one — strict decrease is what makes the walk
-    terminate even on the sharded backend's ring-iteration levels (see
-    the module docstring).  Raises ``ValueError`` if ``target`` is not an
+    terminate even on ``repro``'s sharded ring-iteration levels (see the
+    module docstring).  Raises ``ValueError`` if ``target`` is not an
     answer under ``levels`` and ``RuntimeError`` if the levels are
     inconsistent with the graph (no strictly-decreasing predecessor)."""
     levels = np.asarray(levels)

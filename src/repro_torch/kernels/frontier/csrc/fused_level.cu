@@ -84,6 +84,15 @@
 // frontier's 8-row block blockIdx.y (m_pad is any multiple of 8; the
 // baseline fills row 0 of 8).
 //
+// The site-sharded backend launches B1 and B3 on a shape bucket's
+// schedule (frontier.py bucket_level_blocks): the member sites' step
+// arrays and tile stacks flattened, tile ids offset into the stack, and
+// one work list that concatenates the members' (ops.bucket_work).  A
+// chunk still lies inside one member's run, but chunks of several
+// members may then write the same output block.  Every chunk already
+// goes into the zeroed output by atomicAdd, so such a launch sums the
+// members' levels with no change to either body.
+//
 // bitplane_level_kernel (B3, B4) walks the same kind of work list, in
 // chunks of at most 2 (ops.WORK_CHUNK).  Its bytes are few: a q1 level
 // reads 0.5 MB of bit-plane tiles and writes a 6.4 MB output, 2.1 us at

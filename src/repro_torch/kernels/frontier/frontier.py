@@ -28,8 +28,14 @@ fused_level_blocks     f32          f32          B1 ``fused_level_f32``
 fused_level_blocks     f32          int32 bits   B3 ``fused_level_f32_u32tiles``
 packed_level_blocks    int32 lanes  f32          B2 ``packed_level_f32tiles``
 packed_level_blocks    int32 lanes  int32 bits   B4 ``packed_level_u32tiles``
+bucket_level_blocks    f32          f32          B1 ``fused_level_f32``
+bucket_level_blocks    f32          int32 bits   B3 ``fused_level_f32_u32tiles``
 frontier_step_blocks   f32          f32          B5 ``frontier_step_f32``
 =====================  ===========  ===========  =========================
+
+:func:`bucket_level_blocks` is the site-sharded backend's level: B1 or B3
+launched once over all member sites of a shape bucket, on a work list
+that concatenates the members' (``ops.bucket_work``).
 
 All five kernels walk a work list: the valid steps of each run cut into
 chunks (``ops.level_work``; chunks of 1 on f32 tiles, of 2 on
@@ -214,7 +220,7 @@ def packed_level_blocks_plain(
     return pack_lane_rows(counts > 0)
 
 
-def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, frontier_dtype) -> None:
+def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, frontier_dtype) -> None:
     if q_pad != 8:
         raise ValueError(f"the CUDA level kernels take q_pad=8, got {q_pad}")
     if block_size % 8 or not 8 <= block_size <= 1024:
@@ -237,32 +243,43 @@ def _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, fronti
         raise ValueError(
             f"{tiles.dtype} tiles must be (n_tiles, {block_size}, {row}), got {tuple(tiles.shape)}"
         )
-    named = {"frontier": frontier, "tiles": tiles, "run_ptr": run_ptr, **ints}
-    for name, t in named.items():
+    for name, t in {"frontier": frontier, "tiles": tiles, **ints}.items():
         if t.device != frontier.device:
             raise ValueError(f"{name} is on {t.device}, frontier on {frontier.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (*ints.items(), ("run_ptr", run_ptr)):
+    for name, t in ints.items():
         if t.dtype != torch.int32 or t.dim() != 1:
             raise TypeError(f"{name} must be a 1-D int32 tensor")
-    n_runs = run_ptr.shape[0] - 1
-    if n_runs != (n_out_rows // q_pad) * (v_pad // block_size):
+
+
+def _check_runs(run_ptr, frontier, block_size, q_pad, n_out_rows, rows: int | None = None) -> None:
+    """``run_ptr`` holds exactly one run per output block: (n_blocks + 1,)
+    for a plan, or (rows, n_blocks + 1), one row of offsets per member of
+    a bucket."""
+    n_blocks = (n_out_rows // q_pad) * (frontier.shape[1] // block_size)
+    want = (n_blocks + 1,) if rows is None else (rows, n_blocks + 1)
+    if run_ptr.device != frontier.device:
+        raise ValueError(f"run_ptr is on {run_ptr.device}, frontier on {frontier.device}")
+    if run_ptr.dtype != torch.int32 or tuple(run_ptr.shape) != want:
         raise ValueError(
-            f"{n_runs} runs for {(n_out_rows // q_pad) * (v_pad // block_size)} output "
-            "blocks: the schedule must hold exactly one run per output block"
+            f"run_ptr {run_ptr.dtype} {tuple(run_ptr.shape)} for {n_blocks} output blocks: the "
+            f"schedule must hold exactly one run per output block (int32 {want})"
         )
 
 
 def _launch_level(entry, frontier_dtype, frontier, tiles, ints, block_size, q_pad, n_out_rows,
-                  run_ptr, work) -> tuple[torch.Tensor, bool]:
+                  run_ptr, work, rows: int | None = None) -> tuple[torch.Tensor, bool]:
     """Checks one level's operands (a ``frontier_dtype`` frontier), zeroes
     its output and launches level kernel ``entry`` of
     ``csrc/fused_level.cu`` over the work list, one CTA per chunk; returns
     the output and whether it launched.  Every level kernel puts its
     chunks into the zeroed output with atomics: cover-only blocks have no
-    chunk, and a plan with no valid step launches nothing."""
-    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, run_ptr, frontier_dtype)
+    chunk, and a plan with no valid step launches nothing.  ``run_ptr``
+    is a plan's run offsets, or with ``rows`` a bucket's, one row per
+    member (:func:`_check_runs`)."""
+    _check(frontier, tiles, ints, block_size, q_pad, n_out_rows, frontier_dtype)
+    _check_runs(run_ptr, frontier, block_size, q_pad, n_out_rows, rows)
     _check_work(work, frontier, tiles)
     out = torch.zeros((n_out_rows, frontier.shape[1]), dtype=frontier.dtype, device=frontier.device)
     if not work.shape[0]:
@@ -400,6 +417,103 @@ def packed_level_blocks(
         PACKED_LAUNCHES_U32 += 1
     elif launched:
         PACKED_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B1 and B3 on a shape bucket of the site-sharded backend
+# ---------------------------------------------------------------------------
+
+
+def bucket_level_blocks_plain(
+    frontier: torch.Tensor,
+    tiles: torch.Tensor,
+    firsts: torch.Tensor,
+    valids: torch.Tensor,
+    tile_ids: torch.Tensor,
+    f_rows: torch.Tensor,
+    f_cols: torch.Tensor,
+    o_rows: torch.Tensor,
+    o_cols: torch.Tensor,
+    block_size: int,
+    q_pad: int,
+    *,
+    n_out_rows: int | None = None,
+) -> torch.Tensor:
+    """:func:`bucket_level_blocks` in plain PyTorch:
+    :func:`fused_level_blocks_plain` on each member row's tiles and
+    schedule, summed over the rows."""
+    out = None
+    for r in range(tiles.shape[0]):
+        counts = fused_level_blocks_plain(
+            frontier, tiles[r], firsts[r], valids[r], tile_ids[r], f_rows[r], f_cols[r],
+            o_rows[r], o_cols[r], block_size, q_pad, n_out_rows=n_out_rows,
+        )
+        out = counts if out is None else out + counts
+    return out
+
+
+def bucket_level_blocks(
+    frontier: torch.Tensor,  # (n_rows * q_pad, v_pad) f32 0/1 (union rows appended)
+    tiles: torch.Tensor,  # (rows, n_tiles, B, B) f32 or (rows, n_tiles, B, ⌈B/32⌉) int32 bits
+    firsts: torch.Tensor,  # (rows, n_steps) int32: the bucket's seven step arrays,
+    valids: torch.Tensor,  # each row a member site's schedule over its own tiles
+    tile_ids: torch.Tensor,
+    f_rows: torch.Tensor,
+    f_cols: torch.Tensor,
+    o_rows: torch.Tensor,
+    o_cols: torch.Tensor,
+    block_size: int,
+    q_pad: int,
+    *,
+    run_ptr: torch.Tensor,  # (rows, n_blocks + 1) int32 per-row run offsets (PlanBucket.run_ptr)
+    work: torch.Tensor | None = None,  # (n_chunks, C) int32 flattened steps (PlanBucket.work)
+    flat_tile_ids: torch.Tensor | None = None,  # (rows * n_steps,) int32 (PlanBucket.flat_tile_ids)
+    n_out_rows: int | None = None,
+) -> torch.Tensor:
+    """One BFS level over every member site of a shape bucket: the raw f32
+    counts (n_out_rows, v_pad) summed over the members — ``repro``'s
+    ``vmap`` of ``fused_level_blocks`` over the bucket's rows, merged.
+
+    On CUDA tensors this is ONE launch of B1 (f32 tiles) or B3 (bit-plane
+    tiles) on the bucket's flattened operands: the (rows · n_tiles, B, ·)
+    tile stack, ``flat_tile_ids`` into it, the other step arrays
+    flattened, and the bucket's ``work`` list, whose chunks of different
+    members may write one output block.  The kernels add every chunk
+    into a zeroed output with atomics, so the launch is the members'
+    sum, with no change to their bodies; it counts as a B1 or B3 launch.
+    ``run_ptr``, ``work`` and ``flat_tile_ids`` are required there and
+    unread on the CPU, where this is :func:`bucket_level_blocks_plain`.
+
+    Exact, as the plain version is, while every sum is an integer below
+    2^24 (see :func:`fused_level_blocks`); the sharded executor passes
+    {0,1} operands, so a sum is at most the member count."""
+    global LAUNCHES, LAUNCHES_U32
+    n_out_rows = n_out_rows or frontier.shape[0]
+    if frontier.device.type == "cpu":
+        return bucket_level_blocks_plain(
+            frontier, tiles, firsts, valids, tile_ids, f_rows, f_cols, o_rows, o_cols,
+            block_size, q_pad, n_out_rows=n_out_rows,
+        )
+    if frontier.device.type != "cuda":
+        raise ValueError(f"bucket_level_blocks runs on cuda or cpu tensors, got {frontier.device}")
+    if tiles.dim() != 4 or flat_tile_ids is None:
+        raise ValueError("a bucket launch takes (rows, n_tiles, B, ·) tiles and flat_tile_ids=")
+    rows, n_steps = tile_ids.shape
+    if tuple(flat_tile_ids.shape) != (rows * n_steps,):
+        raise ValueError(f"flat_tile_ids {tuple(flat_tile_ids.shape)} for {rows} x {n_steps} steps")
+    flat = [firsts, valids, flat_tile_ids, f_rows, f_cols, o_rows, o_cols]
+    ints = dict(zip(_I32, (t.reshape(-1) for t in flat)))
+    bits = tiles.dtype == torch.int32
+    out, launched = _launch_level(
+        "fused_level_f32_u32tiles" if bits else "fused_level_f32", torch.float32, frontier,
+        tiles.reshape(-1, *tiles.shape[2:]), ints, block_size, q_pad, n_out_rows, run_ptr, work,
+        rows=rows,
+    )
+    if launched and bits:
+        LAUNCHES_U32 += 1
+    elif launched:
+        LAUNCHES += 1
     return out
 
 

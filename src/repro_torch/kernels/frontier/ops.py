@@ -23,6 +23,15 @@ builds Stage A one (direction, label) slab at a time on the host
 (:func:`assemble_staged`), byte-identical to the same keys of the full
 staging.
 
+The site-sharded backend stages per site: :func:`stage_sharded_graph`
+packs each site's own edges into a host slab, :func:`merge_staged_sites`
+unions the slabs of co-located sites, :func:`bucket_staged_sites` stacks
+them on the device in power-of-two shape buckets, and
+:func:`build_sharded_level_schedule` schedules each site, padded to its
+bucket.  Each bucket carries one work list over all its member rows
+(:func:`bucket_work`), so :func:`expand_level_sharded` runs a level as one
+B1 or B3 launch per bucket.
+
 Stage A stages either tile store: ``tile_dtype="f32"`` (dense 0/1
 B×B tiles) or ``"uint32"`` (the dst axis packed into ⌈B/32⌉ bit-plane
 words per tile row, 1/32 of the bytes), held in torch as int32 with the
@@ -61,6 +70,7 @@ from repro_torch.core.automaton import FWD, INV, CompiledAutomaton
 from repro_torch.core.witness import INF_LEVEL
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier.frontier import (
+    bucket_level_blocks,
     frontier_step_blocks,
     fused_level_blocks,
     packed_level_blocks,
@@ -82,6 +92,11 @@ QPACK = QPAD * 32
 # offset-table key for the any-label union store (wildcard transitions);
 # real label ids are >= 0 so the key space is disjoint.
 ANY_LABEL = -1
+
+# smallest power-of-two shape class for the site-sharded backend's bucketed
+# grids: buckets never round below this, so near-empty sites share one
+# tiny class instead of fragmenting into one bucket each.
+BUCKET_FLOOR = 8
 
 # Build-path instrumentation: every Stage-A packing/staging op and every
 # Stage-B schedule construction bumps a counter (same keys as ``repro``).
@@ -478,6 +493,240 @@ def assemble_staged(
 
 
 # ---------------------------------------------------------------------------
+# Stage A, site-sharded: per-site slabs on the host, shape buckets on the device
+# ---------------------------------------------------------------------------
+
+
+def shape_class(n: int, floor: int = BUCKET_FLOOR) -> int:
+    """The power-of-two shape bucket ``n`` rounds up into (≥ ``floor``)."""
+    n = max(int(n), 1)
+    return max(floor, 1 << (n - 1).bit_length())
+
+
+def _host_tiles(n: int, block_size: int, tile_dtype: str) -> np.ndarray:
+    """``n`` zeroed host tiles: f32 (n, B, B), or int32 (n, B, ⌈B/32⌉)
+    holding ``repro``'s uint32 bit-plane words."""
+    if tile_dtype == "uint32":
+        return np.zeros((n, block_size, tile_words(block_size)), np.int32)
+    return np.zeros((n, block_size, block_size), np.float32)
+
+
+@dataclasses.dataclass
+class StagedShardedGraph:
+    """Stage A for the site-sharded backend (``repro``'s
+    ``StagedShardedGraph``): per-site staged tile slabs, each at its own
+    natural tile count, with the layout of :func:`stage_graph` (cover tile
+    0, stores in sorted key order).  The slabs stay on the host, as in
+    ``repro``; :func:`bucket_staged_sites` moves them to the device once
+    per shape bucket.  Bit-plane slabs are int32 numpy arrays holding
+    ``repro``'s uint32 bits."""
+
+    n_sites: int
+    n_nodes: int
+    v_pad: int
+    block_size: int
+    site_tiles: tuple[np.ndarray, ...]  # per site: (n_tiles_s, B, B) f32 or (n_tiles_s, B, W) int32
+    site_offsets: tuple[dict[tuple[int, int], tuple[int, np.ndarray, np.ndarray]], ...]
+    tile_dtype: str = "f32"
+
+    @property
+    def site_n_tiles(self) -> tuple[int, ...]:
+        return tuple(int(t.shape[0]) for t in self.site_tiles)
+
+    @property
+    def tile_store_bytes(self) -> int:
+        """Total staged bytes across every site slab."""
+        return int(sum(t.nbytes for t in self.site_tiles))
+
+
+def _stage_site(graph: LabeledGraph, block_size: int, tile_dtype: str):
+    """One site's host slab and offsets: its label stores and any-label
+    union stores packed from its own edges, concatenated behind the cover
+    tile in sorted key order (``repro``'s ``_concat_stores``)."""
+    stores = {key: store for key, store, _ in _label_tile_lists(graph, block_size, None, tile_dtype)}
+    for direction in (FWD, INV):
+        u = _union_store(graph, direction, block_size, None, tile_dtype)
+        if u is not None:
+            stores[(direction, ANY_LABEL)] = u
+    slab = _host_tiles(1 + sum(len(r) for _, r, _ in stores.values()), block_size, tile_dtype)
+    offsets, off = {}, 1
+    for key in sorted(stores):
+        t, r, c = stores[key]
+        slab[off : off + len(r)] = t.view(np.int32) if t.dtype == np.uint32 else t
+        offsets[key] = (off, r, c)
+        off += len(r)
+    return slab, offsets
+
+
+def stage_sharded_graph(
+    site_graphs: list[LabeledGraph], block_size: int = 128, tile_dtype: str = "f32"
+) -> StagedShardedGraph:
+    """Stage A per site (``repro``'s ``stage_sharded_graph``): each site's
+    tile lists come from its own edge partition, replicas included, kept
+    at the site's natural size on the host.  Every site graph must share
+    ``n_nodes`` (the global node id space); a site with no edges holds
+    only the cover tile.  Byte-identical to ``repro``'s slabs (bit-planes
+    through ``.view(np.uint32)``)."""
+    if tile_dtype not in TILE_DTYPES:
+        raise ValueError(f"tile_dtype must be one of {TILE_DTYPES}, got {tile_dtype!r}")
+    if not site_graphs:
+        raise ValueError("need at least one site graph")
+    n_nodes = site_graphs[0].n_nodes
+    if any(g.n_nodes != n_nodes for g in site_graphs):
+        raise ValueError("site graphs must share the global node id space")
+    BUILD_COUNTERS["stage_sharded_graph"] += 1
+    sites = [_stage_site(g, block_size, tile_dtype) for g in site_graphs]
+    return StagedShardedGraph(
+        n_sites=len(site_graphs),
+        n_nodes=n_nodes,
+        v_pad=-(-n_nodes // block_size) * block_size,
+        block_size=block_size,
+        site_tiles=tuple(t for t, _ in sites),
+        site_offsets=tuple(o for _, o in sites),
+        tile_dtype=tile_dtype,
+    )
+
+
+def merge_staged_sites(staged: StagedShardedGraph, n_groups: int) -> StagedShardedGraph:
+    """Merge blocks of co-located sites into one deduplicated union slab
+    per group (``repro``'s ``merge_staged_sites``): group ``d`` holds sites
+    ``[d·k, (d+1)·k)``, ``k = n_sites / n_groups``, as ``repro``'s
+    ``shard_map`` blocks them over the site axes.  The boolean level is
+    the same on the union; per-site identity stays in the meters.
+    Returns ``staged`` itself when ``k == 1``.
+
+    ``repro`` folds tile by tile in a Python loop.  Here each group's
+    blocks are coded ``(key, col, row)``, sorted once (``np.unique``: the
+    key order of ``_concat_stores``, then ``pack_blocks``' (col, row)
+    order), and each site's slab is folded into its blocks' places in one
+    vectorised ``np.maximum`` (f32) or ``np.bitwise_or`` (bit-planes) —
+    a site holds each block of a store once, so its places are distinct.
+    Max and OR are exact in any order: the bytes are ``repro``'s."""
+    if staged.n_sites % n_groups:
+        raise ValueError(f"n_sites={staged.n_sites} must be divisible by n_groups={n_groups}")
+    k = staged.n_sites // n_groups
+    if k == 1:
+        return staged
+    BUILD_COUNTERS["merge_staged_sites"] += 1
+    combine = np.bitwise_or if staged.tile_dtype == "uint32" else np.maximum
+    nb = staged.v_pad // staged.block_size
+    site_tiles, site_offsets = [], []
+    for d in range(n_groups):
+        sites = range(d * k, (d + 1) * k)
+        keys = sorted(set().union(*(staged.site_offsets[s] for s in sites)))
+        key_id = {key: i for i, key in enumerate(keys)}
+        codes, takes = [], []
+        for s in sites:
+            ents = staged.site_offsets[s].items()
+            codes.append(np.concatenate([np.zeros(0, np.int64)] + [
+                (key_id[key] * nb + c.astype(np.int64)) * nb + r for key, (_, r, c) in ents
+            ]))
+            takes.append(np.concatenate([np.zeros(0, np.int64)] + [
+                base + np.arange(len(r)) for _, (base, r, _) in ents
+            ]))
+        uniq = np.unique(np.concatenate(codes))
+        slab = _host_tiles(1 + len(uniq), staged.block_size, staged.tile_dtype)
+        for s, code, take in zip(sites, codes, takes):
+            pos = 1 + np.searchsorted(uniq, code)
+            slab[pos] = combine(slab[pos], staged.site_tiles[s][take])
+        bounds = np.searchsorted(uniq, np.arange(len(keys) + 1, dtype=np.int64) * nb * nb)
+        offsets = {}
+        for i, key in enumerate(keys):
+            u = uniq[bounds[i] : bounds[i + 1]]
+            offsets[key] = (1 + int(bounds[i]), (u % nb).astype(np.int32), (u // nb % nb).astype(np.int32))
+        site_tiles.append(slab)
+        site_offsets.append(offsets)
+    return StagedShardedGraph(
+        n_sites=n_groups,
+        n_nodes=staged.n_nodes,
+        v_pad=staged.v_pad,
+        block_size=staged.block_size,
+        site_tiles=tuple(site_tiles),
+        site_offsets=tuple(site_offsets),
+        tile_dtype=staged.tile_dtype,
+    )
+
+
+@dataclasses.dataclass
+class TileBucket:
+    """One power-of-two tile shape class of :func:`bucket_staged_sites`:
+    the member sites' slabs zero-padded to ``n_tiles`` and stacked on the
+    device, row ``d * len(slots) + j`` the site at slot ``slots[j]`` of
+    group ``d`` (``repro``'s ``shard_map`` row order)."""
+
+    n_tiles: int  # power-of-two padded per-site tile count
+    slots: tuple[int, ...]  # local site indices (uniform across groups)
+    sites: tuple[int, ...]  # global site ids, row by row (group-major)
+    tiles: torch.Tensor  # (rows, n_tiles, B, B) f32 or (rows, n_tiles, B, W) int32
+
+
+@dataclasses.dataclass
+class ShardedTileBuckets:
+    """Stage-A shape buckets (``repro``'s ``ShardedTileBuckets``): the
+    staged slabs grouped into power-of-two tile-count classes by *slot*
+    (a site's index within its group of ``n_sites / axis_size``); a
+    slot's class is the roundup of the largest tile count among the sites
+    sharing it across groups.  ``bucket_id`` is a pure function of (site
+    tile counts, axis_size, floor)."""
+
+    axis_size: int
+    s_local: int
+    floor: int
+    buckets: tuple[TileBucket, ...]
+
+    @property
+    def bucket_id(self) -> tuple:
+        """The shape-bucket descriptor; it joins the executor cache's
+        graph key (see ``repro_torch.serve.plancache``)."""
+        return (self.axis_size, self.floor, tuple((b.n_tiles, b.slots) for b in self.buckets))
+
+
+def bucket_staged_sites(
+    staged: StagedShardedGraph,
+    axis_size: int = 1,
+    floor: int = BUCKET_FLOOR,
+    device: str | torch.device | None = None,
+) -> ShardedTileBuckets:
+    """Group the staged slabs into power-of-two tile shape buckets and
+    stack each bucket on ``device`` (``None``: the GPU), as ``repro``'s
+    ``bucket_staged_sites``: a bucket with one member keeps its natural
+    tile count.  Each member's slab is copied straight into its row of a
+    zeroed device stack, so no padded copy is made on the host."""
+    if staged.n_sites % axis_size:
+        raise ValueError(
+            f"n_sites={staged.n_sites} must be divisible by the site-axis "
+            f"size {axis_size} (sites are blocked over the site axes)"
+        )
+    device = resolve_device(device)
+    BUILD_COUNTERS["bucket_staged_sites"] += 1
+    s_local = staged.n_sites // axis_size
+    n_tiles = staged.site_n_tiles
+    slot_class = {
+        sl: shape_class(max(n_tiles[d * s_local + sl] for d in range(axis_size)), floor)
+        for sl in range(s_local)
+    }
+    by_class: dict[int, list[int]] = {}
+    for sl in range(s_local):
+        by_class.setdefault(slot_class[sl], []).append(sl)
+    b = staged.block_size
+    buckets = []
+    for cls in sorted(by_class):
+        slots = tuple(sorted(by_class[cls]))
+        sites = tuple(d * s_local + sl for d in range(axis_size) for sl in slots)
+        if len(sites) == 1:  # nothing to unify: natural shape, no roundup
+            cls = n_tiles[sites[0]]
+        width, dtype = (
+            (tile_words(b), torch.int32) if staged.tile_dtype == "uint32" else (b, torch.float32)
+        )
+        stack = torch.zeros((len(sites), cls, b, width), dtype=dtype, device=device)
+        for row, s in enumerate(sites):
+            stack[row, : n_tiles[s]].copy_(torch.from_numpy(staged.site_tiles[s]))
+        buckets.append(TileBucket(n_tiles=cls, slots=slots, sites=sites, tiles=stack))
+    return ShardedTileBuckets(axis_size=axis_size, s_local=s_local, floor=floor,
+                              buckets=tuple(buckets))
+
+
+# ---------------------------------------------------------------------------
 # Stage B: fan-in union rows and the fused level schedule
 # ---------------------------------------------------------------------------
 
@@ -763,6 +1012,205 @@ def build_level_plan(
 
 
 # ---------------------------------------------------------------------------
+# Stage B, site-sharded: shape-bucketed per-site schedules and their work lists
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PlanBucket:
+    """One shape bucket of a :class:`ShardedLevelPlan` (``repro``'s
+    ``PlanBucket``): the member sites' schedules stacked in row order and
+    padded to ``n_steps``.  Padding steps are ``firsts=0, valids=0``
+    zero-tile references to the last output block.  The seven
+    (rows, n_steps) arrays are byte-identical to ``repro``'s.
+
+    The rest is the port's, for one launch of kernel B1 or B3 over all
+    member rows (:func:`~repro_torch.kernels.frontier.frontier.bucket_level_blocks`):
+    ``run_ptr`` holds each row's run offsets (:func:`run_offsets`, one run
+    per output block, the padding tail inside the last run);
+    ``flat_tile_ids`` is ``tile_ids + row · n_tiles``, the ids into the
+    flattened (rows · n_tiles, B, ·) stack; ``work`` is the rows' work
+    lists (:func:`level_work`) concatenated, each step index offset by
+    ``row · n_steps`` into the flattened step arrays.  Padding steps get no
+    work entry."""
+
+    n_steps: int  # power-of-two padded grid length (shape class)
+    n_tiles: int  # power-of-two padded per-site tile count (shape class)
+    slots: tuple[int, ...]  # local site indices in this bucket
+    sites: tuple[int, ...]  # global site ids, row by row (group-major)
+    tiles: torch.Tensor  # (rows, n_tiles, B, B) f32 or (rows, n_tiles, B, W) int32
+    firsts: torch.Tensor  # (rows, n_steps) int32 0/1
+    valids: torch.Tensor  # (rows, n_steps) int32 0/1
+    tile_ids: torch.Tensor  # (rows, n_steps) int32, into the row's own tiles
+    f_rows: torch.Tensor  # (rows, n_steps) int32
+    f_cols: torch.Tensor  # (rows, n_steps) int32
+    o_rows: torch.Tensor  # (rows, n_steps) int32
+    o_cols: torch.Tensor  # (rows, n_steps) int32
+    run_ptr: torch.Tensor  # (rows, n_states · nb + 1) int32 per-row run offsets
+    flat_tile_ids: torch.Tensor  # (rows · n_steps,) int32
+    work: torch.Tensor  # (n_chunks, work_chunk(tile_dtype)) int32 flattened steps, -1 past a chunk's end
+
+
+@dataclasses.dataclass
+class ShardedLevelPlan:
+    """Per-site fused level schedules, shape-bucketed (``repro``'s
+    ``ShardedLevelPlan``): each site is scheduled over its own staged
+    offsets and padded only to its bucket's power-of-two grid length, so
+    padding waste stops growing with the site count.  ``union_members``
+    is the fan-in union row layout every site shares (the frontier is
+    extended once per level with :func:`extend_frontier`)."""
+
+    n_sites: int
+    n_states: int
+    n_nodes: int
+    v_pad: int
+    block_size: int
+    q_pad: int
+    axis_size: int
+    union_members: tuple[tuple[int, ...], ...]
+    buckets: tuple[PlanBucket, ...]
+    n_real_steps: tuple[int, ...]  # per site: steps carrying a real tile
+    useful_steps: int  # Σ per-site unpadded schedule lengths
+    padded_steps: int  # Σ per-bucket rows × n_steps (executed grid slots)
+    tile_dtype: str = "f32"  # dtype of the aliased bucket tile stacks
+
+    @property
+    def pad_waste_ratio(self) -> float:
+        return self.padded_steps / max(self.useful_steps, 1)
+
+    @property
+    def bucket_shapes(self) -> tuple[tuple[int, int, int], ...]:
+        """Per bucket: (n_steps class, n_tiles class, member rows)."""
+        return tuple((b.n_steps, b.n_tiles, len(b.sites)) for b in self.buckets)
+
+
+def bucket_work(
+    valids: np.ndarray, firsts: np.ndarray, o_rows: np.ndarray, o_cols: np.ndarray,
+    n_states: int, nb: int, chunk: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """A bucket's run offsets and its one work list, from its (rows,
+    n_steps) step arrays: each row's run offsets are checked by
+    :func:`run_offsets` (one run per output block) and cut into chunks by
+    :func:`level_work`, and the rows' chunks are concatenated with their
+    step indices offset by ``row · n_steps``.  Several chunks of one list
+    then write one output block, one per member row that reaches it: the
+    level kernels add every chunk into a zeroed output with atomics, so
+    the launch sums the members' levels."""
+    rows, n_steps = valids.shape
+    run_ptr = np.stack([
+        run_offsets(np.stack([o_rows[r], o_cols[r]], axis=1), firsts[r], n_states, nb)
+        for r in range(rows)
+    ])
+    lists = []
+    for r in range(rows):
+        w = level_work(valids[r], run_ptr[r], chunk)
+        lists.append(np.where(w >= 0, w + r * n_steps, -1).astype(np.int32))
+    return run_ptr, np.concatenate(lists) if lists else np.zeros((0, chunk), np.int32)
+
+
+def build_sharded_level_schedule(
+    ca: CompiledAutomaton,
+    staged: StagedShardedGraph,
+    tile_buckets: ShardedTileBuckets | None = None,
+    q_pad: int = QPAD,
+    axis_size: int = 1,
+    bucket_floor: int = BUCKET_FLOOR,
+    device: str | torch.device | None = None,
+) -> ShardedLevelPlan:
+    """Stage B per site over the staged slabs, bucketed into power-of-two
+    shape classes (``repro``'s ``build_sharded_level_schedule``).
+    ``tile_buckets`` accepts the Stage-A shape buckets (e.g. from
+    :class:`repro_torch.core.plans.GraphPlanStore`); without them they are
+    built here on ``device``.  The plan aliases the bucket tile stacks and
+    lives on their device; each bucket also carries its work list
+    (:func:`bucket_work`)."""
+    BUILD_COUNTERS["sharded_level_schedule"] += 1
+    if tile_buckets is None:
+        tile_buckets = bucket_staged_sites(staged, axis_size, bucket_floor, device)
+    nb = staged.v_pad // staged.block_size
+    frow_map, union_members = fanin_frontier_rows(ca)
+    site_steps = [_schedule_steps(ca, offsets, nb, frow_map) for offsets in staged.site_offsets]
+
+    def pad_steps(col: np.ndarray, n_steps: int, fill: int) -> np.ndarray:
+        return np.concatenate([col, np.full(n_steps - len(col), fill, np.int32)])
+
+    buckets = []
+    useful = sum(arr.shape[0] for arr, _, _, _ in site_steps)
+    padded = 0
+    for tb in tile_buckets.buckets:
+        max_len = max(site_steps[s][0].shape[0] for s in tb.sites)
+        # singleton buckets run at natural length: the roundup only buys
+        # shape agreement between members
+        n_steps = shape_class(max_len, tile_buckets.floor) if len(tb.sites) > 1 else max_len
+        padded += n_steps * len(tb.sites)
+        cols = {k: [] for k in ("fi", "vl", "ti", "fr", "fc", "orw", "oc")}
+        for s in tb.sites:
+            arr, fi, vl, _ = site_steps[s]
+            cols["fi"].append(pad_steps(fi, n_steps, 0))
+            cols["vl"].append(pad_steps(vl, n_steps, 0))
+            cols["ti"].append(pad_steps(arr[:, 4], n_steps, 0))  # zero cover tile
+            cols["fr"].append(pad_steps(arr[:, 2], n_steps, 0))
+            cols["fc"].append(pad_steps(arr[:, 3], n_steps, 0))
+            cols["orw"].append(pad_steps(arr[:, 0], n_steps, ca.n_states - 1))
+            cols["oc"].append(pad_steps(arr[:, 1], n_steps, nb - 1))
+        host = {k: np.stack(v) for k, v in cols.items()}
+        run_ptr, work = bucket_work(
+            host["vl"], host["fi"], host["orw"], host["oc"], ca.n_states, nb,
+            work_chunk(staged.tile_dtype),
+        )
+        offsets = (np.arange(len(tb.sites), dtype=np.int32) * tb.n_tiles)[:, None]
+        dev = tb.tiles.device
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        buckets.append(PlanBucket(
+            n_steps=n_steps, n_tiles=tb.n_tiles, slots=tb.slots, sites=tb.sites, tiles=tb.tiles,
+            firsts=put(host["fi"]), valids=put(host["vl"]), tile_ids=put(host["ti"]),
+            f_rows=put(host["fr"]), f_cols=put(host["fc"]), o_rows=put(host["orw"]),
+            o_cols=put(host["oc"]), run_ptr=put(run_ptr),
+            flat_tile_ids=put((host["ti"] + offsets).reshape(-1)), work=put(work),
+        ))
+    return ShardedLevelPlan(
+        n_sites=staged.n_sites,
+        n_states=ca.n_states,
+        n_nodes=staged.n_nodes,
+        v_pad=staged.v_pad,
+        block_size=staged.block_size,
+        q_pad=q_pad,
+        axis_size=tile_buckets.axis_size,
+        union_members=union_members,
+        buckets=tuple(buckets),
+        n_real_steps=tuple(n_real for _, _, _, n_real in site_steps),
+        useful_steps=useful,
+        padded_steps=padded,
+        tile_dtype=staged.tile_dtype,
+    )
+
+
+def build_sharded_level_plan(
+    ca: CompiledAutomaton,
+    site_graphs: list[LabeledGraph] | StagedShardedGraph,
+    block_size: int = 128,
+    q_pad: int = QPAD,
+    axis_size: int = 1,
+    bucket_floor: int = BUCKET_FLOOR,
+    device: str | torch.device | None = None,
+) -> ShardedLevelPlan:
+    """One-shot wrapper: stage every site (Stage A), bucket the slabs on
+    ``device``, then schedule (Stage B).  Pass a
+    :class:`StagedShardedGraph` to skip straight to bucketing and Stage B."""
+    staged = (
+        site_graphs
+        if isinstance(site_graphs, StagedShardedGraph)
+        else stage_sharded_graph(site_graphs, block_size)
+    )
+    return build_sharded_level_schedule(
+        ca, staged, q_pad=q_pad, axis_size=axis_size, bucket_floor=bucket_floor, device=device
+    )
+
+
+# ---------------------------------------------------------------------------
 # Fused level and fixpoint
 # ---------------------------------------------------------------------------
 
@@ -786,6 +1234,25 @@ def expand_level_fused(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Te
     0/1; returns the same shape, thresholded to 0/1."""
     fre = extend_frontier(frontier, plan.union_members, plan.n_states, plan.q_pad)
     return torch.clamp(level_counts(plan, fre), max=1.0)
+
+
+def expand_level_sharded(plan: ShardedLevelPlan, frontier: torch.Tensor) -> torch.Tensor:
+    """One BFS level over every site's grid: the frontier is extended
+    once, each bucket runs ONE kernel launch over its members' work lists
+    (B1 on f32 tiles, B3 on bit-planes; the launch sums its members'
+    levels), and the buckets are max-merged and clamped to {0, 1} — the
+    synchronous OR merge of every site's discoveries, ``repro``'s per-level
+    ``pmax`` form.  ``frontier`` is (n_states · q_pad, v_pad) f32 0/1."""
+    fre = extend_frontier(frontier, plan.union_members, plan.n_states, plan.q_pad)
+    merged = None
+    for b in plan.buckets:
+        counts = bucket_level_blocks(
+            fre, b.tiles, b.firsts, b.valids, b.tile_ids, b.f_rows, b.f_cols, b.o_rows, b.o_cols,
+            plan.block_size, plan.q_pad, n_out_rows=plan.n_states * plan.q_pad,
+            run_ptr=b.run_ptr, work=b.work, flat_tile_ids=b.flat_tile_ids,
+        )
+        merged = counts if merged is None else torch.maximum(merged, counts)
+    return torch.clamp(merged, max=1.0)
 
 
 def frontier_nonempty(frontier: torch.Tensor) -> bool:

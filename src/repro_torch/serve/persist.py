@@ -21,13 +21,13 @@ the fingerprints match.  Any mismatch — another graph or partition,
 another format version, a truncated file — returns ``False`` and leaves
 the store untouched.
 
-Bit-plane tiles are int32 tensors in the port and uint32 arrays in
-``repro``, with the same bits: :func:`_encode` writes them as uint32 and
-:func:`_decode` views them back, so both packages read each other's
-snapshots with the right dtype.  ``staged_sharded`` entries (``repro``'s
-per-site staging) restore only once the site-sharded backend is ported
-(A12): until then the loader skips them and counts them in the store's
-``skipped_on_restore``.
+Two kinds are written: the global staged tile tensor (``staged_graph``)
+and the per-site host slabs (``staged_sharded``).  The merges, shape
+buckets, site arrays and degree vectors derive from these without
+packing a tile, so they are not.  Bit-plane tiles are int32 in the port
+and uint32 in ``repro``, with the same bits: :func:`_encode` writes them
+as uint32 and :func:`_decode` views them back as int32, so both packages
+read each other's snapshots with the right dtype.
 
 The on-disk format is a pickle of numpy payloads — treat snapshot files
 like any other local cache: not an interchange format, and never to be
@@ -96,35 +96,60 @@ def _encode_offsets(offsets: dict) -> dict:
     }
 
 
+def _uint32(tiles: np.ndarray) -> np.ndarray:
+    """Bit-plane words as ``repro`` holds them (uint32, the same bits)."""
+    return tiles.view(np.uint32) if tiles.dtype == np.int32 else tiles
+
+
+def _int32(tiles) -> np.ndarray:
+    """A restored tile array as the port holds it: bit-planes as int32
+    views of the same bits, and writable (an unpickled array may sit in
+    a read-only buffer)."""
+    tiles = np.asarray(tiles)
+    if tiles.dtype == np.uint32:
+        tiles = tiles.view(np.int32)
+    return np.ascontiguousarray(tiles if tiles.flags.writeable else tiles.copy())
+
+
 def _encode(kind: str, artifact: Any) -> dict:
     if kind == "staged_graph":
         sg: fops.StagedGraph = artifact
-        tiles = sg.tiles.cpu().numpy()
-        if sg.tile_dtype == "uint32":
-            tiles = tiles.view(np.uint32)  # repro's dtype, the same bits
         return {
             "n_nodes": sg.n_nodes, "v_pad": sg.v_pad, "block_size": sg.block_size,
-            "tiles": tiles, "offsets": _encode_offsets(sg.offsets), "tile_dtype": sg.tile_dtype,
+            "tiles": _uint32(sg.tiles.cpu().numpy()), "offsets": _encode_offsets(sg.offsets),
+            "tile_dtype": sg.tile_dtype,
+        }
+    if kind == "staged_sharded":
+        ss: fops.StagedShardedGraph = artifact
+        return {
+            "n_sites": ss.n_sites, "n_nodes": ss.n_nodes, "v_pad": ss.v_pad,
+            "block_size": ss.block_size,
+            "site_tiles": [_uint32(t) for t in ss.site_tiles],
+            "site_offsets": [_encode_offsets(o) for o in ss.site_offsets],
+            "tile_dtype": ss.tile_dtype,
         }
     raise ValueError(f"unpersistable Stage-A kind {kind!r}")
 
 
-def _decode(kind: str, payload: dict, device: torch.device) -> fops.StagedGraph:
+def _decode(kind: str, payload: dict, device: torch.device) -> Any:
     # snapshots written before the bit-plane store carry f32 tiles and no
     # tile_dtype
-    if kind != "staged_graph":
-        raise ValueError(f"unpersistable Stage-A kind {kind!r}")
-    tiles = np.asarray(payload["tiles"])
-    if tiles.dtype == np.uint32:
-        tiles = tiles.view(np.int32)  # the port's holder of the same bits
-    if not tiles.flags.writeable:  # unpickled from a read-only buffer
-        tiles = tiles.copy()
-    return fops.StagedGraph(
-        n_nodes=payload["n_nodes"], v_pad=payload["v_pad"], block_size=payload["block_size"],
-        tiles=torch.from_numpy(np.ascontiguousarray(tiles)).to(device),
-        offsets=dict(payload["offsets"]),
-        tile_dtype=payload.get("tile_dtype", "f32"),
-    )
+    if kind == "staged_graph":
+        return fops.StagedGraph(
+            n_nodes=payload["n_nodes"], v_pad=payload["v_pad"], block_size=payload["block_size"],
+            tiles=torch.from_numpy(_int32(payload["tiles"])).to(device),
+            offsets=dict(payload["offsets"]),
+            tile_dtype=payload.get("tile_dtype", "f32"),
+        )
+    if kind == "staged_sharded":
+        return fops.StagedShardedGraph(
+            n_sites=payload["n_sites"], n_nodes=payload["n_nodes"], v_pad=payload["v_pad"],
+            block_size=payload["block_size"],
+            site_tiles=tuple(_int32(t) for t in payload["site_tiles"]),
+            site_offsets=tuple(dict(o) for o in payload["site_offsets"]),
+            tile_dtype=payload.get("tile_dtype", "f32"),
+        )
+    raise ValueError(f"unpersistable Stage-A kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -177,8 +202,8 @@ def load_stage_a(
     Returns ``True`` only when the snapshot exists, parses, carries the
     current format version, and its content fingerprint matches this
     placement exactly; every other outcome returns ``False`` and leaves
-    the store untouched.  ``staged_sharded`` entries are skipped and
-    counted in ``store.skipped_on_restore`` (A12); the rest restore."""
+    the store untouched.  Global stagings land on the store's device;
+    per-site slabs stay on the host, as they were staged."""
     try:
         with open(path, "rb") as f:
             blob = pickle.load(f)
@@ -189,16 +214,12 @@ def load_stage_a(
     if blob.get("fingerprint") != placement_fingerprint(placement):
         return False
     try:
-        entries = blob["entries"]
-        skipped = [key[0] for _, key, _ in entries if key[0] == "staged_sharded"]
         decoded = [
             (anchor_name, key, _decode(key[0], payload, store.device))
-            for anchor_name, key, payload in entries
-            if key[0] != "staged_sharded"
+            for anchor_name, key, payload in blob["entries"]
         ]
     except (KeyError, ValueError, TypeError):
         return False
-    store.skipped_on_restore.update(skipped)
     for anchor_name, portable_key, artifact in decoded:
         anchor = placement if anchor_name == "placement" else placement.graph
         store.install_entry(portable_key, anchor, stats_epoch, artifact)

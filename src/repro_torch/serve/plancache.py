@@ -26,7 +26,9 @@ mirroring the two expensive phases of a query's life:
   device memory frees once the plan store's Stage-A entry goes too.
 
 ``repro``'s signature carries the mesh and its axes; on one device they
-cannot differ, so the port's drops them and names its fields.
+cannot differ, so the port's drops them and names its fields.  The
+sharded backend's ``axis_size`` shapes its buckets, so it reaches the
+graph key through the bucket descriptor.
 """
 
 from __future__ import annotations
@@ -316,8 +318,12 @@ class ExecutorCache:
     ) -> tuple:
         """Everything Stage A depends on: the graph-stats epoch, the
         data's identity (the placement when given, else the global
-        graph), the staging parameters, and the sharded backend's
-        shape-bucket descriptor (``None`` until A12)."""
+        graph), the staging parameters, and for the sharded backend the
+        shape-bucket descriptor
+        (:attr:`repro_torch.kernels.frontier.ops.ShardedTileBuckets.bucket_id`):
+        two executors over one placement with different bucket layouts
+        (axis size, floor, tile classes) read different tile stacks and
+        must not alias."""
         anchor = placement if placement is not None else graph
         return (stats_epoch, id(anchor) if anchor is not None else None, backend, block_size, bucket_id)
 
@@ -346,17 +352,29 @@ class ExecutorCache:
         semantics: str = "pairs",
         tile_dtype: str = "f32",
         tile_store_budget_bytes: int | None = None,
+        axis_size: int = 1,
+        bucket_floor: int | None = None,
     ) -> tuple[Signature, Callable]:
         """``signature`` accepts the precomputed key (the service computes
         it once per request during planning).  ``stats_epoch`` scopes the
         Stage-A artifacts the build reuses from the plan store, on the
-        store's device."""
+        store's device.  For the sharded backend the placement's shape
+        buckets at (``axis_size``, ``bucket_floor``) are resolved first (a
+        store hit when the placement is hot), and their descriptor joins
+        the graph key."""
         sig = (
             signature
             if signature is not None
             else automaton_signature(ca, n_nodes, max_levels, backend, block_size, semantics, tile_dtype)
         )
-        gkey = self.graph_key(stats_epoch, backend, block_size, graph, placement)
+        bucket_id = None
+        if backend == "frontier_kernel_sharded" and placement is not None:
+            floor = fops.BUCKET_FLOOR if bucket_floor is None else bucket_floor
+            bucket_id = self.plan_store.tile_buckets(
+                placement, block_size, axis_size, epoch=stats_epoch, floor=floor,
+                tile_dtype="f32" if semantics == "witness" else tile_dtype,
+            ).bucket_id
+        gkey = self.graph_key(stats_epoch, backend, block_size, graph, placement, bucket_id)
         key = (gkey, sig)
         entry = self._lru.get(key)
         if entry is not None:
@@ -369,7 +387,8 @@ class ExecutorCache:
             backend=backend, graph=graph, replication_factor=replication_factor,
             block_size=block_size, semantics=semantics, tile_dtype=tile_dtype,
             plan_store=self.plan_store, stats_epoch=stats_epoch,
-            tile_store_budget_bytes=tile_store_budget_bytes,
+            tile_store_budget_bytes=tile_store_budget_bytes, placement=placement,
+            axis_size=axis_size, bucket_floor=bucket_floor,
         )
         self._lru[key] = _ExecEntry(
             graph_key=gkey, sig=sig, fn=fn, anchor=placement if placement is not None else graph,

@@ -1,15 +1,17 @@
 """`QueryService` — the continuous-batching RPQ serving runtime.
 
 Port of ``repro/serve/service.py`` on one device: the constructor takes
-``device`` (``None``: the GPU) in place of ``repro``'s ``mesh``, and
-``ServeConfig`` keeps ``repro``'s fields and defaults less ``site_axes``
-and ``batch_axis``.  The backends that are ported are the global fused
-ones, ``frontier_kernel`` (kernel B1 on f32 tiles, B3 on uint32) and
-``frontier_kernel_packed`` (B2, B4); any other, the default
-``"reference"`` included, raises ``NotImplementedError`` naming
-``ROADMAP.md`` A12 when the service is built.  On a CUDA device every
-level launches its kernel or raises: a failed build fails the tickets
-of its group, with no fallback to the plain versions.
+``device`` (``None``: the GPU) and ``axis_size`` (the sharded backend's
+site groups, the product of ``repro``'s site-axis sizes) in place of
+``repro``'s ``mesh``, and ``ServeConfig`` keeps ``repro``'s fields and
+defaults less ``site_axes`` and ``batch_axis``.  Every S2 backend of
+``repro`` serves: the default ``"reference"`` (plain torch on the padded
+site arrays, no kernel), ``frontier_kernel`` (kernel B1 on f32 tiles, B3
+on uint32), ``frontier_kernel_packed`` (B2, B4) and
+``frontier_kernel_sharded`` (B1 or B3 once per shape bucket and level).
+On a CUDA device every level launches its kernel or raises: a failed
+build fails the tickets of its group, with no fallback to the plain
+versions.
 
 One request's life (all in :meth:`QueryService.flush`):
 
@@ -81,12 +83,14 @@ class ServeConfig:
     # QueryService.witness_path can reconstruct an accepting run — see
     # repro_torch.core.witness); per-request override on submit/enqueue
     semantics: str = "pairs"
-    # S2 executor backend: "frontier_kernel" (the fused level kernel on
-    # the global tiles, 8 queries per row tile) or "frontier_kernel_packed"
-    # (same staged tiles with the frontier packed into lane words — 256
-    # query lanes per fixpoint at 1/32 the frontier bytes); "reference"
-    # (repro's default) and "frontier_kernel_sharded" raise until A12.
-    # The fused backends' tile block size below
+    # S2 executor backend: "reference" (plain torch gather/scatter on the
+    # padded site arrays, no kernel), "frontier_kernel" (the fused level
+    # kernel on the global tiles, 8 queries per row tile),
+    # "frontier_kernel_packed" (same staged tiles with the frontier packed
+    # into lane words — 256 query lanes per fixpoint at 1/32 the frontier
+    # bytes), or "frontier_kernel_sharded" (the fused level per site
+    # partition, one launch per shape bucket, per-site cost meters); the
+    # fused backends' tile block size below
     s2_backend: str = "reference"
     s2_block_size: int = 128
     # staged adjacency tile-store dtype for the fused backends: "f32"
@@ -103,7 +107,7 @@ class ServeConfig:
     s2_tile_dtype: str = "f32"
     tile_store_budget_bytes: int | None = None
     # smallest power-of-two shape class for the sharded backend's
-    # bucketed grids (read once A12 ports it)
+    # bucketed grids (see repro_torch.kernels.frontier.ops.BUCKET_FLOOR)
     s2_bucket_floor: int = 8
     # S1 coalescing: weight FFD bins by the estimated per-label D_s1
     # (sample label counts) instead of raw label popcount
@@ -199,10 +203,12 @@ class _Request:
 
 
 def batch_multiple(backend: str) -> int:
-    """The S2 batch multiple of ``backend`` on one device: the fused
-    kernel's query stack, ``QPAD`` f32 rows or ``QPACK`` packed lanes —
-    ``repro``'s value on a (1, 1) mesh."""
-    return fops.QPACK if backend == "frontier_kernel_packed" else fops.QPAD
+    """The S2 batch multiple of ``backend`` on one device — ``repro``'s
+    value on a (1, 1) mesh: the fused kernels' query stack, ``QPAD`` f32
+    rows or ``QPACK`` packed lanes, and 1 for the reference backend."""
+    if backend == "frontier_kernel_packed":
+        return fops.QPACK
+    return 1 if backend == "reference" else fops.QPAD
 
 
 class QueryService:
@@ -224,12 +230,16 @@ class QueryService:
         sample: LabeledGraph | None = None,
         config: ServeConfig | None = None,
         device: str | torch.device | None = None,
+        axis_size: int = 1,
     ):
         self.config = config or ServeConfig()
         strategies._require_ported(
             self.config.s2_backend, self.config.semantics, self.config.s2_tile_dtype
         )
+        if placement.n_sites % axis_size:
+            raise ValueError(f"n_sites={placement.n_sites} must be divisible by axis_size={axis_size}")
         self.device = resolve_device(device)
+        self.axis_size = axis_size
         self.placement = placement
         self.net = net_params
         self.sample = sample if sample is not None else placement.graph
@@ -494,12 +504,14 @@ class QueryService:
                     semantics=g_sem,
                     tile_dtype=cfg.s2_tile_dtype,
                     tile_store_budget_bytes=cfg.tile_store_budget_bytes,
+                    axis_size=self.axis_size,
+                    bucket_floor=cfg.s2_bucket_floor,
                 )
 
                 def execute(starts, exemplar):
                     return strategies.s2_execute(
                         self.placement, exemplar.exec_ca, starts, g_levels,
-                        step_fn=step_fn, semantics=g_sem,
+                        step_fn=step_fn, device_arrays=self._device_arrays, semantics=g_sem,
                     )
 
                 results = batcher.run_s2_group(

@@ -1,9 +1,10 @@
 """The port on the card: the four CUDA level kernels (B1 and B3 behind
 ``fused_level_blocks``, B2 and B4 behind ``packed_level_blocks``), the
 baseline step B5 (``frontier_step_blocks``), EmbeddingBag B6 and flash
-decode B7 against their plain PyTorch versions, the wrappers' refusals,
-and the S1 and S2 executors (witness semantics and bounded counting
-too), the branching estimator, the baseline fixpoint and the serving
+decode B7 against their plain PyTorch versions (B1 and B3 also on a
+sharded shape bucket, ``bucket_level_blocks``), the wrappers' refusals,
+and the S1 and S2 executors (the reference and sharded backends, witness
+semantics and bounded counting too), the branching estimator, the baseline fixpoint and the serving
 runtime (``QueryService``, its plan store's device memory,
 ``AsyncQueryService``'s flush worker) on the GPU against the same code
 on the CPU.  A CUDA kernel
@@ -867,3 +868,105 @@ def test_async_flush_on_the_worker_thread_launches_the_kernel(cuda, backend, til
     assert counts[name] == ops.FIXPOINT_COUNTERS["levels"] > 0
     for (q, s), a in zip(queries, got):
         assert a.answers == want.submit(q, s, strategy="S2").answers
+
+
+# ---------------------------------------------------------------------------
+# the site-sharded backend (B1 and B3 on a bucket) and the reference backend
+# ---------------------------------------------------------------------------
+
+
+def _sharded_setup():
+    g = generators.random_labeled_graph(300, 1400, 5, seed=4)
+    return g, partition.distribute(g, n_sites=6, replication_rate=0.4, seed=3)
+
+
+@pytest.mark.parametrize("tile_dtype", ["f32", "uint32"])
+def test_bucket_launch_equals_plain(cuda, tile_dtype):
+    """One B1 or B3 launch over a bucket of six member sites (their work
+    lists concatenated, several chunks per output block) equals the sum
+    of the members' plain levels; the wrapper refuses a bucket without
+    its flattened tile ids or per-member run offsets."""
+    g, placement = _sharded_setup()
+    staged = ops.stage_sharded_graph([placement.local_graph(s) for s in range(6)], 32, tile_dtype)
+    plan = ops.build_sharded_level_schedule(paa.compile_query("l0 (l1|l2)* . l3^-1", g), staged,
+                                            axis_size=6, device=cuda)
+    (b,) = plan.buckets
+    assert len(b.sites) == 6
+    rows = (plan.n_states + len(plan.union_members)) * plan.q_pad
+    f = (torch.rand((rows, plan.v_pad), generator=torch.Generator().manual_seed(1)) < 0.3).float()
+    f = f.to(cuda)
+    seven = [getattr(b, n) for n in ("firsts", "valids", "tile_ids", "f_rows", "f_cols",
+                                     "o_rows", "o_cols")]
+    n_out = plan.n_states * plan.q_pad
+    kw = dict(run_ptr=b.run_ptr, work=b.work, flat_tile_ids=b.flat_tile_ids, n_out_rows=n_out)
+    name = "fused_level_blocks_u32" if tile_dtype == "uint32" else "fused_level_blocks"
+    frontier.reset_launches()
+    got = frontier.bucket_level_blocks(f, b.tiles, *seven, plan.block_size, plan.q_pad, **kw)
+    want = frontier.bucket_level_blocks_plain(f, b.tiles, *seven, plan.block_size, plan.q_pad,
+                                              n_out_rows=n_out)
+    torch.cuda.synchronize()
+    assert frontier.launch_counts()[name] == 1 == sum(frontier.launch_counts().values())
+    assert want.max() > 1 and torch.equal(got, want)
+    with pytest.raises(ValueError, match="flat_tile_ids"):
+        frontier.bucket_level_blocks(f, b.tiles, *seven, plan.block_size, plan.q_pad,
+                                     **{**kw, "flat_tile_ids": None})
+    with pytest.raises(ValueError, match="one run per output block"):
+        frontier.bucket_level_blocks(f, b.tiles, *seven, plan.block_size, plan.q_pad,
+                                     **{**kw, "run_ptr": b.run_ptr[0]})
+
+
+@pytest.mark.parametrize("backend, tile_dtype, axis_size", [
+    ("reference", "f32", 1), ("frontier_kernel_sharded", "f32", 1),
+    ("frontier_kernel_sharded", "uint32", 1), ("frontier_kernel_sharded", "uint32", 3),
+])
+def test_sharded_and_reference_executors_on_gpu_equal_cpu(cuda, backend, tile_dtype, axis_size):
+    """Answers, meters, per-site meters and witness levels equal on the card
+    and on the CPU; the sharded path launches its kernel once per bucket
+    and level, the reference path no kernel."""
+    g, placement = _sharded_setup()
+    name = "fused_level_blocks_u32" if tile_dtype == "uint32" else "fused_level_blocks"
+    for expr in ("l0 (l1|l2)* l3", "(l0|l4)+", "l1 . l3^-1"):
+        ca = paa.compile_query(expr, g)
+        starts = paa.valid_start_nodes(ca, g)[:40]
+        run = {}
+        for dev in ("cpu", cuda):
+            frontier.reset_launches()
+            ops.FIXPOINT_COUNTERS.clear()
+            run[str(dev)] = strategies.s2_execute(
+                placement, ca, starts, backend=backend, tile_dtype=tile_dtype, block_size=32,
+                device=dev, axis_size=axis_size)
+        counts = frontier.launch_counts()
+        if backend == "reference":
+            assert sum(counts.values()) == 0
+        else:
+            assert counts[name] == ops.FIXPOINT_COUNTERS["levels"] > 0
+            assert sum(counts.values()) == counts[name]
+        (a_cpu, c_cpu), (a_gpu, c_gpu) = run["cpu"], run["cuda"]
+        assert (a_cpu == a_gpu).all() and c_cpu == c_gpu, expr
+        wit = {dev: strategies.s2_execute(placement, ca, starts[:9], backend=backend,
+                                          semantics="witness", block_size=32, device=dev,
+                                          axis_size=axis_size)[2] for dev in ("cpu", cuda)}
+        assert wit["cpu"].tobytes() == wit[cuda].tobytes(), expr
+
+
+def test_sharded_site_meter_is_exact_with_tf32_on(cuda):
+    """A hub with 3,001 out-edges on one site: TF32 keeps 11 significant
+    bits, so an f32 matmul of the degree vector would round 3,001 to
+    3,000.  The per-site meter multiplies in f64, so with
+    ``allow_tf32 = True`` it still counts 3 · 3,001 symbols, as the CPU
+    does."""
+    n = 3002
+    src = np.zeros(n - 1, np.int32)
+    dst = np.arange(1, n, dtype=np.int32)
+    g = structure.LabeledGraph(n, src, np.zeros(n - 1, np.int32), dst, ["a"])
+    placement = partition.distribute(g, n_sites=2, replication_rate=0.0, seed=0)
+    ca = paa.compile_query("a", g)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = strategies.s2_execute(placement, ca, np.array([0]), backend="frontier_kernel_sharded",
+                                    block_size=128, device=cuda)[1][0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    want = strategies.s2_execute(placement, ca, np.array([0]), backend="frontier_kernel_sharded",
+                                 block_size=128, device="cpu")[1][0]
+    assert got == want and sum(got.site_unicast_symbols) == 3 * (n - 1)

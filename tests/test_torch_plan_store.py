@@ -267,9 +267,33 @@ def test_witness_executor_stages_f32_from_the_store(graphs):
 
 @pytest.mark.parametrize("method", ["staged_sharded", "staged_merged", "tile_buckets"])
 def test_sharded_artifacts_raise_naming_a12(graphs, method):
-    store = plans.GraphPlanStore(device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        getattr(store, method)(None, 8)
+    """The sharded artifacts that raised naming A12 until it ported them:
+    through the store each is byte-identical to ``repro``'s on both tile
+    stores, builds once, and then hits and misses as ``repro``'s does."""
+    rg, tg = graphs
+    rp = r_part.distribute(rg, n_sites=6, replication_rate=0.4, seed=3)
+    tp = partition.distribute(tg, n_sites=6, replication_rate=0.4, seed=3)
+    r_store, t_store = r_plans.GraphPlanStore(), plans.GraphPlanStore(device="cpu")
+    args = {"staged_sharded": (), "staged_merged": (3,), "tile_buckets": (3,)}[method]
+    for td in DTYPES:
+        for _ in range(2):
+            want = getattr(r_store, method)(rp, 8, *args, tile_dtype=td)
+            got = getattr(t_store, method)(tp, 8, *args, tile_dtype=td)
+        if method == "tile_buckets":
+            assert got.bucket_id == want.bucket_id
+            for a, b in zip(want.buckets, got.buckets, strict=True):
+                assert (a.n_tiles, a.slots, a.sites) == (b.n_tiles, b.slots, b.sites)
+                assert _words(b.tiles.numpy()) == _words(np.asarray(a.tiles))
+        else:
+            assert got.n_sites == want.n_sites and got.tile_dtype == want.tile_dtype == td
+            for a, b in zip(want.site_tiles, got.site_tiles, strict=True):
+                assert _words(b) == _words(np.asarray(a))
+            for a, b in zip(want.site_offsets, got.site_offsets, strict=True):
+                assert list(a) == list(b)
+                assert all(a[k][0] == b[k][0] and _words(a[k][1]) == _words(b[k][1])
+                           and _words(a[k][2]) == _words(b[k][2]) for k in a)
+    assert t_store.stats() == r_store.stats()
+    assert t_store.tile_store_stats() == r_store.tile_store_stats()
 
 
 def test_pad_accounting_equals_repro():

@@ -52,6 +52,8 @@ PAIRS = [
     ("frontier_kernel", "uint32"),
     ("frontier_kernel_packed", "f32"),
     ("frontier_kernel_packed", "uint32"),
+    ("frontier_kernel_sharded", "f32"),
+    ("frontier_kernel_sharded", "uint32"),
 ]
 
 
@@ -346,13 +348,23 @@ def test_chip_smoke_summary_keys_equal_repro_schema():
 
 
 @pytest.mark.parametrize("backend", ["reference", "frontier_kernel_sharded"])
-def test_backend_not_ported_raises_naming_a12(setup, backend):
-    _, placement = setup
-    with pytest.raises(NotImplementedError, match="A12"):
-        QueryService(placement, NetworkParams(*NET), config=ServeConfig(s2_backend=backend),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        QueryService(placement, NetworkParams(*NET), device="cpu")  # the default config
+def test_backend_not_ported_raises_naming_a12(backend):
+    """The backends that raised naming A12 until it ported them serve now:
+    with ``backend`` named, and with the config's own default
+    (``reference``), each request equals ``repro``'s — answers, strategy
+    and observed costs, per-site ones included."""
+    _, _, rp, tp = _twins(n_nodes=60, n_edges=240)
+    mesh = compat.make_mesh((1, 1), ("data", "model"))
+    for kw in ({"s2_backend": backend}, {}):
+        cfg = dict(n_rollouts=30, seed=0, s2_block_size=8, **kw)
+        r_svc = RService(rp, mesh, RNet(*NET), config=RConfig(**cfg))
+        t_svc = QueryService(tp, NetworkParams(*NET), config=ServeConfig(**cfg), device="cpu")
+        assert t_svc.config.s2_backend == r_svc.config.s2_backend
+        for q, starts, st in [("(l0|l1)+ l2", [0, 3, 7], "S2"), ("l1 l3*", [2], None)]:
+            a, b = r_svc.submit(q, starts, strategy=st), t_svc.submit(q, starts, strategy=st)
+            assert (b.answers, b.strategy) == (a.answers, a.strategy)
+            assert [dataclasses.astuple(c) for c in b.observed] == [
+                dataclasses.astuple(c) for c in a.observed]
 
 
 def test_admission_queue_bound(setup):

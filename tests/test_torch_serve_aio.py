@@ -407,16 +407,45 @@ def test_snapshot_round_trip_in_the_port_is_byte_identical(twins, tmp_path):
 
 def test_sharded_entries_are_skipped_and_counted(twins, tmp_path):
     """A ``repro`` snapshot holding per-site staging (the sharded backend)
-    restores its global entries; the sharded one waits for A12."""
+    beside a global staging: since the sharded backend is ported, both
+    entries restore, none is skipped, and the port's sharded service
+    then answers as ``repro``'s, packing no tile."""
     path = str(tmp_path / "stage_a.pkl")
-    svc_r = make_repro(twins, "frontier_kernel_sharded")
-    svc_r.submit("(l0|l1)+", [0], strategy="S2")
+    svc_r = make_repro(twins, "frontier_kernel_sharded", "uint32")
+    want = [svc_r.submit(q, s, strategy="S2").answers for q, s in QUERIES]
     svc_r.plan_store.staged_graph(twins[0], 8, tile_dtype="f32")
     assert svc_r.save_plan_store(path)["n_entries"] == 2
-    svc = make_service(twins)
+    svc = make_service(twins, "frontier_kernel_sharded", "uint32")
     assert svc.restore_plan_store(path)
-    assert svc.plan_store.skipped_on_restore == {"staged_sharded": 1}
+    got = {k: v for k, v, _ in svc.plan_store.export_entries(twins[3]) if k[0] != "site_arrays"}
+    assert list(got) == [("staged_sharded", 8, "uint32")]
     assert [k for k, _, _ in svc.plan_store.export_entries(twins[1])] == [("staged_graph", 8, "f32")]
+    r_staged = next(v for k, v, _ in svc_r.plan_store.export_entries(twins[2]) if k[0] == "staged_sharded")
+    for a, b in zip(r_staged.site_tiles, got[("staged_sharded", 8, "uint32")].site_tiles, strict=True):
+        assert b.dtype == np.int32 and b.view(np.uint32).tobytes() == np.asarray(a).tobytes()
+    ops.reset_build_counters()
+    assert [svc.submit(q, s, strategy="S2").answers for q, s in QUERIES] == want
+    assert ops.BUILD_COUNTERS["pack_blocks"] == 0 and ops.BUILD_COUNTERS["stage_sharded_graph"] == 0
+
+
+@pytest.mark.parametrize("tile_dtype", ["f32", "uint32"])
+def test_port_sharded_snapshot_restores_into_repro(twins, tmp_path, tile_dtype):
+    """The port's per-site staging, written as ``repro`` writes it (bit-planes
+    as uint32), restores into ``repro``'s sharded service, which then packs
+    no tile and answers as the port did."""
+    path = str(tmp_path / "stage_a.pkl")
+    svc = make_service(twins, "frontier_kernel_sharded", tile_dtype)
+    want = [svc.submit(q, s, strategy="S2").answers for q, s in QUERIES]
+    assert svc.save_plan_store(path)["n_entries"] == 1
+    with open(path, "rb") as f:
+        (_, key, payload), = pickle.load(f)["entries"]
+    assert key == ("staged_sharded", 8, tile_dtype)
+    assert {t.dtype for t in payload["site_tiles"]} == {np.dtype(np.uint32 if tile_dtype == "uint32" else np.float32)}
+    svc_r = make_repro(twins, "frontier_kernel_sharded", tile_dtype)
+    assert svc_r.restore_plan_store(path)
+    r_ops.reset_build_counters()
+    assert [svc_r.submit(q, s, strategy="S2").answers for q, s in QUERIES] == want
+    assert r_ops.BUILD_COUNTERS["pack_blocks"] == 0 and r_ops.BUILD_COUNTERS["stage_sharded_graph"] == 0
 
 
 def test_restore_rejects_wrong_placement_garbage_and_version_skew(twins, tmp_path):
