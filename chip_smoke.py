@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive every path of the port end to end on one NVIDIA GPU, through
-each of its seven hand-written CUDA kernels.
+each of its seven hand-written CUDA kernels, and the models that call
+B6 and B7.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -173,7 +174,33 @@ Phases, each of which raises on failure (the run then exits non-zero):
              against its plain version (max |diff| at most 2e-2 of the
              largest |output|, which an all-zero output and the kernel on
              half the cache must both miss) and SDPA; each shape's
-             kv split (n_split, split length, partials' bytes) is logged.
+             kv split (n_split, split length, partials' bytes) is logged;
+* dlrm     — dlrm-mlperf ``full()`` whole on the card (26 bf16 tables,
+             48.07 GB; f32 MLPs 13-512-256-128 and 479-1024-1024-512-
+             256-1) through ``models/dlrm.py``'s serve and retrieval
+             steps, on ``data/pipeline.py`` ``dlrm_batch`` ids: serve_p99
+             (batch 512) median and p99 ms, serve_bulk (batch 262,144)
+             samples/s, retrieval_cand (1,000,000 candidates, top 64) ms,
+             all by CUDA events a step; B6 launches == 26 a step, nothing
+             else; probabilities finite in [0, 1]; each table's bags of a
+             serve_bulk step ``torch.equal`` to the plain version; one
+             retrieval's top 64 == the plain bags' (scores exact); one
+             serve_bulk step traced for B6's and the GEMMs' shares;
+* lm       — qwen3-14b at full width, 40 layers cut to 2 (the full
+             decode_32k cache is 687 GB): (a) 8 ``lm_batch`` prompts of
+             1,024 tokens through ``make_prefill``, the cache copied into
+             ``init_cache(max_len=1,040)``, 16 greedy ``make_decode_step``s;
+             the prefill's and the last step's logits within BF16_TOL of
+             the largest |logit| of the port's CPU run of the same weights
+             and tokens; B7 at that cache's shape ~= plain; (b) decode_32k
+             (batch 128, a random 34.36 GB cache at len 32,768 - 17): ms a
+             step by events, tokens/s, the byte bound, one step traced for
+             B7's share; B7 launches == layers x steps, nothing else.
+
+The embedbag, decode, dlrm and lm phases take their shapes from the
+port's configs (``configs/dlrm_mlperf.py``, ``qwen3_14b.py`` and
+``registry.py``'s shape tables), and the setup its sites and rate from
+``configs/alibaba_rpq.py``.
 
 Each phase logs its seconds and peak device memory and frees its tensors
 before the next.  B5, B6 and B7 are timed as B1-B4 are (CUDA graph, L2
@@ -189,7 +216,9 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -202,6 +231,11 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import interop  # noqa: E402
+from repro_torch.configs import alibaba_rpq, dlrm_mlperf, qwen3_14b, registry  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.dist import sharding as shd  # noqa: E402
+from repro_torch.models import dlrm, transformer  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.core import cost_model, paa, planner, plans, strategies, witness  # noqa: E402
 from repro_torch.core import regex as rx  # noqa: E402
 from repro_torch.graph.generators import (  # noqa: E402
@@ -263,16 +297,31 @@ SERVE_AIO = {"max_window_s": {"latency": 0.25, "throughput": 1.0}, "window_gain"
 SHARD_SITES, SHARD_AXES = 16, (1, 4)
 SHARD_F32_NODES, SHARD_F32_EDGES = 8000, 52000
 N_REFERENCE_STARTS = 64
-# dlrm-mlperf's largest Criteo table (src/repro/models/dlrm.py:30),
-# embed_dim 128, table_dtype bf16 (dlrm.py:52); serve_bulk batch 262,144
-# x multi_hot 1 (configs/registry.py:110)
-DLRM_ROWS, DLRM_DIM, DLRM_LOOKUPS = 39_979_771, 128, 262_144
-# ogb_products (configs/registry.py:99)
-OGB_NODES, OGB_EDGES, OGB_FEAT = 2_449_029, 61_859_140, 100
-# qwen3-14b attention (configs/qwen3_14b.py): 40 q-heads, 8 kv heads,
-# head dim 128, bf16; decode_32k and long_500k (configs/registry.py:83)
-QWEN_HEADS, QWEN_KV_HEADS, QWEN_DH = 40, 8, 128
-DECODE_SHAPES = {"decode_32k": (128, 32_768), "long_500k": (1, 524_288)}
+# the shapes of the embedbag and decode phases, from the port's configs:
+# dlrm-mlperf's largest Criteo table (embed_dim 128, bf16 tables) at
+# serve_bulk (batch 262,144 x multi_hot 1); ogb_products; qwen3-14b's
+# attention widths (40 q-heads, 8 kv heads, head dim 128, bf16) at
+# decode_32k and long_500k
+RPQ = alibaba_rpq.full()
+DLRM = dlrm_mlperf.full()
+DLRM_ROWS, DLRM_DIM = max(DLRM.table_sizes), DLRM.embed_dim
+DLRM_LOOKUPS = registry.RECSYS_SHAPES["serve_bulk"].dims["batch"] * DLRM.multi_hot
+OGB_NODES, OGB_EDGES, OGB_FEAT = (registry.GNN_SHAPES["ogb_products"].dims[k]
+                                  for k in ("n_nodes", "n_edges", "d_feat"))
+QWEN = qwen3_14b.full()
+QWEN_HEADS, QWEN_KV_HEADS, QWEN_DH = QWEN.n_q_heads, QWEN.n_kv_heads, QWEN.d_head
+DECODE_SHAPES = {name: (registry.LM_SHAPES[name].dims["batch"], registry.LM_SHAPES[name].dims["seq"])
+                 for name in ("decode_32k", "long_500k")}
+# the dlrm phase: dlrm-mlperf full() whole (26 tables, 48.07 GB); steps
+# timed after DLRM_WARMUP untimed ones: serve_p99 (batch 512), serve_bulk
+# (batch 262,144), retrieval_cand (1,000,000 candidates, top 64); each
+# step its own dlrm_batch step
+DLRM_P99_STEPS, DLRM_BULK_STEPS, DLRM_RETRIEVAL_STEPS, DLRM_WARMUP = 60, 10, 20, 2
+# the lm phase: qwen3-14b at full width, 40 layers cut to LM_LAYERS (the
+# full decode_32k cache would be 687 GB); the request run's prompts, their
+# length and the greedy tokens decoded after them; decode_32k steps timed
+# after LM_WARMUP untimed ones
+LM_LAYERS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_DECODE_STEPS, LM_WARMUP = 2, 8, 1024, 16, 20, 3
 # B7 against its plain version: max |diff| at most BF16_TOL (the bf16
 # tolerance of tests/test_kernels.py:140) times the largest |output|.  The
 # outputs average ~kv_len V rows, so their size falls as 1/sqrt(kv_len)
@@ -504,32 +553,16 @@ def events_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return total / iters
 
 
-def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[str, ...]) -> dict:
-    """One query's per-call set-up timed apart from its run, and the run
-    traced with ``torch.profiler``: device busy time (the union of the
-    device events' intervals), its share of the traced wall time, the
-    device time and count of each kernel, and those of the path's level
-    kernel, found by the pieces of its device symbol (``symbol``), which
-    must match exactly one kernel name, and of every fill kernel (the
-    level kernels' zeroed outputs among them)."""
+def device_trace(fn) -> dict:
+    """``fn()`` traced with ``torch.profiler``: the traced wall ms, device
+    busy ms (the union of the device events' intervals) and each device
+    kernel's count and µs, the costliest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step = strategies.make_s2_step_fn(
-        ca, placement.graph.n_nodes, backend=backend, graph=placement.graph,
-        replication_factor=placement.replication_factor, tile_dtype=staged.tile_dtype,
-        staged=staged, device=dev,
-    )
-    torch.cuda.synchronize()
-    setup_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    strategies.s2_execute(placement, ca, starts, step_fn=step)
-    torch.cuda.synchronize()
-    run_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        strategies.s2_execute(placement, ca, starts, step_fn=step)
+        fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     spans, per_kernel = [], {}
@@ -547,6 +580,43 @@ def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
+    return {"traced_ms": traced_ms, "device_busy_ms": busy_us / 1e3,
+            "kernels": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1]["us"]))}
+
+
+def kernel_share(tr: dict, pieces: tuple[str, ...]) -> dict:
+    """The device ms, launches and share of all device time in trace
+    ``tr`` of the kernels whose name holds any of ``pieces``."""
+    hits = [kt for name, kt in tr["kernels"].items() if any(p in name for p in pieces)]
+    total_us = sum(kt["us"] for kt in tr["kernels"].values())
+    ms = sum(kt["us"] for kt in hits) / 1e3
+    return {"ms": ms, "count": sum(kt["count"] for kt in hits), "share": ms * 1e3 / total_us,
+            "device_ms": total_us / 1e3}
+
+
+def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[str, ...]) -> dict:
+    """One query's per-call set-up timed apart from its run, and the run
+    traced with ``torch.profiler``: device busy time (the union of the
+    device events' intervals), its share of the traced wall time, the
+    device time and count of each kernel, and those of the path's level
+    kernel, found by the pieces of its device symbol (``symbol``), which
+    must match exactly one kernel name, and of every fill kernel (the
+    level kernels' zeroed outputs among them)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = strategies.make_s2_step_fn(
+        ca, placement.graph.n_nodes, backend=backend, graph=placement.graph,
+        replication_factor=placement.replication_factor, tile_dtype=staged.tile_dtype,
+        staged=staged, device=dev,
+    )
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    strategies.s2_execute(placement, ca, starts, step_fn=step)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    tr = device_trace(lambda: strategies.s2_execute(placement, ca, starts, step_fn=step))
+    per_kernel, traced_ms, busy_us = tr["kernels"], tr["traced_ms"], tr["device_busy_ms"] * 1e3
 
     def total(match) -> dict:
         hits = [kt for name, kt in per_kernel.items() if match(name)]
@@ -562,7 +632,7 @@ def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[
         "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / 1e3 / traced_ms,
         "idle_share_of_untraced_run": 1.0 - busy_us / 1e3 / run_ms,
-        "kernels": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1]["us"])),
+        "kernels": per_kernel,
     }
 
 
@@ -1385,7 +1455,7 @@ def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dic
     rng = np.random.default_rng(SEED + 7)
 
     # (i) the twin on 16 sites, bit-plane tiles: B3
-    pl16 = distribute(g, n_sites=SHARD_SITES, replication_rate=0.2, seed=SEED)
+    pl16 = distribute(g, n_sites=SHARD_SITES, replication_rate=RPQ.replication_rate, seed=SEED)
     store = plans.GraphPlanStore(device=dev)
     rec["i_staging"] = stage_sharded(store, pl16, "uint32", SHARD_AXES)
     log_staging(f"(i) twin, {SHARD_SITES} sites, K = {pl16.replication_factor:.4f}, uint32", rec["i_staging"])
@@ -1476,7 +1546,7 @@ def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dic
 
     # (ii) an 8,000-node twin on 16 sites, f32 tiles: B1, pairs and witness
     g2 = alibaba_like(n_nodes=SHARD_F32_NODES, n_edges=SHARD_F32_EDGES, seed=SEED)
-    pl2 = distribute(g2, n_sites=SHARD_SITES, replication_rate=0.2, seed=SEED)
+    pl2 = distribute(g2, n_sites=SHARD_SITES, replication_rate=RPQ.replication_rate, seed=SEED)
     dg2 = to_device_graph(g2, dev)
     index2 = paa.HostIndex(g2)
     cas2 = {q: paa.compile_query(TABLE2_QUERIES[q], g2) for q in QUERIES}
@@ -2068,6 +2138,291 @@ def phase_decode(dev, gen, flush, record) -> dict:
             "library_ms": t["library_ms"]}
 
 
+def timed_steps(phase: str, what: str, fn, inputs: list, kernel: str, per_step: int,
+                warmup: int) -> tuple[dict, list]:
+    """Untimed calls on the first ``warmup`` inputs, then one timed call
+    on each of the others with the launch counts set to 0 just before and
+    read just after: ``kernel`` must launch ``per_step`` times a step and
+    no other kernel launch.  A step's time is its ms between CUDA events,
+    host work inside, as a caller waits for it.  Returns the times and
+    the timed outputs."""
+    for x in inputs[:warmup]:
+        fn(x)
+    torch.cuda.synchronize()
+    inputs = inputs[warmup:]
+    reset_launches()
+    times, outs = [], []
+    for x in inputs:
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        outs.append(fn(x))
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    n = only_launched(kernel, f"{phase} {what}")
+    if n != per_step * len(inputs):
+        raise AssertionError(f"{phase} {what}: {n} {kernel} launches in {len(inputs)} steps, "
+                             f"expected {per_step} a step")
+    return {"steps": len(inputs), "launches": n, "median_ms": float(np.median(times)),
+            "p99_ms": float(np.percentile(times, 99)), "mean_ms": float(np.mean(times)),
+            "min_ms": float(np.min(times))}, outs
+
+
+def log_trace(phase: str, what: str, tr: dict, share: dict, name: str) -> None:
+    log(phase, f"{what} traced: {tr['traced_ms']:.3f} ms wall, device busy {tr['device_busy_ms']:.3f} ms "
+        f"(idle share {1 - tr['device_busy_ms'] / tr['traced_ms']:.4f}); {name} {share['ms']:.3f} ms in "
+        f"{share['count']} launches = {share['share']:.4f} of {share['device_ms']:.3f} ms device time")
+    for kname, kt in list(tr["kernels"].items())[:8]:
+        log(phase, f"  {kt['us'] / 1e3:9.3f} ms {kt['count']:6d}x  {kname[:90]}")
+
+
+def tree_to(tree, device):
+    """A dictionary of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def phase_dlrm(dev, gen, record) -> int:
+    """dlrm-mlperf ``full()`` on one card, nothing cut: serve_p99,
+    serve_bulk and retrieval_cand through ``models/dlrm.py``'s serve and
+    retrieval steps, 26 B6 launches a step; one serve_bulk step's bags
+    each ``torch.equal`` to the plain version, one retrieval's top 64 to
+    plain bags; one serve_bulk step traced.  Returns B6's launches."""
+    rec = record["dlrm"] = {"cut": "none: dlrm-mlperf full(), 26 tables, uniform ids (no Criteo data)"}
+    rules = shd.Rules.from_mesh(None)
+    t0 = time.perf_counter()
+    params = dlrm.init_params(DLRM, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    rec["init_s"], rec["table_bytes"] = time.perf_counter() - t0, tree_bytes(params["tables"])
+    log("dlrm", f"dlrm-mlperf full(): 26 tables, {sum(DLRM.padded_table_sizes)} rows x {DLRM.embed_dim} "
+        f"{DLRM.table_dtype} = {rec['table_bytes'] / 1e9:.2f} GB, f32 MLPs {(DLRM.n_dense,) + DLRM.bot_mlp} "
+        f"and {tuple(params['top'][0]['w'].shape[:1]) + DLRM.top_mlp}, initialised in {rec['init_s']:.1f} s; "
+        f"allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    serve_step, retrieval_step = dlrm.make_serve_step(DLRM, rules), dlrm.make_retrieval_step(DLRM, rules)
+
+    def serve(b):
+        return serve_step(params, b)
+
+    def retrieve(b):
+        return retrieval_step(params, b)
+
+    def batches(shape: str, n: int, first: int) -> list[dict]:
+        size = registry.RECSYS_SHAPES[shape].dims["batch"]
+        return [pipeline.dlrm_batch(DLRM.table_sizes, DLRM.n_dense, DLRM.multi_hot, size, first + i,
+                                    seed=SEED, device=dev) for i in range(n)]
+
+    def check_probs(probs: list, what: str) -> None:
+        for p in probs:
+            if not (torch.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()):
+                raise AssertionError(f"dlrm {what}: a probability is not finite in [0, 1]")
+
+    launches = 0
+    for shape, n, first in (("serve_p99", DLRM_P99_STEPS, 0), ("serve_bulk", DLRM_BULK_STEPS, 10_000)):
+        inputs = batches(shape, n + DLRM_WARMUP, first)
+        r, probs = timed_steps("dlrm", shape, serve, inputs, "embedding_bag_sorted", DLRM.n_sparse,
+                               DLRM_WARMUP)
+        check_probs(probs, shape)
+        size = inputs[0]["dense"].shape[0]
+        r.update({"batch": size, "samples_per_s": size / r["median_ms"] * 1e3})
+        rec[shape], launches = r, launches + r["launches"]
+        log("dlrm", f"{shape}: batch {size}, {r['steps']} steps, {r['launches']} B6 launches = 26 a step, "
+            f"no other kernel; median {r['median_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms, min "
+            f"{r['min_ms']:.4f} ms a step (CUDA events) = {r['samples_per_s']:.1f} samples/s; every "
+            "probability finite in [0, 1]")
+        del probs
+    bulk = inputs[0]
+    del inputs
+
+    # each bag of one serve_bulk step on B6 against the plain version
+    embs = dlrm.embedding_bags(DLRM, rules, params, bulk["sparse"])
+    n_bags = bulk["sparse"].shape[0]
+    bags = torch.arange(n_bags, dtype=torch.int32, device=dev).repeat_interleave(DLRM.multi_hot)
+    sorted_bags, order = torch.sort(bags, stable=True)
+    for i, e in enumerate(embs):
+        idx = bulk["sparse"][:, i, :].reshape(-1)[order]
+        want = embedbag.embedding_bag_sorted_plain(params["tables"][f"t{i}"], idx, sorted_bags, n_bags)
+        if not torch.equal(e, want):
+            raise AssertionError(f"dlrm serve_bulk: table {i}'s B6 bags != plain")
+    log("dlrm", f"serve_bulk: each of the 26 tables' B6 bags of one step == plain (torch.equal)")
+    del embs
+
+    # one serve_bulk step traced: B6's share of device time
+    tr = device_trace(lambda: serve(bulk))
+    share = kernel_share(tr, ("embedding_bag_kernel",))
+    mlp_flops = 2 * n_bags * sum(l["w"].numel() for l in params["bot"] + params["top"])
+    inter_flops = 2 * n_bags * (DLRM.n_sparse + 1) ** 2 * DLRM.embed_dim
+    gemm = kernel_share(tr, ("gemm", "Gemm", "cutlass", "sm90_xmma", "ampere_sgemm"))
+    rec["serve_bulk_trace"] = {**tr, "b6": share, "gemm": gemm, "mlp_flops": mlp_flops,
+                               "interaction_flops": inter_flops,
+                               "gemm_tflops": (mlp_flops + inter_flops) / gemm["ms"] / 1e9 if gemm["ms"] else None}
+    log_trace("dlrm", "serve_bulk step", tr, share, "B6")
+    log("dlrm", f"serve_bulk step: {(mlp_flops + inter_flops) / 1e12:.3f} TFLOP of f32 MLP and interaction "
+        f"products; the GEMM kernels {gemm['ms']:.3f} ms ({gemm['share']:.4f} of device time) = "
+        f"{rec['serve_bulk_trace']['gemm_tflops']} TFLOP/s")
+
+    # retrieval_cand: one query against 1,000,000 candidates
+    n_cand = registry.RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"]
+    cands = torch.randn((n_cand, DLRM.embed_dim), generator=gen, device=dev)
+    inputs = [dict(b, candidates=cands) for b in batches("retrieval_cand", DLRM_RETRIEVAL_STEPS + DLRM_WARMUP, 20_000)]
+    r, outs = timed_steps("dlrm", "retrieval_cand", retrieve, inputs, "embedding_bag_sorted",
+                          DLRM.n_sparse, DLRM_WARMUP)
+    b, (scores, top) = inputs[DLRM_WARMUP], outs[0]
+    q = dlrm._mlp_apply(params["bot"], b["dense"])[0]
+    hot0 = torch.zeros(DLRM.multi_hot, dtype=torch.int32, device=dev)
+    user = torch.stack([q] + [
+        embedbag.embedding_bag_sorted_plain(params["tables"][f"t{i}"], b["sparse"][0, i].contiguous(), hot0, 1)[0].float()
+        for i in range(DLRM.n_sparse)]).mean(0)
+    want = torch.topk(cands @ user, 64)
+    all_scores = cands @ user
+    if not (torch.equal(scores, want.values) and torch.equal(all_scores[top], want.values)):
+        raise AssertionError("dlrm retrieval_cand: the top 64 differ from plain bags' (beyond ties)")
+    r.update({"n_candidates": n_cand, "top": 64})
+    rec["retrieval_cand"], launches = r, launches + r["launches"]
+    log("dlrm", f"retrieval_cand: {n_cand} candidates x {DLRM.embed_dim} f32, top 64; {r['steps']} steps, "
+        f"{r['launches']} B6 launches = 26 a step, no other kernel; median {r['median_ms']:.4f} ms, p99 "
+        f"{r['p99_ms']:.4f} ms; the top 64 of one == those of the plain bags (scores exact, indices up to ties)")
+    del params, cands, inputs, outs, bulk, tr
+    free()
+    return launches
+
+
+def phase_lm(dev, gen, record) -> int:
+    """qwen3-14b at full width, ``n_layers`` cut to :data:`LM_LAYERS`:
+    (a) a request run (prefill of 8 prompts, the cache copied into a
+    longer buffer, 16 greedy decode steps) held to the port's CPU run of
+    the same weights and tokens; (b) decode_32k steps on a random cache,
+    one traced.  Returns B7's launches."""
+    cfg = dataclasses.replace(QWEN, n_layers=LM_LAYERS)
+    rules = shd.Rules.from_mesh(None)
+    rec = record["lm"] = {"cut": {"n_layers": [QWEN.n_layers, LM_LAYERS],
+                                  "why": "the full decode_32k cache is 687 GB"}}
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    rec["init_s"], rec["weight_bytes"] = time.perf_counter() - t0, tree_bytes(params)
+    log("lm", f"qwen3-14b at full width (d_model {cfg.d_model}, {cfg.n_q_heads} q-heads, {cfg.n_kv_heads} kv "
+        f"heads, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to {cfg.padded_vocab}, "
+        f"{cfg.dtype}), {cfg.n_layers} of {QWEN.n_layers} layers: {rec['weight_bytes'] / 1e9:.2f} GB of "
+        f"weights, initialised in {rec['init_s']:.1f} s")
+    prefill, step = transformer.make_prefill(cfg, rules), transformer.make_decode_step(cfg, rules)
+
+    # (a) the request run, and its replay on the CPU
+    def request_run(params, prompts, fed=None):
+        logits, pre = prefill(params, prompts)
+        first = logits
+        cache = transformer.init_cache(cfg, prompts.shape[0], LM_PROMPT + LM_NEW, device=prompts.device)
+        cache["k"][:, :, :LM_PROMPT] = pre["k"]
+        cache["v"][:, :, :LM_PROMPT] = pre["v"]
+        cache["len"] = pre["len"]
+        del pre
+        tokens = []
+        for i in range(LM_NEW):
+            tok = fed[i] if fed is not None else logits[:, : cfg.vocab].float().argmax(-1).to(torch.int32)
+            tokens.append(tok)
+            logits, cache = step(params, cache, tok)
+        if int(cache["len"]) != LM_PROMPT + LM_NEW:
+            raise AssertionError(f"the cache ends at len {int(cache['len'])}")
+        return first, logits, tokens
+
+    prompts = pipeline.lm_batch(cfg.vocab, LM_REQUESTS, LM_PROMPT, step=0, seed=SEED, device=dev)["tokens"]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, last, fed = request_run(params, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = only_launched("flash_decode_gqa", "lm request run")
+    if n != LM_LAYERS * LM_NEW:
+        raise AssertionError(f"lm request run: {n} B7 launches, expected {LM_LAYERS} x {LM_NEW}")
+    launches = n
+    t0 = time.perf_counter()
+    cpu_params = tree_to(params, "cpu")
+    c_first, c_last, _ = request_run(cpu_params, prompts.cpu(), [t.cpu() for t in fed])
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    errs = {}
+    for name, got, want in (("prefill", first, c_first), ("last_decode", last, c_last)):
+        scale = float(want.float().abs().max())
+        err = float((got.float().cpu() - want.float()).abs().max())
+        errs[name] = {"max_abs_err": err, "largest_abs_logit": scale, "limit": BF16_TOL * scale}
+        if got.dtype != cfg.dtype or not torch.isfinite(got.float()).all() or err > BF16_TOL * scale:
+            raise AssertionError(f"lm request run: {name} logits differ from the CPU run: max |diff| {err} > "
+                                 f"{BF16_TOL} x {scale}")
+    rec["request"] = {"requests": LM_REQUESTS, "prompt": LM_PROMPT, "new_tokens": LM_NEW, "wall_s": wall,
+                      "launches": n, "cpu_s": cpu_s, "check": errs}
+    log("lm", f"(a) {LM_REQUESTS} prompts of {LM_PROMPT} tokens (lm_batch), prefill, cache copied into "
+        f"init_cache(max_len={LM_PROMPT + LM_NEW}), {LM_NEW} greedy decode steps: {wall:.3f} s wall, {n} B7 "
+        f"launches = layers x steps, no other kernel; the CPU run of the same weights and tokens "
+        f"({cpu_s:.1f} s): prefill logits max |diff| {errs['prefill']['max_abs_err']} "
+        f"(limit {errs['prefill']['limit']}), last decode step {errs['last_decode']['max_abs_err']} "
+        f"(limit {errs['last_decode']['limit']} = {BF16_TOL} x largest |logit|)")
+    del first, last, fed, c_first, c_last, prompts
+    # B7 at the request cache's shape: S = 1,040 ends in a part of the
+    # kernel's 64-position tile, and its splits are shorter than the rest
+    seq = LM_PROMPT + LM_NEW
+    shape = (LM_REQUESTS, seq, cfg.n_kv_heads, cfg.d_head)
+    q = torch.randn((LM_REQUESTS, cfg.n_q_heads, cfg.d_head), generator=gen, device=dev, dtype=cfg.dtype)
+    k = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
+    block = math.gcd(seq, 512)
+    for kv in (seq, seq - 10, LM_PROMPT + 1):
+        kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+        got = decode_attn.flash_decode_gqa(q, k, v, kv_len, block_kv=block)
+        want = decode_attn.flash_decode_gqa_plain(q, k, v, kv_len, block_kv=block)
+        err, scale = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+        if err > BF16_TOL * scale:
+            raise AssertionError(f"lm: B7 at S={seq}, kv_len {kv}: max |diff| {err} > {BF16_TOL} x {scale}")
+        errs[f"b7_s{seq}_kv{kv}"] = {"max_abs_err": err, "largest_abs_out": scale}
+    n_split, split_len = decode_attn.decode_splits(LM_REQUESTS, cfg.n_kv_heads, seq)
+    log("lm", f"B7 at the request cache's shape (B {LM_REQUESTS}, S {seq}: {n_split} splits of {split_len}) "
+        f"~= plain at kv_len {seq}, {seq - 10}, {LM_PROMPT + 1}: max |diff| "
+        f"{[errs[k]['max_abs_err'] for k in errs if k.startswith('b7')]}")
+    del q, k, v, got, want
+    free()
+
+    # (b) decode_32k steps on a random cache
+    batch, seq = DECODE_SHAPES["decode_32k"]
+    kv_shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.d_head)
+    cache = {"k": lm_layers.normal(kv_shape, 1.0, cfg.dtype, gen), "v": lm_layers.normal(kv_shape, 1.0, cfg.dtype, gen),
+             "len": torch.tensor(seq - 17, dtype=torch.int32, device=dev)}
+    tokens = pipeline.lm_batch(cfg.vocab, batch, 1, step=1, seed=SEED, device=dev)["tokens"][:, 0].contiguous()
+    cache_bytes = tree_bytes({"k": cache["k"], "v": cache["v"]})
+    r, outs = timed_steps("lm", "decode_32k", lambda _: step(params, cache, tokens)[0],
+                          [None] * (LM_DECODE_STEPS + LM_WARMUP), "flash_decode_gqa", LM_LAYERS, LM_WARMUP)
+    for logits in outs:
+        if logits.shape != (batch, cfg.padded_vocab) or not torch.isfinite(logits.float()).all():
+            raise AssertionError("lm decode_32k: logits not finite or of the wrong shape")
+    kv = seq - 17 + 1
+    nbytes = (tree_bytes(params["layers"]) + tree_bytes(params["lm_head"])
+              + 2 * cfg.n_layers * batch * kv * cfg.n_kv_heads * cfg.d_head * 2)
+    r.update({"batch": batch, "seq": seq, "kv_len": kv, "cache_bytes": cache_bytes,
+              "tokens_per_s": batch / r["median_ms"] * 1e3, "bytes": nbytes,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    launches += r["launches"]
+    tr = device_trace(lambda: step(params, cache, tokens))
+    share = kernel_share(tr, ("decode_bf16_kernel", "decode_combine_kernel"))
+    r["trace"] = {**tr, "b7": share}
+    rec["decode_32k"] = r
+    log("lm", f"(b) decode_32k: batch {batch}, S {seq}, len {seq - 17} ({cache_bytes / 1e9:.2f} GB of K and V "
+        f"for {cfg.n_layers} layers); {r['steps']} steps, {r['launches']} B7 launches = layers x steps, no "
+        f"other kernel; median {r['median_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms a step (CUDA events) = "
+        f"{r['tokens_per_s']:.1f} tokens/s; byte bound {r['bound_ms']:.4f} ms ({nbytes / 1e9:.2f} GB: layer "
+        "weights, lm_head, K and V of the prefix)")
+    log_trace("lm", "decode_32k step", tr, share, "B7")
+    del params, cache, tokens, outs, tr
+    free()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON to this file")
@@ -2120,9 +2475,9 @@ def main() -> int:
     # ---- setup: the twin, its placement, both Stage-A stores -------------
     t0 = time.perf_counter()
     g = alibaba_like(seed=SEED)
-    placement = distribute(g, n_sites=256, replication_rate=0.2, seed=SEED)
+    placement = distribute(g, n_sites=RPQ.n_sites, replication_rate=RPQ.replication_rate, seed=SEED)
     log("setup", f"twin: {g.n_nodes} nodes, {g.n_edges} edges, {g.n_labels} labels; "
-        f"256 sites, K = {placement.replication_factor:.4f} "
+        f"{RPQ.n_sites} sites, K = {placement.replication_factor:.4f} "
         f"({time.perf_counter() - t0:.1f} s)")
     stores, record["setup"] = {}, {"device_bytes": total_mem}
     for td in ("f32", "uint32"):
@@ -2147,6 +2502,7 @@ def main() -> int:
     if not torch.equal(fkernel.unpack_tile_bits(su.tiles[q1_tids], 128), s32.tiles[q1_tids]):
         raise AssertionError("q1's uint32 tiles do not unpack to its f32 tiles")
     log("setup", f"uint32 offsets == f32 offsets; q1's {len(q1_tids)} tiles unpack to the f32 tiles")
+    del s32, su  # so that `del stores` after the baseline phase frees both stores
     phase_end("setup")
 
     # ---- kernels: each CUDA level kernel against its plain version ---------
@@ -2283,6 +2639,10 @@ def main() -> int:
     phase_end("embedbag")
     new_kernels.append(phase_decode(dev, gen, flush, record))
     phase_end("decode")
+    new_kernels[1]["launches"] += phase_dlrm(dev, gen, record)
+    phase_end("dlrm")
+    new_kernels[2]["launches"] += phase_lm(dev, gen, record)
+    phase_end("lm")
 
     kernels = [{
         "name": name,

@@ -194,3 +194,43 @@ def estimates_from_numpy(
         wildcard=bool(wildcard),
         query_class=None if query_class is None else QueryClass(*query_class),
     )
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One numpy leaf as a tensor with the same bytes; a bfloat16 array
+    (``ml_dtypes``, as ``np.asarray`` gives a JAX bf16 array) goes
+    through its 16-bit view."""
+    a = np.array(a)  # a writable copy: JAX's arrays come back read-only
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _carry_tree(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _carry_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_carry_tree(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+def _params_from_numpy(params: dict, keys: set[str], what: str, device) -> dict:
+    if set(params) != keys:
+        raise KeyError(f"{what} params have keys {sorted(params)}, expected {sorted(keys)}")
+    return _carry_tree(params, resolve_device(device))
+
+
+def lm_params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
+    """``repro``'s LM parameters (``models/transformer.py``
+    ``init_params``: embed, lm_head, final_norm and the stacked layers),
+    each leaf a numpy array, as the port's tensors with the same bytes on
+    ``device`` (``None``: the GPU)."""
+    return _params_from_numpy(params, {"embed", "lm_head", "final_norm", "layers"}, "LM", device)
+
+
+def dlrm_params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
+    """``repro``'s DLRM parameters (``models/dlrm.py`` ``init_params``:
+    the bottom and top MLPs as lists of {w, b}, the tables t0..), each
+    leaf a numpy array, as the port's tensors with the same bytes on
+    ``device`` (``None``: the GPU)."""
+    return _params_from_numpy(params, {"bot", "top", "tables"}, "DLRM", device)

@@ -1,0 +1,183 @@
+"""DLRM (MLPerf config), arXiv:1906.00091: serve and retrieval steps.
+
+Port of ``repro/models/dlrm.py``'s serving path: ``DLRMConfig``,
+``init_params``, ``forward``, ``make_serve_step`` and
+``make_retrieval_step``.  The hot path is the sparse embedding lookup,
+which ``repro`` builds from ``jnp.take`` + ``jax.ops.segment_sum``; here
+:func:`embedding_bag_local` runs ``kernels/embedbag/ops.py``'s
+``embedding_bag``, that is kernel B6, the same function: each bag summed
+in lookup order in the table's dtype, a bf16 sum rounded after every
+lookup as ``segment_sum`` rounds it on the CPU.  Tables are replicated
+or row-sharded per ``planner.embedding_placement`` (the paper's
+replicate-vs-shard rule, ``DLRMConfig.table_modes``); on one card a
+sharded table is looked up locally, as ``repro``'s off-mesh branch does.
+The mesh branch of :func:`embedding_bag_sharded` and ``make_train_step``
+wait for later slices (ROADMAP: the multi-GPU item, ``training/``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.planner import embedding_placement
+from repro_torch.dist import sharding as shd
+from repro_torch.kernels.embedbag import ops as embedbag_ops
+from repro_torch.models.layers import normal
+
+# Criteo-1TB per-field vocabulary sizes (MLPerf DLRM reference).
+CRITEO_TABLE_SIZES = [
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36,
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    name: str = "dlrm-mlperf"
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 128
+    bot_mlp: tuple[int, ...] = (512, 256, 128)
+    top_mlp: tuple[int, ...] = (1024, 1024, 512, 256, 1)
+    table_sizes: tuple[int, ...] = tuple(CRITEO_TABLE_SIZES)
+    multi_hot: int = 1  # lookups per field (bag size)
+    optimizer: str = "adamw"
+    dtype: Any = torch.float32
+    table_dtype: Any = torch.bfloat16
+
+    @property
+    def padded_table_sizes(self) -> tuple[int, ...]:
+        """Row counts padded to 512 so row-sharding divides any mesh axis
+        (padding rows are never indexed: data ids stay < true size)."""
+        return tuple(-(-r // 512) * 512 if r > 512 else r for r in self.table_sizes)
+
+    def table_modes(self, n_devices: int, batch: int) -> list[str]:
+        """Per-table replicate/shard decision via the paper's rule."""
+        return [
+            embedding_placement(rows, self.embed_dim, batch * self.multi_hot, n_devices).mode
+            for rows in self.table_sizes
+        ]
+
+
+def _mlp_init(gen: torch.Generator, sizes, dtype) -> list[dict]:
+    return [
+        {"w": normal((a, b), 1.0 / math.sqrt(a), dtype, gen),
+         "b": torch.zeros((b,), dtype=dtype, device=gen.device)}
+        for a, b in zip(sizes[:-1], sizes[1:])
+    ]
+
+
+def _mlp_apply(layers: list[dict], x: torch.Tensor) -> torch.Tensor:
+    for i, layer in enumerate(layers):
+        x = x @ layer["w"] + layer["b"]
+        if i + 1 < len(layers):
+            x = torch.relu(x)
+    return x
+
+
+def init_params(cfg: DLRMConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters from one ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (None: the GPU): ``repro``'s tree and shapes,
+    tables of ``padded_table_sizes`` rows drawn in f32 and cast to
+    ``table_dtype`` a chunk at a time (dlrm-mlperf's largest table would
+    take a 20 GB f32 temporary in one draw)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n_int = (cfg.n_sparse + 1) * cfg.n_sparse // 2  # upper-triangle pairs incl. dense
+    top_in = n_int + cfg.bot_mlp[-1]
+    return {
+        "bot": _mlp_init(gen, (cfg.n_dense,) + cfg.bot_mlp, cfg.dtype),
+        "top": _mlp_init(gen, (top_in,) + cfg.top_mlp, cfg.dtype),
+        "tables": {
+            f"t{i}": normal((rows, cfg.embed_dim), 1.0 / math.sqrt(cfg.embed_dim), cfg.table_dtype, gen)
+            for i, rows in enumerate(cfg.padded_table_sizes)
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# EmbeddingBag on B6
+# ---------------------------------------------------------------------------
+
+
+def embedding_bag_local(
+    table: torch.Tensor, idx: torch.Tensor, bag_ids: torch.Tensor, n_bags: int
+) -> torch.Tensor:
+    """EmbeddingBag (sum): bag ``bag_ids[i]`` adds ``table[idx[i]]``;
+    (n_bags, D) in the table's dtype.  ``idx`` and ``bag_ids`` are (N,)
+    int32 on the table's device."""
+    return embedbag_ops.embedding_bag(table, idx, bag_ids, n_bags)
+
+
+def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rules) -> torch.Tensor:
+    """A row-sharded table's EmbeddingBag over ``idx`` (B, hot): bag b
+    sums ``table[idx[b]]``.  Off-mesh, which the port always is, the
+    lookup is local, as in ``repro``; ``repro``'s mesh branch (each model
+    shard answers for its rows, one psum) is ROADMAP's multi-GPU item."""
+    B, hot = idx.shape
+    bag_ids = torch.arange(B, dtype=torch.int32, device=idx.device).repeat_interleave(hot)
+    return embedding_bag_local(table, idx.reshape(-1), bag_ids, B)
+
+
+# ---------------------------------------------------------------------------
+# Forward / steps
+# ---------------------------------------------------------------------------
+
+
+def embedding_bags(cfg: DLRMConfig, rules: shd.Rules, params: dict, sparse: torch.Tensor) -> list:
+    """The 26 bags of each row of ``sparse`` (B, n_sparse, multi_hot),
+    one B6 launch a table, in the table's dtype."""
+    B = sparse.shape[0]
+    modes = cfg.table_modes(1, B)
+    bag_ids = torch.arange(B, dtype=torch.int32, device=sparse.device).repeat_interleave(cfg.multi_hot)
+    embs = []
+    for i in range(cfg.n_sparse):
+        table = params["tables"][f"t{i}"]
+        if modes[i] == "shard":
+            embs.append(embedding_bag_sharded(table, sparse[:, i, :], rules))
+        else:
+            embs.append(embedding_bag_local(table, sparse[:, i, :].reshape(-1), bag_ids, B))
+    return embs
+
+
+def forward(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """batch: dense (B, 13) float; sparse (B, 26, multi_hot) int32.
+    Returns the logits (B,)."""
+    x_dense = _mlp_apply(params["bot"], batch["dense"])  # (B, 128)
+    embs = embedding_bags(cfg, rules, params, batch["sparse"])
+    # dot-interaction over [bottom-mlp output] + 26 embeddings
+    feats = torch.stack([x_dense] + [e.float() for e in embs], dim=1)  # (B, 27, D)
+    inter = torch.einsum("bnd,bmd->bnm", feats, feats)
+    n = cfg.n_sparse + 1
+    iu = torch.triu_indices(n, n, offset=1, device=feats.device)
+    top_in = torch.cat([x_dense, inter[:, iu[0], iu[1]]], dim=-1)  # (B, 128 + 351)
+    return _mlp_apply(params["top"], top_in)[:, 0]
+
+
+def make_serve_step(cfg: DLRMConfig, rules: shd.Rules):
+    def serve_step(params: dict, batch: dict) -> torch.Tensor:
+        return torch.sigmoid(forward(cfg, rules, params, batch))
+
+    return serve_step
+
+
+def make_retrieval_step(cfg: DLRMConfig, rules: shd.Rules):
+    """retrieval_cand: one query (dense + sparse) scored against the
+    candidate item embeddings, a batched dot; the top 64 as (scores,
+    indices)."""
+
+    def retrieval_step(params: dict, batch: dict):
+        dense, sparse, cand = batch["dense"], batch["sparse"], batch["candidates"]
+        q = _mlp_apply(params["bot"], dense)  # (1, D)
+        embs = [q[0]] + [e[0].float() for e in embedding_bags(cfg, rules, params, sparse[:1])]
+        user = torch.stack(embs).mean(dim=0)  # (D,)
+        return torch.topk(cand @ user, 64)
+
+    return retrieval_step

@@ -1,0 +1,212 @@
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention (qk-norm
+optional), chunked flash-style attention, decode attention on kernel B7,
+and the SwiGLU FFN.
+
+Port of ``repro/models/layers.py`` without the MoE layer (``init_moe``,
+``apply_moe``, ``_moe_local``) and the losses (``cross_entropy``,
+``chunked_cross_entropy``), which wait for later slices (ROADMAP A14).
+Everything is functional: ``init_*`` build dictionaries of tensors,
+``apply_*`` consume them.  ``rules`` is taken where ``repro`` takes it;
+off-mesh its constraints are the identity, and the port runs on one
+card, so none is applied.
+
+Promotions follow ``repro``'s: norms and RoPE compute in f32 and cast
+back to the input's dtype; products of bf16 tensors are bf16.
+:func:`decode_attention` runs B7 (``kernels/decode_attn/ops.py``), where
+``repro``'s layer is a plain softmax: the same function, an online
+softmax that rounds p to V's dtype relative to another running max, so
+they agree to B7's tolerances (2e-5 in f32, 2e-2 in bf16).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.dist import sharding as shd
+from repro_torch.kernels.decode_attn import ops as decode_ops
+
+# elements drawn at once by :func:`normal`: bounds its f32 temporary at 1 GiB
+INIT_CHUNK = 1 << 28
+
+_MASKED = -1e30
+
+
+def normal(shape, std: float, dtype: torch.dtype, gen: torch.Generator) -> torch.Tensor:
+    """A tensor of ``shape`` on ``gen``'s device, N(0, std²) drawn in f32
+    from ``gen`` and cast to ``dtype``, as ``repro`` casts its f32 draws;
+    drawn :data:`INIT_CHUNK` elements at a time, so the f32 temporary
+    stays bounded however large the tensor (a 20 GB embedding table)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), INIT_CHUNK):
+        hi = min(lo + INIT_CHUNK, flat.numel())
+        flat[lo:hi] = torch.randn(hi - lo, generator=gen, device=gen.device) * std
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Norms / RoPE / misc
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: (..., S)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+    q_chunk: int = 512, kv_chunk: int = 1024, q_offset: int = 0,
+) -> torch.Tensor:
+    """Flash-style chunked attention in plain PyTorch, ``repro``'s loop
+    for loop.  q: (B, Sq, H, Dh); k, v: (B, Skv, G, Dh) with H = G·r
+    (GQA).  An online softmax over kv chunks keeps the score buffer at
+    (B, G, r, q_chunk, kv_chunk); masked scores are -1e30, statistics and
+    the accumulator f32, p rounded to V's dtype before P·V."""
+    B, Sq, H, Dh = q.shape
+    _, Skv, G, _ = k.shape
+    r = H // G
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+    q = q.reshape(B, Sq, G, r, Dh)
+
+    n_q = -(-Sq // q_chunk)
+    n_kv = -(-Skv // kv_chunk)
+    q_pad = n_q * q_chunk - Sq
+    kv_pad = n_kv * kv_chunk - Skv
+    if q_pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, q_pad))
+    if kv_pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, kv_pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, kv_pad))
+
+    kc = k.reshape(B, n_kv, kv_chunk, G, Dh)
+    vc = v.reshape(B, n_kv, kv_chunk, G, Dh)
+    qc = q.reshape(B, n_q, q_chunk, G, r, Dh)
+    kv_valid = (torch.arange(n_kv * kv_chunk, device=dev) < Skv).reshape(n_kv, kv_chunk)
+
+    outs = []
+    for qi in range(n_q):
+        qblk = qc[:, qi]  # (B, qc, G, r, Dh)
+        q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, G, r, q_chunk), -math.inf, device=dev)
+        l = torch.zeros((B, G, r, q_chunk), device=dev)
+        acc = torch.zeros((B, G, r, q_chunk, Dh), device=dev)
+        for ki in range(n_kv):
+            kblk, vblk = kc[:, ki], vc[:, ki]  # (B, kc, G, Dh)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qblk, kblk).float() * scale
+            mask = kv_valid[ki][None, :]
+            if causal:
+                kv_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+                mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+            s = torch.where(mask, s, _MASKED)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", p.to(vblk.dtype), vblk
+            ).float()
+            m = m_new
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype))  # (B, G, r, qc, Dh)
+
+    out = torch.stack(outs, dim=1).movedim(4, 2)  # (B, n_q, qc, G, r, Dh)
+    out = out.reshape(B, n_q * q_chunk, G, r, Dh)[:, :Sq]
+    return out.reshape(B, Sq, H, Dh)
+
+
+def decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor
+) -> torch.Tensor:
+    """Single-position attention against the KV cache, on B7.  q: (B, 1,
+    H, Dh); k, v: (B, S, G, Dh), contiguous; kv_len: the valid prefix, a
+    () int32 tensor on q's device.  B7's plain version walks blocks of
+    ``gcd(S, 512)`` positions (its block must divide S); the kernel picks
+    its own tiles and splits."""
+    B, _, H, Dh = q.shape
+    out = decode_ops.decode_attention(
+        q.reshape(B, H, Dh), k, v, kv_len, block_kv=math.gcd(k.shape[1], 512)
+    )
+    return out.reshape(B, 1, H, Dh)
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + norms + rope)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(
+    gen: torch.Generator, d_model: int, n_q: int, n_kv: int, d_head: int, qk_norm: bool,
+    dtype: torch.dtype, lead: tuple[int, ...] = (),
+) -> dict:
+    """One attention block's weights, each with the leading dims ``lead``
+    (``(n_layers,)`` for the stacked layers ``repro``'s ``vmap`` builds)."""
+    sd = 1.0 / math.sqrt(d_model)
+    p = {
+        "wq": normal(lead + (d_model, n_q * d_head), sd, dtype, gen),
+        "wk": normal(lead + (d_model, n_kv * d_head), sd, dtype, gen),
+        "wv": normal(lead + (d_model, n_kv * d_head), sd, dtype, gen),
+        "wo": normal(lead + (n_q * d_head, d_model), sd, dtype, gen),
+    }
+    if qk_norm:
+        p["q_norm"] = torch.ones(lead + (d_head,), dtype=torch.float32, device=gen.device)
+        p["k_norm"] = torch.ones(lead + (d_head,), dtype=torch.float32, device=gen.device)
+    return p
+
+
+def apply_attention_proj(
+    p: dict, x: torch.Tensor, n_q: int, n_kv: int, d_head: int, positions: torch.Tensor,
+    rules: shd.Rules, rope_theta: float = 1e6,
+):
+    """QKV projection + qk-norm + rope.  Returns (q, k, v)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_q, d_head)
+    k = (x @ p["wk"]).reshape(B, S, n_kv, d_head)
+    v = (x @ p["wv"]).reshape(B, S, n_kv, d_head)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    return rope(q, positions, rope_theta), rope(k, positions, rope_theta), v
+
+
+# ---------------------------------------------------------------------------
+# FFN (dense SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(
+    gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype, lead: tuple[int, ...] = ()
+) -> dict:
+    si, so = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return {
+        "w_gate": normal(lead + (d_model, d_ff), si, dtype, gen),
+        "w_up": normal(lead + (d_model, d_ff), si, dtype, gen),
+        "w_down": normal(lead + (d_ff, d_model), so, dtype, gen),
+    }
+
+
+def apply_mlp(p: dict, x: torch.Tensor, rules: shd.Rules) -> torch.Tensor:
+    return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

@@ -1,0 +1,261 @@
+"""Decoder-only transformer LMs with GQA and optional qk-norm: qwen3-14b
+and -32b, internlm2-1.8b; the MoE configs (granite-moe, kimi-k2) are
+described but not built.
+
+Port of ``repro/models/transformer.py``'s serving path: ``LMConfig``,
+``init_params``, ``forward`` / ``hidden_states``, ``init_cache``,
+``make_prefill`` and ``make_decode_step``.  The parameters are a
+dictionary of tensors with ``repro``'s tree and leaf shapes: the
+per-layer leaves stacked with the layer dimension first, as ``repro``'s
+``jax.vmap`` builds them.  ``repro``'s ``lax.scan`` over the layers is a
+Python loop over that dimension.  The decode step writes the KV cache in
+place at ``pos`` and runs its attention on kernel B7
+(``layers.decode_attention``); ``repro``'s writes a new cache with
+``lax.dynamic_update_slice_in_dim``, which clamps its start, so at
+``pos == max_len`` it overwrites the last slot where the port raises.
+
+Left for later slices (ROADMAP A14): the MoE layer (``init_params``
+refuses an ``is_moe`` config), ``make_train_step`` with its loss
+(``training/``), and the placement specs of a mesh (``param_specs``,
+``cache_specs``, ``seq_sharded``; the multi-GPU item).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.dist import sharding as shd
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_q_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qk_norm: bool = False
+    # MoE (n_experts=0 -> dense)
+    n_experts: int = 0
+    top_k: int = 0
+    rope_theta: float = 1e6
+    dtype: Any = torch.bfloat16
+    # execution
+    microbatches: int = 1
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    remat: bool = True
+    optimizer: str = "adamw"
+    fsdp_experts: bool = False  # rest-shard expert d_ff over data axes (kimi)
+    vocab_pad: int = 256  # pad embed/lm_head so the vocab dim shards evenly
+    # per-arch Rules overrides (pattern -> placement), prepended to the
+    # built-in table by rules_for(); a tuple of pairs so the config stays
+    # hashable
+    sharding_overrides: tuple[tuple[str, Any], ...] | None = None
+
+    @property
+    def padded_vocab(self) -> int:
+        return -(-self.vocab // self.vocab_pad) * self.vocab_pad
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def param_count(self) -> int:
+        attn = self.d_model * (self.n_q_heads + 2 * self.n_kv_heads) * self.d_head
+        attn += self.n_q_heads * self.d_head * self.d_model
+        if self.is_moe:
+            mlp = self.n_experts * 3 * self.d_model * self.d_ff + self.d_model * self.n_experts
+        else:
+            mlp = 3 * self.d_model * self.d_ff
+        per_layer = attn + mlp + 2 * self.d_model
+        return self.n_layers * per_layer + 2 * self.vocab * self.d_model
+
+    def active_param_count(self) -> int:
+        if not self.is_moe:
+            return self.param_count()
+        attn = self.d_model * (self.n_q_heads + 2 * self.n_kv_heads) * self.d_head
+        attn += self.n_q_heads * self.d_head * self.d_model
+        mlp = self.top_k * 3 * self.d_model * self.d_ff + self.d_model * self.n_experts
+        per_layer = attn + mlp + 2 * self.d_model
+        return self.n_layers * per_layer + 2 * self.vocab * self.d_model
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters from one ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (None: the GPU); ``repro``'s tree and shapes,
+    other numbers (``repro`` draws from ``jax.random``)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} is a MoE config: the MoE layer is not ported yet (ROADMAP A14, MoE)"
+        )
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, lead = cfg.d_model, (cfg.n_layers,)
+    emb_scale = 1.0 / (d**0.5)
+    ones = torch.ones(lead + (d,), dtype=torch.float32, device=device)
+    return {
+        "embed": L.normal((cfg.padded_vocab, d), emb_scale, cfg.dtype, gen),
+        "lm_head": L.normal((d, cfg.padded_vocab), emb_scale, cfg.dtype, gen),
+        "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
+        "layers": {
+            "attn": L.init_attention(
+                gen, d, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head, cfg.qk_norm, cfg.dtype, lead
+            ),
+            "ln1": ones,
+            "ln2": ones.clone(),
+            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.dtype, lead),
+        },
+    }
+
+
+def rules_for(cfg: LMConfig, mesh=None) -> shd.Rules:
+    """Sharding rules for one arch: the layout's table with the config's
+    overrides prepended."""
+    overrides = dict(cfg.sharding_overrides) if cfg.sharding_overrides else None
+    return shd.Rules.from_mesh(mesh, overrides=overrides)
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked per-layer leaves."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _block(cfg: LMConfig, rules: shd.Rules, x, lp: dict, positions, attend):
+    """One layer: attention (``attend(q, k, v)`` -> (B, S, H, Dh)), then
+    the MLP, each added to the residual stream."""
+    B, S, _ = x.shape
+    h = L.rmsnorm(x, lp["ln1"])
+    q, k, v = L.apply_attention_proj(
+        lp["attn"], h, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head, positions, rules, cfg.rope_theta
+    )
+    x = x + (attend(q, k, v).reshape(B, S, -1) @ lp["attn"]["wo"])
+    return x + L.apply_mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]), rules), k, v
+
+
+def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(cfg.dtype)
+
+
+def _causal(cfg: LMConfig, S: int):
+    def attend(q, k, v):
+        return L.chunked_attention(
+            q, k, v, causal=True, q_chunk=min(cfg.q_chunk, S), kv_chunk=min(cfg.kv_chunk, S)
+        )
+
+    return attend
+
+
+def forward(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab)."""
+    return hidden_states(cfg, rules, params, tokens) @ params["lm_head"]
+
+
+def hidden_states(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Final-norm hidden states (B, S, D): forward() without the lm_head."""
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for i in range(cfg.n_layers):
+        x, _, _ = _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S))
+    return L.rmsnorm(x, params["final_norm"])
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
+    """An empty KV cache: k, v (n_layers, batch, max_len, n_kv_heads,
+    d_head) in the config's dtype, zero; len a () int32 tensor, 0."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "len": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def make_prefill(cfg: LMConfig, rules: shd.Rules):
+    """tokens (B, S) -> (last-token logits (B, padded_vocab), KV cache
+    exactly S long with len S).  A caller that decodes after it copies
+    the cache into an ``init_cache(max_len)`` buffer."""
+
+    def prefill(params: dict, tokens: torch.Tensor):
+        B, S = tokens.shape
+        x = _embed(cfg, params, tokens)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, k, v = _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S))
+            ks.append(k)
+            vs.append(v)
+        x = L.rmsnorm(x[:, -1:], params["final_norm"])
+        logits = x @ params["lm_head"]
+        cache = {
+            "k": torch.stack(ks),
+            "v": torch.stack(vs),
+            "len": torch.tensor(S, dtype=torch.int32, device=x.device),
+        }
+        return logits[:, 0], cache
+
+    return prefill
+
+
+def make_decode_step(cfg: LMConfig, rules: shd.Rules):
+    """One token per sequence against the KV cache (the serve step of
+    decode_32k and long_500k).  ``decode_step(params, cache, tokens)``
+    writes the new keys and values into ``cache["k"]`` and ``cache["v"]``
+    in place at ``pos = cache["len"]``, attends over the first pos + 1
+    positions on B7, and returns (logits (B, padded_vocab), a cache
+    holding the same k and v tensors and len pos + 1).  It reads pos on
+    the host, to index the write and to raise on a full cache."""
+
+    def decode_step(params: dict, cache: dict, tokens: torch.Tensor):
+        B = tokens.shape[0]
+        max_len = cache["k"].shape[2]
+        pos = int(cache["len"])
+        if pos >= max_len:
+            raise IndexError(
+                f"the KV cache is full: len {pos} of max_len {max_len} (repro's "
+                f"dynamic_update_slice would clamp and overwrite position {max_len - 1})"
+            )
+        x = _embed(cfg, params, tokens).reshape(B, 1, cfg.d_model)
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        kv_len = cache["len"] + 1
+
+        for i in range(cfg.n_layers):
+            k_cache, v_cache = cache["k"][i], cache["v"][i]
+
+            def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+                k_cache[:, pos] = k[:, 0]
+                v_cache[:, pos] = v[:, 0]
+                return L.decode_attention(q, k_cache, v_cache, kv_len)
+
+            x, _, _ = _block(cfg, rules, x, _layer(params["layers"], i), positions, attend)
+        x = L.rmsnorm(x, params["final_norm"])
+        logits = (x @ params["lm_head"])[:, 0]
+        return logits, {"k": cache["k"], "v": cache["v"], "len": kv_len}
+
+    return decode_step

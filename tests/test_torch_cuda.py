@@ -31,7 +31,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import dlrm_mlperf, lm_common
 from repro_torch.core import estimation, paa, regex, strategies
+from repro_torch.dist import sharding as shd
+from repro_torch.models import dlrm as dlrm_model
+from repro_torch.models import transformer
 from repro_torch.core.cost_model import NetworkParams
 from repro_torch.graph import generators, partition, structure, workloads
 from repro_torch.kernels.decode_attn import decode_attn
@@ -970,3 +974,84 @@ def test_sharded_site_meter_is_exact_with_tf32_on(cuda):
     want = strategies.s2_execute(placement, ca, np.array([0]), backend="frontier_kernel_sharded",
                                  block_size=128, device="cpu")[1][0]
     assert got == want and sum(got.site_unicast_symbols) == 3 * (n - 1)
+
+
+# ---------------------------------------------------------------------------
+# the models' serving path: DLRM on B6, the LM decode on B7
+# ---------------------------------------------------------------------------
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("multi_hot", [1, 3])
+def test_dlrm_steps_on_gpu_equal_cpu(cuda, multi_hot):
+    """dlrm-mlperf's smoke config: the bags exact (B6 adds what its plain
+    version adds, in the same order), one B6 launch a table and step;
+    probabilities and retrieval scores within 1e-5 of the largest (f32
+    products, TF32 off, summed in other orders), the top 64 indices equal
+    up to ties."""
+    cfg = dataclasses.replace(dlrm_mlperf.smoke(), multi_hot=multi_hot)
+    rules = shd.Rules.from_mesh(None)
+    params = dlrm_model.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        serve = dlrm_mlperf.smoke_batch(cfg, "serve", device=dev)
+        retrieval = dlrm_mlperf.smoke_batch(cfg, "retrieval", device=dev)
+        before = embedbag.LAUNCHES
+        out[str(dev)] = (
+            [e.cpu() for e in dlrm_model.embedding_bags(cfg, rules, p, serve["sparse"])],
+            dlrm_model.make_serve_step(cfg, rules)(p, serve).cpu(),
+            [t.cpu() for t in dlrm_model.make_retrieval_step(cfg, rules)(p, retrieval)],
+        )
+        torch.cuda.synchronize()
+        launches = embedbag.LAUNCHES - before
+    assert launches == 3 * cfg.n_sparse  # the bags, the serve step, the retrieval step
+    (e_cpu, p_cpu, r_cpu), (e_gpu, p_gpu, r_gpu) = out["cpu"], out[str(cuda)]
+    for a, b in zip(e_cpu, e_gpu):
+        assert torch.equal(a, b)
+    assert float((p_gpu - p_cpu).abs().max()) <= 1e-5 * float(p_cpu.abs().max())
+    assert float((r_gpu[0] - r_cpu[0]).abs().max()) <= 1e-5 * float(r_cpu[0].abs().max())
+    differ = r_gpu[1] != r_cpu[1]  # a differing index is a tie within the tolerance
+    assert float((r_gpu[0][differ] - r_cpu[0][differ]).abs().sum()) <= 1e-5 * float(r_cpu[0].abs().max()) * 64
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_prefill_and_decode_on_gpu_equal_cpu(cuda, dtype):
+    """qwen3-14b's smoke config with d_head 64 (B7 takes 64, 128 and 256):
+    prefill, the cache copied into a 72-long buffer (not a multiple of
+    B7's 64-position tile), then 5 decode steps fed the same tokens on
+    both devices, B7 launching once a layer and step; logits within 2e-5
+    (f32) and 2e-2 (bf16) of the largest, B7's tolerances."""
+    cfg = dataclasses.replace(lm_common.lm_smoke("qwen3-14b"), d_head=64, dtype=dtype)
+    rules = shd.Rules.from_mesh(None)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    toks = lm_common.lm_smoke_batch(cfg, "prefill", device="cpu")["tokens"]
+    fed = [torch.tensor([i, 3 * i + 1], dtype=torch.int32) for i in range(5)]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        logits, pre = transformer.make_prefill(cfg, rules)(p, toks.to(dev))
+        cache = transformer.init_cache(cfg, 2, 72, device=dev)
+        cache["k"][:, :, :32], cache["v"][:, :, :32], cache["len"] = pre["k"], pre["v"], pre["len"]
+        step = transformer.make_decode_step(cfg, rules)
+        before = decode_attn.LAUNCHES
+        seen = [logits.float().cpu()]
+        for tok in fed:
+            logits, cache = step(p, cache, tok.to(dev))
+            seen.append(logits.float().cpu())
+        torch.cuda.synchronize()
+        launches = decode_attn.LAUNCHES - before
+        out[str(dev)] = (seen, cache["k"].float().cpu())
+    assert launches == cfg.n_layers * len(fed)
+    for got, want in zip(out[str(cuda)][0], out["cpu"][0]):
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    k_gpu, k_cpu = out[str(cuda)][1], out["cpu"][1]
+    assert float((k_gpu - k_cpu).abs().max()) <= tol * float(k_cpu.abs().max())
