@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive every path of the port end to end on one NVIDIA GPU, through
 each of its seven hand-written CUDA kernels, and the models that call
-B6 and B7.
+B6 (DLRM, the four GNNs) and B7 (the dense and MoE LMs).
 
     python3 chip_smoke.py [--out FILE]
 
@@ -171,6 +171,7 @@ Phases, each of which raises on failure (the run then exits non-zero):
              32-byte sectors, and ``F.embedding_bag``;
 * decode   — B7 ``flash_decode_gqa`` through ``decode_attention`` at
              qwen3-14b's attention widths at decode_32k and long_500k,
+             and at kimi-k2's (H 64, G 8, head dim 112) at decode_32k,
              against its plain version (max |diff| at most 2e-2 of the
              largest |output|, which an all-zero output and the kernel on
              half the cache must both miss) and SDPA; each shape's
@@ -195,12 +196,44 @@ Phases, each of which raises on failure (the run then exits non-zero):
              and tokens; B7 at that cache's shape ~= plain; (b) decode_32k
              (batch 128, a random 34.36 GB cache at len 32,768 - 17): ms a
              step by events, tokens/s, the byte bound, one step traced for
-             B7's share; B7 launches == layers x steps, nothing else.
+             B7's share; B7 launches == layers x steps, nothing else;
+* moe      — (a) granite-moe-1b-a400m whole (24 layers, 32 experts
+             top-8, 2.78 GB): the request run of the lm phase, its CPU
+             replay of prompt 0 fed the card's tokens and experts
+             (``RouteTape``: a token's own top-k may differ from the
+             card's only where its k-th to (k+1)-th logit gap is at most
+             twice its row's largest |logit difference|, and the router
+             logits agree within BF16_TOL of the largest |logit|) within
+             BF16_TOL of the largest |logit|;
+             decode_32k with 24 layers cut to 4 (a 24-layer cache is
+             206 GB): ms a step, tokens/s, the byte bound of the experts
+             the step's tokens chose, the MoE layers timed apart, one
+             step traced; (b) kimi-k2-1t-a32b at full width with 61
+             layers cut to 1 (38.8 GB): the request run (logits finite),
+             64 routed MoE outputs of its prefill against a token-by-
+             token recomputation from the gathered experts within
+             BF16_TOL, B7 at Dh 112 at the request cache's shape ~=
+             plain, decode_32k as (a); B7 launches == layers x steps,
+             nothing else;
+* gnn      — the four GNN serve steps on data drawn from the seed, every
+             scatter and readout on B6 (launches == scatters a step,
+             nothing else), each within GNN_TOL of the port's CPU run
+             of the same weights and batch: (a) gcn-cora at
+             ogb_products (2,449,029 nodes x 100 f32, 61,859,140 uniform
+             edges padded to 61,859,328), nodes/s; (b) gcn-cora on a
+             minibatch_lg block (``NeighborSampler`` over a uniform
+             graph of reddit's 232,965 nodes and 114,615,892 edges,
+             1,024 seeds, fanout 15-10, 602 features), the graph build
+             and the sampling timed on the host apart from serve ms;
+             (c) schnet, nequip and equiformer-v2 ``full()`` at molecule
+             (128 molecules x 30 atoms, 64 edges each), molecules/s, one
+             equiformer-v2 step traced for B6's share.
 
-The embedbag, decode, dlrm and lm phases take their shapes from the
-port's configs (``configs/dlrm_mlperf.py``, ``qwen3_14b.py`` and
-``registry.py``'s shape tables), and the setup its sites and rate from
-``configs/alibaba_rpq.py``.
+The embedbag, decode, dlrm, lm, moe and gnn phases take their shapes
+from the port's configs (``configs/dlrm_mlperf.py``, ``qwen3_14b.py``,
+``granite_moe_1b_a400m.py``, ``kimi_k2_1t_a32b.py``, the GNN configs,
+``gnn_common.py`` and ``registry.py``'s shape tables), and the setup
+its sites and rate from ``configs/alibaba_rpq.py``.
 
 Each phase logs its seconds and peak device memory and frees its tensors
 before the next.  B5, B6 and B7 are timed as B1-B4 are (CUDA graph, L2
@@ -216,6 +249,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -231,10 +265,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import interop  # noqa: E402
-from repro_torch.configs import alibaba_rpq, dlrm_mlperf, qwen3_14b, registry  # noqa: E402
+from repro_torch.configs import alibaba_rpq, dlrm_mlperf, gnn_common, qwen3_14b, registry  # noqa: E402
+from repro_torch.configs import granite_moe_1b_a400m, kimi_k2_1t_a32b  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.dist import sharding as shd  # noqa: E402
-from repro_torch.models import dlrm, transformer  # noqa: E402
+from repro_torch.graph.sampling import NeighborSampler  # noqa: E402
+from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.core import cost_model, paa, planner, plans, strategies, witness  # noqa: E402
 from repro_torch.core import regex as rx  # noqa: E402
@@ -312,6 +348,15 @@ QWEN = qwen3_14b.full()
 QWEN_HEADS, QWEN_KV_HEADS, QWEN_DH = QWEN.n_q_heads, QWEN.n_kv_heads, QWEN.d_head
 DECODE_SHAPES = {name: (registry.LM_SHAPES[name].dims["batch"], registry.LM_SHAPES[name].dims["seq"])
                  for name in ("decode_32k", "long_500k")}
+# the decode phase's cases: (batch, S, q-heads, kv heads, head dim): qwen3-14b
+# at decode_32k and long_500k, and kimi-k2-1t-a32b's attention (64 q-heads,
+# 8 kv heads, head dim 112) at decode_32k
+GRANITE = granite_moe_1b_a400m.full()
+KIMI = kimi_k2_1t_a32b.full()
+DECODE_CASES = {
+    **{name: (b, s, QWEN_HEADS, QWEN_KV_HEADS, QWEN_DH) for name, (b, s) in DECODE_SHAPES.items()},
+    "kimi_decode_32k": (*DECODE_SHAPES["decode_32k"], KIMI.n_q_heads, KIMI.n_kv_heads, KIMI.d_head),
+}
 # the dlrm phase: dlrm-mlperf full() whole (26 tables, 48.07 GB); steps
 # timed after DLRM_WARMUP untimed ones: serve_p99 (batch 512), serve_bulk
 # (batch 262,144), retrieval_cand (1,000,000 candidates, top 64); each
@@ -322,6 +367,25 @@ DLRM_P99_STEPS, DLRM_BULK_STEPS, DLRM_RETRIEVAL_STEPS, DLRM_WARMUP = 60, 10, 20,
 # length and the greedy tokens decoded after them; decode_32k steps timed
 # after LM_WARMUP untimed ones
 LM_LAYERS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_DECODE_STEPS, LM_WARMUP = 2, 8, 1024, 16, 20, 3
+# the moe phase: granite-moe-1b-a400m whole (24 layers) for the request
+# run, its decode_32k cut to MOE_DECODE_LAYERS layers (a 24-layer cache is
+# 206 GB); kimi-k2-1t-a32b at full width cut to KIMI_LAYERS layer (one
+# layer's experts are 33.82 GB, all 61 ~2 TB); the prompts of the request
+# run that the CPU replays (a replay of all 8 through 24 bf16 layers would
+# take minutes of host time); the tokens whose MoE output is recomputed
+# token by token on the card
+MOE_DECODE_LAYERS, KIMI_LAYERS, MOE_CPU_PROMPTS, KIMI_CHECK_TOKENS = 4, 1, 1, 64
+MOE_DECODE_STEPS, MOE_WARMUP = 12, 2
+# the gnn phase: gcn-cora at ogb_products and on a minibatch_lg block
+# (1,024 seeds, fanout 15-10, NeighborSampler over a uniform graph of
+# reddit's 232,965 nodes and 114,615,892 edges), and the three molecular
+# GNNs at molecule (128 molecules x 30 atoms, 64 edges each); serve steps
+# timed after one untimed step.  The CPU runs hold f32 results to GNN_TOL
+# of the largest |output| (EquiformerV2: GNN_TOL_EQUIFORMER, 12 layers of
+# f32 products summed in another order on each device)
+GNN_STEPS, GNN_WARMUP, GNN_TOL, GNN_TOL_EQUIFORMER = 5, 1, 1e-5, 1e-4
+MINIBATCH_SEEDS = registry.GNN_SHAPES["minibatch_lg"].dims["batch_nodes"]
+MINIBATCH_FANOUT = tuple(registry.GNN_SHAPES["minibatch_lg"].dims[k] for k in ("fanout0", "fanout1"))
 # B7 against its plain version: max |diff| at most BF16_TOL (the bf16
 # tolerance of tests/test_kernels.py:140) times the largest |output|.  The
 # outputs average ~kv_len V rows, so their size falls as 1/sqrt(kv_len)
@@ -2068,19 +2132,20 @@ def phase_embedbag(dev, gen, flush, record) -> dict:
 
 def phase_decode(dev, gen, flush, record) -> dict:
     """B7 through ``decode_attention`` at qwen3-14b's attention widths, at
-    decode_32k and long_500k: kernel against plain version, times, bound,
-    and F.scaled_dot_product_attention on the kv_len prefix."""
+    decode_32k and long_500k, and at kimi-k2's (head dim 112) at
+    decode_32k: kernel against plain version, times, bound, and
+    F.scaled_dot_product_attention on the kv_len prefix."""
     rec = record["decode"] = {}
-    for name, (batch, seq) in DECODE_SHAPES.items():
+    for name, (batch, seq, heads, kv_heads, dh) in DECODE_CASES.items():
         kv = seq - 17
-        q = torch.randn((batch, QWEN_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
-        k = torch.randn((batch, seq, QWEN_KV_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
-        v = torch.randn((batch, seq, QWEN_KV_HEADS, QWEN_DH), generator=gen, device=dev, dtype=torch.bfloat16)
+        q = torch.randn((batch, heads, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+        k = torch.randn((batch, seq, kv_heads, dh), generator=gen, device=dev, dtype=torch.bfloat16)
+        v = torch.randn((batch, seq, kv_heads, dh), generator=gen, device=dev, dtype=torch.bfloat16)
         kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
-        n_split, split_len = decode_attn.decode_splits(batch, QWEN_KV_HEADS, seq)
-        part_bytes = 0 if n_split == 1 else batch * QWEN_HEADS * n_split * (QWEN_DH + 2) * 4
+        n_split, split_len = decode_attn.decode_splits(batch, kv_heads, seq)
+        part_bytes = 0 if n_split == 1 else batch * heads * n_split * (dh + 2) * 4
         log("decode", f"{name}: {n_split} kv split(s) of {split_len} positions: a grid of "
-            f"{batch * QWEN_KV_HEADS} x {n_split} CTAs, {part_bytes} bytes of f32 partials")
+            f"{batch * kv_heads} x {n_split} CTAs, {part_bytes} bytes of f32 partials")
         reset_launches()
         out = da_ops.decode_attention(q, k, v, kv_len)
         torch.cuda.synchronize()
@@ -2103,8 +2168,8 @@ def phase_decode(dev, gen, flush, record) -> dict:
             raise AssertionError(f"{name}: a wrong output passes the B7 check: {controls} <= {limit}")
         t = rec[name] = timed(lambda: decode_attn.flash_decode_gqa(q, k, v, kv_len), 3, 3, flush)
         t["plain_ms"] = events_ms(lambda: decode_attn.flash_decode_gqa_plain(q, k, v, kv_len), 2, flush)
-        nbytes = 2 * batch * kv * QWEN_KV_HEADS * QWEN_DH * 2 + 2 * q.numel() * 2
-        ops = 4 * batch * QWEN_HEADS * kv * QWEN_DH
+        nbytes = 2 * batch * kv * kv_heads * dh * 2 + 2 * q.numel() * 2
+        ops = 4 * batch * heads * kv * dh
         t["bound_ms"], t["bound_by"] = bound(nbytes, ops, BF16_FLOPS)
         t.update({"n_split": n_split, "split_len": split_len, "partial_bytes": part_bytes,
                   "launches": launches, "max_abs_err": err, "limit": limit, "largest_abs_out": scale,
@@ -2121,8 +2186,9 @@ def phase_decode(dev, gen, flush, record) -> dict:
             lambda: F.scaled_dot_product_attention(q4, kt, vt, enable_gqa=True), 3, flush)
         del q, q4, kt, vt, kv_len
         free()
-        log("decode", f"{name}: B={batch}, S={seq}, kv_len={kv}, H={QWEN_HEADS}, G={QWEN_KV_HEADS}, "
-            f"Dh={QWEN_DH} bf16 (K and V {nbytes / 1e9:.2f} GB); {launches} B7 launch, no other kernel; "
+        t["shape"] = {"batch": batch, "seq": seq, "kv_len": kv, "heads": heads, "kv_heads": kv_heads, "dh": dh}
+        log("decode", f"{name}: B={batch}, S={seq}, kv_len={kv}, H={heads}, G={kv_heads}, "
+            f"Dh={dh} bf16 (K and V {nbytes / 1e9:.2f} GB); {launches} B7 launch, no other kernel; "
             f"kernel ~= plain (max |diff| {err} <= {limit} = {BF16_TOL} x largest |output| {scale}; "
             f"rms output {t['rms_out']}; controls miss it: all-zero {controls['zeros']}, half the "
             f"cache {controls['half_cache']}); {t['ms']:.4f} ms (L2 flushed; "
@@ -2177,9 +2243,11 @@ def log_trace(phase: str, what: str, tr: dict, share: dict, name: str) -> None:
 
 
 def tree_to(tree, device):
-    """A dictionary of tensors, copied to ``device``."""
+    """A tree of dictionaries and lists of tensors, copied to ``device``."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -2295,6 +2363,58 @@ def phase_dlrm(dev, gen, record) -> int:
     return launches
 
 
+def lm_request_run(cfg, rules, params, prompts, fed=None):
+    """The request run of the lm and moe phases: ``make_prefill`` on the
+    prompts (B, LM_PROMPT), the cache copied into ``init_cache(max_len =
+    LM_PROMPT + LM_NEW)``, then LM_NEW ``make_decode_step``s, each fed the
+    greedy token of the last logits or, with ``fed``, that list's tokens.
+    Returns (the prefill's logits, the last step's logits, the tokens)."""
+    prefill, step = transformer.make_prefill(cfg, rules), transformer.make_decode_step(cfg, rules)
+    logits, pre = prefill(params, prompts)
+    first = logits
+    cache = transformer.init_cache(cfg, prompts.shape[0], LM_PROMPT + LM_NEW, device=prompts.device)
+    cache["k"][:, :, :LM_PROMPT] = pre["k"]
+    cache["v"][:, :, :LM_PROMPT] = pre["v"]
+    cache["len"] = pre["len"]
+    del pre
+    tokens = []
+    for i in range(LM_NEW):
+        tok = fed[i] if fed is not None else logits[:, : cfg.vocab].float().argmax(-1).to(torch.int32)
+        tokens.append(tok)
+        logits, cache = step(params, cache, tok)
+    if int(cache["len"]) != LM_PROMPT + LM_NEW:
+        raise AssertionError(f"the cache ends at len {int(cache['len'])}")
+    return first, logits, tokens
+
+
+def check_b7_at_request_shape(phase: str, cfg, gen, dev, errs: dict) -> None:
+    """B7 against its plain version at the request run's cache shape (B
+    LM_REQUESTS, S = LM_PROMPT + LM_NEW = 1,040, which ends inside the
+    kernel's 64-position tile and gives shorter splits than the rest) at
+    kv_len S, S - 10 and LM_PROMPT + 1, on the config's head widths."""
+    seq = LM_PROMPT + LM_NEW
+    shape = (LM_REQUESTS, seq, cfg.n_kv_heads, cfg.d_head)
+    q = torch.randn((LM_REQUESTS, cfg.n_q_heads, cfg.d_head), generator=gen, device=dev, dtype=cfg.dtype)
+    k = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
+    v = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
+    block = math.gcd(seq, 512)
+    for kv in (seq, seq - 10, LM_PROMPT + 1):
+        kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+        got = decode_attn.flash_decode_gqa(q, k, v, kv_len, block_kv=block)
+        want = decode_attn.flash_decode_gqa_plain(q, k, v, kv_len, block_kv=block)
+        err, scale = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+        if err > BF16_TOL * scale:
+            raise AssertionError(f"{phase}: B7 at S={seq}, Dh={cfg.d_head}, kv_len {kv}: max |diff| {err} > "
+                                 f"{BF16_TOL} x {scale}")
+        errs[f"b7_s{seq}_kv{kv}"] = {"max_abs_err": err, "largest_abs_out": scale}
+    n_split, split_len = decode_attn.decode_splits(LM_REQUESTS, cfg.n_kv_heads, seq)
+    log(phase, f"B7 at the request cache's shape (B {LM_REQUESTS}, S {seq}, H {cfg.n_q_heads}, G "
+        f"{cfg.n_kv_heads}, Dh {cfg.d_head}: {n_split} splits of {split_len}) ~= plain at kv_len {seq}, "
+        f"{seq - 10}, {LM_PROMPT + 1}: max |diff| {[errs[k]['max_abs_err'] for k in errs if k.startswith('b7')]}")
+    del q, k, v, got, want
+    free()
+
+
 def phase_lm(dev, gen, record) -> int:
     """qwen3-14b at full width, ``n_layers`` cut to :data:`LM_LAYERS`:
     (a) a request run (prefill of 8 prompts, the cache copied into a
@@ -2313,25 +2433,11 @@ def phase_lm(dev, gen, record) -> int:
         f"heads, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to {cfg.padded_vocab}, "
         f"{cfg.dtype}), {cfg.n_layers} of {QWEN.n_layers} layers: {rec['weight_bytes'] / 1e9:.2f} GB of "
         f"weights, initialised in {rec['init_s']:.1f} s")
-    prefill, step = transformer.make_prefill(cfg, rules), transformer.make_decode_step(cfg, rules)
+    step = transformer.make_decode_step(cfg, rules)
 
     # (a) the request run, and its replay on the CPU
     def request_run(params, prompts, fed=None):
-        logits, pre = prefill(params, prompts)
-        first = logits
-        cache = transformer.init_cache(cfg, prompts.shape[0], LM_PROMPT + LM_NEW, device=prompts.device)
-        cache["k"][:, :, :LM_PROMPT] = pre["k"]
-        cache["v"][:, :, :LM_PROMPT] = pre["v"]
-        cache["len"] = pre["len"]
-        del pre
-        tokens = []
-        for i in range(LM_NEW):
-            tok = fed[i] if fed is not None else logits[:, : cfg.vocab].float().argmax(-1).to(torch.int32)
-            tokens.append(tok)
-            logits, cache = step(params, cache, tok)
-        if int(cache["len"]) != LM_PROMPT + LM_NEW:
-            raise AssertionError(f"the cache ends at len {int(cache['len'])}")
-        return first, logits, tokens
+        return lm_request_run(cfg, rules, params, prompts, fed)
 
     prompts = pipeline.lm_batch(cfg.vocab, LM_REQUESTS, LM_PROMPT, step=0, seed=SEED, device=dev)["tokens"]
     reset_launches()
@@ -2366,28 +2472,7 @@ def phase_lm(dev, gen, record) -> int:
         f"(limit {errs['prefill']['limit']}), last decode step {errs['last_decode']['max_abs_err']} "
         f"(limit {errs['last_decode']['limit']} = {BF16_TOL} x largest |logit|)")
     del first, last, fed, c_first, c_last, prompts
-    # B7 at the request cache's shape: S = 1,040 ends in a part of the
-    # kernel's 64-position tile, and its splits are shorter than the rest
-    seq = LM_PROMPT + LM_NEW
-    shape = (LM_REQUESTS, seq, cfg.n_kv_heads, cfg.d_head)
-    q = torch.randn((LM_REQUESTS, cfg.n_q_heads, cfg.d_head), generator=gen, device=dev, dtype=cfg.dtype)
-    k = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
-    v = torch.randn(shape, generator=gen, device=dev, dtype=cfg.dtype)
-    block = math.gcd(seq, 512)
-    for kv in (seq, seq - 10, LM_PROMPT + 1):
-        kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
-        got = decode_attn.flash_decode_gqa(q, k, v, kv_len, block_kv=block)
-        want = decode_attn.flash_decode_gqa_plain(q, k, v, kv_len, block_kv=block)
-        err, scale = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
-        if err > BF16_TOL * scale:
-            raise AssertionError(f"lm: B7 at S={seq}, kv_len {kv}: max |diff| {err} > {BF16_TOL} x {scale}")
-        errs[f"b7_s{seq}_kv{kv}"] = {"max_abs_err": err, "largest_abs_out": scale}
-    n_split, split_len = decode_attn.decode_splits(LM_REQUESTS, cfg.n_kv_heads, seq)
-    log("lm", f"B7 at the request cache's shape (B {LM_REQUESTS}, S {seq}: {n_split} splits of {split_len}) "
-        f"~= plain at kv_len {seq}, {seq - 10}, {LM_PROMPT + 1}: max |diff| "
-        f"{[errs[k]['max_abs_err'] for k in errs if k.startswith('b7')]}")
-    del q, k, v, got, want
-    free()
+    check_b7_at_request_shape("lm", cfg, gen, dev, errs)
 
     # (b) decode_32k steps on a random cache
     batch, seq = DECODE_SHAPES["decode_32k"]
@@ -2419,6 +2504,466 @@ def phase_lm(dev, gen, record) -> int:
         "weights, lm_head, K and V of the prefix)")
     log_trace("lm", "decode_32k step", tr, share, "B7")
     del params, cache, tokens, outs, tr
+    free()
+    return launches
+
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+class RouteTape:
+    """The experts that the MoE layers chose, call by call of
+    ``layers._route``: :meth:`record` keeps each call's router logits
+    and (weights, experts) on the card; :meth:`replay` feeds a CPU replay
+    of batch row ``row`` those experts, call for call, with weights from
+    the replay's own router logits, as the replay is fed the card's
+    tokens.  Routing is a discontinuous choice: where a token's k-th and
+    (k+1)-th logits are closer than the two devices' bf16 products round
+    apart, the devices pick other experts, and that token's output, and
+    through attention its sequence's, then differs by far more than any
+    tolerance.  :meth:`check` audits a top k against the recorded one: a
+    token may choose other experts only if its own gap between the k-th
+    and (k+1)-th logit is at most twice its row's largest |logit
+    difference| (beyond that no perturbation of that size reorders the
+    boundary), and the logits must agree within BF16_TOL of the largest
+    |logit|."""
+
+    def __init__(self):
+        self.calls: list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = []
+        self.audit = {"calls": 0, "tokens": 0, "differ": 0, "max_abs_logit_diff": 0.0,
+                      "largest_abs_logit": 0.0, "max_gap_where_differ": 0.0}
+
+    @contextlib.contextmanager
+    def record(self):
+        route = lm_layers._route
+
+        def rec(p, xt, top_k):
+            w, idx = route(p, xt, top_k)
+            self.calls.append((xt.float() @ p["router"], w, idx))
+            return w, idx
+
+        with patched(lm_layers, "_route", rec):
+            yield self
+
+    def check(self, logits: torch.Tensor, want: torch.Tensor, idx: torch.Tensor, top_k: int) -> None:
+        """Audit the experts of ``logits``' own top k against ``idx``,
+        chosen from ``want``, the recorded logits of the same tokens."""
+        want = want.to(logits.device)
+        vals, own = torch.topk(logits, min(top_k + 1, logits.shape[1]), dim=-1)
+        differ = (own[:, :top_k].sort(-1).values != idx.sort(-1).values).any(-1)
+        row_diff = (logits - want).abs().amax(-1)
+        a = self.audit
+        a["calls"] += 1
+        a["tokens"] += int(idx.shape[0])
+        a["differ"] += int(differ.sum())
+        a["max_abs_logit_diff"] = max(a["max_abs_logit_diff"], float(row_diff.max()))
+        a["largest_abs_logit"] = max(a["largest_abs_logit"], float(want.abs().max()))
+        if a["max_abs_logit_diff"] > BF16_TOL * a["largest_abs_logit"]:
+            raise AssertionError(f"router logits differ by {a['max_abs_logit_diff']}, more than {BF16_TOL} "
+                                 f"of the largest |logit| {a['largest_abs_logit']}")
+        if differ.any():
+            if vals.shape[1] == top_k:
+                raise AssertionError("a top k of every expert chose other experts")
+            gap = (vals[:, top_k - 1] - vals[:, top_k])[differ]
+            a["max_gap_where_differ"] = max(a["max_gap_where_differ"], float(gap.max()))
+            if bool((gap > 2 * row_diff[differ]).any()):
+                raise AssertionError("a token chose other experts than its logits' own top k allows")
+
+    @contextlib.contextmanager
+    def replay(self, batch: int, row: int = 0):
+        route, calls = lm_layers._route, iter(self.calls)
+
+        def fed(p, xt, top_k):
+            want, _, idx = next(calls)
+            idx = idx.reshape(batch, -1, top_k)[row].to(xt.device)
+            logits = xt.float() @ p["router"]
+            self.check(logits, want.reshape(batch, -1, want.shape[-1])[row], idx, top_k)
+            return torch.softmax(torch.gather(logits, 1, idx), dim=-1), idx
+
+        with patched(lm_layers, "_route", fed):
+            yield self
+        if next(calls, None) is not None:
+            raise AssertionError("the replay made fewer MoE calls than the run it replays")
+
+
+def moe_step_bytes(cfg, params: dict, touched: list[int], batch: int, kv: int) -> int:
+    """Bytes a MoE decode step must move: each layer's attention weights,
+    norms, router and the three tensors of each expert its tokens chose
+    (``touched``: the count per layer, from this run's routing), the
+    final norm and lm_head, the tokens' embedding rows, and the K and V
+    of the kv prefix."""
+    lay, moe = params["layers"], params["layers"]["moe"]
+    per_expert = sum(moe[k][0, 0].numel() * moe[k].element_size() for k in ("w_gate", "w_up", "w_down"))
+    fixed = (tree_bytes(lay["attn"]) + tree_bytes(lay["ln1"]) + tree_bytes(lay["ln2"])
+             + tree_bytes(moe["router"]))
+    kv_bytes = 2 * cfg.n_layers * batch * kv * cfg.n_kv_heads * cfg.d_head * 2
+    return (fixed + per_expert * sum(touched) + tree_bytes(params["lm_head"])
+            + tree_bytes(params["final_norm"]) + batch * cfg.d_model * 2 + kv_bytes)
+
+
+def moe_decode_32k(phase: str, what: str, cfg, params, gen, dev) -> dict:
+    """decode_32k on a random cache at len S - 17: ms a step by events
+    (MOE_DECODE_STEPS after MOE_WARMUP), tokens/s, the byte bound from the
+    experts this step's tokens chose, the MoE layers timed apart on the
+    step's own inputs, and one step traced (B7's and the GEMMs' shares)."""
+    rules = shd.Rules.from_mesh(None)
+    step = transformer.make_decode_step(cfg, rules)
+    batch, seq = DECODE_SHAPES["decode_32k"]
+    kv_shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.d_head)
+    cache = {"k": lm_layers.normal(kv_shape, 1.0, cfg.dtype, gen), "v": lm_layers.normal(kv_shape, 1.0, cfg.dtype, gen),
+             "len": torch.tensor(seq - 17, dtype=torch.int32, device=dev)}
+    tokens = pipeline.lm_batch(cfg.vocab, batch, 1, step=1, seed=SEED, device=dev)["tokens"][:, 0].contiguous()
+    cache_bytes = tree_bytes({"k": cache["k"], "v": cache["v"]})
+    r, outs = timed_steps(phase, f"{what} decode_32k", lambda _: step(params, cache, tokens)[0],
+                          [None] * (MOE_DECODE_STEPS + MOE_WARMUP), "flash_decode_gqa", cfg.n_layers, MOE_WARMUP)
+    for logits in outs:
+        if logits.shape != (batch, cfg.padded_vocab) or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{phase} {what} decode_32k: logits not finite or of the wrong shape")
+    # every step writes the same position with the same tokens: one
+    # step's routing and MoE inputs are every step's
+    moe_in, tape = [], RouteTape()
+    apply = lm_layers.apply_moe
+
+    def keep(p, x, **kw):
+        moe_in.append((p, x, kw))
+        return apply(p, x, **kw)
+
+    with patched(lm_layers, "apply_moe", keep), tape.record():
+        step(params, cache, tokens)
+    touched = [int(torch.unique(idx).numel()) for _, _, idx in tape.calls]
+    moe_ms = events_ms(lambda: [apply(p, x, **kw) for p, x, kw in moe_in], 3,
+                       torch.empty(16 * 2**20, dtype=torch.float32, device=dev))
+    kv = seq - 17 + 1
+    nbytes = moe_step_bytes(cfg, params, touched, batch, kv)
+    r.update({"batch": batch, "seq": seq, "kv_len": kv, "cache_bytes": cache_bytes,
+              "tokens_per_s": batch / r["median_ms"] * 1e3, "bytes": nbytes,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "experts_touched": touched,
+              "moe_layers_ms": moe_ms, "moe_share_of_step": moe_ms / r["median_ms"]})
+    tr = device_trace(lambda: step(params, cache, tokens))
+    share = kernel_share(tr, ("decode_bf16_kernel", "decode_combine_kernel"))
+    gemm = kernel_share(tr, ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet", "ampere_"))
+    r["trace"] = {**tr, "b7": share, "gemm": gemm}
+    log(phase, f"{what} decode_32k: batch {batch}, S {seq}, len {seq - 17} ({cache_bytes / 1e9:.2f} GB of K "
+        f"and V for {cfg.n_layers} layers); {r['steps']} steps, {r['launches']} B7 launches = layers x "
+        f"steps, no other kernel; median {r['median_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms a step (CUDA "
+        f"events) = {r['tokens_per_s']:.1f} tokens/s; byte bound {r['bound_ms']:.4f} ms ({nbytes / 1e9:.2f} "
+        f"GB: attention and router weights, the {touched} experts the step's tokens chose, lm_head, K and V "
+        f"of the prefix); the MoE layers alone {moe_ms:.4f} ms ({r['moe_share_of_step']:.4f} of the step, "
+        f"events, on the step's own inputs)")
+    log_trace(phase, f"{what} decode_32k step", tr, share, "B7")
+    log(phase, f"  GEMM kernels (projections, experts, lm_head) {gemm['ms']:.3f} ms in {gemm['count']} "
+        f"launches = {gemm['share']:.4f} of device time")
+    del cache, tokens, outs, tr, moe_in
+    free()
+    return r
+
+
+def phase_moe(dev, gen, record) -> int:
+    """granite-moe-1b-a400m whole and kimi-k2-1t-a32b at full width with
+    one layer: a request run each, held to the port's CPU replay of one
+    prompt (granite) or to a token-by-token recomputation of 64 routed
+    MoE outputs and B7 at Dh 112 against plain (kimi), then decode_32k
+    steps (granite cut to MOE_DECODE_LAYERS layers).  Returns B7's
+    launches."""
+    rules = shd.Rules.from_mesh(None)
+    rec = record["moe"] = {}
+    launches = 0
+
+    # (a) granite-moe-1b-a400m, 24 layers
+    cfg = GRANITE
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    g = rec["granite"] = {"init_s": time.perf_counter() - t0, "weight_bytes": tree_bytes(params),
+                          "cut": {"decode_32k n_layers": [cfg.n_layers, MOE_DECODE_LAYERS],
+                                  "why": "a 24-layer decode_32k cache is 206 GB",
+                                  "cpu_replay_prompts": [LM_REQUESTS, MOE_CPU_PROMPTS],
+                                  "why_replay": "24 bf16 layers of 8 prompts on the host CPU take minutes"}}
+    log("moe", f"granite-moe-1b-a400m whole ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_q_heads} q / "
+        f"{cfg.n_kv_heads} kv heads, d_head {cfg.d_head}, {cfg.n_experts} experts top-{cfg.top_k}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}): {g['weight_bytes'] / 1e9:.2f} GB of weights, "
+        f"initialised in {g['init_s']:.1f} s")
+    prompts = pipeline.lm_batch(cfg.vocab, LM_REQUESTS, LM_PROMPT, step=0, seed=SEED, device=dev)["tokens"]
+    tape = RouteTape()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tape.record():
+        first, last, fed = lm_request_run(cfg, rules, params, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = only_launched("flash_decode_gqa", "moe granite request run")
+    if n != cfg.n_layers * LM_NEW:
+        raise AssertionError(f"moe granite request run: {n} B7 launches, expected {cfg.n_layers} x {LM_NEW}")
+    launches += n
+    rows = slice(0, MOE_CPU_PROMPTS)
+    t0 = time.perf_counter()
+    cpu_params = tree_to(params, "cpu")
+    with tape.replay(LM_REQUESTS, row=0):
+        c_first, c_last, _ = lm_request_run(cfg, rules, cpu_params, prompts[rows].cpu(),
+                                            [t[rows].cpu() for t in fed])
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    errs = {}
+    for name, got, want in (("prefill", first[rows], c_first), ("last_decode", last[rows], c_last)):
+        scale = float(want.float().abs().max())
+        err = float((got.float().cpu() - want.float()).abs().max())
+        errs[name] = {"max_abs_err": err, "largest_abs_logit": scale, "limit": BF16_TOL * scale}
+        if got.dtype != cfg.dtype or not torch.isfinite(got.float()).all() or err > BF16_TOL * scale:
+            raise AssertionError(f"moe granite request run: {name} logits differ from the CPU replay: max "
+                                 f"|diff| {err} > {BF16_TOL} x {scale}")
+    g["request"] = {"requests": LM_REQUESTS, "prompt": LM_PROMPT, "new_tokens": LM_NEW, "wall_s": wall,
+                    "launches": n, "cpu_s": cpu_s, "check": errs, "routing_audit": tape.audit}
+    log("moe", f"granite (a) {LM_REQUESTS} prompts of {LM_PROMPT} tokens, prefill, {LM_NEW} greedy steps: "
+        f"{wall:.3f} s wall (the routing kept on the card), {n} B7 launches = layers x steps, no other kernel; "
+        f"the CPU replay of prompt 0 ({cpu_s:.1f} s; fed the card's tokens and experts): prefill logits max "
+        f"|diff| {errs['prefill']['max_abs_err']} (limit {errs['prefill']['limit']}), last step "
+        f"{errs['last_decode']['max_abs_err']} (limit {errs['last_decode']['limit']}); router logits within "
+        f"{tape.audit['max_abs_logit_diff']:.5f} of the card's (largest |logit| "
+        f"{tape.audit['largest_abs_logit']:.3f}); the replay's own top-{cfg.top_k} differs from the fed on "
+        f"{tape.audit['differ']} of {tape.audit['tokens']} tokens, each a near tie (largest k-th to (k+1)-th "
+        f"gap there {tape.audit['max_gap_where_differ']:.5f})")
+    del first, last, fed, c_first, c_last, prompts, tape
+    free()
+    # (b) decode_32k, n_layers cut: the first MOE_DECODE_LAYERS layers
+    cut = dataclasses.replace(cfg, n_layers=MOE_DECODE_LAYERS)
+    cut_params = dict(params, layers=_first_layers(params["layers"], MOE_DECODE_LAYERS))
+    g["decode_32k"] = moe_decode_32k("moe", "granite", cut, cut_params, gen, dev)
+    launches += g["decode_32k"]["launches"]
+    del params, cut_params
+    free()
+
+    # (c) kimi-k2-1t-a32b at full width, one layer
+    cfg = dataclasses.replace(KIMI, n_layers=KIMI_LAYERS)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    k = rec["kimi"] = {"init_s": time.perf_counter() - t0, "weight_bytes": tree_bytes(params),
+                       "experts_bytes": tree_bytes({w: params["layers"]["moe"][w]
+                                                    for w in ("w_gate", "w_up", "w_down")}),
+                       "cut": {"n_layers": [KIMI.n_layers, KIMI_LAYERS],
+                               "why": "61 layers of 384 experts are ~2 TB; one is 33.82 GB"}}
+    log("moe", f"kimi-k2-1t-a32b at full width (d_model {cfg.d_model}, {cfg.n_q_heads} q / {cfg.n_kv_heads} kv "
+        f"heads, d_head {cfg.d_head}, {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}), {cfg.n_layers} of {KIMI.n_layers} layers: {k['weight_bytes'] / 1e9:.2f} GB of weights "
+        f"({k['experts_bytes'] / 1e9:.2f} GB of experts), initialised in {k['init_s']:.1f} s")
+    prompts = pipeline.lm_batch(cfg.vocab, LM_REQUESTS, LM_PROMPT, step=0, seed=SEED, device=dev)["tokens"]
+    tape, seen = RouteTape(), {}
+    apply = lm_layers.apply_moe
+
+    def keep_first(p, x, **kw):
+        out = apply(p, x, **kw)
+        if not seen:
+            seen.update(p=p, x=x, out=out)
+        return out
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with patched(lm_layers, "apply_moe", keep_first), tape.record():
+        first, last, _ = lm_request_run(cfg, rules, params, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = only_launched("flash_decode_gqa", "moe kimi request run")
+    if n != cfg.n_layers * LM_NEW:
+        raise AssertionError(f"moe kimi request run: {n} B7 launches, expected {cfg.n_layers} x {LM_NEW}")
+    launches += n
+    for name, logits in (("prefill", first), ("last_decode", last)):
+        if logits.shape != (LM_REQUESTS, cfg.padded_vocab) or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"moe kimi request run: {name} logits not finite or of the wrong shape")
+    # the prefill's routed MoE output of KIMI_CHECK_TOKENS sampled tokens,
+    # recomputed token by token from the experts' weights gathered for it
+    p, d = seen["p"], cfg.d_model
+    x, out = seen["x"].reshape(-1, d), seen["out"].reshape(-1, d)
+    logits, weights, idx = tape.calls[0]
+    sample = torch.randperm(x.shape[0], generator=gen, device=dev)[:KIMI_CHECK_TOKENS]
+    direct = []
+    for t in sample.tolist():
+        e = idx[t]
+        h = lm_layers.silu(torch.einsum("d,kdf->kf", x[t], p["w_gate"][e])) * torch.einsum(
+            "d,kdf->kf", x[t], p["w_up"][e])
+        y = torch.einsum("kf,kfd->kd", h, p["w_down"][e])
+        direct.append((y.float() * weights[t][:, None]).sum(0).to(x.dtype))
+    direct = torch.stack(direct)
+    audit = RouteTape()
+    audit.check(x[sample].float() @ p["router"], logits[sample], idx[sample], cfg.top_k)
+    scale = float(out[sample].float().abs().max())
+    err = float((direct.float() - out[sample].float()).abs().max())
+    if not torch.isfinite(out.float()).all() or err > BF16_TOL * scale:
+        raise AssertionError(f"moe kimi: the routed MoE output differs from the token-by-token recomputation: "
+                             f"max |diff| {err} > {BF16_TOL} x {scale}")
+    k["request"] = {"requests": LM_REQUESTS, "prompt": LM_PROMPT, "new_tokens": LM_NEW, "wall_s": wall,
+                    "launches": n, "moe_check": {"tokens": KIMI_CHECK_TOKENS, "max_abs_err": err,
+                                                 "largest_abs_out": scale, "limit": BF16_TOL * scale,
+                                                 "routing_audit": audit.audit}}
+    log("moe", f"kimi (a) {LM_REQUESTS} prompts of {LM_PROMPT} tokens, prefill, {LM_NEW} greedy steps: {wall:.3f} "
+        f"s wall, {n} B7 launches = layers x steps, no other kernel, logits finite; the prefill's routed MoE "
+        f"output of {KIMI_CHECK_TOKENS} sampled tokens against their token-by-token recomputation from the "
+        f"gathered experts: max |diff| {err} (limit {BF16_TOL * scale}); the router's top-{cfg.top_k} of those "
+        f"tokens recomputed differs on {audit.audit['differ']} (near ties; logits within "
+        f"{audit.audit['max_abs_logit_diff']:.5f})")
+    del first, last, prompts, tape, seen, x, out, direct, logits, weights, idx, p
+    free()
+    errs = {}
+    check_b7_at_request_shape("moe", cfg, gen, dev, errs)
+    k["b7_at_request_shape"] = errs
+    k["decode_32k"] = moe_decode_32k("moe", "kimi", cfg, params, gen, dev)
+    launches += k["decode_32k"]["launches"]
+    del params
+    free()
+    return launches
+
+
+def _first_layers(tree: dict, n: int) -> dict:
+    """The first ``n`` layers of stacked per-layer leaves (views)."""
+    return {key: _first_layers(v, n) if isinstance(v, dict) else v[:n] for key, v in tree.items()}
+
+
+def gnn_scatters(cfg) -> int:
+    """B6 launches in one serve step with graph ids: GCN's two degree
+    scatters and one a layer; SchNet's one an interaction, NequIP's one a
+    layer (its three irreps in one row), EquiformerV2's two a layer (the
+    softmax denominators, the messages), each with one readout."""
+    if isinstance(cfg, gnn.GCNConfig):
+        return 2 + cfg.n_layers
+    if isinstance(cfg, gnn.SchNetConfig):
+        return cfg.n_interactions + 1
+    if isinstance(cfg, gnn.NequIPConfig):
+        return cfg.n_layers + 1
+    return 2 * cfg.n_layers + 1
+
+
+def gnn_case(what: str, cfg, params: dict, batch: dict, scatters: int, tol: float, rec: dict) -> dict:
+    """One GNN serve step on the card: GNN_STEPS steps timed by CUDA events
+    after GNN_WARMUP, B6 launching ``scatters`` times a step and nothing
+    else; the output finite and within ``tol`` of the largest |output| of
+    the port's CPU run of the same weights and batch."""
+    step = gnn.make_gnn_serve_step(cfg, shd.Rules.from_mesh(None))
+    r, outs = timed_steps("gnn", what, lambda _: step(params, batch), [None] * (GNN_STEPS + GNN_WARMUP),
+                          "embedding_bag_sorted", scatters, GNN_WARMUP)
+    out = outs[0]
+    if not torch.isfinite(out).all() or any(not torch.equal(o, out) for o in outs[1:]):
+        raise AssertionError(f"gnn {what}: outputs not finite or not the same from step to step")
+    t0 = time.perf_counter()
+    want = step(tree_to(params, "cpu"), tree_to(batch, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    scale = float(want.abs().max())
+    err = float((out.cpu() - want).abs().max())
+    if out.shape != want.shape or err > tol * scale:
+        raise AssertionError(f"gnn {what}: the card's output differs from the CPU run: max |diff| {err} > "
+                             f"{tol} x {scale}")
+    r.update({"scatters_per_step": scatters, "out_shape": list(out.shape), "max_abs_err": err,
+              "largest_abs_out": scale, "limit": tol * scale, "cpu_s": cpu_s})
+    rec[what] = r
+    log("gnn", f"{what}: {r['steps']} steps, {r['launches']} B6 launches = {scatters} scatters a step, no other "
+        f"kernel; median {r['median_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms a step (CUDA events); output "
+        f"{tuple(out.shape)} within {err} of the CPU run ({cpu_s:.1f} s; limit {tol} x largest {scale})")
+    return r
+
+
+def phase_gnn(dev, gen, record) -> int:
+    """The four GNNs' serve steps, every scatter and readout on B6: (a)
+    gcn-cora at ogb_products, (b) gcn-cora on a minibatch_lg block drawn
+    by NeighborSampler, (c) schnet, nequip and equiformer-v2 at molecule;
+    one equiformer-v2 step traced.  Returns B6's launches."""
+    rec = record["gnn"] = {"data": "drawn from the seed: no dataset is in the repo"}
+    gcn_full = registry.get_arch("gcn-cora").full()
+
+    # (a) ogb_products: uniform edges, padded to pad_edges and masked
+    shape = registry.GNN_SHAPES["ogb_products"]
+    cfg = gnn_common.gcn_for_shape(gcn_full, shape)
+    n, e, _ = gnn_common.shape_counts(shape)
+    e_pad = gnn_common.pad_edges(e)
+    src = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    src[e:], dst[e:] = 0, 0
+    batch = {"node_feat": torch.randn((n, cfg.d_feat), generator=gen, device=dev),
+             "edge_src": src, "edge_dst": dst, "edge_mask": torch.arange(e_pad, device=dev) < e,
+             "node_mask": torch.ones(n, dtype=torch.bool, device=dev)}
+    params = gnn.gcn_init(cfg, seed=SEED, device=dev)
+    r = gnn_case("gcn ogb_products", cfg, params, batch, gnn_scatters(cfg), GNN_TOL, rec)
+    r.update({"nodes": n, "edges": e, "padded_edges": e_pad, "nodes_per_s": n / r["median_ms"] * 1e3})
+    log("gnn", f"gcn ogb_products: {n} nodes x {cfg.d_feat} f32 features, {e} uniform edges padded to {e_pad} "
+        f"(masked), {cfg.n_classes} classes = {r['nodes_per_s']:.4g} nodes/s")
+    launches = r["launches"]
+    del batch, src, dst, params
+    free()
+
+    # (b) minibatch_lg: a 1,024-seed block of a uniform graph of reddit's counts
+    shape = registry.GNN_SHAPES["minibatch_lg"]
+    cfg = gnn_common.gcn_for_shape(gcn_full, shape)
+    n_graph, e_graph = shape.dims["n_nodes"], shape.dims["n_edges"]
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    graph = LabeledGraph(n_graph, rng.integers(0, n_graph, e_graph, dtype=np.int32),
+                         np.zeros(e_graph, np.int32), rng.integers(0, n_graph, e_graph, dtype=np.int32), ["e"])
+    sampler = NeighborSampler(graph)
+    build_s = time.perf_counter() - t0
+    del graph
+    seeds = rng.choice(n_graph, MINIBATCH_SEEDS, replace=False)
+    t0 = time.perf_counter()
+    sub = sampler.sample(seeds, MINIBATCH_FANOUT, seed=SEED)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    del sampler
+    want_n, want_e, _ = gnn_common.shape_counts(shape)
+    if (sub.nodes.shape[0], sum(len(m) for m in sub.edge_mask)) != (want_n, want_e):
+        raise AssertionError(f"gnn minibatch_lg: a block of {sub.nodes.shape[0]} nodes and "
+                             f"{sum(len(m) for m in sub.edge_mask)} edges, shape_counts says {want_n}, {want_e}")
+    pad = gnn_common.pad_edges(want_e) - want_e  # the layers' edges, then masked pads
+
+    def edges(arrays: list, fill) -> torch.Tensor:
+        return torch.from_numpy(np.concatenate(arrays + [np.full(pad, fill, arrays[0].dtype)])).to(dev)
+
+    nodes = torch.from_numpy(sub.nodes).to(dev)
+    table = torch.randn((n_graph, cfg.d_feat), generator=gen, device=dev)
+    real = nodes >= 0
+    batch = {"node_feat": table[nodes.clamp(min=0).long()] * real[:, None],
+             "edge_src": edges(sub.edge_src, 0), "edge_dst": edges(sub.edge_dst, 0),
+             "edge_mask": edges(sub.edge_mask, False), "node_mask": real}
+    del table
+    params = gnn.gcn_init(cfg, seed=SEED, device=dev)
+    r = gnn_case("gcn minibatch_lg", cfg, params, batch, gnn_scatters(cfg), GNN_TOL, rec)
+    r.update({"graph_nodes": n_graph, "graph_edges": e_graph, "graph_build_s": build_s, "sample_ms": sample_ms,
+              "block_nodes": sub.n_real_nodes, "block_edges": int(batch["edge_mask"].sum()),
+              "seeds_per_s": MINIBATCH_SEEDS / r["median_ms"] * 1e3})
+    log("gnn", f"gcn minibatch_lg: NeighborSampler over {n_graph} nodes and {e_graph} uniform edges (built in "
+        f"{build_s:.1f} s of host time); {MINIBATCH_SEEDS} seeds, fanout {MINIBATCH_FANOUT}: {sub.n_real_nodes} "
+        f"nodes and {r['block_edges']} edges of a {want_n}-node, {want_e}-edge block, sampled in "
+        f"{sample_ms:.1f} host ms; {cfg.d_feat} features, {cfg.n_classes} classes; serve {r['median_ms']:.4f} ms "
+        f"= {r['seeds_per_s']:.4g} seeds/s")
+    launches += r["launches"]
+    del batch, nodes, real, params, sub
+    free()
+
+    # (c) the molecular GNNs at molecule
+    shape = registry.GNN_SHAPES["molecule"]
+    d = shape.dims
+    batch = pipeline.molecules_batch(d["batch"], d["n_nodes"], d["n_edges"], seed=SEED, device=dev)
+    for arch in ("schnet", "nequip", "equiformer-v2"):
+        cfg = registry.get_arch(arch).full()
+        params = gnn.INIT_FNS[arch](cfg, seed=SEED, device=dev)
+        tol = GNN_TOL_EQUIFORMER if arch == "equiformer-v2" else GNN_TOL
+        r = gnn_case(f"{arch} molecule", cfg, params, batch, gnn_scatters(cfg), tol, rec)
+        r["molecules_per_s"] = d["batch"] / r["median_ms"] * 1e3
+        log("gnn", f"{arch} molecule: {d['batch']} molecules x {d['n_nodes']} atoms, {d['n_edges']} edges each = "
+            f"{r['molecules_per_s']:.1f} molecules/s")
+        launches += r["launches"]
+        if arch == "equiformer-v2":
+            step = gnn.make_gnn_serve_step(cfg, shd.Rules.from_mesh(None))
+            tr = device_trace(lambda: step(params, batch))
+            share = kernel_share(tr, ("embedding_bag_kernel",))
+            r["trace"] = {**tr, "b6": share}
+            log_trace("gnn", "equiformer-v2 molecule step", tr, share, "B6")
+        del params
+    del batch
     free()
     return launches
 
@@ -2643,6 +3188,10 @@ def main() -> int:
     phase_end("dlrm")
     new_kernels[2]["launches"] += phase_lm(dev, gen, record)
     phase_end("lm")
+    new_kernels[2]["launches"] += phase_moe(dev, gen, record)
+    phase_end("moe")
+    new_kernels[1]["launches"] += phase_gnn(dev, gen, record)
+    phase_end("gnn")
 
     kernels = [{
         "name": name,

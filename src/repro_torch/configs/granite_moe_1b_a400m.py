@@ -1,8 +1,6 @@
 """granite-moe-1b-a400m: 24L d_model=1024 16H (GQA kv=8) d_ff=512
 vocab=49155, MoE 32e top-8 [hf:ibm-granite/granite-3.0-1b-a400m-base;
-hf].  Port of ``repro/configs/granite_moe_1b_a400m.py``: the config
-registers, but ``transformer.init_params`` refuses it until the MoE
-layer is ported (ROADMAP A14, MoE)."""
+hf].  Port of ``repro/configs/granite_moe_1b_a400m.py``."""
 from repro_torch.configs import lm_common
 from repro_torch.configs.registry import ArchSpec, LM_SHAPES, register
 from repro_torch.models import transformer as tr

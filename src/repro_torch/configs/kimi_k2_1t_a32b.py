@@ -5,8 +5,9 @@ unverified].
 Port of ``repro/configs/kimi_k2_1t_a32b.py``: Adafactor and FSDP-sharded
 expert weights, the rest-sharding as ``Rules`` overrides (expert tensors
 (L, E, d_in, d_ff): experts over ``model``, the d_ff "rest" dim over the
-data axes).  The config registers, but ``transformer.init_params``
-refuses it until the MoE layer is ported (ROADMAP A14, MoE)."""
+data axes).  On one card ``layers.apply_moe`` runs its experts on
+their routed rows; the overrides place tensors only under a mesh
+(ROADMAP's multi-GPU item)."""
 from repro_torch.configs import lm_common
 from repro_torch.configs.registry import ArchSpec, LM_SHAPES, register
 from repro_torch.models import transformer as tr

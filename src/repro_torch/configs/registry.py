@@ -3,9 +3,8 @@
 Port of ``repro/configs/registry.py``.  Each arch file registers an
 :class:`ArchSpec` with ``full()`` (the exact assigned configuration),
 ``smoke()`` (a reduced same-family config for CPU tests) and ``shapes``
-(the assigned input-shape set).  The port loads the configs it has
-ported: the paper's RPQ system, dlrm-mlperf and the five LMs; the GNN
-family waits for a later slice (ROADMAP A14).
+(the assigned input-shape set).  The port loads all eleven: the paper's
+RPQ system, dlrm-mlperf, the five LMs and the four GNNs.
 """
 
 from __future__ import annotations
@@ -59,11 +58,15 @@ def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401
         alibaba_rpq,
         dlrm_mlperf,
+        equiformer_v2,
+        gcn_cora,
         granite_moe_1b_a400m,
         internlm2_1_8b,
         kimi_k2_1t_a32b,
+        nequip,
         qwen3_14b,
         qwen3_32b,
+        schnet,
     )
 
 

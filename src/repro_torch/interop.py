@@ -222,9 +222,13 @@ def _params_from_numpy(params: dict, keys: set[str], what: str, device) -> dict:
 
 def lm_params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
     """``repro``'s LM parameters (``models/transformer.py``
-    ``init_params``: embed, lm_head, final_norm and the stacked layers),
-    each leaf a numpy array, as the port's tensors with the same bytes on
-    ``device`` (``None``: the GPU)."""
+    ``init_params``: embed, lm_head, final_norm and the stacked layers,
+    whose ``mlp`` or, in a MoE config, ``moe`` holds router, w_gate, w_up
+    and w_down), each leaf a numpy array, as the port's tensors with the
+    same bytes on ``device`` (``None``: the GPU)."""
+    layer_keys = set(params.get("layers", {}))
+    if layer_keys not in ({"attn", "ln1", "ln2", "mlp"}, {"attn", "ln1", "ln2", "moe"}):
+        raise KeyError(f"LM layers have keys {sorted(layer_keys)}, expected attn, ln1, ln2 and mlp or moe")
     return _params_from_numpy(params, {"embed", "lm_head", "final_norm", "layers"}, "LM", device)
 
 
@@ -234,3 +238,20 @@ def dlrm_params_from_numpy(params: dict, device: str | torch.device | None = Non
     leaf a numpy array, as the port's tensors with the same bytes on
     ``device`` (``None``: the GPU)."""
     return _params_from_numpy(params, {"bot", "top", "tables"}, "DLRM", device)
+
+
+# the top-level keys of each GNN's parameters (``repro/models/gnn.py``'s
+# ``*_init``): GCN's layers of {w, b}; SchNet's embedding, interaction
+# blocks and readout; NequIP's and EquiformerV2's embedding, per-layer
+# blocks and readout
+GNN_PARAM_KEYS = ({"layers"}, {"embed", "inter", "readout"}, {"embed", "layers", "readout"})
+
+
+def gnn_params_from_numpy(params: dict, device: str | torch.device | None = None) -> dict:
+    """``repro``'s parameters of one of its four GNNs, nested lists and
+    dictionaries of numpy arrays (lists of {w, b}, embeddings, NequIP's
+    and EquiformerV2's per-layer blocks), as the port's tensors with the
+    same bytes and the same nesting on ``device`` (``None``: the GPU)."""
+    if set(params) not in GNN_PARAM_KEYS:
+        raise KeyError(f"GNN params have keys {sorted(params)}, expected one of {GNN_PARAM_KEYS}")
+    return _carry_tree(params, resolve_device(device))

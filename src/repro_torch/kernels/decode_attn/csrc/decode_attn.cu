@@ -34,7 +34,11 @@
 //   shared memory (64 positions x Dh, 16-byte chunks XOR-swizzled by row
 //   so that ldmatrix reads are free of bank conflicts): 100 KB a CTA at
 //   Dh = 128, two CTAs an SM, each with two tiles in flight (staging in
-//   f32 would double the bytes per tile).  Q.K^T and P.V run as
+//   f32 would double the bytes per tile).  The swizzle c ^ (row % 8) is a
+//   bijection on a row's chunk slots only when their count is a multiple
+//   of 8, so a row holds Dh / 8 chunks rounded up to one: at Dh = 112
+//   (kimi-k2) 14 chunks in 16 slots, of which two per row are never loaded
+//   or read, and the tile is as large as at Dh = 128.  Q.K^T and P.V run as
 //   mma.sync.m16n8k16 bf16 -> f32: the group's r <= 16 q rows pad the
 //   16-row A operand (read from shared memory by ldmatrix), K comes
 //   through ldmatrix and V through ldmatrix.trans.  mma.sync rather than
@@ -51,7 +55,9 @@
 // - f32 (decode_f32_kernel): the same grid, split and ring, with the
 //   products as FMAs on CUDA cores: TF32 would break repro's 2e-5 f32
 //   tolerance.  Tiles of 32 positions; K rows padded to Dh + 4 floats so
-//   that float4 reads of neighbouring positions hit distinct banks.
+//   that float4 reads of neighbouring positions hit distinct banks (at
+//   Dh = 112 a row is 116 floats, 20 banks on: the 8 lanes of a phase
+//   still start 4 banks apart, and rows stay 16-byte aligned).
 //
 // Masking, as _decode_kernel: a position at or past kv_len scores -1e30.
 // With kv_len >= 1 a split stops at kv_len: every later position would
@@ -179,11 +185,17 @@ __device__ __forceinline__ void write_result(T* out, float* part, int64_t part_r
 
 constexpr int kTile = 64;  // kv positions per tile; 16 per warp
 
+// bf16 elements a shared row holds: Dh rounded up to 64 (8 chunk slots)
+template <int Dh>
+constexpr int kRowElems = (Dh + 63) / 64 * 64;
+
 // Shared offset (in elements) of 16-byte chunk c of row `row` in a
-// row-major tile of Dh bf16 per row, chunks XOR-swizzled by row % 8.
+// row-major tile of kRowElems<Dh> bf16 per row, chunks XOR-swizzled by
+// row % 8: a bijection on the row's slots, of which chunks 0 .. Dh/8 - 1
+// are used.
 template <int Dh>
 __device__ __forceinline__ int swz(int row, int c) {
-  return row * Dh + ((c ^ (row & 7)) << 3);
+  return row * kRowElems<Dh> + ((c ^ (row & 7)) << 3);
 }
 
 template <int Dh>
@@ -210,10 +222,10 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(
     __nv_bfloat16* __restrict__ out,      // (B, H, Dh), when part is null
     float* __restrict__ part,             // split partials, or null
     int seq, int n_groups, int r, int split_len, float scale) {
-  constexpr int kTileElems = kTile * Dh;
+  constexpr int kTileElems = kTile * kRowElems<Dh>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // stages x (K, V)
-  __nv_bfloat16* q_s = ring + kStages * 2 * kTileElems;               // 16 x Dh
+  __nv_bfloat16* q_s = ring + kStages * 2 * kTileElems;               // 16 rows
 
   const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -571,7 +583,7 @@ int launch_dh(const void* q, const void* k, const void* v, const void* kv_len, v
   static size_t allowed = 48 * 1024;
   cudaError_t err;
   if constexpr (sizeof(T) == 2) {
-    const size_t smem = sizeof(__nv_bfloat16) * (kStages * 2 * kTile * Dh + kMaxR * Dh);
+    const size_t smem = sizeof(__nv_bfloat16) * (kStages * 2 * kTile + kMaxR) * kRowElems<Dh>;
     if ((err = allow_smem(decode_bf16_kernel<Dh>, smem, allowed)) != cudaSuccess) return (int)err;
     decode_bf16_kernel<Dh><<<grid, kThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
@@ -602,6 +614,9 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len, void
     case 64:
       return launch_dh<T, 64>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
                               split_len, scale, s);
+    case 112:
+      return launch_dh<T, 112>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
+                               split_len, scale, s);
     case 128:
       return launch_dh<T, 128>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
                                split_len, scale, s);

@@ -37,7 +37,7 @@ LAUNCHES = 0  # B7: flash_decode_gqa
 _DTYPES = {torch.float32: "decode_attn_f32", torch.bfloat16: "decode_attn_bf16"}
 _MASKED = -1e30
 MAX_GROUP_ROWS = 16  # q-heads per kv group the kernel holds
-HEAD_DIMS = (64, 128, 256)  # the kernel's instantiations
+HEAD_DIMS = (64, 112, 128, 256)  # the kernel's instantiations (112: kimi-k2)
 SPLIT_TARGET_CTAS = 264  # twice the H100's 132 SMs
 SPLIT_ALIGN = 64  # positions; a multiple of both kernels' kv tiles (64 bf16, 32 f32)
 

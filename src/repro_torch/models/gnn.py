@@ -1,0 +1,602 @@
+"""GNN architectures: GCN, SchNet, NequIP, EquiformerV2-style eSCN.
+
+Port of ``repro/models/gnn.py``'s serving path: the four configs, their
+``*_init`` and forward functions, ``INIT_FNS``, ``FWD_FNS`` and
+``make_gnn_serve_step``.  ``repro`` builds its message passing on
+``jax.ops.segment_sum`` over an edge-index -> node scatter; here every
+such scatter and every per-graph readout is :func:`scatter_sum`, which
+runs kernel B6 (``kernels/embedbag/embedbag.py::embedding_bag_sorted``)
+over the messages flattened to rows: the lookups are the edges sorted
+stably by destination (:func:`sort_edges`, once per edge list and
+forward, reused by every layer), so each node sums its messages in edge
+order in f32, as ``segment_sum`` does on the CPU.  Masked edges
+contribute what they do in ``repro``: the mask multiplies the message.
+
+GCN does not build ``repro``'s per-edge message ``h[src] * coef`` (at
+ogb_products 61.9 M x 47 f32, 11.6 GB): its coefficient factors as
+``rsqrt(dout[src]) * rsqrt(din[dst])`` on the mask's edges, so a layer
+gathers rows of the node table ``h * rsqrt(dout)`` on B6 (the body of
+``embedbag.ops.gnn_aggregate`` on a sort made once) and scales the sums
+by ``rsqrt(din)``.  The two differ by rounding only.
+
+EquiformerV2's attention takes a segment max over each node's edges
+(``jax.ops.segment_max``), a max that B6's sums cannot give; it is one
+``scatter_reduce`` in plain PyTorch.  Its per-edge geometry (rotation,
+Wigner-D, radial basis) depends on the positions only, so it is built
+once per forward rather than once per layer.
+
+Distribution: under a mesh ``repro`` shards edges over every mesh axis
+(``edge_shard_map``) and combines the scatters with a ``psum``; without
+one, its wrapper is the identity and ``rules`` selects nothing.  The
+port runs on one card (``shd.use_mesh`` refuses a mesh), so it has no
+such wrapper, and the forwards take ``rules`` only for ``repro``'s
+signature.  Edge sharding and ``equiformer_energy_big`` (the mesh-only
+large-graph path) wait for the multi-GPU item, as the losses and
+``make_gnn_train_step`` wait for the training slice (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.dist import sharding as shd
+from repro_torch.kernels.embedbag.embedbag import embedding_bag_sorted
+from repro_torch.models.layers import normal, silu
+
+
+# ---------------------------------------------------------------------------
+# The scatter: B6 over messages sorted by destination
+# ---------------------------------------------------------------------------
+
+
+class EdgeSort(NamedTuple):
+    """A destination list sorted once: ``order`` (int32), the stable
+    permutation that sorts it, and ``sorted_dst`` (int32), its values in
+    that order; B6's lookups and bags."""
+
+    order: torch.Tensor
+    sorted_dst: torch.Tensor
+
+
+def sort_edges(dst: torch.Tensor) -> EdgeSort:
+    """The stable sort of ``dst`` that :func:`scatter_sum` walks."""
+    sorted_dst, order = torch.sort(dst.to(torch.int32), stable=True)
+    return EdgeSort(order.to(torch.int32), sorted_dst)
+
+
+def scatter_sum(messages: torch.Tensor, edges: EdgeSort, n_nodes: int) -> torch.Tensor:
+    """``jax.ops.segment_sum(messages, dst, n_nodes)``: messages (E, ...)
+    summed into (n_nodes, ...) by destination, on B6 over the messages
+    as (E, prod(...)) rows, each node in edge order; nodes without an
+    edge are zero."""
+    e = messages.shape[0]
+    rows = messages.reshape(e, -1).contiguous()
+    out = embedding_bag_sorted(rows, edges.order, edges.sorted_dst, n_nodes)
+    return out.reshape((n_nodes,) + tuple(messages.shape[1:]))
+
+
+def _readout(atom_e: torch.Tensor, batch: dict) -> torch.Tensor:
+    """Per-graph energies: the atoms' sum by ``graph_ids`` on B6 (the
+    graph count from the target's shape), or the one graph's sum."""
+    if "graph_ids" in batch:
+        graphs = sort_edges(batch["graph_ids"])
+        return scatter_sum(atom_e[:, None], graphs, batch["energy"].shape[0])[:, 0]
+    return atom_e.sum()[None]
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+
+def _mlp_init(gen: torch.Generator, sizes, dtype=torch.float32) -> list[dict]:
+    return [
+        {"w": normal((a, b), 1.0 / math.sqrt(a), dtype, gen),
+         "b": torch.zeros((b,), dtype=dtype, device=gen.device)}
+        for a, b in zip(sizes[:-1], sizes[1:])
+    ]
+
+
+def _mlp_apply(layers: list[dict], x: torch.Tensor, act=silu) -> torch.Tensor:
+    for i, layer in enumerate(layers):
+        x = x @ layer["w"] + layer["b"]
+        if i + 1 < len(layers):
+            x = act(x)
+    return x
+
+
+def gaussian_rbf(d: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
+    centers = torch.linspace(0.0, cutoff, n_rbf, device=d.device)
+    gamma = n_rbf / cutoff
+    out = torch.exp(-gamma * torch.square(d[..., None] - centers))
+    env = 0.5 * (torch.cos(math.pi * torch.clip(d / cutoff, 0, 1)) + 1.0)  # cosine cutoff
+    return out * env[..., None]
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(seed)
+    return gen
+
+
+def _edge_geometry(pos: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
+    """(rel, d, rhat) of each edge: pos[src] - pos[dst], its length (with
+    ``repro``'s 1e-12 under the root) and direction."""
+    rel = pos[src.long()] - pos[dst.long()]
+    d = torch.sqrt(torch.sum(rel * rel, -1) + 1e-12)
+    return rel, d, rel / d[:, None]
+
+
+# ===========================================================================
+# GCN (Kipf & Welling) — arXiv:1609.02907
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class GCNConfig:
+    name: str = "gcn-cora"
+    n_layers: int = 2
+    d_hidden: int = 16
+    d_feat: int = 1433
+    n_classes: int = 7
+    optimizer: str = "adamw"
+
+
+def gcn_init(cfg: GCNConfig, seed: int = 0, device=None) -> dict:
+    sizes = [cfg.d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+    return {"layers": _mlp_init(_generator(seed, device), sizes)}
+
+
+def gcn_forward(cfg: GCNConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """Logits (N, n_classes): symmetric normalisation with self-loops.
+    Degrees and each layer's aggregation are B6 launches (2 + n_layers)."""
+    x = batch["node_feat"]
+    n = x.shape[0]
+    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    ones = emask.to(torch.float32)[:, None]
+    din = scatter_sum(ones, sort_edges(dst), n)[:, 0] + 1.0
+    dout = scatter_sum(ones, sort_edges(src), n)[:, 0] + 1.0
+    # the mask's edges sorted by destination, once for every layer
+    kept = sort_edges(dst[emask])
+    kept_src = src[emask][kept.order.long()].to(torch.int32)
+    s_out, s_in = torch.rsqrt(dout)[:, None], torch.rsqrt(din)[:, None]
+
+    for i, layer in enumerate(params["layers"]):
+        h = x @ layer["w"] + layer["b"]
+        agg = embedding_bag_sorted((h * s_out).contiguous(), kept_src, kept.sorted_dst, n) * s_in
+        x = agg + h * torch.rsqrt(din * dout)[:, None]  # self loop
+        if i + 1 < len(params["layers"]):
+            x = torch.relu(x)
+    return x
+
+
+# ===========================================================================
+# SchNet — arXiv:1706.08566
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class SchNetConfig:
+    name: str = "schnet"
+    n_interactions: int = 3
+    d_hidden: int = 64
+    n_rbf: int = 300
+    cutoff: float = 10.0
+    n_species: int = 32
+    optimizer: str = "adamw"
+
+
+def schnet_init(cfg: SchNetConfig, seed: int = 0, device=None) -> dict:
+    gen = _generator(seed, device)
+    inter = [
+        {
+            "filter": _mlp_init(gen, [cfg.n_rbf, cfg.d_hidden, cfg.d_hidden]),
+            "in_proj": _mlp_init(gen, [cfg.d_hidden, cfg.d_hidden]),
+            "out": _mlp_init(gen, [cfg.d_hidden, cfg.d_hidden, cfg.d_hidden]),
+        }
+        for _ in range(cfg.n_interactions)
+    ]
+    return {
+        "embed": normal((cfg.n_species, cfg.d_hidden), 0.1, torch.float32, gen),
+        "inter": inter,
+        "readout": _mlp_init(gen, [cfg.d_hidden, cfg.d_hidden // 2, 1]),
+    }
+
+
+def schnet_energy(cfg: SchNetConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """Energies (n_graphs,): one B6 launch per interaction, one readout."""
+    species, pos = batch["species"], batch["positions"]
+    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    n = species.shape[0]
+    edges = sort_edges(dst)
+    h = params["embed"][species.long()]
+    _, d, _ = _edge_geometry(pos, src, dst)
+    rbf = gaussian_rbf(d, cfg.n_rbf, cfg.cutoff)
+    mask = emask[:, None].to(h.dtype)
+
+    for blk in params["inter"]:
+        f0, f1 = blk["filter"]
+        filt = silu(rbf @ f0["w"] + f0["b"]) @ f1["w"] + f1["b"]  # (E, D)
+        hj = h[src.long()] @ blk["in_proj"][0]["w"] + blk["in_proj"][0]["b"]
+        agg = scatter_sum(hj * filt * mask, edges, n)
+        h = h + _mlp_apply(blk["out"], agg)
+
+    atom_e = _mlp_apply(params["readout"], h)[:, 0] * batch["node_mask"].to(h.dtype)
+    return _readout(atom_e, batch)
+
+
+# ===========================================================================
+# NequIP (l_max = 2, Cartesian irreps) — arXiv:2101.03164
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class NequIPConfig:
+    name: str = "nequip"
+    n_layers: int = 5
+    channels: int = 32
+    l_max: int = 2  # fixed by the Cartesian implementation
+    n_rbf: int = 8
+    cutoff: float = 5.0
+    n_species: int = 32
+    optimizer: str = "adamw"
+
+
+_N_PATHS = 10  # radial-weighted tensor-product paths (see nequip_energy)
+
+
+def nequip_init(cfg: NequIPConfig, seed: int = 0, device=None) -> dict:
+    C = cfg.channels
+    gen = _generator(seed, device)
+    layers = [
+        {
+            "radial": _mlp_init(gen, [cfg.n_rbf, 32, _N_PATHS * C]),
+            "mix_s": normal((C, C), 1.0 / math.sqrt(C), torch.float32, gen),
+            "mix_v": normal((C, C), 1.0 / math.sqrt(C), torch.float32, gen),
+            "mix_t": normal((C, C), 1.0 / math.sqrt(C), torch.float32, gen),
+            "gate": _mlp_init(gen, [C, 2 * C]),
+        }
+        for _ in range(cfg.n_layers)
+    ]
+    return {
+        "embed": normal((cfg.n_species, C), 0.5, torch.float32, gen),
+        "layers": layers,
+        "readout": _mlp_init(gen, [C, C, 1]),
+    }
+
+
+def _traceless(outer: torch.Tensor) -> torch.Tensor:  # (..., 3, 3) -> traceless symmetric part
+    sym = 0.5 * (outer + outer.transpose(-1, -2))
+    tr = torch.diagonal(sym, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    return sym - tr * torch.eye(3, device=outer.device) / 3.0
+
+
+def nequip_energy(cfg: NequIPConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """Energies (n_graphs,): the scalar, vector and tensor messages of a
+    layer concatenated into one (E, 13 C) row per edge, so one B6 launch
+    per layer, and one readout."""
+    species, pos = batch["species"], batch["positions"]
+    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    n = species.shape[0]
+    C = cfg.channels
+    edges = sort_edges(dst)
+    s = params["embed"][species.long()]  # (N, C) scalars
+    v = torch.zeros((n, C, 3), device=s.device)
+    t = torch.zeros((n, C, 3, 3), device=s.device)
+    _, d, rhat = _edge_geometry(pos, src, dst)
+    T_edge = _traceless(rhat[:, :, None] * rhat[:, None, :])  # (E,3,3)
+    rbf = gaussian_rbf(d, cfg.n_rbf, cfg.cutoff)
+    rh = rhat[:, None, :]  # (E,1,3)
+    isrc = src.long()
+
+    for blk in params["layers"]:
+        r0, r1 = blk["radial"]
+        w = (silu(rbf @ r0["w"] + r0["b"]) @ r1["w"] + r1["b"]).reshape(-1, _N_PATHS, C)
+        w = w * emask[:, None, None].to(w.dtype)
+        sj, vj, tj = s[isrc], v[isrc], t[isrc]  # (E,C) (E,C,3) (E,C,3,3)
+        # --- the 10 CG paths for l<=2 in Cartesian form -------------------
+        m_s = (
+            w[:, 0] * sj  # s⊗Y0→s
+            + w[:, 1] * torch.einsum("ecx,ex->ec", vj, rhat)  # v⊗Y1→s
+            + w[:, 2] * torch.einsum("ecxy,exy->ec", tj, T_edge)  # t⊗Y2→s
+        )
+        m_v = (
+            w[:, 3, :, None] * sj[:, :, None] * rh  # s⊗Y1→v
+            + w[:, 4, :, None] * vj  # v⊗Y0→v
+            + w[:, 5, :, None] * torch.linalg.cross(vj, rh.expand(vj.shape), dim=-1)  # v⊗Y1→v
+            + w[:, 6, :, None] * torch.einsum("ecxy,ey->ecx", tj, rhat)  # t⊗Y1→v
+        )
+        m_t = (
+            w[:, 7, :, None, None] * sj[:, :, None, None] * T_edge[:, None]  # s⊗Y2→t
+            + w[:, 8, :, None, None] * _traceless(vj[:, :, :, None] * rh[:, :, None, :])  # v⊗Y1→t
+            + w[:, 9, :, None, None] * tj  # t⊗Y0→t
+        )
+        e = m_s.shape[0]
+        msg = torch.cat([m_s, m_v.reshape(e, 3 * C), m_t.reshape(e, 9 * C)], dim=1)
+        agg = scatter_sum(msg, edges, n)
+        ms, mv, mt = agg[:, :C], agg[:, C : 4 * C].reshape(n, C, 3), agg[:, 4 * C :].reshape(n, C, 3, 3)
+        # node update: channel mixing per irrep + gated nonlinearity
+        s_new = ms @ blk["mix_s"]
+        v_new = torch.einsum("ncx,cd->ndx", mv, blk["mix_v"])
+        t_new = torch.einsum("ncxy,cd->ndxy", mt, blk["mix_t"])
+        gates = _mlp_apply(blk["gate"], s_new)
+        gv, gt = torch.sigmoid(gates[:, :C]), torch.sigmoid(gates[:, C:])
+        s = s + silu(s_new)
+        v = v + v_new * gv[:, :, None]
+        t = t + t_new * gt[:, :, None, None]
+
+    atom_e = _mlp_apply(params["readout"], s)[:, 0] * batch["node_mask"].to(s.dtype)
+    return _readout(atom_e, batch)
+
+
+# ===========================================================================
+# EquiformerV2-style eSCN — arXiv:2306.12059
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class EquiformerConfig:
+    name: str = "equiformer-v2"
+    n_layers: int = 12
+    channels: int = 128
+    l_max: int = 6
+    m_max: int = 2
+    n_heads: int = 8
+    n_rbf: int = 32
+    cutoff: float = 8.0
+    n_species: int = 32
+    optimizer: str = "adamw"
+
+    @property
+    def n_coef(self) -> int:
+        return (self.l_max + 1) ** 2
+
+
+# ---- real spherical harmonics up to l_max (recurrence-based) --------------
+
+
+def real_sph_harm(vec, l_max: int, xp=torch):
+    """Real, orthonormal spherical harmonics Y_{lm}(v̂) for unit vectors.
+
+    vec: (..., 3) -> (..., (l_max+1)^2), ordering l-major, m from -l..l.
+    Associated Legendre via the standard stable recurrences; azimuthal
+    factors via Chebyshev recursion on (cosφ, sinφ).  ``xp`` selects the
+    array namespace: torch, or numpy for the host-side Wigner basis."""
+    x, y, z = vec[..., 0], vec[..., 1], vec[..., 2]
+    rho = xp.sqrt(x * x + y * y + 1e-20)
+    ct = z  # cos θ (unit vectors)
+    st = rho
+    cphi, sphi = x / rho, y / rho
+
+    # P_l^m(ct) for 0<=m<=l<=l_max (unnormalized, Condon–Shortley OMITTED)
+    Pmm = {0: xp.ones_like(ct)}
+    for m in range(1, l_max + 1):
+        Pmm[m] = Pmm[m - 1] * (2 * m - 1) * st
+    Plm = {}
+    for m in range(0, l_max + 1):
+        Plm[(m, m)] = Pmm[m]
+        if m < l_max:
+            Plm[(m + 1, m)] = ct * (2 * m + 1) * Pmm[m]
+        for l in range(m + 2, l_max + 1):
+            Plm[(l, m)] = (
+                (2 * l - 1) * ct * Plm[(l - 1, m)] - (l + m - 1) * Plm[(l - 2, m)]
+            ) / (l - m)
+
+    cos_m = {0: xp.ones_like(cphi), 1: cphi}
+    sin_m = {0: xp.zeros_like(sphi), 1: sphi}
+    for m in range(2, l_max + 1):
+        cos_m[m] = 2 * cphi * cos_m[m - 1] - cos_m[m - 2]
+        sin_m[m] = 2 * cphi * sin_m[m - 1] - sin_m[m - 2]
+
+    comps = []
+    for l in range(l_max + 1):
+        for m in range(-l, l + 1):
+            am = abs(m)
+            norm = math.sqrt(
+                (2 * l + 1) / (4 * math.pi) * math.factorial(l - am) / math.factorial(l + am)
+            )
+            if m == 0:
+                comps.append(norm * Plm[(l, 0)])
+            elif m > 0:
+                comps.append(math.sqrt(2) * norm * Plm[(l, m)] * cos_m[m])
+            else:
+                comps.append(math.sqrt(2) * norm * Plm[(l, am)] * sin_m[am])
+    return xp.stack(comps, -1)
+
+
+def _fibonacci_points(n: int) -> np.ndarray:
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    theta = np.pi * (1 + 5**0.5) * i
+    return np.stack(
+        [np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta), np.cos(phi)], -1
+    )
+
+
+_WIGNER_NPTS = 80
+
+
+@lru_cache(maxsize=8)
+def _wigner_basis_np(l_max: int):
+    """Host-side (pure numpy): sample points P and pinv(Y(P)) for the
+    per-edge D-regression."""
+    pts = _fibonacci_points(_WIGNER_NPTS)
+    Y = real_sph_harm(pts, l_max, xp=np)  # (npts, ncoef)
+    return pts.astype(np.float32), np.linalg.pinv(Y).astype(np.float32)
+
+
+def _wigner_basis(l_max: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    pts, pinv = _wigner_basis_np(l_max)
+    return torch.from_numpy(pts).to(device), torch.from_numpy(pinv).to(device)
+
+
+def edge_rotation(rhat: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix R_e with R_e @ rhat = ẑ (Rodrigues)."""
+    z = torch.tensor([0.0, 1e-9, 1.0], device=rhat.device)
+    z = z / torch.linalg.norm(z)
+    v = torch.linalg.cross(rhat, z.expand(rhat.shape), dim=-1)
+    c = rhat @ z
+    s2 = torch.sum(v * v, -1)
+    zero = torch.zeros_like(v[..., 0])
+    vx = torch.stack([
+        torch.stack([zero, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], zero, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], zero], -1),
+    ], -2)
+    eye = torch.eye(3, device=rhat.device).expand(vx.shape)
+    factor = torch.where(s2 > 1e-12, (1 - c) / torch.clamp(s2, min=1e-12), torch.tensor(0.5, device=rhat.device))
+    return eye + vx + (vx @ vx) * factor[..., None, None]
+
+
+def wigner_d(rot: torch.Tensor, l_max: int, pts: torch.Tensor, pinv_y: torch.Tensor) -> torch.Tensor:
+    """D(R) (ncoef, ncoef) per edge via Y(R·P) = D·Y(P) regression."""
+    rp = torch.einsum("...ij,pj->...pi", rot, pts)  # rotated sample points
+    y_rot = real_sph_harm(rp, l_max)  # (..., npts, ncoef)
+    # D = Y(RP)^T · pinv(Y(P))^T : solve D Y(P)ᵀ = Y(RP)ᵀ
+    return torch.einsum("...pc,pk->...ck", y_rot, pinv_y.T)
+
+
+def _m_indices(l_max: int, m_max: int):
+    """Coefficient indices for each |m| <= m_max: (pos list, neg list, l list)."""
+    idx = {}
+    for m in range(0, m_max + 1):
+        pos, neg = [], []
+        for l in range(m, l_max + 1):
+            base = l * l + l  # m=0 position of degree l
+            pos.append(base + m)
+            neg.append(base - m)
+        idx[m] = (np.array(pos), np.array(neg))
+    return idx
+
+
+def equiformer_init(cfg: EquiformerConfig, seed: int = 0, device=None) -> dict:
+    C = cfg.channels
+    n_l = cfg.l_max + 1
+    gen = _generator(seed, device)
+    n_lm = {m: cfg.l_max + 1 - m for m in range(cfg.m_max + 1)}
+    layers = [
+        {
+            "so2": {
+                f"w{m}": normal((2, n_lm[m] * C, n_lm[m] * C), 1.0 / math.sqrt(n_lm[m] * C),
+                                torch.float32, gen)
+                for m in range(cfg.m_max + 1)
+            },
+            "radial": _mlp_init(gen, [cfg.n_rbf, 64, (cfg.m_max + 1) * C]),
+            "attn": _mlp_init(gen, [C, 32, cfg.n_heads]),
+            "mix": normal((n_l, C, C), 1.0 / math.sqrt(C), torch.float32, gen),
+            "gate": _mlp_init(gen, [C, n_l * C]),
+        }
+        for _ in range(cfg.n_layers)
+    ]
+    return {
+        "embed": normal((cfg.n_species, C), 0.5, torch.float32, gen),
+        "layers": layers,
+        "readout": _mlp_init(gen, [C, C, 1]),
+    }
+
+
+def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """Energies (n_graphs,): ``repro``'s one-card branch.  Per layer two
+    B6 launches (the attention's denominators, then the messages as
+    (E, C·ncoef) rows), and one readout."""
+    species, pos = batch["species"], batch["positions"]
+    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    n = species.shape[0]
+    C, ncoef = cfg.channels, cfg.n_coef
+    dev = pos.device
+    pts, pinv_y = _wigner_basis(cfg.l_max, dev)
+    midx = _m_indices(cfg.l_max, cfg.m_max)
+    edges = sort_edges(dst)
+    idst, isrc = dst.long(), src.long()
+    emask_f = emask.to(torch.float32)
+
+    # per-edge geometry, the same in every layer
+    _, d, rhat = _edge_geometry(pos, src, dst)
+    D = wigner_d(edge_rotation(rhat), cfg.l_max, pts, pinv_y)  # (E,ncoef,ncoef)
+    rbf = gaussian_rbf(d, cfg.n_rbf, cfg.cutoff)
+
+    h = torch.zeros((n, C, ncoef), device=dev)
+    h[:, :, 0] = params["embed"][species.long()]
+    repeats = torch.tensor([2 * l + 1 for l in range(cfg.l_max + 1)], device=dev)
+
+    for blk in params["layers"]:
+        r0, r1 = blk["radial"]
+        a0, a1 = blk["attn"]
+        rw = (silu(rbf @ r0["w"] + r0["b"]) @ r1["w"] + r1["b"]).reshape(-1, cfg.m_max + 1, C)
+
+        g = torch.einsum("eck,eqk->ecq", h[isrc], D)  # rotate into edge frame
+        out = torch.zeros_like(g)
+        for m in range(cfg.m_max + 1):
+            pos_i, neg_i = midx[m]
+            gp = g[:, :, pos_i] * rw[:, m][:, :, None]  # (E, C, n_lm)
+            w1, w2 = blk["so2"][f"w{m}"][0], blk["so2"][f"w{m}"][1]
+            if m == 0:
+                out[:, :, pos_i] = (gp.reshape(gp.shape[0], -1) @ w1).reshape(gp.shape)
+            else:
+                gn = g[:, :, neg_i] * rw[:, m][:, :, None]
+                fp, fn = gp.reshape(gp.shape[0], -1), gn.reshape(gn.shape[0], -1)
+                out[:, :, pos_i] = (fp @ w1 - fn @ w2).reshape(gp.shape)
+                out[:, :, neg_i] = (fp @ w2 + fn @ w1).reshape(gn.shape)
+
+        msg = torch.einsum("ecq,eqk->eck", out, D)  # rotate back (Dᵀ = D⁻¹)
+
+        # graph attention on the scalar channel (segment softmax)
+        scal = msg[:, :, 0]  # (E, C)
+        logits = silu(scal @ a0["w"] + a0["b"]) @ a1["w"] + a1["b"]  # (E, heads)
+        logits = torch.where(emask[:, None], logits, torch.tensor(-1e30, device=dev))
+        zmax = torch.full((n, cfg.n_heads), -math.inf, device=dev).scatter_reduce(
+            0, idst[:, None].expand_as(logits), logits, "amax", include_self=False
+        )
+        ex = torch.exp(logits - zmax[idst]) * emask_f[:, None]
+        denom = scatter_sum(ex, edges, n)
+        alpha = ex / torch.clamp(denom[idst], min=1e-20)  # (E, heads)
+        alpha_c = torch.repeat_interleave(alpha, C // cfg.n_heads, dim=-1)  # (E, C)
+        msg = msg * alpha_c[:, :, None] * emask_f[:, None, None]
+        agg = scatter_sum(msg, edges, n)
+
+        # per-degree channel mixing + gated nonlinearity
+        upd = torch.cat([
+            torch.einsum("nck,cd->ndk", agg[:, :, l * l : (l + 1) * (l + 1)], blk["mix"][l])
+            for l in range(cfg.l_max + 1)
+        ], dim=-1)
+        gates = _mlp_apply(blk["gate"], upd[:, :, 0]).reshape(n, C, cfg.l_max + 1)
+        gate_full = torch.repeat_interleave(torch.sigmoid(gates), repeats, dim=-1)
+        h = h + upd * gate_full
+
+    atom_e = _mlp_apply(params["readout"], h[:, :, 0])[:, 0]
+    atom_e = atom_e * batch["node_mask"].to(atom_e.dtype)
+    return _readout(atom_e, batch)
+
+
+# ===========================================================================
+# Serve-step factory
+# ===========================================================================
+
+INIT_FNS = {
+    "gcn-cora": gcn_init,
+    "schnet": schnet_init,
+    "nequip": nequip_init,
+    "equiformer-v2": equiformer_init,
+}
+FWD_FNS = {
+    "gcn-cora": gcn_forward,
+    "schnet": schnet_energy,
+    "nequip": nequip_energy,
+    "equiformer-v2": equiformer_energy,
+}
+
+
+def make_gnn_serve_step(cfg, rules: shd.Rules):
+    fwd = FWD_FNS[cfg.name]
+
+    def serve_step(params: dict, batch: dict) -> torch.Tensor:
+        return fwd(cfg, rules, params, batch)
+
+    return serve_step

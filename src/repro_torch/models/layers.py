@@ -1,14 +1,15 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention (qk-norm
 optional), chunked flash-style attention, decode attention on kernel B7,
-and the SwiGLU FFN.
+the SwiGLU FFN and the MoE layer.
 
-Port of ``repro/models/layers.py`` without the MoE layer (``init_moe``,
-``apply_moe``, ``_moe_local``) and the losses (``cross_entropy``,
-``chunked_cross_entropy``), which wait for later slices (ROADMAP A14).
-Everything is functional: ``init_*`` build dictionaries of tensors,
-``apply_*`` consume them.  ``rules`` is taken where ``repro`` takes it;
-off-mesh its constraints are the identity, and the port runs on one
-card, so none is applied.
+Port of ``repro/models/layers.py`` without the losses
+(``cross_entropy``, ``chunked_cross_entropy``), which wait for the
+training slice, and without ``apply_moe``'s expert-parallel branch
+(``shard_map``, two ``all_to_all``s, capacities), which waits for the
+multi-GPU item (ROADMAP A14).  Everything is functional: ``init_*``
+build dictionaries of tensors, ``apply_*`` consume them.  ``rules`` is
+taken where ``repro`` takes it; off-mesh its constraints are the
+identity, and the port runs on one card, so none is applied.
 
 Promotions follow ``repro``'s: norms and RoPE compute in f32 and cast
 back to the input's dtype; products of bf16 tensors are bf16.
@@ -210,3 +211,81 @@ def init_mlp(
 
 def apply_mlp(p: dict, x: torch.Tensor, rules: shd.Rules) -> torch.Tensor:
     return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (one card: top-k routing, SwiGLU experts on their routed rows)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(
+    gen: torch.Generator, d_model: int, d_ff: int, n_experts: int, dtype: torch.dtype,
+    lead: tuple[int, ...] = (),
+) -> dict:
+    """The router (f32) and the experts' three SwiGLU tensors (E, D, F) /
+    (E, F, D) in ``dtype``, each with the leading dims ``lead``."""
+    si, so = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return {
+        "router": normal(lead + (d_model, n_experts), si, torch.float32, gen),
+        "w_gate": normal(lead + (n_experts, d_model, d_ff), si, dtype, gen),
+        "w_up": normal(lead + (n_experts, d_model, d_ff), si, dtype, gen),
+        "w_down": normal(lead + (n_experts, d_ff, d_model), so, dtype, gen),
+    }
+
+
+def _route(p: dict, xt: torch.Tensor, top_k: int):
+    """f32 router logits, the top-k experts of each token (largest first)
+    and a softmax over their k logits: (weights (T, k) f32, experts (T, k))."""
+    gate_vals, gate_idx = torch.topk(xt.float() @ p["router"], top_k, dim=-1)
+    return torch.softmax(gate_vals, dim=-1), gate_idx
+
+
+def apply_moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: shd.Rules) -> torch.Tensor:
+    """The MoE layer on one card: ``repro``'s ``_moe_local`` (dropless
+    top-k, a softmax over the k gate values, SwiGLU experts, their
+    outputs summed in f32 with those weights, cast back to x's dtype),
+    computed on the routed (token, expert) rows only.  The T·k
+    assignments are sorted by expert (stably); each expert with rows runs
+    its three products on its contiguous slice; the weighted rows go back
+    to (token, k) order and sum over k as ``repro`` sums them.  ``rules``
+    of a layout with a model axis would take ``repro``'s expert-parallel
+    branch, which is not ported: it raises."""
+    if rules.model_axis is not None:
+        raise NotImplementedError(
+            "the expert-parallel MoE (experts over the model axis, two all_to_alls) is "
+            "ROADMAP's multi-GPU item: the port runs the MoE on one card"
+        )
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    T = xt.shape[0]
+    weights, gate_idx = _route(p, xt, top_k)
+    flat = gate_idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    xs = xt[order // top_k]  # (T·k, D): each assignment's token, grouped by expert
+    ys = torch.empty_like(xs)
+    lo = 0
+    for e, count in enumerate(torch.bincount(flat, minlength=n_experts).tolist()):
+        if count:
+            xe = xs[lo : lo + count]
+            h = silu(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
+            torch.matmul(h, p["w_down"][e], out=ys[lo : lo + count])
+            lo += count
+    out = torch.empty((T * top_k, D), dtype=torch.float32, device=x.device)
+    out[order] = ys.float() * weights.reshape(-1)[order, None]
+    return out.reshape(T, top_k, D).sum(dim=1).reshape(B, S, D).to(x.dtype)
+
+
+def moe_dense(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int) -> torch.Tensor:
+    """``repro``'s ``_moe_local`` as it is written: every expert on every
+    token ((T, E, F) and (T, E, D) temporaries), then the k selected
+    outputs gathered and summed.  The plain twin of :func:`apply_moe`,
+    for the tests only: at kimi-k2's widths a prefill's temporaries would
+    take tens of GB."""
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    weights, gate_idx = _route(p, xt, top_k)
+    h = torch.einsum("td,edf->tef", xt, p["w_gate"])
+    u = torch.einsum("td,edf->tef", xt, p["w_up"])
+    y = torch.einsum("tef,efd->ted", silu(h) * u, p["w_down"])
+    sel = torch.take_along_dim(y, gate_idx[:, :, None], dim=1)  # (T, k, D)
+    return (sel * weights[:, :, None]).sum(dim=1).reshape(B, S, D).to(x.dtype)

@@ -1,6 +1,5 @@
-"""Decoder-only transformer LMs with GQA and optional qk-norm: qwen3-14b
-and -32b, internlm2-1.8b; the MoE configs (granite-moe, kimi-k2) are
-described but not built.
+"""Decoder-only transformer LMs (dense and MoE) with GQA and optional
+qk-norm: qwen3-14b and -32b, internlm2-1.8b, granite-moe, kimi-k2.
 
 Port of ``repro/models/transformer.py``'s serving path: ``LMConfig``,
 ``init_params``, ``forward`` / ``hidden_states``, ``init_cache``,
@@ -13,11 +12,13 @@ place at ``pos`` and runs its attention on kernel B7
 (``layers.decode_attention``); ``repro``'s writes a new cache with
 ``lax.dynamic_update_slice_in_dim``, which clamps its start, so at
 ``pos == max_len`` it overwrites the last slot where the port raises.
+A MoE config's layers hold ``moe`` (``layers.init_moe``) where a dense
+one's hold ``mlp``, and run ``layers.apply_moe`` on one card.
 
-Left for later slices (ROADMAP A14): the MoE layer (``init_params``
-refuses an ``is_moe`` config), ``make_train_step`` with its loss
+Left for later slices (ROADMAP A14): ``make_train_step`` with its loss
 (``training/``), and the placement specs of a mesh (``param_specs``,
-``cache_specs``, ``seq_sharded``; the multi-GPU item).
+``cache_specs``, ``seq_sharded``) with the expert-parallel MoE (the
+multi-GPU item).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class LMConfig:
     kv_chunk: int = 1024
     remat: bool = True
     optimizer: str = "adamw"
-    fsdp_experts: bool = False  # rest-shard expert d_ff over data axes (kimi)
+    fsdp_experts: bool = False  # rest-shard expert d_ff over data axes (kimi; expert-parallel only)
     vocab_pad: int = 256  # pad embed/lm_head so the vocab dim shards evenly
     # per-arch Rules overrides (pattern -> placement), prepended to the
     # built-in table by rules_for(); a tuple of pairs so the config stays
@@ -98,28 +99,28 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from one ``torch.Generator`` seeded with
     ``seed`` on ``device`` (None: the GPU); ``repro``'s tree and shapes,
     other numbers (``repro`` draws from ``jax.random``)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a MoE config: the MoE layer is not ported yet (ROADMAP A14, MoE)"
-        )
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, lead = cfg.d_model, (cfg.n_layers,)
     emb_scale = 1.0 / (d**0.5)
     ones = torch.ones(lead + (d,), dtype=torch.float32, device=device)
+    layers = {
+        "attn": L.init_attention(
+            gen, d, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head, cfg.qk_norm, cfg.dtype, lead
+        ),
+        "ln1": ones,
+        "ln2": ones.clone(),
+    }
+    if cfg.is_moe:
+        layers["moe"] = L.init_moe(gen, d, cfg.d_ff, cfg.n_experts, cfg.dtype, lead)
+    else:
+        layers["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.dtype, lead)
     return {
         "embed": L.normal((cfg.padded_vocab, d), emb_scale, cfg.dtype, gen),
         "lm_head": L.normal((d, cfg.padded_vocab), emb_scale, cfg.dtype, gen),
         "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
-        "layers": {
-            "attn": L.init_attention(
-                gen, d, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head, cfg.qk_norm, cfg.dtype, lead
-            ),
-            "ln1": ones,
-            "ln2": ones.clone(),
-            "mlp": L.init_mlp(gen, d, cfg.d_ff, cfg.dtype, lead),
-        },
+        "layers": layers,
     }
 
 
@@ -142,14 +143,19 @@ def _layer(tree: dict, i: int) -> dict:
 
 def _block(cfg: LMConfig, rules: shd.Rules, x, lp: dict, positions, attend):
     """One layer: attention (``attend(q, k, v)`` -> (B, S, H, Dh)), then
-    the MLP, each added to the residual stream."""
+    the MLP or the MoE, each added to the residual stream."""
     B, S, _ = x.shape
     h = L.rmsnorm(x, lp["ln1"])
     q, k, v = L.apply_attention_proj(
         lp["attn"], h, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head, positions, rules, cfg.rope_theta
     )
     x = x + (attend(q, k, v).reshape(B, S, -1) @ lp["attn"]["wo"])
-    return x + L.apply_mlp(lp["mlp"], L.rmsnorm(x, lp["ln2"]), rules), k, v
+    h = L.rmsnorm(x, lp["ln2"])
+    if cfg.is_moe:
+        y = L.apply_moe(lp["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k, rules=rules)
+    else:
+        y = L.apply_mlp(lp["mlp"], h, rules)
+    return x + y, k, v
 
 
 def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:

@@ -31,11 +31,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import dlrm_mlperf, lm_common
+from repro_torch.configs import dlrm_mlperf, gnn_common, lm_common, registry
 from repro_torch.core import estimation, paa, regex, strategies
 from repro_torch.dist import sharding as shd
 from repro_torch.models import dlrm as dlrm_model
-from repro_torch.models import transformer
+from repro_torch.models import gnn, layers, transformer
 from repro_torch.core.cost_model import NetworkParams
 from repro_torch.graph import generators, partition, structure, workloads
 from repro_torch.kernels.decode_attn import decode_attn
@@ -1024,7 +1024,7 @@ def test_dlrm_steps_on_gpu_equal_cpu(cuda, multi_hot):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lm_prefill_and_decode_on_gpu_equal_cpu(cuda, dtype):
-    """qwen3-14b's smoke config with d_head 64 (B7 takes 64, 128 and 256):
+    """qwen3-14b's smoke config with d_head 64 (B7 takes 64, 112, 128 and 256):
     prefill, the cache copied into a 72-long buffer (not a multiple of
     B7's 64-position tile), then 5 decode steps fed the same tokens on
     both devices, B7 launching once a layer and step; logits within 2e-5
@@ -1055,3 +1055,124 @@ def test_lm_prefill_and_decode_on_gpu_equal_cpu(cuda, dtype):
         assert float((got - want).abs().max()) <= tol * float(want.abs().max())
     k_gpu, k_cpu = out[str(cuda)][1], out["cpu"][1]
     assert float((k_gpu - k_cpu).abs().max()) <= tol * float(k_cpu.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# B7 at kimi-k2's head width, the MoE layer and the GNN serve steps
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape, block, kv_len",
+    # one split, kv_len inside the last tile; 8 q rows a group over 16
+    # splits (kv_len inside a split's tile and at a split's end); r = 16
+    [((2, 8, 4, 112, 512), 128, 495), ((1, 64, 8, 112, 4_096), 512, 3_003),
+     ((2, 32, 2, 112, 1_000), 8, 640), ((3, 16, 1, 112, 256), 128, 200)],
+)
+def test_decode_kernel_at_dh_112_equals_plain(cuda, shape, block, kv_len, dtype):
+    """Dh = 112: 14 16-byte chunks a bf16 row in 16 swizzled slots, f32
+    K rows of 116 floats."""
+    b, h, g, dh, s = shape
+    q, k, v = _qkv(shape, dtype, cuda, sum(shape) + kv_len)
+    n = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    before = decode_attn.LAUNCHES
+    got = decode_attn.flash_decode_gqa(q, k, v, n, block_kv=block)
+    want = decode_attn.flash_decode_gqa_plain(q, k, v, n, block_kv=block)
+    torch.cuda.synchronize()
+    assert decode_attn.LAUNCHES == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
+    # a kernel that read the unloaded slots or a neighbour's row would miss
+    # this: the output moves when only the last 16 dims of V change
+    v2 = v.clone()
+    v2[..., 96:] += 1.0
+    moved = decode_attn.flash_decode_gqa(q, k, v2, n, block_kv=block)
+    assert float((moved.float() - got.float())[..., :96].abs().max()) <= tol * float(got.float().abs().max())
+    assert float((moved.float() - got.float())[..., 96:].abs().min()) > 0.5
+
+
+@pytest.mark.parametrize("n_edges, n_nodes, width", [(8_192, 3_840, 128 * 49), (20_000, 500, 13 * 32),
+                                                     (4_096, 9_000, 8)])
+def test_scatter_sum_on_b6_equals_plain(cuda, n_edges, n_nodes, width):
+    """``gnn.scatter_sum`` at EquiformerV2's row width (C 128 x 49
+    coefficients), NequIP's (13 x 32) and a head count: one B6 launch,
+    equal to the plain version on the same sorted lookups."""
+    gen = torch.Generator(device=cuda).manual_seed(n_edges)
+    msg = torch.randn((n_edges, width), generator=gen, device=cuda)
+    dst = torch.randint(0, n_nodes, (n_edges,), generator=gen, device=cuda, dtype=torch.int32)
+    edges = gnn.sort_edges(dst)
+    before = embedbag.LAUNCHES
+    got = gnn.scatter_sum(msg, edges, n_nodes)
+    torch.cuda.synchronize()
+    assert embedbag.LAUNCHES == before + 1
+    want = embedbag.embedding_bag_sorted_plain(msg, edges.order, edges.sorted_dst, n_nodes)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), gnn.scatter_sum(msg.cpu(), gnn.sort_edges(dst.cpu()), n_nodes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routed_moe_equals_dense_twin_on_gpu(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = layers.init_moe(gen, 256, 128, 16, dtype)
+    x = torch.randn((4, 64, 256), generator=gen, device=cuda).to(dtype)
+    rules = shd.Rules.from_mesh(None)
+    got = layers.apply_moe(p, x, n_experts=16, top_k=4, rules=rules)
+    want = layers.moe_dense(p, x, n_experts=16, top_k=4)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype and got.shape == x.shape
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
+    cpu = layers.apply_moe({k: w.cpu() for k, w in p.items()}, x.cpu(), n_experts=16, top_k=4, rules=rules)
+    assert float((got.float().cpu() - cpu.float()).abs().max()) <= tol * float(cpu.float().abs().max())
+
+
+def test_moe_lm_prefill_and_decode_on_gpu_equal_cpu(cuda):
+    """kimi-k2's smoke config at its own head width 112, f32: prefill, the
+    cache copied into a 72-long buffer, 4 decode steps fed the same tokens
+    on both devices, B7 launching once a layer and step; logits within
+    B7's 2e-5 of the largest."""
+    cfg = dataclasses.replace(registry.get_arch("kimi-k2-1t-a32b").smoke(), d_head=112)
+    rules = shd.Rules.from_mesh(None)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    toks = lm_common.lm_smoke_batch(cfg, "prefill", device="cpu")["tokens"]
+    fed = [torch.tensor([i, 5 * i + 2], dtype=torch.int32) for i in range(4)]
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        logits, pre = transformer.make_prefill(cfg, rules)(p, toks.to(dev))
+        cache = transformer.init_cache(cfg, 2, 72, device=dev)
+        cache["k"][:, :, :32], cache["v"][:, :, :32], cache["len"] = pre["k"], pre["v"], pre["len"]
+        step = transformer.make_decode_step(cfg, rules)
+        before = decode_attn.LAUNCHES
+        seen = [logits.float().cpu()]
+        for tok in fed:
+            logits, cache = step(p, cache, tok.to(dev))
+            seen.append(logits.float().cpu())
+        torch.cuda.synchronize()
+        launches = decode_attn.LAUNCHES - before
+        out[str(dev)] = seen
+    assert launches == cfg.n_layers * len(fed)
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "nequip", "equiformer-v2"])
+def test_gnn_serve_steps_on_gpu_equal_cpu(cuda, arch):
+    """Each smoke GNN on ``gnn_smoke_batch`` with every third edge masked:
+    B6 launches once a scatter (GCN 2 + layers; SchNet interactions + 1;
+    NequIP layers + 1; EquiformerV2 2 x layers + 1), no decode kernel,
+    and the output within 1e-5 of the CPU run's largest."""
+    cfg = registry.get_arch(arch).smoke()
+    rules = shd.Rules.from_mesh(None)
+    params = gnn.INIT_FNS[arch](cfg, seed=0, device="cpu")
+    batch = gnn_common.gnn_smoke_batch(arch == "gcn-cora", device="cpu")
+    batch["edge_mask"] = torch.arange(batch["edge_mask"].shape[0]) % 3 != 0
+    step = gnn.make_gnn_serve_step(cfg, rules)
+    want = step(params, batch)
+    before = (embedbag.LAUNCHES, decode_attn.LAUNCHES)
+    got = step(_to(params, cuda), {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    scatters = {"gcn-cora": 2 + 2, "schnet": 2 + 1, "nequip": 2 + 1, "equiformer-v2": 2 * 2 + 1}[arch]
+    assert (embedbag.LAUNCHES - before[0], decode_attn.LAUNCHES - before[1]) == (scatters, 0)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
