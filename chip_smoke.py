@@ -227,9 +227,35 @@ Phases, each of which raises on failure (the run then exits non-zero):
              and the sampling timed on the host apart from serve ms;
              (c) schnet, nequip and equiformer-v2 ``full()`` at molecule
              (128 molecules x 30 atoms, 64 edges each), molecules/s, one
-             equiformer-v2 step traced for B6's share.
+             equiformer-v2 step traced for B6's share;
+* train    — training through ``repro_torch.training`` (AdamW), every
+             table's and scatter's gradient B6 on the lookups sorted by
+             row: (a) gcn-cora at ogb_products whole (the gnn phase's
+             graph, labels and a train mask of ogbn-products' 196,615
+             nodes), 6 steps of ``loop.run``: 6 B6 launches a step (4
+             forward, 2 backward), the first step's loss and every
+             gradient leaf within 1e-5 of the CPU run's largest, each
+             backward launch ``torch.equal`` to plain on its real
+             cotangent, a crash at step 3 and a resume from step 2 whose
+             parameters equal the uninterrupted run's bit for bit, ms a
+             step and nodes/s, one step traced (B6 forward and backward
+             apart, the sorts); (b) dlrm-mlperf with each table capped at
+             2^22 rows at train_batch (65,536): 52 B6 launches a step,
+             each table's backward launch == plain and zero on unread
+             rows, a 4,096-sample batch's loss and gradients against the
+             CPU (MLPs 1e-5, bf16 tables 2e-2), AdamW on 4,096 sampled
+             rows of each table against a CPU update (f32 1e-6, bf16 one
+             ulp), AdamW's ms apart, one step traced; (c) qwen3-14b at
+             full width, 2 layers, 4 sequences of 4,096 (4 microbatches),
+             2 steps: no kernel of the repo (no B7), losses finite,
+             1 x 256 tokens' loss and lm_head, embed and layer-0
+             gradients within 2e-2 of the CPU run's largest, the
+             attention and AdamW timed apart, one step traced.  B6's
+             backward launch at (a)'s and (b)'s shapes is timed as the
+             forward is, beside its bound, plain version and
+             ``F.embedding_bag``'s backward.
 
-The embedbag, decode, dlrm, lm, moe and gnn phases take their shapes
+The embedbag, decode, dlrm, lm, moe, gnn and train phases take their shapes
 from the port's configs (``configs/dlrm_mlperf.py``, ``qwen3_14b.py``,
 ``granite_moe_1b_a400m.py``, ``kimi_k2_1t_a32b.py``, the GNN configs,
 ``gnn_common.py`` and ``registry.py``'s shape tables), and the setup
@@ -272,6 +298,9 @@ from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.graph.sampling import NeighborSampler  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.training import loop  # noqa: E402
+from repro_torch.training import optimizer as opt_lib  # noqa: E402
+from repro_torch.training.tree import leaves, leaves_with_paths, tree_map, value_and_grad  # noqa: E402
 from repro_torch.core import cost_model, paa, planner, plans, strategies, witness  # noqa: E402
 from repro_torch.core import regex as rx  # noqa: E402
 from repro_torch.graph.generators import (  # noqa: E402
@@ -386,6 +415,24 @@ MOE_DECODE_STEPS, MOE_WARMUP = 12, 2
 GNN_STEPS, GNN_WARMUP, GNN_TOL, GNN_TOL_EQUIFORMER = 5, 1, 1e-5, 1e-4
 MINIBATCH_SEEDS = registry.GNN_SHAPES["minibatch_lg"].dims["batch_nodes"]
 MINIBATCH_FANOUT = tuple(registry.GNN_SHAPES["minibatch_lg"].dims[k] for k in ("fanout0", "fanout1"))
+# the train phase: (a) gcn-cora at ogb_products, TRAIN_GCN_STEPS AdamW steps
+# through training.loop.run, checkpoints every TRAIN_CKPT_EVERY, a simulated
+# crash at TRAIN_CRASH_AT; ogbn-products' published train split
+# (OGB_TRAIN_NODES nodes) as the size of the train mask; (b) dlrm-mlperf at
+# train_batch with each table capped at TRAIN_TABLE_CAP rows (the full set's
+# bf16 tables, gradients and f32 moments are 288 GB), TRAIN_DLRM_STEPS steps,
+# the CPU check on a TRAIN_DLRM_CHECK_BATCH batch, AdamW against a CPU update
+# on TRAIN_SAMPLED_ROWS rows of each table; (c) qwen3-14b at full width with
+# TRAIN_LM_LAYERS layers, train_4k cut to TRAIN_LM_SEQS sequences of 4,096
+# (the config's 4 microbatches of one), TRAIN_LM_STEPS steps, the CPU check
+# on 1 x TRAIN_LM_CHECK tokens.  f32 gradients are held to GRAD_TOL of the
+# largest |gradient| of their leaf, bf16 ones to BF16_TOL.  GCN's are held
+# to a CPU run in float64: its gradients sum 2.4 M nodes' terms of either
+# sign, whose f32 rounding a second f32 run would add to the comparison
+TRAIN_GCN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT, OGB_TRAIN_NODES = 6, 2, 3, 196_615
+TRAIN_TABLE_CAP, TRAIN_DLRM_STEPS, TRAIN_DLRM_CHECK_BATCH, TRAIN_SAMPLED_ROWS = 2**22, 3, 4096, 4096
+TRAIN_LM_LAYERS, TRAIN_LM_SEQS, TRAIN_LM_STEPS, TRAIN_LM_CHECK = 2, 4, 2, 256
+GRAD_TOL = 1e-5
 # B7 against its plain version: max |diff| at most BF16_TOL (the bf16
 # tolerance of tests/test_kernels.py:140) times the largest |output|.  The
 # outputs average ~kv_len V rows, so their size falls as 1/sqrt(kv_len)
@@ -2968,6 +3015,589 @@ def phase_gnn(dev, gen, record) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# train: GCN at ogb_products, DLRM at train_batch, qwen3-14b at train_4k
+# ---------------------------------------------------------------------------
+
+
+class ReluTape:
+    """The card's ReLU decisions, call by call of ``torch.relu``:
+    :meth:`record` keeps each call's input on the host; :meth:`replay`
+    feeds a CPU run those decisions, call for call (``x * mask``, whose
+    derivative is the mask, as ``relu``'s is).  A ReLU's derivative jumps
+    at 0: where the two devices round a pre-activation to either side of
+    it, a gradient that sums a batch's terms of either sign moves by a
+    whole term (1-2% of a DLRM MLP leaf at 4,096 samples), far beyond
+    rounding.  The audit lets the CPU's own decision differ from the
+    card's only where |pre-activation| is at most twice the largest
+    |difference| of that call's inputs between the two runs."""
+
+    def __init__(self):
+        self.inputs: list[torch.Tensor] = []
+        self.audit = {"calls": 0, "elements": 0, "differ": 0, "max_abs_input_diff": 0.0,
+                      "max_abs_where_differ": 0.0}
+
+    @contextlib.contextmanager
+    def record(self):
+        relu = torch.relu
+
+        def rec(x):
+            self.inputs.append(x.detach().cpu())
+            return relu(x)
+
+        with patched(torch, "relu", rec):
+            yield self
+
+    @contextlib.contextmanager
+    def replay(self):
+        calls = iter(self.inputs)
+
+        def rep(x):
+            card = next(calls).to(x.dtype)
+            mask = card > 0
+            diff = float((x.detach() - card).abs().max())
+            differ = (x.detach() > 0) != mask
+            a = self.audit
+            a["calls"], a["elements"] = a["calls"] + 1, a["elements"] + x.numel()
+            a["max_abs_input_diff"] = max(a["max_abs_input_diff"], diff)
+            if differ.any():
+                where = float(x.detach()[differ].abs().max())
+                if where > 2 * diff:
+                    raise AssertionError(f"relu call {a['calls']}: a decision differs at |x| {where} > 2 x {diff}")
+                a["differ"] += int(differ.sum())
+                a["max_abs_where_differ"] = max(a["max_abs_where_differ"], where)
+            return x * mask.to(x.dtype)
+
+        with patched(torch, "relu", rep):
+            yield self
+        if next(calls, None) is not None:
+            raise AssertionError("the CPU run made fewer relu calls than the card's")
+
+
+class StepTimer:
+    """A train step wrapped in CUDA events: each call's device-timeline ms,
+    host work inside, as a caller waits for it."""
+
+    def __init__(self, step):
+        self.step, self.events = step, []
+
+    def __call__(self, params, opt_state, batch):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = self.step(params, opt_state, batch)
+        t1.record()
+        self.events.append((t0, t1))
+        return out
+
+    def ms(self) -> list[float]:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+class B6Calls:
+    """Every ``embedding_bag_sorted`` call, with its inputs and output,
+    while installed (``patched(embedbag, "embedding_bag_sorted", ...)``):
+    the backward's launches come after the forward's."""
+
+    def __init__(self):
+        self.real, self.calls = embedbag.embedding_bag_sorted, []
+
+    def __call__(self, table, idx, bags, n_bags):
+        out = self.real(table, idx, bags, n_bags)
+        self.calls.append((table, idx, bags, n_bags, out))
+        return out
+
+
+def grads_with_b6_calls(loss, params, n_forward: int, n_backward: int, what: str):
+    """``value_and_grad(loss)(params)`` with B6's calls recorded: exactly
+    ``n_forward`` then ``n_backward`` launches, each backward launch
+    ``torch.equal`` to the plain version on its real cotangent and
+    transposed lookups, and zero exactly on the rows no lookup reads.
+    Returns (loss, grads, the backward calls)."""
+    calls = B6Calls()
+    with patched(embedbag, "embedding_bag_sorted", calls):
+        value, grads = value_and_grad(loss)(params)
+    torch.cuda.synchronize()
+    if len(calls.calls) != n_forward + n_backward:
+        raise AssertionError(f"{what}: {len(calls.calls)} B6 calls, expected {n_forward} + {n_backward}")
+    backward = calls.calls[n_forward:]
+    for i, (cot, idx_t, bags_t, n_rows, out) in enumerate(backward):
+        want = embedbag.embedding_bag_sorted_plain(cot, idx_t, bags_t, n_rows)
+        read = torch.zeros(n_rows, dtype=torch.bool, device=cot.device)
+        read[bags_t.long()] = True
+        if not torch.equal(out, want) or bool(out[~read].any()):
+            raise AssertionError(f"{what}: backward B6 launch {i} != plain, or nonzero on an unread row")
+    return value, grads, backward
+
+
+def hold_tree(got, want, tol_of, what: str) -> dict:
+    """Each leaf of ``got`` (the card's) within ``tol_of(path, leaf)`` x the
+    largest |value| of the matching leaf of ``want`` (the CPU's).  Every
+    leaf's error is kept (``leaves``) and logged before any raises;
+    returns them with the worst."""
+    out, bad = {"leaves": {}, "worst": {"ratio": 0.0}}, []
+    for (path, g), (_, w) in zip(leaves_with_paths(got), leaves_with_paths(want)):
+        tol = tol_of(path, g)
+        scale = float(w.float().abs().max())
+        err = float((g.float().cpu() - w.float()).abs().max())
+        ratio = err / (tol * scale) if scale else (0.0 if err == 0 else math.inf)
+        leaf = out["leaves"][path] = {"max_abs_err": err, "largest": scale, "tol": tol, "ratio": ratio}
+        if ratio >= out["worst"]["ratio"]:
+            out["worst"] = {"path": path, **leaf}
+        if g.shape != w.shape or ratio > 1:
+            bad.append(path)
+    for path, leaf in out["leaves"].items():
+        log("train", f"  {what} {path}: max |diff| {leaf['max_abs_err']:.3e} of largest {leaf['largest']:.3e} "
+            f"({leaf['ratio']:.3f} of the limit {leaf['tol']} x largest)")
+    if bad:
+        raise AssertionError(f"{what}: {bad} beyond their limits")
+    return out
+
+
+def f64_cpu(tree):
+    """A tree of tensors copied to the host, float32 leaves as float64."""
+    return tree_map(lambda t: t.to("cpu", torch.float64) if t.dtype == torch.float32 else t.to("cpu"), tree)
+
+
+def backward_case(name: str, call: tuple, flush) -> dict:
+    """One backward B6 launch at its real shape: the kernel flushed / warm
+    / one call, the plain version, F.embedding_bag's backward for the same
+    gradient, and the bounds by distinct and by gathered cotangent rows."""
+    cot, idx_t, bags_t, n_rows, _ = call
+    d, esize, n = cot.shape[1], cot.element_size(), idx_t.numel()
+    t = timed(lambda: embedbag.embedding_bag_sorted(cot, idx_t, bags_t, n_rows), 10, 5, flush)
+    t["plain_ms"] = events_ms(lambda: embedbag.embedding_bag_sorted_plain(cot, idx_t, bags_t, n_rows), 3, flush)
+    # the forward lookups (rows bags_t into bags idx_t), sorted by bag
+    fwd_bags, order = torch.sort(idx_t, stable=True)
+    weight = torch.zeros((n_rows, d), dtype=cot.dtype, device=cot.device, requires_grad=True)
+    offsets = embedbag.bag_offsets(fwd_bags, cot.shape[0])[:-1]
+    out = F.embedding_bag(bags_t[order], weight, offsets, mode="sum")
+    t["library_ms"] = events_ms(lambda: torch.autograd.grad(out, weight, cot, retain_graph=True), 5, flush)
+    rows = int(torch.unique(idx_t).numel())
+    side = 2 * n * 4 + n_rows * d * esize  # the index arrays and the dense gradient written
+    t["bound_ms"], t["bound_by"] = bound(rows * d * esize + side, n * d, FP32_FLOPS)
+    t["gathered_bound_ms"] = (n * d * esize + side) / HBM_BYTES_PER_S * 1e3
+    t.update({"cotangent": list(cot.shape), "dtype": str(cot.dtype), "lookups": n, "table_rows": n_rows,
+              "distinct_cotangent_rows": rows})
+    log("train", f"{name} backward B6 launch: cotangent {tuple(cot.shape)} {cot.dtype}, {n} lookups into "
+        f"{n_rows} table rows; {t['ms']:.4f} ms (L2 flushed; {t['warm_ms']:.4f} warm; {t['events_ms']:.4f} one "
+        f"call), plain {t['plain_ms']:.4f} ms, F.embedding_bag backward {t['library_ms']:.4f} ms; bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({rows} distinct cotangent rows once and the dense "
+        f"gradient), {t['gathered_bound_ms']:.4f} ms every gathered row")
+    del weight, out
+    return t
+
+
+def b6_launch_ms(fn, want: int, what: str) -> list[float]:
+    """The device ms of each of ``fn()``'s ``want`` B6 launches, in launch
+    order, between CUDA events recorded around it.  A trace is no count:
+    late in a full run the tracer has lost a GCN step's first 2 of 6 B6
+    launches and half its sorts, and 1 of a DLRM step's 52 on every
+    retry."""
+    events, real = [], embedbag.embedding_bag_sorted
+
+    def timed_launch(table, idx, bags, n_bags):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = real(table, idx, bags, n_bags)
+        t1.record()
+        events.append((t0, t1))
+        return out
+
+    with patched(embedbag, "embedding_bag_sorted", timed_launch):
+        fn()
+    torch.cuda.synchronize()
+    if len(events) != want:
+        raise AssertionError(f"{what}: {len(events)} B6 launches in a step, expected {want}")
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def train_gcn(dev, gen, flush, rec) -> int:
+    """(a) gcn-cora at ogb_products trained whole through ``loop.run``
+    (AdamW): its first step's loss and gradients against the CPU, each
+    backward B6 launch against plain, TRAIN_GCN_STEPS steps with 4 + 2 B6
+    launches a step, a crash at TRAIN_CRASH_AT and a bit-identical resume,
+    one step traced.  Returns B6's launches on the main path."""
+    rules = shd.Rules.from_mesh(None)
+    shape = registry.GNN_SHAPES["ogb_products"]
+    cfg = gnn_common.gcn_for_shape(registry.get_arch("gcn-cora").full(), shape)
+    spec = gnn_common.gnn_input_specs(cfg, shape, needs_feat=True)
+    n, e, _ = gnn_common.shape_counts(shape)
+    e_pad = spec["edge_src"].shape[0]
+    src = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    src[e:], dst[e:] = 0, 0
+    train_mask = torch.zeros(spec["train_mask"].shape, dtype=torch.bool, device=dev)
+    train_mask[torch.randperm(n, generator=gen, device=dev)[:OGB_TRAIN_NODES]] = True
+    batch = {"node_feat": torch.randn(spec["node_feat"].shape, generator=gen, device=dev),
+             "edge_src": src, "edge_dst": dst, "edge_mask": torch.arange(e_pad, device=dev) < e,
+             "node_mask": torch.ones(n, dtype=torch.bool, device=dev),
+             "labels": torch.randint(0, cfg.n_classes, spec["labels"].shape, generator=gen, device=dev,
+                                     dtype=spec["labels"].dtype),
+             "train_mask": train_mask}
+    optimizer = opt_lib.get(cfg.optimizer)
+
+    def init_fn():
+        params = gnn.gcn_init(cfg, seed=SEED, device=dev)
+        return params, optimizer.init(params)
+
+    def loss(p, b=batch):
+        return gnn.gcn_loss(cfg, rules, p, b)
+
+    per_step = 2 + 2 * cfg.n_layers  # two degree scatters, an aggregation a layer forward and backward
+    r = rec["gcn"] = {"nodes": n, "edges": e, "padded_edges": e_pad, "train_nodes": OGB_TRAIN_NODES,
+                      "classes": cfg.n_classes, "optimizer": cfg.optimizer}
+
+    # (i) the first step's loss and gradients against the port's CPU run in
+    # float64 (each f32 input exact), whose own rounding over sums of 2.4 M
+    # terms of either sign drops out, fed the card's ReLU decisions
+    params0, _ = init_fn()
+    relus = ReluTape()
+    with relus.record():
+        value, grads, backward = grads_with_b6_calls(loss, params0, 2 + cfg.n_layers, cfg.n_layers, "train gcn")
+    t0 = time.perf_counter()
+    with relus.replay():
+        c_value, c_grads = value_and_grad(lambda p: loss(p, f64_cpu(batch)))(f64_cpu(params0))
+    r["cpu_s"], r["relu_audit"] = time.perf_counter() - t0, relus.audit
+    del relus
+    if abs(float(value) - float(c_value)) > GRAD_TOL * abs(float(c_value)):
+        raise AssertionError(f"train gcn: loss {float(value)} against the CPU's {float(c_value)}")
+    r["grad_check"] = hold_tree(grads, c_grads, lambda p, g: GRAD_TOL, "train gcn gradient")
+    r["loss0"], r["cpu_loss0"] = float(value), float(c_value)
+    log("train", f"(a) gcn-cora at ogb_products: {n} nodes x {cfg.d_feat} f32, {e} uniform edges padded to "
+        f"{e_pad} (masked), {cfg.n_classes} classes, {OGB_TRAIN_NODES} train nodes; first step: loss "
+        f"{float(value):.6f} (CPU float64 {float(c_value):.6f}, {r['cpu_s']:.1f} s, fed the card's ReLU decisions: "
+        f"{r['relu_audit']}), every gradient leaf within {GRAD_TOL} x its largest (worst {r['grad_check']['worst']}); the {len(backward)} backward B6 launches == "
+        "plain on their real cotangents, zero on unread rows")
+    r["b6_backward"] = backward_case("gcn ogb_products", backward[0], flush)
+    del value, grads, c_grads, backward, params0
+
+    # (ii) the main path: TRAIN_GCN_STEPS steps through loop.run
+    step = gnn.make_gnn_train_step(cfg, rules)
+    timer = StepTimer(step)
+    reset_launches()
+    ref = loop.run(init_fn=init_fn, train_step=timer, batch_fn=lambda s: batch, n_steps=TRAIN_GCN_STEPS)
+    launches = only_launched("embedding_bag_sorted", "train gcn")
+    if launches != per_step * TRAIN_GCN_STEPS:
+        raise AssertionError(f"train gcn: {launches} B6 launches in {TRAIN_GCN_STEPS} steps, expected {per_step} a step")
+    if not all(math.isfinite(x) for x in ref.losses):
+        raise AssertionError(f"train gcn: losses {ref.losses}")
+    ms = timer.ms()
+    r.update({"steps": TRAIN_GCN_STEPS, "launches": launches, "losses": ref.losses, "step_ms": ms,
+              "median_ms": float(np.median(ms[1:])), "nodes_per_s": n / float(np.median(ms[1:])) * 1e3})
+    log("train", f"(a) {TRAIN_GCN_STEPS} steps through training.loop.run: {launches} B6 launches = {per_step} a "
+        f"step (4 forward, 2 backward), no other kernel; losses {[round(x, 5) for x in ref.losses]}; "
+        f"{r['median_ms']:.4f} ms a step after the first (CUDA events; first {ms[0]:.2f}) = "
+        f"{r['nodes_per_s']:.4g} nodes/s")
+
+    # (iii) a crash at step TRAIN_CRASH_AT, then a resume from the last checkpoint
+    with tempfile.TemporaryDirectory(prefix="repro-train-") as ck:
+        kw = dict(init_fn=init_fn, train_step=step, batch_fn=lambda s: batch, n_steps=TRAIN_GCN_STEPS,
+                  ckpt_dir=ck, ckpt_every=TRAIN_CKPT_EVERY)
+        try:
+            loop.run(**kw, crash_at_step=TRAIN_CRASH_AT)
+        except RuntimeError as err:
+            if "simulated node failure" not in str(err):
+                raise
+        else:
+            raise AssertionError("train gcn: the run did not crash")
+        resumed = loop.run(**kw)
+    if resumed.start_step != TRAIN_CRASH_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY:
+        raise AssertionError(f"train gcn: resumed from step {resumed.start_step}")
+    for (path, a), (_, b) in zip(leaves_with_paths((ref.params, ref.opt_state)),
+                                 leaves_with_paths((resumed.params, resumed.opt_state))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train gcn: the resumed run's {path} differs from the uninterrupted run's")
+    if resumed.losses != ref.losses[resumed.start_step:]:
+        raise AssertionError(f"train gcn: resumed losses {resumed.losses} against {ref.losses}")
+    r["resume"] = {"ckpt_every": TRAIN_CKPT_EVERY, "crash_at": TRAIN_CRASH_AT, "start_step": resumed.start_step}
+    log("train", f"(a) crashed at step {TRAIN_CRASH_AT} (checkpoints every {TRAIN_CKPT_EVERY}), resumed from "
+        f"step {resumed.start_step}: final parameters and AdamW state == the uninterrupted run's, bit for bit; "
+        "losses equal")
+
+    # (iv) one step traced: B6 forward and backward apart, the sorts
+    params, state = ref.params, ref.opt_state
+    tr = device_trace(lambda: step(params, state, batch))
+    b6 = kernel_share(tr, ("embedding_bag_kernel",))
+    sorts = kernel_share(tr, ("sort", "Sort", "radix", "Radix"))
+    b6_each = b6_launch_ms(lambda: step(params, state, batch), per_step, "train gcn")
+    fwd_ms, bwd_ms = sum(b6_each[:2 + cfg.n_layers]), sum(b6_each[2 + cfg.n_layers:])
+    r["trace"] = {**tr, "b6": b6, "sorts": sorts, "b6_each_ms": b6_each, "b6_forward_ms": fwd_ms,
+                  "b6_backward_ms": bwd_ms}
+    log_trace("train", "gcn ogb_products train step", tr, b6, "B6")
+    log("train", f"(a) B6 between events: forward {fwd_ms:.3f} ms ({2 + cfg.n_layers} launches), backward "
+        f"{bwd_ms:.3f} ms ({cfg.n_layers}) = {(fwd_ms + bwd_ms) / r['median_ms']:.4f} of the median step; "
+        f"traced sorts {sorts['ms']:.3f} ms in {sorts['count']} launches = {sorts['share']:.4f} of traced "
+        f"device time; the trace holds {b6['count']} of {per_step} B6 launches")
+    del ref, resumed, params, state, batch, src, dst, train_mask, tr
+    free()
+    return launches
+
+
+def train_dlrm(dev, gen, flush, rec) -> int:
+    """(b) dlrm-mlperf with every table capped at TRAIN_TABLE_CAP rows at
+    train_batch: the loss and gradients of a TRAIN_DLRM_CHECK_BATCH batch
+    against the CPU, one train_batch step's 26 backward B6 launches
+    against plain, TRAIN_DLRM_STEPS steps with 52 B6 launches a step,
+    AdamW on sampled rows against a CPU update, one step traced.
+    Returns B6's launches on the main path."""
+    rules = shd.Rules.from_mesh(None)
+    cfg = dataclasses.replace(DLRM, table_sizes=tuple(min(s, TRAIN_TABLE_CAP) for s in DLRM.table_sizes))
+    batch_size = registry.RECSYS_SHAPES["train_batch"].dims["batch"]
+    capped = sum(s > TRAIN_TABLE_CAP for s in DLRM.table_sizes)
+    r = rec["dlrm"] = {"table_cap": TRAIN_TABLE_CAP, "tables_capped": capped, "batch": batch_size,
+                       "full_state_bytes": sum(DLRM.padded_table_sizes) * DLRM.embed_dim * 12}
+    t0 = time.perf_counter()
+    params = dlrm.init_params(cfg, seed=SEED, device=dev)
+    optimizer = opt_lib.get(cfg.optimizer)
+    state = optimizer.init(params)
+    torch.cuda.synchronize()
+    r.update({"init_s": time.perf_counter() - t0, "table_bytes": tree_bytes(params["tables"]),
+              "state_bytes": tree_bytes(state)})
+    log("train", f"(b) dlrm-mlperf, tables capped at {TRAIN_TABLE_CAP} rows ({capped} of 26 cut; the full "
+        f"set's bf16 tables, gradients and f32 moments would be {r['full_state_bytes'] / 1e9:.1f} GB): "
+        f"{sum(cfg.padded_table_sizes)} rows x {cfg.embed_dim} bf16 = {r['table_bytes'] / 1e9:.2f} GB, AdamW "
+        f"state {r['state_bytes'] / 1e9:.2f} GB, initialised in {r['init_s']:.1f} s")
+
+    def batch_at(step: int, size: int = batch_size) -> dict:
+        return pipeline.dlrm_batch(cfg.table_sizes, cfg.n_dense, cfg.multi_hot, size, step, seed=SEED, device=dev)
+
+    def loss(p, b):
+        return dlrm.loss_fn(cfg, rules, p, b)
+
+    def tol_of(path, g):
+        return BF16_TOL if g.dtype == torch.bfloat16 else GRAD_TOL
+
+    # (i) a small batch's loss and gradients against the port's CPU run, fed
+    # the card's ReLU decisions
+    small = batch_at(10_000, TRAIN_DLRM_CHECK_BATCH)
+    relus = ReluTape()
+    with relus.record():
+        value, grads = value_and_grad(lambda p: loss(p, small))(params)
+    t0 = time.perf_counter()
+    cpu_small = tree_to(small, "cpu")
+    with relus.replay():
+        c_value, c_grads = value_and_grad(lambda p: loss(p, cpu_small))(tree_to(params, "cpu"))
+    r["cpu_s"], r["relu_audit"] = time.perf_counter() - t0, relus.audit
+    del relus
+    if abs(float(value) - float(c_value)) > GRAD_TOL * abs(float(c_value)):
+        raise AssertionError(f"train dlrm: loss {float(value)} against the CPU's {float(c_value)}")
+    r["grad_check"] = hold_tree(grads, c_grads, tol_of, "train dlrm gradient")
+    log("train", f"(b) {TRAIN_DLRM_CHECK_BATCH}-sample batch: loss {float(value):.6f} (CPU {float(c_value):.6f}, "
+        f"{r['cpu_s']:.1f} s, fed the card's ReLU decisions: {r['relu_audit']}); MLP gradients within {GRAD_TOL}, bf16 table gradients within {BF16_TOL} x "
+        f"their largest (worst {r['grad_check']['worst']})")
+    del grads, c_grads, cpu_small
+
+    # (ii) one train_batch step's backward launches against plain
+    _, grads, backward = grads_with_b6_calls(lambda p: loss(p, batch_at(0)), params, cfg.n_sparse, cfg.n_sparse,
+                                             "train dlrm")
+    log("train", f"(b) train_batch ({batch_size}): each of the {len(backward)} backward B6 launches == plain "
+        "on its real cotangent, every unread row exactly zero")
+    big = max(range(len(backward)), key=lambda i: backward[i][3])
+    r["b6_backward"] = backward_case(f"dlrm table of {backward[big][3]} rows", backward[big], flush)
+    del grads, backward
+
+    # (iii) the main path: TRAIN_DLRM_STEPS steps
+    step = StepTimer(dlrm.make_train_step(cfg, rules))
+    batches = [batch_at(1 + i) for i in range(TRAIN_DLRM_STEPS)]
+    reset_launches()
+    losses = []
+    for b in batches:
+        params, state, value = step(params, state, b)
+        losses.append(float(value))
+    launches = only_launched("embedding_bag_sorted", "train dlrm")
+    if launches != 2 * cfg.n_sparse * TRAIN_DLRM_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train dlrm: {launches} B6 launches in {TRAIN_DLRM_STEPS} steps, losses {losses}")
+    ms = step.ms()
+    r.update({"steps": TRAIN_DLRM_STEPS, "launches": launches, "losses": losses, "step_ms": ms,
+              "median_ms": float(np.median(ms)), "samples_per_s": batch_size / float(np.median(ms)) * 1e3})
+    log("train", f"(b) {TRAIN_DLRM_STEPS} steps at train_batch: {launches} B6 launches = 52 a step (26 forward, "
+        f"26 backward), no other kernel; losses {[round(x, 5) for x in losses]}; {ms} ms a step (CUDA events) "
+        f"= {r['samples_per_s']:.1f} samples/s at the median")
+
+    # (iv) one more step taken apart: AdamW timed alone, sampled rows against a CPU AdamW
+    b = batch_at(1 + TRAIN_DLRM_STEPS)
+    _, grads = value_and_grad(lambda p: loss(p, b))(params)
+    picks = {f"t{i}": torch.randint(0, n, (TRAIN_SAMPLED_ROWS,), generator=gen, device=dev)
+             for i, n in enumerate(cfg.padded_table_sizes)}
+
+    def sample(tree):
+        return {"bot": tree_to(tree["bot"], "cpu"), "top": tree_to(tree["top"], "cpu"),
+                "tables": {k: tree["tables"][k][picks[k]].cpu() for k in picks}}
+
+    before = (sample(params), sample(grads), {"m": sample(state["m"]), "v": sample(state["v"]),
+                                              "step": state["step"].cpu()})
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    params, state = optimizer.update(params, grads, state)
+    t1.record()
+    torch.cuda.synchronize()
+    r["optimizer_ms"] = t0.elapsed_time(t1)
+    c_params, c_state = opt_lib.adamw().update(*before)
+    worst = 0
+    for (path, g), (_, w) in zip(leaves_with_paths((sample(params), sample(state["m"]), sample(state["v"]))),
+                                 leaves_with_paths((c_params, c_state["m"], c_state["v"]))):
+        if g.dtype == torch.bfloat16:
+            ulps = int((g.view(torch.int16).int() - w.view(torch.int16).int()).abs().max())
+            worst = max(worst, ulps)
+            if ulps > 1:
+                raise AssertionError(f"train dlrm AdamW {path}: {ulps} bf16 ulps from the CPU update")
+        elif float((g - w).abs().max()) > 1e-6 * float(w.abs().max()):
+            raise AssertionError(f"train dlrm AdamW {path}: beyond 1e-6 of the CPU update")
+    r["adamw_check"] = {"rows_per_table": TRAIN_SAMPLED_ROWS, "max_bf16_ulps": worst}
+    log("train", f"(b) AdamW alone {r['optimizer_ms']:.3f} ms (CUDA events) = "
+        f"{r['optimizer_ms'] / r['median_ms']:.4f} of the median step; {TRAIN_SAMPLED_ROWS} sampled rows of each "
+        f"table and every MLP leaf against a CPU adamw on the same rows: f32 within 1e-6, bf16 at most "
+        f"{worst} ulp apart")
+    del grads, before, c_params, c_state
+
+    # (v) one step traced
+    b = batch_at(2 + TRAIN_DLRM_STEPS)
+    tr = device_trace(lambda: step.step(params, state, b))
+    b6 = kernel_share(tr, ("embedding_bag_kernel",))
+    gemm = kernel_share(tr, ("gemm", "Gemm", "cutlass", "sm90_xmma", "sgemm", "nvjet"))
+    b6_each = b6_launch_ms(lambda: step.step(params, state, b), 2 * cfg.n_sparse, "train dlrm")
+    r["trace"] = {**tr, "b6": b6, "gemm": gemm, "b6_each_ms": b6_each}
+    log_trace("train", "dlrm train_batch step", tr, b6, "B6")
+    log("train", f"(b) B6 between events: forward {sum(b6_each[:cfg.n_sparse]):.3f} ms, backward "
+        f"{sum(b6_each[cfg.n_sparse:]):.3f} ms = {sum(b6_each) / r['median_ms']:.4f} of the median step; traced "
+        f"GEMMs {gemm['ms']:.3f} ms = {gemm['share']:.4f} of traced device time")
+    del params, state, batches, b, tr
+    free()
+    return launches
+
+
+def train_lm(dev, gen, rec) -> None:
+    """(c) qwen3-14b at full width, TRAIN_LM_LAYERS layers, train_4k cut to
+    TRAIN_LM_SEQS sequences (the config's microbatches of one): the loss
+    and the lm_head, embed and layer-0 gradients of 1 x TRAIN_LM_CHECK
+    tokens against the CPU, TRAIN_LM_STEPS AdamW steps launching no kernel
+    of the repo (no B7: training attends with chunked_attention), the
+    attention and the optimizer timed apart, one step traced."""
+    rules = shd.Rules.from_mesh(None)
+    cfg = dataclasses.replace(QWEN, n_layers=TRAIN_LM_LAYERS)
+    seq = registry.LM_SHAPES["train_4k"].dims["seq"]
+    r = rec["lm"] = {"cut": {"n_layers": [QWEN.n_layers, TRAIN_LM_LAYERS],
+                             "batch": [registry.LM_SHAPES["train_4k"].dims["batch"], TRAIN_LM_SEQS]},
+                     "seq": seq, "microbatches": cfg.microbatches}
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SEED, device=dev)
+    optimizer = opt_lib.get(cfg.optimizer)
+    state = optimizer.init(params)
+    torch.cuda.synchronize()
+    r.update({"init_s": time.perf_counter() - t0, "weight_bytes": tree_bytes(params),
+              "state_bytes": tree_bytes(state)})
+
+    def batch_at(step: int, n: int = TRAIN_LM_SEQS, s: int = seq) -> dict:
+        return pipeline.lm_batch(cfg.vocab, n, s, step=step, seed=SEED, device=dev)
+
+    # (i) 1 x TRAIN_LM_CHECK tokens against the port's CPU run
+    small = batch_at(100, 1, TRAIN_LM_CHECK)
+
+    def loss(p, b):
+        return transformer.loss_fn(cfg, rules, p, b["tokens"], b["labels"])
+
+    value, grads = value_and_grad(lambda p: loss(p, small))(params)
+    t0 = time.perf_counter()
+    cpu_params = tree_to(params, "cpu")
+    c_value, c_grads = value_and_grad(lambda p: loss(p, tree_to(small, "cpu")))(cpu_params)
+    r["cpu_s"] = time.perf_counter() - t0
+    del cpu_params
+    if not math.isfinite(float(value)) or abs(float(value) - float(c_value)) > BF16_TOL * abs(float(c_value)):
+        raise AssertionError(f"train lm: loss {float(value)} against the CPU's {float(c_value)}")
+
+    def checked(g):
+        return {"lm_head": g["lm_head"], "embed": g["embed"], "layer0": transformer._layer(g["layers"], 0)}
+
+    r["grad_check"] = hold_tree(checked(grads), checked(c_grads), lambda p, g: BF16_TOL, "train lm gradient")
+    log("train", f"(c) qwen3-14b at full width (d_model {cfg.d_model}, {cfg.n_q_heads}/{cfg.n_kv_heads} heads, "
+        f"d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to {cfg.padded_vocab}), {cfg.n_layers} "
+        f"layers: {r['weight_bytes'] / 1e9:.2f} GB of bf16 weights, AdamW state {r['state_bytes'] / 1e9:.2f} GB; "
+        f"1 x {TRAIN_LM_CHECK} tokens: loss {float(value):.5f} (CPU {float(c_value):.5f}, {r['cpu_s']:.1f} s), "
+        f"lm_head, embed and layer-0 gradients within {BF16_TOL} x their largest (worst {r['grad_check']['worst']})")
+    del c_grads
+
+    # (ii) the main path: TRAIN_LM_STEPS steps of TRAIN_LM_SEQS x seq tokens
+    step = StepTimer(transformer.make_train_step(cfg, rules))
+    batches = [batch_at(i) for i in range(TRAIN_LM_STEPS)]
+    reset_launches()
+    losses = []
+    for b in batches:
+        params, state, value = step(params, state, b)
+        losses.append(float(value))
+    counts = launch_counts()
+    if any(counts.values()) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train lm: launches {counts}, losses {losses}")
+    ms = step.ms()
+    tokens = TRAIN_LM_SEQS * seq
+    # each weight's products, forward and backward (the remat recompute, the
+    # loss's recomputed chunks and the attention's scores not counted)
+    flops = 6 * tokens * (sum(t.numel() for t in leaves(params["layers"])) + params["lm_head"].numel())
+    r.update({"steps": TRAIN_LM_STEPS, "losses": losses, "step_ms": ms, "median_ms": float(np.median(ms)),
+              "tokens_per_s": tokens / float(np.median(ms)) * 1e3, "weight_flops": flops})
+    log("train", f"(c) {TRAIN_LM_STEPS} steps of {TRAIN_LM_SEQS} x {seq} tokens ({cfg.microbatches} microbatches, "
+        f"remat {cfg.remat}): no kernel of the repo launched (B7 0); losses {[round(x, 5) for x in losses]}; "
+        f"{ms} ms a step (CUDA events) = {r['tokens_per_s']:.1f} tokens/s at the median; "
+        f"{flops / 1e12:.1f} TFLOP of weight products a step")
+
+    # (iii) the attention (forward, its remat recompute, backward) and AdamW timed apart
+    q = torch.randn((1, seq, cfg.n_q_heads, cfg.d_head), generator=gen, device=dev).to(cfg.dtype)
+    k = torch.randn((1, seq, cfg.n_kv_heads, cfg.d_head), generator=gen, device=dev).to(cfg.dtype)
+    v = torch.randn((1, seq, cfg.n_kv_heads, cfg.d_head), generator=gen, device=dev).to(cfg.dtype)
+    q.requires_grad_(), k.requires_grad_(), v.requires_grad_()
+
+    def attention():
+        out = lm_layers.chunked_attention(q, k, v, causal=True, q_chunk=min(cfg.q_chunk, seq),
+                                          kv_chunk=min(cfg.kv_chunk, seq))
+        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+
+    def attention_fwd():
+        with torch.no_grad():
+            lm_layers.chunked_attention(q, k, v, causal=True, q_chunk=min(cfg.q_chunk, seq),
+                                        kv_chunk=min(cfg.kv_chunk, seq))
+
+    no_flush = torch.empty(1, device=dev)  # as inside the step: its operands are not flushed from L2
+    attn_ms = events_ms(attention, 2, no_flush) + events_ms(attention_fwd, 2, no_flush)
+    g32 = tree_map(lambda g: g.float(), grads)
+    del grads
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    params, state = optimizer.update(params, g32, state)
+    t1.record()
+    torch.cuda.synchronize()
+    r["optimizer_ms"] = t0.elapsed_time(t1)
+    per_step = attn_ms * cfg.n_layers * cfg.microbatches
+    r["attention"] = {"one_layer_sequence_ms": attn_ms, "per_step_ms": per_step,
+                      "share": per_step / r["median_ms"]}
+    log("train", f"(c) chunked_attention at 1 x {seq}, one layer: forward + backward with its remat recompute "
+        f"{attn_ms:.3f} ms (events) x {cfg.n_layers} layers x {cfg.microbatches} microbatches = {per_step:.1f} ms "
+        f"= {r['attention']['share']:.4f} of the median step; AdamW alone {r['optimizer_ms']:.3f} ms = "
+        f"{r['optimizer_ms'] / r['median_ms']:.4f}")
+    del g32, q, k, v
+
+    # (iv) one step traced
+    b = batches[0]
+    tr = device_trace(lambda: step.step(params, state, b))
+    gemm = kernel_share(tr, ("gemm", "Gemm", "cutlass", "sm90_xmma", "nvjet", "xmma"))
+    r["trace"] = {"traced_ms": tr["traced_ms"], "device_busy_ms": tr["device_busy_ms"], "gemm": gemm,
+                  "top": dict(list(tr["kernels"].items())[:12])}
+    log_trace("train", "qwen3-14b train_4k step", tr, gemm, "GEMMs")
+    del params, state, batches, b, tr
+    free()
+
+
+def phase_train(dev, gen, flush, record) -> int:
+    """Training on the card: (a) GCN at ogb_products whole through
+    ``training.loop.run``, the slice's main path; (b) DLRM at train_batch
+    with capped tables; (c) qwen3-14b at train_4k, full width.  Returns
+    B6's launches on the main paths (forward and backward)."""
+    rec = record["train"] = {"data": "drawn from the seed: no dataset is in the repo"}
+    launches = train_gcn(dev, gen, flush, rec)
+    launches += train_dlrm(dev, gen, flush, rec)
+    train_lm(dev, gen, rec)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON to this file")
@@ -3192,6 +3822,8 @@ def main() -> int:
     phase_end("moe")
     new_kernels[1]["launches"] += phase_gnn(dev, gen, record)
     phase_end("gnn")
+    new_kernels[1]["launches"] += phase_train(dev, gen, flush, record)
+    phase_end("train")
 
     kernels = [{
         "name": name,

@@ -255,3 +255,16 @@ def gnn_params_from_numpy(params: dict, device: str | torch.device | None = None
     if set(params) not in GNN_PARAM_KEYS:
         raise KeyError(f"GNN params have keys {sorted(params)}, expected one of {GNN_PARAM_KEYS}")
     return _carry_tree(params, resolve_device(device))
+
+def opt_state_from_numpy(state: dict, device: str | torch.device | None = None) -> dict:
+    """``repro``'s optimizer state (``training/optimizer.py``: AdamW's
+    ``{"m", "v", "step"}`` or AdaFactor's ``{"f", "step"}``, with
+    ``step`` an int32 scalar), each leaf a numpy array, as the port's
+    tensors with the same bytes and nesting on ``device`` (``None``: the
+    GPU); ``step`` becomes a () int32 tensor."""
+    if set(state) not in ({"m", "v", "step"}, {"f", "step"}):
+        raise KeyError(f"optimizer state has keys {sorted(state)}, expected m, v, step or f, step")
+    out = _carry_tree(state, resolve_device(device))
+    if out["step"].dtype != torch.int32 or out["step"].dim() != 0:
+        raise TypeError(f"step must be an int32 scalar, got {out['step'].dtype} {tuple(out['step'].shape)}")
+    return out

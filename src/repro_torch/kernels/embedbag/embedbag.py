@@ -22,6 +22,13 @@ shapes.  The gathered rows bound its time where the table is many times
 the L2, as at ogb_products.  On a CPU tensor it runs
 :func:`embedding_bag_sorted_plain`; there is no fallback from the one to
 the other.
+
+:func:`embedding_bag_sorted_grad` makes the sum differentiable in the
+table.  ``repro`` gets that gradient from XLA (the transpose of
+``jnp.take`` + ``segment_sum``: a scatter-add of the cotangent's bag rows
+into a zero table); here it is B6 itself on the transposed lookups,
+sorted by row, so the backward launches the same kernel, writes the
+dense gradient (zeros where no lookup reads) and uses no atomics.
 """
 
 from __future__ import annotations
@@ -61,9 +68,11 @@ def embedding_bag_sorted_plain(
     """:func:`embedding_bag_sorted` in plain PyTorch: the lookups are taken
     rank by rank (rank = position inside the bag), so each step adds at
     most one row to a bag, and every bag sums its rows in sorted order in
-    f32, rounding to the table's dtype after every lookup, as the kernel
-    and ``repro`` do.  Gathers at most :data:`PLAIN_CHUNK` rows at once."""
+    f32 (float64 in float64), rounding to the table's dtype after every
+    lookup, as the kernel and ``repro`` do.  Gathers at most
+    :data:`PLAIN_CHUNK` rows at once."""
     n, d = idx.shape[0], table.shape[1]
+    wide = torch.promote_types(table.dtype, torch.float32)  # float64 stays float64
     acc = torch.zeros((n_bags, d), dtype=table.dtype, device=table.device)
     if n:
         bags64 = bags.long()
@@ -74,7 +83,7 @@ def embedding_bag_sorted_plain(
             for start in range(lo, lo + count, PLAIN_CHUNK):
                 sel = order[start : min(start + PLAIN_CHUNK, lo + count)]
                 rows = bags64[sel]  # distinct: one lookup per bag at a rank
-                acc[rows] = (acc[rows].float() + table[idx[sel].long()].float()).to(table.dtype)
+                acc[rows] = (acc[rows].to(wide) + table[idx[sel].long()].to(wide)).to(table.dtype)
             lo += count
     return acc
 
@@ -149,3 +158,57 @@ def embedding_bag_sorted(
         raise RuntimeError(f"{_DTYPES[table.dtype]} launch failed with CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The gradient: B6 on the transposed lookups
+# ---------------------------------------------------------------------------
+
+
+def transpose_lookups(idx: torch.Tensor, bags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The lookups sorted stably by table row: (``idx_T``, ``bags_T``),
+    each lookup's bag in that order and its row.  B6 over ``bags_T`` as
+    bags and ``idx_T`` as rows of the cotangent sums each table row's
+    lookups in their order in ``idx``, as the scatter-add that transposes
+    ``jnp.take`` does."""
+    rows, order = torch.sort(idx, stable=True)
+    return bags[order].contiguous(), rows.contiguous()
+
+
+class EmbeddingBagSorted(torch.autograd.Function):
+    """:func:`embedding_bag_sorted` with its table's gradient.  The
+    forward is B6 as it is (the kernel on a CUDA tensor, the plain
+    version on a CPU one); the backward is B6 again on the transposed
+    lookups, ``grad_table[r] = Σ grad_out[bags[i]]`` over the lookups
+    ``i`` of row ``r``, in the table's dtype.  Rows no lookup visits get
+    exact zeros, the dense gradient that ``repro``'s ``take`` transposes
+    to.  ``transpose`` is a callable giving (``idx_T``, ``bags_T``), called
+    in the backward, so that a caller can share one sort between calls or
+    know the transpose without one."""
+
+    @staticmethod
+    def forward(ctx, table, idx, bags, n_bags, transpose):
+        ctx.n_rows, ctx.transpose = table.shape[0], transpose
+        return embedding_bag_sorted(table, idx, bags, n_bags)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        idx_t, bags_t = ctx.transpose()
+        grad = embedding_bag_sorted(grad_out.contiguous(), idx_t, bags_t, ctx.n_rows)
+        return grad, None, None, None, None
+
+
+def embedding_bag_sorted_grad(
+    table: torch.Tensor, idx: torch.Tensor, bags: torch.Tensor, n_bags: int, transpose=None
+) -> torch.Tensor:
+    """:func:`embedding_bag_sorted`, differentiable in ``table``: through
+    :class:`EmbeddingBagSorted` when autograd records and the table needs
+    a gradient, else the plain call, so a serve step launches what it
+    launched before.  ``transpose`` (default: :func:`transpose_lookups`
+    of ``idx`` and ``bags``) gives the backward's lookups."""
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return embedding_bag_sorted(table, idx, bags, n_bags)
+    if transpose is None:
+        def transpose():
+            return transpose_lookups(idx, bags)
+    return EmbeddingBagSorted.apply(table, idx, bags, n_bags, transpose)

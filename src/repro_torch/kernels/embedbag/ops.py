@@ -6,14 +6,18 @@ and runs :func:`~repro_torch.kernels.embedbag.embedbag.embedding_bag_sorted`
 (kernel B6 on the GPU, its plain version on the CPU), which sums each
 bag in that order in the table's dtype, rounding a bf16 sum after every
 lookup as ``repro`` does, and writes zeros to the bags no lookup visits,
-which ``repro``'s wrappers zero.
+which ``repro``'s wrappers zero.  Both are differentiable in the table
+(``embedding_bag_sorted_grad``): the backward is B6 over the lookups
+sorted stably by row, from one more sort of the unsorted rows, so each
+row adds its cotangents in lookup order, as the transpose of
+``jnp.take`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.embedbag.embedbag import embedding_bag_sorted
+from repro_torch.kernels.embedbag.embedbag import embedding_bag_sorted_grad, transpose_lookups
 
 
 def embedding_bag(
@@ -23,13 +27,15 @@ def embedding_bag(
     the table's dtype, empty bags zero.  ``idx`` and ``bags`` are (N,)
     int32 on the table's device."""
     sorted_bags, order = torch.sort(bags, stable=True)
-    return embedding_bag_sorted(table, idx[order], sorted_bags, n_bags)
+    return embedding_bag_sorted_grad(
+        table, idx[order], sorted_bags, n_bags, lambda: transpose_lookups(idx, bags)
+    )
 
 
 def gnn_aggregate(
     messages_table: torch.Tensor, edge_src: torch.Tensor, edge_dst: torch.Tensor, n_nodes: int
 ) -> torch.Tensor:
     """GNN scatter: ``out[v] = Σ messages_table[u]`` over the edges
-    (u, v), one fused pass over the edges sorted by destination."""
-    sorted_dst, order = torch.sort(edge_dst, stable=True)
-    return embedding_bag_sorted(messages_table, edge_src[order], sorted_dst, n_nodes)
+    (u, v), one fused pass over the edges sorted by destination: the
+    EmbeddingBag with the sources as rows and the destinations as bags."""
+    return embedding_bag(messages_table, edge_src, edge_dst, n_nodes)

@@ -1,7 +1,8 @@
-"""DLRM (MLPerf config), arXiv:1906.00091: serve and retrieval steps.
+"""DLRM (MLPerf config), arXiv:1906.00091: train, serve and retrieval
+steps.
 
-Port of ``repro/models/dlrm.py``'s serving path: ``DLRMConfig``,
-``init_params``, ``forward``, ``make_serve_step`` and
+Port of ``repro/models/dlrm.py``: ``DLRMConfig``, ``init_params``,
+``forward``, ``loss_fn``, ``make_train_step``, ``make_serve_step`` and
 ``make_retrieval_step``.  The hot path is the sparse embedding lookup,
 which ``repro`` builds from ``jnp.take`` + ``jax.ops.segment_sum``; here
 :func:`embedding_bag_local` runs ``kernels/embedbag/ops.py``'s
@@ -11,8 +12,12 @@ lookup as ``segment_sum`` rounds it on the CPU.  Tables are replicated
 or row-sharded per ``planner.embedding_placement`` (the paper's
 replicate-vs-shard rule, ``DLRMConfig.table_modes``); on one card a
 sharded table is looked up locally, as ``repro``'s off-mesh branch does.
-The mesh branch of :func:`embedding_bag_sharded` and ``make_train_step``
-wait for later slices (ROADMAP: the multi-GPU item, ``training/``).
+The mesh branch of :func:`embedding_bag_sharded` waits for the multi-GPU
+item.  Training differentiates the bags through
+``embedbag.embedding_bag_sorted_grad``: a table's gradient is B6 again
+over the lookups sorted by row, dense (zero rows where no lookup
+reads), as ``repro``'s transpose of ``jnp.take``; AdamW then moves every
+row, as ``repro``'s does.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from repro_torch.core.planner import embedding_placement
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels.embedbag import ops as embedbag_ops
 from repro_torch.models.layers import normal
+from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.tree import value_and_grad
 
 # Criteo-1TB per-field vocabulary sizes (MLPerf DLRM reference).
 CRITEO_TABLE_SIZES = [
@@ -159,6 +166,26 @@ def forward(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> tor
     iu = torch.triu_indices(n, n, offset=1, device=feats.device)
     top_in = torch.cat([x_dense, inter[:, iu[0], iu[1]]], dim=-1)  # (B, 128 + 351)
     return _mlp_apply(params["top"], top_in)[:, 0]
+
+
+def loss_fn(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """The mean logistic loss of the logits, in its stable form."""
+    logit = forward(cfg, rules, params, batch)
+    y = batch["labels"].float()
+    return torch.mean(torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit))))
+
+
+def make_train_step(cfg: DLRMConfig, rules: shd.Rules):
+    """``train_step(params, opt_state, batch)`` -> (params, opt_state,
+    loss): the loss's gradients, then one optimizer update (in place)."""
+    optimizer = opt_lib.get(cfg.optimizer)
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        loss, grads = value_and_grad(lambda p: loss_fn(cfg, rules, p, batch))(params)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def make_serve_step(cfg: DLRMConfig, rules: shd.Rules):

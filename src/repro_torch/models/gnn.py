@@ -1,9 +1,10 @@
 """GNN architectures: GCN, SchNet, NequIP, EquiformerV2-style eSCN.
 
-Port of ``repro/models/gnn.py``'s serving path: the four configs, their
-``*_init`` and forward functions, ``INIT_FNS``, ``FWD_FNS`` and
-``make_gnn_serve_step``.  ``repro`` builds its message passing on
-``jax.ops.segment_sum`` over an edge-index -> node scatter; here every
+Port of ``repro/models/gnn.py``: the four configs, their ``*_init``,
+forward and loss functions, ``INIT_FNS``, ``FWD_FNS``, ``LOSS_FNS``,
+``make_gnn_train_step`` and ``make_gnn_serve_step``.  ``repro`` builds
+its message passing on ``jax.ops.segment_sum`` over an edge-index ->
+node scatter; here every
 such scatter and every per-graph readout is :func:`scatter_sum`, which
 runs kernel B6 (``kernels/embedbag/embedbag.py::embedding_bag_sorted``)
 over the messages flattened to rows: the lookups are the edges sorted
@@ -11,19 +12,27 @@ stably by destination (:func:`sort_edges`, once per edge list and
 forward, reused by every layer), so each node sums its messages in edge
 order in f32, as ``segment_sum`` does on the CPU.  Masked edges
 contribute what they do in ``repro``: the mask multiplies the message.
+Under autograd the scatter's gradient is B6 too
+(``embedbag.embedding_bag_sorted_grad``): each message row is one
+lookup, so the transposed lookups are known without a sort, every edge
+a bag reading its destination's cotangent row.
 
 GCN does not build ``repro``'s per-edge message ``h[src] * coef`` (at
 ogb_products 61.9 M x 47 f32, 11.6 GB): its coefficient factors as
 ``rsqrt(dout[src]) * rsqrt(din[dst])`` on the mask's edges, so a layer
 gathers rows of the node table ``h * rsqrt(dout)`` on B6 (the body of
 ``embedbag.ops.gnn_aggregate`` on a sort made once) and scales the sums
-by ``rsqrt(din)``.  The two differ by rounding only.
+by ``rsqrt(din)``.  The two differ by rounding only.  Its backward
+gathers the cotangents on B6 over the kept edges sorted by source (one
+sort per forward, shared by the layers and made at the first backward).
 
 EquiformerV2's attention takes a segment max over each node's edges
 (``jax.ops.segment_max``), a max that B6's sums cannot give; it is one
-``scatter_reduce`` in plain PyTorch.  Its per-edge geometry (rotation,
-Wigner-D, radial basis) depends on the positions only, so it is built
-once per forward rather than once per layer.
+``scatter_reduce`` in plain PyTorch, on logits cut from the gradient
+as ``repro`` cuts them (``stop_gradient``: the shift is for numerical
+stability only, and the softmax does not depend on it).  Its per-edge
+geometry (rotation, Wigner-D, radial basis) depends on the positions
+only, so it is built once per forward rather than once per layer.
 
 Distribution: under a mesh ``repro`` shards edges over every mesh axis
 (``edge_shard_map``) and combines the scatters with a ``psum``; without
@@ -31,15 +40,14 @@ one, its wrapper is the identity and ``rules`` selects nothing.  The
 port runs on one card (``shd.use_mesh`` refuses a mesh), so it has no
 such wrapper, and the forwards take ``rules`` only for ``repro``'s
 signature.  Edge sharding and ``equiformer_energy_big`` (the mesh-only
-large-graph path) wait for the multi-GPU item, as the losses and
-``make_gnn_train_step`` wait for the training slice (ROADMAP A14).
+large-graph path) wait for the multi-GPU item (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from functools import lru_cache
+from functools import cache, lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -47,8 +55,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.dist import sharding as shd
-from repro_torch.kernels.embedbag.embedbag import embedding_bag_sorted
+from repro_torch.kernels.embedbag.embedbag import embedding_bag_sorted_grad, transpose_lookups
 from repro_torch.models.layers import normal, silu
+from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.tree import value_and_grad
 
 
 # ---------------------------------------------------------------------------
@@ -59,26 +69,34 @@ from repro_torch.models.layers import normal, silu
 class EdgeSort(NamedTuple):
     """A destination list sorted once: ``order`` (int32), the stable
     permutation that sorts it, and ``sorted_dst`` (int32), its values in
-    that order; B6's lookups and bags."""
+    that order; B6's lookups and bags.  ``dst`` (int32) is the list in
+    edge order: the backward's lookups."""
 
     order: torch.Tensor
     sorted_dst: torch.Tensor
+    dst: torch.Tensor
 
 
 def sort_edges(dst: torch.Tensor) -> EdgeSort:
     """The stable sort of ``dst`` that :func:`scatter_sum` walks."""
-    sorted_dst, order = torch.sort(dst.to(torch.int32), stable=True)
-    return EdgeSort(order.to(torch.int32), sorted_dst)
+    dst = dst.to(torch.int32)
+    sorted_dst, order = torch.sort(dst, stable=True)
+    return EdgeSort(order.to(torch.int32), sorted_dst, dst)
 
 
 def scatter_sum(messages: torch.Tensor, edges: EdgeSort, n_nodes: int) -> torch.Tensor:
     """``jax.ops.segment_sum(messages, dst, n_nodes)``: messages (E, ...)
     summed into (n_nodes, ...) by destination, on B6 over the messages
     as (E, prod(...)) rows, each node in edge order; nodes without an
-    edge are zero."""
+    edge are zero.  Its gradient is B6 with one lookup a message row:
+    edge e reads the cotangent row of ``dst[e]``."""
     e = messages.shape[0]
     rows = messages.reshape(e, -1).contiguous()
-    out = embedding_bag_sorted(rows, edges.order, edges.sorted_dst, n_nodes)
+
+    def transpose():
+        return edges.dst, torch.arange(e, dtype=torch.int32, device=rows.device)
+
+    out = embedding_bag_sorted_grad(rows, edges.order, edges.sorted_dst, n_nodes, transpose)
     return out.reshape((n_nodes,) + tuple(messages.shape[1:]))
 
 
@@ -166,15 +184,25 @@ def gcn_forward(cfg: GCNConfig, rules: shd.Rules, params: dict, batch: dict) -> 
     # the mask's edges sorted by destination, once for every layer
     kept = sort_edges(dst[emask])
     kept_src = src[emask][kept.order.long()].to(torch.int32)
+    by_src = cache(lambda: transpose_lookups(kept_src, kept.sorted_dst))  # the backward's lookups
     s_out, s_in = torch.rsqrt(dout)[:, None], torch.rsqrt(din)[:, None]
 
     for i, layer in enumerate(params["layers"]):
         h = x @ layer["w"] + layer["b"]
-        agg = embedding_bag_sorted((h * s_out).contiguous(), kept_src, kept.sorted_dst, n) * s_in
+        agg = embedding_bag_sorted_grad((h * s_out).contiguous(), kept_src, kept.sorted_dst, n, by_src) * s_in
         x = agg + h * torch.rsqrt(din * dout)[:, None]  # self loop
         if i + 1 < len(params["layers"]):
             x = torch.relu(x)
     return x
+
+
+def gcn_loss(cfg: GCNConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """Cross entropy of the logits over the nodes of ``train_mask``."""
+    logits = gcn_forward(cfg, rules, params, batch)
+    mask = batch["train_mask"].to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, batch["labels"].long()[:, None], dim=-1)[:, 0]
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ===========================================================================
@@ -230,6 +258,12 @@ def schnet_energy(cfg: SchNetConfig, rules: shd.Rules, params: dict, batch: dict
 
     atom_e = _mlp_apply(params["readout"], h)[:, 0] * batch["node_mask"].to(h.dtype)
     return _readout(atom_e, batch)
+
+
+def schnet_loss(cfg: SchNetConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """The mean squared error of the energies."""
+    e = schnet_energy(cfg, rules, params, batch)
+    return torch.mean(torch.square(e - batch["energy"]))
 
 
 # ===========================================================================
@@ -334,6 +368,12 @@ def nequip_energy(cfg: NequIPConfig, rules: shd.Rules, params: dict, batch: dict
 
     atom_e = _mlp_apply(params["readout"], s)[:, 0] * batch["node_mask"].to(s.dtype)
     return _readout(atom_e, batch)
+
+
+def nequip_loss(cfg: NequIPConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """The mean squared error of the energies."""
+    e = nequip_energy(cfg, rules, params, batch)
+    return torch.mean(torch.square(e - batch["energy"]))
 
 
 # ===========================================================================
@@ -551,8 +591,10 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
         scal = msg[:, :, 0]  # (E, C)
         logits = silu(scal @ a0["w"] + a0["b"]) @ a1["w"] + a1["b"]  # (E, heads)
         logits = torch.where(emask[:, None], logits, torch.tensor(-1e30, device=dev))
+        # max-subtraction is for numerical stability only: cut from the
+        # gradient, as repro's stop_gradient
         zmax = torch.full((n, cfg.n_heads), -math.inf, device=dev).scatter_reduce(
-            0, idst[:, None].expand_as(logits), logits, "amax", include_self=False
+            0, idst[:, None].expand_as(logits), logits.detach(), "amax", include_self=False
         )
         ex = torch.exp(logits - zmax[idst]) * emask_f[:, None]
         denom = scatter_sum(ex, edges, n)
@@ -575,9 +617,22 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
     return _readout(atom_e, batch)
 
 
+def equiformer_loss(cfg: EquiformerConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """The mean squared error of the energies."""
+    e = equiformer_energy(cfg, rules, params, batch)
+    return torch.mean(torch.square(e - batch["energy"]))
+
+
 # ===========================================================================
-# Serve-step factory
+# Train- and serve-step factories
 # ===========================================================================
+
+LOSS_FNS = {
+    "gcn-cora": gcn_loss,
+    "schnet": schnet_loss,
+    "nequip": nequip_loss,
+    "equiformer-v2": equiformer_loss,
+}
 
 INIT_FNS = {
     "gcn-cora": gcn_init,
@@ -591,6 +646,21 @@ FWD_FNS = {
     "nequip": nequip_energy,
     "equiformer-v2": equiformer_energy,
 }
+
+
+def make_gnn_train_step(cfg, rules: shd.Rules):
+    """``train_step(params, opt_state, batch)`` -> (params, opt_state,
+    loss): the config's loss and its gradients, then one optimizer
+    update (in place)."""
+    loss_fn = LOSS_FNS[cfg.name]
+    optimizer = opt_lib.get(cfg.optimizer)
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        loss, grads = value_and_grad(lambda p: loss_fn(cfg, rules, p, batch))(params)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def make_gnn_serve_step(cfg, rules: shd.Rules):

@@ -2,11 +2,11 @@
 optional), chunked flash-style attention, decode attention on kernel B7,
 the SwiGLU FFN and the MoE layer.
 
-Port of ``repro/models/layers.py`` without the losses
-(``cross_entropy``, ``chunked_cross_entropy``), which wait for the
-training slice, and without ``apply_moe``'s expert-parallel branch
-(``shard_map``, two ``all_to_all``s, capacities), which waits for the
-multi-GPU item (ROADMAP A14).  Everything is functional: ``init_*``
+Port of ``repro/models/layers.py`` without ``apply_moe``'s
+expert-parallel branch (``shard_map``, two ``all_to_all``s,
+capacities), which waits for the multi-GPU item (ROADMAP A14).  The
+losses (:func:`cross_entropy`, :func:`chunked_cross_entropy`) train the
+LMs; every layer is differentiable by autograd.  Everything is functional: ``init_*``
 build dictionaries of tensors, ``apply_*`` consume them.  ``rules`` is
 taken where ``repro`` takes it; off-mesh its constraints are the
 identity, and the port runs on one card, so none is applied.
@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels.decode_attn import ops as decode_ops
@@ -71,6 +72,83 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6) -> torch.
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, rules: shd.Rules, n_valid: int | None = None
+) -> torch.Tensor:
+    """Token-mean cross entropy in f32; ``n_valid`` masks the vocab's
+    padding columns (those added so the vocab shards evenly)."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    if n_valid is not None and n_valid < V:
+        pad_mask = torch.arange(V, device=logits.device) >= n_valid
+        logits = torch.where(pad_mask, _MASKED, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    return torch.mean(lse - gold)
+
+
+def _shard_chunks(v_shard: int, target: int = 1024) -> int:
+    """Largest power-of-two chunk count <= 16 that divides v_shard."""
+    for n2 in (16, 8, 4, 2):
+        if v_shard % n2 == 0 and v_shard // n2 >= 128:
+            return n2
+    return 1
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, rules: shd.Rules, n_valid: int
+) -> torch.Tensor:
+    """Token-mean cross entropy computed in vocab chunks, ``repro``'s
+    layout: the head viewed as (D, M, n2, vc2), M the model axis's shard
+    count (1 on one card), the chunks splitting each shard's columns.
+    Two passes over the chunks: the running max (no gradient, as
+    ``repro``'s ``stop_gradient``), then the exp-sums and the gold logit,
+    each chunk's body under ``torch.utils.checkpoint`` (``repro``'s
+    ``jax.checkpoint``), so neither pass keeps a chunk's logits and the
+    (B, S, V) logits never exist.  Running statistics are (B, S) f32."""
+    B, S, D = x.shape
+    V = lm_head.shape[1]
+    M = max(rules.model_size, 1)
+    assert V % M == 0, (V, M)
+    v_shard = V // M
+    n2 = _shard_chunks(v_shard)
+    vc2 = v_shard // n2
+    heads = lm_head.reshape(D, M, n2, vc2)
+    # global column id of (m, ci, c2) is m*v_shard + ci*vc2 + c2
+    m_ids = torch.arange(M, device=x.device)[:, None] * v_shard
+    c2_ids = torch.arange(vc2, device=x.device)[None, :]
+    labels = labels.long()
+
+    def logits_chunk(ci: int):
+        lg = torch.einsum("bsd,dmv->bsmv", x, heads[:, :, ci]).float()
+        col = m_ids + ci * vc2 + c2_ids  # (M, vc2)
+        return torch.where(col[None, None] < n_valid, lg, _MASKED), col
+
+    with torch.no_grad():
+        m = torch.full((B, S), -math.inf, device=x.device)
+        for ci in range(n2):
+            m = torch.maximum(m, logits_chunk(ci)[0].amax(dim=(-1, -2)))
+
+    def chunk_contrib(ci: int):
+        lg, col = logits_chunk(ci)
+        se = torch.exp(lg - m[..., None, None]).sum(dim=(-1, -2))
+        gold = torch.where(col[None, None] == labels[..., None, None], lg, 0.0).sum(dim=(-1, -2))
+        return se, gold
+
+    se = torch.zeros((B, S), device=x.device)
+    gold = torch.zeros((B, S), device=x.device)
+    for ci in range(n2):
+        se_c, gold_c = checkpoint(chunk_contrib, ci, use_reentrant=False)
+        se, gold = se + se_c, gold + gold_c
+    lse = m + torch.log(se)
+    return torch.mean(lse - gold)
 
 
 # ---------------------------------------------------------------------------
@@ -262,14 +340,14 @@ def apply_moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: sh
     flat = gate_idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
     xs = xt[order // top_k]  # (T·k, D): each assignment's token, grouped by expert
-    ys = torch.empty_like(xs)
-    lo = 0
+    pieces, lo = [], 0
     for e, count in enumerate(torch.bincount(flat, minlength=n_experts).tolist()):
         if count:
             xe = xs[lo : lo + count]
             h = silu(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
-            torch.matmul(h, p["w_down"][e], out=ys[lo : lo + count])
+            pieces.append(h @ p["w_down"][e])
             lo += count
+    ys = torch.cat(pieces)
     out = torch.empty((T * top_k, D), dtype=torch.float32, device=x.device)
     out[order] = ys.float() * weights.reshape(-1)[order, None]
     return out.reshape(T, top_k, D).sum(dim=1).reshape(B, S, D).to(x.dtype)

@@ -15,8 +15,16 @@ place at ``pos`` and runs its attention on kernel B7
 A MoE config's layers hold ``moe`` (``layers.init_moe``) where a dense
 one's hold ``mlp``, and run ``layers.apply_moe`` on one card.
 
-Left for later slices (ROADMAP A14): ``make_train_step`` with its loss
-(``training/``), and the placement specs of a mesh (``param_specs``,
+:func:`loss_fn` is ``layers.chunked_cross_entropy`` over the hidden
+states; :func:`make_train_step` accumulates the gradients of
+``cfg.microbatches`` slices of the batch in f32 and takes one optimizer
+step (kimi-k2's ``optimizer="adafactor"`` selects AdaFactor).  With
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, as
+``repro``'s ``jax.checkpoint``: the backward recomputes a layer's
+activations from its input.  Gradients reach the stacked per-layer
+leaves through the slices ``_layer`` takes of them.
+
+Left for a later slice: the placement specs of a mesh (``param_specs``,
 ``cache_specs``, ``seq_sharded``) with the expert-parallel MoE (the
 multi-GPU item).
 """
@@ -27,10 +35,13 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.dist import sharding as shd
 from repro_torch.models import layers as L
+from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.tree import leaves, tree_map, value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,13 +188,63 @@ def forward(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor)
 
 
 def hidden_states(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Final-norm hidden states (B, S, D): forward() without the lm_head."""
+    """Final-norm hidden states (B, S, D): forward() without the lm_head.
+    Under autograd with ``cfg.remat``, each layer is checkpointed."""
     B, S = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, _, _ = _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S))
+
+        def layer(x, i=i):
+            return _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S))[0]
+
+        x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return L.rmsnorm(x, params["final_norm"])
+
+
+def loss_fn(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor, labels: torch.Tensor):
+    """Token-mean next-token cross entropy, the vocab's padding masked."""
+    x = hidden_states(cfg, rules, params, tokens)
+    return L.chunked_cross_entropy(x, params["lm_head"], labels, rules, n_valid=cfg.vocab)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(cfg: LMConfig, rules: shd.Rules):
+    """``train_step(params, opt_state, batch)`` -> (params, opt_state,
+    mean loss): ``cfg.microbatches`` equal slices of the batch, each
+    one's gradients added into f32 accumulators, their sum divided by
+    the slice count, then one optimizer update (in place).  One slice
+    takes the gradients in the parameters' dtype, as ``repro``'s."""
+    optimizer = opt_lib.get(cfg.optimizer)
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        tokens, labels = batch["tokens"], batch["labels"]
+        n_micro = cfg.microbatches
+        mb = tokens.shape[0] // n_micro
+        if n_micro == 1:
+            loss, grads = value_and_grad(lambda p: loss_fn(cfg, rules, p, tokens, labels))(params)
+            losses = [loss]
+        else:
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            losses = []
+            for i in range(n_micro):
+                t, lab = tokens[i * mb : (i + 1) * mb], labels[i * mb : (i + 1) * mb]
+                loss, g = value_and_grad(lambda p: loss_fn(cfg, rules, p, t, lab))(params)
+                for acc, gi in zip(leaves(grads), leaves(g)):
+                    acc.add_(gi.float())
+                losses.append(loss)
+                del g
+            for acc in leaves(grads):
+                acc.div_(n_micro)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, torch.stack(losses).mean()
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

@@ -1176,3 +1176,89 @@ def test_gnn_serve_steps_on_gpu_equal_cpu(cuda, arch):
     scatters = {"gcn-cora": 2 + 2, "schnet": 2 + 1, "nequip": 2 + 1, "equiformer-v2": 2 * 2 + 1}[arch]
     assert (embedbag.LAUNCHES - before[0], decode_attn.LAUNCHES - before[1]) == (scatters, 0)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# training: B6's backward, a GCN train step, a resume
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype, dim", [(torch.float32, 47), (torch.bfloat16, 128)])
+def test_embedding_bag_backward_equals_plain(cuda, dtype, dim):
+    """The table's gradient of ``embedding_bag`` on the card: one B6 launch
+    forward and one backward, the gradient ``torch.equal`` to the plain
+    version on the same transposed lookups and to the CPU's gradient, zero
+    on the 100 rows no lookup reads, and a row that a third of the lookups
+    hit summed in lookup order."""
+    gen = torch.Generator(device=cuda).manual_seed(dim)
+    rows, n, n_bags = 5_000, 20_000, 3_000
+    idx = torch.randint(0, rows - 100, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    idx[torch.rand(n, generator=gen, device=cuda) < 0.33] = 7
+    bags = torch.randint(0, n_bags, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    table = torch.randn((rows, dim), generator=gen, device=cuda).to(dtype).requires_grad_()
+    before = embedbag.LAUNCHES
+    out = eb_ops.embedding_bag(table, idx, bags, n_bags)
+    g = torch.randn(out.shape, generator=gen, device=cuda).to(dtype)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert embedbag.LAUNCHES == before + 2 and table.grad.dtype == dtype
+    idx_t, bags_t = embedbag.transpose_lookups(idx, bags)
+    assert torch.equal(table.grad, embedbag.embedding_bag_sorted_plain(g, idx_t, bags_t, rows))
+    assert not table.grad[rows - 100 :].any()
+    t = table.detach().cpu().requires_grad_()
+    eb_ops.embedding_bag(t, idx.cpu(), bags.cpu(), n_bags).backward(g.cpu())
+    assert torch.equal(table.grad.cpu(), t.grad)
+
+
+def test_gcn_train_step_on_gpu_equals_cpu(cuda):
+    """GCN's smoke loss and gradients on the card within 1e-5 of the CPU
+    run's largest: B6 launches 4 forward (two degree scatters, an
+    aggregation a layer) and 2 backward; then one AdamW step."""
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.tree import leaves, value_and_grad
+
+    cfg = registry.get_arch("gcn-cora").smoke()
+    rules = shd.Rules.from_mesh(None)
+    params = gnn.gcn_init(cfg, seed=0, device="cpu")
+    batch = gnn_common.gnn_smoke_batch(True, device="cpu")
+    batch["edge_mask"] = torch.arange(batch["edge_mask"].shape[0]) % 3 != 0
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {"layers": [{k: v.clone().to(dev) for k, v in layer.items()} for layer in params["layers"]]}  # the step writes p
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = embedbag.LAUNCHES
+        value, grads = value_and_grad(lambda q: gnn.gcn_loss(cfg, rules, q, b))(p)
+        torch.cuda.synchronize()
+        launches = embedbag.LAUNCHES - before
+        state = opt_lib.get("adamw").init(p)
+        new, _, _ = gnn.make_gnn_train_step(cfg, rules)(p, state, b)
+        out[str(dev)] = (value.cpu(), [x.cpu() for x in leaves(grads)], [x.cpu() for x in leaves(new)])
+    assert launches == 6
+    (v_cpu, g_cpu, n_cpu), (v_gpu, g_gpu, n_gpu) = out["cpu"], out[str(cuda)]
+    assert abs(float(v_gpu) - float(v_cpu)) <= 1e-5 * abs(float(v_cpu))
+    for a, w in zip(g_gpu + n_gpu, g_cpu + n_cpu):
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_crash_and_resume_is_bit_identical_on_gpu(cuda, tmp_path):
+    from repro_torch.training import loop
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.tree import leaves
+
+    cfg = registry.get_arch("gcn-cora").smoke()
+    batch = {k: v.to(cuda) for k, v in gnn_common.gnn_smoke_batch(True, device="cpu").items()}
+
+    def init_fn():
+        params = gnn.gcn_init(cfg, seed=0, device=cuda)
+        return params, opt_lib.get("adamw").init(params)
+
+    kw = dict(init_fn=init_fn, train_step=gnn.make_gnn_train_step(cfg, shd.Rules.from_mesh(None)),
+              batch_fn=lambda s: batch, n_steps=9)
+    ref = loop.run(**kw)
+    ck = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="simulated node failure"):
+        loop.run(**kw, ckpt_dir=ck, ckpt_every=3, crash_at_step=5)
+    resumed = loop.run(**kw, ckpt_dir=ck, ckpt_every=3)
+    assert resumed.start_step == 3 and resumed.losses == ref.losses[3:]
+    for a, b in zip(leaves((ref.params, ref.opt_state)), leaves((resumed.params, resumed.opt_state))):
+        assert a.device.type == "cuda" and torch.equal(a, b)
