@@ -253,9 +253,24 @@ Phases, each of which raises on failure (the run then exits non-zero):
              attention and AdamW timed apart, one step traced.  B6's
              backward launch at (a)'s and (b)'s shapes is timed as the
              forward is, beside its bound, plain version and
-             ``F.embedding_bag``'s backward.
+             ``F.embedding_bag``'s backward;
+* dryrun   — the port's dry run (``repro_torch.launch``): (a) every cell
+             of ``all_cells()`` but the LMs' train_4k and prefill_32k at
+             the (16, 16) and (2, 16, 16) layouts on the meta device, one
+             line a cell (argument GiB a device, the roofline's compute
+             and memory terms, the bottleneck), each evaluated or failing
+             only on a mesh program the port lacks; (b) qwen3-14b
+             decode_32k with 2 layers (B7), dlrm-mlperf serve_bulk (B6)
+             and a gcn-cora train step at ogb_products (B6 forward and
+             backward), each counted by ``analysis.count_step`` on meta
+             twins and then on the real arguments on the card: FLOPs
+             equal (GCN's meta count larger by exactly its 188 padded
+             edges' B6 work), the meta argument bytes equal to the
+             allocator's requested bytes while the arguments are made,
+             the meta peak beside ``max_memory_allocated``, and the
+             step's ms (CUDA events) beside its roofline bound and share.
 
-The embedbag, decode, dlrm, lm, moe, gnn and train phases take their shapes
+The embedbag, decode, dlrm, lm, moe, gnn, train and dryrun phases take their shapes
 from the port's configs (``configs/dlrm_mlperf.py``, ``qwen3_14b.py``,
 ``granite_moe_1b_a400m.py``, ``kimi_k2_1t_a32b.py``, the GNN configs,
 ``gnn_common.py`` and ``registry.py``'s shape tables), and the setup
@@ -314,6 +329,7 @@ from repro_torch.serve.aio import AdmissionRejected, AioConfig, AsyncQueryServic
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import analysis, dryrun  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as da_ops  # noqa: E402
 from repro_torch.kernels.embedbag import embedbag  # noqa: E402
@@ -433,6 +449,15 @@ TRAIN_GCN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT, OGB_TRAIN_NODES = 6, 2, 3, 19
 TRAIN_TABLE_CAP, TRAIN_DLRM_STEPS, TRAIN_DLRM_CHECK_BATCH, TRAIN_SAMPLED_ROWS = 2**22, 3, 4096, 4096
 TRAIN_LM_LAYERS, TRAIN_LM_SEQS, TRAIN_LM_STEPS, TRAIN_LM_CHECK = 2, 4, 2, 256
 GRAD_TOL = 1e-5
+# the dryrun phase: (a) the port's dry run over every cell of all_cells()
+# at both production layouts but the LMs' train_4k and prefill_32k, whose
+# meta counts take 17 s to minutes of host time each (their ~10^6 plain
+# ops a step: PERF.md §4; `python -m repro_torch.launch.dryrun` runs
+# them); (b) three steps the phases run, each counted on meta tensors and
+# on the card, then timed: DRYRUN_STEPS steps after the one that reads
+# its peak, which is their warmup
+DRYRUN_LEFT_OUT_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_STEPS = 5
 # B7 against its plain version: max |diff| at most BF16_TOL (the bf16
 # tolerance of tests/test_kernels.py:140) times the largest |output|.  The
 # outputs average ~kv_len V rows, so their size falls as 1/sqrt(kv_len)
@@ -3598,6 +3623,215 @@ def phase_train(dev, gen, flush, record) -> int:
     return launches
 
 
+def dryrun_sweep(rec: dict) -> None:
+    """(a) The dry run over every cell of ``all_cells()`` but the left-out
+    LM shapes, at the (16, 16) and (2, 16, 16) layouts, on the meta
+    device: one line a cell.  A cell may fail only on a mesh program the
+    port lacks (the multi-GPU item); any other error raises."""
+    t0 = time.perf_counter()
+    cells = [(a, s) for a, s in dryrun.all_cells()
+             if not (registry.get_arch(a).family == "lm" and s in DRYRUN_LEFT_OUT_SHAPES)]
+    left_out = [f"{a} x {s}" for a, s in dryrun.all_cells() if (a, s) not in cells]
+    out = rec["sweep"] = {"cells": {}, "left_out": left_out}
+    ok, failed, counts = 0, [], {}
+    for multi in (False, True):
+        for arch, shape in cells:
+            key = f"{arch}|{shape}|{'multi' if multi else 'single'}"
+            try:
+                st = dryrun.run_cell(arch, shape, multi, counts, verbose=False)
+            except NotImplementedError as e:
+                if "multi-GPU" not in str(e):
+                    raise
+                failed.append(key)
+                log("dryrun", f"(a) {key}: not evaluated, {e}")
+                continue
+            r = st["roofline"]
+            out["cells"][key] = {"argument_bytes": st["memory"]["argument_bytes"],
+                                 "flops": st["cost"]["flops"], "bytes": st["cost"]["bytes"],
+                                 "roofline": r, "count_s": st["times"]["count_s"]}
+            ok += 1
+            log("dryrun", f"(a) {key}: args {st['memory']['argument_bytes'] / 2**30:.3f} GiB/device; "
+                f"compute {r['compute_s'] * 1e3:.4f} ms, memory {r['memory_s'] * 1e3:.4f} ms -> "
+                f"{r['bottleneck']}-bound (H100, even split)")
+    out.update({"ok": ok, "failed_mesh_only": failed, "seconds": time.perf_counter() - t0})
+    log("dryrun", f"(a) {ok} cells ok of {2 * len(cells)}, {len(failed)} not evaluated (mesh programs), "
+        f"in {out['seconds']:.1f} s on the meta device; left out: {', '.join(left_out)}")
+
+
+def requested_bytes() -> int:
+    """The bytes the caching allocator's callers hold, as they asked for
+    them.  ``memory_allocated`` counts its blocks: each rounded up to 512
+    bytes, and a large one with the unsplit tail (up to 1 MiB) of the
+    segment it came from."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dryrun_case(what: str, step_of, meta_args: tuple, make_args, kernel: str, per_step: int,
+                flops_differ=None) -> dict:
+    """(b) One step counted on meta tensors, then made real on the card and
+    counted again.  The FLOPs must be equal (``flops_differ(meta, card)``
+    gives the difference a shape-only stand-in may make); the meta run's
+    argument bytes must equal the growth of the allocator's requested
+    bytes while ``make_args()`` builds the real arguments (the growth of
+    ``memory_allocated`` is logged beside it).  Then the step's peak beyond its arguments beside the meta
+    estimate, and its ms (CUDA events) beside the roofline bound of the
+    meta count.  Returns the record, with the card's ``kernel`` launches."""
+    launches0 = launch_counts()
+    meta = analysis.count_step(step_of(), meta_args)
+    if launch_counts() != launches0:
+        raise AssertionError(f"dryrun {what}: the meta run launched a kernel")
+    torch.cuda.synchronize()
+    base, base_alloc = requested_bytes(), torch.cuda.memory_allocated()
+    args = make_args()
+    torch.cuda.synchronize()
+    grown, grown_alloc = requested_bytes() - base, torch.cuda.memory_allocated() - base_alloc
+    shapes = [(tuple(t.shape), t.dtype) for t in analysis.tensor_leaves(args)]
+    if shapes != [(tuple(t.shape), t.dtype) for t in analysis.tensor_leaves(meta_args)]:
+        raise AssertionError(f"dryrun {what}: the real arguments are not the meta twins' shapes")
+    if grown != meta.argument_bytes:
+        raise AssertionError(f"dryrun {what}: the arguments took {grown} requested bytes on the card "
+                             f"({grown_alloc} allocated), the meta count {meta.argument_bytes}")
+    reset_launches()
+    card = analysis.count_step(step_of(), args)
+    torch.cuda.synchronize()
+    launches = only_launched(kernel, f"dryrun {what} (counted)")
+    diff = meta.flops - card.flops
+    allowed = flops_differ(meta, card) if flops_differ else 0.0
+    if diff != allowed:
+        raise AssertionError(f"dryrun {what}: {meta.flops} FLOPs on meta, {card.flops} on the card "
+                             f"(a difference of {diff}, {allowed} allowed)")
+    del card
+    step = step_of()
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    a0 = torch.cuda.memory_allocated()
+    step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - a0
+    launches += only_launched(kernel, f"dryrun {what} (peak)")
+    r, _ = timed_steps("dryrun", what, lambda _: step(*args), [None] * DRYRUN_STEPS, kernel,
+                       per_step, 0)
+    launches += r["launches"]
+    roof = meta.roofline(1)
+    bound_ms = roof.bound_s * 1e3
+    out = {"flops": meta.flops, "tensor_core_flops": meta.tensor_core_flops, "bytes": meta.bytes,
+           "flops_difference": diff, "argument_bytes": meta.argument_bytes, "requested_growth": grown,
+           "allocated_growth": grown_alloc,
+           "meta_peak_bytes": meta.peak_bytes, "card_peak_bytes": peak, "roofline": roof.as_dict(),
+           "median_ms": r["median_ms"], "bound_ms": bound_ms, "share": bound_ms / r["median_ms"],
+           "launches": launches}
+    log("dryrun", f"(b) {what}: {meta.flops:.6e} FLOPs on meta == on the card"
+        + (f" less {diff:.0f} (the padded edges)" if diff else "")
+        + f"; arguments {meta.argument_bytes} bytes on meta == {grown} requested on the card "
+        f"({grown_alloc} allocated in the allocator's blocks); peak beyond them "
+        f"{meta.peak_bytes / 1e9:.3f} GB estimated on meta (unfused), "
+        f"{peak / 1e9:.3f} GB max_memory_allocated; {r['median_ms']:.4f} ms a step (median of "
+        f"{r['steps']}, CUDA events) against a {bound_ms:.4f} ms {roof.bottleneck} bound "
+        f"({meta.bytes / 1e9:.3f} GB unfused, {meta.flops / 1e12:.3f} TFLOP): share {out['share']:.4f}; "
+        f"{launches} {kernel} launches")
+    del args, step, meta
+    free()
+    return out
+
+
+def phase_dryrun(dev, gen, record) -> dict[str, int]:
+    """(a) the dry run's sweep; (b) qwen3-14b decode_32k (LM_LAYERS
+    layers, B7), DLRM serve_bulk (B6) and a GCN train step at ogb_products
+    (B6 forward and backward), each counted on meta tensors and on the
+    card.  Returns the card's B6 and B7 launches."""
+    rec = record["dryrun"] = {}
+    dryrun_sweep(rec)
+    rules = shd.Rules.from_mesh(None)
+    steps = rec["steps"] = {}
+
+    # qwen3-14b decode_32k, as the lm phase's (b)
+    cfg = dataclasses.replace(QWEN, n_layers=LM_LAYERS)
+    batch, seq = DECODE_SHAPES["decode_32k"]
+    kv = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.d_head)
+    meta_cache = {"k": torch.empty(kv, dtype=cfg.dtype, device="meta"),
+                  "v": torch.empty(kv, dtype=cfg.dtype, device="meta"),
+                  "len": torch.tensor(seq - 17, dtype=torch.int32)}
+    decode_meta = (transformer.param_shapes(cfg), meta_cache,
+                   torch.empty(batch, dtype=torch.int32, device="meta"))
+
+    def decode_args():
+        params = transformer.init_params(cfg, seed=SEED, device=dev)
+        cache = {"k": lm_layers.normal(kv, 1.0, cfg.dtype, gen),
+                 "v": lm_layers.normal(kv, 1.0, cfg.dtype, gen),
+                 "len": torch.tensor(seq - 17, dtype=torch.int32, device=dev)}
+        tokens = pipeline.lm_batch(cfg.vocab, batch, 1, step=1, seed=SEED, device=dev)["tokens"]
+        tokens = tokens[:, 0].contiguous()
+        return params, cache, tokens
+
+    steps["qwen3-14b decode_32k"] = dryrun_case(
+        f"qwen3-14b decode_32k ({cfg.n_layers} layers)", lambda: transformer.make_decode_step(cfg, rules),
+        decode_meta, decode_args, "flash_decode_gqa", cfg.n_layers)
+
+    # dlrm-mlperf serve_bulk, as the dlrm phase's
+    shape = registry.RECSYS_SHAPES["serve_bulk"]
+    dlrm_meta = (dlrm.param_shapes(DLRM), dlrm_mlperf.input_specs(DLRM, shape))
+
+    def dlrm_args():
+        params = dlrm.init_params(DLRM, seed=SEED, device=dev)
+        b = pipeline.dlrm_batch(DLRM.table_sizes, DLRM.n_dense, DLRM.multi_hot, shape.dims["batch"], 10_000,
+                                seed=SEED, device=dev)
+        return params, {"dense": b["dense"], "sparse": b["sparse"]}
+
+    steps["dlrm-mlperf serve_bulk"] = dryrun_case(
+        "dlrm-mlperf serve_bulk", lambda: dlrm.make_serve_step(DLRM, rules), dlrm_meta, dlrm_args,
+        "embedding_bag_sorted", DLRM.n_sparse)
+
+    # gcn-cora at ogb_products, one AdamW train step, as the train phase's (a)
+    shape = registry.GNN_SHAPES["ogb_products"]
+    gcfg = gnn_common.gcn_for_shape(registry.get_arch("gcn-cora").full(), shape)
+    spec = gnn_common.gnn_input_specs(gcfg, shape, needs_feat=True)
+    n, e, _ = gnn_common.shape_counts(shape)
+    e_pad = spec["edge_src"].shape[0]
+    optimizer = opt_lib.get(gcfg.optimizer)
+    gparams_meta = tree_map(lambda t: t.to("meta"), gnn.gcn_init(gcfg, seed=SEED, device="cpu"))
+    gcn_meta = (gparams_meta, optimizer.init(gparams_meta), spec)
+
+    def gcn_args():
+        params = gnn.gcn_init(gcfg, seed=SEED, device=dev)
+        src = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+        dst = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+        src[e:], dst[e:] = 0, 0
+        train_mask = torch.zeros(spec["train_mask"].shape, dtype=torch.bool, device=dev)
+        train_mask[torch.randperm(n, generator=gen, device=dev)[:OGB_TRAIN_NODES]] = True
+        b = {"edge_src": src, "edge_dst": dst, "edge_mask": torch.arange(e_pad, device=dev) < e,
+             "node_mask": torch.ones(n, dtype=torch.bool, device=dev),
+             "node_feat": torch.randn(spec["node_feat"].shape, generator=gen, device=dev),
+             "labels": torch.randint(0, gcfg.n_classes, spec["labels"].shape, generator=gen, device=dev,
+                                     dtype=spec["labels"].dtype),
+             "train_mask": train_mask}
+        return params, optimizer.init(params), b
+
+    def padded_edges(meta, card) -> float:
+        """The meta run keeps the e_pad - e padded edges that the card's
+        mask drops: each aggregation launch over the kept edges adds their
+        rows' width in FLOPs per padded edge."""
+        extra = 0.0
+        if len(meta.kernels) != len(card.kernels):
+            raise AssertionError("dryrun gcn: another count of B6 calls on meta than on the card")
+        for (_, fm, _, nm), (_, fc, _, nc) in zip(meta.kernels, card.kernels):
+            if nm != nc:
+                if nm - nc != e_pad - e or fm - fc != (e_pad - e) * (fm // nm):
+                    raise AssertionError(f"dryrun gcn: a B6 call of {nm} lookups on meta, {nc} on the card")
+                extra += fm - fc
+        if extra == 0:
+            raise AssertionError("dryrun gcn: no B6 call ran over the padded edges on meta")
+        return extra
+
+    steps["gcn-cora ogb_products train"] = dryrun_case(
+        "gcn-cora ogb_products train step", lambda: gnn.make_gnn_train_step(gcfg, rules), gcn_meta, gcn_args,
+        "embedding_bag_sorted", 2 + 2 * gcfg.n_layers, padded_edges)
+
+    return {"embedding_bag_sorted": steps["dlrm-mlperf serve_bulk"]["launches"]
+            + steps["gcn-cora ogb_products train"]["launches"],
+            "flash_decode_gqa": steps["qwen3-14b decode_32k"]["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full record as JSON to this file")
@@ -3824,6 +4058,10 @@ def main() -> int:
     phase_end("gnn")
     new_kernels[1]["launches"] += phase_train(dev, gen, flush, record)
     phase_end("train")
+    dry = phase_dryrun(dev, gen, record)
+    new_kernels[1]["launches"] += dry["embedding_bag_sorted"]
+    new_kernels[2]["launches"] += dry["flash_decode_gqa"]
+    phase_end("dryrun")
 
     kernels = [{
         "name": name,

@@ -579,12 +579,17 @@ def _reference_edge_sets(ca, runs, sgroups, site_arrays: dict[str, torch.Tensor]
     search end, as f64 for an exact product with the broadcast bitmap."""
     src, lbl, dst, mask = (site_arrays[k].reshape(-1) for k in ("src", "lbl", "dst", "mask"))
 
+    meta = src.is_meta  # a shape-only run: every padded slot matches, degrees have no values
+
     def range_sel(lo, hi):
         return mask if lo is None else mask & (lbl >= lo) & (lbl <= hi)
 
     run_edges = []
     for _, _, _, lo, hi in runs:
-        idx = torch.nonzero(range_sel(lo, hi)).flatten()
+        if meta:
+            idx = torch.arange(src.shape[0], device=src.device)
+        else:
+            idx = torch.nonzero(range_sel(lo, hi)).flatten()
         run_edges.append((src[idx].long(), dst[idx].long()))
     group_degs = []
     for symset, _ in sgroups:
@@ -594,6 +599,9 @@ def _reference_edge_sets(ca, runs, sgroups, site_arrays: dict[str, torch.Tensor]
         degs = []
         for dirn in sorted(by_dir):
             for lo, hi in _fuse_label_runs(by_dir[dirn]):
+                if meta:
+                    degs.append(torch.empty(n_nodes, dtype=torch.float64, device=src.device))
+                    continue
                 end = (src if dirn == FWD else dst)[range_sel(lo, hi)].long()
                 degs.append(torch.bincount(end, minlength=n_nodes).double())
         group_degs.append(degs)
@@ -611,7 +619,10 @@ def _make_reference_step_fn(
     edges) temporaries of the largest transition run stay under
     :data:`REFERENCE_CHUNK_BYTES` (edges: the run's matching valid edges,
     compacted once per call), and runs one fixpoint per chunk, with one
-    host sync per level.  A level gathers, per transition run, the
+    host sync per level.  On meta site arrays (a shape-only run,
+    ``launch/``) every padded slot stands for a matching edge, the
+    degree vectors are empty, and each fixpoint takes one level
+    (:func:`_reference_continues`).  A level gathers, per transition run, the
     frontier at one end of the run's edges and OR-scatters it into the
     other with an int32 ``scatter_add_`` (a count, never a wrapping
     uint8 sum), thresholded ``> 0``.
@@ -643,7 +654,7 @@ def _make_reference_step_fn(
         n_bc = torch.zeros(b, dtype=torch.int64, device=dev)
         levmap = fops.initial_levels(visited) if witness else None
         lev = 0
-        while lev < levels and fops.frontier_nonempty(frontier):
+        while _reference_continues(frontier, lev, levels):
             for gi, (symset, states) in enumerate(sgroups):
                 now_g = frontier[:, list(states)].any(dim=1)
                 new_g = now_g & ~done[gi]
@@ -678,7 +689,10 @@ def _make_reference_step_fn(
         run_edges, group_degs = _reference_edge_sets(ca, runs, sgroups, site_arrays, n_nodes)
         widest = max([len(e) for e, _ in run_edges], default=0)
         chunk = max(1, REFERENCE_CHUNK_BYTES // max(_REFERENCE_BYTES_PER_PAIR * widest, 1))
-        starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+        if isinstance(starts, torch.Tensor):
+            starts = starts.to(device=dev, dtype=torch.int64)
+        else:
+            starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
         outs = [fixpoint(starts[lo : lo + chunk], run_edges, group_degs)
                 for lo in range(0, starts.shape[0], chunk)]
         if not outs:
@@ -686,6 +700,17 @@ def _make_reference_step_fn(
         return tuple(torch.cat(col) for col in zip(*outs))
 
     return fn
+
+
+def _reference_continues(frontier: torch.Tensor, lev: int, levels: int) -> bool:
+    """Whether the reference fixpoint takes another level: below
+    ``levels`` and with a frontier, read on the host.  A shape-only run
+    (a meta frontier, which has no values) takes exactly one level, as
+    XLA's cost analysis counts a ``while`` body once
+    (``tests/test_torch_launch.py`` checks it)."""
+    if frontier.is_meta:
+        return lev < min(levels, 1)
+    return lev < levels and fops.frontier_nonempty(frontier)
 
 
 def _fetch_staged_graph(

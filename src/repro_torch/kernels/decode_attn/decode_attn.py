@@ -15,7 +15,12 @@ combine kernel that merges the splits' f32 partials in a fixed order.
 stays on the device.  On CPU tensors it runs
 :func:`flash_decode_gqa_plain`, the same online softmax over
 ``block_kv`` blocks in plain PyTorch; there is no fallback from the one
-to the other.
+to the other.  On meta tensors (a shape-only run, ``launch/``) it
+checks its inputs and returns an empty meta output of the kernel's shape
+and dtype, launching nothing; ``kv_len`` may then lie on the CPU.  On
+every device type the call reports its work to an installed counter
+(``kernels/work.py``): 4·B·H·kv_len·Dh FLOPs (the scores and P·V), and
+as bytes K and V up to ``kv_len``, q and the output.
 
 The two agree to rounding, not bit for bit: the kernel walks other kv
 tiles than ``block_kv`` (16 positions per warp in bf16) and merges
@@ -30,7 +35,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 LAUNCHES = 0  # B7: flash_decode_gqa
 
@@ -128,12 +133,41 @@ def flash_decode_gqa(
     q's dtype.  Requires ``S % block_kv == 0``, as ``repro`` does.  On
     CPU tensors this is :func:`flash_decode_gqa_plain`; on CUDA tensors it
     launches B7 (its split kernel, then, with more than one split, its
-    combine kernel: one launch in :data:`LAUNCHES`) or raises."""
+    combine kernel: one launch in :data:`LAUNCHES`) or raises; on meta
+    tensors it returns an empty meta output."""
+    with work.kernel("flash_decode_gqa", lambda: decode_work(q, k, kv_len)):
+        return _flash_decode_gqa(q, k, v, kv_len, block_kv)
+
+
+def decode_work(q: torch.Tensor, k: torch.Tensor, kv_len: torch.Tensor) -> tuple[float, float, int, bool]:
+    """B7's work by formula: (4·B·H·kv_len·Dh FLOPs, bytes of K and V up
+    to ``kv_len``, q and the output, kv_len, whether the products run on
+    the tensor cores: bf16).  Reads ``kv_len`` on the
+    host (a sync for a CUDA tensor); a meta ``kv_len`` has no value."""
+    if isinstance(kv_len, torch.Tensor) and kv_len.is_meta:
+        raise ValueError("counting B7's work needs kv_len's value: pass it as a CPU tensor")
+    b, h, dh = q.shape
+    g, n = k.shape[2], int(kv_len)
+    item = q.element_size()
+    nbytes = (2 * b * n * g * dh + 2 * b * h * dh) * item
+    return float(4 * b * h * n * dh), float(nbytes), n, q.dtype == torch.bfloat16
+
+
+def _flash_decode_gqa(q, k, v, kv_len, block_kv: int) -> torch.Tensor:
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_decode_gqa_plain(q, k, v, kv_len, block_kv)
+    if q.device.type == "meta":
+        _shapes(q, k, v, block_kv)
+        if k.device != q.device or v.device != q.device:
+            raise ValueError(f"k is on {k.device}, v on {v.device}, q on {q.device}")
+        if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"q, k, v must all be float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        if kv_len.dtype != torch.int32 or kv_len.numel() != 1 or kv_len.device.type not in ("meta", "cpu"):
+            raise TypeError("kv_len must be a one-element int32 tensor on the meta device or the CPU")
+        return torch.empty_like(q)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_gqa runs on cuda or cpu tensors, got {q.device}")
+        raise ValueError(f"flash_decode_gqa runs on cuda, cpu or meta tensors, got {q.device}")
     b, h, dh, s, g = _shapes(q, k, v, block_kv)
     _check(q, k, v, kv_len, h, g, dh)
     n_split, split_len = decode_splits(b, g, s)

@@ -21,7 +21,12 @@ of a lane's load, the lanes of a row and the lookups of a range from the
 shapes.  The gathered rows bound its time where the table is many times
 the L2, as at ogb_products.  On a CPU tensor it runs
 :func:`embedding_bag_sorted_plain`; there is no fallback from the one to
-the other.
+the other.  On a meta tensor (a shape-only run, ``launch/``) it checks
+its inputs and returns an empty meta output of the kernel's shape and
+dtype; that launches nothing and adds nothing to :data:`LAUNCHES`.  On
+every device type the call reports its work to an installed counter
+(``kernels/work.py``): N·D adds over N lookups of D columns, and the
+gathered rows and the output as bytes.
 
 :func:`embedding_bag_sorted_grad` makes the sum differentiable in the
 table.  ``repro`` gets that gradient from XLA (the transpose of
@@ -37,7 +42,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 LAUNCHES = 0  # B6: embedding_bag_sorted
 
@@ -132,12 +137,28 @@ def embedding_bag_sorted(
     """(n_bags, D) bag sums in the table's dtype.  Bags no lookup visits
     are zero, where ``repro``'s kernel leaves them unwritten.  On CPU
     tensors this is :func:`embedding_bag_sorted_plain`; on CUDA tensors
-    it launches B6 or raises."""
+    it launches B6 or raises; on meta tensors it returns an empty meta
+    output."""
+    with work.kernel("embedding_bag_sorted", lambda: bag_work(table, idx, n_bags)):
+        return _embedding_bag_sorted(table, idx, bags, n_bags)
+
+
+def bag_work(table: torch.Tensor, idx: torch.Tensor, n_bags: int) -> tuple[float, float, int, bool]:
+    """B6's work by formula: (N·D adds, bytes of the N gathered rows and
+    the (n_bags, D) output, N, False: the adds run on the CUDA cores)."""
+    n, d = idx.shape[0], table.shape[1]
+    return float(n * d), float((n + n_bags) * d * table.element_size()), n, False
+
+
+def _embedding_bag_sorted(table, idx, bags, n_bags: int) -> torch.Tensor:
     global LAUNCHES
     if table.device.type == "cpu":
         return embedding_bag_sorted_plain(table, idx, bags, n_bags)
+    if table.device.type == "meta":
+        _check(table, idx, bags)
+        return torch.empty((n_bags, table.shape[1]), dtype=table.dtype, device="meta")
     if table.device.type != "cuda":
-        raise ValueError(f"embedding_bag_sorted runs on cuda or cpu tensors, got {table.device}")
+        raise ValueError(f"embedding_bag_sorted runs on cuda, cpu or meta tensors, got {table.device}")
     _check(table, idx, bags)
     d = table.shape[1]
     out = torch.empty((n_bags, d), dtype=table.dtype, device=table.device)

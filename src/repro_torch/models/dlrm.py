@@ -13,7 +13,8 @@ or row-sharded per ``planner.embedding_placement`` (the paper's
 replicate-vs-shard rule, ``DLRMConfig.table_modes``); on one card a
 sharded table is looked up locally, as ``repro``'s off-mesh branch does.
 The mesh branch of :func:`embedding_bag_sharded` waits for the multi-GPU
-item.  Training differentiates the bags through
+item; :func:`param_specs` gives the tables' placements under a layout's
+``Rules`` for ``launch/``.  Training differentiates the bags through
 ``embedbag.embedding_bag_sorted_grad``: a table's gradient is B6 again
 over the lookups sorted by row, dense (zero rows where no lookup
 reads), as ``repro``'s transpose of ``jnp.take``; AdamW then moves every
@@ -109,6 +110,38 @@ def init_params(cfg: DLRMConfig, seed: int = 0, device=None) -> dict:
     }
 
 
+def param_shapes(cfg: DLRMConfig) -> dict:
+    """:func:`init_params`' tree as meta tensors (no allocation)."""
+    n_int = (cfg.n_sparse + 1) * cfg.n_sparse // 2
+    top_in = n_int + cfg.bot_mlp[-1]
+
+    def mlp(sizes) -> list[dict]:
+        return [{"w": torch.empty((a, b), dtype=cfg.dtype, device="meta"),
+                 "b": torch.empty((b,), dtype=cfg.dtype, device="meta")}
+                for a, b in zip(sizes[:-1], sizes[1:])]
+
+    return {
+        "bot": mlp((cfg.n_dense,) + cfg.bot_mlp),
+        "top": mlp((top_in,) + cfg.top_mlp),
+        "tables": {f"t{i}": torch.empty((rows, cfg.embed_dim), dtype=cfg.table_dtype, device="meta")
+                   for i, rows in enumerate(cfg.padded_table_sizes)},
+    }
+
+
+def param_specs(cfg: DLRMConfig, rules: shd.Rules) -> dict:
+    """The parameters' placements under ``rules``: ``repro``'s
+    ``param_specs``.  A table the paper's rule shards (decided for the
+    layout's device count, the product of its axis sizes, at a 65,536
+    batch) is row-sharded over the model axis; the rest and the MLPs are
+    replicated."""
+    n_dev = math.prod(rules.axis_sizes.values())
+    modes = cfg.table_modes(n_dev, 65536)
+    tables = {f"t{i}": (rules.p_table_rows() if modes[i] == "shard" else (None, None))
+              for i in range(cfg.n_sparse)}
+    mlp_spec = [{"w": (None, None), "b": (None,)}]
+    return {"bot": mlp_spec * len(cfg.bot_mlp), "top": mlp_spec * len(cfg.top_mlp), "tables": tables}
+
+
 # ---------------------------------------------------------------------------
 # EmbeddingBag on B6
 # ---------------------------------------------------------------------------
@@ -129,7 +162,9 @@ def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rul
     lookup is local, as in ``repro``; ``repro``'s mesh branch (each model
     shard answers for its rows, one psum) is ROADMAP's multi-GPU item."""
     B, hot = idx.shape
-    bag_ids = torch.arange(B, dtype=torch.int32, device=idx.device).repeat_interleave(hot)
+    bag_ids = torch.arange(B, dtype=torch.int32, device=idx.device).repeat_interleave(
+        hot, output_size=B * hot
+    )
     return embedding_bag_local(table, idx.reshape(-1), bag_ids, B)
 
 
@@ -143,7 +178,9 @@ def embedding_bags(cfg: DLRMConfig, rules: shd.Rules, params: dict, sparse: torc
     one B6 launch a table, in the table's dtype."""
     B = sparse.shape[0]
     modes = cfg.table_modes(1, B)
-    bag_ids = torch.arange(B, dtype=torch.int32, device=sparse.device).repeat_interleave(cfg.multi_hot)
+    bag_ids = torch.arange(B, dtype=torch.int32, device=sparse.device).repeat_interleave(
+        cfg.multi_hot, output_size=B * cfg.multi_hot
+    )
     embs = []
     for i in range(cfg.n_sparse):
         table = params["tables"][f"t{i}"]

@@ -181,9 +181,11 @@ def gcn_forward(cfg: GCNConfig, rules: shd.Rules, params: dict, batch: dict) -> 
     ones = emask.to(torch.float32)[:, None]
     din = scatter_sum(ones, sort_edges(dst), n)[:, 0] + 1.0
     dout = scatter_sum(ones, sort_edges(src), n)[:, 0] + 1.0
-    # the mask's edges sorted by destination, once for every layer
-    kept = sort_edges(dst[emask])
-    kept_src = src[emask][kept.order.long()].to(torch.int32)
+    # the mask's edges sorted by destination, once for every layer; a
+    # shape-only run (meta edges) keeps every padded edge, repro's masked shape
+    kept_dst, kept_all = (dst, src) if emask.is_meta else (dst[emask], src[emask])
+    kept = sort_edges(kept_dst)
+    kept_src = kept_all[kept.order.long()].to(torch.int32)
     by_src = cache(lambda: transpose_lookups(kept_src, kept.sorted_dst))  # the backward's lookups
     s_out, s_in = torch.rsqrt(dout)[:, None], torch.rsqrt(din)[:, None]
 
@@ -599,7 +601,7 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
         ex = torch.exp(logits - zmax[idst]) * emask_f[:, None]
         denom = scatter_sum(ex, edges, n)
         alpha = ex / torch.clamp(denom[idst], min=1e-20)  # (E, heads)
-        alpha_c = torch.repeat_interleave(alpha, C // cfg.n_heads, dim=-1)  # (E, C)
+        alpha_c = torch.repeat_interleave(alpha, C // cfg.n_heads, dim=-1, output_size=C)  # (E, C)
         msg = msg * alpha_c[:, :, None] * emask_f[:, None, None]
         agg = scatter_sum(msg, edges, n)
 
@@ -609,7 +611,9 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
             for l in range(cfg.l_max + 1)
         ], dim=-1)
         gates = _mlp_apply(blk["gate"], upd[:, :, 0]).reshape(n, C, cfg.l_max + 1)
-        gate_full = torch.repeat_interleave(torch.sigmoid(gates), repeats, dim=-1)
+        gate_full = torch.repeat_interleave(
+            torch.sigmoid(gates), repeats, dim=-1, output_size=(cfg.l_max + 1) ** 2
+        )
         h = h + upd * gate_full
 
     atom_e = _mlp_apply(params["readout"], h[:, :, 0])[:, 0]

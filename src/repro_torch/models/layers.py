@@ -327,7 +327,9 @@ def apply_moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: sh
     its three products on its contiguous slice; the weighted rows go back
     to (token, k) order and sum over k as ``repro`` sums them.  ``rules``
     of a layout with a model axis would take ``repro``'s expert-parallel
-    branch, which is not ported: it raises."""
+    branch, which is not ported: it raises.  On meta tensors (a
+    shape-only run) the experts take the balanced routing
+    (:func:`_expert_rows`)."""
     if rules.model_axis is not None:
         raise NotImplementedError(
             "the expert-parallel MoE (experts over the model axis, two all_to_alls) is "
@@ -341,7 +343,7 @@ def apply_moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: sh
     order = torch.argsort(flat, stable=True)
     xs = xt[order // top_k]  # (T·k, D): each assignment's token, grouped by expert
     pieces, lo = [], 0
-    for e, count in enumerate(torch.bincount(flat, minlength=n_experts).tolist()):
+    for e, count in enumerate(_expert_rows(flat, n_experts)):
         if count:
             xe = xs[lo : lo + count]
             h = silu(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
@@ -351,6 +353,17 @@ def apply_moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: sh
     out = torch.empty((T * top_k, D), dtype=torch.float32, device=x.device)
     out[order] = ys.float() * weights.reshape(-1)[order, None]
     return out.reshape(T, top_k, D).sum(dim=1).reshape(B, S, D).to(x.dtype)
+
+
+def _expert_rows(flat: torch.Tensor, n_experts: int) -> list[int]:
+    """Each expert's routed rows, read on the host.  A shape-only run
+    (``flat`` on the meta device) has no routing to read and takes the
+    balanced one: T·k / E rows an expert, the first T·k mod E experts one
+    more."""
+    if flat.is_meta:
+        q, r = divmod(flat.shape[0], n_experts)
+        return [q + (e < r) for e in range(n_experts)]
+    return torch.bincount(flat, minlength=n_experts).tolist()
 
 
 def moe_dense(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int) -> torch.Tensor:

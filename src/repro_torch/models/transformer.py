@@ -24,9 +24,14 @@ step (kimi-k2's ``optimizer="adafactor"`` selects AdaFactor).  With
 activations from its input.  Gradients reach the stacked per-layer
 leaves through the slices ``_layer`` takes of them.
 
-Left for a later slice: the placement specs of a mesh (``param_specs``,
-``cache_specs``, ``seq_sharded``) with the expert-parallel MoE (the
-multi-GPU item).
+:func:`param_shapes` gives the parameters as meta tensors (no
+allocation), :func:`param_specs` and :func:`cache_specs` their
+placements under a layout's ``Rules`` (tuples, as ``repro``'s
+``PartitionSpec``s), which ``launch/cells.py`` fits to the production
+layouts.  Placing the tensors on several cards, and with it the
+expert-parallel MoE and ``repro``'s ``make_decode_step(seq_sharded=)``
+constraint on the cache (the identity off a mesh), is the multi-GPU
+item.
 """
 
 from __future__ import annotations
@@ -133,6 +138,65 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
         "final_norm": torch.ones((d,), dtype=torch.float32, device=device),
         "layers": layers,
     }
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """:func:`init_params`' tree as meta tensors: ``repro``'s
+    ``param_shapes`` (``jax.eval_shape`` of its init)."""
+    d, lead, f32 = cfg.d_model, (cfg.n_layers,), torch.float32
+
+    def meta(shape, dtype=cfg.dtype) -> torch.Tensor:
+        return torch.empty(lead + shape, dtype=dtype, device="meta")
+
+    hq, hkv = cfg.n_q_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    attn = {"wq": meta((d, hq)), "wk": meta((d, hkv)), "wv": meta((d, hkv)), "wo": meta((hq, d))}
+    if cfg.qk_norm:
+        attn["q_norm"] = meta((cfg.d_head,), f32)
+        attn["k_norm"] = meta((cfg.d_head,), f32)
+    layers = {"attn": attn, "ln1": meta((d,), f32), "ln2": meta((d,), f32)}
+    if cfg.is_moe:
+        e, ff = cfg.n_experts, cfg.d_ff
+        layers["moe"] = {"router": meta((d, e), f32), "w_gate": meta((e, d, ff)),
+                         "w_up": meta((e, d, ff)), "w_down": meta((e, ff, d))}
+    else:
+        layers["mlp"] = {"w_gate": meta((d, cfg.d_ff)), "w_up": meta((d, cfg.d_ff)),
+                         "w_down": meta((cfg.d_ff, d))}
+    return {
+        "embed": torch.empty((cfg.padded_vocab, d), dtype=cfg.dtype, device="meta"),
+        "lm_head": torch.empty((d, cfg.padded_vocab), dtype=cfg.dtype, device="meta"),
+        "final_norm": torch.empty((d,), dtype=f32, device="meta"),
+        "layers": layers,
+    }
+
+
+def param_specs(cfg: LMConfig, rules: shd.Rules) -> dict:
+    """The parameters' placements under ``rules`` (unfitted), ``repro``'s
+    ``param_specs`` entry for entry: the rule table decides the experts'
+    first, so an override installed by :func:`rules_for` (kimi's FSDP
+    rest-sharding) wins over both the built-in default and the
+    ``fsdp_experts``-derived placements."""
+    a = {"wq": rules.p_attn_in(), "wk": rules.p_attn_in(), "wv": rules.p_attn_in(),
+         "wo": rules.p_attn_out()}
+    if cfg.qk_norm:
+        a["q_norm"] = a["k_norm"] = (None, None)
+    layers = {"attn": a, "ln1": (None, None), "ln2": (None, None)}
+    if cfg.is_moe:
+        table_default = (None, rules.model_axis, None, None)
+        e_gate = rules.spec("params/layers/moe/w_gate")
+        e_up = rules.spec("params/layers/moe/w_up")
+        e_down = rules.spec("params/layers/moe/w_down")
+        if (e_gate, e_up, e_down) == (table_default,) * 3:
+            if cfg.fsdp_experts and rules.batch_axes:
+                e_gate = e_up = (None, rules.model_axis, None, rules.batch_axes)
+                e_down = (None, rules.model_axis, rules.batch_axes, None)
+            else:
+                e_gate = e_up = e_down = rules.p_moe_experts()
+        layers["moe"] = {"router": rules.p_router(), "w_gate": e_gate, "w_up": e_up, "w_down": e_down}
+    else:
+        layers["mlp"] = {"w_gate": rules.p_mlp_in(), "w_up": rules.p_mlp_in(),
+                         "w_down": rules.p_mlp_out()}
+    return {"embed": rules.p_embed(), "lm_head": rules.p_lm_head(), "final_norm": (None,),
+            "layers": layers}
 
 
 def rules_for(cfg: LMConfig, mesh=None) -> shd.Rules:
@@ -264,6 +328,13 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
     }
 
 
+def cache_specs(cfg: LMConfig, rules: shd.Rules, seq_sharded: bool) -> dict:
+    """The KV cache's placements: batch-sharded, or with ``seq_sharded``
+    (long_500k) the sequence over the model axis too."""
+    spec = rules.kv_cache_seq_sharded() if seq_sharded else rules.kv_cache()
+    return {"k": spec, "v": spec, "len": ()}
+
+
 def make_prefill(cfg: LMConfig, rules: shd.Rules):
     """tokens (B, S) -> (last-token logits (B, padded_vocab), KV cache
     exactly S long with len S).  A caller that decodes after it copies
@@ -297,7 +368,8 @@ def make_decode_step(cfg: LMConfig, rules: shd.Rules):
     in place at ``pos = cache["len"]``, attends over the first pos + 1
     positions on B7, and returns (logits (B, padded_vocab), a cache
     holding the same k and v tensors and len pos + 1).  It reads pos on
-    the host, to index the write and to raise on a full cache."""
+    the host, to index the write and to raise on a full cache; a
+    shape-only run (meta K and V) passes ``len`` as a CPU tensor."""
 
     def decode_step(params: dict, cache: dict, tokens: torch.Tensor):
         B = tokens.shape[0]

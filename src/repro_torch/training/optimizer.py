@@ -52,14 +52,14 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
-def _map_specs(fn, specs, *others):
+def map_specs(fn, specs, *others):
     """``fn`` over a placement tree whose leaves are tuples (or None),
     with the matching leaves of ``others``; dictionaries and lists are
     its containers."""
     if isinstance(specs, dict):
-        return {k: _map_specs(fn, v, *(o[k] for o in others)) for k, v in specs.items()}
+        return {k: map_specs(fn, v, *(o[k] for o in others)) for k, v in specs.items()}
     if isinstance(specs, list):
-        return [_map_specs(fn, v, *(o[i] for o in others)) for i, v in enumerate(specs)]
+        return [map_specs(fn, v, *(o[i] for o in others)) for i, v in enumerate(specs)]
     return fn(specs, *others)
 
 
@@ -90,7 +90,7 @@ def adamw(
         return params, {"m": state["m"], "v": state["v"], "step": step}
 
     def state_spec(param_specs):
-        return {"m": param_specs, "v": _map_specs(lambda s: s, param_specs), "step": ()}
+        return {"m": param_specs, "v": map_specs(lambda s: s, param_specs), "step": ()}
 
     return Optimizer(init, update, state_spec)
 
@@ -150,7 +150,7 @@ def adafactor(
             return {"vr": row, "vc": col, "v_maybe": None}
 
         # shape-dependent: callers resolve it with state_spec_for(params)
-        return {"f": _map_specs(leaf_spec, param_specs), "step": ()}
+        return {"f": map_specs(leaf_spec, param_specs), "step": ()}
 
     return Optimizer(init, update, state_spec)
 
@@ -179,7 +179,7 @@ def state_spec_for(opt_name: str, param_shapes, param_specs):
     shapes (tensors, meta tensors, or anything with ``shape``) and
     placements; adafactor's state structure depends on the shapes."""
     if opt_name == "adamw":
-        return {"m": param_specs, "v": _map_specs(lambda s: s, param_specs), "step": ()}
+        return {"m": param_specs, "v": map_specs(lambda s: s, param_specs), "step": ()}
     if opt_name == "adafactor":
         def leaf(spec, shape_leaf):
             spec = spec if isinstance(spec, tuple) else ()
@@ -189,7 +189,7 @@ def state_spec_for(opt_name: str, param_shapes, param_specs):
                 return {"vr": padded[:-1], "vc": padded[:-2] + padded[-1:]}
             return {"v": padded}
 
-        return {"f": _map_specs(leaf, param_specs, param_shapes), "step": ()}
+        return {"f": map_specs(leaf, param_specs, param_shapes), "step": ()}
     raise ValueError(opt_name)
 
 

@@ -1262,3 +1262,62 @@ def test_crash_and_resume_is_bit_identical_on_gpu(cuda, tmp_path):
     assert resumed.start_step == 3 and resumed.losses == ref.losses[3:]
     for a, b in zip(leaves((ref.params, ref.opt_state)), leaves((resumed.params, resumed.opt_state))):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The meta branches of B6 and B7, and count_step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_branches_match_cuda_outputs_and_launch_nothing(cuda, dtype):
+    """B6 and B7 on meta tensors: outputs of the CUDA launch's shape and
+    dtype, and no launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn((300, 48), generator=gen, device=cuda).to(dtype)
+    idx = torch.randint(0, 300, (1000,), generator=gen, device=cuda, dtype=torch.int32)
+    bags = torch.sort(torch.randint(0, 70, (1000,), generator=gen, device=cuda, dtype=torch.int32))[0]
+    q = torch.randn((2, 8, 64), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((2, 512, 2, 64), generator=gen, device=cuda).to(dtype)
+    kv_len = torch.tensor(300, dtype=torch.int32, device=cuda)
+    b6, b7 = embedbag.LAUNCHES, decode_attn.LAUNCHES
+    meta6 = embedbag.embedding_bag_sorted(table.to("meta"), idx.to("meta"), bags.to("meta"), 70)
+    meta7 = decode_attn.flash_decode_gqa(q.to("meta"), k.to("meta"), k.to("meta"), kv_len.cpu())
+    assert (embedbag.LAUNCHES, decode_attn.LAUNCHES) == (b6, b7)
+    card6 = embedbag.embedding_bag_sorted(table, idx, bags, 70)
+    card7 = decode_attn.flash_decode_gqa(q, k, k, kv_len)
+    torch.cuda.synchronize()
+    assert (embedbag.LAUNCHES, decode_attn.LAUNCHES) == (b6 + 1, b7 + 1)
+    for m, c in ((meta6, card6), (meta7, card7)):
+        assert (m.device.type, m.shape, m.dtype) == ("meta", c.shape, c.dtype)
+
+
+def test_count_step_equal_on_meta_and_cuda(cuda):
+    """count_step of a small decode step (B7) and of an EmbeddingBag (B6)
+    counts the same FLOPs, bytes and kernel calls on meta twins as on the
+    card."""
+    from repro_torch.launch import analysis
+
+    cfg = dataclasses.replace(lm_common.lm_smoke("qwen3-14b"), d_head=64)
+    rules = shd.Rules.from_mesh(None)
+    params = transformer.init_params(cfg, seed=0, device=cuda)
+    batch = lm_common.lm_smoke_batch(cfg, "decode", device=cuda)
+    cache, tokens = batch["cache"], batch["tokens"]
+    meta_cache = {"k": cache["k"].to("meta"), "v": cache["v"].to("meta"), "len": cache["len"].cpu()}
+    meta = analysis.count_step(transformer.make_decode_step(cfg, rules),
+                               (_to(params, "meta"), meta_cache, tokens.to("meta")))
+    card = analysis.count_step(transformer.make_decode_step(cfg, rules), (params, cache, tokens))
+    assert (meta.flops, meta.bytes, meta.kernels) == (card.flops, card.bytes, card.kernels)
+    assert len(card.kernels) == cfg.n_layers
+
+    table = torch.randn((500, 32), device=cuda)
+    idx = torch.randint(0, 500, (2000,), device=cuda, dtype=torch.int32)
+    bags = torch.randint(0, 64, (2000,), device=cuda, dtype=torch.int32)
+
+    def bag(t, i, b):
+        return eb_ops.embedding_bag(t, i, b, 64)
+
+    meta = analysis.count_step(bag, (table.to("meta"), idx.to("meta"), bags.to("meta")))
+    card = analysis.count_step(bag, (table, idx, bags))
+    assert (meta.flops, meta.bytes, meta.kernels) == (card.flops, card.bytes, card.kernels)
+    assert card.kernels == [("embedding_bag_sorted", 2000 * 32, (2000 + 64) * 32 * 4, 2000)]

@@ -107,9 +107,16 @@ def test_cpu_calls_launch_no_kernel():
 
 
 def test_wrapper_refuses_other_devices():
+    """Meta q, k, v are a shape-only call (an empty meta output, no
+    launch); k and v on another device than q are refused."""
     q, k = torch.zeros((1, 4, 8), device="meta"), torch.zeros((1, 128, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        decode_attn.flash_decode_gqa(q, k, k, torch.zeros((), dtype=torch.int32), block_kv=128)
+    before = decode_attn.LAUNCHES
+    out = decode_attn.flash_decode_gqa(q, k, k, torch.zeros((), dtype=torch.int32), block_kv=128)
+    assert (out.shape, out.dtype, out.device.type) == ((1, 4, 8), q.dtype, "meta")
+    assert decode_attn.LAUNCHES == before
+    with pytest.raises(ValueError, match="q on meta"):
+        decode_attn.flash_decode_gqa(q, torch.zeros(k.shape), k, torch.zeros((), dtype=torch.int32),
+                                     block_kv=128)
 
 
 # ---------------------------------------------------------------------------

@@ -164,10 +164,15 @@ def test_cpu_calls_launch_no_kernel():
 
 
 def test_wrapper_refuses_other_devices():
+    """A meta table is a shape-only call (an empty meta output, no
+    launch); lookups on another device than the table are refused."""
     t = torch.zeros((4, 4), device="meta")
     ids = torch.zeros(2, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        embedbag.embedding_bag_sorted(t, ids, ids, 2)
+    before = embedbag.LAUNCHES
+    out = embedbag.embedding_bag_sorted(t, ids, ids, 3)
+    assert (out.shape, out.dtype, out.device.type, embedbag.LAUNCHES) == ((3, 4), t.dtype, "meta", before)
+    with pytest.raises(ValueError, match="is on cpu, table on meta"):
+        embedbag.embedding_bag_sorted(t, torch.zeros(2, dtype=torch.int32), ids, 2)
 
 
 # ---------------------------------------------------------------------------
