@@ -120,6 +120,27 @@ Phases, each of which raises on failure (the run then exits non-zero):
              site Stage A of the twin's 256 sites would be 15.7 M tiles
              (1.03 TB f32, 32.2 GB of bit-planes), and its f32 slabs at 16
              sites 64.6 GB;
+* mesh     — the mesh programs over ranks (``mesh=``, one process a
+             rank on ``torch.distributed``, levels ``pmax``-ed over the
+             site axes, outputs gathered as a SUM into zeroed buffers):
+             first the one-card references (``mesh=None``) at the ranks'
+             axis sizes, as sha256 digests of answers, every cost field,
+             witness levels and S1 buffers, and of each bucket row of the
+             one-card plan; then (a) one NCCL rank in this process on a
+             (1, 1) mesh: the sharded phase's (i) on B3 over all valid
+             starts, the reference backend on the 256-site placement (64
+             starts a query, pairs and witness) and the plan phase's S1
+             gathers (every Table-2 query's labels at the padded width);
+             (b) 4 ``gloo`` ranks spawned on the one card (NCCL refuses
+             two ranks on one device): (i) on a (4, 1) mesh, (ii) on a
+             (2, 2) mesh (B1, pairs and witness), each on its first 128
+             valid starts a query, and the reference backend and S1 as
+             in (a) on (4, 1).  Every digest must equal the one-card
+             run's, every rank's bucket arrays and tiles its rows of the
+             one-card plan, and each rank's B1/B3 launches its levels (one
+             bucket a rank); the bytes all_reduced per level and the wall
+             times of the 4 ranks sharing one card are logged (not
+             multi-card times);
 * serve    — the serving runtime on the same twin and placement (the plan
              phase's overlay; ``ServeConfig(n_rollouts=150, seed=0)``, the
              planner deciding): a 144-request ``workloads.generate``
@@ -292,9 +313,11 @@ import asyncio
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -303,12 +326,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import interop  # noqa: E402
 from repro_torch.configs import alibaba_rpq, dlrm_mlperf, gnn_common, qwen3_14b, registry  # noqa: E402
 from repro_torch.configs import granite_moe_1b_a400m, kimi_k2_1t_a32b  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.dist import collectives  # noqa: E402
 from repro_torch.dist import sharding as shd  # noqa: E402
 from repro_torch.graph.sampling import NeighborSampler  # noqa: E402
 from repro_torch.models import dlrm, gnn, transformer  # noqa: E402
@@ -329,7 +354,8 @@ from repro_torch.serve.aio import AdmissionRejected, AioConfig, AsyncQueryServic
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.launch import analysis, dryrun  # noqa: E402
+from repro_torch.launch import analysis, dryrun, ranks  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as da_ops  # noqa: E402
 from repro_torch.kernels.embedbag import embedbag  # noqa: E402
@@ -378,6 +404,16 @@ SERVE_AIO = {"max_window_s": {"latency": 0.25, "throughput": 1.0}, "window_gain"
 SHARD_SITES, SHARD_AXES = 16, (1, 4)
 SHARD_F32_NODES, SHARD_F32_EDGES = 8000, 52000
 N_REFERENCE_STARTS = 64
+# the mesh phase: (a) one NCCL rank in this process on a (1, 1) mesh; (b)
+# MESH_RANKS gloo ranks spawned on the one card (NCCL refuses two ranks on
+# one device): the sharded phase's (i) on MESH_I_SHAPE, its (ii) on
+# MESH_II_SHAPE, the reference backend and S1 on the 256-site placement on
+# MESH_I_SHAPE, as (data, model) meshes; the spawn's time limit
+MESH_RANKS, MESH_I_SHAPE, MESH_II_SHAPE, MESH_TIMEOUT_S = 4, (4, 1), (2, 2), 400
+# (b) runs (i) and (ii) on the first MESH_B_STARTS valid starts of each query
+# ((a) runs (i) on all of them): at all 477-715 starts, 4 ranks would put
+# the twin's frontier (1.6 MB a level) through gloo 2,577 times over
+MESH_B_STARTS = 128
 # the shapes of the embedbag and decode phases, from the port's configs:
 # dlrm-mlperf's largest Criteo table (embed_dim 128, bf16 tables) at
 # serve_bulk (batch 262,144 x multi_hot 1); ogb_products; qwen3-14b's
@@ -1577,7 +1613,7 @@ def check_bucket_launch(what, store, placement, ca, axis_size, tile_dtype, dev, 
     return r
 
 
-def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dict, object]:
+def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dict, dict]:
     """The site-sharded backend (B3 and B1 once per bucket and level) and
     the reference backend (no kernel): (i) the twin on 16 sites over the
     bit-plane store at axis sizes 1 and 4; (ii) an 8,000-node twin on 16
@@ -1585,7 +1621,9 @@ def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dic
     backend on the 256-site placement, and on (i)'s placement against
     the sharded per-site meters; (iv) the bucket launches against their
     plain versions, and the per-site meter with TF32 on.  Returns each
-    level kernel's launches and (i)'s placement."""
+    level kernel's launches and what the mesh phase reuses: (i)'s
+    placement and plan store, (ii)'s graph, placement and per-site
+    slabs."""
     rec = record["sharded"] = {}
     launches = collections.Counter()
     rng = np.random.default_rng(SEED + 7)
@@ -1642,6 +1680,7 @@ def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dic
             raise AssertionError(f"reference on (i)'s placement {q}: d_s2 != the sharded per-site sum")
     log("sharded", f"(iii) reference on (i)'s {SHARD_SITES} sites: answers and d_s2 == the sharded "
         f"backend's answers and per-site meters summed, exactly, on {N_REFERENCE_STARTS} starts a query")
+    handoff = {"pl16": pl16, "store16": store}
     del store, arrays16
     free()
 
@@ -1716,9 +1755,307 @@ def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dic
     rec["ii_pad"] = store.pad_stats()
     rec["iv_b1"] = check_bucket_launch("(iv) q1 axis 4 f32", store, pl2, cas2["q1"], SHARD_AXES[-1], "f32",
                                        dev, flush)
+    handoff.update(g2=g2, pl2=pl2, per_site2=store.staged_sharded(pl2, 128, tile_dtype="f32"))
     del store, dg2
     free()
-    return dict(launches), pl16
+    return dict(launches), handoff
+
+
+# ---------------------------------------------------------------------------
+# mesh: the mesh programs, per rank
+# ---------------------------------------------------------------------------
+
+
+def digest(*parts) -> str:
+    """sha256 of arrays (dtype, shape and bytes; tensors copied to the
+    host) and of other values by their JSON form: equal digests are equal
+    bytes."""
+    h = hashlib.sha256()
+    for p in parts:
+        if isinstance(p, torch.Tensor):
+            p = p.detach().cpu().numpy()
+        if isinstance(p, np.ndarray):
+            h.update(f"{p.dtype.str}{p.shape}".encode())
+            h.update(np.ascontiguousarray(p).tobytes())
+        else:
+            h.update(json.dumps(p, default=str).encode())
+    return h.hexdigest()
+
+
+def run_digest(out) -> str:
+    """An ``s2_execute`` result's digest: answers, every cost field
+    (per-site meters included) and witness levels."""
+    return digest(out[0], [dataclasses.astuple(c) for c in out[1]], *out[2:])
+
+
+def bucket_row_digest(b, row: int) -> str:
+    """Row ``row`` of a one-card plan bucket, or a rank plan's one row: the
+    seven step arrays and run offsets, and the row's work chunks and flat
+    tile ids offset back to row 0 (its tiles: :func:`digest` of
+    ``b.tiles[row]``, once per Stage A)."""
+    work = b.work.cpu().numpy()
+    of_row = np.where(work >= 0, work // b.n_steps, -1).max(axis=1) == row
+    work = np.where(work[of_row] >= 0, work[of_row] - row * b.n_steps, -1)
+    flat = b.flat_tile_ids.cpu().numpy().reshape(-1, b.n_steps)[row] - row * b.n_tiles
+    return digest(b.n_steps, b.n_tiles, *(getattr(b, k)[row] for k in (*SCHEDULE, "run_ptr")),
+                  work, flat.astype(np.int32))
+
+
+def mesh_s2(what, placement, ca, starts, dev, backend, tile_dtype="f32", semantics="pairs", store=None,
+            mesh=None, axis_size=None, arrays=None) -> tuple[str, dict]:
+    """``s2_execute`` on the sharded or reference backend, on one card
+    (``mesh=None``) or per rank, with the launch, level and wire counts set
+    to 0 just before and read just after: the sharded path must launch its
+    kernel once a level (one bucket per rank, or the one-card plan's
+    buckets), the reference path none.  Returns the result's digest and
+    the counts."""
+    name = "fused_level_blocks_u32" if tile_dtype == "uint32" else "fused_level_blocks"
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    collectives.WIRE_COUNTERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = strategies.s2_execute(placement, ca, starts, backend=backend, tile_dtype=tile_dtype,
+                                semantics=semantics, plan_store=store, device=dev, mesh=mesh,
+                                axis_size=axis_size, device_arrays=arrays)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    levels = fops.FIXPOINT_COUNTERS["levels"]
+    # one level's pmax: the merged frontier as uint8, (n_states, QPAD, v_pad)
+    # a chunk on the sharded path, (starts, n_states, n_nodes) on the reference
+    v_pad = -(-placement.graph.n_nodes // 128) * 128
+    frontier_bytes = (len(starts) * ca.n_states * placement.graph.n_nodes if backend == "reference"
+                      else ca.n_states * fops.QPAD * v_pad)
+    r = {"starts": len(starts), "levels": levels, "wall_ms": wall * 1e3,
+         "all_reduces": collectives.WIRE_COUNTERS["all_reduces"], "wire_bytes": collectives.WIRE_COUNTERS["bytes"],
+         "frontier_bytes_per_level": frontier_bytes if mesh is not None else 0}
+    if backend == "reference":
+        if sum(launch_counts().values()):
+            raise AssertionError(f"{what}: kernels launched: {launch_counts()}")
+        r["launches"] = 0
+    else:
+        n_buckets = 1 if mesh is not None else len(store.tile_buckets(
+            placement, 128, axis_size, tile_dtype="f32" if semantics == "witness" else tile_dtype).buckets)
+        r["launches"] = only_launched(name, what)
+        if r["launches"] != levels * n_buckets:
+            raise AssertionError(f"{what}: {r['launches']} {name} launches for {levels} levels x {n_buckets} "
+                                 "bucket(s)")
+        r["kernel"] = name
+    return run_digest(out), r
+
+
+def s1_digests(placement, cas_s1, arrays, mesh=None) -> dict[str, str]:
+    """The plan phase's S1 gathers (every Table-2 query's label mask at the
+    padded width) on one card or per rank: each digest covers the four
+    (n_sites, cap) buffers and the overflow."""
+    cap = placement.padded_width()
+    return {q: digest(*strategies.s1_gather(arrays, lmask, cap, mesh)) for q, lmask in cas_s1.items()}
+
+
+def mesh_cases(ctx: dict, dev, meshes: dict, tag: str, rec: dict, refs: dict | None) -> dict:
+    """Every case of the mesh phase on one card (``meshes`` empty: the
+    references, at the ranks' axis sizes) or per rank.  ``ctx`` holds the
+    placements, automata, starts and the plan stores; with ``refs`` every
+    digest must equal its reference.  Returns the digests and fills
+    ``rec`` with each run's counts."""
+    got = {}
+
+    def check(key, value):
+        got[key] = value
+        if refs is not None and refs[key] != value:
+            raise AssertionError(f"mesh {tag} {key}: differs from the one-card run")
+
+    def record(key, r):
+        rec[key] = r
+        log("mesh", f"{tag} {key}: {r['starts']} starts, {r['levels']} levels, {r['launches']} launches, "
+            f"{r['all_reduces']} all_reduces, {r['wire_bytes']} bytes all_reduced (the frontier "
+            f"{r['frontier_bytes_per_level']} a level), {r['wall_ms']:.1f} ms")
+
+    for part, placement, store_key, tile_dtype, sems in (
+        ("i", ctx["pl16"], "store16", "uint32", ("pairs",)),
+        ("ii", ctx["pl2"], "store2", "f32", ("pairs", "witness")),
+    ):
+        if part not in ctx["parts"]:
+            continue
+        mesh = meshes.get(part)
+        axis = ctx["axis"][part] if mesh is None else collectives.axis_size(mesh, ("data",))
+        store = ctx[store_key] if mesh is None else plans.GraphPlanStore(device=dev)
+        for q in QUERIES:
+            ca = ctx[f"cas_{part}"][q]
+            for sem in sems:
+                d, r = mesh_s2(f"mesh {tag} ({part}) {q} {sem}", placement, ca, ctx[f"starts_{part}"][q], dev,
+                               "frontier_kernel_sharded", tile_dtype, sem, store, mesh,
+                               axis if mesh is None else None)
+                check(f"{part}/{q}/{sem}", d)
+                record(f"{part}/{q}/{sem}", r)
+        # Stage A and B: one-card rows, or this rank's row of them
+        staged = store.staged_merged(placement, 128, axis, tile_dtype=tile_dtype, mesh=mesh)
+        buckets = store.tile_buckets(placement, 128, axis, tile_dtype=tile_dtype, mesh=mesh)
+        rows = (range(axis) if mesh is None else [collectives.axis_index(mesh, ("data",))])
+        for q in (*QUERIES, "tiles"):
+            if mesh is None:
+                (b,) = (buckets.buckets if q == "tiles" else
+                        fops.build_sharded_level_schedule(ctx[f"cas_{part}"][q], staged, buckets,
+                                                          axis_size=axis).buckets)
+                got[f"{part}/{q}/rows"] = [digest(b.tiles[row]) if q == "tiles" else bucket_row_digest(b, row)
+                                           for row in rows]
+                continue
+            (b,) = (buckets.buckets if q == "tiles" else
+                    fops.build_rank_level_schedule(ctx[f"cas_{part}"][q], staged, buckets, mesh).buckets)
+            row = rows[0]
+            mine = digest(b.tiles[0]) if q == "tiles" else bucket_row_digest(b, 0)
+            if refs is not None and refs[f"{part}/{q}/rows"][row] != mine:
+                raise AssertionError(f"mesh {tag} ({part}) {q}: the rank's Stage {'A' if q == 'tiles' else 'B'} "
+                                     f"is not row {row} of the one-card one")
+            got[f"{part}/{q}/row{row}"] = mine
+        del store, staged, buckets
+    if "ref" in ctx["parts"]:
+        mesh = meshes.get("ref")
+        arrays = strategies.stage_site_arrays(ctx["placement"], dev, mesh)
+        for q in QUERIES:
+            for sem in ("pairs", "witness"):
+                d, r = mesh_s2(f"mesh {tag} reference {q} {sem}", ctx["placement"], ctx["cas_i"][q],
+                               ctx["starts_ref"][q], dev, "reference", semantics=sem, mesh=mesh,
+                               arrays=arrays)
+                check(f"ref/{q}/{sem}", d)
+                record(f"ref/{q}/{sem}", r)
+        collectives.WIRE_COUNTERS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q, d in s1_digests(ctx["placement"], ctx["lmasks"], arrays, mesh).items():
+            check(f"s1/{q}", d)
+        torch.cuda.synchronize()
+        rec["s1"] = {"gathers": len(ctx["lmasks"]), "wall_ms": (time.perf_counter() - t0) * 1e3,
+                     "wire_bytes": collectives.WIRE_COUNTERS["bytes"]}
+        log("mesh", f"{tag} S1: {len(ctx['lmasks'])} gathers at the padded width "
+            f"{ctx['placement'].padded_width()}, {rec['s1']['wire_bytes']} bytes on the wire, "
+            f"{rec['s1']['wall_ms']:.1f} ms")
+        del arrays
+    return got
+
+
+def mesh_context(g, placement, cas, handoff, parts, n_starts=None) -> dict:
+    """What every rank rebuilds from the seed, as the parent holds it;
+    ``n_starts`` cuts (i)'s and (ii)'s valid starts to their first ones."""
+    g2 = handoff["g2"] if "g2" in handoff else alibaba_like(n_nodes=SHARD_F32_NODES, n_edges=SHARD_F32_EDGES,
+                                                            seed=SEED)
+    cas2 = {q: paa.compile_query(TABLE2_QUERIES[q], g2) for q in QUERIES}
+    return {
+        "parts": parts, "placement": placement, "cas_i": cas, "cas_ii": cas2,
+        "pl16": handoff.get("pl16") or distribute(g, n_sites=SHARD_SITES, replication_rate=RPQ.replication_rate,
+                                                  seed=SEED),
+        "pl2": handoff.get("pl2") or distribute(g2, n_sites=SHARD_SITES, replication_rate=RPQ.replication_rate,
+                                                seed=SEED),
+        "starts_i": {q: paa.valid_start_nodes(cas[q], g)[:n_starts] for q in QUERIES},
+        "starts_ii": {q: paa.valid_start_nodes(cas2[q], g2)[:n_starts] for q in QUERIES},
+        "starts_ref": {q: paa.valid_start_nodes(cas[q], g)[:N_REFERENCE_STARTS] for q in QUERIES},
+        "lmasks": {q: strategies.query_label_mask(rx.parse(e), g) for q, e in TABLE2_QUERIES.items()},
+        "axis": {"i": 1, "ii": 1},
+    }
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One of the MESH_RANKS ``gloo`` ranks that share the card: (i) on a
+    (4, 1) mesh, (ii) on a (2, 2) mesh, the reference backend and S1 on a
+    (4, 1) mesh, each digest held to the parent's one-card run; writes its
+    counts to ``rank{rank}.json``."""
+    torch.set_num_threads(2)
+    dev = ranks.init_rank(rank, world, os.path.join(tmp, "store"), backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with open(os.path.join(tmp, "refs.json")) as f:
+            refs = json.load(f)
+        meshes = {"i": mesh_lib.make_test_mesh(*MESH_I_SHAPE), "ii": mesh_lib.make_test_mesh(*MESH_II_SHAPE)}
+        meshes["ref"] = meshes["i"]
+        g = alibaba_like(seed=SEED)
+        placement = distribute(g, n_sites=RPQ.n_sites, replication_rate=RPQ.replication_rate, seed=SEED)
+        cas = {q: paa.compile_query(TABLE2_QUERIES[q], g) for q in QUERIES}
+        ctx = mesh_context(g, placement, cas, {}, ("i", "ii", "ref"), MESH_B_STARTS)
+        rec = {"rank": rank, "coords": {k: list(m.get_coordinate()) for k, m in meshes.items()}}
+        t0 = time.perf_counter()
+        mesh_cases(ctx, dev, meshes, f"(b) rank {rank}", rec, refs)
+        rec["wall_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(g, placement, cas, handoff, dev, record) -> dict[str, int]:
+    """The mesh programs on the card: the one-card references (``mesh=None``
+    at the ranks' axis sizes), then (a) a one-rank NCCL group in this
+    process on (i), the reference backend and S1, (b) MESH_RANKS ``gloo``
+    ranks spawned on the one card on (i), (ii), the reference backend and
+    S1, each digest equal to the reference's.  Returns each level kernel's
+    launches in the references, (a) and (b), every rank's summed.
+    ``handoff`` loses its plan store and slabs once the references are
+    made."""
+    rec = record["mesh"] = {}
+    launches = collections.Counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # every rank is on this host
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mesh_context(g, placement, cas, handoff, ("i", "ref"))
+    store2 = plans.GraphPlanStore(device=dev)
+    store2.install_entry(("staged_sharded", 128, "f32"), ctx["pl2"], 0, handoff["per_site2"])
+    ctx.update(store16=handoff["store16"], store2=store2)
+
+    # references: (i) at axis 1 for (a), (i) at 4 and (ii) at 2 for (b)
+    t0 = time.perf_counter()
+    refs, rec["one_card_a"], rec["one_card_b"] = {}, {}, {}
+    refs["a"] = mesh_cases(ctx, dev, {}, "one card", rec["one_card_a"], None)
+    all_starts = ctx["starts_i"]
+    cut = mesh_context(g, placement, cas, handoff, ("i", "ii"), MESH_B_STARTS)
+    ctx.update(parts=cut["parts"], starts_i=cut["starts_i"], starts_ii=cut["starts_ii"],
+               axis={"i": MESH_I_SHAPE[0], "ii": MESH_II_SHAPE[0]})
+    refs["b"] = {**refs["a"], **mesh_cases(ctx, dev, {}, "one card axis 4/2", rec["one_card_b"], None)}
+    rec["references_s"] = time.perf_counter() - t0
+    del store2, ctx["store2"], ctx["store16"]
+    for k in ("store16", "per_site2"):  # the ranks stage their own shares
+        handoff.pop(k)
+    ctx.update(parts=("i", "ref"), starts_i=all_starts)
+    free()
+
+    # (a) one NCCL rank in this process, a (1, 1) mesh
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    ranks.init_rank(0, 1, os.path.join(tmp, "nccl-store"), device=dev, timeout_s=MESH_TIMEOUT_S)
+    try:
+        if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"(a) runs on {dist.get_backend()}, not NCCL")
+        mesh = mesh_lib.make_test_mesh(1, 1)
+        rec["a"] = {}
+        t0 = time.perf_counter()
+        mesh_cases(ctx, dev, {"i": mesh, "ref": mesh}, "(a) NCCL 1 rank", rec["a"], refs["a"])
+        rec["a_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    for r in (*rec["one_card_a"].values(), *rec["one_card_b"].values(), *rec["a"].values()):
+        if isinstance(r, dict) and r.get("kernel"):
+            launches[r["kernel"]] += r["launches"]
+    log("mesh", f"(a) one NCCL rank on a (1, 1) mesh: (i) on B3, the reference backend and S1 == the one-card "
+        f"runs, bit for bit, bucket arrays == the one-card plan's; {rec['a_s']:.1f} s")
+    free()
+
+    # (b) MESH_RANKS gloo ranks sharing the card
+    with open(os.path.join(tmp, "refs.json"), "w") as f:
+        json.dump(refs["b"], f)
+    t0 = time.perf_counter()
+    ranks.run_ranks(mesh_rank, MESH_RANKS, (MESH_RANKS, tmp), timeout_s=MESH_TIMEOUT_S, device=dev)
+    rec["b_s"] = time.perf_counter() - t0
+    rec["b"] = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            rr = json.load(f)
+        rec["b"].append(rr)
+        for r in rr.values():
+            if isinstance(r, dict) and r.get("kernel"):
+                launches[r["kernel"]] += r["launches"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    log("mesh", f"(b) {MESH_RANKS} gloo ranks sharing one card: (i) on a {MESH_I_SHAPE} mesh (B3), (ii) on a "
+        f"{MESH_II_SHAPE} mesh (B1, pairs and witness), the reference backend and S1 on {MESH_I_SHAPE}: every "
+        f"digest == the one-card run's, every rank's bucket arrays its rows of the one-card plan, launches == "
+        f"levels on every rank; {rec['b_s']:.1f} s wall for 4 ranks sharing one card (spawn included; not a "
+        "multi-card time)")
+    return dict(launches)
 
 
 def check_schema(d: dict, schema: dict, path: str = "summary") -> None:
@@ -4029,12 +4366,19 @@ def main() -> int:
                                         record["witness"]["b1_counts_at_bound_max_abs_err"])
     phase_end("witness")
 
-    sharded_launches, pl16 = phase_sharded(g, placement, cas, truth, dg, dev, flush, record)
+    sharded_launches, handoff = phase_sharded(g, placement, cas, truth, dg, dev, flush, record)
     for name, n in sharded_launches.items():
         launches[name] += n
     for name, check in (("fused_level_blocks", "iv_b1"), ("fused_level_blocks_u32", "iv_b3")):
         max_err[name] = max(max_err[name], record["sharded"][check]["max_abs_err"])
     phase_end("sharded")
+
+    for name, n in phase_mesh(g, placement, cas, handoff, dev, record).items():
+        launches[name] += n
+    pl16 = handoff["pl16"]
+    del handoff
+    free()
+    phase_end("mesh")
 
     for name, n in phase_serve(g, placement, pl16, dg, dev, record).items():
         launches[name] += n

@@ -25,7 +25,16 @@ kernel backend, and all sites:
   of :func:`repro_torch.core.strategies._site_symbol_degrees` reduce to
   row sums over these.
 
-The store holds its artifacts on its ``device``.  The automaton-dependent
+The store holds its artifacts on its ``device``.  Given a ``mesh`` (a
+``DeviceMesh`` of ranks) and ``site_axes``, the per-site artifacts — the
+site-local graphs, per-site slabs, the group merge and its bucket, the
+padded site arrays and the degree vectors — are only the rank's share:
+its block of sites (``collectives.site_block``), keyed by that block,
+so one rank's host and device memory hold ``1/axis_size`` of them.  The
+merge is then the rank's one group slab and its bucket the rank's row of
+the one-card stack (:func:`repro_torch.kernels.frontier.ops.stage_rank_group`,
+:func:`~repro_torch.kernels.frontier.ops.bucket_rank_group`).  The
+automaton-dependent
 half (Stage B) stays in
 :func:`repro_torch.kernels.frontier.ops.build_level_schedule` and
 :func:`~repro_torch.kernels.frontier.ops.build_sharded_level_schedule`; it packs
@@ -57,6 +66,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import strategies
 from repro_torch.core.automaton import FWD, INV
+from repro_torch.dist import collectives
 from repro_torch.graph.partition import Placement
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier import ops as fops
@@ -317,26 +327,41 @@ class GraphPlanStore:
             lambda: _SlabCache(graph, block_size, tile_dtype, chunk_edges, self.device),
         )
 
-    def local_graphs(self, placement: Placement, epoch: int = 0) -> list[LabeledGraph]:
-        """Per-site site-local graph views of the placement."""
-        key = ("local_graphs", id(placement), epoch)
+    @staticmethod
+    def _share(placement: Placement, mesh, site_axes) -> tuple:
+        """The key suffix of a rank's share: ``()`` for the whole placement
+        (``mesh=None``), else ``((site_axes, lo, hi),)``, the rank's block
+        of sites."""
+        if mesh is None:
+            return ()
+        return ((tuple(site_axes), *collectives.site_block(placement.n_sites, site_axes, mesh)),)
+
+    def local_graphs(
+        self, placement: Placement, epoch: int = 0, mesh=None, site_axes=("data",)
+    ) -> list[LabeledGraph]:
+        """Per-site site-local graph views of the placement (on a ``mesh``,
+        of the rank's block of sites)."""
+        share = self._share(placement, mesh, site_axes)
+        sites = range(*share[0][1:]) if share else range(placement.n_sites)
+        key = ("local_graphs", id(placement), epoch) + share
         return self._get(
-            key, placement, epoch,
-            lambda: [placement.local_graph(s) for s in range(placement.n_sites)],
+            key, placement, epoch, lambda: [placement.local_graph(s) for s in sites],
         )
 
     def staged_sharded(
-        self, placement: Placement, block_size: int = 128, epoch: int = 0, tile_dtype: str = "f32"
+        self, placement: Placement, block_size: int = 128, epoch: int = 0, tile_dtype: str = "f32",
+        mesh=None, site_axes=("data",),
     ) -> fops.StagedShardedGraph:
         """The sharded backend's per-site staged host slabs (keyed by tile
         dtype like :meth:`staged_graph`; the sharded path stages whole
         placements, so it gets the dtype but not the byte budget, as in
-        ``repro``)."""
+        ``repro``).  On a ``mesh``: the rank's sites only."""
         key = ("staged_sharded", id(placement), epoch, block_size, tile_dtype)
+        key += self._share(placement, mesh, site_axes)
         return self._get(
             key, placement, epoch,
             lambda: fops.stage_sharded_graph(
-                self.local_graphs(placement, epoch), block_size, tile_dtype
+                self.local_graphs(placement, epoch, mesh, site_axes), block_size, tile_dtype
             ),
         )
 
@@ -347,17 +372,25 @@ class GraphPlanStore:
         n_groups: int = 1,
         epoch: int = 0,
         tile_dtype: str = "f32",
+        mesh=None,
+        site_axes=("data",),
     ) -> fops.StagedShardedGraph:
         """Group-granular staging: each group's co-located sites merged
         into one deduplicated union slab
         (:func:`~repro_torch.kernels.frontier.ops.merge_staged_sites`), the
         sharded executor's expansion operand.  When every site is its own
-        group this is the per-site staging itself (no copy)."""
+        group this is the per-site staging itself (no copy).  On a
+        ``mesh`` (``n_groups`` the site axes' size): the rank's one group."""
         key = ("staged_merged", id(placement), epoch, block_size, n_groups, tile_dtype)
+        share = self._share(placement, mesh, site_axes)
+        if share and n_groups != collectives.axis_size(mesh, site_axes):
+            raise ValueError(f"n_groups={n_groups}: the site axes {tuple(site_axes)} hold "
+                             f"{collectives.axis_size(mesh, site_axes)} groups")
         return self._get(
-            key, placement, epoch,
+            key + share, placement, epoch,
             lambda: fops.merge_staged_sites(
-                self.staged_sharded(placement, block_size, epoch, tile_dtype), n_groups
+                self.staged_sharded(placement, block_size, epoch, tile_dtype, mesh, site_axes),
+                1 if share else n_groups,
             ),
         )
 
@@ -369,28 +402,38 @@ class GraphPlanStore:
         epoch: int = 0,
         floor: int = fops.BUCKET_FLOOR,
         tile_dtype: str = "f32",
+        mesh=None,
+        site_axes=("data",),
     ) -> fops.ShardedTileBuckets:
         """The sharded backend's Stage-A shape buckets: the merged slabs
         grouped into power-of-two tile classes and stacked on the store's
         device per bucket.  Keyed by (placement, axis_size, floor) on top
         of the staging key; the resulting ``bucket_id`` joins the executor
-        cache's graph key."""
+        cache's graph key.  On a ``mesh``: the rank's one bucket row
+        (``all_reduce(MAX)`` of the groups' tile counts)."""
         key = ("tile_buckets", id(placement), epoch, block_size, axis_size, floor, tile_dtype)
-        return self._get(
-            key, placement, epoch,
-            lambda: fops.bucket_staged_sites(
-                self.staged_merged(placement, block_size, axis_size, epoch, tile_dtype),
-                axis_size, floor, self.device,
-            ),
-        )
+        share = self._share(placement, mesh, site_axes)
 
-    def site_device_arrays(self, placement: Placement, epoch: int = 0) -> dict[str, torch.Tensor]:
+        def build() -> fops.ShardedTileBuckets:
+            merged = self.staged_merged(
+                placement, block_size, axis_size, epoch, tile_dtype, mesh, site_axes
+            )
+            if share:
+                return fops.bucket_rank_group(merged, mesh, site_axes, floor, self.device)
+            return fops.bucket_staged_sites(merged, axis_size, floor, self.device)
+
+        return self._get(key + share, placement, epoch, build)
+
+    def site_device_arrays(
+        self, placement: Placement, epoch: int = 0, mesh=None, site_axes=("data",)
+    ) -> dict[str, torch.Tensor]:
         """The placement's padded per-site edge arrays on the store's
-        device (the ``reference`` executor's and S1's gather operands)."""
-        key = ("site_arrays", id(placement), epoch)
+        device (the ``reference`` executor's and S1's gather operands; on a
+        ``mesh``, the rank's rows)."""
+        key = ("site_arrays", id(placement), epoch) + self._share(placement, mesh, site_axes)
         return self._get(
             key, placement, epoch,
-            lambda: strategies.stage_site_arrays(placement, self.device),
+            lambda: strategies.stage_site_arrays(placement, self.device, mesh, site_axes),
         )
 
     def label_degrees(
@@ -400,11 +443,14 @@ class GraphPlanStore:
         n_labels: int,
         v_pad: int,
         epoch: int = 0,
+        mesh=None,
+        site_axes=("data",),
     ) -> np.ndarray:
         """Per-(site, label, direction) degree vectors (§4.2.2 meter
         inputs, host numpy); ``anchor`` is the placement or graph the
-        site list came from."""
-        key = ("label_degrees", id(anchor), epoch, v_pad)
+        site list came from (on a ``mesh``, the placement whose rank's
+        share ``site_graphs`` is)."""
+        key = ("label_degrees", id(anchor), epoch, v_pad) + self._share(anchor, mesh, site_axes)
         return self._get(
             key, anchor, epoch, lambda: label_degree_vectors(site_graphs, n_labels, v_pad)
         )

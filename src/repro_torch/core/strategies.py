@@ -1,5 +1,5 @@
 """Distributed RPQ processing strategies (paper §3) and message
-accounting, on one device.
+accounting, on one device or per rank of a mesh.
 
 Port of ``repro/core/strategies.py``:
 
@@ -34,12 +34,23 @@ the out-of-core subset; per site, merged and bucketed for the sharded
 backend) and the per-label degree vectors — from the shared store, and
 only Stage B is built per executor.
 
-Everything runs on one device.  ``repro``'s ``mesh``, ``site_axes`` and
-``batch_axis`` are dropped; the sharded backend takes ``axis_size``, the
-product of ``repro``'s site-axis sizes, in their place, and merges its
-sites' discoveries synchronously each level where ``repro`` runs a
-``ppermute`` ring.  The multi-device S1 gather and that ring wait for a
-multi-GPU slice (``ROADMAP.md``).
+With ``mesh=None`` (the default) everything runs on one device: the
+sites are a leading dimension of one card's tensors, and the sharded
+backend takes ``axis_size``, the product of ``repro``'s site-axis sizes,
+to group them as ``repro``'s mesh would.  With a ``mesh`` (a
+``torch.distributed`` ``DeviceMesh`` of ranks, one process each) S1's
+gather and the ``reference`` and ``frontier_kernel_sharded`` executors
+run as ``repro``'s ``shard_map`` programs do, each rank on its own block
+of sites over ``site_axes`` and its block of starts over ``batch_axis``,
+joined by the collectives of :mod:`repro_torch.dist.collectives`: a
+level is the rank's expansion, ``pmax``-ed over the site axes, so every
+rank of a site group holds the same frontier, leaves the level loop at
+the same level, and every level is a BFS level; meters are ``psum``-ed,
+and outputs gathered, so every rank returns the whole result.  Where
+``repro``'s sharded backend forwards discoveries around a ``ppermute``
+ring, the port merges them synchronously each level, on one card and
+over ranks alike.  The global fused backends have no mesh program (as
+in ``repro``, they run whole on each device) and ignore the mesh.
 """
 
 from __future__ import annotations
@@ -55,6 +66,8 @@ from repro_torch import resolve_device
 from repro_torch.core import paa
 from repro_torch.core.automaton import FWD, CompiledAutomaton
 from repro_torch.core.regex import Node, has_wildcard, labels_of, query_size
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.graph.partition import Placement
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier import frontier as fkernel
@@ -212,19 +225,30 @@ def _run_uncached(ca, index, start_node):
 
 
 def stage_site_arrays(
-    placement: Placement, device: str | torch.device | None = None
+    placement: Placement,
+    device: str | torch.device | None = None,
+    mesh=None,
+    site_axes: tuple[str, ...] = ("data",),
 ) -> dict[str, torch.Tensor]:
     """The placement's padded per-site arrays
     (:meth:`~repro_torch.graph.partition.Placement.padded_device_arrays`)
-    on ``device`` (``None``: the GPU), staged once for every S1 gather."""
+    on ``device`` (``None``: the GPU), staged once for every S1 gather.
+    On a ``mesh``: the rows of the rank's block of sites over
+    ``site_axes`` only (``repro``'s ``P(site_axes, None)`` shard)."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(a).to(dev) for k, a in placement.padded_device_arrays().items()}
+    if mesh is None:
+        rows = placement.padded_device_arrays()
+    else:
+        rows = placement.padded_site_rows(*collectives.site_block(placement.n_sites, site_axes, mesh))
+    return {k: torch.from_numpy(a).to(dev) for k, a in rows.items()}
 
 
 def s1_gather(
     site_arrays: dict[str, torch.Tensor],
     label_mask: np.ndarray,
     cap: int,
+    mesh=None,
+    site_axes: tuple[str, ...] = ("data",),
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Collect, from every site, its edges whose label is in ``label_mask``.
 
@@ -241,13 +265,24 @@ def s1_gather(
     ``argsort(stable=True)`` order.  Returns (src, lbl, dst, valid_mask)
     of shape (n_sites, min(cap, max_e)) on that device plus the global
     overflow count, read on the host (one sync).
+
+    On a ``mesh`` ``site_arrays`` holds the rank's rows
+    (``stage_site_arrays(..., mesh=mesh)``): the rank compacts its own
+    sites, the buffers are gathered over ``site_axes``
+    (``collectives.gather_rows``) and the overflow summed, so every rank
+    returns the (n_sites, cap) buffers, ``repro``'s bytes.
     """
     src, lbl, dst, mask = (site_arrays[k] for k in ("src", "lbl", "dst", "mask"))
     lblmask = torch.as_tensor(label_mask, dtype=torch.bool, device=src.device)
     match = mask & lblmask.index_select(0, lbl.reshape(-1)).reshape(lbl.shape)
     take = torch.sort((~match).to(torch.uint8), dim=1, stable=True).indices[:, :cap]
-    overflow = int((match.sum(dim=1) - cap).clamp_min(0).sum())
-    return src.gather(1, take), lbl.gather(1, take), dst.gather(1, take), match.gather(1, take), overflow
+    overflow = (match.sum(dim=1) - cap).clamp_min(0).sum()
+    out = [src.gather(1, take), lbl.gather(1, take), dst.gather(1, take), match.gather(1, take)]
+    if mesh is not None:
+        n_sites = collectives.axis_size(mesh, site_axes) * src.shape[0]
+        out = [collectives.gather_rows(t, site_axes, n_sites, mesh) for t in out]
+        overflow = collectives.psum(overflow, site_axes, mesh)
+    return (*out, int(overflow))
 
 
 def query_label_mask(ast: Node, graph: LabeledGraph) -> np.ndarray:
@@ -285,19 +320,23 @@ def s1_collect(
     cap: int | None = None,
     device_arrays: dict[str, torch.Tensor] | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
+    site_axes: tuple[str, ...] = ("data",),
 ) -> LabeledGraph:
     """S1's retrieval phase: gather every site's ``label_mask``-matching
     edges and deduplicate the replicated copies at the querying site.
 
     ``device_arrays`` accepts the placement's already-staged padded site
-    arrays (:func:`stage_site_arrays`), so serving loops skip the
-    per-call rebuild; without them they are staged on ``device``
-    (``None``: the GPU)."""
-    site_arrays = device_arrays if device_arrays is not None else stage_site_arrays(placement, device)
+    arrays (:func:`stage_site_arrays`; on a ``mesh``, the rank's rows),
+    so serving loops skip the per-call rebuild; without them they are
+    staged on ``device`` (``None``: the GPU).  On a ``mesh`` every rank
+    gathers over ``site_axes`` and returns the same subgraph."""
+    site_arrays = (device_arrays if device_arrays is not None
+                   else stage_site_arrays(placement, device, mesh, site_axes))
     if cap is None:
         cap = site_arrays["src"].shape[1]
     while True:
-        src, lbl, dst, valid, overflow = s1_gather(site_arrays, label_mask, cap)
+        src, lbl, dst, valid, overflow = s1_gather(site_arrays, label_mask, cap, mesh, site_axes)
         if overflow == 0:
             break
         cap = min(2 * cap, site_arrays["src"].shape[1])  # planner underestimated: grow
@@ -312,13 +351,19 @@ def s1_execute(
     cap: int | None = None,
     device_arrays: dict[str, torch.Tensor] | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
+    site_axes: tuple[str, ...] = ("data",),
 ) -> tuple[set[int], StrategyCost]:
     """Full S1: broadcast labels → gather matching edges → dedup → local
     PAA (the device BFS, :func:`repro_torch.core.paa.answers_single_source`,
-    on the sites' device)."""
+    on the sites' device).  On a ``mesh`` each rank gathers from its own
+    sites (:func:`s1_collect`) and runs the local PAA on the gathered
+    subgraph, as ``repro``'s querying site does."""
     graph = placement.graph
-    site_arrays = device_arrays if device_arrays is not None else stage_site_arrays(placement, device)
-    sub = s1_collect(placement, query_label_mask(ast, graph), cap, site_arrays)
+    site_arrays = (device_arrays if device_arrays is not None
+                   else stage_site_arrays(placement, device, mesh, site_axes))
+    sub = s1_collect(placement, query_label_mask(ast, graph), cap, site_arrays,
+                     mesh=mesh, site_axes=site_axes)
     dg = paa.device_form(sub, site_arrays["src"].device)
     acc = paa.answers_single_source(ca, dg, start_node).cpu().numpy()
     answers = set(np.nonzero(acc)[0].tolist())
@@ -457,8 +502,11 @@ def make_s2_step_fn(
     stats_epoch: int = 0,
     tile_store_budget_bytes: int | None = None,
     placement: Placement | None = None,
-    axis_size: int = 1,
+    axis_size: int | None = None,
     bucket_floor: int | None = None,
+    mesh=None,
+    site_axes: tuple[str, ...] = ("data",),
+    batch_axis: str | None = "model",
 ):
     """Build the batched S2 executor.
 
@@ -522,6 +570,16 @@ def make_s2_step_fn(
     the §4.2.2 cache key, so they agree with the host meter.  ``fn.backend``
     names the backend.
 
+    ``mesh`` (a ``DeviceMesh`` of ranks; ``None``: one device) runs the
+    reference and sharded backends as ``repro``'s mesh programs, per
+    rank: the sites are blocked over ``site_axes`` and the starts over
+    ``batch_axis`` (when the mesh has it), each level is ``pmax``-ed over
+    the site axes, and every rank returns the whole gathered result.
+    ``axis_size`` (the site axes' size product; ``None``: 1, or the
+    mesh's) must agree with the mesh.  The reference executor then reads
+    the rank's rows of the site arrays (``stage_site_arrays(...,
+    mesh=mesh)``), and the sharded one stages its sites' share.
+
     ``semantics="witness"`` grows the fixpoint's carry by one f32
     *discovery level* plane (see :mod:`repro_torch.core.witness`) and
     appends one output, last: ``levels`` (B, n_states, n_nodes) f32 on
@@ -542,13 +600,15 @@ def make_s2_step_fn(
         tile_dtype = "f32"
     if backend in ("reference", "frontier_kernel_sharded") and staged is not None:
         raise ValueError(f"staged= is the global Stage A; backend={backend!r} does not read it")
+    axis_size = _site_axis_size(mesh, site_axes, axis_size)
+    ranks = _RankAxes.of(mesh, site_axes, batch_axis)
     if backend == "reference":
-        fn = _make_reference_step_fn(ca, n_nodes, max_levels, semantics)
+        fn = _make_reference_step_fn(ca, n_nodes, max_levels, semantics, ranks)
     elif backend == "frontier_kernel_sharded":
         fn = _make_frontier_sharded_step_fn(
             ca, n_nodes, max_levels, placement, block_size, tile_dtype, device, semantics,
             plan_store, stats_epoch, axis_size,
-            fops.BUCKET_FLOOR if bucket_floor is None else bucket_floor,
+            fops.BUCKET_FLOOR if bucket_floor is None else bucket_floor, ranks,
         )
     else:
         make = (
@@ -562,6 +622,56 @@ def make_s2_step_fn(
         )
     fn.backend = backend
     return fn
+
+
+def _site_axis_size(mesh, site_axes: tuple[str, ...], axis_size: int | None) -> int:
+    """The site groups' count: ``axis_size``, which must agree with the
+    product of ``site_axes``' sizes on ``mesh`` when there is one."""
+    if mesh is None:
+        return 1 if axis_size is None else axis_size
+    n = collectives.axis_size(mesh, site_axes)
+    if axis_size is not None and axis_size != n:
+        raise ValueError(f"axis_size={axis_size} disagrees with the mesh: its site axes "
+                         f"{tuple(site_axes)} hold {n} ranks")
+    return n
+
+
+@dataclasses.dataclass(frozen=True)
+class _RankAxes:
+    """Where one rank sits in a mesh program: the mesh, its site axes and
+    its batch axis (``None`` when the mesh lacks it).  ``None`` stands for
+    the one-device program, whose collectives and splits are identities."""
+
+    mesh: object
+    site_axes: tuple[str, ...]
+    batch_axis: str | None
+
+    @classmethod
+    def of(cls, mesh, site_axes, batch_axis) -> "_RankAxes | None":
+        if mesh is None:
+            return None
+        b_ax = batch_axis if batch_axis and batch_axis in shd.axis_names(mesh) else None
+        return cls(mesh, tuple(site_axes), b_ax)
+
+    def site_block(self, n_sites: int) -> tuple[int, int]:
+        return collectives.site_block(n_sites, self.site_axes, self.mesh)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return collectives.pmax(x, self.site_axes, self.mesh)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return collectives.psum(x, self.site_axes, self.mesh)
+
+    def batch_block(self, n: int) -> tuple[int, int]:
+        """The starts ``[lo, hi)`` of ``n`` this rank runs: a contiguous
+        block over the batch axis (all of them without one)."""
+        return collectives.block_of(n, (self.batch_axis,), self.mesh) if self.batch_axis else (0, n)
+
+    def gather_batch(self, x: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+        """The whole batch of ``n`` from each rank's block along ``dim``."""
+        if not self.batch_axis:
+            return x
+        return collectives.gather_rows(x, (self.batch_axis,), n, self.mesh, dim)
 
 
 # the reference executor's budget for its (query chunk, matched edge)
@@ -609,7 +719,11 @@ def _reference_edge_sets(ca, runs, sgroups, site_arrays: dict[str, torch.Tensor]
 
 
 def _make_reference_step_fn(
-    ca: CompiledAutomaton, n_nodes: int, max_levels: int | None, semantics: str = "pairs"
+    ca: CompiledAutomaton,
+    n_nodes: int,
+    max_levels: int | None,
+    semantics: str = "pairs",
+    ranks: _RankAxes | None = None,
 ):
     """The reference S2 executor (``backend="reference"``), the body of
     ``repro``'s ``make_s2_step_fn`` in plain torch on the padded site
@@ -635,7 +749,17 @@ def _make_reference_step_fn(
     count is a float64 product of the bitmap with the selection's degree
     vector: exact whatever TF32 setting is on.  ``d_s2`` sums every
     site's copies.  Witness levels are stamped after the merge, so there
-    is one plane, as in ``repro``."""
+    is one plane, as in ``repro``.
+
+    Per rank (``ranks``, ``repro``'s ``shard_map`` body): ``site_arrays``
+    are the rank's sites, whose edges alone it scans; each level's
+    expansion is ``pmax``-ed over the site axes (so the frontier, the
+    broadcast meters and the witness plane are one on every rank of the
+    site group, and its ranks leave the loop together), ``d_s2`` is
+    ``psum``-ed at the end (f32, exact below 2^24), and the starts are
+    split over the batch axis in contiguous blocks whose outputs are
+    gathered back.  The chunk size comes from the widest run over the
+    site group (a ``pmax``), so its ranks run the same fixpoints."""
     witness = semantics == "witness"
     n_states = ca.n_states
     levels = max_levels if max_levels is not None else n_states * n_nodes
@@ -670,6 +794,8 @@ def _make_reference_step_fn(
                 hits = torch.zeros((b, n_nodes), dtype=torch.int32, device=dev)
                 hits.scatter_add_(1, to.expand(b, -1), frontier[:, s_st, at].int())
                 nxt[:, d_st] |= hits > 0
+            if ranks is not None:  # unicast-response combine: OR over every site
+                nxt = ranks.pmax(nxt)
             new = nxt & ~visited
             if witness:
                 levmap.masked_fill_(new, lev + 2.0)
@@ -678,6 +804,8 @@ def _make_reference_step_fn(
             lev += 1
             fops.FIXPOINT_COUNTERS["levels"] += 1
         acc = visited[:, list(ca.accepting)].any(dim=1)
+        if ranks is not None:  # every site holding a matching edge answered
+            d_s2 = ranks.psum(d_s2)
         out = (acc, q_bc, d_s2, n_bc.to(torch.int32))
         return out + (levmap,) if witness else out
 
@@ -688,16 +816,24 @@ def _make_reference_step_fn(
         dev = site_arrays["src"].device
         run_edges, group_degs = _reference_edge_sets(ca, runs, sgroups, site_arrays, n_nodes)
         widest = max([len(e) for e, _ in run_edges], default=0)
+        if ranks is not None:
+            widest = int(ranks.pmax(torch.tensor([widest], device=dev))[0])
         chunk = max(1, REFERENCE_CHUNK_BYTES // max(_REFERENCE_BYTES_PER_PAIR * widest, 1))
         if isinstance(starts, torch.Tensor):
             starts = starts.to(device=dev, dtype=torch.int64)
         else:
             starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+        n = starts.shape[0]
+        if ranks is not None:
+            starts = starts[slice(*ranks.batch_block(n))]
         outs = [fixpoint(starts[lo : lo + chunk], run_edges, group_degs)
                 for lo in range(0, starts.shape[0], chunk)]
         if not outs:
             outs = [fixpoint(starts, run_edges, group_degs)]
-        return tuple(torch.cat(col) for col in zip(*outs))
+        result = tuple(torch.cat(col) for col in zip(*outs))
+        if ranks is not None:
+            result = tuple(ranks.gather_batch(x, n) for x in result)
+        return result
 
     return fn
 
@@ -1012,9 +1148,11 @@ def _make_frontier_sharded_step_fn(
     stats_epoch: int,
     axis_size: int,
     bucket_floor: int,
+    ranks: _RankAxes | None = None,
 ):
     """The site-sharded S2 executor (``backend="frontier_kernel_sharded"``),
-    ``repro``'s ``_make_frontier_sharded_step_fn`` on one device.
+    ``repro``'s ``_make_frontier_sharded_step_fn`` on one device or per
+    rank.
 
     Stage A — the per-site slabs, their merge into ``axis_size`` groups,
     the groups' shape buckets on the device, the site-local graphs and
@@ -1044,7 +1182,19 @@ def _make_frontier_sharded_step_fn(
     enters the merged frontier once, as it enters each of ``repro``'s
     per-device pending streams once, so the per-site meters are
     ``repro``'s at every ``axis_size``.  ``d_s2`` is their sum over
-    sites."""
+    sites.
+
+    Per rank (``ranks``): the rank holds its one group slab, its row of
+    the bucket (``ops.stage_rank_group``, ``bucket_rank_group``,
+    ``build_rank_level_schedule``; from ``plan_store`` keyed by its share
+    when one is passed) and the degree vectors of its own sites.  A level
+    is its launch, clamped, then a ``pmax`` over the site axes, so the
+    merged frontier is the same on every rank of the site group and
+    ``fops.frontier_nonempty`` gives each the same answer with no other
+    collective: a rank that left the loop alone would hang the others.
+    ``q_bc`` and ``n_bc`` come from that replicated frontier; the rank's
+    sites' meters are gathered into ``(n_sites, B)`` at the end, and the
+    starts are split over the batch axis, as ``repro`` splits them."""
     if placement is None:
         raise ValueError(
             "backend='frontier_kernel_sharded' requires placement= (the site partition)"
@@ -1056,23 +1206,30 @@ def _make_frontier_sharded_step_fn(
             f"n_sites={placement.n_sites} must be divisible by axis_size={axis_size} "
             "(sites are blocked over the site axes)"
         )
+    mesh, site_axes = (ranks.mesh, ranks.site_axes) if ranks is not None else (None, ("data",))
     if plan_store is not None:
-        site_graphs = plan_store.local_graphs(placement, epoch=stats_epoch)
+        site_graphs = plan_store.local_graphs(placement, stats_epoch, mesh, site_axes)
         exec_staged = plan_store.staged_merged(
-            placement, block_size, axis_size, epoch=stats_epoch, tile_dtype=tile_dtype
+            placement, block_size, axis_size, stats_epoch, tile_dtype, mesh, site_axes
         )
         tile_buckets = plan_store.tile_buckets(
-            placement, block_size, axis_size, epoch=stats_epoch, floor=bucket_floor,
-            tile_dtype=tile_dtype,
+            placement, block_size, axis_size, stats_epoch, bucket_floor, tile_dtype, mesh, site_axes
         )
+    elif ranks is not None:
+        site_graphs = [placement.local_graph(s) for s in range(*ranks.site_block(placement.n_sites))]
+        exec_staged = fops.stage_rank_group(site_graphs, block_size, tile_dtype)
+        tile_buckets = fops.bucket_rank_group(exec_staged, mesh, site_axes, bucket_floor, device)
     else:
         site_graphs = [placement.local_graph(s) for s in range(placement.n_sites)]
         staged = fops.stage_sharded_graph(site_graphs, block_size, tile_dtype)
         exec_staged = fops.merge_staged_sites(staged, axis_size)
         tile_buckets = fops.bucket_staged_sites(exec_staged, axis_size, bucket_floor, device)
-    plan = fops.build_sharded_level_schedule(
-        ca, exec_staged, tile_buckets, axis_size=axis_size, bucket_floor=bucket_floor
-    )
+    if ranks is not None:
+        plan = fops.build_rank_level_schedule(ca, exec_staged, tile_buckets, mesh, site_axes)
+    else:
+        plan = fops.build_sharded_level_schedule(
+            ca, exec_staged, tile_buckets, axis_size=axis_size, bucket_floor=bucket_floor
+        )
     if plan_store is not None:
         plan_store.record_plan_pad_waste(plan)
     dev = plan.buckets[0].tiles.device
@@ -1082,15 +1239,15 @@ def _make_frontier_sharded_step_fn(
     sgroups = symbol_set_groups(ca)
     label_deg = (
         plan_store.label_degrees(
-            placement, site_graphs, placement.graph.n_labels, v_pad, epoch=stats_epoch
+            placement, site_graphs, placement.graph.n_labels, v_pad, stats_epoch, mesh, site_axes
         )
         if plan_store is not None
         else None
     )
     deg, payloads = _site_symbol_degrees(sgroups, site_graphs, v_pad, label_deg)
-    deg64 = torch.from_numpy(deg).to(dev, torch.float64)  # (n_sites, n_groups, v_pad)
+    deg64 = torch.from_numpy(deg).to(dev, torch.float64)  # (local sites, n_groups, v_pad)
     pay_c = torch.from_numpy(payloads).to(dev)
-    n_sites = placement.n_sites
+    n_sites = len(site_graphs)
 
     def fixpoint(f0: torch.Tensor):  # (n_states, q_pad, v_pad) f32 0/1
         visited = frontier = f0.reshape(n_states * q_pad, v_pad)
@@ -1110,7 +1267,7 @@ def _make_frontier_sharded_step_fn(
                 n_bc = n_bc + cnt
                 d_site = d_site + EDGE_SYMBOLS * (deg64[:, gi] @ new_g.double().T).float()
                 done[gi] = torch.maximum(done[gi], now_g)
-            nxt = fops.expand_level_sharded(plan, frontier)
+            nxt = fops.expand_level_sharded(plan, frontier, mesh, site_axes)
             new = nxt * (1.0 - visited)
             if witness:
                 levmap.masked_fill_(new > 0, lev + 2.0)
@@ -1129,6 +1286,9 @@ def _make_frontier_sharded_step_fn(
 
     def fn(starts) -> tuple[torch.Tensor, ...]:
         starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+        n = starts.shape[0]
+        if ranks is not None:
+            starts = starts[slice(*ranks.batch_block(n))]
         b = starts.shape[0]
         outs = [(
             torch.zeros((0, n_nodes), dtype=torch.bool, device=dev),
@@ -1143,8 +1303,14 @@ def _make_frontier_sharded_step_fn(
         cols = list(zip(*outs))
         acc, q_bc, n_bc = (torch.cat(c)[:b] for c in cols[:3])
         d_site = torch.cat(cols[3], dim=1)[:, :b]
+        lev = torch.cat(cols[4])[:b] if witness else None
+        if ranks is not None:
+            acc, q_bc, n_bc = (ranks.gather_batch(x, n) for x in (acc, q_bc, n_bc))
+            d_site = collectives.gather_rows(ranks.gather_batch(d_site, n, dim=1), site_axes,
+                                             placement.n_sites, mesh)
+            lev = ranks.gather_batch(lev, n) if witness else None
         result = (acc, q_bc, d_site.sum(dim=0), n_bc.to(torch.int32), d_site)
-        return result + (torch.cat(cols[4])[:b],) if witness else result
+        return result + (lev,) if witness else result
 
     return fn
 
@@ -1165,8 +1331,11 @@ def s2_execute(
     plan_store=None,
     stats_epoch: int = 0,
     tile_store_budget_bytes: int | None = None,
-    axis_size: int = 1,
+    axis_size: int | None = None,
     bucket_floor: int | None = None,
+    mesh=None,
+    site_axes: tuple[str, ...] = ("data",),
+    batch_axis: str | None = "model",
 ) -> tuple[np.ndarray, list[StrategyCost]] | tuple[np.ndarray, list[StrategyCost], np.ndarray]:
     """Run the batched S2 executor for ``start_nodes``.
 
@@ -1191,7 +1360,12 @@ def s2_execute(
     on the device (:func:`stage_site_arrays`), so a serving loop does not
     stage them per call; the reference backend reads them, and without
     them they come from ``plan_store`` or are staged on ``device``.  The
-    kernel backends skip them."""
+    kernel backends skip them.
+
+    ``mesh``, ``site_axes`` and ``batch_axis`` run the reference and
+    sharded backends per rank (:func:`make_s2_step_fn`); the reference
+    backend's ``device_arrays`` are then the rank's rows, and every rank
+    returns the whole result."""
     if step_fn is None:
         step_fn = make_s2_step_fn(
             ca, placement.graph.n_nodes, max_levels,
@@ -1200,14 +1374,15 @@ def s2_execute(
             block_size=block_size, semantics=semantics, tile_dtype=tile_dtype,
             staged=staged, device=device, plan_store=plan_store, stats_epoch=stats_epoch,
             tile_store_budget_bytes=tile_store_budget_bytes, placement=placement,
-            axis_size=axis_size, bucket_floor=bucket_floor,
+            axis_size=axis_size, bucket_floor=bucket_floor, mesh=mesh, site_axes=site_axes,
+            batch_axis=batch_axis,
         )
     if getattr(step_fn, "backend", None) == "reference":
         if device_arrays is None:
             device_arrays = (
-                plan_store.site_device_arrays(placement, epoch=stats_epoch)
+                plan_store.site_device_arrays(placement, stats_epoch, mesh, site_axes)
                 if plan_store is not None
-                else stage_site_arrays(placement, device)
+                else stage_site_arrays(placement, device, mesh, site_axes)
             )
         out = step_fn(start_nodes, device_arrays)
     else:

@@ -1,0 +1,176 @@
+"""The collectives of ``repro``'s mesh programs, per rank, on
+``torch.distributed``.
+
+``repro``'s mesh programs are ``shard_map`` bodies: each device runs the
+body on its local shard and the bodies meet in ``lax`` collectives over
+named mesh axes.  The port runs one process per rank, each rank the
+body on its own shard, and this module stands for the collectives the
+bodies call:
+
+* ``lax.axis_index`` over a tuple of axes — :func:`axis_index`, the
+  rank's coordinate, row-major over the axes as ``PartitionSpec``'s
+  tuple entries block a dimension (the first axis major);
+* ``lax.pmax`` — :func:`pmax`, an ``all_reduce(MAX)`` on the group of
+  ranks that differ only along the axes;
+* ``lax.psum`` — :func:`psum`, an ``all_reduce(SUM)`` on that group;
+* the all-gather a ``shard_map`` makes of an output sharded over axes
+  (``out_specs`` ``P(axes)``) — :func:`gather_rows`: each rank writes
+  its rows into a zeroed global buffer and the buffer is summed;
+* the blocking of ``P(site_axes)`` over the sites — :func:`block_of`:
+  coordinate ``d`` of ``n`` holds rows ``[d·k, (d+1)·k)``,
+  ``k = ⌈rows / n⌉`` (``rows / n`` for the sites, which must divide).
+
+``all_reduce`` with MAX or SUM is the one collective that NCCL and
+``gloo`` both carry for CPU and CUDA tensors alike (``gloo`` takes CUDA
+tensors only for ``broadcast`` and ``all_reduce``), so one code path
+serves CPU ranks, a one-rank NCCL group and ``gloo`` ranks that share a
+card.  Booleans travel as uint8 and ids as their integer type, so a sum
+of one value and zeros is exact.  A group whose backend cannot carry a
+tensor raises from ``torch.distributed``; nothing is copied to the host
+on the side.
+
+:data:`WIRE_COUNTERS` counts the ``all_reduce`` calls and the bytes of
+the tensors they carry, per process.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist import sharding as shd
+
+Axes = tuple[str, ...]
+
+# all_reduce calls and the bytes of the tensors they reduced, this process
+WIRE_COUNTERS: collections.Counter = collections.Counter()
+
+# (id(mesh), axes) -> (mesh, group): the mesh is held so its id is not reused
+_GROUPS: dict[tuple[int, Axes], tuple[object, object]] = {}
+
+
+def _axes(axes) -> Axes:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _mesh(mesh):
+    mesh = shd.get_mesh() if mesh is None else mesh
+    if not shd.is_device_mesh(mesh):
+        raise ValueError("a collective needs a DeviceMesh: pass mesh= or install one with use_mesh")
+    return mesh
+
+
+def axis_size(mesh, axes) -> int:
+    """The product of ``axes``' sizes on ``mesh`` (1 for no axis)."""
+    sizes = shd.mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in _axes(axes))
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's coordinate over ``axes``, row-major (``lax.axis_index``
+    of a tuple of axes)."""
+    sizes = shd.mesh_sizes(mesh)
+    index = 0
+    for a in _axes(axes):
+        index = index * sizes[a] + int(mesh.get_local_rank(a))
+    return index
+
+
+def group(mesh, axes):
+    """The process group of the ranks that differ from this one only
+    along ``axes``.  One axis is the mesh's own group; several are made
+    once per (mesh, axes) by every rank, in the same order, and cached."""
+    axes = _axes(axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        names = shd.axis_names(mesh)
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, axis_size(mesh, axes))
+        mine = None
+        for row in ranks.tolist():  # every rank makes every group, in one order
+            g = dist.new_group(ranks=row)
+            if dist.get_rank() in row:
+                mine = g
+        _GROUPS[key] = (mesh, mine)
+    return _GROUPS[key][1]
+
+
+def _reduce_(buf: torch.Tensor, op, axes, mesh) -> None:
+    """``all_reduce`` ``buf`` in place with ``op`` over ``axes``, counted."""
+    axes = _axes(axes)
+    if axes:
+        WIRE_COUNTERS["all_reduces"] += 1
+        WIRE_COUNTERS["bytes"] += buf.numel() * buf.element_size()
+        dist.all_reduce(buf, op=op, group=group(mesh, axes))
+
+
+def _all_reduce(x: torch.Tensor, op, axes, mesh) -> torch.Tensor:
+    """``x`` reduced with ``op`` over ``axes``, in a new tensor; bool
+    travels as uint8."""
+    out = x.to(torch.uint8) if x.dtype == torch.bool else x.clone()
+    _reduce_(out, op, axes, _mesh(mesh))
+    return out.bool() if x.dtype == torch.bool else out
+
+
+def pmax(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """``lax.pmax(x, axes)``: the elementwise max over the ranks along
+    ``axes`` (``mesh``: the installed one when ``None``)."""
+    return _all_reduce(x, dist.ReduceOp.MAX, axes, mesh)
+
+
+def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """``lax.psum(x, axes)``: the sum over the ranks along ``axes``.
+    Floating sums are in the backend's order: exact for integers in f32
+    below 2^24."""
+    return _all_reduce(x, dist.ReduceOp.SUM, axes, mesh)
+
+
+def block_of(n_rows: int, axes, mesh=None, even: bool = False) -> tuple[int, int]:
+    """The rows ``[lo, hi)`` of ``n_rows`` that this rank holds when they
+    are blocked over ``axes``: coordinate ``d`` holds ``[d·k, (d+1)·k)``
+    with ``k = ⌈n_rows / n⌉``, the last block cut at ``n_rows``.  With
+    ``even`` the axes' size must divide ``n_rows`` (sites, as ``repro``
+    blocks them over its site axes)."""
+    mesh = _mesh(mesh)
+    n = axis_size(mesh, axes)
+    if even and n_rows % n:
+        raise ValueError(f"{n_rows} rows must be divisible by the size {n} of axes {_axes(axes)}")
+    k = -(-n_rows // n)
+    d = axis_index(mesh, axes)
+    return min(d * k, n_rows), min((d + 1) * k, n_rows)
+
+
+def site_block(n_sites: int, site_axes, mesh=None) -> tuple[int, int]:
+    """The sites ``[d·k, (d+1)·k)``, ``k = n_sites / axis_size``, that this
+    rank holds (``d`` its coordinate over ``site_axes``), as ``repro``'s
+    ``shard_map`` blocks them."""
+    return block_of(n_sites, site_axes, mesh, even=True)
+
+
+def gather_rows(local: torch.Tensor, axes, n_total: int, mesh=None, dim: int = 0) -> torch.Tensor:
+    """The ``(n_total, ...)`` tensor whose rows along ``dim`` are blocked
+    over ``axes`` (:func:`block_of`), from each rank's ``local`` block, on
+    every rank: each rank writes its rows into a zeroed global buffer and
+    the buffers are summed (``all_reduce(SUM)``).  One value plus zeros
+    is exact in any dtype; booleans travel as uint8."""
+    mesh = _mesh(mesh)
+    lo, hi = block_of(n_total, axes, mesh)
+    if local.shape[dim] != hi - lo:
+        raise ValueError(f"this rank holds rows [{lo}, {hi}) of {n_total}, got {local.shape[dim]}")
+    src = local.to(torch.uint8) if local.dtype == torch.bool else local
+    shape = list(src.shape)
+    shape[dim] = n_total
+    buf = torch.zeros(shape, dtype=src.dtype, device=src.device)
+    buf.narrow(dim, lo, hi - lo).copy_(src)
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    return buf.bool() if local.dtype == torch.bool else buf
+
+
+__all__ = ["WIRE_COUNTERS", "axis_index", "axis_size", "block_of", "gather_rows", "group", "pmax",
+           "psum", "site_block"]

@@ -9,21 +9,26 @@ placement is a tuple with one entry per dimension: ``None``
 (replicated), an axis name, or a tuple of axis names; ``repro``'s
 ``PartitionSpec`` entries, as a plain tuple.
 
-The port runs on one card.  :func:`get_mesh` is ``None`` there,
-:func:`constrain` is the identity (as ``repro``'s is off-mesh), and
-``Rules.from_mesh(None)`` is the one-card rule set, every placement
-replicated once fitted.  A layout of several devices is only described:
-``Rules.from_mesh`` takes anything with ``axis_names`` and a ``shape``
-mapping of axis sizes (as ``repro``'s ``Mesh`` has), so placements can
-be resolved and fitted as ``repro`` resolves them, but
-:func:`use_mesh` refuses one: placing tensors on several cards is
-ROADMAP's multi-GPU item.  ``repro``'s ``dist/compat.py`` is JAX version
-shims and has no twin.
+``None`` is the one-card mesh: :func:`get_mesh` returns it until
+:func:`use_mesh` installs a ``torch.distributed`` ``DeviceMesh`` of
+ranks (``repro_torch.launch.mesh.make_test_mesh`` under a process
+group), and ``Rules.from_mesh(None)`` is the one-card rule set, every
+placement replicated once fitted.  :func:`constrain` stays the
+identity, as ``repro``'s is off-mesh: the port's mesh programs run per
+rank on local shards with explicit collectives
+(:mod:`repro_torch.dist.collectives`), and nothing places a tensor by
+its rule.  ``Rules.from_mesh`` and :func:`fit_spec` read a
+``DeviceMesh`` (``mesh_dim_names`` and sizes) or a described layout
+(anything with ``axis_names`` and a ``shape`` mapping, as ``repro``'s
+``Mesh`` has, such as ``launch.mesh.MeshLayout``) alike, so placements
+are resolved and fitted as ``repro`` resolves them.  ``repro``'s
+``dist/compat.py`` is JAX version shims and has no twin.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import fnmatch
 from typing import Mapping
@@ -39,22 +44,37 @@ Placement = tuple  # one entry per dimension: None, an axis name, or a tuple of 
 # --------------------------------------------------------------------------
 
 
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` of ranks (it names its axes
+    in ``mesh_dim_names``), not ``None`` or a described layout."""
+    return mesh is not None and hasattr(mesh, "mesh_dim_names")
+
+
 def get_mesh():
-    """The active mesh: always None, since :func:`use_mesh` installs none
-    but the one-card ``None``."""
-    return None
+    """The active mesh: the ``DeviceMesh`` :func:`use_mesh` installed, or
+    ``None`` (one card)."""
+    return _MESH.get()
 
 
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Install ``mesh`` as the ambient mesh.  ``None`` (one card) is the
-    only one the port runs on; any other raises."""
-    if mesh is not None:
+    """Install ``mesh`` (a ``DeviceMesh``, or ``None`` for one card) as
+    the ambient mesh for the block.  A described layout holds no devices
+    and raises."""
+    if mesh is not None and not is_device_mesh(mesh):
         raise NotImplementedError(
-            "the port runs on one card: placing tensors on a mesh of several is "
-            "ROADMAP's multi-GPU item"
+            f"{type(mesh).__name__} describes a layout and holds no devices: the multi-GPU "
+            "programs run on a DeviceMesh of ranks (launch.mesh.make_test_mesh under a "
+            "process group)"
         )
-    yield mesh
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
 
 
 # --------------------------------------------------------------------------
@@ -93,7 +113,17 @@ def _fit(axis_sizes: Mapping[str, int], spec, shape) -> Placement:
     return tuple(_fit_entry(axis_sizes, e, d) for e, d in zip(entries, shape))
 
 
-def _sizes(mesh) -> dict[str, int]:
+def axis_names(mesh) -> tuple[str, ...]:
+    """The axis names of a ``DeviceMesh`` or of a described layout."""
+    if is_device_mesh(mesh):
+        return tuple(mesh.mesh_dim_names)
+    return tuple(mesh.axis_names)
+
+
+def mesh_sizes(mesh) -> dict[str, int]:
+    """Axis name -> size, of a ``DeviceMesh`` or of a described layout."""
+    if is_device_mesh(mesh):
+        return {n: int(k) for n, k in zip(mesh.mesh_dim_names, mesh.shape)}
     return {n: int(mesh.shape[n]) for n in mesh.axis_names}
 
 
@@ -102,12 +132,13 @@ def fit_spec(mesh, spec, shape) -> Placement:
     to the rank and degrade non-divisible dims to replicated."""
     if mesh is None:
         return (None,) * len(shape)
-    return _fit(_sizes(mesh), spec, shape)
+    return _fit(mesh_sizes(mesh), spec, shape)
 
 
 def constrain(x, rule):
-    """A sharding constraint: the identity off-mesh, as ``repro``'s, and
-    the port is always off-mesh."""
+    """A sharding constraint: the identity.  ``repro``'s is a GSPMD hint
+    (the identity off-mesh); the port's mesh programs hold local shards
+    and place nothing by rule."""
     return x
 
 
@@ -178,10 +209,10 @@ class Rules:
             model_axis = None
             axis_sizes: dict[str, int] = {}
         else:
-            names = tuple(mesh.axis_names)
+            names = axis_names(mesh)
             batch_axes = tuple(n for n in names if n in _BATCH_AXIS_NAMES)
             model_axis = _MODEL_AXIS_NAME if _MODEL_AXIS_NAME in names else None
-            axis_sizes = _sizes(mesh)
+            axis_sizes = mesh_sizes(mesh)
         # one axis is its name, as a PartitionSpec normalises a 1-tuple
         flat = _entry(tuple(batch_axes) + ((model_axis,) if model_axis else ()))
         table = _default_table(_entry(batch_axes), model_axis, flat)

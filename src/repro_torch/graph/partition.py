@@ -9,7 +9,7 @@ are autonomous, so each edge may be stored at arbitrary sites and
 replicated — "non-localized" data.  ``distribute`` materializes such a
 placement; ``Placement`` provides both the host view (per-site edge id
 lists) and the padded per-site arrays that S1's gather reads (sites as
-the leading dimension).
+the leading dimension), whole or for one rank's block of sites.
 
 ``OverlayNetwork`` models the communication graph of §3.5.1: N_p peers,
 N_c connections, mean degree d = N_c/N_p; broadcasts cost between N_c and
@@ -51,19 +51,30 @@ class Placement:
 
         Returns src/lbl/dst of shape (n_sites, max_edges) plus a validity
         mask; padding rows replicate edge 0 with mask=False."""
-        g = self.graph
+        return self.padded_site_rows(0, self.n_sites, pad_multiple)
+
+    def padded_width(self, pad_multiple: int = 8) -> int:
+        """``max_edges`` of :meth:`padded_device_arrays`: the most edges a
+        site holds, rounded up to ``pad_multiple``."""
         max_e = max((len(e) for e in self.site_edges), default=1)
-        max_e = max(1, -(-max_e // pad_multiple) * pad_multiple)
-        src = np.zeros((self.n_sites, max_e), np.int32)
-        lbl = np.zeros((self.n_sites, max_e), np.int32)
-        dst = np.zeros((self.n_sites, max_e), np.int32)
-        mask = np.zeros((self.n_sites, max_e), bool)
-        for s, eids in enumerate(self.site_edges):
+        return max(1, -(-max_e // pad_multiple) * pad_multiple)
+
+    def padded_site_rows(self, lo: int, hi: int, pad_multiple: int = 8) -> dict[str, np.ndarray]:
+        """Rows ``lo:hi`` of :meth:`padded_device_arrays` — the padded
+        arrays of one rank's block of sites, at the whole placement's
+        width — built without the other rows."""
+        g = self.graph
+        max_e = self.padded_width(pad_multiple)
+        src = np.zeros((hi - lo, max_e), np.int32)
+        lbl = np.zeros((hi - lo, max_e), np.int32)
+        dst = np.zeros((hi - lo, max_e), np.int32)
+        mask = np.zeros((hi - lo, max_e), bool)
+        for row, eids in enumerate(self.site_edges[lo:hi]):
             n = len(eids)
-            src[s, :n] = g.src[eids]
-            lbl[s, :n] = g.lbl[eids]
-            dst[s, :n] = g.dst[eids]
-            mask[s, :n] = True
+            src[row, :n] = g.src[eids]
+            lbl[row, :n] = g.lbl[eids]
+            dst[row, :n] = g.dst[eids]
+            mask[row, :n] = True
         return {"src": src, "lbl": lbl, "dst": dst, "mask": mask}
 
     def local_graph(self, site: int) -> LabeledGraph:

@@ -563,14 +563,23 @@ __global__ void decode_combine_kernel(const float* __restrict__ part, T* __restr
   }
 }
 
-// Raise a kernel's dynamic shared memory limit once per kernel, on its
-// first launch: a later launch may be inside a CUDA graph capture.
+// A kernel attribute is set per device, so launch state is kept per
+// device: one process that drives several cards raises each card's limit.
+constexpr int kMaxDevices = 64;
+
+// Raise a kernel's dynamic shared memory limit once per kernel and device,
+// on its first launch there: a later launch may be inside a CUDA graph
+// capture.  `raised` holds each device's limit so far (0: the default
+// 48 KB).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
-  if (smem <= allowed) return cudaSuccess;
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t (&raised)[kMaxDevices]) {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (smem <= (raised[dev] ? raised[dev] : 48 * 1024)) return cudaSuccess;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) allowed = smem;
+  if (err == cudaSuccess) raised[dev] = smem;
   return err;
 }
 
@@ -580,7 +589,7 @@ int launch_dh(const void* q, const void* k, const void* v, const void* kv_len, v
               float scale, cudaStream_t stream) {
   const dim3 grid(batch * n_groups, n_split);
   float* partials = n_split > 1 ? (float*)part : nullptr;
-  static size_t allowed = 48 * 1024;
+  static size_t allowed[kMaxDevices] = {};
   cudaError_t err;
   if constexpr (sizeof(T) == 2) {
     const size_t smem = sizeof(__nv_bfloat16) * (kStages * 2 * kTile + kMaxR) * kRowElems<Dh>;

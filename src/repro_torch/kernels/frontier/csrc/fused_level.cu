@@ -134,6 +134,42 @@ namespace {
 
 constexpr int kQPad = 8;
 
+// A kernel attribute and the SM count belong to one device, so launch
+// state is kept per device: one process that drives several cards reads
+// and raises each card's own.
+constexpr int kMaxDevices = 64;
+
+// The current device, or -1 when it cannot index the per-device tables.
+int current_device() {
+  int dev = -1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return -1;
+  return dev;
+}
+
+// The current device's SM count, read once per device (0: no device).
+int sm_count() {
+  static int n_sms[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return 0;
+  if (n_sms[dev] == 0) cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n_sms[dev];
+}
+
+// Raise `kernel`'s dynamic shared memory limit to `smem` once per size and
+// device, on the first launch that needs it: a later launch may be inside
+// a CUDA graph capture.  `raised` holds each device's limit so far (0: the
+// default 48 KB).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t (&raised)[kMaxDevices]) {
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (smem <= (raised[dev] ? raised[dev] : 48 * 1024)) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) raised[dev] = smem;
+  return err;
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
@@ -385,8 +421,8 @@ __global__ void __launch_bounds__(kF32Threads, 3) f32_chunk_kernel(
 // Launches one CTA per (chunk, frontier row block, column part) of the
 // work list (n_chunks, chunk) on `stream`.  Returns cudaGetLastError()
 // after the launch: nonzero means the launch was refused.  Each
-// instantiation is its own kernel function, so its statics (the SM count
-// and the raised shared-memory limit) are its own.
+// instantiation is its own kernel function, so its raised shared-memory
+// limits (one per device) are its own.
 template <typename Schedule, typename Combine>
 int launch_f32(const void* frontier, const void* tiles, const Schedule& sched, const void* work,
                void* out, int n_chunks, int chunk, int row_blocks, int v_pad, int block_size,
@@ -395,12 +431,8 @@ int launch_f32(const void* frontier, const void* tiles, const Schedule& sched, c
   if (n_chunks < 1 || chunk < 1 || chunk > 8 || row_blocks < 1 || row_blocks > 65535 ||
       block_size % 8 || block_size < 8 || block_size > 1024)
     return (int)cudaErrorInvalidValue;
-  static int n_sms = 0;
-  if (n_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int n_sms = sm_count();
+  if (n_sms == 0) return (int)cudaErrorInvalidDevice;
   // Column parts: a grid far smaller than the card (a baseline store of
   // 6-23 tiles) splits each tile's columns over up to 4 CTAs, which write
   // disjoint outputs, so each CTA moves and multiplies a quarter of the
@@ -422,16 +454,9 @@ int launch_f32(const void* frontier, const void* tiles, const Schedule& sched, c
   const int ring_floats = std::max(slots * (kQPad * slab_rows + slab_rows * part_cols),
                                    n_groups * kQPad * part_cols);
   const size_t smem = sizeof(float) * ring_floats + sizeof(int) * (3 * chunk + 3);
-  // Raise the dynamic shared memory limit once per size, on the first
-  // launch: a later launch may be inside a CUDA graph capture.
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(f32_chunk_kernel<Schedule, Combine>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
-  }
+  static size_t smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(f32_chunk_kernel<Schedule, Combine>, smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
   using Word = typename Combine::Word;
   f32_chunk_kernel<Schedule, Combine><<<dim3(n_chunks, row_blocks, parts), quads * n_groups,
                                         smem, (cudaStream_t)stream>>>(
@@ -563,15 +588,9 @@ int launch_bitplane(const void* frontier, const void* tiles, const void* tile_id
       sizeof(uint32_t) * ((size_t)kQPad * block_size + (size_t)block_size * row_len);
   const int per_pass = (int)std::max<size_t>(1, std::min<size_t>(chunk, kB3StageBytes / step_bytes));
   const size_t smem = per_pass * step_bytes + sizeof(int) * (3 * chunk + 3);
-  // Raise the dynamic shared memory limit once per size, on the first
-  // launch: a later launch may be inside a CUDA graph capture.
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bitplane_level_kernel<Combine>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
-  }
+  static size_t smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(bitplane_level_kernel<Combine>, smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
   // G groups of threads split the tile rows; B / G stays a multiple of 4
   int n_groups = 1;
   while (n_groups < 8 && block_size * n_groups * 2 <= kB3Threads && block_size % (8 * n_groups) == 0)

@@ -109,9 +109,10 @@ def unpack_tile_bits(tiles: torch.Tensor, block_size: int) -> torch.Tensor:
     """Bit-plane tiles (n, B, ⌈B/32⌉) int32 as dense (n, B, B) f32 0/1:
     dst d is bit d % 32 of word d // 32 (the torch twin of
     ``ref.unpack_tiles``).  ``>>`` on int32 sign-extends, so every bit is
-    taken with ``& 1``; the pad bits past column B are sliced off."""
+    taken with ``& 1``; the pad bits past column B are sliced off.  No
+    tile (n = 0, a level with no valid step) unpacks to none."""
     bits = (tiles.unsqueeze(-1) >> _shifts(tiles.device)) & 1
-    return bits.reshape(*tiles.shape[:-1], -1)[..., :block_size].float()
+    return bits.reshape(*tiles.shape[:-1], 32 * tiles.shape[-1])[..., :block_size].float()
 
 
 def unpack_lane_rows(words: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,13 @@ them on the device in power-of-two shape buckets, and
 :func:`build_sharded_level_schedule` schedules each site, padded to its
 bucket.  Each bucket carries one work list over all its member rows
 (:func:`bucket_work`), so :func:`expand_level_sharded` runs a level as one
-B1 or B3 launch per bucket.
+B1 or B3 launch per bucket.  Over ranks (``repro``'s mesh program) a
+rank stages only its own block of sites, merged into its one group slab
+(:func:`stage_rank_group`), and agrees the shape classes with the other
+groups by an ``all_reduce(MAX)`` of its counts
+(:func:`bucket_rank_group`, :func:`build_rank_level_schedule`): its
+bucket arrays are its rows of the one-card plan, and a level is its
+launch, clamped, then a ``pmax`` over the site axes.
 
 Stage A stages either tile store: ``tile_dtype="f32"`` (dense 0/1
 B×B tiles) or ``"uint32"`` (the dst axis packed into ⌈B/32⌉ bit-plane
@@ -68,6 +74,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.automaton import FWD, INV, CompiledAutomaton
 from repro_torch.core.witness import INF_LEVEL
+from repro_torch.dist import collectives
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier.frontier import (
     bucket_level_blocks,
@@ -715,15 +722,61 @@ def bucket_staged_sites(
         sites = tuple(d * s_local + sl for d in range(axis_size) for sl in slots)
         if len(sites) == 1:  # nothing to unify: natural shape, no roundup
             cls = n_tiles[sites[0]]
-        width, dtype = (
-            (tile_words(b), torch.int32) if staged.tile_dtype == "uint32" else (b, torch.float32)
-        )
-        stack = torch.zeros((len(sites), cls, b, width), dtype=dtype, device=device)
-        for row, s in enumerate(sites):
-            stack[row, : n_tiles[s]].copy_(torch.from_numpy(staged.site_tiles[s]))
+        stack = _device_stack([staged.site_tiles[s] for s in sites], cls, staged, device)
         buckets.append(TileBucket(n_tiles=cls, slots=slots, sites=sites, tiles=stack))
     return ShardedTileBuckets(axis_size=axis_size, s_local=s_local, floor=floor,
                               buckets=tuple(buckets))
+
+
+def _device_stack(
+    slabs: list[np.ndarray], n_tiles: int, staged: StagedShardedGraph, device
+) -> torch.Tensor:
+    """``slabs`` zero-padded to ``n_tiles`` and stacked on ``device``, each
+    slab copied straight into its row of a zeroed device stack."""
+    b = staged.block_size
+    width, dtype = (tile_words(b), torch.int32) if staged.tile_dtype == "uint32" else (b, torch.float32)
+    stack = torch.zeros((len(slabs), n_tiles, b, width), dtype=dtype, device=device)
+    for row, slab in enumerate(slabs):
+        stack[row, : slab.shape[0]].copy_(torch.from_numpy(slab))
+    return stack
+
+
+def stage_rank_group(site_graphs: list[LabeledGraph], block_size: int = 128,
+                     tile_dtype: str = "f32") -> StagedShardedGraph:
+    """One rank's Stage A: its block of sites staged per site
+    (:func:`stage_sharded_graph`) and merged into its one group slab
+    (:func:`merge_staged_sites`), the bytes of that group's slab in the
+    one-card merge.  Returns a one-group :class:`StagedShardedGraph`."""
+    return merge_staged_sites(stage_sharded_graph(site_graphs, block_size, tile_dtype), 1)
+
+
+def bucket_rank_group(
+    group: StagedShardedGraph,
+    mesh,
+    site_axes=("data",),
+    floor: int = BUCKET_FLOOR,
+    device: str | torch.device | None = None,
+) -> ShardedTileBuckets:
+    """:func:`bucket_staged_sites` for one rank of a mesh: ``group`` is the
+    rank's one merged slab (:func:`stage_rank_group`).  The merged groups
+    form one bucket of one slot; its class is the roundup of the largest
+    group's tile count, agreed by an ``all_reduce(MAX)`` over
+    ``site_axes``, and a single group (axis size 1) keeps its natural
+    count.  The bucket's one row is the rank's row of the one-card stack:
+    ``sites`` holds the rank's group index."""
+    if group.n_sites != 1:
+        raise ValueError(f"a rank holds one merged group slab, got {group.n_sites}")
+    device = resolve_device(device)
+    BUILD_COUNTERS["bucket_staged_sites"] += 1
+    axis_size = collectives.axis_size(mesh, site_axes)
+    n_tiles = group.site_n_tiles[0]
+    most = int(collectives.pmax(torch.tensor([n_tiles], dtype=torch.int64, device=device),
+                                site_axes, mesh)[0])
+    cls = shape_class(most, floor) if axis_size > 1 else n_tiles
+    stack = _device_stack([group.site_tiles[0]], cls, group, device)
+    bucket = TileBucket(n_tiles=cls, slots=(0,), sites=(collectives.axis_index(mesh, site_axes),),
+                        tiles=stack)
+    return ShardedTileBuckets(axis_size=axis_size, s_local=1, floor=floor, buckets=(bucket,))
 
 
 # ---------------------------------------------------------------------------
@@ -1130,10 +1183,6 @@ def build_sharded_level_schedule(
     nb = staged.v_pad // staged.block_size
     frow_map, union_members = fanin_frontier_rows(ca)
     site_steps = [_schedule_steps(ca, offsets, nb, frow_map) for offsets in staged.site_offsets]
-
-    def pad_steps(col: np.ndarray, n_steps: int, fill: int) -> np.ndarray:
-        return np.concatenate([col, np.full(n_steps - len(col), fill, np.int32)])
-
     buckets = []
     useful = sum(arr.shape[0] for arr, _, _, _ in site_steps)
     padded = 0
@@ -1143,34 +1192,8 @@ def build_sharded_level_schedule(
         # shape agreement between members
         n_steps = shape_class(max_len, tile_buckets.floor) if len(tb.sites) > 1 else max_len
         padded += n_steps * len(tb.sites)
-        cols = {k: [] for k in ("fi", "vl", "ti", "fr", "fc", "orw", "oc")}
-        for s in tb.sites:
-            arr, fi, vl, _ = site_steps[s]
-            cols["fi"].append(pad_steps(fi, n_steps, 0))
-            cols["vl"].append(pad_steps(vl, n_steps, 0))
-            cols["ti"].append(pad_steps(arr[:, 4], n_steps, 0))  # zero cover tile
-            cols["fr"].append(pad_steps(arr[:, 2], n_steps, 0))
-            cols["fc"].append(pad_steps(arr[:, 3], n_steps, 0))
-            cols["orw"].append(pad_steps(arr[:, 0], n_steps, ca.n_states - 1))
-            cols["oc"].append(pad_steps(arr[:, 1], n_steps, nb - 1))
-        host = {k: np.stack(v) for k, v in cols.items()}
-        run_ptr, work = bucket_work(
-            host["vl"], host["fi"], host["orw"], host["oc"], ca.n_states, nb,
-            work_chunk(staged.tile_dtype),
-        )
-        offsets = (np.arange(len(tb.sites), dtype=np.int32) * tb.n_tiles)[:, None]
-        dev = tb.tiles.device
-
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        buckets.append(PlanBucket(
-            n_steps=n_steps, n_tiles=tb.n_tiles, slots=tb.slots, sites=tb.sites, tiles=tb.tiles,
-            firsts=put(host["fi"]), valids=put(host["vl"]), tile_ids=put(host["ti"]),
-            f_rows=put(host["fr"]), f_cols=put(host["fc"]), o_rows=put(host["orw"]),
-            o_cols=put(host["oc"]), run_ptr=put(run_ptr),
-            flat_tile_ids=put((host["ti"] + offsets).reshape(-1)), work=put(work),
-        ))
+        buckets.append(_plan_bucket(ca, tb, [site_steps[s] for s in tb.sites], n_steps, nb,
+                                    staged.tile_dtype))
     return ShardedLevelPlan(
         n_sites=staged.n_sites,
         n_states=ca.n_states,
@@ -1185,6 +1208,85 @@ def build_sharded_level_schedule(
         useful_steps=useful,
         padded_steps=padded,
         tile_dtype=staged.tile_dtype,
+    )
+
+
+def _plan_bucket(ca: CompiledAutomaton, tb: TileBucket, rows_steps: list, n_steps: int, nb: int,
+                 tile_dtype: str) -> PlanBucket:
+    """One :class:`PlanBucket` on ``tb``'s device: each row's step table
+    (:func:`_schedule_steps`) padded to ``n_steps``, the rows' run offsets
+    and one work list (:func:`bucket_work`), and the flattened tile ids."""
+
+    def pad_steps(col: np.ndarray, fill: int) -> np.ndarray:
+        return np.concatenate([col, np.full(n_steps - len(col), fill, np.int32)])
+
+    cols = {k: [] for k in ("fi", "vl", "ti", "fr", "fc", "orw", "oc")}
+    for arr, fi, vl, _ in rows_steps:
+        cols["fi"].append(pad_steps(fi, 0))
+        cols["vl"].append(pad_steps(vl, 0))
+        cols["ti"].append(pad_steps(arr[:, 4], 0))  # zero cover tile
+        cols["fr"].append(pad_steps(arr[:, 2], 0))
+        cols["fc"].append(pad_steps(arr[:, 3], 0))
+        cols["orw"].append(pad_steps(arr[:, 0], ca.n_states - 1))
+        cols["oc"].append(pad_steps(arr[:, 1], nb - 1))
+    host = {k: np.stack(v) for k, v in cols.items()}
+    run_ptr, work = bucket_work(
+        host["vl"], host["fi"], host["orw"], host["oc"], ca.n_states, nb, work_chunk(tile_dtype),
+    )
+    offsets = (np.arange(len(rows_steps), dtype=np.int32) * tb.n_tiles)[:, None]
+    dev = tb.tiles.device
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return PlanBucket(
+        n_steps=n_steps, n_tiles=tb.n_tiles, slots=tb.slots, sites=tb.sites, tiles=tb.tiles,
+        firsts=put(host["fi"]), valids=put(host["vl"]), tile_ids=put(host["ti"]),
+        f_rows=put(host["fr"]), f_cols=put(host["fc"]), o_rows=put(host["orw"]),
+        o_cols=put(host["oc"]), run_ptr=put(run_ptr),
+        flat_tile_ids=put((host["ti"] + offsets).reshape(-1)), work=put(work),
+    )
+
+
+def build_rank_level_schedule(
+    ca: CompiledAutomaton,
+    group: StagedShardedGraph,
+    tile_buckets: ShardedTileBuckets,
+    mesh,
+    site_axes=("data",),
+    q_pad: int = QPAD,
+) -> ShardedLevelPlan:
+    """:func:`build_sharded_level_schedule` for one rank of a mesh, on its
+    one group slab and :func:`bucket_rank_group`'s bucket: the bucket's
+    grid length is the roundup of the longest group schedule, agreed by an
+    ``all_reduce(MAX)`` over ``site_axes`` (a single group keeps its
+    natural length), so the plan's bucket arrays are the rank's row of the
+    one-card plan at the same axis size (``work`` and ``flat_tile_ids``
+    index the rank's one row)."""
+    BUILD_COUNTERS["sharded_level_schedule"] += 1
+    nb = group.v_pad // group.block_size
+    frow_map, union_members = fanin_frontier_rows(ca)
+    steps = _schedule_steps(ca, group.site_offsets[0], nb, frow_map)
+    (tb,) = tile_buckets.buckets
+    length = steps[0].shape[0]
+    dev = tb.tiles.device
+    most = int(collectives.pmax(torch.tensor([length], dtype=torch.int64, device=dev),
+                                site_axes, mesh)[0])
+    n_steps = shape_class(most, tile_buckets.floor) if tile_buckets.axis_size > 1 else length
+    return ShardedLevelPlan(
+        n_sites=1,
+        n_states=ca.n_states,
+        n_nodes=group.n_nodes,
+        v_pad=group.v_pad,
+        block_size=group.block_size,
+        q_pad=q_pad,
+        axis_size=tile_buckets.axis_size,
+        union_members=union_members,
+        buckets=(_plan_bucket(ca, tb, [steps], n_steps, nb, group.tile_dtype),),
+        n_real_steps=(steps[3],),
+        useful_steps=length,
+        padded_steps=n_steps,
+        tile_dtype=group.tile_dtype,
     )
 
 
@@ -1236,13 +1338,19 @@ def expand_level_fused(plan: FusedLevelPlan, frontier: torch.Tensor) -> torch.Te
     return torch.clamp(level_counts(plan, fre), max=1.0)
 
 
-def expand_level_sharded(plan: ShardedLevelPlan, frontier: torch.Tensor) -> torch.Tensor:
+def expand_level_sharded(
+    plan: ShardedLevelPlan, frontier: torch.Tensor, mesh=None, site_axes=("data",)
+) -> torch.Tensor:
     """One BFS level over every site's grid: the frontier is extended
     once, each bucket runs ONE kernel launch over its members' work lists
     (B1 on f32 tiles, B3 on bit-planes; the launch sums its members'
     levels), and the buckets are max-merged and clamped to {0, 1} — the
     synchronous OR merge of every site's discoveries, ``repro``'s per-level
-    ``pmax`` form.  ``frontier`` is (n_states · q_pad, v_pad) f32 0/1."""
+    ``pmax`` form.  On a ``mesh`` the plan is one rank's
+    (:func:`build_rank_level_schedule`) and the clamped level is then
+    ``pmax``-ed over ``site_axes`` as uint8, so every rank of the site
+    group holds the same merged level.  ``frontier`` is (n_states · q_pad,
+    v_pad) f32 0/1."""
     fre = extend_frontier(frontier, plan.union_members, plan.n_states, plan.q_pad)
     merged = None
     for b in plan.buckets:
@@ -1252,7 +1360,10 @@ def expand_level_sharded(plan: ShardedLevelPlan, frontier: torch.Tensor) -> torc
             run_ptr=b.run_ptr, work=b.work, flat_tile_ids=b.flat_tile_ids,
         )
         merged = counts if merged is None else torch.maximum(merged, counts)
-    return torch.clamp(merged, max=1.0)
+    level = torch.clamp(merged, max=1.0)
+    if mesh is None:
+        return level
+    return collectives.pmax(level.to(torch.uint8), site_axes, mesh).to(level.dtype)
 
 
 def frontier_nonempty(frontier: torch.Tensor) -> bool:

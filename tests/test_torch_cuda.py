@@ -7,7 +7,8 @@ and the S1 and S2 executors (the reference and sharded backends, witness
 semantics and bounded counting too), the branching estimator, the baseline fixpoint and the serving
 runtime (``QueryService``, its plan store's device memory,
 ``AsyncQueryService``'s flush worker) on the GPU against the same code
-on the CPU.  A CUDA kernel
+on the CPU, and the mesh programs on a one-rank NCCL group against
+``mesh=None``.  A CUDA kernel
 has no CPU mode, so every test here is marked ``gpu`` and skips without
 a CUDA device; run them on a machine with one:
 
@@ -1321,3 +1322,50 @@ def test_count_step_equal_on_meta_and_cuda(cuda):
     card = analysis.count_step(bag, (table, idx, bags))
     assert (meta.flops, meta.bytes, meta.kernels) == (card.flops, card.bytes, card.kernels)
     assert card.kernels == [("embedding_bag_sorted", 2000 * 32, (2000 + 64) * 32 * 4, 2000)]
+
+
+def test_one_rank_nccl_mesh_equals_no_mesh(cuda, tmp_path):
+    """A (1, 1) mesh of one NCCL rank on the card: S1's gather and the
+    reference and sharded executors (both tile stores, witness levels on
+    f32) equal ``mesh=None`` on the card, and the sharded path launches its
+    kernel once per level (one bucket) on the rank as on one card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+
+    g, placement = _sharded_setup()
+    ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
+    try:
+        mesh = lmesh.make_test_mesh(1, 1)
+        assert dist.get_backend() == "nccl" and shd.is_device_mesh(mesh)
+        mask = np.zeros(g.n_labels, bool)
+        mask[[0, 3]] = True
+        arrays = strategies.stage_site_arrays(placement, cuda)
+        for cap in (arrays["src"].shape[1], 5):
+            got = strategies.s1_gather(strategies.stage_site_arrays(placement, cuda, mesh), mask, cap, mesh)
+            want = strategies.s1_gather(arrays, mask, cap)
+            assert all(torch.equal(a, b) for a, b in zip(got[:4], want[:4])) and got[4] == want[4]
+        for expr in ("l0 (l1|l2)* l3", "(l0|l4)+", "l1 . l3^-1"):
+            ca = paa.compile_query(expr, g)
+            starts = paa.valid_start_nodes(ca, g)[:40]
+            for backend, tile_dtype, sem in (
+                ("reference", "f32", "witness"), ("frontier_kernel_sharded", "f32", "witness"),
+                ("frontier_kernel_sharded", "uint32", "pairs"),
+            ):
+                run, launches = [], []
+                for m in (mesh, None):
+                    frontier.reset_launches()
+                    ops.FIXPOINT_COUNTERS.clear()
+                    out = strategies.s2_execute(placement, ca, starts, backend=backend, tile_dtype=tile_dtype,
+                                                semantics=sem, block_size=32, device=cuda, mesh=m)
+                    run.append((out[0], out[1]) + tuple(x.tobytes() for x in out[2:]))
+                    launches.append((sum(frontier.launch_counts().values()), ops.FIXPOINT_COUNTERS["levels"]))
+                assert run[0][0].tobytes() == run[1][0].tobytes() and run[0][1:] == run[1][1:], (expr, backend)
+                assert launches[0] == launches[1], (expr, backend)
+                if backend == "reference":
+                    assert launches[0][0] == 0
+                else:
+                    assert launches[0][0] == launches[0][1] > 0
+    finally:
+        dist.destroy_process_group()
