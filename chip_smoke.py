@@ -127,20 +127,52 @@ Phases, each of which raises on failure (the run then exits non-zero):
              axis sizes, as sha256 digests of answers, every cost field,
              witness levels and S1 buffers, and of each bucket row of the
              one-card plan; then (a) one NCCL rank in this process on a
-             (1, 1) mesh: the sharded phase's (i) on B3 over all valid
-             starts, the reference backend on the 256-site placement (64
+             (1, 1) mesh: the sharded phase's (i) on B3 on its first 64
+             valid starts a query, the reference backend on the 256-site placement (64
              starts a query, pairs and witness) and the plan phase's S1
              gathers (every Table-2 query's labels at the padded width);
              (b) 4 ``gloo`` ranks spawned on the one card (NCCL refuses
              two ranks on one device): (i) on a (4, 1) mesh, (ii) on a
-             (2, 2) mesh (B1, pairs and witness), each on its first 128
+             (2, 2) mesh (B1, pairs and witness), each on its first 64
              valid starts a query, and the reference backend and S1 as
              in (a) on (4, 1).  Every digest must equal the one-card
              run's, every rank's bucket arrays and tiles its rows of the
              one-card plan, and each rank's B1/B3 launches its levels (one
              bucket a rank); the bytes all_reduced per level and the wall
              times of the 4 ranks sharing one card are logged (not
-             multi-card times);
+             multi-card times).  Its (c) and (d) run later, beside the
+             phases whose inputs they take:
+* mesh_serve — (c), after serve, the service over ranks: serve run (h)
+             (the first 48 requests on ``frontier_kernel_sharded`` over
+             the bit-plane store and the 16 sites) through
+             ``QueryService(mesh=)``, rank 0 leading and the others
+             following its flush orders: on one card at axis sizes 4 and
+             2 (equal to run (h) at 1), on one NCCL rank (a (1, 1) mesh),
+             and on 4 ``gloo`` ranks at (4, 1) and (2, 2); run (g) (the
+             reference backend, first window forced to S1) at (4, 1);
+             each rank's share of Stage A saved to its own file and
+             restored into a fresh service whose first S2 request packs
+             no tile, another rank's file refused; the async front end
+             led by rank 0 over the 48 at run (e)'s 1x rate.  Every
+             request's answers, costs, strategy and levels equal run
+             (h)'s or (g)'s, on every rank (the async answers run (h)'s,
+             and the same on every rank), B3 launching once a level a
+             rank;
+* mesh_dlrm — (d), after dlrm, on one NCCL rank: dlrm-mlperf ``full()``
+             at serve_p99 on a (1, 1) mesh on the dlrm phase's
+             parameters: the bags bit for bit the one-card ones, each B6
+             launch on the rank's lookups, 26 a step, the probabilities
+             within 1e-6 of the largest;
+* mesh_models — (d), after gnn, on 4 ``gloo`` ranks: dlrm-mlperf at
+             serve_p99 on (2, 2) with its tables capped at 2^22 rows
+             (row-sharded over the model axis, the batch over the data
+             axis), gcn-cora at ogb_products on (4, 1) (edges blocked over
+             the ranks, its degrees exact), schnet, nequip and
+             equiformer-v2 ``full()`` at molecule on (2, 2), each against
+             the one-card run of the same weights and inputs (DLRM's bags
+             bit for bit, probabilities 1e-6; GNNs 1e-5, equiformer-v2
+             1e-4), B6 launches a step as on one card; the all_reduces a
+             step, their bytes and the ms a step logged per rank;
 * serve    — the serving runtime on the same twin and placement (the plan
              phase's overlay; ``ServeConfig(n_rollouts=150, seed=0)``, the
              planner deciding): a 144-request ``workloads.generate``
@@ -349,7 +381,7 @@ from repro_torch.graph.generators import (  # noqa: E402
 from repro_torch.graph.partition import distribute, random_overlay  # noqa: E402
 from repro_torch.graph.structure import LabeledGraph, to_device_graph  # noqa: E402
 from repro_torch.graph.workloads import WorkloadConfig, generate  # noqa: E402
-from repro_torch.serve import QueryService, ServeConfig, batcher  # noqa: E402
+from repro_torch.serve import QueryService, ServeConfig, batcher, persist  # noqa: E402
 from repro_torch.serve.aio import AdmissionRejected, AioConfig, AsyncQueryService  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -410,10 +442,22 @@ N_REFERENCE_STARTS = 64
 # MESH_II_SHAPE, the reference backend and S1 on the 256-site placement on
 # MESH_I_SHAPE, as (data, model) meshes; the spawn's time limit
 MESH_RANKS, MESH_I_SHAPE, MESH_II_SHAPE, MESH_TIMEOUT_S = 4, (4, 1), (2, 2), 400
-# (b) runs (i) and (ii) on the first MESH_B_STARTS valid starts of each query
-# ((a) runs (i) on all of them): at all 477-715 starts, 4 ranks would put
-# the twin's frontier (1.6 MB a level) through gloo 2,577 times over
-MESH_B_STARTS = 128
+# (a) and (b) run (i) and (ii) on the first MESH_B_STARTS valid starts of
+# each query: at all 477-715 starts, 4 ranks would put the twin's frontier
+# (1.6 MB a level) through gloo 2,577 times over; 64 rather than 128 (and
+# (a) no longer on all of them) keeps the script, (c) and (d) added,
+# inside its time limit on a slow host
+MESH_B_STARTS = 64
+# its (c), the service over ranks: serve run (h) (the first SERVE_PREFIX
+# requests on sharded/uint32 over the 16 sites) on one card at the ranks'
+# axis sizes, on one NCCL rank, and on MESH_RANKS gloo ranks at
+# MESH_I_SHAPE and MESH_II_SHAPE; run (g) and the async front end at
+# MESH_I_SHAPE; (d), the models over ranks: dlrm-mlperf serve_p99 on one
+# NCCL rank at full width, and on MESH_II_SHAPE with its tables capped at
+# MESH_DLRM_CAP rows (4 ranks' shards and the one-card reference on one
+# card), MESH_DLRM_STEPS steps timed a rank; gcn-cora at ogb_products on
+# MESH_I_SHAPE; the molecular GNNs at molecule on MESH_II_SHAPE
+MESH_DLRM_CAP, MESH_DLRM_STEPS = 2**22, 10
 # the shapes of the embedbag and decode phases, from the port's configs:
 # dlrm-mlperf's largest Criteo table (embed_dim 128, bf16 tables) at
 # serve_bulk (batch 262,144 x multi_hot 1); ogb_products; qwen3-14b's
@@ -1994,7 +2038,7 @@ def phase_mesh(g, placement, cas, handoff, dev, record) -> dict[str, int]:
     launches = collections.Counter()
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # every rank is on this host
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    ctx = mesh_context(g, placement, cas, handoff, ("i", "ref"))
+    ctx = mesh_context(g, placement, cas, handoff, ("i", "ref"), MESH_B_STARTS)
     store2 = plans.GraphPlanStore(device=dev)
     store2.install_entry(("staged_sharded", 128, "f32"), ctx["pl2"], 0, handoff["per_site2"])
     ctx.update(store16=handoff["store16"], store2=store2)
@@ -2003,16 +2047,13 @@ def phase_mesh(g, placement, cas, handoff, dev, record) -> dict[str, int]:
     t0 = time.perf_counter()
     refs, rec["one_card_a"], rec["one_card_b"] = {}, {}, {}
     refs["a"] = mesh_cases(ctx, dev, {}, "one card", rec["one_card_a"], None)
-    all_starts = ctx["starts_i"]
-    cut = mesh_context(g, placement, cas, handoff, ("i", "ii"), MESH_B_STARTS)
-    ctx.update(parts=cut["parts"], starts_i=cut["starts_i"], starts_ii=cut["starts_ii"],
-               axis={"i": MESH_I_SHAPE[0], "ii": MESH_II_SHAPE[0]})
+    ctx.update(parts=("i", "ii"), axis={"i": MESH_I_SHAPE[0], "ii": MESH_II_SHAPE[0]})
     refs["b"] = {**refs["a"], **mesh_cases(ctx, dev, {}, "one card axis 4/2", rec["one_card_b"], None)}
     rec["references_s"] = time.perf_counter() - t0
     del store2, ctx["store2"], ctx["store16"]
     for k in ("store16", "per_site2"):  # the ranks stage their own shares
         handoff.pop(k)
-    ctx.update(parts=("i", "ref"), starts_i=all_starts)
+    ctx["parts"] = ("i", "ref")
     free()
 
     # (a) one NCCL rank in this process, a (1, 1) mesh
@@ -2056,6 +2097,472 @@ def phase_mesh(g, placement, cas, handoff, dev, record) -> dict[str, int]:
         f"levels on every rank; {rec['b_s']:.1f} s wall for 4 ranks sharing one card (spawn included; not a "
         "multi-card time)")
     return dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# mesh (c): the service over ranks; mesh (d): the models over ranks
+# ---------------------------------------------------------------------------
+
+
+def serve_windows(svc, stream, first_window: dict | None = None) -> list:
+    """``stream`` through ``svc`` as ``serve_sync`` sends it (windows of
+    SERVE_WINDOW, ``first_window``'s keywords on the first), then the
+    followers' stop order; on a follower rank, ``follow()`` of the
+    leader's orders.  Every request's ``Answers`` (a failed one raises)."""
+    if not svc.leader:
+        return [t.result() for t in svc.follow()]
+    tickets = []
+    for lo in range(0, len(stream), SERVE_WINDOW):
+        kw = (first_window or {}) if lo == 0 else {}
+        tickets += [svc.enqueue(wq.query, wq.starts, **kw) for wq in stream[lo : lo + SERVE_WINDOW]]
+        svc.flush()
+    svc.stop_followers()
+    return [t.result() for t in tickets]
+
+
+def run_buckets(svc) -> int:
+    """The sharded executor's buckets a level: the rank's one on a mesh,
+    else the one-card plan's at the service's axis size."""
+    if svc.mesh is not None:
+        return 1
+    cfg = svc.config
+    return len(svc.plan_store.tile_buckets(svc.placement, cfg.s2_block_size, svc.axis_size, svc.stats_epoch,
+                                           cfg.s2_bucket_floor, cfg.s2_tile_dtype).buckets)
+
+
+def mesh_serve_run(what: str, svc, stream, refs: list | None, kernel: str | None,
+                   first_window: dict | None = None) -> tuple[list, dict]:
+    """One serve run of the mesh phase's (c), on one card or per rank, the
+    launch, level and wire counts set to 0 just before and read just
+    after: each request's digest must equal ``refs``' (when given), and
+    ``kernel`` launch once a level and bucket (``None``: no kernel at
+    all).  Returns the answers and the counts."""
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    collectives.WIRE_COUNTERS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = serve_windows(svc, stream, first_window)
+    torch.cuda.synchronize()
+    r = {"requests": len(answers), "wall_s": time.perf_counter() - t0,
+         "levels": fops.FIXPOINT_COUNTERS["levels"], "flushes": -(-len(stream) // SERVE_WINDOW),
+         "all_reduces": collectives.WIRE_COUNTERS["all_reduces"], "wire_bytes": collectives.WIRE_COUNTERS["bytes"],
+         "strategies": dict(collections.Counter(a.strategy for a in answers))}
+    if refs is not None:
+        differ = sum(answer_digest(a) != d for a, d in zip(answers, refs, strict=True))
+        if differ:
+            raise AssertionError(f"mesh {what}: {differ} of {len(refs)} requests differ from the one-card service's")
+    if kernel is None:
+        if sum(launch_counts().values()):
+            raise AssertionError(f"mesh {what}: kernels launched: {launch_counts()}")
+        r["launches"] = 0
+    else:
+        r["kernel"], r["launches"] = kernel, only_launched(kernel, f"mesh {what}")
+        if r["launches"] != r["levels"] * run_buckets(svc):
+            raise AssertionError(f"mesh {what}: {r['launches']} {kernel} launches for {r['levels']} levels")
+    log("mesh", f"{what}: {r['requests']} requests, strategies {r['strategies']}, {r['levels']} levels, "
+        f"{r['launches']} {kernel or 'kernel'} launches, {r['all_reduces']} all_reduces, {r['wire_bytes']} bytes "
+        f"all_reduced ({r['wire_bytes'] / r['flushes']:.0f} a flush), {r['wall_s']:.2f} s"
+        + ("; every request == the one-card service's" if refs is not None else ""))
+    return answers, r
+
+
+def mesh_serve_rank(rank: int, world: int, tmp: str) -> None:
+    """One of the MESH_RANKS ``gloo`` ranks of the mesh phase's (c): serve
+    run (h) on MESH_I_SHAPE (with a per-rank snapshot restored into a
+    fresh service) and on MESH_II_SHAPE, run (g) on MESH_I_SHAPE, and the
+    async front end led by rank 0 on MESH_I_SHAPE, each request held to
+    the one-card service's digest; writes its counts to ``rank{rank}.json``."""
+    torch.set_num_threads(2)
+    dev = ranks.init_rank(rank, world, os.path.join(tmp, "store"), backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with open(os.path.join(tmp, "refs.json")) as f:
+            refs = json.load(f)
+        m41, m22 = mesh_lib.make_test_mesh(*MESH_I_SHAPE), mesh_lib.make_test_mesh(*MESH_II_SHAPE)
+        g = alibaba_like(seed=SEED)
+        placement = distribute(g, n_sites=RPQ.n_sites, replication_rate=RPQ.replication_rate, seed=SEED)
+        pl16 = distribute(g, n_sites=SHARD_SITES, replication_rate=RPQ.replication_rate, seed=SEED)
+        net16 = serve_net(pl16)
+        prefix = serve_stream(g)[:SERVE_PREFIX]
+        cfg_h = serve_config(s2_backend="frontier_kernel_sharded", s2_tile_dtype="uint32")
+        b3 = "fused_level_blocks_u32"
+        rec = {"rank": rank}
+        t0 = time.perf_counter()
+
+        svc = QueryService(pl16, net16, config=cfg_h, device=dev, mesh=m41)
+        _, rec["h41"] = mesh_serve_run(f"(c) rank {rank} run (h) on {MESH_I_SHAPE}", svc, prefix, refs["h"], b3)
+        path = os.path.join(tmp, "stage_a.pkl")
+        rec["snapshot"] = {"manifest": svc.save_plan_store(path), "bytes": os.path.getsize(persist.rank_path(path, m41))}
+        collectives.agree([False], m41)  # every rank's snapshot is written
+        del svc
+        fresh = QueryService(pl16, net16, config=cfg_h, device=dev, mesh=m41)
+        if not fresh.restore_plan_store(path):
+            raise AssertionError(f"mesh (c) rank {rank}: its per-rank snapshot did not restore")
+        other = persist.rank_path(path, m41).replace(f".rank{rank}", f".rank{(rank + 1) % world}")
+        if persist.load_stage_a(plans.GraphPlanStore(device=dev), pl16, other, 0, m41):
+            raise AssertionError(f"mesh (c) rank {rank}: another rank's share restored")
+        fops.reset_build_counters()
+        _, r = mesh_serve_run(f"(c) rank {rank} run (h) restored", fresh, prefix[:1], [refs["h_first"]], b3,
+                              {"strategy": "S2"})
+        packed = {k: fops.BUILD_COUNTERS[k] for k in ("pack_blocks", "stage_sharded_graph")}
+        if any(packed.values()):
+            raise AssertionError(f"mesh (c) rank {rank}: the restored service packed tiles: {packed}")
+        rec["snapshot"].update(first=r, build_counters=dict(fops.BUILD_COUNTERS))
+        del fresh
+
+        svc = QueryService(pl16, net16, config=cfg_h, device=dev, mesh=m22)
+        _, rec["h22"] = mesh_serve_run(f"(c) rank {rank} run (h) on {MESH_II_SHAPE}", svc, prefix, refs["h"], b3)
+        del svc
+        svc = QueryService(placement, serve_net(placement), config=serve_config(), device=dev, mesh=m41)
+        _, rec["g41"] = mesh_serve_run(f"(c) rank {rank} run (g) on {MESH_I_SHAPE}", svc, prefix, refs["g"], None,
+                                       {"strategy": "S1"})
+        del svc
+
+        # the async front end on the leader at run (e)'s 1x rate; the others follow
+        svc = QueryService(pl16, net16, config=cfg_h, device=dev, mesh=m41)
+        reset_launches()
+        fops.FIXPOINT_COUNTERS.clear()
+        collectives.WIRE_COUNTERS.clear()
+        t1 = time.perf_counter()
+        if svc.leader:
+            got, rejected, wall, stats = asyncio.run(serve_open_loop(svc, prefix, refs["rate"], SEED + 1))
+            for i, a in enumerate(got):
+                if a is not None and answers_digest(a) != refs["h_answers"][i]:
+                    raise AssertionError(f"mesh (c) async: request {i}'s answers differ from the one-card service's")
+            done = [a for a in got if a is not None]
+            rec["async_stats"] = {"rejected": dict(rejected), "wall_s": wall, "batch_window": stats["batch_window"]}
+        else:
+            done = [t.result() for t in svc.follow()]
+        r = {"requests": len(done), "wall_s": time.perf_counter() - t1, "levels": fops.FIXPOINT_COUNTERS["levels"],
+             "launches": launch_counts()[b3], "all_reduces": collectives.WIRE_COUNTERS["all_reduces"],
+             "wire_bytes": collectives.WIRE_COUNTERS["bytes"], "kernel": b3,
+             "digests": sorted(answer_digest(a) for a in done)}
+        if r["levels"] and r["launches"] != r["levels"]:
+            raise AssertionError(f"mesh (c) rank {rank} async: {r['launches']} B3 launches for {r['levels']} levels")
+        rec["async"] = r
+        log("mesh", f"(c) rank {rank} async on {MESH_I_SHAPE}: {r['requests']} requests resolved, {r['levels']} "
+            f"levels = B3 launches, {r['all_reduces']} all_reduces, {r['wall_s']:.2f} s")
+        rec["wall_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_serve(handoff: dict, pl16, dev, record) -> dict[str, int]:
+    """The mesh phase's (c), the service over ranks: serve run (h)'s first
+    SERVE_PREFIX requests on sharded/uint32 over the 16 sites, one card at
+    the ranks' axis sizes (equal to run (h) at axis 1), one NCCL rank in
+    this process on a (1, 1) mesh, then MESH_RANKS ``gloo`` ranks sharing
+    the card (:func:`mesh_serve_rank`); every request's digest equal to
+    the serve phase's.  Returns B3's launches, every rank's summed."""
+    rec = record["mesh"]["c"] = {}
+    launches = collections.Counter()
+    net16, prefix = serve_net(pl16), handoff["prefix"]
+    cfg_h = serve_config(s2_backend="frontier_kernel_sharded", s2_tile_dtype="uint32")
+    b3 = "fused_level_blocks_u32"
+    refs = {k: handoff[k] for k in ("h", "g", "h_first", "h_answers", "rate")}
+    t0 = time.perf_counter()
+    for axis in sorted({MESH_I_SHAPE[0], MESH_II_SHAPE[0]}):
+        svc = QueryService(pl16, net16, config=cfg_h, device=dev, axis_size=axis)
+        _, rec[f"one_card_axis{axis}"] = mesh_serve_run(f"(c) one card run (h) at axis {axis}", svc, prefix,
+                                                        refs["h"], b3)
+        launches[b3] += rec[f"one_card_axis{axis}"]["launches"]
+        del svc
+        free()
+    rec["references_s"] = time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-serve-")
+    ranks.init_rank(0, 1, os.path.join(tmp, "nccl-store"), device=dev, timeout_s=MESH_TIMEOUT_S)
+    try:
+        svc = QueryService(pl16, net16, config=cfg_h, device=dev, mesh=mesh_lib.make_test_mesh(1, 1))
+        _, rec["a"] = mesh_serve_run("(c) NCCL 1 rank run (h)", svc, prefix, refs["h"], b3)
+        launches[b3] += rec["a"]["launches"]
+        del svc
+    finally:
+        dist.destroy_process_group()
+    free()
+
+    with open(os.path.join(tmp, "refs.json"), "w") as f:
+        json.dump(refs, f)
+    t0 = time.perf_counter()
+    ranks.run_ranks(mesh_serve_rank, MESH_RANKS, (MESH_RANKS, tmp), timeout_s=MESH_TIMEOUT_S, device=dev)
+    rec["b_s"] = time.perf_counter() - t0
+    rec["ranks"] = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            rr = json.load(f)
+        rec["ranks"].append(rr)
+        for key in ("h41", "h22", "g41", "async"):
+            launches[b3] += rr[key]["launches"]
+        launches[b3] += rr["snapshot"]["first"]["launches"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    if len({tuple(rr["async"]["digests"]) for rr in rec["ranks"]}) != 1:
+        raise AssertionError("mesh (c) async: the ranks resolved different requests or answers")
+    log("mesh", f"(c) {MESH_RANKS} gloo ranks sharing one card: run (h) on {MESH_I_SHAPE} and {MESH_II_SHAPE}, "
+        f"run (g) on {MESH_I_SHAPE}, every request == the one-card service's on every rank; per-rank snapshots "
+        f"restored (0 tiles packed), another rank's refused; the async front end led by rank 0: "
+        f"{rec['ranks'][0]['async']['requests']} requests, the same on every rank; {rec['b_s']:.1f} s wall "
+        "(spawn included; 4 ranks share one card, not a multi-card time)")
+    return dict(launches)
+
+
+def dlrm_lookups(cfg, sparse: np.ndarray, rules, mesh, modes) -> list[int]:
+    """Each table's lookups that the rank hands B6 in one step: its block's
+    lookups in its rows for a sharded table, its whole block for the rest."""
+    lo, hi, _ = dlrm.batch_block(rules, sparse.shape[0])
+    out = []
+    for i, rows in enumerate(cfg.padded_table_sizes):
+        ids = sparse[lo:hi, i].reshape(-1)
+        if modes[i] == "shard" and rules.model_axis is not None:
+            k = -(-rows // rules.model_size)
+            m = collectives.axis_index(mesh, rules.model_axis)
+            ids = ids[(ids >= m * k) & (ids < (m + 1) * k)]
+        out.append(int(ids.shape[0]))
+    return out
+
+
+def mesh_dlrm_case(what: str, cfg, params: dict, batch: dict, mesh, want_embs: list, want_probs, rec: dict) -> int:
+    """dlrm serve_p99 on ``mesh``: the rank's shard of ``params`` (cut by
+    ``shard_params``), its block's bags equal to ``want_embs``' rows bit
+    for bit (multi_hot 1), MESH_DLRM_STEPS steps timed by CUDA events with
+    B6 26 times a step, each on the rank's lookups (:func:`dlrm_lookups`),
+    and the gathered probabilities within 1e-6 of ``want_probs``' largest.
+    Returns B6's launches."""
+    with shd.use_mesh(mesh):
+        rules = shd.Rules.from_mesh(mesh)
+        B = batch["dense"].shape[0]
+        mine = dlrm.shard_params(cfg, rules, params, B)
+        modes = cfg.table_modes(math.prod(shd.mesh_sizes(mesh).values()), B)
+        lo, hi, _ = dlrm.batch_block(rules, B)
+        seen = []
+        real = dlrm.embedding_bag_local
+
+        def counted(table, idx, bags, n):
+            seen.append(int(idx.shape[0]))
+            return real(table, idx, bags, n)
+
+        dlrm.embedding_bag_local = counted
+        try:
+            reset_launches()
+            embs = dlrm.embedding_bags(cfg, rules, mine, batch["sparse"])
+            n_emb = only_launched("embedding_bag_sorted", f"mesh {what} bags")
+            if n_emb != cfg.n_sparse:
+                raise AssertionError(f"mesh {what}: {n_emb} B6 launches for {cfg.n_sparse} tables")
+            for i, (e, w) in enumerate(zip(embs, want_embs, strict=True)):
+                if not torch.equal(e, w[lo:hi]):
+                    raise AssertionError(f"mesh {what}: table {i}'s bags of rows [{lo}, {hi}) != the one-card bags")
+            want_seen = dlrm_lookups(cfg, batch["sparse"].cpu().numpy(), rules, mesh, modes)
+            if seen != want_seen:
+                raise AssertionError(f"mesh {what}: B6 got {seen} lookups, the rank's are {want_seen}")
+            del embs
+            collectives.WIRE_COUNTERS.clear()
+            serve = dlrm.make_serve_step(cfg, rules)
+            r, outs = timed_steps("mesh", what, lambda b: serve(mine, b), [batch] * (MESH_DLRM_STEPS + DLRM_WARMUP),
+                                  "embedding_bag_sorted", cfg.n_sparse, DLRM_WARMUP)
+        finally:
+            dlrm.embedding_bag_local = real
+    err = max(float((o - want_probs).abs().max()) for o in outs)
+    scale = float(want_probs.abs().max())
+    if err > 1e-6 * scale:
+        raise AssertionError(f"mesh {what}: probabilities {err} from the one-card run's (limit 1e-6 x {scale})")
+    per_step = {k: v // (MESH_DLRM_STEPS + DLRM_WARMUP) for k, v in collectives.WIRE_COUNTERS.items()}
+    r.update({"batch_block": [lo, hi], "sharded_tables": modes.count("shard"), "lookups_per_table": seen,
+              "max_abs_err": err, "bit_equal": all(torch.equal(o, want_probs) for o in outs),
+              "all_reduces_per_step": per_step.get("all_reduces", 0), "bytes_per_step": per_step.get("bytes", 0)})
+    rec[what] = r
+    log("mesh", f"(d) {what}: rows [{lo}, {hi}) of {B}, {r['sharded_tables']} tables row-sharded, the rank's B6 "
+        f"lookups {sum(seen)}; bags == the one-card bags bit for bit; {r['steps']} steps, {r['launches']} B6 "
+        f"launches = 26 a step; median {r['median_ms']:.4f} ms, p99 {r['p99_ms']:.4f} ms; "
+        f"{r['all_reduces_per_step']} all_reduces, {r['bytes_per_step']} bytes a step; probabilities within "
+        f"{err} of the one-card run's (bit-equal: {r['bit_equal']})")
+    return r["launches"] + n_emb
+
+
+def phase_mesh_dlrm(params: dict, dev, record) -> int:
+    """The mesh phase's (d) on one NCCL rank: dlrm-mlperf ``full()`` at
+    serve_p99 on a (1, 1) mesh, on the dlrm phase's parameters (the rank's
+    shard of every table is the whole table), against the one-card step.
+    Returns B6's launches."""
+    rec = record["mesh"].setdefault("d", {})
+    batch = pipeline.dlrm_batch(DLRM.table_sizes, DLRM.n_dense, DLRM.multi_hot,
+                                registry.RECSYS_SHAPES["serve_p99"].dims["batch"], 30_000, seed=SEED, device=dev)
+    rules = shd.Rules.from_mesh(None)
+    want_embs = dlrm.embedding_bags(DLRM, rules, params, batch["sparse"])
+    want = dlrm.make_serve_step(DLRM, rules)(params, batch)
+    reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-dlrm-")
+    ranks.init_rank(0, 1, os.path.join(tmp, "nccl-store"), device=dev, timeout_s=MESH_TIMEOUT_S)
+    try:
+        n = mesh_dlrm_case("dlrm serve_p99, NCCL 1 rank, full width", DLRM, params, batch,
+                           mesh_lib.make_test_mesh(1, 1), want_embs, want, rec)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del want_embs, want, batch
+    free()
+    return n
+
+
+def mesh_model_inputs(dev) -> dict:
+    """The (d) spawn's models, rebuilt from the seed on every rank and in
+    the parent: dlrm-mlperf with tables capped at MESH_DLRM_CAP rows and a
+    serve_p99 batch; gcn-cora at ogb_products on edges drawn from a
+    generator seeded SEED + 11; schnet, nequip and equiformer-v2 ``full()``
+    at molecule."""
+    cfg = dataclasses.replace(DLRM, table_sizes=tuple(min(r, MESH_DLRM_CAP) for r in DLRM.table_sizes))
+    shape = registry.GNN_SHAPES["ogb_products"]
+    gcn_cfg = gnn_common.gcn_for_shape(registry.get_arch("gcn-cora").full(), shape)
+    n, e, _ = gnn_common.shape_counts(shape)
+    e_pad = gnn_common.pad_edges(e)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    src = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    dst = torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32)
+    src[e:], dst[e:] = 0, 0
+    gcn_batch = {"node_feat": torch.randn((n, gcn_cfg.d_feat), generator=gen, device=dev),
+                 "edge_src": src, "edge_dst": dst, "edge_mask": torch.arange(e_pad, device=dev) < e,
+                 "node_mask": torch.ones(n, dtype=torch.bool, device=dev)}
+    d = registry.GNN_SHAPES["molecule"].dims
+    return {
+        "dlrm": (cfg, pipeline.dlrm_batch(cfg.table_sizes, cfg.n_dense, cfg.multi_hot,
+                                          registry.RECSYS_SHAPES["serve_p99"].dims["batch"], 30_000, seed=SEED,
+                                          device=dev)),
+        "gcn": (gcn_cfg, gcn_batch),
+        "molecule": pipeline.molecules_batch(d["batch"], d["n_nodes"], d["n_edges"], seed=SEED, device=dev),
+    }
+
+
+def gnn_degrees(batch: dict, rules) -> tuple:
+    """GCN's in- and out-degrees without the self loop, on the installed
+    mesh over the rank's block of edges (2 B6 launches)."""
+    src, dst, emask = gnn.edge_block(rules, batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
+    ones = emask.to(torch.float32)[:, None]
+    n = batch["node_feat"].shape[0]
+    return (gnn.scatter_sum(ones, gnn.sort_edges(dst), n, rules), gnn.scatter_sum(ones, gnn.sort_edges(src), n, rules))
+
+
+MOLECULAR = ("schnet", "nequip", "equiformer-v2")
+
+
+def mesh_gnn_case(what: str, cfg, params: dict, batch: dict, mesh, want, tol: float, rec: dict) -> int:
+    """One GNN serve step on ``mesh`` (edges blocked over its ranks, one
+    psum an axis a scatter): within ``tol`` of ``want``'s largest |output|,
+    B6 launching its scatters a step; wall ms by CUDA events.  Returns
+    B6's launches."""
+    with shd.use_mesh(mesh):
+        rules = shd.Rules.from_mesh(mesh)
+        step = gnn.make_gnn_serve_step(cfg, rules)
+        collectives.WIRE_COUNTERS.clear()
+        r, outs = timed_steps("mesh", what, lambda _: step(params, batch), [None] * (1 + GNN_WARMUP),
+                              "embedding_bag_sorted", gnn_scatters(cfg), GNN_WARMUP)
+    err, scale = float((outs[0] - want).abs().max()), float(want.abs().max())
+    if err > tol * scale:
+        raise AssertionError(f"mesh {what}: max |diff| {err} from the one-card run > {tol} x {scale}")
+    steps = 1 + GNN_WARMUP
+    r.update({"max_abs_err": err, "limit": tol * scale,
+              "all_reduces_per_step": collectives.WIRE_COUNTERS["all_reduces"] // steps,
+              "bytes_per_step": collectives.WIRE_COUNTERS["bytes"] // steps})
+    rec[what] = r
+    log("mesh", f"(d) {what}: {r['launches']} B6 launches = {gnn_scatters(cfg)} scatters a step, "
+        f"{r['all_reduces_per_step']} all_reduces and {r['bytes_per_step']} bytes a step, {r['median_ms']:.3f} ms; "
+        f"within {err} of the one-card run (limit {tol} x {scale})")
+    return r["launches"]
+
+
+def mesh_models_rank(rank: int, world: int, tmp: str) -> None:
+    """One of the MESH_RANKS ``gloo`` ranks of the mesh phase's (d):
+    dlrm-mlperf capped at serve_p99 on MESH_II_SHAPE, gcn-cora at
+    ogb_products on MESH_I_SHAPE (its degrees exact), the molecular GNNs
+    on MESH_II_SHAPE, each held to the parent's one-card run; writes its
+    counts to ``rank{rank}.json``."""
+    torch.set_num_threads(2)
+    dev = ranks.init_rank(rank, world, os.path.join(tmp, "store"), backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        refs = torch.load(os.path.join(tmp, "refs.pt"), map_location=dev)
+        m41, m22 = mesh_lib.make_test_mesh(*MESH_I_SHAPE), mesh_lib.make_test_mesh(*MESH_II_SHAPE)
+        inputs = mesh_model_inputs(dev)
+        rec = {"rank": rank}
+        t0 = time.perf_counter()
+        cfg, batch = inputs.pop("dlrm")
+        launches = mesh_dlrm_case(f"dlrm serve_p99 capped, rank {rank} of {MESH_II_SHAPE}", cfg,
+                                  dlrm.init_params(cfg, seed=SEED, device=dev), batch, m22, refs["dlrm_embs"],
+                                  refs["dlrm_probs"], rec)
+        del batch
+        free()
+        cfg, batch = inputs.pop("gcn")
+        params = gnn.gcn_init(cfg, seed=SEED, device=dev)
+        with shd.use_mesh(m41):
+            reset_launches()
+            degs = gnn_degrees(batch, shd.Rules.from_mesh(m41))
+            launches += only_launched("embedding_bag_sorted", "mesh gcn degrees")
+        if not all(torch.equal(a, b) for a, b in zip(degs, refs["gcn_degrees"], strict=True)):
+            raise AssertionError(f"mesh (d) rank {rank}: GCN's degrees over ranks != the one-card degrees")
+        launches += mesh_gnn_case(f"gcn ogb_products, rank {rank} of {MESH_I_SHAPE}", cfg, params, batch, m41,
+                                  refs["gcn"], GNN_TOL, rec)
+        del batch, params, degs
+        free()
+        batch = inputs.pop("molecule")
+        for arch in MOLECULAR:
+            cfg = registry.get_arch(arch).full()
+            launches += mesh_gnn_case(f"{arch} molecule, rank {rank} of {MESH_II_SHAPE}", cfg,
+                                      gnn.INIT_FNS[arch](cfg, seed=SEED, device=dev), batch, m22, refs[arch],
+                                      GNN_TOL_EQUIFORMER if arch == "equiformer-v2" else GNN_TOL, rec)
+        rec.update(b6_launches=launches, wall_s=time.perf_counter() - t0)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_models(dev, record) -> int:
+    """The mesh phase's (d) over MESH_RANKS ``gloo`` ranks sharing the card
+    (:func:`mesh_models_rank`): the one-card runs of its models here
+    first, saved for the ranks.  Returns B6's launches, every rank's
+    summed."""
+    rec = record["mesh"].setdefault("d", {})
+    t0 = time.perf_counter()
+    inputs = mesh_model_inputs(dev)
+    none = shd.Rules.from_mesh(None)
+    cfg, batch = inputs["dlrm"]
+    params = dlrm.init_params(cfg, seed=SEED, device=dev)
+    refs = {"dlrm_embs": [e.cpu() for e in dlrm.embedding_bags(cfg, none, params, batch["sparse"])],
+            "dlrm_probs": dlrm.make_serve_step(cfg, none)(params, batch).cpu()}
+    rec["dlrm_tables"] = {"rows": sum(cfg.padded_table_sizes), "bytes": tree_bytes(params["tables"]),
+                          "cap": MESH_DLRM_CAP}
+    del params
+    cfg, batch = inputs["gcn"]
+    params = gnn.gcn_init(cfg, seed=SEED, device=dev)
+    with shd.use_mesh(None):
+        refs["gcn_degrees"] = [d.cpu() for d in gnn_degrees(batch, none)]
+    refs["gcn"] = gnn.make_gnn_serve_step(cfg, none)(params, batch).cpu()
+    del params, inputs["gcn"], batch
+    for arch in MOLECULAR:
+        cfg = registry.get_arch(arch).full()
+        refs[arch] = gnn.make_gnn_serve_step(cfg, none)(gnn.INIT_FNS[arch](cfg, seed=SEED, device=dev),
+                                                        inputs["molecule"]).cpu()
+    del inputs
+    free()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-models-")
+    torch.save(refs, os.path.join(tmp, "refs.pt"))
+    rec["references_s"] = time.perf_counter() - t0
+    del refs
+    t0 = time.perf_counter()
+    ranks.run_ranks(mesh_models_rank, MESH_RANKS, (MESH_RANKS, tmp), timeout_s=MESH_TIMEOUT_S, device=dev)
+    rec["b_s"] = time.perf_counter() - t0
+    rec["ranks"] = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            rec["ranks"].append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = sum(rr["b6_launches"] for rr in rec["ranks"])
+    log("mesh", f"(d) {MESH_RANKS} gloo ranks sharing one card: dlrm serve_p99 capped at {MESH_DLRM_CAP} rows on "
+        f"{MESH_II_SHAPE}, gcn ogb_products on {MESH_I_SHAPE} (degrees exact), schnet, nequip, equiformer-v2 at "
+        f"molecule on {MESH_II_SHAPE}: every output within tolerance of the one-card run on every rank; {launches} B6 "
+        f"launches; {rec['b_s']:.1f} s wall (spawn included; not a multi-card time)")
+    return launches
 
 
 def check_schema(d: dict, schema: dict, path: str = "summary") -> None:
@@ -2218,7 +2725,37 @@ async def serve_open_loop(svc, stream, rate_qps: float, seed: int) -> tuple:
     return answers, rejected, wall, stats
 
 
-def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
+def serve_config(**kw) -> ServeConfig:
+    """The serve phase's ``ServeConfig``: SERVE_ROLLOUTS rollouts from SEED."""
+    return ServeConfig(n_rollouts=SERVE_ROLLOUTS, seed=SEED, **kw)
+
+
+def serve_stream(g) -> list:
+    """The serve phase's seeded 144-request stream (serve_async.py's size)."""
+    return generate(g, WorkloadConfig(n_queries=SERVE_QUERIES, hot_pool=8, hot_fraction=0.8,
+                                      min_starts=1, max_starts=8, seed=SEED))
+
+
+def serve_net(placement):
+    """The network parameters probed on the plan phase's overlay for ``placement``."""
+    return planner.probe_network(random_overlay(placement.n_sites, PLAN_DEGREE, seed=PLAN_SEED), placement,
+                                 seed=PLAN_SEED)
+
+
+def answer_digest(a) -> str:
+    """A resolved request's digest: its query, strategy, semantics,
+    answers, every cost field (per-site meters included) and witness
+    levels."""
+    return digest(a.query, a.strategy, a.semantics, [sorted(s) for s in a.answers],
+                  [dataclasses.astuple(c) for c in a.observed], "none" if a.levels is None else a.levels)
+
+
+def answers_digest(a) -> str:
+    """A resolved request's answer sets alone."""
+    return digest([sorted(s) for s in a.answers])
+
+
+def phase_serve(g, placement, pl16, dg, dev, record) -> tuple[dict[str, int], dict]:
     """The serving runtime on the full twin (ROADMAP A10, A11, A12): a
     144-request stream through ``QueryService`` on B4, its first 48 on B1
     with the whole f32 store and again under a 1 GiB out-of-core budget,
@@ -2227,12 +2764,13 @@ def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
     default config (the reference backend, no kernel, one window forced
     to S1), and the first 48 on the sharded backend over (i)'s 16-site
     placement (B3) with a warm restart from its per-site snapshot.
-    Returns each level kernel's launches on the path."""
+    Returns each level kernel's launches on the path, and what the mesh
+    phase's (c) holds the service over ranks to: the digests of runs (g)
+    and (h) and of (h)'s restored first request, (h)'s answer sets, and
+    run (e)'s 1x rate, beside the first SERVE_PREFIX requests."""
     rec = record["serve"] = {}
-    overlay = random_overlay(placement.n_sites, PLAN_DEGREE, seed=PLAN_SEED)
-    net = planner.probe_network(overlay, placement, seed=PLAN_SEED)
-    stream = generate(g, WorkloadConfig(n_queries=SERVE_QUERIES, hot_pool=8, hot_fraction=0.8,
-                                        min_starts=1, max_starts=8, seed=SEED))
+    net = serve_net(placement)
+    stream = serve_stream(g)
     prefix = stream[:SERVE_PREFIX]
     t0 = time.perf_counter()
     oracle = serve_oracle(g, dg, stream)
@@ -2240,9 +2778,7 @@ def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
         f"{sum(len(w.starts) for w in stream)} starts, {sum(w.hot for w in stream)} hot; device-BFS "
         f"answers of its {len(oracle)} (query, start) pairs in {time.perf_counter() - t0:.1f} s")
     launches = collections.Counter()
-
-    def config(**kw) -> ServeConfig:
-        return ServeConfig(n_rollouts=SERVE_ROLLOUTS, seed=SEED, **kw)
+    config = serve_config
 
     # (a) the whole stream on the packed backend over the bit-plane store: B4
     svc = QueryService(placement, net, config=config(s2_backend="frontier_kernel_packed",
@@ -2391,6 +2927,7 @@ def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
     # (g) the first 48 on the default config: the reference backend, no kernel
     svc = QueryService(placement, net, config=config(), device=dev)
     g_answers, r = serve_sync(svc, prefix, first_window={"strategy": "S1"})
+    handoff = {"prefix": prefix, "rate": sync_rate, "g": [answer_digest(a) for a in g_answers]}
     if sum(launch_counts().values()):
         raise AssertionError(f"serve run (g): the reference backend launched kernels: {launch_counts()}")
     check_serve_answers(g_answers, prefix, oracle, "serve run (g)")
@@ -2404,11 +2941,11 @@ def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
     free()
 
     # (h) the first 48 on the sharded backend over (i)'s placement: B3
-    overlay16 = random_overlay(pl16.n_sites, PLAN_DEGREE, seed=PLAN_SEED)
-    net16 = planner.probe_network(overlay16, pl16, seed=PLAN_SEED)
+    net16 = serve_net(pl16)
     sharded_cfg = config(s2_backend="frontier_kernel_sharded", s2_tile_dtype="uint32")
     svc = QueryService(pl16, net16, config=sharded_cfg, device=dev)
     h_answers, r = serve_sync(svc, prefix)
+    handoff.update(h=[answer_digest(a) for a in h_answers], h_answers=[answers_digest(a) for a in h_answers])
     n_buckets = len(svc.plan_store.tile_buckets(pl16, 128, 1, tile_dtype="uint32").buckets)
     r.update(serve_launched("fused_level_blocks_u32", "serve run (h)", n_buckets))
     check_serve_answers(h_answers, prefix, oracle, "serve run (h)")
@@ -2439,6 +2976,7 @@ def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
     r.update({"manifest": manifest, "snapshot_bytes": size, "save_s": save_s, "restore_s": restore_s,
               "build_counters": dict(fops.BUILD_COUNTERS)})
     rec["h_restore"] = r
+    handoff["h_first"] = answer_digest(first[0])
     launches[r["kernel"]] += r["launches"]
     log("serve", f"(h): the per-site Stage A saved ({manifest['n_entries']} entries, {size / 1e9:.3f} GB) in "
         f"{save_s:.1f} s, restored into a fresh service in {restore_s:.1f} s; its first S2 request packed "
@@ -2446,7 +2984,7 @@ def phase_serve(g, placement, pl16, dg, dev, record) -> dict[str, int]:
         f"{r['wall_s'] * 1e3:.1f} ms; answers == device BFS")
     del svc, first, h_answers
     free()
-    return dict(launches)
+    return dict(launches), handoff
 
 
 def gathered_sectors(idx: torch.Tensor, row_bytes: int) -> int:
@@ -2668,12 +3206,13 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def phase_dlrm(dev, gen, record) -> int:
+def phase_dlrm(dev, gen, record) -> tuple[int, dict]:
     """dlrm-mlperf ``full()`` on one card, nothing cut: serve_p99,
     serve_bulk and retrieval_cand through ``models/dlrm.py``'s serve and
     retrieval steps, 26 B6 launches a step; one serve_bulk step's bags
     each ``torch.equal`` to the plain version, one retrieval's top 64 to
-    plain bags; one serve_bulk step traced.  Returns B6's launches."""
+    plain bags; one serve_bulk step traced.  Returns B6's launches and
+    the parameters, which the mesh phase's (d) serves again."""
     rec = record["dlrm"] = {"cut": "none: dlrm-mlperf full(), 26 tables, uniform ids (no Criteo data)"}
     rules = shd.Rules.from_mesh(None)
     t0 = time.perf_counter()
@@ -2767,9 +3306,9 @@ def phase_dlrm(dev, gen, record) -> int:
     log("dlrm", f"retrieval_cand: {n_cand} candidates x {DLRM.embed_dim} f32, top 64; {r['steps']} steps, "
         f"{r['launches']} B6 launches = 26 a step, no other kernel; median {r['median_ms']:.4f} ms, p99 "
         f"{r['p99_ms']:.4f} ms; the top 64 of one == those of the plain bags (scores exact, indices up to ties)")
-    del params, cands, inputs, outs, bulk, tr
+    del cands, inputs, outs, bulk, tr
     free()
-    return launches
+    return launches, params
 
 
 def lm_request_run(cfg, rules, params, prompts, fed=None):
@@ -4380,9 +4919,15 @@ def main() -> int:
     free()
     phase_end("mesh")
 
-    for name, n in phase_serve(g, placement, pl16, dg, dev, record).items():
+    serve_launches, serve_handoff = phase_serve(g, placement, pl16, dg, dev, record)
+    for name, n in serve_launches.items():
         launches[name] += n
     phase_end("serve")
+
+    for name, n in phase_mesh_serve(serve_handoff, pl16, dev, record).items():
+        launches[name] += n
+    del serve_handoff, pl16
+    phase_end("mesh_serve")
 
     new_kernels = [phase_baseline(g, cas, dg, stores, dev, gen, flush, record)]
     del stores, dg
@@ -4392,14 +4937,21 @@ def main() -> int:
     phase_end("embedbag")
     new_kernels.append(phase_decode(dev, gen, flush, record))
     phase_end("decode")
-    new_kernels[1]["launches"] += phase_dlrm(dev, gen, record)
+    dlrm_launches, dlrm_params = phase_dlrm(dev, gen, record)
+    new_kernels[1]["launches"] += dlrm_launches
     phase_end("dlrm")
+    new_kernels[1]["launches"] += phase_mesh_dlrm(dlrm_params, dev, record)
+    del dlrm_params
+    free()
+    phase_end("mesh_dlrm")
     new_kernels[2]["launches"] += phase_lm(dev, gen, record)
     phase_end("lm")
     new_kernels[2]["launches"] += phase_moe(dev, gen, record)
     phase_end("moe")
     new_kernels[1]["launches"] += phase_gnn(dev, gen, record)
     phase_end("gnn")
+    new_kernels[1]["launches"] += phase_mesh_models(dev, record)
+    phase_end("mesh_models")
     new_kernels[1]["launches"] += phase_train(dev, gen, flush, record)
     phase_end("train")
     dry = phase_dryrun(dev, gen, record)

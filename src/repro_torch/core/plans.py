@@ -328,7 +328,7 @@ class GraphPlanStore:
         )
 
     @staticmethod
-    def _share(placement: Placement, mesh, site_axes) -> tuple:
+    def share(placement: Placement, mesh, site_axes) -> tuple:
         """The key suffix of a rank's share: ``()`` for the whole placement
         (``mesh=None``), else ``((site_axes, lo, hi),)``, the rank's block
         of sites."""
@@ -341,7 +341,7 @@ class GraphPlanStore:
     ) -> list[LabeledGraph]:
         """Per-site site-local graph views of the placement (on a ``mesh``,
         of the rank's block of sites)."""
-        share = self._share(placement, mesh, site_axes)
+        share = self.share(placement, mesh, site_axes)
         sites = range(*share[0][1:]) if share else range(placement.n_sites)
         key = ("local_graphs", id(placement), epoch) + share
         return self._get(
@@ -357,7 +357,7 @@ class GraphPlanStore:
         placements, so it gets the dtype but not the byte budget, as in
         ``repro``).  On a ``mesh``: the rank's sites only."""
         key = ("staged_sharded", id(placement), epoch, block_size, tile_dtype)
-        key += self._share(placement, mesh, site_axes)
+        key += self.share(placement, mesh, site_axes)
         return self._get(
             key, placement, epoch,
             lambda: fops.stage_sharded_graph(
@@ -382,7 +382,7 @@ class GraphPlanStore:
         group this is the per-site staging itself (no copy).  On a
         ``mesh`` (``n_groups`` the site axes' size): the rank's one group."""
         key = ("staged_merged", id(placement), epoch, block_size, n_groups, tile_dtype)
-        share = self._share(placement, mesh, site_axes)
+        share = self.share(placement, mesh, site_axes)
         if share and n_groups != collectives.axis_size(mesh, site_axes):
             raise ValueError(f"n_groups={n_groups}: the site axes {tuple(site_axes)} hold "
                              f"{collectives.axis_size(mesh, site_axes)} groups")
@@ -412,7 +412,7 @@ class GraphPlanStore:
         cache's graph key.  On a ``mesh``: the rank's one bucket row
         (``all_reduce(MAX)`` of the groups' tile counts)."""
         key = ("tile_buckets", id(placement), epoch, block_size, axis_size, floor, tile_dtype)
-        share = self._share(placement, mesh, site_axes)
+        share = self.share(placement, mesh, site_axes)
 
         def build() -> fops.ShardedTileBuckets:
             merged = self.staged_merged(
@@ -430,7 +430,7 @@ class GraphPlanStore:
         """The placement's padded per-site edge arrays on the store's
         device (the ``reference`` executor's and S1's gather operands; on a
         ``mesh``, the rank's rows)."""
-        key = ("site_arrays", id(placement), epoch) + self._share(placement, mesh, site_axes)
+        key = ("site_arrays", id(placement), epoch) + self.share(placement, mesh, site_axes)
         return self._get(
             key, placement, epoch,
             lambda: strategies.stage_site_arrays(placement, self.device, mesh, site_axes),
@@ -450,7 +450,7 @@ class GraphPlanStore:
         inputs, host numpy); ``anchor`` is the placement or graph the
         site list came from (on a ``mesh``, the placement whose rank's
         share ``site_graphs`` is)."""
-        key = ("label_degrees", id(anchor), epoch, v_pad) + self._share(anchor, mesh, site_axes)
+        key = ("label_degrees", id(anchor), epoch, v_pad) + self.share(anchor, mesh, site_axes)
         return self._get(
             key, anchor, epoch, lambda: label_degree_vectors(site_graphs, n_labels, v_pad)
         )

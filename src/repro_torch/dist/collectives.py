@@ -20,6 +20,12 @@ bodies call:
   coordinate ``d`` of ``n`` holds rows ``[d·k, (d+1)·k)``,
   ``k = ⌈rows / n⌉`` (``rows / n`` for the sites, which must divide).
 
+Two more serve a program that ``repro`` drives from one controller and
+the port from every rank (the serving runtime's leader and followers):
+:func:`broadcast_bytes`, one rank's host payload to every rank (a
+length, then the bytes as uint8), and :func:`agree`, a ``pmax`` of 0/1
+flags over the whole mesh.
+
 ``all_reduce`` with MAX or SUM is the one collective that NCCL and
 ``gloo`` both carry for CPU and CUDA tensors alike (``gloo`` takes CUDA
 tensors only for ``broadcast`` and ``all_reduce``), so one code path
@@ -81,9 +87,11 @@ def axis_index(mesh, axes) -> int:
 
 def group(mesh, axes):
     """The process group of the ranks that differ from this one only
-    along ``axes``.  One axis is the mesh's own group; several are made
-    once per (mesh, axes) by every rank, in the same order, and cached."""
-    axes = _axes(axes)
+    along ``axes``.  Axes of size 1 add no rank and are dropped; one axis
+    left is the mesh's own group; several are made once per (mesh, axes)
+    by every rank, in the same order, and cached."""
+    sizes = shd.mesh_sizes(mesh)
+    axes = tuple(a for a in _axes(axes) if sizes[a] > 1) or _axes(axes)[:1]
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
@@ -172,5 +180,54 @@ def gather_rows(local: torch.Tensor, axes, n_total: int, mesh=None, dim: int = 0
     return buf.bool() if local.dtype == torch.bool else buf
 
 
-__all__ = ["WIRE_COUNTERS", "axis_index", "axis_size", "block_of", "gather_rows", "group", "pmax",
-           "psum", "site_block"]
+def mesh_axes(mesh) -> Axes:
+    """Every axis of ``mesh``, in its order: the whole mesh as one group."""
+    return shd.axis_names(mesh)
+
+
+def mesh_rank(mesh) -> int:
+    """This rank's coordinate over the whole mesh, row-major."""
+    return axis_index(mesh, mesh_axes(mesh))
+
+
+def _device(mesh, device) -> torch.device:
+    """Where a host value goes to be reduced: ``device``, else the mesh's
+    device type (the current card on CUDA)."""
+    if device is not None:
+        return torch.device(device)
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def broadcast_bytes(payload: bytes | None, mesh=None, root: int = 0, device=None) -> bytes:
+    """``payload`` of the rank at whole-mesh coordinate ``root``
+    (:func:`mesh_rank`), on every rank: its length, then its bytes as
+    uint8, each written by ``root`` into a zeroed buffer that is summed
+    over the mesh, as :func:`gather_rows` does.  The other ranks pass
+    ``None`` (their payload is ignored)."""
+    mesh = _mesh(mesh)
+    axes, dev = mesh_axes(mesh), _device(mesh, device)
+    mine = mesh_rank(mesh) == root
+    n = torch.tensor([len(payload) if mine else 0], dtype=torch.int64, device=dev)
+    _reduce_(n, dist.ReduceOp.SUM, axes, mesh)
+    buf = torch.zeros(int(n[0]), dtype=torch.uint8, device=dev)
+    if mine and len(payload):
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    return buf.cpu().numpy().tobytes()
+
+
+def agree(flags, mesh=None, device=None) -> list[bool]:
+    """Whether any rank raised each of ``flags`` (a sequence of bools):
+    one ``pmax`` of 0/1 over the whole mesh.  Every rank gets the same
+    answers, so every rank takes the same branch after it."""
+    mesh = _mesh(mesh)
+    x = torch.tensor(list(flags), dtype=torch.uint8, device=_device(mesh, device))
+    if x.numel():
+        _reduce_(x, dist.ReduceOp.MAX, mesh_axes(mesh), mesh)
+    return [bool(v) for v in x.cpu().tolist()]
+
+
+__all__ = ["WIRE_COUNTERS", "agree", "axis_index", "axis_size", "block_of", "broadcast_bytes",
+           "gather_rows", "group", "mesh_axes", "mesh_rank", "pmax", "psum", "site_block"]

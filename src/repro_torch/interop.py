@@ -31,6 +31,7 @@ from repro_torch.kernels.frontier.ops import (
     run_offsets,
     work_chunk,
 )
+from repro_torch.models import dlrm
 
 
 def graph_from_numpy(
@@ -238,6 +239,16 @@ def dlrm_params_from_numpy(params: dict, device: str | torch.device | None = Non
     leaf a numpy array, as the port's tensors with the same bytes on
     ``device`` (``None``: the GPU)."""
     return _params_from_numpy(params, {"bot", "top", "tables"}, "DLRM", device)
+
+
+def table_row_shard_from_numpy(
+    table: np.ndarray, index: int, n_shards: int, device: str | torch.device | None = None
+) -> torch.Tensor:
+    """Shard ``index`` of ``n_shards`` of ``repro``'s numpy embedding table,
+    as the port's tensor with the same bytes on ``device`` (``None``: the
+    GPU): the rows ``repro``'s row-sharded bag hands that model shard
+    (``models.dlrm.table_row_shard``)."""
+    return dlrm.table_row_shard(_tensor(table, resolve_device(device)), index, n_shards)
 
 
 # the top-level keys of each GNN's parameters (``repro/models/gnn.py``'s

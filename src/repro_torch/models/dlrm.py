@@ -12,9 +12,14 @@ lookup as ``segment_sum`` rounds it on the CPU.  Tables are replicated
 or row-sharded per ``planner.embedding_placement`` (the paper's
 replicate-vs-shard rule, ``DLRMConfig.table_modes``); on one card a
 sharded table is looked up locally, as ``repro``'s off-mesh branch does.
-The mesh branch of :func:`embedding_bag_sharded` waits for the multi-GPU
-item; :func:`param_specs` gives the tables' placements under a layout's
-``Rules`` for ``launch/``.  Training differentiates the bags through
+On a mesh of ranks (``shd.use_mesh`` of a ``DeviceMesh``, one process a
+rank) the steps are ``repro``'s 2-D program per rank: each rank holds
+its row shard of every sharded table (:func:`shard_params`) and the
+replicated ones whole, takes its block of the batch over the batch axes,
+runs B6 on the lookups of its block that fall in its rows, one ``psum``
+over the model axis a sharded table, and the step's output is gathered
+over the batch axes.  :func:`param_specs` gives the tables' placements
+under a layout's ``Rules`` for ``launch/``.  Training differentiates the bags through
 ``embedbag.embedding_bag_sorted_grad``: a table's gradient is B6 again
 over the lookups sorted by row, dense (zero rows where no lookup
 reads), as ``repro``'s transpose of ``jnp.take``; AdamW then moves every
@@ -31,6 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.planner import embedding_placement
+from repro_torch.dist import collectives
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels.embedbag import ops as embedbag_ops
 from repro_torch.models.layers import normal
@@ -156,16 +162,77 @@ def embedding_bag_local(
     return embedbag_ops.embedding_bag(table, idx, bag_ids, n_bags)
 
 
+def batch_block(rules: shd.Rules, n: int) -> tuple[int, int, tuple[str, ...]]:
+    """The rows ``[lo, hi)`` of a batch of ``n`` that this rank runs on the
+    installed mesh, and the axes they are blocked over: ``repro``'s
+    ``rules.fit(P(rules.batch, None), (n, ...))``, which leaves a batch
+    the batch axes do not divide whole on every rank.  ``(0, n, ())``
+    off-mesh."""
+    mesh = shd.get_mesh()
+    if mesh is None:
+        return 0, n, ()
+    entry = rules.fit((rules.batch, None), (n, 1))[0]
+    axes = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+    return (*collectives.block_of(n, axes, mesh), axes)
+
+
+def table_row_shard(table: torch.Tensor, index: int, n_shards: int) -> torch.Tensor:
+    """Rows ``[index·k, (index+1)·k)`` of ``table``, ``k = ⌈R / n_shards⌉``,
+    past its R rows zero, as ``repro`` pads a table to ``k·n_shards`` rows
+    before its shard_map splits it; the table itself for one shard."""
+    if n_shards == 1:
+        return table
+    k = -(-table.shape[0] // n_shards)
+    rows = table[index * k : (index + 1) * k]
+    if rows.shape[0] == k:
+        return rows.clone()
+    pad = torch.zeros((k - rows.shape[0],) + tuple(table.shape[1:]), dtype=table.dtype, device=table.device)
+    return torch.cat([rows, pad])
+
+
+def shard_params(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: int) -> dict:
+    """This rank's parameters on the installed mesh: each table that the
+    paper's rule shards (``table_modes`` at the mesh's device count and
+    ``batch``) cut to the rank's row shard over the model axis
+    (:func:`table_row_shard`); the MLPs and the other tables as they are."""
+    mesh = shd.get_mesh()
+    if mesh is None or rules.model_axis is None:
+        return params
+    modes = cfg.table_modes(math.prod(shd.mesh_sizes(mesh).values()), batch)
+    m = collectives.axis_index(mesh, rules.model_axis)
+    tables = {k: table_row_shard(t, m, rules.model_size) if modes[int(k[1:])] == "shard" else t
+              for k, t in params["tables"].items()}
+    return {**params, "tables": tables}
+
+
 def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rules) -> torch.Tensor:
     """A row-sharded table's EmbeddingBag over ``idx`` (B, hot): bag b
-    sums ``table[idx[b]]``.  Off-mesh, which the port always is, the
-    lookup is local, as in ``repro``; ``repro``'s mesh branch (each model
-    shard answers for its rows, one psum) is ROADMAP's multi-GPU item."""
+    sums ``table[idx[b]]``.  Off-mesh the lookup is local, as in
+    ``repro``.  On the installed mesh (``repro``'s 2-D program): ``table``
+    is this rank's row shard (:func:`table_row_shard` over the model
+    axis), ``idx`` the whole batch, of which the rank takes its block
+    (:func:`batch_block`); B6 runs on the block's lookups that fall in
+    the rank's rows, re-based to the shard (``repro`` masks the others
+    to zero rows, which adds zeros; a bag no lookup visits is zero), and
+    one ``psum`` over the model axis sums the shards.  Returns the
+    block's bags, (hi - lo, D)."""
     B, hot = idx.shape
-    bag_ids = torch.arange(B, dtype=torch.int32, device=idx.device).repeat_interleave(
-        hot, output_size=B * hot
+    mesh = shd.get_mesh()
+    if mesh is None or rules.model_axis is None:
+        bag_ids = torch.arange(B, dtype=torch.int32, device=idx.device).repeat_interleave(
+            hot, output_size=B * hot
+        )
+        return embedding_bag_local(table, idx.reshape(-1), bag_ids, B)
+    lo, hi, _ = batch_block(rules, B)
+    flat = idx[lo:hi].reshape(-1)
+    k = table.shape[0]
+    first = collectives.axis_index(mesh, rules.model_axis) * k
+    mine = (flat >= first) & (flat < first + k)
+    bag_ids = torch.arange(hi - lo, dtype=torch.int32, device=idx.device).repeat_interleave(
+        hot, output_size=(hi - lo) * hot
     )
-    return embedding_bag_local(table, idx.reshape(-1), bag_ids, B)
+    out = embedding_bag_local(table, (flat[mine] - first).to(torch.int32), bag_ids[mine], hi - lo)
+    return collectives.psum(out, rules.model_axis, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -175,11 +242,15 @@ def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rul
 
 def embedding_bags(cfg: DLRMConfig, rules: shd.Rules, params: dict, sparse: torch.Tensor) -> list:
     """The 26 bags of each row of ``sparse`` (B, n_sparse, multi_hot),
-    one B6 launch a table, in the table's dtype."""
+    one B6 launch a table, in the table's dtype; on a mesh, of the rank's
+    block of rows (:func:`batch_block`), the tables chosen by the rule at
+    the mesh's device count."""
     B = sparse.shape[0]
-    modes = cfg.table_modes(1, B)
-    bag_ids = torch.arange(B, dtype=torch.int32, device=sparse.device).repeat_interleave(
-        cfg.multi_hot, output_size=B * cfg.multi_hot
+    mesh = shd.get_mesh()
+    modes = cfg.table_modes(1 if mesh is None else math.prod(shd.mesh_sizes(mesh).values()), B)
+    lo, hi, _ = batch_block(rules, B)
+    bag_ids = torch.arange(hi - lo, dtype=torch.int32, device=sparse.device).repeat_interleave(
+        cfg.multi_hot, output_size=(hi - lo) * cfg.multi_hot
     )
     embs = []
     for i in range(cfg.n_sparse):
@@ -187,14 +258,16 @@ def embedding_bags(cfg: DLRMConfig, rules: shd.Rules, params: dict, sparse: torc
         if modes[i] == "shard":
             embs.append(embedding_bag_sharded(table, sparse[:, i, :], rules))
         else:
-            embs.append(embedding_bag_local(table, sparse[:, i, :].reshape(-1), bag_ids, B))
+            embs.append(embedding_bag_local(table, sparse[lo:hi, i, :].reshape(-1), bag_ids, hi - lo))
     return embs
 
 
 def forward(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
     """batch: dense (B, 13) float; sparse (B, 26, multi_hot) int32.
-    Returns the logits (B,)."""
-    x_dense = _mlp_apply(params["bot"], batch["dense"])  # (B, 128)
+    Returns the logits (B,); on a mesh every rank computes its block of
+    rows and returns the logits gathered over the batch axes."""
+    lo, hi, axes = batch_block(rules, batch["dense"].shape[0])
+    x_dense = _mlp_apply(params["bot"], batch["dense"][lo:hi])  # (B, 128)
     embs = embedding_bags(cfg, rules, params, batch["sparse"])
     # dot-interaction over [bottom-mlp output] + 26 embeddings
     feats = torch.stack([x_dense] + [e.float() for e in embs], dim=1)  # (B, 27, D)
@@ -202,7 +275,10 @@ def forward(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> tor
     n = cfg.n_sparse + 1
     iu = torch.triu_indices(n, n, offset=1, device=feats.device)
     top_in = torch.cat([x_dense, inter[:, iu[0], iu[1]]], dim=-1)  # (B, 128 + 351)
-    return _mlp_apply(params["top"], top_in)[:, 0]
+    logits = _mlp_apply(params["top"], top_in)[:, 0]
+    if not axes:
+        return logits
+    return collectives.gather_rows(logits, axes, batch["dense"].shape[0], shd.get_mesh())
 
 
 def loss_fn(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:

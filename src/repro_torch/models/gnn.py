@@ -35,12 +35,19 @@ geometry (rotation, Wigner-D, radial basis) depends on the positions
 only, so it is built once per forward rather than once per layer.
 
 Distribution: under a mesh ``repro`` shards edges over every mesh axis
-(``edge_shard_map``) and combines the scatters with a ``psum``; without
-one, its wrapper is the identity and ``rules`` selects nothing.  The
-port runs on one card (``shd.use_mesh`` refuses a mesh), so it has no
-such wrapper, and the forwards take ``rules`` only for ``repro``'s
-signature.  Edge sharding and ``equiformer_energy_big`` (the mesh-only
-large-graph path) wait for the multi-GPU item (ROADMAP A14).
+(``edge_shard_map``), replicates node state and parameters, and
+combines the scatters with a ``psum``; without one, its wrapper is the
+identity and ``rules`` selects nothing.  The port runs that program per
+rank on the mesh ``shd.use_mesh`` installs (a ``DeviceMesh``, one
+process a rank): each forward takes the rank's block of the edges
+(:func:`edge_block`, blocked over the batch axes, then the model axis),
+sorts and scatters them on B6, and :func:`scatter_sum` ``psum``-s each
+scatter over those axes in ``repro``'s order, so every rank holds the
+same node state; EquiformerV2's segment max is ``pmax``-ed likewise,
+and the per-graph readouts, over replicated atoms, stay local.  Forward
+only: gradients over ranks are not ported.  ``equiformer_energy_big``
+(``repro``'s mesh path from 150,000 nodes, a flash-style softmax merged
+across ranks) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels.embedbag.embedbag import embedding_bag_sorted_grad, transpose_lookups
 from repro_torch.models.layers import normal, silu
@@ -84,12 +92,44 @@ def sort_edges(dst: torch.Tensor) -> EdgeSort:
     return EdgeSort(order.to(torch.int32), sorted_dst, dst)
 
 
-def scatter_sum(messages: torch.Tensor, edges: EdgeSort, n_nodes: int) -> torch.Tensor:
+def _edge_axes(rules: shd.Rules) -> tuple[str, ...]:
+    """The axes ``repro`` blocks edges over: the batch axes, then the model axis."""
+    return tuple(rules.batch_axes) + ((rules.model_axis,) if rules.model_axis else ())
+
+
+def edge_block(rules: shd.Rules, *edge_arrays: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """This rank's block of each edge array on the installed mesh
+    (``repro``'s ``edge_shard_map`` in_specs ``P(axes)``, whose size must
+    divide the edge count); the arrays themselves off-mesh."""
+    mesh = shd.get_mesh()
+    if mesh is None:
+        return edge_arrays
+    lo, hi = collectives.block_of(edge_arrays[0].shape[0], _edge_axes(rules), mesh, even=True)
+    return tuple(a[lo:hi] for a in edge_arrays)
+
+
+def edge_psum(x: torch.Tensor, rules: shd.Rules | None, op=collectives.psum) -> torch.Tensor:
+    """``x`` reduced over the edge axes in ``repro``'s order (one
+    ``all_reduce`` an axis) on the installed mesh; ``x`` off-mesh or
+    without ``rules``."""
+    mesh = shd.get_mesh()
+    if mesh is None or rules is None:
+        return x
+    for ax in _edge_axes(rules):
+        x = op(x, ax, mesh)
+    return x
+
+
+def scatter_sum(
+    messages: torch.Tensor, edges: EdgeSort, n_nodes: int, rules: shd.Rules | None = None
+) -> torch.Tensor:
     """``jax.ops.segment_sum(messages, dst, n_nodes)``: messages (E, ...)
     summed into (n_nodes, ...) by destination, on B6 over the messages
     as (E, prod(...)) rows, each node in edge order; nodes without an
     edge are zero.  Its gradient is B6 with one lookup a message row:
-    edge e reads the cotangent row of ``dst[e]``."""
+    edge e reads the cotangent row of ``dst[e]``.  With ``rules`` on a
+    mesh, ``repro``'s distributed scatter: this rank's edges' sums,
+    ``psum``-ed over the edge axes (:func:`edge_psum`)."""
     e = messages.shape[0]
     rows = messages.reshape(e, -1).contiguous()
 
@@ -97,7 +137,7 @@ def scatter_sum(messages: torch.Tensor, edges: EdgeSort, n_nodes: int) -> torch.
         return edges.dst, torch.arange(e, dtype=torch.int32, device=rows.device)
 
     out = embedding_bag_sorted_grad(rows, edges.order, edges.sorted_dst, n_nodes, transpose)
-    return out.reshape((n_nodes,) + tuple(messages.shape[1:]))
+    return edge_psum(out, rules).reshape((n_nodes,) + tuple(messages.shape[1:]))
 
 
 def _readout(atom_e: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -174,13 +214,14 @@ def gcn_init(cfg: GCNConfig, seed: int = 0, device=None) -> dict:
 
 def gcn_forward(cfg: GCNConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
     """Logits (N, n_classes): symmetric normalisation with self-loops.
-    Degrees and each layer's aggregation are B6 launches (2 + n_layers)."""
+    Degrees and each layer's aggregation are B6 launches (2 + n_layers);
+    on a mesh over the rank's edges, each ``psum``-ed."""
     x = batch["node_feat"]
     n = x.shape[0]
-    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    src, dst, emask = edge_block(rules, batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
     ones = emask.to(torch.float32)[:, None]
-    din = scatter_sum(ones, sort_edges(dst), n)[:, 0] + 1.0
-    dout = scatter_sum(ones, sort_edges(src), n)[:, 0] + 1.0
+    din = scatter_sum(ones, sort_edges(dst), n, rules)[:, 0] + 1.0
+    dout = scatter_sum(ones, sort_edges(src), n, rules)[:, 0] + 1.0
     # the mask's edges sorted by destination, once for every layer; a
     # shape-only run (meta edges) keeps every padded edge, repro's masked shape
     kept_dst, kept_all = (dst, src) if emask.is_meta else (dst[emask], src[emask])
@@ -191,7 +232,8 @@ def gcn_forward(cfg: GCNConfig, rules: shd.Rules, params: dict, batch: dict) -> 
 
     for i, layer in enumerate(params["layers"]):
         h = x @ layer["w"] + layer["b"]
-        agg = embedding_bag_sorted_grad((h * s_out).contiguous(), kept_src, kept.sorted_dst, n, by_src) * s_in
+        agg = edge_psum(embedding_bag_sorted_grad((h * s_out).contiguous(), kept_src, kept.sorted_dst, n,
+                                                  by_src), rules) * s_in
         x = agg + h * torch.rsqrt(din * dout)[:, None]  # self loop
         if i + 1 < len(params["layers"]):
             x = torch.relu(x)
@@ -243,7 +285,7 @@ def schnet_init(cfg: SchNetConfig, seed: int = 0, device=None) -> dict:
 def schnet_energy(cfg: SchNetConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
     """Energies (n_graphs,): one B6 launch per interaction, one readout."""
     species, pos = batch["species"], batch["positions"]
-    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    src, dst, emask = edge_block(rules, batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
     n = species.shape[0]
     edges = sort_edges(dst)
     h = params["embed"][species.long()]
@@ -255,7 +297,7 @@ def schnet_energy(cfg: SchNetConfig, rules: shd.Rules, params: dict, batch: dict
         f0, f1 = blk["filter"]
         filt = silu(rbf @ f0["w"] + f0["b"]) @ f1["w"] + f1["b"]  # (E, D)
         hj = h[src.long()] @ blk["in_proj"][0]["w"] + blk["in_proj"][0]["b"]
-        agg = scatter_sum(hj * filt * mask, edges, n)
+        agg = scatter_sum(hj * filt * mask, edges, n, rules)
         h = h + _mlp_apply(blk["out"], agg)
 
     atom_e = _mlp_apply(params["readout"], h)[:, 0] * batch["node_mask"].to(h.dtype)
@@ -319,7 +361,7 @@ def nequip_energy(cfg: NequIPConfig, rules: shd.Rules, params: dict, batch: dict
     layer concatenated into one (E, 13 C) row per edge, so one B6 launch
     per layer, and one readout."""
     species, pos = batch["species"], batch["positions"]
-    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    src, dst, emask = edge_block(rules, batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
     n = species.shape[0]
     C = cfg.channels
     edges = sort_edges(dst)
@@ -356,7 +398,7 @@ def nequip_energy(cfg: NequIPConfig, rules: shd.Rules, params: dict, batch: dict
         )
         e = m_s.shape[0]
         msg = torch.cat([m_s, m_v.reshape(e, 3 * C), m_t.reshape(e, 9 * C)], dim=1)
-        agg = scatter_sum(msg, edges, n)
+        agg = scatter_sum(msg, edges, n, rules)
         ms, mv, mt = agg[:, :C], agg[:, C : 4 * C].reshape(n, C, 3), agg[:, 4 * C :].reshape(n, C, 3, 3)
         # node update: channel mixing per irrep + gated nonlinearity
         s_new = ms @ blk["mix_s"]
@@ -544,12 +586,32 @@ def equiformer_init(cfg: EquiformerConfig, seed: int = 0, device=None) -> dict:
     }
 
 
+# repro's equiformer_energy dispatches to its mesh-only large-graph path
+# from this many nodes
+_BIG_GRAPH_NODES = 150_000
+
+
+def equiformer_energy_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """``repro``'s large-graph eSCN path (node state sharded over the
+    model axis, an online segment softmax merged across ranks): not
+    ported, so it raises."""
+    raise NotImplementedError(
+        "equiformer_energy_big (node state sharded over the model axis, a flash-style softmax "
+        "combined across ranks) is not ported: ROADMAP item 4.3's open half, port slice 18"
+    )
+
+
 def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
-    """Energies (n_graphs,): ``repro``'s one-card branch.  Per layer two
+    """Energies (n_graphs,): ``repro``'s small-graph branch.  Per layer two
     B6 launches (the attention's denominators, then the messages as
-    (E, C·ncoef) rows), and one readout."""
+    (E, C·ncoef) rows), and one readout; on a mesh over the rank's
+    edges, the segment max ``pmax``-ed and each scatter ``psum``-ed.
+    Where ``repro`` dispatches to ``equiformer_energy_big`` this raises."""
     species, pos = batch["species"], batch["positions"]
-    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    if (species.shape[0] >= _BIG_GRAPH_NODES and shd.get_mesh() is not None
+            and rules.model_axis is not None and species.shape[0] % rules.model_size == 0):
+        return equiformer_energy_big(cfg, rules, params, batch)
+    src, dst, emask = edge_block(rules, batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
     n = species.shape[0]
     C, ncoef = cfg.channels, cfg.n_coef
     dev = pos.device
@@ -595,15 +657,15 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
         logits = torch.where(emask[:, None], logits, torch.tensor(-1e30, device=dev))
         # max-subtraction is for numerical stability only: cut from the
         # gradient, as repro's stop_gradient
-        zmax = torch.full((n, cfg.n_heads), -math.inf, device=dev).scatter_reduce(
+        zmax = edge_psum(torch.full((n, cfg.n_heads), -math.inf, device=dev).scatter_reduce(
             0, idst[:, None].expand_as(logits), logits.detach(), "amax", include_self=False
-        )
+        ), rules, collectives.pmax)
         ex = torch.exp(logits - zmax[idst]) * emask_f[:, None]
-        denom = scatter_sum(ex, edges, n)
+        denom = scatter_sum(ex, edges, n, rules)
         alpha = ex / torch.clamp(denom[idst], min=1e-20)  # (E, heads)
         alpha_c = torch.repeat_interleave(alpha, C // cfg.n_heads, dim=-1, output_size=C)  # (E, C)
         msg = msg * alpha_c[:, :, None] * emask_f[:, None, None]
-        agg = scatter_sum(msg, edges, n)
+        agg = scatter_sum(msg, edges, n, rules)
 
         # per-degree channel mixing + gated nonlinearity
         upd = torch.cat([

@@ -2,7 +2,8 @@
 
 Port of ``repro/serve/``, with the same exports as ``repro.serve``.
 Turns the paper's one-shot §6 planning workflow into a runtime that can
-sustain a request stream on one device: plan caching over normalized
+sustain a request stream on one device or a mesh of ranks (rank 0
+leading, the others following its flush orders): plan caching over normalized
 query classes, signature-batched execution, and online cost-feedback
 recalibration — plus the async multi-tenant front end
 (`repro_torch.serve.aio`: SLO-aware admission, adaptive batching

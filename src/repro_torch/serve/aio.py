@@ -47,6 +47,15 @@ service's flush lock makes the worker/loop interleaving safe.  Answers
 are bit-identical to the sync path — the async layer only decides
 *when* the same flush pipeline runs.
 
+**Over ranks.**  On a service with a ``mesh`` the front end runs on the
+leader (rank 0) alone: admission, the token buckets, the SLO lanes and
+the adaptive windows read wall clocks, so one rank decides them, and
+each flush it decides is a flush order for the other ranks, whose
+service runs :meth:`QueryService.follow` (receive an order, execute it,
+repeat) and never opens a window.  :meth:`AsyncQueryService.stop`
+drains the lanes, then sends the stop order that ends the followers'
+loop.
+
 Metrics land in the stable ``aio`` block of the service summary
 (:mod:`repro_torch.serve.metrics`): per-class queue depth, admission
 accept/reject counters, window fill accounting, and fixed-bucket
@@ -197,6 +206,8 @@ class AsyncQueryService:
         config: AioConfig | None = None,
         clock: Callable[[], float] = time.monotonic,
     ):
+        if not service.leader:
+            raise ValueError("the async front end runs on the mesh's leader; followers run service.follow()")
         self.service = service
         self.config = config or AioConfig()
         self._clock = clock
@@ -209,7 +220,9 @@ class AsyncQueryService:
         self._secs_per_symbol = self.config.default_secs_per_symbol
         # S2 lanes fill one padded executor call: the service's batch multiple
         cfg = service.config
-        self._s2_fill = batcher.lane_fill_target(cfg.max_batch, batch_multiple(cfg.s2_backend))
+        self._s2_fill = batcher.lane_fill_target(
+            cfg.max_batch, batch_multiple(cfg.s2_backend, service.mesh, cfg.batch_axis)
+        )
         # metrics state (exported as the stable `aio` summary block)
         self._admission = {c: metrics_mod._empty_admission_stats() for c in SLO_CLASSES}
         self._hists = {c: LatencyHistogram() for c in SLO_CLASSES}
@@ -239,13 +252,15 @@ class AsyncQueryService:
         self._flusher = asyncio.get_running_loop().create_task(self._flush_loop())
 
     async def stop(self) -> None:
-        """Drain every open lane, then stop the flusher and worker."""
+        """Drain every open lane, then stop the flusher and worker (on a
+        mesh, after the followers' stop order, sent from the worker)."""
         if self._flusher is None:
             return
         self._stopping = True
         self._wake.set()
         await self._flusher
         self._flusher = None
+        await asyncio.get_running_loop().run_in_executor(self._executor, self.service.stop_followers)
         self._executor.shutdown(wait=True)
         self._executor = None
         self._push_metrics()

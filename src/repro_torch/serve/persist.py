@@ -29,6 +29,13 @@ and uint32 in ``repro``, with the same bits: :func:`_encode` writes them
 as uint32 and :func:`_decode` views them back as int32, so both packages
 read each other's snapshots with the right dtype.
 
+Over a mesh each rank holds only its share of the per-site artifacts
+(its block of sites, :meth:`GraphPlanStore.share`), so each rank saves
+and restores its own snapshot, at :func:`rank_path`: the blob names the
+share, and a rank refuses a snapshot of another share (another rank's
+block, or the whole placement) as it refuses another placement.  A
+one-card snapshot carries no share and stays ``repro``'s format.
+
 The on-disk format is a pickle of numpy payloads — treat snapshot files
 like any other local cache: not an interchange format, and never to be
 loaded from untrusted sources.
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.plans import GraphPlanStore
+from repro_torch.dist import collectives
 from repro_torch.graph.partition import Placement
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier import ops as fops
@@ -157,13 +165,21 @@ def _decode(kind: str, payload: dict, device: torch.device) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def rank_path(path: str, mesh=None) -> str:
+    """The snapshot file of this rank: ``path`` itself for one card, else
+    ``{path}.rank{r}``, ``r`` the rank's whole-mesh coordinate."""
+    return path if mesh is None else f"{path}.rank{collectives.mesh_rank(mesh)}"
+
+
 def save_stage_a(
-    store: GraphPlanStore, placement: Placement, path: str, stats_epoch: int = 0
+    store: GraphPlanStore, placement: Placement, path: str, stats_epoch: int = 0,
+    mesh=None, site_axes: tuple[str, ...] = ("data",),
 ) -> dict:
     """Snapshot every persistable Stage-A entry anchored to ``placement``
     (or its graph) to ``path``.  Returns a small manifest
-    (``{"n_entries", "fingerprint", "stats_epoch"}``).  The write is
-    atomic (tmp file + rename)."""
+    (``{"n_entries", "fingerprint", "stats_epoch"}``, and ``"share"`` on
+    a ``mesh``: the rank's block of sites over ``site_axes``, which the
+    blob names too).  The write is atomic (tmp file + rename)."""
     entries = []
     for anchor_name, anchor in (("placement", placement), ("graph", placement.graph)):
         for portable_key, artifact, _epoch in store.export_entries(anchor):
@@ -176,6 +192,9 @@ def save_stage_a(
         "stats_epoch": int(stats_epoch),
         "entries": entries,
     }
+    share = store.share(placement, mesh, site_axes)
+    if share:
+        blob["share"] = share
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
     try:
@@ -186,24 +205,27 @@ def save_stage_a(
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
-    return {
+    manifest = {
         "n_entries": len(entries),
         "fingerprint": blob["fingerprint"],
         "stats_epoch": blob["stats_epoch"],
     }
+    return {**manifest, "share": share} if share else manifest
 
 
 def load_stage_a(
-    store: GraphPlanStore, placement: Placement, path: str, stats_epoch: int = 0
+    store: GraphPlanStore, placement: Placement, path: str, stats_epoch: int = 0,
+    mesh=None, site_axes: tuple[str, ...] = ("data",),
 ) -> bool:
     """Warm-restore a Stage-A snapshot into ``store``, on its device,
     re-keyed to ``placement`` at the caller's current ``stats_epoch``.
 
     Returns ``True`` only when the snapshot exists, parses, carries the
-    current format version, and its content fingerprint matches this
-    placement exactly; every other outcome returns ``False`` and leaves
-    the store untouched.  Global stagings land on the store's device;
-    per-site slabs stay on the host, as they were staged."""
+    current format version, its content fingerprint matches this
+    placement exactly, and it holds this rank's share on ``mesh`` (the
+    whole placement without one); every other outcome returns ``False``
+    and leaves the store untouched.  Global stagings land on the store's
+    device; per-site slabs stay on the host, as they were staged."""
     try:
         with open(path, "rb") as f:
             blob = pickle.load(f)
@@ -213,7 +235,12 @@ def load_stage_a(
         return False
     if blob.get("fingerprint") != placement_fingerprint(placement):
         return False
+    share = store.share(placement, mesh, site_axes)
     try:
+        if blob.get("share", ()) != share or any(
+            key[0] == "staged_sharded" and tuple(key[3:]) != share for _, key, _ in blob["entries"]
+        ):
+            return False  # another rank's block of sites, or the whole placement
         decoded = [
             (anchor_name, key, _decode(key[0], payload, store.device))
             for anchor_name, key, payload in blob["entries"]

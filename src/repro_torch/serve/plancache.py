@@ -25,10 +25,11 @@ mirroring the two expensive phases of a query's life:
   degree vectors and its reference to the staged tensors — so their
   device memory frees once the plan store's Stage-A entry goes too.
 
-``repro``'s signature carries the mesh and its axes; on one device they
-cannot differ, so the port's drops them and names its fields.  The
-sharded backend's ``axis_size`` shapes its buckets, so it reaches the
-graph key through the bucket descriptor.
+The signature carries the mesh's shape and its site and batch axes, as
+``repro``'s does, so an executor built for one mesh is never served on
+another; the port names its fields.  The sharded backend's ``axis_size``
+shapes its buckets, so it reaches the graph key through the bucket
+descriptor.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from repro_torch.core import plans as plans_mod
 from repro_torch.core import regex as rx
 from repro_torch.core import strategies
 from repro_torch.core.automaton import CompiledAutomaton
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.frontier import ops as fops
 from repro_torch.serve import metrics
 
@@ -226,8 +228,9 @@ class PlanCache:
 class Signature(NamedTuple):
     """Structural identity of a compiled S2 executor: everything
     :func:`~repro_torch.core.strategies.make_s2_step_fn` closes over.
-    ``repro``'s positional tuple, less its ``mesh_key``, ``site_axes``
-    and ``batch_axis``; read by name."""
+    ``repro``'s positional tuple, read by name, with its three mesh
+    fields last: ``mesh_key``, ``((axis name, size), ...)`` of the mesh
+    (``()`` with none), and the site and batch axes."""
 
     n_states: int
     start: int
@@ -239,6 +242,17 @@ class Signature(NamedTuple):
     block_size: int
     semantics: str
     tile_dtype: str
+    mesh_key: tuple = ()
+    site_axes: tuple[str, ...] = ("data",)
+    batch_axis: str | None = "model"
+
+
+def mesh_key(mesh) -> tuple:
+    """``((axis name, size), ...)`` of ``mesh`` in its axis order; ``()``
+    for one card."""
+    if mesh is None:
+        return ()
+    return tuple(shd.mesh_sizes(mesh).items())
 
 
 def automaton_signature(
@@ -249,12 +263,16 @@ def automaton_signature(
     block_size: int = 128,
     semantics: str = "pairs",
     tile_dtype: str = "f32",
+    mesh=None,
+    site_axes: tuple[str, ...] = ("data",),
+    batch_axis: str | None = "model",
 ) -> Signature:
     """Structural identity of a compiled S2 executor: the fused transition
     runs, start/accepting states, node count, the level cap, the backend
     and its tile block size, the answer semantics (``"pairs"`` and
-    ``"witness"`` executors carry different planes) and the staged tile
-    dtype.  The out-of-core ``tile_store_budget_bytes`` is deliberately
+    ``"witness"`` executors carry different planes), the staged tile
+    dtype, and the mesh's shape with the site and batch axes (a program
+    per rank of one mesh is not another's).  The out-of-core ``tile_store_budget_bytes`` is deliberately
     NOT part of it: it changes where Stage A's bytes live, never the
     staged values an executor reads.  Two queries with equal signatures
     build identical executors and share one."""
@@ -269,6 +287,9 @@ def automaton_signature(
         block_size=block_size,
         semantics=semantics,
         tile_dtype=tile_dtype,
+        mesh_key=mesh_key(mesh),
+        site_axes=tuple(site_axes),
+        batch_axis=batch_axis,
     )
 
 
@@ -354,25 +375,32 @@ class ExecutorCache:
         tile_store_budget_bytes: int | None = None,
         axis_size: int = 1,
         bucket_floor: int | None = None,
+        mesh=None,
+        site_axes: tuple[str, ...] = ("data",),
+        batch_axis: str | None = "model",
     ) -> tuple[Signature, Callable]:
         """``signature`` accepts the precomputed key (the service computes
         it once per request during planning).  ``stats_epoch`` scopes the
         Stage-A artifacts the build reuses from the plan store, on the
         store's device.  For the sharded backend the placement's shape
         buckets at (``axis_size``, ``bucket_floor``) are resolved first (a
-        store hit when the placement is hot), and their descriptor joins
-        the graph key."""
+        store hit when the placement is hot; on a ``mesh``, the rank's
+        row, whose first build is a collective), and their descriptor
+        joins the graph key.  ``mesh``, ``site_axes`` and ``batch_axis``
+        reach the signature and the executor: on a mesh the build is the
+        rank's program, and ``axis_size`` must be the site axes' size."""
         sig = (
             signature
             if signature is not None
-            else automaton_signature(ca, n_nodes, max_levels, backend, block_size, semantics, tile_dtype)
+            else automaton_signature(ca, n_nodes, max_levels, backend, block_size, semantics, tile_dtype,
+                                     mesh, site_axes, batch_axis)
         )
         bucket_id = None
         if backend == "frontier_kernel_sharded" and placement is not None:
             floor = fops.BUCKET_FLOOR if bucket_floor is None else bucket_floor
             bucket_id = self.plan_store.tile_buckets(
-                placement, block_size, axis_size, epoch=stats_epoch, floor=floor,
-                tile_dtype="f32" if semantics == "witness" else tile_dtype,
+                placement, block_size, axis_size, stats_epoch, floor,
+                "f32" if semantics == "witness" else tile_dtype, mesh, site_axes,
             ).bucket_id
         gkey = self.graph_key(stats_epoch, backend, block_size, graph, placement, bucket_id)
         key = (gkey, sig)
@@ -388,7 +416,8 @@ class ExecutorCache:
             block_size=block_size, semantics=semantics, tile_dtype=tile_dtype,
             plan_store=self.plan_store, stats_epoch=stats_epoch,
             tile_store_budget_bytes=tile_store_budget_bytes, placement=placement,
-            axis_size=axis_size, bucket_floor=bucket_floor,
+            axis_size=None if mesh is not None else axis_size, bucket_floor=bucket_floor,
+            mesh=mesh, site_axes=site_axes, batch_axis=batch_axis,
         )
         self._lru[key] = _ExecEntry(
             graph_key=gkey, sig=sig, fn=fn, anchor=placement if placement is not None else graph,

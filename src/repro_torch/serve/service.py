@@ -1,17 +1,42 @@
 """`QueryService` — the continuous-batching RPQ serving runtime.
 
-Port of ``repro/serve/service.py`` on one device: the constructor takes
-``device`` (``None``: the GPU) and ``axis_size`` (the sharded backend's
-site groups, the product of ``repro``'s site-axis sizes) in place of
-``repro``'s ``mesh``, and ``ServeConfig`` keeps ``repro``'s fields and
-defaults less ``site_axes`` and ``batch_axis``.  Every S2 backend of
-``repro`` serves: the default ``"reference"`` (plain torch on the padded
-site arrays, no kernel), ``frontier_kernel`` (kernel B1 on f32 tiles, B3
-on uint32), ``frontier_kernel_packed`` (B2, B4) and
-``frontier_kernel_sharded`` (B1 or B3 once per shape bucket and level).
-On a CUDA device every level launches its kernel or raises: a failed
-build fails the tickets of its group, with no fallback to the plain
-versions.
+Port of ``repro/serve/service.py``.  The constructor takes ``device``
+(``None``: the GPU) and, as ``repro``'s does, a ``mesh``: ``None`` is
+one card, where ``axis_size`` (the sharded backend's site groups, the
+product of ``repro``'s site-axis sizes) stands in for the mesh; a
+``torch.distributed`` ``DeviceMesh`` of ranks runs the service as one
+process per rank (below).  ``ServeConfig`` keeps ``repro``'s fields and
+defaults.  Every S2 backend of ``repro`` serves: the default
+``"reference"`` (plain torch on the padded site arrays, no kernel),
+``frontier_kernel`` (kernel B1 on f32 tiles, B3 on uint32),
+``frontier_kernel_packed`` (B2, B4) and ``frontier_kernel_sharded`` (B1
+or B3 once per shape bucket and level).  On a CUDA device every level
+launches its kernel or raises: a failed build fails the tickets of its
+group, with no fallback to the plain versions.
+
+**Over ranks.**  ``repro`` is one controller driving every device; the
+port runs one process per rank, and every rank must enter the same
+collectives in the same order.  Rank 0 of the mesh leads: it alone
+admits, plans and batches, and each flush first broadcasts a *flush
+order* (:func:`~repro_torch.dist.collectives.broadcast_bytes`): every
+planned request's query, starts, semantics, strategy, executed level cap
+and signature digest, in queue order.  The other ranks follow
+(:meth:`QueryService.follow`, or one :meth:`~QueryService.flush` per
+order): they plan the same requests with the strategy forced, check the
+level cap and signature, and run the same flush, so they form the same
+signature groups and S1 windows and call the same collectives.  The
+leader does not let followers plan for themselves because the §5
+rollouts are estimates: a near tie rounded otherwise on one rank would
+send it to S1 while the others enter S2's collectives.  The calibrator
+observes the gathered costs, the same on every rank.  Each group's
+build, each executor call and each S1 gather ends in an
+:func:`~repro_torch.dist.collectives.agree` on an error flag, so a group
+that raised on any rank fails on every rank (:class:`RankFailure`
+carries the raising rank's message elsewhere) and serving goes on; a
+rank that raised inside a collective of its own leaves the others
+waiting, which the process group's timeout ends.  Each rank stages and
+snapshots only its share of the per-site artifacts
+(:meth:`~QueryService.save_plan_store`).
 
 One request's life (all in :meth:`QueryService.flush`):
 
@@ -43,6 +68,10 @@ import dataclasses
 import threading
 import time
 
+import contextlib
+import hashlib
+import json
+
 import numpy as np
 
 import torch
@@ -52,6 +81,8 @@ from repro_torch.core import paa, planner, plans, strategies, witness
 from repro_torch.core import regex as rx
 from repro_torch.core.cost_model import NetworkParams
 from repro_torch.core.strategies import StrategyCost
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.graph.partition import Placement
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier import ops as fops
@@ -62,6 +93,15 @@ from repro_torch.serve import persist, plancache
 
 class ServiceOverloaded(RuntimeError):
     """Admission queue is full; shed load upstream."""
+
+
+class RankFailure(RuntimeError):
+    """Another rank of the mesh raised while this one did not: the group
+    fails here too, with that rank's message."""
+
+    def __init__(self, rank: int, message: str):
+        super().__init__(f"rank {rank} raised {message}")
+        self.rank = rank
 
 
 @dataclasses.dataclass
@@ -77,6 +117,8 @@ class ServeConfig:
     max_batch: int = 128  # S2 starts per executor call (before bucketing)
     max_pending: int = 1024  # admission queue bound
     s1_coalesce_labels: int = 48  # union-label budget per coalesced S1 gather
+    site_axes: tuple[str, ...] = ("data",)
+    batch_axis: str | None = "model"
     max_levels: int | None = None
     # default answer semantics: "pairs" (the paper's node-pair answers)
     # or "witness" (answers + per-start discovery-level planes so
@@ -202,13 +244,23 @@ class _Request:
         return self.entry.exec_max_levels
 
 
-def batch_multiple(backend: str) -> int:
-    """The S2 batch multiple of ``backend`` on one device — ``repro``'s
-    value on a (1, 1) mesh: the fused kernels' query stack, ``QPAD`` f32
-    rows or ``QPACK`` packed lanes, and 1 for the reference backend."""
+def batch_multiple(backend: str, mesh=None, batch_axis: str | None = "model") -> int:
+    """The S2 batch multiple, ``repro``'s rule: the size of the mesh's
+    ``batch_axis`` (1 without one, or on one card), raised to the fused
+    kernels' query stack, ``QPAD`` f32 rows or ``QPACK`` packed lanes;
+    the reference backend keeps the axis size."""
+    multiple = 1
+    if mesh is not None and batch_axis and batch_axis in shd.axis_names(mesh):
+        multiple = shd.mesh_sizes(mesh)[batch_axis]
     if backend == "frontier_kernel_packed":
-        return fops.QPACK
-    return 1 if backend == "reference" else fops.QPAD
+        return max(multiple, fops.QPACK)
+    return multiple if backend == "reference" else max(multiple, fops.QPAD)
+
+
+def _signature_digest(sig: tuple) -> str:
+    """A short digest of a signature, by which a follower checks that it
+    planned the leader's executor."""
+    return hashlib.sha256(repr(sig).encode()).hexdigest()[:16]
 
 
 class QueryService:
@@ -221,6 +273,14 @@ class QueryService:
     placement's label vocabulary.  ``strategy`` on submit/enqueue forces
     S1 or S2, bypassing the planner's decision (useful for tests and
     A/B measurement); None lets the §6 workflow decide.
+
+    On a ``mesh`` (a ``DeviceMesh`` of ranks, one process each) every rank
+    makes its service from the same arguments: rank 0 leads (admission,
+    planning, batching: :meth:`enqueue`, :meth:`flush`, then
+    :meth:`stop_followers`), the others :meth:`follow` its flush orders
+    (see the module docstring).  The sites are blocked over
+    ``config.site_axes``, whose size is the sharded backend's
+    ``axis_size``, and the starts over ``config.batch_axis``.
     """
 
     def __init__(
@@ -230,15 +290,26 @@ class QueryService:
         sample: LabeledGraph | None = None,
         config: ServeConfig | None = None,
         device: str | torch.device | None = None,
-        axis_size: int = 1,
+        axis_size: int | None = None,
+        mesh=None,
     ):
         self.config = config or ServeConfig()
         strategies._require_ported(
             self.config.s2_backend, self.config.semantics, self.config.s2_tile_dtype
         )
+        if mesh is not None:
+            if axis_size is not None:
+                raise ValueError("axis_size is the mesh's: the size of config.site_axes")
+            axis_size = collectives.axis_size(mesh, self.config.site_axes)
+        axis_size = 1 if axis_size is None else axis_size
         if placement.n_sites % axis_size:
             raise ValueError(f"n_sites={placement.n_sites} must be divisible by axis_size={axis_size}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.leader = mesh is None or collectives.mesh_rank(mesh) == 0
+        # what every signature and executor of this service is built for
+        self._mesh_kw = {"mesh": mesh, "site_axes": self.config.site_axes,
+                         "batch_axis": self.config.batch_axis}
         self.axis_size = axis_size
         self.placement = placement
         self.net = net_params
@@ -268,9 +339,11 @@ class QueryService:
         self._flush_lock = threading.Lock()
         self._flush_owner: int | None = None
         # stage the padded site arrays once per epoch; static per placement
+        # (on a mesh, the rank's rows)
         self._device_arrays = self.plan_store.site_device_arrays(
-            placement, epoch=self.stats_epoch
+            placement, self.stats_epoch, mesh, self.config.site_axes
         )
+        self._stopped = False  # a follower's last order was the stop order
 
     # -- stats epoch --------------------------------------------------------
 
@@ -279,7 +352,9 @@ class QueryService:
         epoch — which implicitly invalidates every cached plan, and
         invalidates Stage A exactly once (executors and staged artifacts
         of the old epoch are dropped from the caches; anything already
-        handed out keeps its own references and completes normally)."""
+        handed out keeps its own references and completes normally).  On
+        a mesh, call it on every rank with the same sample between the
+        same two flushes."""
         if sample.labels != self.placement.graph.labels:
             raise ValueError("sample must share the placement's label vocabulary")
         self.sample = sample
@@ -288,7 +363,7 @@ class QueryService:
         self.stats_epoch += 1
         self.exec_cache.drop_epoch(self.stats_epoch)  # also sweeps the plan store
         self._device_arrays = self.plan_store.site_device_arrays(
-            self.placement, epoch=self.stats_epoch
+            self.placement, self.stats_epoch, self.mesh, self.config.site_axes
         )
 
     # -- admission ----------------------------------------------------------
@@ -328,6 +403,7 @@ class QueryService:
         strategy: str | None = None,
         semantics: str | None = None,
     ) -> Ticket:
+        self._require_leader()
         if len(self._queue) >= self.config.max_pending:
             raise ServiceOverloaded(
                 f"admission queue full ({self.config.max_pending} pending)"
@@ -354,6 +430,7 @@ class QueryService:
         planning a request and then dropping it costs only the plan-
         cache lookup (a §5 rollout estimation on the first miss of its
         query class)."""
+        self._require_leader()
         req = self._validated_request(query, start_nodes, strategy, semantics)
         self._plan(req)
         req.ticket._request = req
@@ -362,6 +439,7 @@ class QueryService:
     def enqueue_planned(self, ticket: Ticket) -> Ticket:
         """Admit a ticket produced by :meth:`plan_request` into the
         flush queue (same bound as :meth:`enqueue`)."""
+        self._require_leader()
         req = getattr(ticket, "_request", None)
         if req is None or req.plan is None:
             raise ValueError("ticket was not produced by plan_request")
@@ -394,6 +472,10 @@ class QueryService:
     @property
     def n_pending(self) -> int:
         return len(self._queue)
+
+    def _require_leader(self) -> None:
+        if not self.leader:
+            raise RuntimeError("a follower rank runs its leader's flush orders (follow()), not requests")
 
     # -- planning -----------------------------------------------------------
 
@@ -435,7 +517,7 @@ class QueryService:
                 fkey=feedback.label_class_key(req.ast),
                 label_mask=strategies.query_label_mask(req.ast, self.placement.graph),
                 sig=plancache.automaton_signature(
-                    *sig_args, semantics="pairs", tile_dtype=cfg.s2_tile_dtype
+                    *sig_args, semantics="pairs", tile_dtype=cfg.s2_tile_dtype, **self._mesh_kw
                 ),
                 exec_ca=exec_ca,
                 exec_max_levels=exec_levels,
@@ -444,7 +526,7 @@ class QueryService:
                 # tile dtype (the bitpacked store is boolean-only), so
                 # their signature carries the dtype they actually bake
                 sig_witness=plancache.automaton_signature(
-                    *sig_args, semantics="witness", tile_dtype="f32"
+                    *sig_args, semantics="witness", tile_dtype="f32", **self._mesh_kw
                 ),
             )
             self.plan_cache.put(key, self.stats_epoch, entry)
@@ -483,18 +565,20 @@ class QueryService:
 
     def _run_s2(self, reqs: list[_Request]) -> None:
         cfg = self.config
-        # fill the fused kernel's query stack (8 rows, 256 lanes) before growing
-        multiple = batch_multiple(cfg.s2_backend)
+        # fill the fused kernel's query stack (8 rows, 256 lanes) and the
+        # mesh's batch axis before growing
+        multiple = batch_multiple(cfg.s2_backend, self.mesh, cfg.batch_axis)
 
         for group in batcher.group_by_signature(reqs, lambda r: r.sig):
-            try:
-                # the group's signature encodes the *executed* automaton
-                # (the planner's reduced form on closure queries), the
-                # fast-path level cap, and the answer semantics — build
-                # the executor from exactly those
-                g_sem = group[0].semantics
-                g_levels = group[0].exec_max_levels
-                _, step_fn = self.exec_cache.get_or_build(
+            # the group's signature encodes the *executed* automaton (the
+            # planner's reduced form on closure queries), the fast-path
+            # level cap, and the answer semantics — build the executor
+            # from exactly those
+            g_sem = group[0].semantics
+            g_levels = group[0].exec_max_levels
+
+            def build():
+                return self.exec_cache.get_or_build(
                     group[0].exec_ca, self.placement.graph.n_nodes, g_levels,
                     signature=group[0].sig,
                     backend=cfg.s2_backend, graph=self.placement.graph,
@@ -506,14 +590,17 @@ class QueryService:
                     tile_store_budget_bytes=cfg.tile_store_budget_bytes,
                     axis_size=self.axis_size,
                     bucket_floor=cfg.s2_bucket_floor,
-                )
+                    **self._mesh_kw,
+                )[1]
 
-                def execute(starts, exemplar):
-                    return strategies.s2_execute(
-                        self.placement, exemplar.exec_ca, starts, g_levels,
-                        step_fn=step_fn, device_arrays=self._device_arrays, semantics=g_sem,
-                    )
+            def execute(starts, exemplar):
+                return self._agreed(lambda: strategies.s2_execute(
+                    self.placement, exemplar.exec_ca, starts, g_levels,
+                    step_fn=step_fn, device_arrays=self._device_arrays, semantics=g_sem, **self._mesh_kw,
+                ))
 
+            try:
+                step_fn = self._agreed(build)
                 results = batcher.run_s2_group(
                     group, execute, max_batch=cfg.max_batch, multiple=multiple
                 )
@@ -534,44 +621,95 @@ class QueryService:
         weights = self._label_weights if cfg.s1_cost_weighted else None
         for group in batcher.coalesce_s1(reqs, cfg.s1_coalesce_labels, weights):
             try:
-                sub = strategies.s1_collect(
+                sub = self._agreed(lambda: strategies.s1_collect(
                     self.placement, batcher.union_mask(group), device_arrays=self._device_arrays,
-                )
+                    mesh=self.mesh, site_axes=cfg.site_axes,
+                ))
             except Exception as e:  # noqa: BLE001
                 for req in group:
                     self._fail(req, e)
                 continue
+            outs, errors = [], []
             for req in group:
                 try:
-                    ids = set(np.nonzero(req.label_mask)[0].tolist())
-                    own = sub if len(ids) == graph.n_labels else sub.subgraph_with_labels(ids)
-                    dg = paa.device_form(own, self.device)
-                    answers = [
-                        set(np.nonzero(paa.answers_single_source(req.ca, dg, int(s)).cpu().numpy())[0].tolist())
-                        for s in req.starts
-                    ]
-                    levels = None
-                    if req.semantics == "witness":
-                        # S1 answers locally: the collected subgraph holds
-                        # every edge the query can traverse, so its BFS
-                        # levels are valid against the global label store
-                        # (subgraph edges ⊆ global edges)
-                        idx = paa.HostIndex(own)
-                        levels = np.stack([
-                            witness.host_levels(
-                                req.exec_ca, idx, int(s),
-                                max_levels=req.exec_max_levels,
-                            )
-                            for s in req.starts
-                        ]) if len(req.starts) else np.zeros(
-                            (0, req.exec_ca.n_states, graph.n_nodes), np.float32
-                        )
+                    outs.append(self._s1_answer(req, sub))
+                    errors.append(None)
                 except Exception as e:  # noqa: BLE001
-                    self._fail(req, e)
+                    outs.append(None)
+                    errors.append(e)
+            for req, out, err in zip(group, outs, self._agree_errors(errors)):
+                if err is not None:
+                    self._fail(req, err)
                     continue
                 cost = strategies.s1_costs(req.entry.ast, graph)
                 self.calibrator.observe(req.fkey, req.entry.estimates, req.plan, cost)
-                self._finish(req, answers, [cost], exec_batch=len(group), levels=levels)
+                self._finish(req, out[0], [cost], exec_batch=len(group), levels=out[1])
+
+    def _s1_answer(self, req: _Request, sub: LabeledGraph) -> tuple[list[set[int]], np.ndarray | None]:
+        """One S1 request's answers (and witness levels) on the gathered
+        subgraph ``sub``, at the querying site."""
+        graph = self.placement.graph
+        ids = set(np.nonzero(req.label_mask)[0].tolist())
+        own = sub if len(ids) == graph.n_labels else sub.subgraph_with_labels(ids)
+        dg = paa.device_form(own, self.device)
+        answers = [
+            set(np.nonzero(paa.answers_single_source(req.ca, dg, int(s)).cpu().numpy())[0].tolist())
+            for s in req.starts
+        ]
+        if req.semantics != "witness":
+            return answers, None
+        # S1 answers locally: the collected subgraph holds every edge the
+        # query can traverse, so its BFS levels are valid against the
+        # global label store (subgraph edges ⊆ global edges)
+        idx = paa.HostIndex(own)
+        if not len(req.starts):
+            return answers, np.zeros((0, req.exec_ca.n_states, graph.n_nodes), np.float32)
+        return answers, np.stack([
+            witness.host_levels(req.exec_ca, idx, int(s), max_levels=req.exec_max_levels)
+            for s in req.starts
+        ])
+
+    # -- agreement over ranks -------------------------------------------------
+
+    def _agree_errors(self, errors: list) -> list:
+        """On a mesh, each entry of ``errors`` (an exception or ``None``)
+        agreed over every rank: one that raised anywhere is an exception
+        on every rank, the rank's own or a :class:`RankFailure` with the
+        first raising rank's message.  One ``all_reduce`` when none
+        raised; the identity on one card."""
+        if self.mesh is None or not errors:
+            return errors
+        flags = [e is not None for e in errors]
+        if not any(collectives.agree(flags, self.mesh, self.device)):
+            return errors
+        axes = collectives.mesh_axes(self.mesh)
+        table = collectives.gather_rows(
+            torch.tensor([flags], device=self.device), axes, collectives.axis_size(self.mesh, axes), self.mesh
+        ).cpu().numpy()
+        me = collectives.mesh_rank(self.mesh)
+        out = []
+        for i, err in enumerate(errors):
+            raised = np.nonzero(table[:, i])[0]
+            if not len(raised):
+                out.append(err)
+                continue
+            root = int(raised[0])
+            note = f"{type(err).__name__}: {err}".encode() if me == root else None
+            msg = collectives.broadcast_bytes(note, self.mesh, root, self.device).decode()
+            out.append(err if err is not None else RankFailure(root, msg))
+        return out
+
+    def _agreed(self, fn):
+        """``fn()``, whose exception, or another rank's, raises on every
+        rank of the mesh after it (:meth:`_agree_errors`)."""
+        try:
+            out, err = fn(), None
+        except Exception as e:  # noqa: BLE001 — agreed below
+            out, err = None, e
+        (err,) = self._agree_errors([err])
+        if err is not None:
+            raise err
+        return out
 
     def _fail(self, req: _Request, err: Exception) -> None:
         req.ticket.error = err
@@ -654,26 +792,96 @@ class QueryService:
         snapshots.  A *re-entrant* call from inside the executing flush
         (same thread, e.g. a ticket callback submitting a follow-up
         query) returns ``[]`` without draining — its requests stay
-        queued for the next flush instead of deadlocking."""
+        queued for the next flush instead of deadlocking.
+
+        On a mesh the leader's flush first sends its flush order; a
+        follower's flush waits for the next order and runs it (returning
+        ``[]`` on the stop order)."""
         if self._flush_owner == threading.get_ident():
             return []
-        with self._flush_lock:
+        on_card = torch.cuda.device(self.device) if self.device.type == "cuda" else contextlib.nullcontext()
+        with self._flush_lock, on_card:  # a worker thread's flush launches on the service's card
             self._flush_owner = threading.get_ident()
             try:
                 return self._flush_locked()
             finally:
                 self._flush_owner = None
 
-    def _flush_locked(self) -> list[Ticket]:
-        pending, self._queue = self._queue, []
-        planned: list[_Request] = []
-        for req in pending:
+    def follow(self) -> list[Ticket]:
+        """On a follower rank: run the leader's flush orders until its stop
+        order (:meth:`stop_followers`); returns their tickets in order."""
+        if self.leader:
+            raise RuntimeError("the leader sends flush orders; follow() runs on the other ranks")
+        tickets: list[Ticket] = []
+        self._stopped = False
+        while not self._stopped:
+            tickets += self.flush()
+        return tickets
+
+    def stop_followers(self) -> None:
+        """On the leader of a mesh: send the stop order that ends the
+        followers' :meth:`follow` (nothing on one card)."""
+        self._require_leader()
+        if self.mesh is not None:
+            with self._flush_lock:
+                self._broadcast_order({"stop": True})
+
+    def _broadcast_order(self, order: dict | None) -> dict:
+        """The leader's flush order (JSON), on every rank."""
+        payload = json.dumps(order).encode() if order is not None else None
+        return json.loads(collectives.broadcast_bytes(payload, self.mesh, 0, self.device))
+
+    @staticmethod
+    def _order_of(req: _Request) -> dict:
+        """What a follower needs to run ``req`` as the leader planned it."""
+        return {"query": req.query, "starts": req.starts.tolist(), "semantics": req.semantics,
+                "strategy": req.strategy, "levels": req.exec_max_levels,
+                "sig": _signature_digest(req.sig)}
+
+    def _follow_order(self, entries: list[dict]) -> tuple[list[_Request], list]:
+        """A follower's requests of one flush order, planned with the
+        leader's strategy; a plan that raised, or that built another
+        executor than the leader's, is an error of its request."""
+        reqs, errors = [], []
+        for e in entries:
+            req = self._validated_request(e["query"], e["starts"], e["strategy"], e["semantics"])
+            reqs.append(req)
             try:
-                if req.plan is None:  # plan_request() tickets arrive planned
-                    self._plan(req)
-                planned.append(req)
-            except Exception as e:  # noqa: BLE001
-                self._fail(req, e)
+                self._plan(req)
+                if (req.exec_max_levels, _signature_digest(req.sig)) != (e["levels"], e["sig"]):
+                    raise RuntimeError(f"{req.query!r}: this rank planned another executor than the leader")
+                errors.append(None)
+            except Exception as err:  # noqa: BLE001 — agreed by the caller
+                errors.append(err)
+        return reqs, errors
+
+    def _flush_locked(self) -> list[Ticket]:
+        if self.leader:
+            pending, self._queue = self._queue, []
+            planned: list[_Request] = []
+            for req in pending:
+                try:
+                    if req.plan is None:  # plan_request() tickets arrive planned
+                        self._plan(req)
+                    planned.append(req)
+                except Exception as e:  # noqa: BLE001
+                    self._fail(req, e)
+            errors = [None] * len(planned)
+            if self.mesh is not None:
+                self._broadcast_order({"requests": [self._order_of(r) for r in planned]})
+        else:
+            order = self._broadcast_order(None)
+            if order.get("stop"):
+                self._stopped = True
+                return []
+            pending, errors = self._follow_order(order["requests"])
+            planned = pending
+        if self.mesh is not None:  # a request a follower could not plan fails everywhere
+            agreed = self._agree_errors(errors)
+            for req, err in zip(planned, agreed):
+                if err is not None:
+                    self._fail(req, err)
+            planned = [r for r, err in zip(planned, agreed) if err is None]
         s2 = [r for r in planned if r.strategy == "S2"]
         s1 = [r for r in planned if r.strategy != "S2"]
         if s2:
@@ -696,9 +904,11 @@ class QueryService:
         placement to ``path`` (see :mod:`repro_torch.serve.persist`); returns
         the manifest.  Call after the executors a deployment cares about
         have been built at least once — the snapshot holds whatever is
-        currently staged."""
+        currently staged.  On a mesh every rank writes its own share to
+        its own file, ``persist.rank_path(path, mesh)``."""
         return persist.save_stage_a(
-            self.plan_store, self.placement, path, self.stats_epoch
+            self.plan_store, self.placement, persist.rank_path(path, self.mesh), self.stats_epoch,
+            self.mesh, self.config.site_axes,
         )
 
     def restore_plan_store(self, path: str) -> bool:
@@ -708,9 +918,11 @@ class QueryService:
         installed on the service's device (executor builds then skip tile
         packing entirely);
         ``False`` falls back to the cold build path with the store
-        untouched."""
+        untouched.  On a mesh each rank reads its own file and refuses a
+        snapshot of another share."""
         return persist.load_stage_a(
-            self.plan_store, self.placement, path, self.stats_epoch
+            self.plan_store, self.placement, persist.rank_path(path, self.mesh), self.stats_epoch,
+            self.mesh, self.config.site_axes,
         )
 
     # -- reporting -----------------------------------------------------------

@@ -1369,3 +1369,85 @@ def test_one_rank_nccl_mesh_equals_no_mesh(cuda, tmp_path):
                     assert launches[0][0] == launches[0][1] > 0
     finally:
         dist.destroy_process_group()
+
+
+def test_one_rank_nccl_service_equals_no_mesh(cuda, tmp_path):
+    """``QueryService(mesh=)`` on a (1, 1) mesh of one NCCL rank, the
+    sharded backend over the bit-plane store (B3), an S1 window and witness
+    requests (B1): the rank leads its own flush orders, and every ticket's
+    answers, strategy, costs and witness levels equal ``mesh=None``'s on
+    the card, with the same launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+
+    g, placement = _sharded_setup()
+    stream = workloads.generate(g, workloads.WorkloadConfig(n_queries=12, hot_pool=3, max_starts=6, seed=2))
+    cfg = ServeConfig(n_rollouts=40, seed=0, s2_backend="frontier_kernel_sharded", s2_tile_dtype="uint32",
+                      s2_block_size=32)
+
+    def serve(mesh):
+        svc = QueryService(placement, NetworkParams(150, 450, 0.2), config=cfg, device=cuda, mesh=mesh)
+        frontier.reset_launches()
+        tickets = [svc.enqueue(w.query, w.starts, strategy="S2") for w in stream[:6]]
+        svc.flush()
+        tickets += [svc.enqueue(w.query, w.starts, strategy="S1") for w in stream[:3]]
+        svc.flush()
+        tickets += [svc.enqueue(w.query, w.starts, strategy="S2", semantics="witness") for w in stream[6:]]
+        svc.flush()
+        svc.stop_followers()
+        return [(a.query, a.strategy, a.answers, [dataclasses.astuple(c) for c in a.observed],
+                 None if a.levels is None else a.levels.tobytes())
+                for a in (t.result() for t in tickets)], dict(frontier.launch_counts())
+
+    want, want_launches = serve(None)
+    ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
+    try:
+        mesh = lmesh.make_test_mesh(1, 1)
+        assert dist.get_backend() == "nccl"
+        got, launches = serve(mesh)
+    finally:
+        dist.destroy_process_group()
+    assert got == want and launches == want_launches
+    assert launches["fused_level_blocks_u32"] > 0 and launches["fused_level_blocks"] > 0  # witness: f32
+
+
+@pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])
+def test_one_rank_nccl_embedding_bag_sharded_equals_b6(cuda, tmp_path, table_dtype):
+    """``embedding_bag_sharded`` on a (1, 1) mesh of one NCCL rank (the
+    rank's shard is the whole table, its block the whole batch) is the
+    one-card B6 bags bit for bit, in one B6 launch and a psum over the
+    model axis; B6 with no lookup writes zero bags."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+
+    table = torch.randn((3000, 128), device=cuda).to(table_dtype)
+    idx = torch.randint(0, 3000, (512, 3), device=cuda, dtype=torch.int32)
+    rules = shd.Rules.from_mesh(None)
+    for hot in (1, 3):
+        want = dlrm_model.embedding_bag_sharded(table, idx[:, :hot].contiguous(), rules)
+        ranks.init_rank(0, 1, str(tmp_path / f"store{hot}"), device=cuda, timeout_s=120)
+        try:
+            mesh = lmesh.make_test_mesh(1, 1)
+            with shd.use_mesh(mesh):
+                mesh_rules = shd.Rules.from_mesh(mesh)
+                before = embedbag.LAUNCHES
+                collectives.WIRE_COUNTERS.clear()
+                got = dlrm_model.embedding_bag_sharded(
+                    dlrm_model.table_row_shard(table, 0, mesh_rules.model_size), idx[:, :hot].contiguous(),
+                    mesh_rules)
+                torch.cuda.synchronize()
+                assert embedbag.LAUNCHES - before == 1 and collectives.WIRE_COUNTERS["all_reduces"] == 1
+        finally:
+            dist.destroy_process_group()
+        assert got.dtype == table_dtype and torch.equal(got.view(torch.int16 if table_dtype == torch.bfloat16
+                                                                 else torch.int32),
+                                                        want.view(torch.int16 if table_dtype == torch.bfloat16
+                                                                  else torch.int32))
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    zero = embedbag.embedding_bag_sorted(table, empty, empty, 7)
+    assert zero.shape == (7, 128) and not zero.any()
