@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive every path of the port end to end on one NVIDIA GPU, through
 each of its seven hand-written CUDA kernels, and the models that call
-B6 (DLRM, the four GNNs) and B7 (the dense and MoE LMs).
+B6 (DLRM, the four GNNs) and B7 (the dense and MoE LMs), on one card and
+over ranks.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -128,8 +129,9 @@ Phases, each of which raises on failure (the run then exits non-zero):
              witness levels and S1 buffers, and of each bucket row of the
              one-card plan; then (a) one NCCL rank in this process on a
              (1, 1) mesh: the sharded phase's (i) on B3 on its first 64
-             valid starts a query, the reference backend on the 256-site placement (64
-             starts a query, pairs and witness) and the plan phase's S1
+             valid starts a query, the reference backend on the 256-site
+             placement (64 starts a query, pairs and witness) and the plan
+             phase's S1
              gathers (every Table-2 query's labels at the padded width);
              (b) 4 ``gloo`` ranks spawned on the one card (NCCL refuses
              two ranks on one device): (i) on a (4, 1) mesh, (ii) on a
@@ -172,7 +174,41 @@ Phases, each of which raises on failure (the run then exits non-zero):
              the one-card run of the same weights and inputs (DLRM's bags
              bit for bit, probabilities 1e-6; GNNs 1e-5, equiformer-v2
              1e-4), B6 launches a step as on one card; the all_reduces a
-             step, their bytes and the ms a step logged per rank;
+             step, their bytes and the ms a step logged per rank; (e)
+             ``equiformer_energy_big`` at full width: on one NCCL rank
+             in this process, ``equiformer_energy`` on a uniform graph of
+             150,000 nodes at ogb_products' mean degree (3,789,000 edges
+             padded to 116 chunks of 32,768) takes the big path (B6
+             launches 2 x chunks x layers, the energy finite), and on a
+             graph of 4,096 nodes and 16,384 edges (one chunk) and one of
+             4,096 nodes and 100,000 edges (4 chunks, 31,072 masked)
+             ``equiformer_atoms_big``'s energy is within EQ_TOL and
+             every node's energy within EQ_ATOM_TOL of its plain twin's
+             on the card; on
+             the 4 ranks at (2, 2) the first graph's energy within EQ_TOL
+             of the NCCL rank's;
+* mesh_lm  — after moe, the LMs' mesh programs: (a) one NCCL rank in
+             this process on a (1, 1) mesh: qwen3-14b at full width with
+             2 layers at long_500k (batch 1, S 524,288, a random 4.29 GB
+             cache) decoded with ``seq_sharded=True``, 4 steps from len
+             S - 17 and one at len 1,000, logits bit for bit the one-card
+             decode's, B7's partials and combine entries launching layers
+             x steps each; before it, those entries at the ranks' shard
+             shape against their plain twins and ``flash_decode_gqa_plain``
+             (BF16_TOL), a shard past kv_len writing (-1e30, 0, 0), timed
+             beside their bounds; (b) 4 ``gloo`` ranks on (1, 4), each on
+             131,072 positions of the same cache (drawn from the seed
+             block by block), the same steps within BF16_TOL of the
+             largest |logit| of one card's, all_reduced bytes a step
+             logged; (c) 4 ``gloo`` ranks on (2, 2): granite-moe-1b-a400m
+             expert-parallel, the request run at capacity 1.25 (every MoE
+             call within BF16_TOL of ``moe_capacity_plain``, drops logged)
+             and at 2.0 (no drop, every call also within BF16_TOL of the
+             one-card layer), then decode_32k at 2 layers on each rank's
+             block of the batch (ms a step, all_to_all bytes); (d) one
+             NCCL rank: kimi-k2 at full width with 1 layer, its experts
+             expert-parallel with ``fsdp_experts``, the request run with
+             every MoE call held to ``moe_capacity_plain``;
 * serve    — the serving runtime on the same twin and placement (the plan
              phase's overlay; ``ServeConfig(n_rollouts=150, seed=0)``, the
              planner deciding): a 144-request ``workloads.generate``
@@ -458,6 +494,34 @@ MESH_B_STARTS = 64
 # card), MESH_DLRM_STEPS steps timed a rank; gcn-cora at ogb_products on
 # MESH_I_SHAPE; the molecular GNNs at molecule on MESH_II_SHAPE
 MESH_DLRM_CAP, MESH_DLRM_STEPS = 2**22, 10
+# its (e), equiformer_energy_big at full width: on one NCCL rank on a uniform
+# graph of EQ_BIG_NODES nodes (repro's _BIG_GRAPH_NODES, so that
+# equiformer_energy dispatches to it) at ogb_products' mean degree, and on
+# EQ_SMALL_NODES nodes and EQ_SMALL_EDGES edges (one NCCL rank and
+# MESH_II_SHAPE), and on EQ_SMALL_NODES nodes and EQ_MULTI_EDGES edges (one
+# NCCL rank: several chunks, the last padded with masked edges); positions
+# uniform in a cube of side EQ_BOX.  Energies are held within EQ_TOL of the
+# reference's (the ranks' to one NCCL rank's, 5.6e-5 seen; one NCCL rank's
+# to the plain twin's, 5.3e-5 seen), and every node's energy within
+# EQ_ATOM_TOL of the plain twin's largest (2.5e-3 seen: bf16 accumulation
+# against f32)
+EQ_BIG_NODES, EQ_SMALL_NODES, EQ_SMALL_EDGES, EQ_MULTI_EDGES = 150_000, 4096, 16384, 100_000
+EQ_BOX, EQ_TOL, EQ_ATOM_TOL = 10.0, 5e-4, 1e-2
+# the mesh_lm phase: (a) one NCCL rank and (b) MESH_RANKS gloo ranks on
+# MESH_LM_SHAPE, qwen3-14b long_500k (batch 1, S 524,288) with LM_LAYERS
+# layers on a cache sharded along the sequence, MESH_LM_STEPS decode steps
+# from len S - 17 and one more with len MESH_LM_LOW (inside rank 0's shard:
+# three shards past it); the cache drawn LONG_BLOCK positions at a time;
+# (c) granite-moe-1b-a400m expert-parallel on MESH_II_SHAPE at capacity
+# 1.25 and at MESH_MOE_NO_DROP, which no routing can overflow at the
+# request run's and decode_32k's shapes (cap_send >= a rank's assignments,
+# cap_exp >= every token of both sources on one expert), then decode_32k
+# cut to MESH_MOE_DECODE_LAYERS layers: the model axis holds each batch
+# block's cache twice, and at the moe phase's 4 layers the 4 ranks' caches
+# alone would be 68.7 GB of the one card; (d) kimi-k2 at full width with
+# KIMI_LAYERS layer on one NCCL rank
+MESH_LM_SHAPE, MESH_LM_STEPS, MESH_LM_LOW, MESH_MOE_NO_DROP, LONG_BLOCK = (1, 4), 4, 1000, 2.0, 2**14
+MESH_MOE_DECODE_LAYERS = 2
 # the shapes of the embedbag and decode phases, from the port's configs:
 # dlrm-mlperf's largest Criteo table (embed_dim 128, bf16 tables) at
 # serve_bulk (batch 262,144 x multi_hot 1); ogb_products; qwen3-14b's
@@ -942,26 +1006,42 @@ def time_levels(stores, cas, gen, flush) -> dict:
     return times
 
 
+# B7's entries: the whole kernel, and its split and combine kernels apart
+# (the sequence-sharded decode); the JSON line counts all three as B7's
+B7_ENTRIES = ("flash_decode_gqa", "flash_decode_gqa_partials", "flash_decode_combine")
+
+
 def launch_counts() -> dict[str, int]:
-    """Every kernel's launches so far, by the name the JSON line uses."""
+    """Every kernel's launches so far, by the name the JSON line uses, and
+    B7's two separate entries by theirs."""
     return {**fkernel.launch_counts(), "embedding_bag_sorted": embedbag.LAUNCHES,
-            "flash_decode_gqa": decode_attn.LAUNCHES}
+            "flash_decode_gqa": decode_attn.LAUNCHES,
+            "flash_decode_gqa_partials": decode_attn.PARTIAL_LAUNCHES,
+            "flash_decode_combine": decode_attn.COMBINE_LAUNCHES}
 
 
 def reset_launches() -> None:
     fkernel.reset_launches()
     embedbag.LAUNCHES = decode_attn.LAUNCHES = 0
+    decode_attn.PARTIAL_LAUNCHES = decode_attn.COMBINE_LAUNCHES = 0
+
+
+def launched(names: tuple[str, ...], what: str) -> dict[str, int]:
+    """The launches of kernel entries ``names`` since the last reset;
+    raises if one launched none or another kernel launched."""
+    counts = launch_counts()
+    for name in names:
+        if counts[name] == 0:
+            raise AssertionError(f"{what} launched no {name} kernel")
+    if sum(counts.values()) != sum(counts[name] for name in names):
+        raise AssertionError(f"{what} launched other kernels: {counts}")
+    return {name: counts[name] for name in names}
 
 
 def only_launched(name: str, what: str) -> int:
     """The launches of kernel ``name`` since the last reset; raises if it
     launched none or another kernel launched."""
-    counts = launch_counts()
-    if counts[name] == 0:
-        raise AssertionError(f"{what} launched no {name} kernel")
-    if sum(counts.values()) != counts[name]:
-        raise AssertionError(f"{what} launched other kernels: {counts}")
-    return counts[name]
+    return launched((name,), what)[name]
 
 
 def free() -> None:
@@ -2311,7 +2391,7 @@ def phase_mesh_serve(handoff: dict, pl16, dev, record) -> dict[str, int]:
 def dlrm_lookups(cfg, sparse: np.ndarray, rules, mesh, modes) -> list[int]:
     """Each table's lookups that the rank hands B6 in one step: its block's
     lookups in its rows for a sharded table, its whole block for the rest."""
-    lo, hi, _ = dlrm.batch_block(rules, sparse.shape[0])
+    lo, hi, _ = collectives.batch_block(rules, sparse.shape[0])
     out = []
     for i, rows in enumerate(cfg.padded_table_sizes):
         ids = sparse[lo:hi, i].reshape(-1)
@@ -2335,7 +2415,7 @@ def mesh_dlrm_case(what: str, cfg, params: dict, batch: dict, mesh, want_embs: l
         B = batch["dense"].shape[0]
         mine = dlrm.shard_params(cfg, rules, params, B)
         modes = cfg.table_modes(math.prod(shd.mesh_sizes(mesh).values()), B)
-        lo, hi, _ = dlrm.batch_block(rules, B)
+        lo, hi, _ = collectives.batch_block(rules, B)
         seen = []
         real = dlrm.embedding_bag_local
 
@@ -2434,6 +2514,120 @@ def mesh_model_inputs(dev) -> dict:
     }
 
 
+def equiformer_graph(cfg, n: int, e: int, seed: int, dev) -> dict:
+    """A uniform graph for ``equiformer_energy_big``, drawn from ``seed``
+    on the card: ``n`` nodes at positions uniform in a cube of side
+    EQ_BOX, species uniform; ``e`` edges between uniform endpoints,
+    padded with masked edges to whole chunks of ``gnn._BIG_CHUNK`` edges
+    when ``e`` passes one chunk."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    chunk = gnn._BIG_CHUNK
+    e_pad = e if e <= chunk else -(-e // chunk) * chunk
+    return {"species": torch.randint(0, cfg.n_species, (n,), generator=gen, device=dev, dtype=torch.int32),
+            "positions": torch.rand((n, 3), generator=gen, device=dev) * EQ_BOX,
+            "node_mask": torch.ones(n, dtype=torch.bool, device=dev),
+            "edge_src": torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32),
+            "edge_dst": torch.randint(0, n, (e_pad,), generator=gen, device=dev, dtype=torch.int32),
+            "edge_mask": torch.arange(e_pad, device=dev) < e}
+
+
+def big_equiformer_against_plain(cfg, params: dict, rules, graphs: dict, out: dict) -> tuple[int, dict]:
+    """On the installed (1, 1) mesh: ``equiformer_atoms_big`` on each of
+    ``graphs`` (B6 launches 2 x chunks x layers) against its plain twin
+    ``equiformer_atoms_big_plain`` on the same card: the energy within
+    EQ_TOL of the twin's, every node's energy within EQ_ATOM_TOL of the
+    twin's largest.  Returns (B6's launches, the energies)."""
+    launches, energies = 0, {}
+    for name, graph in graphs.items():
+        chunks = graph["edge_src"].shape[0] // gnn._BIG_CHUNK or 1
+        want = gnn.equiformer_atoms_big_plain(cfg, params, graph)
+        collectives.WIRE_COUNTERS.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        atoms = gnn.equiformer_atoms_big(cfg, rules, params, graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = only_launched("embedding_bag_sorted", f"mesh (e) {name} graph")
+        e, e_want = atoms.sum(dtype=torch.float64), want.sum(dtype=torch.float64)
+        errs = {"energy": float((e - e_want).abs() / e_want.abs()),
+                "atoms": float((atoms - want).abs().max() / want.abs().max())}
+        if n != 2 * chunks * cfg.n_layers or atoms.shape != want.shape or not torch.isfinite(atoms).all():
+            raise AssertionError(f"mesh (e) {name}: {n} B6 launches (expected 2 x {chunks} x {cfg.n_layers}), "
+                                 f"atom energies {tuple(atoms.shape)} against {tuple(want.shape)}")
+        limits = {"energy": EQ_TOL, "atoms": EQ_ATOM_TOL}
+        if any(errs[k] > limits[k] for k in errs):
+            raise AssertionError(f"mesh (e) {name}: the big path differs from its plain twin by {errs} of the "
+                                 f"largest (limits {limits})")
+        out[name] = {"nodes": graph["species"].shape[0], "edges": int(graph["edge_mask"].sum()),
+                     "edges_padded": graph["edge_src"].shape[0], "chunks": chunks, "energy": float(e),
+                     "plain_energy": float(e_want), "rel_err": errs, "limits": limits, "wall_s": wall,
+                     "b6_launches": n}
+        log("mesh", f"(e) {name} graph ({out[name]['nodes']} nodes, {out[name]['edges']} edges padded to "
+            f"{out[name]['edges_padded']}, {chunks} chunk(s)): equiformer_atoms_big energy {float(e):.6f} against "
+            f"the plain twin's {float(e_want):.6f} (rel {errs['energy']:.2e}, limit {EQ_TOL}), every node's "
+            f"energy within {errs['atoms']:.2e} of the twin's largest (limit {EQ_ATOM_TOL}); {n} B6 launches, "
+            f"{wall:.2f} s")
+        launches += n
+        energies[name] = atoms.sum()[None]
+        del want, atoms
+    return launches, energies
+
+
+def mesh_big_equiformer(dev, tmp: str, rec: dict) -> tuple[int, torch.Tensor]:
+    """The mesh_models phase's (e) on one NCCL rank in this process, a (1,
+    1) mesh: equiformer-v2 ``full()`` through ``equiformer_energy`` on the
+    EQ_BIG_NODES-node graph (it dispatches to ``equiformer_energy_big``: B6
+    launches 2 x chunks x layers), then :func:`big_equiformer_against_plain`
+    on the small graph (one chunk) and the multi graph (EQ_SMALL_NODES
+    nodes, EQ_MULTI_EDGES edges: several chunks, the last padded with
+    masked edges).  Returns (B6's launches, the small graph's energy)."""
+    cfg = registry.get_arch("equiformer-v2").full()
+    params = gnn.equiformer_init(cfg, seed=SEED, device=dev)
+    small = equiformer_graph(cfg, EQ_SMALL_NODES, EQ_SMALL_EDGES, SEED + 13, dev)
+    multi = equiformer_graph(cfg, EQ_SMALL_NODES, EQ_MULTI_EDGES, SEED + 19, dev)
+    degree = OGB_EDGES / OGB_NODES
+    big = equiformer_graph(cfg, EQ_BIG_NODES, round(EQ_BIG_NODES * degree), SEED + 17, dev)
+    chunks = big["edge_src"].shape[0] // gnn._BIG_CHUNK
+    out = rec.setdefault("e", {})
+    ranks.init_rank(0, 1, os.path.join(tmp, "store_e"), device=dev, timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = mesh_lib.make_test_mesh(1, 1)
+        with shd.use_mesh(mesh):
+            rules = shd.Rules.from_mesh(mesh)
+            collectives.WIRE_COUNTERS.clear()
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            e = gnn.equiformer_energy(cfg, rules, params, big)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = only_launched("embedding_bag_sorted", "mesh (e) big graph")
+            if n != 2 * chunks * cfg.n_layers or e.shape != (1,) or not torch.isfinite(e).all():
+                raise AssertionError(f"mesh (e) big: {n} B6 launches (expected 2 x {chunks} x {cfg.n_layers}), "
+                                     f"energy {e}")
+            out["big"] = {"nodes": EQ_BIG_NODES, "edges": int(big["edge_mask"].sum()),
+                          "edges_padded": big["edge_src"].shape[0], "chunks": chunks, "energy": float(e),
+                          "wall_s": wall, "b6_launches": n, "all_reduces": collectives.WIRE_COUNTERS["all_reduces"],
+                          "bytes": collectives.WIRE_COUNTERS["bytes"],
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del big
+            free()
+            plain_launches, energies = big_equiformer_against_plain(cfg, params, rules,
+                                                                    {"small": small, "multi": multi}, out)
+    finally:
+        dist.destroy_process_group()
+    b = out["big"]
+    log("mesh", f"(e) equiformer-v2 full() on one NCCL rank, (1, 1): {b['nodes']} nodes, {b['edges']} uniform edges "
+        f"(ogb_products' mean degree {degree:.2f}; {b['edges_padded']} padded, {chunks} chunks): equiformer_energy "
+        f"took the big path, {b['b6_launches']} B6 launches = 2 x chunks x layers, energy {b['energy']:.4f}, "
+        f"{b['wall_s']:.1f} s, {b['peak_gb']:.2f} GB peak")
+    del params, small, multi
+    free()
+    return b["b6_launches"] + plain_launches, energies["small"].cpu()
+
+
 def gnn_degrees(batch: dict, rules) -> tuple:
     """GCN's in- and out-degrees without the self loop, on the installed
     mesh over the rank's block of edges (2 B6 launches)."""
@@ -2510,6 +2704,29 @@ def mesh_models_rank(rank: int, world: int, tmp: str) -> None:
             launches += mesh_gnn_case(f"{arch} molecule, rank {rank} of {MESH_II_SHAPE}", cfg,
                                       gnn.INIT_FNS[arch](cfg, seed=SEED, device=dev), batch, m22, refs[arch],
                                       GNN_TOL_EQUIFORMER if arch == "equiformer-v2" else GNN_TOL, rec)
+        del batch
+        free()
+        # (e) equiformer_energy_big on the small graph, node state over (data, model)
+        cfg = registry.get_arch("equiformer-v2").full()
+        small = equiformer_graph(cfg, EQ_SMALL_NODES, EQ_SMALL_EDGES, SEED + 13, dev)
+        params = gnn.equiformer_init(cfg, seed=SEED, device=dev)
+        with shd.use_mesh(m22):
+            collectives.WIRE_COUNTERS.clear()
+            reset_launches()
+            t1 = time.perf_counter()
+            e = gnn.equiformer_energy_big(cfg, shd.Rules.from_mesh(m22), params, small)
+            torch.cuda.synchronize()
+            n = only_launched("embedding_bag_sorted", f"mesh (e) rank {rank}")
+        want = refs["big_small"].to(dev)
+        err, scale = float((e - want).abs()), float(want.abs())
+        if n != 2 * cfg.n_layers or not torch.isfinite(e).all() or err > EQ_TOL * scale:
+            raise AssertionError(f"mesh (e) rank {rank}: {n} B6 launches, energy {float(e)} against one NCCL "
+                                 f"rank's {float(want)} (limit {EQ_TOL} of it)")
+        rec["big_equiformer"] = {"energy": float(e), "rel_err": err / scale, "b6_launches": n,
+                                 "wall_s": time.perf_counter() - t1,
+                                 "all_reduces": collectives.WIRE_COUNTERS["all_reduces"],
+                                 "bytes": collectives.WIRE_COUNTERS["bytes"]}
+        launches += n
         rec.update(b6_launches=launches, wall_s=time.perf_counter() - t0)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
@@ -2523,6 +2740,10 @@ def phase_mesh_models(dev, record) -> int:
     first, saved for the ranks.  Returns B6's launches, every rank's
     summed."""
     rec = record["mesh"].setdefault("d", {})
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-models-")
+    t0 = time.perf_counter()
+    big_launches, big_small = mesh_big_equiformer(dev, tmp, record["mesh"])
+    record["mesh"]["e"]["one_rank_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     inputs = mesh_model_inputs(dev)
     none = shd.Rules.from_mesh(None)
@@ -2545,7 +2766,7 @@ def phase_mesh_models(dev, record) -> int:
                                                         inputs["molecule"]).cpu()
     del inputs
     free()
-    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-models-")
+    refs["big_small"] = big_small
     torch.save(refs, os.path.join(tmp, "refs.pt"))
     rec["references_s"] = time.perf_counter() - t0
     del refs
@@ -2557,10 +2778,17 @@ def phase_mesh_models(dev, record) -> int:
         with open(os.path.join(tmp, f"rank{rank}.json")) as f:
             rec["ranks"].append(json.load(f))
     shutil.rmtree(tmp, ignore_errors=True)
-    launches = sum(rr["b6_launches"] for rr in rec["ranks"])
+    launches = big_launches + sum(rr["b6_launches"] for rr in rec["ranks"])
+    for rr in rec["ranks"]:
+        be = rr["big_equiformer"]
+        log("mesh", f"(e) rank {rr['rank']} of {MESH_II_SHAPE}: equiformer_energy_big on the small graph "
+            f"{be['energy']:.6f} (rel {be['rel_err']:.2e} from one NCCL rank's, limit {EQ_TOL}); "
+            f"{be['b6_launches']} B6 launches; {be['all_reduces']} all_reduces, {be['bytes']} bytes; "
+            f"{be['wall_s']:.1f} s (not a multi-card time)")
     log("mesh", f"(d) {MESH_RANKS} gloo ranks sharing one card: dlrm serve_p99 capped at {MESH_DLRM_CAP} rows on "
         f"{MESH_II_SHAPE}, gcn ogb_products on {MESH_I_SHAPE} (degrees exact), schnet, nequip, equiformer-v2 at "
-        f"molecule on {MESH_II_SHAPE}: every output within tolerance of the one-card run on every rank; {launches} B6 "
+        f"molecule and (e) equiformer_energy_big on {MESH_II_SHAPE}: every output within tolerance of the one-card "
+        f"run on every rank; {launches} B6 "
         f"launches; {rec['b_s']:.1f} s wall (spawn included; not a multi-card time)")
     return launches
 
@@ -3320,7 +3548,8 @@ def lm_request_run(cfg, rules, params, prompts, fed=None):
     prefill, step = transformer.make_prefill(cfg, rules), transformer.make_decode_step(cfg, rules)
     logits, pre = prefill(params, prompts)
     first = logits
-    cache = transformer.init_cache(cfg, prompts.shape[0], LM_PROMPT + LM_NEW, device=prompts.device)
+    # the prefill's rows: the prompts, or on a mesh this rank's block of them
+    cache = transformer.init_cache(cfg, pre["k"].shape[1], LM_PROMPT + LM_NEW, device=prompts.device)
     cache["k"][:, :, :LM_PROMPT] = pre["k"]
     cache["v"][:, :, :LM_PROMPT] = pre["v"]
     cache["len"] = pre["len"]
@@ -3773,6 +4002,430 @@ def phase_moe(dev, gen, record) -> int:
 def _first_layers(tree: dict, n: int) -> dict:
     """The first ``n`` layers of stacked per-layer leaves (views)."""
     return {key: _first_layers(v, n) if isinstance(v, dict) else v[:n] for key, v in tree.items()}
+
+
+def long_cache_part(cfg, seq: int, lo: int, hi: int, dev) -> dict:
+    """Positions ``[lo, hi)`` of the mesh_lm phase's random long_500k
+    cache: k, v (layers, 1, hi - lo, G, Dh), each block of LONG_BLOCK
+    positions of each layer and tensor drawn from its own generator, so
+    that a rank draws its shard as the whole cache holds it."""
+    shape = (cfg.n_layers, 1, hi - lo, cfg.n_kv_heads, cfg.d_head)
+    out = {}
+    for t, name in enumerate(("k", "v")):
+        buf = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        for layer in range(cfg.n_layers):
+            for b0 in range(lo, hi, LONG_BLOCK):
+                g = torch.Generator(device=dev)
+                g.manual_seed(SEED + 7919 * (2 * layer + t) + b0 // LONG_BLOCK)
+                block = torch.randn((1, LONG_BLOCK, cfg.n_kv_heads, cfg.d_head), generator=g, device=dev)
+                buf[layer, :, b0 - lo : b0 - lo + LONG_BLOCK] = block.to(cfg.dtype)
+        out[name] = buf
+    return out
+
+
+def long_tokens(cfg, dev) -> list[torch.Tensor]:
+    """The mesh_lm decode steps' tokens, one (1,) tensor a step."""
+    toks = pipeline.lm_batch(cfg.vocab, 1, MESH_LM_STEPS + 1, step=2, seed=SEED, device=dev)["tokens"][0]
+    return [toks[i : i + 1].contiguous() for i in range(MESH_LM_STEPS + 1)]
+
+
+def long_steps(step, params: dict, cache: dict, tokens: list) -> tuple[list, list[float]]:
+    """MESH_LM_STEPS decode steps from the cache's len, then one more with
+    len set to MESH_LM_LOW: each step's logits and its ms between CUDA
+    events."""
+    outs, ms = [], []
+    for i, tok in enumerate(tokens):
+        if i == MESH_LM_STEPS:
+            cache = dict(cache, len=torch.tensor(MESH_LM_LOW, dtype=torch.int32, device=tok.device))
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        logits, cache = step(params, cache, tok)
+        t1.record()
+        torch.cuda.synchronize()
+        outs.append(logits)
+        ms.append(t0.elapsed_time(t1))
+    return outs, ms
+
+
+def check_b7_entries(cfg, cache: dict, dev, flush) -> dict:
+    """B7's partials and combine entries at the shapes of the mesh_lm
+    phase's ranks (a long_500k shard of S / MESH_LM_SHAPE[1] positions,
+    layer 0's K and V), on every shard with its offset, at kv_len S - 16
+    and MESH_LM_LOW (three shards past it): the kernels' merge against the
+    plain twins' and against ``flash_decode_gqa_plain`` on the whole cache
+    (BF16_TOL of the largest |output|), a shard past kv_len (-1e30, 0, 0),
+    one shard at offset 0 bit for bit ``flash_decode_gqa`` (B7's own
+    launches); then the partials of one shard and the combine of all
+    timed beside their plain twins and bounds.  No launch here counts."""
+    seq = cache["k"].shape[2]
+    M = MESH_LM_SHAPE[1]
+    s_loc = seq // M
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    q = torch.randn((1, cfg.n_q_heads, cfg.d_head), generator=gen, device=dev).to(cfg.dtype)
+    k, v = cache["k"][0], cache["v"][0]
+    shards = [(k[:, i * s_loc : (i + 1) * s_loc].contiguous(), v[:, i * s_loc : (i + 1) * s_loc].contiguous())
+              for i in range(M)]
+    out = {}
+    for kv in (seq - 16, MESH_LM_LOW):
+        kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+        parts = [decode_attn.flash_decode_gqa_partials(q, ks, vs, kv_len, i * s_loc)
+                 for i, (ks, vs) in enumerate(shards)]
+        plains = [decode_attn.flash_decode_gqa_partials_plain(q, ks, vs, kv_len, i * s_loc)
+                  for i, (ks, vs) in enumerate(shards)]
+
+        def merge(ps):
+            return decode_attn.ranks_major(torch.stack([p.buf for p in ps]), ps[0].shape)
+
+        got = decode_attn.flash_decode_combine(merge(parts), cfg.dtype)
+        plain = decode_attn.flash_decode_combine_plain(merge(plains), cfg.dtype)
+        whole = decode_attn.flash_decode_gqa_plain(q, k, v, kv_len)
+        scale = float(whole.float().abs().max())
+        errs = {"vs_plain_twins": float((got.float() - plain.float()).abs().max()),
+                "vs_whole_plain": float((got.float() - whole.float()).abs().max())}
+        if not torch.isfinite(got.float()).all() or max(errs.values()) > BF16_TOL * scale:
+            raise AssertionError(f"B7 partials + combine at kv_len {kv}: {errs} > {BF16_TOL} x {scale}")
+        past = [i for i in range(M) if i * s_loc >= kv]
+        if any(not ((parts[i].m == -1e30).all() and (parts[i].l == 0).all() and (parts[i].acc == 0).all())
+               for i in past):
+            raise AssertionError(f"B7 partials: a shard past kv_len {kv} wrote nonzero weight")
+        one = decode_attn.flash_decode_combine(decode_attn.flash_decode_gqa_partials(q, k, v, kv_len, 0), cfg.dtype)
+        if not torch.equal(one, decode_attn.flash_decode_gqa(q, k, v, kv_len)):
+            raise AssertionError(f"B7 partials + combine on the whole cache != flash_decode_gqa at kv_len {kv}")
+        out[f"kv{kv}"] = {**errs, "largest_abs_out": scale, "limit": BF16_TOL * scale, "shards_past": past}
+    # times at kv_len S - 16: shard 0's partials (all its positions valid), the combine of the M shards
+    kv_len = torch.tensor(seq - 16, dtype=torch.int32, device=dev)
+    ks, vs = shards[0]
+    n_split, split_len = decode_attn.decode_splits(1, cfg.n_kv_heads, s_loc)
+    part_bytes = cfg.n_q_heads * n_split * (cfg.d_head + 2) * 4
+    merged = decode_attn.ranks_major(torch.stack([p.buf for p in parts]), parts[0].shape)
+    t = {"partials": timed(lambda: decode_attn.flash_decode_gqa_partials(q, ks, vs, kv_len, 0), 3, 3, flush),
+         "combine": timed(lambda: decode_attn.flash_decode_combine(merged, cfg.dtype), 3, 3, flush)}
+    t["partials"]["plain_ms"] = events_ms(
+        lambda: decode_attn.flash_decode_gqa_partials_plain(q, ks, vs, kv_len, 0), 2, flush)
+    t["combine"]["plain_ms"] = events_ms(lambda: decode_attn.flash_decode_combine_plain(merged, cfg.dtype), 2, flush)
+    t["partials"]["bound_ms"], t["partials"]["bound_by"] = bound(
+        2 * s_loc * cfg.n_kv_heads * cfg.d_head * 2 + q.numel() * 2 + part_bytes,
+        4 * cfg.n_q_heads * s_loc * cfg.d_head, BF16_FLOPS)
+    t["combine"]["bound_ms"], t["combine"]["bound_by"] = bound(
+        M * part_bytes + q.numel() * 2, 3 * M * n_split * cfg.n_q_heads * (cfg.d_head + 2), FP32_FLOPS)
+    out.update(times=t, n_split=n_split, split_len=split_len, partial_bytes=part_bytes, shard=s_loc)
+    log("mesh_lm", f"B7's entries at the ranks' shard (S_loc {s_loc} of {seq}, {n_split} splits of {split_len}, "
+        f"{part_bytes} bytes of partials a shard): the kernels' merge over {M} shards ~= the plain twins' and "
+        f"flash_decode_gqa_plain on the whole cache at kv_len {seq - 16} and {MESH_LM_LOW} "
+        f"({[out[k] for k in out if k.startswith('kv')]}); shards past kv_len write (-1e30, 0, 0); one shard at "
+        f"offset 0 == flash_decode_gqa bit for bit; partials {t['partials']['ms']:.4f} ms flushed "
+        f"({t['partials']['warm_ms']:.4f} warm, plain {t['partials']['plain_ms']:.4f}, bound "
+        f"{t['partials']['bound_ms']:.4f} by {t['partials']['bound_by']}); combine of {M} x {n_split} splits "
+        f"{t['combine']['ms']:.4f} ms (plain {t['combine']['plain_ms']:.4f}, bound {t['combine']['bound_ms']:.4f} "
+        f"by {t['combine']['bound_by']})")
+    return out
+
+
+def check_long_logits(got: list, want: list, what: str, exact: bool) -> list[float]:
+    """The mesh_lm steps' logits against the one-card run's: bit for bit
+    with ``exact``, else within BF16_TOL of the largest |logit|; the max
+    |diff| of each step."""
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        g, w = g.to(w.device), w
+        err, scale = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+        if not torch.isfinite(g.float()).all() or (not torch.equal(g, w) if exact else err > BF16_TOL * scale):
+            raise AssertionError(f"{what} step {i}: logits differ from one card's: max |diff| {err} (largest "
+                                 f"|logit| {scale}{'' if exact else f', limit {BF16_TOL} x it'})")
+        errs.append(err)
+    return errs
+
+
+class MoECheck:
+    """``layers.apply_moe`` wrapped on a rank: each call at capacity factor
+    ``cf``, its output held to ``moe_capacity_plain`` on the rank's own
+    block (that block's routing over a (1, M) layout is the rank's share
+    of the mesh's: the ``all_to_all``s run over the model axis only) with
+    the layer's whole experts, and at a capacity that drops nothing also
+    to the one-card layer; within BF16_TOL of the largest |value|.  Drops
+    and assignments are summed per capacity."""
+
+    def __init__(self, cfg, moe: dict, model_size: int, model_index: int):
+        self.cfg, self.moe, self.model_index = cfg, moe, model_index
+        self.rules = shd.Rules.from_mesh(mesh_lib.MeshLayout(("data", "model"), (1, model_size)))
+        self.stats: dict = {}
+
+    def wrap(self, cf: float):
+        apply, calls = lm_layers.apply_moe, [0]
+        st = self.stats.setdefault(cf, {"calls": 0, "assignments": 0, "dropped": 0, "max_abs_err": 0.0,
+                                        "largest_abs_out": 0.0})
+
+        def fn(p, x, **kw):
+            out = apply(p, x, capacity_factor=cf, **kw)
+            whole = {k: w[calls[0] % self.cfg.n_layers] for k, w in self.moe.items()}
+            calls[0] += 1
+            want, kept = lm_layers.moe_capacity_plain(whole, x, n_experts=self.cfg.n_experts, top_k=self.cfg.top_k,
+                                                      rules=self.rules, capacity_factor=cf,
+                                                      model_index=self.model_index)
+            refs = [want]
+            if cf == MESH_MOE_NO_DROP:
+                if not kept.all():
+                    raise AssertionError(f"capacity {cf} dropped {int((~kept).sum())} assignments")
+                # the one-card layer on each block the ranks route apart, so
+                # that its router logits are the ranks' bits (a near tie
+                # between a token's k-th and (k+1)-th expert falls alike)
+                plan = lm_layers.moe_plan(self.rules, tuple(x.shape), self.cfg.n_experts, self.cfg.top_k, cf)
+                sb = x.shape[1] // plan.M if plan.seq_axes else x.shape[1]
+                refs.append(torch.cat([apply(whole, x[:, s0 : s0 + sb], n_experts=self.cfg.n_experts,
+                                             top_k=self.cfg.top_k, rules=shd.Rules.from_mesh(None))
+                                       for s0 in range(0, x.shape[1], sb)], dim=1))
+            for w in refs:
+                err, scale = float((out.float() - w.float()).abs().max()), float(w.float().abs().max())
+                if not torch.isfinite(out.float()).all() or err > BF16_TOL * scale:
+                    raise AssertionError(f"the expert-parallel layer at capacity {cf}: max |diff| {err} > "
+                                         f"{BF16_TOL} x {scale}")
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                st["largest_abs_out"] = max(st["largest_abs_out"], scale)
+            st["calls"] += 1
+            st["assignments"] += kept.numel()
+            st["dropped"] += int((~kept).sum())
+            return out
+
+        return fn
+
+
+def mesh_lm_rank(rank: int, world: int, tmp: str) -> None:
+    """One of the MESH_RANKS ``gloo`` ranks of the mesh_lm phase's (b) and
+    (c): (b) qwen3-14b long_500k on MESH_LM_SHAPE, the rank's shard of the
+    cache drawn from the seed, the steps' logits held to the parent's
+    one-card run; (c) granite-moe-1b-a400m expert-parallel on
+    MESH_II_SHAPE: the request run at capacity 1.25 and MESH_MOE_NO_DROP,
+    every MoE call held by :class:`MoECheck`, then decode_32k at
+    MESH_MOE_DECODE_LAYERS layers on the rank's block of a random cache.
+    Writes its counts to ``rank{rank}.json``."""
+    torch.set_num_threads(2)
+    dev = ranks.init_rank(rank, world, os.path.join(tmp, "store"), backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        refs = torch.load(os.path.join(tmp, "refs.pt"), map_location=dev)
+        rec = {"rank": rank}
+        # (b) the long_500k decode over the sequence
+        cfg = dataclasses.replace(QWEN, n_layers=LM_LAYERS)
+        _, seq = DECODE_SHAPES["long_500k"]
+        mesh = mesh_lib.make_test_mesh(*MESH_LM_SHAPE)
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=SEED, device=dev)
+        with shd.use_mesh(mesh):
+            rules = transformer.rules_for(cfg, mesh)
+            m, M = collectives.axis_index(mesh, rules.model_axis), rules.model_size
+            shard = {**long_cache_part(cfg, seq, m * seq // M, (m + 1) * seq // M, dev),
+                     "len": torch.tensor(seq - 17, dtype=torch.int32, device=dev)}
+            step = transformer.make_decode_step(cfg, rules, seq_sharded=True)
+            collectives.WIRE_COUNTERS.clear()
+            reset_launches()
+            got, ms = long_steps(step, params, shard, long_tokens(cfg, dev))
+            counts = launched(B7_ENTRIES[1:], f"mesh_lm (b) rank {rank}")
+        steps = len(got)
+        if any(n != cfg.n_layers * steps for n in counts.values()):
+            raise AssertionError(f"mesh_lm (b) rank {rank}: B7 entries {counts}, expected layers x steps")
+        errs = check_long_logits(got, refs["long"], f"mesh_lm (b) rank {rank}", exact=False)
+        rec["b"] = {"launches": counts, "max_abs_err": errs, "ms": ms, "wall_s": time.perf_counter() - t0,
+                    "all_reduces_per_step": collectives.WIRE_COUNTERS["all_reduces"] / steps,
+                    "bytes_per_step": collectives.WIRE_COUNTERS["bytes"] / steps,
+                    "shard_positions": seq // M}
+        del params, shard, got, step
+        free()
+        # (c) granite-moe-1b-a400m, experts over the model axis
+        cfg = GRANITE
+        mesh = mesh_lib.make_test_mesh(*MESH_II_SHAPE)
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=SEED, device=dev)
+        b7 = 0
+        with shd.use_mesh(mesh):
+            rules = transformer.rules_for(cfg, mesh)
+            mine = transformer.shard_params(cfg, rules, params)
+            check = MoECheck(cfg, params["layers"]["moe"], rules.model_size,
+                             collectives.axis_index(mesh, rules.model_axis))
+            prompts = pipeline.lm_batch(cfg.vocab, LM_REQUESTS, LM_PROMPT, step=0, seed=SEED, device=dev)["tokens"]
+            for cf in (1.25, MESH_MOE_NO_DROP):
+                collectives.WIRE_COUNTERS.clear()
+                reset_launches()
+                with patched(lm_layers, "apply_moe", check.wrap(cf)):
+                    first, last, _ = lm_request_run(cfg, rules, mine, prompts)
+                n = only_launched("flash_decode_gqa", f"mesh_lm (c) rank {rank} request run at {cf}")
+                if n != cfg.n_layers * LM_NEW:
+                    raise AssertionError(f"mesh_lm (c) rank {rank}: {n} B7 launches at {cf}")
+                b7 += n
+                for logits in (first, last):
+                    if logits.shape != (LM_REQUESTS, cfg.padded_vocab) or not torch.isfinite(logits.float()).all():
+                        raise AssertionError(f"mesh_lm (c) rank {rank}: logits not finite or of the wrong shape")
+                check.stats[cf].update(all_to_alls=collectives.WIRE_COUNTERS["all_to_all"],
+                                       bytes=collectives.WIRE_COUNTERS["bytes"])
+            # decode_32k on MESH_MOE_DECODE_LAYERS layers, the rank's block of the batch
+            del first, last
+            free()
+            cut = dataclasses.replace(cfg, n_layers=MESH_MOE_DECODE_LAYERS)
+            cut_params = dict(mine, layers=_first_layers(mine["layers"], MESH_MOE_DECODE_LAYERS))
+            batch, seq = DECODE_SHAPES["decode_32k"]
+            lo, hi, _ = collectives.batch_block(rules, batch)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 100 + rank)
+            kv_shape = (cut.n_layers, hi - lo, seq, cut.n_kv_heads, cut.d_head)
+            cache = {"k": lm_layers.normal(kv_shape, 1.0, cut.dtype, gen),
+                     "v": lm_layers.normal(kv_shape, 1.0, cut.dtype, gen),
+                     "len": torch.tensor(seq - 17, dtype=torch.int32, device=dev)}
+            tokens = pipeline.lm_batch(cut.vocab, batch, 1, step=1, seed=SEED, device=dev)["tokens"][:, 0].contiguous()
+            step = transformer.make_decode_step(cut, rules)
+            dcheck = MoECheck(cut, params["layers"]["moe"], rules.model_size, check.model_index)
+            with patched(lm_layers, "apply_moe", dcheck.wrap(1.25)):
+                step(cut_params, cache, tokens)
+            collectives.WIRE_COUNTERS.clear()
+            r, outs = timed_steps("mesh_lm", f"(c) rank {rank} decode_32k", lambda _: step(cut_params, cache, tokens)[0],
+                                  [None] * (MOE_DECODE_STEPS + MOE_WARMUP), "flash_decode_gqa", cut.n_layers,
+                                  MOE_WARMUP)
+            for logits in outs:
+                if logits.shape != (batch, cut.padded_vocab) or not torch.isfinite(logits.float()).all():
+                    raise AssertionError(f"mesh_lm (c) rank {rank} decode_32k: logits not finite or of the wrong shape")
+            steps = MOE_DECODE_STEPS + MOE_WARMUP
+            r.update(check=dcheck.stats[1.25], block=[lo, hi], cap_send=lm_layers.moe_plan(
+                rules, (batch, 1, cut.d_model), cut.n_experts, cut.top_k).cap_send,
+                     all_to_alls_per_step=collectives.WIRE_COUNTERS["all_to_all"] / steps,
+                     bytes_per_step=collectives.WIRE_COUNTERS["bytes"] / steps)
+            b7 += r["launches"]
+        rec["c"] = {"request": {str(cf): st for cf, st in check.stats.items()}, "decode_32k": r, "b7_launches": b7,
+                    "wall_s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_lm(dev, flush, record) -> tuple[int, float]:
+    """The models' last mesh programs on the card: qwen3-14b long_500k
+    decode over a cache sharded along the sequence (B7's partials and
+    combine entries, held to their plain twins first) on one NCCL rank (a)
+    and MESH_RANKS ``gloo`` ranks (b); granite-moe-1b-a400m expert-parallel
+    on MESH_RANKS ``gloo`` ranks (c); kimi-k2 at full width, one layer,
+    expert-parallel with ``fsdp_experts`` on one NCCL rank (d).  Returns
+    (B7's launches over its entries, every rank's summed, and the entries'
+    largest |diff| from plain)."""
+    rec = record["mesh_lm"] = {}
+    cfg = dataclasses.replace(QWEN, n_layers=LM_LAYERS)
+    batch, seq = DECODE_SHAPES["long_500k"]
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SEED, device=dev)
+    cache = {**long_cache_part(cfg, seq, 0, seq, dev), "len": torch.tensor(seq - 17, dtype=torch.int32, device=dev)}
+    tokens = long_tokens(cfg, dev)
+    rec["cache_bytes"] = tree_bytes({"k": cache["k"], "v": cache["v"]})
+    entries = rec["b7_entries"] = check_b7_entries(cfg, cache, dev, flush)
+    entries_err = max(max(v["vs_plain_twins"], v["vs_whole_plain"]) for k, v in entries.items() if k.startswith("kv"))
+    one_card = {k: v.clone() for k, v in cache.items()}
+    reset_launches()
+    want, want_ms = long_steps(transformer.make_decode_step(cfg, shd.Rules.from_mesh(None)), params, one_card, tokens)
+    launches = only_launched("flash_decode_gqa", "mesh_lm one-card long_500k decode")
+    del one_card
+    free()
+    rec["one_card"] = {"ms": want_ms, "launches": launches, "setup_s": time.perf_counter() - t0}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-lm-")
+    ranks.init_rank(0, 1, os.path.join(tmp, "store1"), device=dev, timeout_s=MESH_TIMEOUT_S)
+    try:
+        mesh = mesh_lib.make_test_mesh(1, 1)
+        # (a) the long_500k decode on one NCCL rank: B7's two entries, bit for bit one card's
+        with shd.use_mesh(mesh):
+            rules = transformer.rules_for(cfg, mesh)
+            shard = transformer.cache_shard(cfg, rules, cache, seq_sharded=True)
+            step = transformer.make_decode_step(cfg, rules, seq_sharded=True)
+            collectives.WIRE_COUNTERS.clear()
+            reset_launches()
+            got, ms = long_steps(step, params, shard, tokens)
+            counts = launched(B7_ENTRIES[1:], "mesh_lm (a)")
+        steps = len(got)
+        if any(n != cfg.n_layers * steps for n in counts.values()):
+            raise AssertionError(f"mesh_lm (a): B7 entries {counts}, expected {cfg.n_layers} x {steps} each")
+        check_long_logits(got, want, "mesh_lm (a)", exact=True)
+        launches += sum(counts.values())
+        rec["a"] = {"launches": counts, "ms": ms, "bytes_per_step": collectives.WIRE_COUNTERS["bytes"] / steps,
+                    "all_reduces_per_step": collectives.WIRE_COUNTERS["all_reduces"] / steps}
+        log("mesh_lm", f"(a) qwen3-14b long_500k ({cfg.n_layers} layers, batch {batch}, S {seq}, "
+            f"{rec['cache_bytes'] / 1e9:.2f} GB of K and V) on one NCCL rank, (1, 1) mesh, seq_sharded: "
+            f"{steps} steps (len {seq - 17}.. then {MESH_LM_LOW}), logits bit for bit one card's; B7 partials "
+            f"{counts['flash_decode_gqa_partials']} and combine {counts['flash_decode_combine']} launches = "
+            f"layers x steps, no other kernel; ms a step {[round(x, 4) for x in ms]} (one card "
+            f"{[round(x, 4) for x in want_ms]}); {rec['a']['all_reduces_per_step']} all_reduces, "
+            f"{rec['a']['bytes_per_step']:.0f} bytes a step")
+        del params, cache, shard, got, step
+        free()
+        # (d) kimi-k2 at full width, one layer, its experts over the model axis with fsdp gathers
+        launches += mesh_kimi(dev, mesh, rec)
+    finally:
+        dist.destroy_process_group()
+    torch.save({"long": [w.cpu() for w in want]}, os.path.join(tmp, "refs.pt"))
+    del want
+    free()
+    t0 = time.perf_counter()
+    ranks.run_ranks(mesh_lm_rank, MESH_RANKS, (MESH_RANKS, tmp), timeout_s=MESH_TIMEOUT_S, device=dev)
+    rec["bc_s"] = time.perf_counter() - t0
+    rec["ranks"] = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            rec["ranks"].append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for rr in rec["ranks"]:
+        b, c = rr["b"], rr["c"]
+        launches += sum(b["launches"].values()) + c["b7_launches"]
+        log("mesh_lm", f"(b) rank {rr['rank']} of {MESH_LM_SHAPE} ({b['shard_positions']} positions): logits "
+            f"within {max(b['max_abs_err'])} of one card's (limit {BF16_TOL} x largest |logit|), the step at len "
+            f"{MESH_LM_LOW} {b['max_abs_err'][-1]}; B7 entries {b['launches']}; {b['all_reduces_per_step']} "
+            f"all_reduces, {b['bytes_per_step']:.0f} bytes a step; ms a step {[round(x, 2) for x in b['ms']]} "
+            "(4 ranks on one card through gloo: not a multi-card time)")
+        for cf, st in c["request"].items():
+            log("mesh_lm", f"(c) rank {rr['rank']} of {MESH_II_SHAPE} granite request run at capacity {cf}: "
+                f"{st['calls']} MoE calls held to moe_capacity_plain{' and the one-card layer' if float(cf) == MESH_MOE_NO_DROP else ''} "
+                f"(max |diff| {st['max_abs_err']}, largest |out| {st['largest_abs_out']}); {st['dropped']} of "
+                f"{st['assignments']} assignments dropped; {st['all_to_alls']} all_to_alls, {st['bytes']} bytes")
+        d = c["decode_32k"]
+        log("mesh_lm", f"(c) rank {rr['rank']} decode_32k ({MESH_MOE_DECODE_LAYERS} layers, rows {d['block']}, cap_send "
+            f"{d['cap_send']}): median {d['median_ms']:.3f} ms a step, {d['launches']} B7 launches = layers x "
+            f"steps; {d['check']['dropped']} of {d['check']['assignments']} dropped in the checked step; "
+            f"{d['all_to_alls_per_step']} all_to_alls, {d['bytes_per_step']:.0f} bytes a step; {c['peak_gb']:.2f} GB "
+            "peak on the rank")
+    log("mesh_lm", f"(b) and (c): {MESH_RANKS} gloo ranks sharing one card, {rec['bc_s']:.1f} s wall (spawn "
+        "included; not a multi-card time)")
+    return launches, entries_err
+
+
+def mesh_kimi(dev, mesh, rec: dict) -> int:
+    """The mesh_lm phase's (d) on the installed one-rank NCCL ``mesh``:
+    kimi-k2-1t-a32b at full width with KIMI_LAYERS layer, its MoE layer
+    expert-parallel with ``fsdp_experts``, the request run with every MoE
+    call held by :class:`MoECheck`.  Returns B7's launches."""
+    cfg = dataclasses.replace(KIMI, n_layers=KIMI_LAYERS)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SEED, device=dev)
+    with shd.use_mesh(mesh):
+        rules = transformer.rules_for(cfg, mesh)
+        mine = transformer.shard_params(cfg, rules, params)
+        check = MoECheck(cfg, params["layers"]["moe"], rules.model_size, 0)
+        prompts = pipeline.lm_batch(cfg.vocab, LM_REQUESTS, LM_PROMPT, step=0, seed=SEED, device=dev)["tokens"]
+        collectives.WIRE_COUNTERS.clear()
+        reset_launches()
+        with patched(lm_layers, "apply_moe", check.wrap(1.25)):
+            first, last, _ = lm_request_run(cfg, rules, mine, prompts)
+        n = only_launched("flash_decode_gqa", "mesh_lm (d) kimi request run")
+    if n != cfg.n_layers * LM_NEW:
+        raise AssertionError(f"mesh_lm (d): {n} B7 launches, expected {cfg.n_layers} x {LM_NEW}")
+    for logits in (first, last):
+        if logits.shape != (LM_REQUESTS, cfg.padded_vocab) or not torch.isfinite(logits.float()).all():
+            raise AssertionError("mesh_lm (d): kimi logits not finite or of the wrong shape")
+    st = check.stats[1.25]
+    rec["d"] = {**st, "launches": n, "wall_s": time.perf_counter() - t0,
+                "all_to_alls": collectives.WIRE_COUNTERS["all_to_all"],
+                "all_gathers": collectives.WIRE_COUNTERS["all_gather"], "bytes": collectives.WIRE_COUNTERS["bytes"]}
+    log("mesh_lm", f"(d) kimi-k2 at full width, {cfg.n_layers} layer, on one NCCL rank, experts over the model axis "
+        f"with fsdp_experts: the request run ({LM_REQUESTS} x {LM_PROMPT}, {LM_NEW} steps), {st['calls']} MoE calls "
+        f"held to moe_capacity_plain (max |diff| {st['max_abs_err']}, largest |out| {st['largest_abs_out']}); "
+        f"{st['dropped']} of {st['assignments']} assignments dropped at capacity 1.25; {n} B7 launches; "
+        f"{rec['d']['all_to_alls']} all_to_alls, {rec['d']['all_gathers']} all_gathers (one-rank data axis: no "
+        f"copy), {rec['d']['bytes']} bytes; {rec['d']['wall_s']:.1f} s")
+    del params, mine, first, last, prompts
+    free()
+    return n
 
 
 def gnn_scatters(cfg) -> int:
@@ -4948,6 +5601,10 @@ def main() -> int:
     phase_end("lm")
     new_kernels[2]["launches"] += phase_moe(dev, gen, record)
     phase_end("moe")
+    n, err = phase_mesh_lm(dev, flush, record)
+    new_kernels[2]["launches"] += n
+    new_kernels[2]["max_abs_err"] = max(new_kernels[2]["max_abs_err"], err)
+    phase_end("mesh_lm")
     new_kernels[1]["launches"] += phase_gnn(dev, gen, record)
     phase_end("gnn")
     new_kernels[1]["launches"] += phase_mesh_models(dev, record)

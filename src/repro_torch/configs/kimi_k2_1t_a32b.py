@@ -6,8 +6,9 @@ Port of ``repro/configs/kimi_k2_1t_a32b.py``: Adafactor and FSDP-sharded
 expert weights, the rest-sharding as ``Rules`` overrides (expert tensors
 (L, E, d_in, d_ff): experts over ``model``, the d_ff "rest" dim over the
 data axes).  On one card ``layers.apply_moe`` runs its experts on
-their routed rows; the overrides place tensors only under a mesh
-(ROADMAP's multi-GPU item)."""
+their routed rows; over ranks its expert-parallel program runs each
+rank's experts on its d_ff block, gathered for the layer
+(``fsdp_experts``).  The overrides name the placements a layout fits."""
 from repro_torch.configs import lm_common
 from repro_torch.configs.registry import ArchSpec, LM_SHAPES, register
 from repro_torch.models import transformer as tr

@@ -18,7 +18,14 @@ bodies call:
   its rows into a zeroed global buffer and the buffer is summed;
 * the blocking of ``P(site_axes)`` over the sites — :func:`block_of`:
   coordinate ``d`` of ``n`` holds rows ``[d·k, (d+1)·k)``,
-  ``k = ⌈rows / n⌉`` (``rows / n`` for the sites, which must divide).
+  ``k = ⌈rows / n⌉`` (``rows / n`` for the sites, which must divide);
+  :func:`batch_block`, a batch's rows under ``P(rules.batch)``;
+* ``lax.all_gather(x, axes, axis=dim, tiled=True)`` — :func:`all_gather`;
+* ``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)`` —
+  :func:`psum_scatter`: the ``psum``, of which a rank keeps its block;
+* ``lax.all_to_all(x, axes, 0, 0, tiled=True)`` — :func:`all_to_all`:
+  dim 0 in ``n`` blocks, block ``j`` to coordinate ``j``, the blocks a
+  rank receives concatenated in source order.
 
 Two more serve a program that ``repro`` drives from one controller and
 the port from every rank (the serving runtime's leader and followers):
@@ -35,8 +42,18 @@ of one value and zeros is exact.  A group whose backend cannot carry a
 tensor raises from ``torch.distributed``; nothing is copied to the host
 on the side.
 
+That one path costs bytes where the native collective would move fewer.
+:func:`all_gather` and :func:`gather_rows` reduce a buffer ``n`` times a
+rank's block; :func:`psum_scatter` reduces the whole tensor and keeps a
+``1/n`` block (a reduce-scatter would reduce each block once);
+:func:`all_to_all` reduces a zeroed ``(n_src, ...)`` buffer that holds
+every rank's ``n`` send blocks, ``n`` times the tensor, where NCCL's
+``all_to_all_single`` moves each block once.  Native NCCL collectives
+are speed work for a multi-card cell.
+
 :data:`WIRE_COUNTERS` counts the ``all_reduce`` calls and the bytes of
-the tensors they carry, per process.
+the tensors they carry, per process, and the calls of each collective
+above by its name.
 """
 
 from __future__ import annotations
@@ -180,6 +197,89 @@ def gather_rows(local: torch.Tensor, axes, n_total: int, mesh=None, dim: int = 0
     return buf.bool() if local.dtype == torch.bool else buf
 
 
+def batch_block(rules: shd.Rules, n: int) -> tuple[int, int, Axes]:
+    """The rows ``[lo, hi)`` of a batch of ``n`` that this rank runs on the
+    installed mesh, and the axes they are blocked over: ``repro``'s
+    ``rules.fit(P(rules.batch, None), (n, ...))``, which leaves a batch
+    the batch axes do not divide whole on every rank.  ``(0, n, ())``
+    off-mesh."""
+    mesh = shd.get_mesh()
+    if mesh is None:
+        return 0, n, ()
+    axes = entry_axes(rules.fit((rules.batch, None), (n, 1))[0])
+    return (*block_of(n, axes, mesh), axes)
+
+
+def entry_axes(entry) -> Axes:
+    """A fitted placement entry's axes: () for ``None``."""
+    return () if entry is None else _axes(entry)
+
+
+def _block(x: torch.Tensor, axes, mesh, dim: int) -> tuple[int, int]:
+    """(n, k): the size of ``axes`` and the block each rank holds of
+    ``x.shape[dim]``, which ``n`` must divide."""
+    n = axis_size(mesh, axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over the {n} ranks of {_axes(axes)}")
+    return n, x.shape[dim] // n
+
+
+def all_gather(x: torch.Tensor, axes, dim: int = 0, mesh=None) -> torch.Tensor:
+    """``lax.all_gather(x, axes, axis=dim, tiled=True)``: every rank's
+    ``x`` concatenated along ``dim`` in coordinate order over ``axes``
+    (:func:`axis_index`), on every rank.  Each rank writes its block into
+    a zeroed buffer ``n`` times as long along ``dim``, which is summed:
+    exact in any dtype, ``n`` times ``x``'s bytes on the wire.  Over axes
+    of size 1 it is ``x`` itself: no copy (kimi-k2's experts gathered over
+    a one-rank data axis would be a second 33.8 GB)."""
+    mesh = _mesh(mesh)
+    WIRE_COUNTERS["all_gather"] += 1
+    n, me = axis_size(mesh, axes), axis_index(mesh, axes)
+    if n == 1:
+        return x
+    shape = list(x.shape)
+    shape[dim] *= n
+    buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    buf.narrow(dim, me * x.shape[dim], x.shape[dim]).copy_(x)
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    return buf
+
+
+def psum_scatter(x: torch.Tensor, axes, dim: int = 0, mesh=None) -> torch.Tensor:
+    """``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)``:
+    the sum of ``x`` over the ranks along ``axes``, of which this rank
+    keeps block :func:`axis_index` of ``n`` along ``dim`` (which ``n``
+    must divide).  One ``all_reduce(SUM)`` of the whole of ``x``, then
+    the block: the sums of :func:`psum`, ``n`` times the bytes a
+    reduce-scatter would reduce."""
+    mesh = _mesh(mesh)
+    WIRE_COUNTERS["psum_scatter"] += 1
+    _, k = _block(x, axes, mesh, dim)
+    return psum(x, axes, mesh).narrow(dim, axis_index(mesh, axes) * k, k).contiguous()
+
+
+def all_to_all(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """``lax.all_to_all(x, axes, 0, 0, tiled=True)``: ``x``'s dim 0 cut in
+    ``n`` blocks, block ``j`` sent to coordinate ``j``; the ``n`` blocks
+    this rank receives, concatenated from coordinate 0 to ``n - 1``, in
+    ``x``'s shape.  Each rank writes its ``x`` at its source row of a
+    zeroed ``(n_src, ...)`` buffer, the buffer is summed, and the rank
+    reads its own block of every row: exact in any dtype (one value plus
+    zeros), ``n`` times ``x``'s bytes on the wire where NCCL's
+    ``all_to_all_single`` moves ``x`` once.  Over axes of size 1 it is
+    ``x`` itself."""
+    mesh = _mesh(mesh)
+    WIRE_COUNTERS["all_to_all"] += 1
+    n, k = _block(x, axes, mesh, 0)
+    if n == 1:
+        return x
+    me = axis_index(mesh, axes)
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    buf[me].copy_(x)
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    return buf[:, me * k : (me + 1) * k].reshape(x.shape)
+
+
 def mesh_axes(mesh) -> Axes:
     """Every axis of ``mesh``, in its order: the whole mesh as one group."""
     return shd.axis_names(mesh)
@@ -229,5 +329,6 @@ def agree(flags, mesh=None, device=None) -> list[bool]:
     return [bool(v) for v in x.cpu().tolist()]
 
 
-__all__ = ["WIRE_COUNTERS", "agree", "axis_index", "axis_size", "block_of", "broadcast_bytes",
-           "gather_rows", "group", "mesh_axes", "mesh_rank", "pmax", "psum", "site_block"]
+__all__ = ["WIRE_COUNTERS", "agree", "all_gather", "all_to_all", "axis_index", "axis_size", "batch_block",
+           "block_of", "broadcast_bytes", "entry_axes", "gather_rows", "group", "mesh_axes", "mesh_rank", "pmax", "psum",
+           "psum_scatter", "site_block"]

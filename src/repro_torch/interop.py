@@ -19,6 +19,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.estimation import BayesianModel, GilbertModel
 from repro_torch.core.planner import PlanEstimates, QueryClass
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.graph.partition import OverlayNetwork, Placement
 from repro_torch.graph.structure import LabeledGraph
 from repro_torch.kernels.frontier.ops import (
@@ -249,6 +251,38 @@ def table_row_shard_from_numpy(
     GPU): the rows ``repro``'s row-sharded bag hands that model shard
     (``models.dlrm.table_row_shard``)."""
     return dlrm.table_row_shard(_tensor(table, resolve_device(device)), index, n_shards)
+
+
+def moe_expert_shard_from_numpy(
+    params: dict, rules, fsdp: bool = False, device: str | torch.device | None = None
+) -> dict:
+    """This rank's share of ``repro``'s numpy MoE weights (``router``,
+    ``w_gate``, ``w_up``, ``w_down``; expert leaves (..., E, D, F) /
+    (..., E, F, D), with or without the stacked layer dim) on the
+    installed mesh, as the port's tensors on ``device`` (``None``: the
+    GPU): the rank's ``e_loc`` experts over the model axis and, with
+    ``fsdp``, its d_ff block over the batch axes, the slices ``repro``'s
+    ``shard_map`` hands that rank (``models.layers.moe_shard``).  Only
+    the slices are copied to the device."""
+    device = resolve_device(device)
+    mesh = shd.get_mesh()
+    if set(params) != {"router", "w_gate", "w_up", "w_down"}:
+        raise KeyError(f"MoE params have keys {sorted(params)}, expected router, w_gate, w_up, w_down")
+    if mesh is None or rules.model_axis is None:
+        return _carry_tree(params, device)
+    e_loc = np.shape(params["w_gate"])[-3] // rules.model_size
+    e_lo = collectives.axis_index(mesh, rules.model_axis) * e_loc
+
+    def cut(w: np.ndarray, ff_dim: int) -> torch.Tensor:
+        w = np.asarray(w)
+        w = w[(Ellipsis, slice(e_lo, e_lo + e_loc), slice(None), slice(None))]
+        if fsdp and rules.batch_axes:
+            f_lo, f_hi = collectives.block_of(w.shape[ff_dim], rules.batch_axes, mesh, even=True)
+            w = np.take(w, np.arange(f_lo, f_hi), axis=ff_dim)
+        return _tensor(w, device)
+
+    return {"router": _tensor(params["router"], device), "w_gate": cut(params["w_gate"], -1),
+            "w_up": cut(params["w_up"], -1), "w_down": cut(params["w_down"], -2)}
 
 
 # the top-level keys of each GNN's parameters (``repro/models/gnn.py``'s

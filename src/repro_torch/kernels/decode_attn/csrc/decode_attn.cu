@@ -69,6 +69,19 @@
 // Positions a tile holds past the end of its split (or of kv_len) are
 // absent: they score -inf and weigh exactly 0.
 //
+// A cache sharded along the sequence (the seq-sharded decode over ranks):
+// each rank holds positions [kv_offset, kv_offset + S) of the global
+// cache and runs the split kernel on them with the global kv_len and its
+// kv_offset.  A split's valid end is then kv_len - kv_offset (in shard
+// positions) and "all masked" is still kv_len <= 0, so a shard that lies
+// wholly past kv_len does no work and writes m = -1e30, l = 0, acc = 0:
+// weight 0 in the merge.  (A local kv_len of 0 for it would read as all
+// masked: it would walk its whole shard and report l = S at m = -1e30.)
+// decode_partials_* write every split's partials, even one split's, and
+// decode_combine_* merge any number of them: the ranks' partials are
+// gathered and laid out as one split axis, rank-major.  At kv_offset 0
+// and one rank, partials then combine are this file's own two launches.
+//
 // Offsets: B * S * G * Dh reaches 4.3e9 at decode_32k, so element
 // offsets are 64-bit.
 
@@ -148,7 +161,7 @@ struct Split {
 };
 
 __device__ __forceinline__ Split split_of(int seq, int n_groups, int r, int dh, int split_len,
-                                          int kv_len) {
+                                          int kv_len, int kv_offset) {
   Split s;
   const int bg = blockIdx.x;
   const int b = bg / n_groups, g = bg % n_groups;
@@ -158,7 +171,8 @@ __device__ __forceinline__ Split split_of(int seq, int n_groups, int r, int dh, 
   s.p_lo = blockIdx.y * split_len;
   const int p_hi = min(seq, s.p_lo + split_len);
   s.all_masked = kv_len <= 0;
-  s.valid_end = s.all_masked ? p_hi : min(kv_len, p_hi);
+  // kv_len counts global positions; this cache's position p is kv_offset + p
+  s.valid_end = s.all_masked ? p_hi : min(kv_len - kv_offset, p_hi);
   return s;
 }
 
@@ -221,13 +235,13 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(
     const int32_t* __restrict__ kv_len_ptr,
     __nv_bfloat16* __restrict__ out,      // (B, H, Dh), when part is null
     float* __restrict__ part,             // split partials, or null
-    int seq, int n_groups, int r, int split_len, float scale) {
+    int seq, int n_groups, int r, int split_len, int kv_offset, float scale) {
   constexpr int kTileElems = kTile * kRowElems<Dh>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // stages x (K, V)
   __nv_bfloat16* q_s = ring + kStages * 2 * kTileElems;               // 16 rows
 
-  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr);
+  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr, kv_offset);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
   // q rows 0 .. r-1 of the group, zero rows up to 16
@@ -403,7 +417,7 @@ template <int Dh>
 __global__ void __launch_bounds__(kThreads) decode_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int32_t* __restrict__ kv_len_ptr, float* __restrict__ out, float* __restrict__ part,
-    int seq, int n_groups, int r, int split_len, float scale) {
+    int seq, int n_groups, int r, int split_len, int kv_offset, float scale) {
   constexpr int kKs = Dh + 4;                       // padded K row
   constexpr int kStageFloats = kTile32 * (kKs + Dh);
   constexpr int kDims = (Dh + kThreads - 1) / kThreads;
@@ -416,7 +430,7 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(
   float* m_s = corr_s + kMaxR;                       // 16
   float* l_s = m_s + kMaxR;                          // 16
 
-  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr);
+  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr, kv_offset);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   for (int i = tid; i < r * Dh; i += kThreads) q_s[i] = q[sp.q_off + i];
 
@@ -583,12 +597,23 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, size_t (&raised)[kMaxDevices]
   return err;
 }
 
+// The merge of n_split partials per (batch, group) into out.
+template <typename T>
+int launch_combine(const void* part, void* out, int batch_groups, int n_split, int r, int dh,
+                   cudaStream_t stream) {
+  decode_combine_kernel<T><<<batch_groups, dh, 0, stream>>>((const float*)part, (T*)out, n_split,
+                                                            r, dh);
+  return (int)cudaGetLastError();
+}
+
+// The split kernel, then the merge when it wrote partials; with
+// partials_only the partials are the result, even of one split.
 template <typename T, int Dh>
 int launch_dh(const void* q, const void* k, const void* v, const void* kv_len, void* out,
               void* part, int batch, int seq, int n_groups, int r, int n_split, int split_len,
-              float scale, cudaStream_t stream) {
+              int kv_offset, bool partials_only, float scale, cudaStream_t stream) {
   const dim3 grid(batch * n_groups, n_split);
-  float* partials = n_split > 1 ? (float*)part : nullptr;
+  float* partials = n_split > 1 || partials_only ? (float*)part : nullptr;
   static size_t allowed[kMaxDevices] = {};
   cudaError_t err;
   if constexpr (sizeof(T) == 2) {
@@ -596,45 +621,53 @@ int launch_dh(const void* q, const void* k, const void* v, const void* kv_len, v
     if ((err = allow_smem(decode_bf16_kernel<Dh>, smem, allowed)) != cudaSuccess) return (int)err;
     decode_bf16_kernel<Dh><<<grid, kThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const int32_t*)kv_len, (__nv_bfloat16*)out, partials, seq, n_groups, r, split_len, scale);
+        (const int32_t*)kv_len, (__nv_bfloat16*)out, partials, seq, n_groups, r, split_len,
+        kv_offset, scale);
   } else {
     const size_t smem = sizeof(float) * (kStages * kTile32 * (2 * Dh + 4) + kMaxR * Dh +
                                          kMaxR * kTile32 + 3 * kMaxR);
     if ((err = allow_smem(decode_f32_kernel<Dh>, smem, allowed)) != cudaSuccess) return (int)err;
     decode_f32_kernel<Dh><<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const int32_t*)kv_len, (float*)out,
-        partials, seq, n_groups, r, split_len, scale);
+        partials, seq, n_groups, r, split_len, kv_offset, scale);
   }
-  if ((err = cudaGetLastError()) != cudaSuccess || n_split == 1) return (int)err;
-  decode_combine_kernel<T><<<batch * n_groups, Dh, 0, stream>>>((const float*)part, (T*)out,
-                                                                n_split, r, Dh);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess || partials == nullptr || partials_only)
+    return (int)err;
+  return launch_combine<T>(part, out, batch * n_groups, n_split, r, Dh, stream);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, void* out, void* part,
            int batch, int seq, int n_groups, int r, int dh, int n_split, int split_len,
-           float scale, void* stream) {
+           int kv_offset, bool partials_only, float scale, void* stream) {
   if (r < 1 || r > kMaxR || n_split < 1 || split_len < 1 || split_len % kTile ||
-      (n_split > 1 && part == nullptr))
+      kv_offset < 0 || ((n_split > 1 || partials_only) && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (dh) {
     case 64:
       return launch_dh<T, 64>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                              split_len, scale, s);
+                              split_len, kv_offset, partials_only, scale, s);
     case 112:
       return launch_dh<T, 112>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                               split_len, scale, s);
+                               split_len, kv_offset, partials_only, scale, s);
     case 128:
       return launch_dh<T, 128>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                               split_len, scale, s);
+                               split_len, kv_offset, partials_only, scale, s);
     case 256:
       return launch_dh<T, 256>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                               split_len, scale, s);
+                               split_len, kv_offset, partials_only, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int combine(const void* part, void* out, int batch, int n_groups, int r, int dh, int n_split,
+            void* stream) {
+  if (batch < 1 || n_groups < 1 || r < 1 || r > kMaxR || n_split < 1 || dh < 1 || dh > 1024)
+    return (int)cudaErrorInvalidValue;
+  return launch_combine<T>(part, out, batch * n_groups, n_split, r, dh, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -645,7 +678,7 @@ extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, cons
                                void* out, void* part, int batch, int seq, int n_groups, int r,
                                int dh, int n_split, int split_len, float scale, void* stream) {
   return launch<float>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, dh, n_split,
-                       split_len, scale, stream);
+                       split_len, 0, false, scale, stream);
 }
 
 // B7 on bfloat16 q, k, v: tensor-core products, f32 statistics and
@@ -654,5 +687,37 @@ extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, con
                                 void* out, void* part, int batch, int seq, int n_groups, int r,
                                 int dh, int n_split, int split_len, float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, dh, n_split,
-                               split_len, scale, stream);
+                               split_len, 0, false, scale, stream);
+}
+
+// B7's split kernel alone on a cache that holds the global positions
+// [kv_offset, kv_offset + seq), against the global kv_len: every split's
+// f32 partials in part (B * G * n_split * r * (Dh + 2) floats: m, then l,
+// then acc), even with one split.
+extern "C" int decode_partials_f32(const void* q, const void* k, const void* v,
+                                   const void* kv_len, void* part, int batch, int seq,
+                                   int n_groups, int r, int dh, int n_split, int split_len,
+                                   int kv_offset, float scale, void* stream) {
+  return launch<float>(q, k, v, kv_len, nullptr, part, batch, seq, n_groups, r, dh, n_split,
+                       split_len, kv_offset, true, scale, stream);
+}
+
+extern "C" int decode_partials_bf16(const void* q, const void* k, const void* v,
+                                    const void* kv_len, void* part, int batch, int seq,
+                                    int n_groups, int r, int dh, int n_split, int split_len,
+                                    int kv_offset, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, kv_len, nullptr, part, batch, seq, n_groups, r, dh,
+                               n_split, split_len, kv_offset, true, scale, stream);
+}
+
+// B7's combine kernel alone: n_split partials per (batch, group) in
+// part's layout merged into out (B, G * r, Dh), in q's type.
+extern "C" int decode_combine_f32(const void* part, void* out, int batch, int n_groups, int r,
+                                  int dh, int n_split, void* stream) {
+  return combine<float>(part, out, batch, n_groups, r, dh, n_split, stream);
+}
+
+extern "C" int decode_combine_bf16(const void* part, void* out, int batch, int n_groups, int r,
+                                   int dh, int n_split, void* stream) {
+  return combine<__nv_bfloat16>(part, out, batch, n_groups, r, dh, n_split, stream);
 }

@@ -26,18 +26,38 @@ The two agree to rounding, not bit for bit: the kernel walks other kv
 tiles than ``block_kv`` (16 positions per warp in bf16) and merges
 splits, so p is rounded to V's dtype relative to a different running
 max, and the sums run in another order.
+
+A cache sharded along the sequence over ranks (the seq-sharded decode,
+``models/transformer.py``) runs B7's two kernels apart through two more
+entries: :func:`flash_decode_gqa_partials`, the split kernel on a
+rank's positions ``[kv_offset, kv_offset + S)`` against the global
+``kv_len``, returning every split's f32 (m, l, acc) (:class:`Partials`),
+and :func:`flash_decode_combine`, the combine kernel over any number of
+splits: the ranks' partials, gathered and laid out rank-major as one
+split axis (:func:`ranks_major`).  A shard wholly past ``kv_len`` gives (-1e30, 0, 0), weight
+0 in the merge; a global ``kv_len <= 0`` gives every position -1e30, so
+the merge is V's mean over every shard, as ``flash_decode_gqa``.  Their
+plain twins take the shard as one split: the plain online softmax of
+:func:`flash_decode_gqa_plain`, stopped before its division, so that on
+one shard at offset 0 partials then combine equal it bit for bit.  On
+CUDA tensors, at one shard and offset 0 the two entries are
+``flash_decode_gqa``'s own two launches where it splits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, work
 
 LAUNCHES = 0  # B7: flash_decode_gqa
+PARTIAL_LAUNCHES = 0  # B7's split kernel through flash_decode_gqa_partials
+COMBINE_LAUNCHES = 0  # B7's combine kernel through flash_decode_combine
 
 _DTYPES = {torch.float32: "decode_attn_f32", torch.bfloat16: "decode_attn_bf16"}
 _MASKED = -1e30
@@ -74,12 +94,56 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_kv: int):
     return b, h, dh, s, g
 
 
-def flash_decode_gqa_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, block_kv: int = 512
-) -> torch.Tensor:
-    """:func:`flash_decode_gqa` in plain PyTorch: ``repro``'s online
-    softmax, block by block of ``block_kv`` positions, f32 statistics and
-    accumulator, p rounded to V's dtype before P·V."""
+class Partials(NamedTuple):
+    """B7's f32 partials of a cache's splits as the one flat buffer the
+    combine kernel reads: ``m`` and ``l`` (B, G, n_split, r), the running
+    max and sum of each q row, then ``acc`` (B, G, n_split, r, Dh), its
+    unnormalised P·V; r = H / G.  ``shape`` is (B, G, n_split, r, Dh)."""
+
+    buf: torch.Tensor
+    shape: tuple[int, int, int, int, int]
+
+    @property
+    def rows(self) -> int:
+        b, g, n_split, r, _ = self.shape
+        return b * g * n_split * r
+
+    @property
+    def m(self) -> torch.Tensor:
+        return self.buf[: self.rows].view(self.shape[:4])
+
+    @property
+    def l(self) -> torch.Tensor:
+        return self.buf[self.rows : 2 * self.rows].view(self.shape[:4])
+
+    @property
+    def acc(self) -> torch.Tensor:
+        return self.buf[2 * self.rows :].view(self.shape)
+
+
+def ranks_major(bufs: torch.Tensor, shape: tuple[int, int, int, int, int]) -> Partials:
+    """The partials of M shards as one :class:`Partials` of M·n_split
+    splits, shard-major (the combine kernel's order over the whole
+    cache): ``bufs`` (M, numel) holds each shard's ``Partials.buf`` in
+    shard order, all of ``shape``.  One copy."""
+    b, g, n_split, r, dh = shape
+    n = bufs.shape[0]
+    whole = Partials(torch.empty(bufs.numel(), dtype=torch.float32, device=bufs.device),
+                     (b, g, n * n_split, r, dh))
+    rows = whole.rows // n
+    for dst, lo, hi, tail in ((whole.m, 0, rows, ()), (whole.l, rows, 2 * rows, ()),
+                              (whole.acc, 2 * rows, bufs.shape[1], (dh,))):
+        dst.view((b, g, n, n_split, r) + tail).copy_(bufs[:, lo:hi].view((n, b, g, n_split, r) + tail).movedim(0, 2))
+    return whole
+
+
+def _online_softmax(q, k, v, kv_len, block_kv: int, kv_offset: int = 0, absent_past_len: bool = False):
+    """``repro``'s online softmax over ``k``, ``v``'s positions, block by
+    block, as (m, l) (B, G, r, 1) and acc (B, G, r, Dh), f32; position
+    ``p`` is ``kv_offset + p`` of the global cache.  Past ``kv_len`` a
+    score is -1e30; with ``absent_past_len`` and ``kv_len >= 1`` such a
+    position is also absent (weight 0), as in the kernel, which changes
+    nothing once a valid position has been seen."""
     b, h, dh, s, g = _shapes(q, k, v, block_kv)
     scale = 1.0 / math.sqrt(dh)
     dev = q.device
@@ -90,16 +154,61 @@ def flash_decode_gqa_plain(
     acc = torch.zeros((b, g, h // g, dh), device=dev)
     for lo in range(0, s, block_kv):
         scores = torch.einsum("bgrd,bsgd->bgrs", qg, k[:, lo : lo + block_kv].float()) * scale
-        pos = torch.arange(lo, lo + block_kv, device=dev)
+        pos = torch.arange(kv_offset + lo, kv_offset + lo + block_kv, device=dev)
         scores = torch.where(pos < kv_len, scores, torch.tensor(_MASKED, device=dev))
         m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
         p = torch.exp(scores - m_new)
+        if absent_past_len:
+            p = torch.where((pos < kv_len) | (kv_len <= 0), p, torch.zeros((), device=dev))
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1, keepdim=True)
         pv = torch.einsum("bgrs,bsgd->bgrd", p.to(v.dtype).float(), v[:, lo : lo + block_kv].float())
         acc = acc * corr + pv
         m = m_new
+    return m, l, acc
+
+
+def flash_decode_gqa_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, block_kv: int = 512
+) -> torch.Tensor:
+    """:func:`flash_decode_gqa` in plain PyTorch: ``repro``'s online
+    softmax, block by block of ``block_kv`` positions, f32 statistics and
+    accumulator, p rounded to V's dtype before P·V."""
+    b, h, dh = q.shape
+    _, l, acc = _online_softmax(q, k, v, kv_len, block_kv)
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype).reshape(b, h, dh)
+
+
+def flash_decode_gqa_partials_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, kv_offset: int = 0,
+    block_kv: int = 512,
+) -> Partials:
+    """:func:`flash_decode_gqa_partials` in plain PyTorch, the shard as one
+    split: :func:`flash_decode_gqa_plain`'s online softmax over global
+    positions ``kv_offset + [0, S)``, stopped before the division, with
+    positions past a ``kv_len >= 1`` absent as in the kernel (a shard
+    wholly past it gives (-1e30, 0, 0))."""
+    b, h, dh, _, g = _shapes(q, k, v, block_kv)
+    m, l, acc = _online_softmax(q, k, v, kv_len, block_kv, kv_offset, absent_past_len=True)
+    return Partials(torch.cat([m.reshape(-1), l.reshape(-1), acc.reshape(-1)]), (b, g, 1, h // g, dh))
+
+
+def flash_decode_combine_plain(part: Partials, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`flash_decode_combine` in plain PyTorch: the combine kernel's
+    merge, split by split in order 0 .. n_split - 1: m* the largest m,
+    then l and acc summed with weights e^(m - m*), out = acc / max(l,
+    1e-30) in ``dtype``, (B, G·r, Dh)."""
+    b, g, n_split, r, dh = part.shape
+    m_star = torch.full((b, g, r), _MASKED, device=part.m.device)
+    for s in range(n_split):
+        m_star = torch.maximum(m_star, part.m[:, :, s])
+    l = torch.zeros((b, g, r), device=part.m.device)
+    acc = torch.zeros((b, g, r, dh), device=part.m.device)
+    for s in range(n_split):
+        e = torch.exp(part.m[:, :, s] - m_star)
+        l = l + part.l[:, :, s] * e
+        acc = acc + part.acc[:, :, s] * e[..., None]
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype).reshape(b, g * r, dh)
 
 
 def _check(q, k, v, kv_len, h, g, dh) -> None:
@@ -176,9 +285,7 @@ def _flash_decode_gqa(q, k, v, kv_len, block_kv: int) -> torch.Tensor:
     part = None
     if n_split > 1:
         part = torch.empty(b * h * n_split * (dh + 2), dtype=torch.float32, device=q.device)
-    fn = getattr(_build.load("decode_attn"), _DTYPES[q.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _lib_fn(_DTYPES[q.dtype])
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
@@ -188,4 +295,90 @@ def _flash_decode_gqa(q, k, v, kv_len, block_kv: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{_DTYPES[q.dtype]} launch failed with CUDA error {err}")
     LAUNCHES += 1
+    return out
+
+
+# the argument types of the library's entries, by the entry's prefix
+_ARGTYPES = {
+    "decode_attn": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    "decode_partials": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
+    "decode_combine": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+}
+
+
+@functools.cache
+def _lib_fn(name: str):
+    """The library's entry ``name`` with its argument types set, resolved
+    once a process."""
+    fn = getattr(_build.load("decode_attn"), name)
+    fn.argtypes = _ARGTYPES[name.rsplit("_", 1)[0]]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_decode_gqa_partials(
+    q: torch.Tensor,  # (B, H, Dh)
+    k: torch.Tensor,  # (B, S, G, Dh): global positions [kv_offset, kv_offset + S)
+    v: torch.Tensor,
+    kv_len: torch.Tensor,  # () int32 — the global valid prefix
+    kv_offset: int = 0,
+    block_kv: int = 512,
+) -> Partials:
+    """B7's split kernel alone on a shard of the cache: every split's f32
+    partials (:class:`Partials`), the split :func:`decode_splits` picks
+    from B, G and this shard's S.  A position of the shard counts as
+    global position ``kv_offset + p`` against the global ``kv_len``.  On
+    CPU tensors this is :func:`flash_decode_gqa_partials_plain` (one
+    split); on CUDA tensors it launches the kernel (one launch in
+    :data:`PARTIAL_LAUNCHES`) or raises."""
+    global PARTIAL_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_decode_gqa_partials_plain(q, k, v, kv_len, kv_offset, block_kv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_gqa_partials runs on cuda or cpu tensors, got {q.device}")
+    b, h, dh, s, g = _shapes(q, k, v, block_kv)
+    _check(q, k, v, kv_len, h, g, dh)
+    if kv_offset < 0:
+        raise ValueError(f"kv_offset must be >= 0, got {kv_offset}")
+    n_split, split_len = decode_splits(b, g, s)
+    r = h // g
+    part = torch.empty(b * g * n_split * r * (dh + 2), dtype=torch.float32, device=q.device)
+    fn = _lib_fn(_DTYPES[q.dtype].replace("attn", "partials"))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), part.data_ptr(), b, s, g, r,
+                 dh, n_split, split_len, kv_offset, 1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode partials launch failed with CUDA error {err}")
+    PARTIAL_LAUNCHES += 1
+    return Partials(part, (b, g, n_split, r, dh))
+
+
+def flash_decode_combine(part: Partials, dtype: torch.dtype) -> torch.Tensor:
+    """B7's combine kernel alone: the n_split partials of each (batch, kv
+    group) merged, in split order, into the (B, G·r, Dh) output in
+    ``dtype`` (float32 or bfloat16).  On CPU tensors this is
+    :func:`flash_decode_combine_plain`; on CUDA tensors it launches the
+    kernel on the partials' buffer (one launch in
+    :data:`COMBINE_LAUNCHES`), or raises."""
+    global COMBINE_LAUNCHES
+    buf = part.buf
+    if buf.device.type == "cpu":
+        return flash_decode_combine_plain(part, dtype)
+    if buf.device.type != "cuda":
+        raise ValueError(f"flash_decode_combine runs on cuda or cpu tensors, got {buf.device}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"the output must be float32 or bfloat16, got {dtype}")
+    b, g, n_split, r, dh = part.shape
+    if buf.dtype != torch.float32 or not buf.is_contiguous() or buf.numel() != part.rows * (dh + 2):
+        raise ValueError(f"partials of shape {part.shape} need a contiguous f32 buffer of {part.rows * (dh + 2)} "
+                         f"values, got {buf.dtype} {tuple(buf.shape)}")
+    if r > MAX_GROUP_ROWS or dh not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes up to {MAX_GROUP_ROWS} q-heads per kv group and Dh in {HEAD_DIMS}")
+    out = torch.empty((b, g * r, dh), dtype=dtype, device=buf.device)
+    fn = _lib_fn(_DTYPES[dtype].replace("attn", "combine"))
+    with torch.cuda.device(buf.device):
+        err = fn(buf.data_ptr(), out.data_ptr(), b, g, r, dh, n_split, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode combine launch failed with CUDA error {err}")
+    COMBINE_LAUNCHES += 1
     return out

@@ -8,10 +8,13 @@ meta device by ``launch/analysis.py``.  Placements are built as
 ``data`` for AdamW's moments, edges on ``rules.edges()``, the batch
 specs), as fitted tuples.  ``fn`` is the port's one-card program
 (``Rules.from_mesh(None)``) on the cell's global shapes: at a layout
-``repro`` runs other programs (the expert-parallel MoE,
-``equiformer_energy_big``, the row-sharded ``embedding_bag_sharded``,
-the site-sharded ring), which wait for ROADMAP's multi-GPU item, so the
-layout's ``Rules`` give the placements only.
+``repro`` runs its mesh programs (the expert-parallel MoE, the
+sequence-sharded decode, ``equiformer_energy_big``, the row-sharded
+``embedding_bag_sharded``, the site-sharded ring).  The port runs those
+per rank over ``torch.distributed`` (all but the ring, a design
+difference); the dry run counts the one-card program, and the layout's
+``Rules`` give the placements only, until it counts the per-rank
+programs with their collectives (ROADMAP item 4.5).
 
 Where a step reads device data on the host, a meta run takes a static
 stand-in (the balanced MoE routing, every padded GCN edge, every padded

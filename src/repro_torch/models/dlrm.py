@@ -162,20 +162,6 @@ def embedding_bag_local(
     return embedbag_ops.embedding_bag(table, idx, bag_ids, n_bags)
 
 
-def batch_block(rules: shd.Rules, n: int) -> tuple[int, int, tuple[str, ...]]:
-    """The rows ``[lo, hi)`` of a batch of ``n`` that this rank runs on the
-    installed mesh, and the axes they are blocked over: ``repro``'s
-    ``rules.fit(P(rules.batch, None), (n, ...))``, which leaves a batch
-    the batch axes do not divide whole on every rank.  ``(0, n, ())``
-    off-mesh."""
-    mesh = shd.get_mesh()
-    if mesh is None:
-        return 0, n, ()
-    entry = rules.fit((rules.batch, None), (n, 1))[0]
-    axes = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
-    return (*collectives.block_of(n, axes, mesh), axes)
-
-
 def table_row_shard(table: torch.Tensor, index: int, n_shards: int) -> torch.Tensor:
     """Rows ``[index·k, (index+1)·k)`` of ``table``, ``k = ⌈R / n_shards⌉``,
     past its R rows zero, as ``repro`` pads a table to ``k·n_shards`` rows
@@ -211,7 +197,7 @@ def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rul
     ``repro``.  On the installed mesh (``repro``'s 2-D program): ``table``
     is this rank's row shard (:func:`table_row_shard` over the model
     axis), ``idx`` the whole batch, of which the rank takes its block
-    (:func:`batch_block`); B6 runs on the block's lookups that fall in
+    (``collectives.batch_block``); B6 runs on the block's lookups that fall in
     the rank's rows, re-based to the shard (``repro`` masks the others
     to zero rows, which adds zeros; a bag no lookup visits is zero), and
     one ``psum`` over the model axis sums the shards.  Returns the
@@ -223,7 +209,7 @@ def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rul
             hot, output_size=B * hot
         )
         return embedding_bag_local(table, idx.reshape(-1), bag_ids, B)
-    lo, hi, _ = batch_block(rules, B)
+    lo, hi, _ = collectives.batch_block(rules, B)
     flat = idx[lo:hi].reshape(-1)
     k = table.shape[0]
     first = collectives.axis_index(mesh, rules.model_axis) * k
@@ -243,12 +229,12 @@ def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rul
 def embedding_bags(cfg: DLRMConfig, rules: shd.Rules, params: dict, sparse: torch.Tensor) -> list:
     """The 26 bags of each row of ``sparse`` (B, n_sparse, multi_hot),
     one B6 launch a table, in the table's dtype; on a mesh, of the rank's
-    block of rows (:func:`batch_block`), the tables chosen by the rule at
+    block of rows (``collectives.batch_block``), the tables chosen by the rule at
     the mesh's device count."""
     B = sparse.shape[0]
     mesh = shd.get_mesh()
     modes = cfg.table_modes(1 if mesh is None else math.prod(shd.mesh_sizes(mesh).values()), B)
-    lo, hi, _ = batch_block(rules, B)
+    lo, hi, _ = collectives.batch_block(rules, B)
     bag_ids = torch.arange(hi - lo, dtype=torch.int32, device=sparse.device).repeat_interleave(
         cfg.multi_hot, output_size=(hi - lo) * cfg.multi_hot
     )
@@ -266,7 +252,7 @@ def forward(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> tor
     """batch: dense (B, 13) float; sparse (B, 26, multi_hot) int32.
     Returns the logits (B,); on a mesh every rank computes its block of
     rows and returns the logits gathered over the batch axes."""
-    lo, hi, axes = batch_block(rules, batch["dense"].shape[0])
+    lo, hi, axes = collectives.batch_block(rules, batch["dense"].shape[0])
     x_dense = _mlp_apply(params["bot"], batch["dense"][lo:hi])  # (B, 128)
     embs = embedding_bags(cfg, rules, params, batch["sparse"])
     # dot-interaction over [bottom-mlp output] + 26 embeddings

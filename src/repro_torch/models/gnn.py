@@ -44,10 +44,13 @@ process a rank): each forward takes the rank's block of the edges
 sorts and scatters them on B6, and :func:`scatter_sum` ``psum``-s each
 scatter over those axes in ``repro``'s order, so every rank holds the
 same node state; EquiformerV2's segment max is ``pmax``-ed likewise,
-and the per-graph readouts, over replicated atoms, stay local.  Forward
-only: gradients over ranks are not ported.  ``equiformer_energy_big``
-(``repro``'s mesh path from 150,000 nodes, a flash-style softmax merged
-across ranks) is not ported and raises.
+and the per-graph readouts, over replicated atoms, stay local.
+:func:`equiformer_energy_big`, ``repro``'s mesh path from 150,000 nodes,
+runs per rank too: node state sharded over the model axis and resting
+sharded over the batch axes in bf16, edges over the batch axes, chunked
+per-edge work with masked-``psum`` gathers and an online segment
+softmax merged across ranks.  Forward only: gradients over ranks are
+training's mesh half.
 """
 
 from __future__ import annotations
@@ -560,6 +563,54 @@ def _m_indices(l_max: int, m_max: int):
     return idx
 
 
+def _so2_messages(cfg: EquiformerConfig, blk: dict, hj: torch.Tensor, Dw: torch.Tensor, rw: torch.Tensor,
+                  midx) -> torch.Tensor:
+    """eSCN's message of each edge, f32 (E, C, ncoef): the source's state
+    ``hj`` rotated into the edge frame by ``Dw`` (E, ncoef, ncoef), the
+    SO(2) linear map of each order m scaled by the radial weights ``rw``
+    (E, m_max + 1, C), rotated back (Dᵀ = D⁻¹)."""
+    g = torch.einsum("eck,eqk->ecq", hj, Dw)
+    out = torch.zeros_like(g)
+    for m in range(cfg.m_max + 1):
+        pos_i, neg_i = midx[m]
+        gp = g[:, :, pos_i] * rw[:, m][:, :, None]  # (E, C, n_lm)
+        w1, w2 = blk["so2"][f"w{m}"][0], blk["so2"][f"w{m}"][1]
+        if m == 0:
+            out[:, :, pos_i] = (gp.reshape(gp.shape[0], -1) @ w1).reshape(gp.shape)
+        else:
+            gn = g[:, :, neg_i] * rw[:, m][:, :, None]
+            fp, fn = gp.reshape(gp.shape[0], -1), gn.reshape(gn.shape[0], -1)
+            out[:, :, pos_i] = (fp @ w1 - fn @ w2).reshape(gp.shape)
+            out[:, :, neg_i] = (fp @ w2 + fn @ w1).reshape(gn.shape)
+    return torch.einsum("ecq,eqk->eck", out, Dw)
+
+
+def _radial(cfg: EquiformerConfig, blk: dict, rbf: torch.Tensor) -> torch.Tensor:
+    """The radial weights (E, m_max + 1, C) of each edge's basis ``rbf``."""
+    r0, r1 = blk["radial"]
+    return (silu(rbf @ r0["w"] + r0["b"]) @ r1["w"] + r1["b"]).reshape(-1, cfg.m_max + 1, cfg.channels)
+
+
+def _source_logits(blk: dict, hj_scal: torch.Tensor, em: torch.Tensor) -> torch.Tensor:
+    """The large-graph path's attention logits (E, heads) from the source
+    scalars alone (EquiformerV2's separate alpha projection), -1e30 on a
+    masked edge."""
+    a0, a1 = blk["attn"]
+    logits = silu(hj_scal @ a0["w"] + a0["b"]) @ a1["w"] + a1["b"]
+    return torch.where(em[:, None] > 0, logits, torch.tensor(-1e30, device=logits.device))
+
+
+def _gated_update(cfg: EquiformerConfig, blk: dict, agg: torch.Tensor, repeats: torch.Tensor) -> torch.Tensor:
+    """The per-degree channel mixing of the aggregate (n, C, ncoef) and
+    its gated nonlinearity: the update added to the node state."""
+    upd = torch.cat([
+        torch.einsum("nck,cd->ndk", agg[:, :, l * l : (l + 1) * (l + 1)], blk["mix"][l])
+        for l in range(cfg.l_max + 1)
+    ], dim=-1)
+    gates = _mlp_apply(blk["gate"], upd[:, :, 0]).reshape(agg.shape[0], cfg.channels, cfg.l_max + 1)
+    return upd * torch.repeat_interleave(torch.sigmoid(gates), repeats, dim=-1, output_size=cfg.n_coef)
+
+
 def equiformer_init(cfg: EquiformerConfig, seed: int = 0, device=None) -> dict:
     C = cfg.channels
     n_l = cfg.l_max + 1
@@ -587,18 +638,195 @@ def equiformer_init(cfg: EquiformerConfig, seed: int = 0, device=None) -> dict:
 
 
 # repro's equiformer_energy dispatches to its mesh-only large-graph path
-# from this many nodes
+# from this many nodes, whose per-edge work runs in chunks of this many
+# edges
 _BIG_GRAPH_NODES = 150_000
+_BIG_CHUNK = 32_768
+
+
+def equiformer_atoms_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
+    """``repro``'s large-graph eSCN path (ogb_products / minibatch_lg
+    scale), this rank's part of its ``shard_map`` body, on the installed
+    mesh, up to the per-atom energies of the rank's resting rows: (n/M/D,)
+    f32, global rows ``m·n/M + d·n/(M·D)`` on (``m``, ``d``) its model and
+    batch coordinates.  :func:`equiformer_energy_big` sums them.  The
+    batch's arrays are whole on every rank.
+
+    * Node state: the rank's ``n_m = n/M`` rows ``[m·n_m, (m+1)·n_m)``
+      over the model axis, bf16, resting on its ``n_m/D`` of them over the
+      batch axes (``D`` their size) and ``all_gather``-ed each layer.
+    * Edges: the rank's block over the batch axes, so every model rank of
+      a data column sees the same edges, in chunks of :data:`_BIG_CHUNK`
+      (``e_loc`` must divide into them, as ``repro``'s reshape needs).
+      A row of a node array at an edge's index is a masked local take
+      plus a ``psum`` over the model axis.
+    * Attention: an online segment softmax per destination row (drop row
+      ``n_m`` for the rows of other ranks): pass 1 the running max
+      (``scatter_reduce(amax)``) and sum (B6) over the chunks, merged over
+      the batch axes by ``pmax`` and ``psum``; pass 2 the normalised
+      messages added chunk by chunk into a bf16 accumulator on B6 (bf16
+      rows, rounded after every lookup), ``psum_scatter``-ed over the
+      batch axes to the resting rows.
+    * The mixing and the gate on the resting rows, the residual in bf16.
+
+    B6 launches 2 × chunks × layers.  The per-edge geometry is made again
+    in every chunk of every layer, as ``repro`` makes it: kept, it would
+    be the (E, ncoef, ncoef) Wigner blocks of every edge at once."""
+    mesh = shd.get_mesh()
+    if mesh is None or rules.model_axis is None:
+        raise ValueError("equiformer_energy_big runs on an installed mesh with a model axis")
+    species, pos = batch["species"], batch["positions"]
+    n = species.shape[0]
+    C, ncoef, heads = cfg.channels, cfg.n_coef, cfg.n_heads
+    dev = pos.device
+    pts, pinv_y = _wigner_basis(cfg.l_max, dev)
+    midx = _m_indices(cfg.l_max, cfg.m_max)
+    M, model = rules.model_size, rules.model_axis
+    data_axes = tuple(rules.batch_axes)
+    D = collectives.axis_size(mesh, data_axes) if data_axes else 1
+    if n % M or (n // M) % D:
+        raise ValueError(f"{n} nodes do not divide over the model axis ({M}) and then the batch axes ({D})")
+    n_m = n // M
+    n_rest = n_m // D
+    lo = collectives.axis_index(mesh, model) * n_m
+    d_idx = collectives.axis_index(mesh, data_axes) if data_axes else 0
+    species_m, pos_m = species[lo : lo + n_m], pos[lo : lo + n_m]
+    nmask_m = batch["node_mask"][lo : lo + n_m]
+    src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
+    if data_axes:
+        e_lo, e_hi = collectives.block_of(src.shape[0], data_axes, mesh, even=True)
+        src, dst, emask = src[e_lo:e_hi], dst[e_lo:e_hi], emask[e_lo:e_hi]
+    e_loc = src.shape[0]
+    n_chunks = max(e_loc // _BIG_CHUNK, 1)
+    if e_loc % n_chunks:
+        raise ValueError(f"{e_loc} edges a rank do not cut into {n_chunks} equal chunks")
+    chunk = e_loc // n_chunks
+
+    def gather(arr_m: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Rows of a model-sharded (n_m, ...) array at global indices."""
+        inr = (idx >= lo) & (idx < lo + n_m)
+        rows = arr_m[torch.where(inr, idx - lo, 0)]
+        rows = torch.where(inr.reshape(inr.shape + (1,) * (rows.dim() - 1)), rows,
+                           torch.zeros((), dtype=rows.dtype, device=dev))
+        return collectives.psum(rows, model, mesh)
+
+    def data_reduce(x: torch.Tensor, op) -> torch.Tensor:
+        for ax in data_axes:
+            x = op(x, ax, mesh)
+        return x
+
+    # each chunk: its edges, the destination row on this rank (n_m: the
+    # drop row), and the sort B6 walks, made once for every layer
+    chunks = []
+    for c in range(n_chunks):
+        s_idx, dd = src[c * chunk : (c + 1) * chunk].long(), dst[c * chunk : (c + 1) * chunk].long()
+        inr = (dd >= lo) & (dd < lo + n_m)
+        d_local = torch.where(inr, dd - lo, n_m)
+        em = emask[c * chunk : (c + 1) * chunk].to(torch.float32)
+        chunks.append((s_idx, dd, em, inr, d_local, sort_edges(d_local)))
+    repeats = torch.tensor([2 * l + 1 for l in range(cfg.l_max + 1)], device=dev)
+
+    h0 = torch.zeros((n_m, C, ncoef), dtype=torch.bfloat16, device=dev)
+    h0[:, :, 0] = params["embed"][species_m.long()].to(torch.bfloat16)
+    h_rest = h0[d_idx * n_rest : (d_idx + 1) * n_rest].clone()
+    del h0
+
+    for blk in params["layers"]:
+        h_m = collectives.all_gather(h_rest, data_axes, 0, mesh) if data_axes else h_rest
+        h_scal = h_m[:, :, 0].float()
+
+        def edge_logits(s_idx, em):
+            return _source_logits(blk, gather(h_scal, s_idx), em)
+
+        def edge_messages(s_idx, dd):
+            rel = gather(pos_m, s_idx) - gather(pos_m, dd)
+            dist = torch.sqrt(torch.sum(rel * rel, -1) + 1e-12)
+            Dw = wigner_d(edge_rotation(rel / dist[:, None]), cfg.l_max, pts, pinv_y)
+            rw = _radial(cfg, blk, gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff))
+            return _so2_messages(cfg, blk, gather(h_m, s_idx).float(), Dw, rw, midx)
+
+        # pass 1: the softmax's running max and sum per destination row
+        m_run = torch.full((n_m, heads), -1e30, device=dev)
+        l_run = torch.zeros((n_m, heads), device=dev)
+        for s_idx, dd, em, inr, d_local, order in chunks:
+            logits = edge_logits(s_idx, em)
+            m_chunk = torch.full((n_m + 1, heads), -1e30, device=dev).scatter_reduce(
+                0, d_local[:, None].expand_as(logits), logits, "amax")[:n_m]
+            m_new = torch.maximum(m_run, m_chunk)
+            w_edge = torch.exp(logits - m_new[torch.clamp(d_local, max=n_m - 1)])
+            w_edge = torch.where(inr[:, None], w_edge, 0.0) * em[:, None]
+            l_chunk = scatter_sum(w_edge, order, n_m + 1)[:n_m]
+            l_run = l_run * torch.exp(m_run - m_new) + l_chunk
+            m_run = m_new
+        # the flash merge across the batch axes, which saw other edges
+        m_g = data_reduce(m_run, collectives.pmax)
+        l_g = torch.clamp(data_reduce(l_run * torch.exp(m_run - m_g), collectives.psum), min=1e-20)
+
+        # pass 2: the normalised messages into the bf16 accumulator
+        acc = torch.zeros((n_m, C, ncoef), dtype=torch.bfloat16, device=dev)
+        for s_idx, dd, em, inr, d_local, order in chunks:
+            row = torch.clamp(d_local, max=n_m - 1)
+            alpha = torch.exp(edge_logits(s_idx, em) - m_g[row]) / l_g[row]
+            alpha = torch.where(inr[:, None], alpha, 0.0) * em[:, None]
+            w_c = torch.repeat_interleave(alpha, C // heads, dim=-1, output_size=C)
+            rows = (edge_messages(s_idx, dd) * w_c[:, :, None]).to(torch.bfloat16)
+            acc = acc + scatter_sum(rows, order, n_m + 1)[:n_m]
+        # combine across the batch axes and drop to the resting rows at once
+        agg = (collectives.psum_scatter(acc, data_axes, 0, mesh) if data_axes else acc).float()
+        del acc, h_m
+        h_rest = h_rest + _gated_update(cfg, blk, agg, repeats).to(torch.bfloat16)
+        del agg
+
+    nmask_rest = nmask_m[d_idx * n_rest : (d_idx + 1) * n_rest]
+    return _mlp_apply(params["readout"], h_rest[:, :, 0].float())[:, 0] * nmask_rest.to(torch.float32)
 
 
 def equiformer_energy_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
-    """``repro``'s large-graph eSCN path (node state sharded over the
-    model axis, an online segment softmax merged across ranks): not
-    ported, so it raises."""
-    raise NotImplementedError(
-        "equiformer_energy_big (node state sharded over the model axis, a flash-style softmax "
-        "combined across ranks) is not ported: ROADMAP item 4.3's open half, port slice 18"
-    )
+    """``repro``'s large-graph eSCN path on the installed mesh: the energy
+    (1,) f32, the per-atom energies of :func:`equiformer_atoms_big`
+    ``psum``-ed over every axis."""
+    mesh = shd.get_mesh()
+    e = collectives.psum(equiformer_atoms_big(cfg, rules, params, batch).sum(), rules.model_axis, mesh)
+    for ax in rules.batch_axes:
+        e = collectives.psum(e, ax, mesh)
+    return e[None]
+
+
+def equiformer_atoms_big_plain(cfg: EquiformerConfig, params: dict, batch: dict) -> torch.Tensor:
+    """:func:`equiformer_atoms_big`'s function on one device in plain
+    PyTorch, for tests and ``chip_smoke.py``: every node's energy (n,)
+    f32, the whole graph at once (no mesh, no chunks, no kernel), the
+    segment softmax over each destination's edges in one pass.  The node
+    state is stored in bf16 where the large-graph path stores it (the
+    embedding, each residual, the aggregate once summed) and the weighted
+    messages are rounded to bf16 rows; the sums run in f32, where the
+    path adds chunk by chunk into a bf16 accumulator."""
+    species, pos = batch["species"], batch["positions"]
+    n = species.shape[0]
+    C, ncoef, heads = cfg.channels, cfg.n_coef, cfg.n_heads
+    dev = pos.device
+    pts, pinv_y = _wigner_basis(cfg.l_max, dev)
+    midx = _m_indices(cfg.l_max, cfg.m_max)
+    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
+    em = batch["edge_mask"].to(torch.float32)
+    rel = pos[src] - pos[dst]
+    dist = torch.sqrt(torch.sum(rel * rel, -1) + 1e-12)
+    Dw = wigner_d(edge_rotation(rel / dist[:, None]), cfg.l_max, pts, pinv_y)
+    rbf = gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff)
+    repeats = torch.tensor([2 * l + 1 for l in range(cfg.l_max + 1)], device=dev)
+    h = torch.zeros((n, C, ncoef), dtype=torch.bfloat16, device=dev)
+    h[:, :, 0] = params["embed"][species.long()].to(torch.bfloat16)
+    for blk in params["layers"]:
+        logits = _source_logits(blk, h[:, :, 0].float()[src], em)
+        z = torch.full((n, heads), -1e30, device=dev).scatter_reduce(
+            0, dst[:, None].expand_as(logits), logits, "amax")
+        ex = torch.exp(logits - z[dst]) * em[:, None]
+        alpha = ex / torch.clamp(torch.zeros((n, heads), device=dev).index_add_(0, dst, ex), min=1e-20)[dst]
+        w_c = torch.repeat_interleave(alpha, C // heads, dim=-1, output_size=C)
+        rows = (_so2_messages(cfg, blk, h[src].float(), Dw, _radial(cfg, blk, rbf), midx) * w_c[:, :, None])
+        agg = torch.zeros((n, C, ncoef), device=dev).index_add_(0, dst, rows.to(torch.bfloat16).float())
+        h = h + _gated_update(cfg, blk, agg.to(torch.bfloat16).float(), repeats).to(torch.bfloat16)
+    return _mlp_apply(params["readout"], h[:, :, 0].float())[:, 0] * batch["node_mask"].to(torch.float32)
 
 
 def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, batch: dict) -> torch.Tensor:
@@ -606,7 +834,9 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
     B6 launches (the attention's denominators, then the messages as
     (E, C·ncoef) rows), and one readout; on a mesh over the rank's
     edges, the segment max ``pmax``-ed and each scatter ``psum``-ed.
-    Where ``repro`` dispatches to ``equiformer_energy_big`` this raises."""
+    Where ``repro`` dispatches to :func:`equiformer_energy_big` (from
+    150,000 nodes on a mesh with a model axis whose size divides them),
+    so does this."""
     species, pos = batch["species"], batch["positions"]
     if (species.shape[0] >= _BIG_GRAPH_NODES and shd.get_mesh() is not None
             and rules.model_axis is not None and species.shape[0] % rules.model_size == 0):
@@ -631,25 +861,8 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
     repeats = torch.tensor([2 * l + 1 for l in range(cfg.l_max + 1)], device=dev)
 
     for blk in params["layers"]:
-        r0, r1 = blk["radial"]
         a0, a1 = blk["attn"]
-        rw = (silu(rbf @ r0["w"] + r0["b"]) @ r1["w"] + r1["b"]).reshape(-1, cfg.m_max + 1, C)
-
-        g = torch.einsum("eck,eqk->ecq", h[isrc], D)  # rotate into edge frame
-        out = torch.zeros_like(g)
-        for m in range(cfg.m_max + 1):
-            pos_i, neg_i = midx[m]
-            gp = g[:, :, pos_i] * rw[:, m][:, :, None]  # (E, C, n_lm)
-            w1, w2 = blk["so2"][f"w{m}"][0], blk["so2"][f"w{m}"][1]
-            if m == 0:
-                out[:, :, pos_i] = (gp.reshape(gp.shape[0], -1) @ w1).reshape(gp.shape)
-            else:
-                gn = g[:, :, neg_i] * rw[:, m][:, :, None]
-                fp, fn = gp.reshape(gp.shape[0], -1), gn.reshape(gn.shape[0], -1)
-                out[:, :, pos_i] = (fp @ w1 - fn @ w2).reshape(gp.shape)
-                out[:, :, neg_i] = (fp @ w2 + fn @ w1).reshape(gn.shape)
-
-        msg = torch.einsum("ecq,eqk->eck", out, D)  # rotate back (Dᵀ = D⁻¹)
+        msg = _so2_messages(cfg, blk, h[isrc], D, _radial(cfg, blk, rbf), midx)
 
         # graph attention on the scalar channel (segment softmax)
         scal = msg[:, :, 0]  # (E, C)
@@ -668,15 +881,7 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
         agg = scatter_sum(msg, edges, n, rules)
 
         # per-degree channel mixing + gated nonlinearity
-        upd = torch.cat([
-            torch.einsum("nck,cd->ndk", agg[:, :, l * l : (l + 1) * (l + 1)], blk["mix"][l])
-            for l in range(cfg.l_max + 1)
-        ], dim=-1)
-        gates = _mlp_apply(blk["gate"], upd[:, :, 0]).reshape(n, C, cfg.l_max + 1)
-        gate_full = torch.repeat_interleave(
-            torch.sigmoid(gates), repeats, dim=-1, output_size=(cfg.l_max + 1) ** 2
-        )
-        h = h + upd * gate_full
+        h = h + _gated_update(cfg, blk, agg, repeats)
 
     atom_e = _mlp_apply(params["readout"], h[:, :, 0])[:, 0]
     atom_e = atom_e * batch["node_mask"].to(atom_e.dtype)

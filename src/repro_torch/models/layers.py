@@ -2,14 +2,23 @@
 optional), chunked flash-style attention, decode attention on kernel B7,
 the SwiGLU FFN and the MoE layer.
 
-Port of ``repro/models/layers.py`` without ``apply_moe``'s
-expert-parallel branch (``shard_map``, two ``all_to_all``s,
-capacities), which waits for the multi-GPU item (ROADMAP A14).  The
-losses (:func:`cross_entropy`, :func:`chunked_cross_entropy`) train the
-LMs; every layer is differentiable by autograd.  Everything is functional: ``init_*``
-build dictionaries of tensors, ``apply_*`` consume them.  ``rules`` is
-taken where ``repro`` takes it; off-mesh its constraints are the
-identity, and the port runs on one card, so none is applied.
+Port of ``repro/models/layers.py``.  The losses
+(:func:`cross_entropy`, :func:`chunked_cross_entropy`) train the LMs;
+every layer is differentiable by autograd.  Everything is functional:
+``init_*`` build dictionaries of tensors, ``apply_*`` consume them.
+``rules`` is taken where ``repro`` takes it; its constraints are the
+identity.
+
+:func:`apply_moe` on an installed ``DeviceMesh`` with a model axis runs
+``repro``'s expert-parallel ``shard_map`` body per rank: the experts
+over the model axis, the tokens over (batch axes, model), a sort-based
+dispatch with static capacities (GShard drops) and two ``all_to_all``s
+(``dist/collectives.py``); with ``fsdp`` (kimi-k2) each rank rests on
+its experts' d_ff block over the batch axes and gathers it for the
+layer.  A rank holds its share of the experts (:func:`moe_shard`).
+:func:`moe_capacity_plain` is its one-card reference: the kept
+assignments, worked out from the global routing, summed.  Forward only:
+the expert-parallel layer's gradient over ranks is training's mesh half.
 
 Promotions follow ``repro``'s: norms and RoPE compute in f32 and cast
 back to the input's dtype; products of bf16 tensors are bf16.
@@ -22,10 +31,12 @@ they agree to B7's tolerances (2e-5 in f32, 2e-2 in bf16).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import collectives
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels.decode_attn import ops as decode_ops
 
@@ -318,41 +329,287 @@ def _route(p: dict, xt: torch.Tensor, top_k: int):
     return torch.softmax(gate_vals, dim=-1), gate_idx
 
 
-def apply_moe(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: shd.Rules) -> torch.Tensor:
+def apply_moe(
+    p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: shd.Rules,
+    capacity_factor: float = 1.25, fsdp: bool = False, batch: int | None = None,
+) -> torch.Tensor:
+    """The MoE layer, ``repro``'s ``apply_moe``.  Without an installed mesh
+    or without a model axis in ``rules``: the one-card layer
+    (:func:`_moe_local`).  On an installed ``DeviceMesh`` with a model
+    axis: the expert-parallel program of this rank (:func:`_moe_ep`) on
+    its share of the experts (:func:`moe_shard`).  ``x`` is the whole
+    batch, or with ``batch`` this rank's block of a batch of ``batch``
+    rows over the batch axes (the LM per rank); the output has ``x``'s
+    rows, on every rank."""
+    mesh = shd.get_mesh()
+    if mesh is None or rules.model_axis is None:
+        return _moe_local(p, x, n_experts=n_experts, top_k=top_k)
+    return _moe_ep(p, x, n_experts=n_experts, top_k=top_k, rules=rules, mesh=mesh,
+                   capacity_factor=capacity_factor, fsdp=fsdp, batch=batch)
+
+
+def _moe_local(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int) -> torch.Tensor:
     """The MoE layer on one card: ``repro``'s ``_moe_local`` (dropless
     top-k, a softmax over the k gate values, SwiGLU experts, their
     outputs summed in f32 with those weights, cast back to x's dtype),
     computed on the routed (token, expert) rows only.  The T·k
     assignments are sorted by expert (stably); each expert with rows runs
     its three products on its contiguous slice; the weighted rows go back
-    to (token, k) order and sum over k as ``repro`` sums them.  ``rules``
-    of a layout with a model axis would take ``repro``'s expert-parallel
-    branch, which is not ported: it raises.  On meta tensors (a
-    shape-only run) the experts take the balanced routing
+    to (token, k) order and sum over k as ``repro`` sums them.  On meta
+    tensors (a shape-only run) the experts take the balanced routing
     (:func:`_expert_rows`)."""
-    if rules.model_axis is not None:
-        raise NotImplementedError(
-            "the expert-parallel MoE (experts over the model axis, two all_to_alls) is "
-            "ROADMAP's multi-GPU item: the port runs the MoE on one card"
-        )
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     T = xt.shape[0]
     weights, gate_idx = _route(p, xt, top_k)
     flat = gate_idx.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    xs = xt[order // top_k]  # (T·k, D): each assignment's token, grouped by expert
+    ys = _expert_outputs(p, xt[order // top_k], _expert_rows(flat, n_experts))
+    out = torch.empty((T * top_k, D), dtype=torch.float32, device=x.device)
+    out[order] = ys.float() * weights.reshape(-1)[order, None]
+    return out.reshape(T, top_k, D).sum(dim=1).reshape(B, S, D).to(x.dtype)
+
+
+def _expert_outputs(p: dict, xs: torch.Tensor, counts: list[int]) -> torch.Tensor:
+    """The SwiGLU experts on rows grouped by expert: expert ``e`` on the
+    next ``counts[e]`` rows of ``xs``."""
     pieces, lo = [], 0
-    for e, count in enumerate(_expert_rows(flat, n_experts)):
+    for e, count in enumerate(counts):
         if count:
             xe = xs[lo : lo + count]
             h = silu(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
             pieces.append(h @ p["w_down"][e])
             lo += count
-    ys = torch.cat(pieces)
-    out = torch.empty((T * top_k, D), dtype=torch.float32, device=x.device)
+    return torch.cat(pieces) if pieces else xs[:0]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class MoEPlan(NamedTuple):
+    """The static shape of the expert-parallel layer on a layout:
+    ``repro``'s ``spec_x`` (x fitted over (batch axes, model) on the
+    global shape) and the two capacities, from the tokens a rank routes."""
+
+    M: int  # the model axis's size
+    e_loc: int  # experts a rank holds
+    batch_axes: tuple[str, ...]  # the axes x's batch is blocked over
+    seq_axes: tuple[str, ...]  # the axes x's sequence is blocked over
+    cap_send: int  # slots a rank sends each destination
+    cap_exp: int  # slots of each local expert
+
+
+def moe_plan(rules: shd.Rules, shape: tuple[int, int, int], n_experts: int, top_k: int,
+             capacity_factor: float = 1.25) -> MoEPlan:
+    """:class:`MoEPlan` for x of global ``shape`` (B, S, D): ``repro``'s
+    ``apply_moe`` lines for ``spec_x``, ``t_loc``, ``cap_send`` and
+    ``cap_exp``."""
+    M = rules.model_size
+    e_loc = n_experts // M
+    if e_loc * M != n_experts:
+        raise ValueError(f"{n_experts} experts do not divide over the model axis's {M} ranks")
+    spec_x = rules.fit((rules.batch, rules.model_axis, None), shape)
+    B, S, _ = shape
+    t_loc = (B // rules.spec_divisor(spec_x, 0)) * (S // rules.spec_divisor(spec_x, 1))
+    cap_send = _round_up(int(t_loc * top_k / M * capacity_factor) + 1, 8)
+    cap_exp = _round_up(int(M * cap_send / e_loc * capacity_factor) + 1, 8)
+    return MoEPlan(M, e_loc, collectives.entry_axes(spec_x[0]), collectives.entry_axes(spec_x[1]), cap_send, cap_exp)
+
+
+def _dispatch(dest: torch.Tensor, n_dest: int, cap: int):
+    """``repro``'s sort-based slotting: the stable order of ``dest``, the
+    sorted values, and each one's rank within its destination; ranks at
+    or past ``cap`` are dropped."""
+    order = torch.argsort(dest, stable=True)
+    dest_s = dest[order]
+    start = torch.searchsorted(dest_s, torch.arange(n_dest, device=dest.device, dtype=dest_s.dtype))
+    rank = torch.arange(dest.shape[0], device=dest.device) - start[torch.clamp(dest_s, max=n_dest - 1)]
+    return order, dest_s, rank
+
+
+def _moe_ep(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: shd.Rules, mesh,
+            capacity_factor: float, fsdp: bool, batch: int | None) -> torch.Tensor:
+    """This rank's part of ``repro``'s expert-parallel ``shard_map`` body
+    (``local``): its (B_loc, S_loc) block of x routed top-k in f32, the
+    T·k assignments sorted stably by destination rank and slotted up to
+    ``cap_send`` a destination (the rest dropped), the rows and their
+    int32 local-expert ids sent by two ``all_to_all``s over the model
+    axis, the received slots sorted stably by local expert and slotted
+    up to ``cap_exp`` an expert, the experts as ``torch.bmm`` over
+    (e_loc, cap_exp, D) buffers, the outputs back to their slots and home
+    by a third ``all_to_all``, and each token's kept outputs summed in
+    f32 with its weights (``index_add_``).  The block's output is
+    gathered over the axes it was blocked over."""
+    Bx, S, D = x.shape
+    B = Bx if batch is None else batch
+    plan = moe_plan(rules, (B, S, D), n_experts, top_k, capacity_factor)
+    M, e_loc, cap_send, cap_exp = plan.M, plan.e_loc, plan.cap_send, plan.cap_exp
+    model = rules.model_axis
+    b_lo, b_hi = collectives.block_of(B, plan.batch_axes, mesh) if plan.batch_axes else (0, B)
+    s_lo, s_hi = collectives.block_of(S, plan.seq_axes, mesh) if plan.seq_axes else (0, S)
+    if batch is None:
+        x = x[b_lo:b_hi]
+    elif Bx != b_hi - b_lo:
+        raise ValueError(f"x holds {Bx} rows; this rank's block of a batch of {B} is [{b_lo}, {b_hi})")
+    x = x[:, s_lo:s_hi]
+    bl, sl = x.shape[:2]
+
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    if w_gate.shape[0] != e_loc:
+        raise ValueError(f"this rank holds {e_loc} of {n_experts} experts (moe_shard), got {w_gate.shape[0]}")
+    if fsdp and rules.batch_axes:
+        # the experts rest on their d_ff block over the batch axes; gathered for this layer
+        w_gate = collectives.all_gather(w_gate, rules.batch_axes, 2, mesh)
+        w_up = collectives.all_gather(w_up, rules.batch_axes, 2, mesh)
+        w_down = collectives.all_gather(w_down, rules.batch_axes, 1, mesh)
+
+    xt = x.reshape(bl * sl, D)
+    T = xt.shape[0]
+    weights, gate_idx = _route(p, xt, top_k)
+    dev = x.device
+    a_tok = torch.arange(T, device=dev).repeat_interleave(top_k)
+    a_exp = gate_idx.reshape(-1)
+    a_w = weights.reshape(-1)
+    order, dest_s, rank = _dispatch(a_exp // e_loc, M, cap_send)
+    tok_s, exp_s, w_s = a_tok[order], a_exp[order], a_w[order]
+    slot = torch.where(rank < cap_send, rank, cap_send)  # cap_send: the drop slot
+
+    send_x = torch.zeros((M, cap_send + 1, D), dtype=x.dtype, device=dev)
+    send_x[dest_s, slot] = xt[tok_s]
+    send_le = torch.full((M, cap_send + 1), e_loc, dtype=torch.int32, device=dev)
+    send_le[dest_s, slot] = (exp_s % e_loc).to(torch.int32)
+    recv_x = collectives.all_to_all(send_x[:, :cap_send].contiguous(), model, mesh)
+    recv_le = collectives.all_to_all(send_le[:, :cap_send].contiguous(), model, mesh)
+
+    # second stage: the received slots grouped by local expert
+    rx = recv_x.reshape(M * cap_send, D)
+    order2, rle_s, rank2 = _dispatch(recv_le.reshape(M * cap_send).long(), e_loc, cap_exp)
+    e_row = torch.clamp(rle_s, max=e_loc - 1)
+    valid2 = (rle_s < e_loc) & (rank2 < cap_exp)
+    slot2 = torch.where(valid2, rank2, cap_exp)
+    buf = torch.zeros((e_loc, cap_exp + 1, D), dtype=x.dtype, device=dev)
+    buf[e_row, slot2] = rx[order2]
+    buf = buf[:, :cap_exp]
+
+    y = torch.bmm(silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up), w_down)  # (e_loc, cap_exp, D)
+    del buf
+    y_sorted = y[e_row, torch.clamp(rank2, max=cap_exp - 1)]
+    y_sorted = torch.where(valid2[:, None], y_sorted, torch.zeros((), dtype=y.dtype, device=dev))
+    y_recv = torch.empty_like(y_sorted)
+    y_recv[order2] = y_sorted  # repro's y_sorted[argsort(order2)]
+    y_back = collectives.all_to_all(y_recv.reshape(M, cap_send, D), model, mesh)
+
+    kept = rank < cap_send
+    y_slots = y_back[dest_s, torch.clamp(rank, max=cap_send - 1)]
+    y_slots = torch.where(kept[:, None], y_slots, torch.zeros((), dtype=y_slots.dtype, device=dev))
+    out = torch.zeros((T, D), dtype=torch.float32, device=dev)
+    out.index_add_(0, tok_s, y_slots.float() * w_s[:, None])
+    out = out.reshape(bl, sl, D).to(x.dtype)
+    if plan.seq_axes:
+        out = collectives.gather_rows(out, plan.seq_axes, S, mesh, dim=1)
+    if batch is None and plan.batch_axes:
+        out = collectives.gather_rows(out, plan.batch_axes, B, mesh)
+    return out
+
+
+def moe_shard(p: dict, rules: shd.Rules, fsdp: bool = False) -> dict:
+    """This rank's share of a MoE layer's weights (``router``, ``w_gate``,
+    ``w_up``, ``w_down``; expert leaves (..., E, D, F) / (..., E, F, D),
+    any leading dims) on the installed mesh: experts ``[m·e_loc,
+    (m+1)·e_loc)`` for model coordinate ``m`` and, with ``fsdp`` and batch
+    axes, the d_ff block of the rank's coordinate over them (``repro``'s
+    ``shard_map`` in_specs); copies, the router whole.  ``p`` itself
+    without a mesh or a model axis, and a leaf whose share is all of it
+    (one rank) as it is."""
+    mesh = shd.get_mesh()
+    if mesh is None or rules.model_axis is None:
+        return p
+    E = p["w_gate"].shape[-3]
+    e_loc = E // rules.model_size
+    e_lo = collectives.axis_index(mesh, rules.model_axis) * e_loc
+    cut_ff = fsdp and bool(rules.batch_axes)
+
+    def cut(w: torch.Tensor, ff_dim: int) -> torch.Tensor:
+        mine = w.narrow(w.dim() - 3, e_lo, e_loc)
+        if cut_ff:
+            f_lo, f_hi = collectives.block_of(w.shape[ff_dim], rules.batch_axes, mesh, even=True)
+            mine = mine.narrow(ff_dim, f_lo, f_hi - f_lo)
+        return w if mine.shape == w.shape else mine.clone()
+
+    return {"router": p["router"], "w_gate": cut(p["w_gate"], -1), "w_up": cut(p["w_up"], -1),
+            "w_down": cut(p["w_down"], -2)}
+
+
+def moe_capacity_plain(
+    p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: shd.Rules,
+    capacity_factor: float = 1.25, model_index: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel layer's output on one card, for the tests and
+    the card check: from the routing of ``x`` (B, S, D) on the layout of
+    ``rules`` (its axis sizes; no mesh needed), which (token, k)
+    assignments survive both capacity stages of :func:`_moe_ep`, in
+    ``repro``'s slot order, and the kept ones' expert outputs summed in
+    f32 with their weights (``p``: the whole experts).  Each rank's block
+    is routed apart, as the rank routes it: a token's router logits are
+    then the same bits on both sides, so a near tie between its k-th and
+    (k+1)-th expert cannot fall otherwise.  Where the sequence is not
+    blocked over the model axis (a decode step) every model rank routes
+    the same tokens, and the destinations keep the copies of lower source
+    ranks first; ``model_index`` picks the rank whose copies the output
+    holds.  Returns (output in x's dtype, kept (B, S, k) bool)."""
+    B, S, D = x.shape
+    plan = moe_plan(rules, (B, S, D), n_experts, top_k, capacity_factor)
+    M, e_loc, cap_send, cap_exp = plan.M, plan.e_loc, plan.cap_send, plan.cap_exp
+    nb = math.prod(rules.axis_sizes[a] for a in plan.batch_axes)  # batch blocks
+    seq_split = bool(plan.seq_axes)
+    bb, sb = B // nb, (S // M if seq_split else S)
+    weights = torch.empty((B, S, top_k), dtype=torch.float32, device=x.device)
+    gate_idx = torch.empty((B, S, top_k), dtype=torch.long, device=x.device)
+    for bi in range(nb):
+        for s0 in range(0, S, sb):
+            w, g = _route(p, x[bi * bb : (bi + 1) * bb, s0 : s0 + sb].reshape(-1, D), top_k)
+            weights[bi * bb : (bi + 1) * bb, s0 : s0 + sb] = w.reshape(bb, sb, top_k)
+            gate_idx[bi * bb : (bi + 1) * bb, s0 : s0 + sb] = g.reshape(bb, sb, top_k)
+    xt = x.reshape(-1, D)
+    kept = torch.zeros((B, S, top_k), dtype=torch.bool, device=x.device)
+    for bi in range(nb):
+        # each model rank's assignments, slotted by destination
+        srcs = []
+        for m in range(M):
+            s0 = m * sb if seq_split else 0
+            g = gate_idx[bi * bb : (bi + 1) * bb, s0 : s0 + sb].reshape(-1)
+            order, dest_s, rank = _dispatch(g // e_loc, M, cap_send)
+            srcs.append((s0, order, dest_s, rank, g))
+        keep = [torch.zeros(bb * sb * top_k, dtype=torch.bool, device=x.device) for _ in range(M)]
+        for j in range(M):
+            # destination j's received slots, source-major: (local expert, source, assignment)
+            le, origin = [], []
+            for m, (_, order, dest_s, rank, g) in enumerate(srcs):
+                sel = (dest_s == j) & (rank < cap_send)
+                slots = torch.full((cap_send,), e_loc, dtype=torch.long, device=x.device)
+                who = torch.full((cap_send,), -1, dtype=torch.long, device=x.device)
+                slots[rank[sel]] = g[order[sel]] % e_loc
+                who[rank[sel]] = order[sel]
+                le.append(slots)
+                origin.append(torch.stack([torch.full_like(who, m), who], 1))
+            order2, rle_s, rank2 = _dispatch(torch.cat(le), e_loc, cap_exp)
+            ok = (rle_s < e_loc) & (rank2 < cap_exp)
+            src = torch.cat(origin)[order2[ok]]
+            for m in range(M):
+                keep[m][src[src[:, 0] == m, 1]] = True
+        for m in range(M):
+            if seq_split or m == model_index:
+                s0 = srcs[m][0]
+                kept[bi * bb : (bi + 1) * bb, s0 : s0 + sb] = keep[m].reshape(bb, sb, top_k)
+    flat_k = kept.reshape(-1)
+    flat = gate_idx.reshape(-1)
+    idx = torch.nonzero(flat_k).reshape(-1)
+    order = idx[torch.argsort(flat[idx], stable=True)]
+    ys = _expert_outputs(p, xt[order // top_k], _expert_rows(flat[order], n_experts))
+    out = torch.zeros((xt.shape[0] * top_k, D), dtype=torch.float32, device=x.device)
     out[order] = ys.float() * weights.reshape(-1)[order, None]
-    return out.reshape(T, top_k, D).sum(dim=1).reshape(B, S, D).to(x.dtype)
+    return out.reshape(-1, top_k, D).sum(dim=1).reshape(B, S, D).to(x.dtype), kept
 
 
 def _expert_rows(flat: torch.Tensor, n_experts: int) -> list[int]:

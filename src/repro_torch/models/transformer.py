@@ -28,22 +28,39 @@ leaves through the slices ``_layer`` takes of them.
 allocation), :func:`param_specs` and :func:`cache_specs` their
 placements under a layout's ``Rules`` (tuples, as ``repro``'s
 ``PartitionSpec``s), which ``launch/cells.py`` fits to the production
-layouts.  Placing the tensors on several cards, and with it the
-expert-parallel MoE and ``repro``'s ``make_decode_step(seq_sharded=)``
-constraint on the cache (the identity off a mesh), is the multi-GPU
-item.
+layouts.
+
+Over ranks (an installed ``DeviceMesh``, one process a rank): the
+tokens are the whole batch on every rank; each rank runs its block of
+the batch over the batch axes (``collectives.batch_block``) with the
+dense weights whole, the MoE layer expert-parallel on its share of the
+experts (:func:`shard_params`), and the logits gathered over the batch
+axes; a prefill's cache and a decode step's cache hold the rank's block
+of the batch.  ``make_decode_step(seq_sharded=True)`` is ``repro``'s
+``long_500k`` decode on a cache whose sequence lies over the model axis
+(``cache/kv_seq``): a rank holds positions ``[m·S/M, (m+1)·S/M)``
+(:func:`cache_shard`), writes a new position only if it owns it, runs
+B7's split kernel on its shard (``flash_decode_gqa_partials``, the
+global ``kv_len`` and its offset), and the ranks' partials, gathered
+over the model axis and laid out rank-major, are merged by B7's
+combine kernel.  ``repro`` gets there from a sharding constraint and
+GSPMD.  Forward and serving only: gradients over ranks are training's
+mesh half.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives
 from repro_torch.dist import sharding as shd
+from repro_torch.kernels.decode_attn import decode_attn as da
 from repro_torch.models import layers as L
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.tree import leaves, tree_map, value_and_grad
@@ -206,6 +223,17 @@ def rules_for(cfg: LMConfig, mesh=None) -> shd.Rules:
     return shd.Rules.from_mesh(mesh, overrides=overrides)
 
 
+def shard_params(cfg: LMConfig, rules: shd.Rules, params: dict) -> dict:
+    """This rank's parameters on the installed mesh: a MoE config's
+    experts cut to the rank's share (``layers.moe_shard``: its experts
+    over the model axis and, with ``cfg.fsdp_experts``, its d_ff block
+    over the batch axes); every other leaf whole.  ``params`` off-mesh."""
+    if not cfg.is_moe or shd.get_mesh() is None or rules.model_axis is None:
+        return params
+    moe = L.moe_shard(params["layers"]["moe"], rules, cfg.fsdp_experts)
+    return {**params, "layers": {**params["layers"], "moe": moe}}
+
+
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked per-layer leaves."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -216,9 +244,10 @@ def _layer(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _block(cfg: LMConfig, rules: shd.Rules, x, lp: dict, positions, attend):
+def _block(cfg: LMConfig, rules: shd.Rules, x, lp: dict, positions, attend, batch: int | None = None):
     """One layer: attention (``attend(q, k, v)`` -> (B, S, H, Dh)), then
-    the MLP or the MoE, each added to the residual stream."""
+    the MLP or the MoE, each added to the residual stream.  ``batch``:
+    the global batch when ``x`` is this rank's block of it."""
     B, S, _ = x.shape
     h = L.rmsnorm(x, lp["ln1"])
     q, k, v = L.apply_attention_proj(
@@ -227,7 +256,8 @@ def _block(cfg: LMConfig, rules: shd.Rules, x, lp: dict, positions, attend):
     x = x + (attend(q, k, v).reshape(B, S, -1) @ lp["attn"]["wo"])
     h = L.rmsnorm(x, lp["ln2"])
     if cfg.is_moe:
-        y = L.apply_moe(lp["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k, rules=rules)
+        y = L.apply_moe(lp["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k, rules=rules,
+                        fsdp=cfg.fsdp_experts, batch=batch)
     else:
         y = L.apply_mlp(lp["mlp"], h, rules)
     return x + y, k, v
@@ -246,6 +276,20 @@ def _causal(cfg: LMConfig, S: int):
     return attend
 
 
+def _rows(rules: shd.Rules, B: int):
+    """(lo, hi, axes, batch): this rank's block of a batch of ``B`` on the
+    installed mesh, and the global batch to pass the layers (``None``
+    off-mesh: the block is the batch)."""
+    lo, hi, axes = collectives.batch_block(rules, B)
+    return lo, hi, axes, (None if shd.get_mesh() is None else B)
+
+
+def _gather(x: torch.Tensor, axes, B: int) -> torch.Tensor:
+    """A rank's block of rows gathered over the batch axes (``x`` itself
+    when the batch is not blocked)."""
+    return collectives.gather_rows(x, axes, B, shd.get_mesh()) if axes else x
+
+
 def forward(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab)."""
     return hidden_states(cfg, rules, params, tokens) @ params["lm_head"]
@@ -253,18 +297,20 @@ def forward(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor)
 
 def hidden_states(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Final-norm hidden states (B, S, D): forward() without the lm_head.
-    Under autograd with ``cfg.remat``, each layer is checkpointed."""
+    Under autograd with ``cfg.remat``, each layer is checkpointed.  On a
+    mesh, this rank's block of the batch, gathered over the batch axes."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens)
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    lo, hi, axes, batch = _rows(rules, B)
+    x = _embed(cfg, params, tokens[lo:hi])
+    positions = torch.arange(S, device=x.device)[None].expand(hi - lo, S)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
 
         def layer(x, i=i):
-            return _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S))[0]
+            return _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S), batch)[0]
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-    return L.rmsnorm(x, params["final_norm"])
+    return _gather(L.rmsnorm(x, params["final_norm"]), axes, B)
 
 
 def loss_fn(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor, labels: torch.Tensor):
@@ -335,22 +381,52 @@ def cache_specs(cfg: LMConfig, rules: shd.Rules, seq_sharded: bool) -> dict:
     return {"k": spec, "v": spec, "len": ()}
 
 
+def _seq_block(rules: shd.Rules, seq_sharded: bool) -> tuple[int, int] | None:
+    """(m, M): this rank's coordinate over the model axis and its size
+    when the cache's sequence lies over it; ``None`` when it does not."""
+    mesh = shd.get_mesh()
+    if not seq_sharded or mesh is None or rules.model_axis is None:
+        return None
+    return collectives.axis_index(mesh, rules.model_axis), rules.model_size
+
+
+def cache_shard(cfg: LMConfig, rules: shd.Rules, cache: dict, seq_sharded: bool = False) -> dict:
+    """This rank's copy of its share of a global KV cache (k, v (L, B, S,
+    G, Dh)) on the installed mesh: its block of the batch over the batch
+    axes (``collectives.batch_block``) and, with ``seq_sharded``, its
+    positions ``[m·S/M, (m+1)·S/M)`` over the model axis (``repro``'s
+    ``cache/kv_seq``; S must divide by M); ``len`` as it is.  The cache
+    itself off-mesh."""
+    if shd.get_mesh() is None:
+        return cache
+    lo, hi, _ = collectives.batch_block(rules, cache["k"].shape[1])
+    m, M = _seq_block(rules, seq_sharded) or (0, 1)
+    S = cache["k"].shape[2]
+    if S % M:
+        raise ValueError(f"a cache of {S} positions does not divide over the model axis's {M} ranks")
+    s_loc = S // M
+    return {name: cache[name][:, lo:hi, m * s_loc : (m + 1) * s_loc].clone() for name in ("k", "v")} | {
+        "len": cache["len"]}
+
+
 def make_prefill(cfg: LMConfig, rules: shd.Rules):
     """tokens (B, S) -> (last-token logits (B, padded_vocab), KV cache
     exactly S long with len S).  A caller that decodes after it copies
-    the cache into an ``init_cache(max_len)`` buffer."""
+    the cache into an ``init_cache(max_len)`` buffer.  On a mesh the
+    cache holds this rank's block of the batch."""
 
     def prefill(params: dict, tokens: torch.Tensor):
         B, S = tokens.shape
-        x = _embed(cfg, params, tokens)
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        lo, hi, axes, batch = _rows(rules, B)
+        x = _embed(cfg, params, tokens[lo:hi])
+        positions = torch.arange(S, device=x.device)[None].expand(hi - lo, S)
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            x, k, v = _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S))
+            x, k, v = _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S), batch)
             ks.append(k)
             vs.append(v)
         x = L.rmsnorm(x[:, -1:], params["final_norm"])
-        logits = x @ params["lm_head"]
+        logits = _gather(x @ params["lm_head"], axes, B)
         cache = {
             "k": torch.stack(ks),
             "v": torch.stack(vs),
@@ -361,7 +437,7 @@ def make_prefill(cfg: LMConfig, rules: shd.Rules):
     return prefill
 
 
-def make_decode_step(cfg: LMConfig, rules: shd.Rules):
+def make_decode_step(cfg: LMConfig, rules: shd.Rules, seq_sharded: bool = False):
     """One token per sequence against the KV cache (the serve step of
     decode_32k and long_500k).  ``decode_step(params, cache, tokens)``
     writes the new keys and values into ``cache["k"]`` and ``cache["v"]``
@@ -369,32 +445,63 @@ def make_decode_step(cfg: LMConfig, rules: shd.Rules):
     positions on B7, and returns (logits (B, padded_vocab), a cache
     holding the same k and v tensors and len pos + 1).  It reads pos on
     the host, to index the write and to raise on a full cache; a
-    shape-only run (meta K and V) passes ``len`` as a CPU tensor."""
+    shape-only run (meta K and V) passes ``len`` as a CPU tensor.
+
+    On a mesh the cache is this rank's share (:func:`cache_shard`): its
+    block of the batch and, with ``seq_sharded`` and a model axis, its
+    positions ``[m·S_loc, (m+1)·S_loc)`` of the global S = M·S_loc; the
+    rank that owns ``pos`` writes it, every rank runs B7's split kernel
+    on its shard against the global ``kv_len``, and the partials,
+    gathered over the model axis (one ``all_gather`` a layer), are merged
+    by B7's combine kernel.  Off a mesh ``seq_sharded`` changes nothing,
+    as ``repro``'s constraint is the identity there."""
 
     def decode_step(params: dict, cache: dict, tokens: torch.Tensor):
         B = tokens.shape[0]
-        max_len = cache["k"].shape[2]
+        lo, hi, axes, batch = _rows(rules, B)
+        sharded = _seq_block(rules, seq_sharded)
+        m, M = sharded or (0, 1)
+        s_loc = cache["k"].shape[2]
+        max_len = s_loc * M
         pos = int(cache["len"])
         if pos >= max_len:
             raise IndexError(
                 f"the KV cache is full: len {pos} of max_len {max_len} (repro's "
                 f"dynamic_update_slice would clamp and overwrite position {max_len - 1})"
             )
-        x = _embed(cfg, params, tokens).reshape(B, 1, cfg.d_model)
-        positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        if cache["k"].shape[1] != hi - lo:
+            raise ValueError(f"the cache holds {cache['k'].shape[1]} rows; this rank's block is [{lo}, {hi})")
+        x = _embed(cfg, params, tokens[lo:hi]).reshape(hi - lo, 1, cfg.d_model)
+        positions = torch.full((hi - lo, 1), pos, dtype=torch.int32, device=x.device)
         kv_len = cache["len"] + 1
+        mine = m * s_loc <= pos < (m + 1) * s_loc
 
         for i in range(cfg.n_layers):
             k_cache, v_cache = cache["k"][i], cache["v"][i]
 
             def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
-                k_cache[:, pos] = k[:, 0]
-                v_cache[:, pos] = v[:, 0]
-                return L.decode_attention(q, k_cache, v_cache, kv_len)
+                if mine:
+                    k_cache[:, pos - m * s_loc] = k[:, 0]
+                    v_cache[:, pos - m * s_loc] = v[:, 0]
+                if sharded is None:
+                    return L.decode_attention(q, k_cache, v_cache, kv_len)
+                return _seq_sharded_attention(rules, q, k_cache, v_cache, kv_len, m * s_loc)
 
-            x, _, _ = _block(cfg, rules, x, _layer(params["layers"], i), positions, attend)
+            x, _, _ = _block(cfg, rules, x, _layer(params["layers"], i), positions, attend, batch)
         x = L.rmsnorm(x, params["final_norm"])
-        logits = (x @ params["lm_head"])[:, 0]
+        logits = _gather((x @ params["lm_head"])[:, 0], axes, B)
         return logits, {"k": cache["k"], "v": cache["v"], "len": kv_len}
 
     return decode_step
+
+
+def _seq_sharded_attention(rules: shd.Rules, q, k_cache, v_cache, kv_len, kv_offset: int):
+    """Decode attention on this rank's cache shard: B7's partials of its
+    positions, gathered over the model axis, laid out rank-major as one
+    split axis, merged by B7's combine kernel.  q (B, 1, H, Dh) ->
+    (B, 1, H, Dh)."""
+    B, _, H, Dh = q.shape
+    part = da.flash_decode_gqa_partials(q.reshape(B, H, Dh), k_cache, v_cache, kv_len, kv_offset,
+                                        block_kv=math.gcd(k_cache.shape[1], 512))
+    gathered = collectives.all_gather(part.buf[None], rules.model_axis, 0, shd.get_mesh())  # (M, numel)
+    return da.flash_decode_combine(da.ranks_major(gathered, part.shape), q.dtype).reshape(B, 1, H, Dh)

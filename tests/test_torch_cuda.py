@@ -27,6 +27,7 @@ is held to ``repro``'s own tolerances (2e-5 f32, 2e-2 bf16,
 import asyncio
 import dataclasses
 import gc
+import math
 
 import numpy as np
 import pytest
@@ -1451,3 +1452,104 @@ def test_one_rank_nccl_embedding_bag_sharded_equals_b6(cuda, tmp_path, table_dty
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     zero = embedbag.embedding_bag_sorted(table, empty, empty, 7)
     assert zero.shape == (7, 128) and not zero.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 112, 128, 256])
+def test_decode_partials_and_combine_equal_flash_decode(cuda, dh, dtype):
+    """B7's partials then combine entries on one shard at offset 0 are
+    ``flash_decode_gqa``'s own two launches: bit for bit where it splits
+    (S 16,384 at B 1, G 2: 128 splits), and bit for bit at one split too
+    (B 64, G 8, S 1,024), where ``flash_decode_gqa`` normalises in the
+    split kernel: the combine's merge of one split multiplies by e^0 = 1
+    and adds to 0, then divides as the split kernel does.  Over 4 shards
+    of the cache, each with its offset and the global kv_len, the merge
+    is within 2e-5 (f32) or 2e-2 (bf16) of the largest output; kv_len 0
+    gives every shard's V mean merged (V's mean over all S)."""
+    for b, g, s in ((1, 2, 16384), (64, 8, 1024)):
+        r = 5 if dh == 128 else 4
+        q = torch.randn((b, g * r, dh), device=cuda).to(dtype)
+        k = torch.randn((b, s, g, dh), device=cuda).to(dtype)
+        v = torch.randn((b, s, g, dh), device=cuda).to(dtype)
+        n_split, _ = decode_attn.decode_splits(b, g, s)
+        assert (n_split > 1) == (s == 16384)
+        for kv in (s, s - 77, 300, 0):
+            kv_len = torch.tensor(kv, dtype=torch.int32, device=cuda)
+            want = decode_attn.flash_decode_gqa(q, k, v, kv_len)
+            p0, c0 = decode_attn.PARTIAL_LAUNCHES, decode_attn.COMBINE_LAUNCHES
+            part = decode_attn.flash_decode_gqa_partials(q, k, v, kv_len, 0)
+            assert part.m.shape == (b, g, n_split, r)
+            got = decode_attn.flash_decode_combine(part, dtype)
+            torch.cuda.synchronize()
+            assert (decode_attn.PARTIAL_LAUNCHES - p0, decode_attn.COMBINE_LAUNCHES - c0) == (1, 1)
+            assert torch.equal(got, want), (b, g, s, kv)
+            s_loc = s // 4
+            shards = [decode_attn.flash_decode_gqa_partials(q, k[:, i * s_loc : (i + 1) * s_loc].contiguous(),
+                                                            v[:, i * s_loc : (i + 1) * s_loc].contiguous(),
+                                                            kv_len, i * s_loc, block_kv=math.gcd(s_loc, 512))
+                      for i in range(4)]
+            merged = decode_attn.ranks_major(torch.stack([p.buf for p in shards]), shards[0].shape)
+            four = decode_attn.flash_decode_combine(merged, dtype)
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            scale = float(want.float().abs().max())
+            assert float((four.float() - want.float()).abs().max()) <= tol * scale, (b, g, s, kv)
+
+
+def test_decode_partials_past_kv_len_write_zero_weight(cuda):
+    """A shard that lies wholly past the global kv_len writes m = -1e30,
+    l = 0 and acc = 0 in every split (it walks nothing), where a local
+    kv_len of 0 would walk its whole shard at -1e30 (l = its length); the
+    wrapper refuses a negative offset and partials of other shapes."""
+    q = torch.randn((2, 8, 128), device=cuda).to(torch.bfloat16)
+    k = torch.randn((2, 4096, 2, 128), device=cuda).to(torch.bfloat16)
+    kv_len = torch.tensor(1000, dtype=torch.int32, device=cuda)
+    part = decode_attn.flash_decode_gqa_partials(q, k, k, kv_len, 4096)
+    torch.cuda.synchronize()
+    assert (part.m == -1e30).all() and (part.l == 0).all() and (part.acc == 0).all()
+    local0 = decode_attn.flash_decode_gqa_partials(q, k, k, torch.zeros_like(kv_len), 0)
+    assert float(local0.l.sum()) == 4096 * 2 * 8
+    with pytest.raises(ValueError, match="kv_offset"):
+        decode_attn.flash_decode_gqa_partials(q, k, k, kv_len, -1)
+    with pytest.raises(ValueError, match="partials"):
+        decode_attn.flash_decode_combine(decode_attn.Partials(part.buf[:-1], part.shape), torch.bfloat16)
+
+
+def test_one_rank_nccl_expert_parallel_moe_equals_capacity_plain(cuda, tmp_path):
+    """The expert-parallel MoE layer on a (1, 1) mesh of one NCCL rank,
+    bf16, 64 experts top-8 (kimi-k2's ``fsdp`` gathers over a one-rank data
+    axis): at capacity 1.25 it drops assignments and equals
+    ``moe_capacity_plain`` within 2e-2 of the largest |output|; at 8.0
+    nothing drops and it equals the one-card layer likewise."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = layers.init_moe(gen, 256, 128, 64, torch.bfloat16)
+    # a direction every token shares, which experts 0-7 favour: their loads
+    # pass capacity 1.25's 208 slots an expert
+    common = torch.randn(256, generator=gen, device=cuda)
+    x = (torch.randn((4, 256, 256), generator=gen, device=cuda) + common).to(torch.bfloat16)
+    p["router"][:, :8] += 2.0 * common[:, None] / common.square().sum()
+    ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
+    try:
+        mesh = lmesh.make_test_mesh(1, 1)
+        rules = shd.Rules.from_mesh(mesh)
+        with shd.use_mesh(mesh):
+            for cf in (1.25, 8.0):
+                collectives.WIRE_COUNTERS.clear()
+                got = layers.apply_moe(layers.moe_shard(p, rules, fsdp=True), x, n_experts=64, top_k=8,
+                                       rules=rules, capacity_factor=cf, fsdp=True)
+                want, kept = layers.moe_capacity_plain(p, x, n_experts=64, top_k=8, rules=rules,
+                                                       capacity_factor=cf)
+                assert collectives.WIRE_COUNTERS["all_to_all"] == 3
+                assert collectives.WIRE_COUNTERS["all_gather"] == 3
+                scale = float(want.float().abs().max())
+                assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale, cf
+                assert (not kept.all()) == (cf == 1.25)
+        one = layers.apply_moe(p, x, n_experts=64, top_k=8, rules=shd.Rules.from_mesh(None))
+        assert float((got.float() - one.float()).abs().max()) <= 2e-2 * float(one.float().abs().max())
+    finally:
+        dist.destroy_process_group()

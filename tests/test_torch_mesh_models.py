@@ -19,7 +19,12 @@ Tolerances, as the largest |difference| over the largest |value|:
   ``multi_hot`` 1, 2e-2 at 3 (their bf16 bags round apart); the top 64
   equal up to ties;
 * GNN outputs 1e-5, EquiformerV2 1e-4: scatters split over ranks sum in
-  another order; GCN's degrees are integers in f32 and exact.
+  another order; GCN's degrees are integers in f32 and exact;
+* EquiformerV2 on a graph of 150,000 nodes, which ``equiformer_energy``
+  sends to ``equiformer_energy_big`` on a mesh (bf16 node state): the
+  same energy on every rank, BIG_TOL of ``repro``'s and of the plain
+  twin of that path on one card (``equiformer_atoms_big_plain``, whose
+  sums run in f32).
 
 The DLRM cases shard the smoke config's tables of more than 40 rows
 (64 and 48) and replicate the third, by a rule patched into both
@@ -59,6 +64,7 @@ HOTS = (1, 3)
 BAG_ROWS, BAG_DIM = 51, 16  # 51 rows: the second of two shards ends in a padding row
 BAG_BATCHES = (12, 13)  # 13 does not divide over the batch axes: every rank takes it whole
 SHARD_ABOVE_ROWS = 40
+BIG_NODES, BIG_EDGES, BIG_TOL = 150_000, 128, 5e-3  # repro's _BIG_GRAPH_NODES
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +119,15 @@ def _inputs() -> dict:
                                                                     device="cpu").items()}
         graphs[arch] = {"params": _tree(gnn.INIT_FNS[arch](cfg, seed=0, device="cpu")), "batch": batch,
                         "masked": dict(batch, edge_mask=np.arange(batch["edge_mask"].shape[0]) % 3 != 0)}
-    return {"bags": bags, "dlrm": models, "gnn": graphs}
+    n_species = registry.get_arch("equiformer-v2").smoke().n_species
+    # edges among the first 200 nodes, so that some nodes have several
+    big = {"species": rng.integers(0, n_species, BIG_NODES).astype(np.int32),
+           "positions": (rng.random((BIG_NODES, 3)) * 4.0).astype(np.float32),
+           "node_mask": np.ones(BIG_NODES, dtype=bool),
+           "edge_src": rng.integers(0, 200, BIG_EDGES).astype(np.int32),
+           "edge_dst": rng.integers(0, 200, BIG_EDGES).astype(np.int32),
+           "edge_mask": np.arange(BIG_EDGES) % 5 != 0}
+    return {"bags": bags, "dlrm": models, "gnn": graphs, "big": big}
 
 
 @contextlib.contextmanager
@@ -164,7 +178,7 @@ def _model_cases(inputs: dict, mesh) -> dict:
                 calls.clear()
                 shard = interop.table_row_shard_from_numpy(table, m, n_model, "cpu")
                 got = dlrm.embedding_bag_sharded(shard, _t(idx), rules)
-                out["bag", *key] = (_np_out(got), dlrm.batch_block(rules, idx.shape[0])[:2], list(calls))
+                out["bag", *key] = (_np_out(got), collectives.batch_block(rules, idx.shape[0])[:2], list(calls))
             with _rows_rule(dlrm):
                 for hot, case in inputs["dlrm"].items():
                     cfg = _dlrm_cfg(hot)
@@ -202,14 +216,19 @@ def _model_cases(inputs: dict, mesh) -> dict:
         out["degrees"] = _np_out((gnn.scatter_sum(ones, gnn.sort_edges(dst), n, rules),
                                   gnn.scatter_sum(ones, gnn.sort_edges(src), n, rules)))
         out["edges_held"] = int(src.shape[0])
-        if mesh is not None:
-            cfg = registry.get_arch("equiformer-v2").smoke()
-            big = {"species": torch.zeros(150_000, dtype=torch.int32), "positions": torch.zeros(150_000, 3)}
-            try:
-                gnn.equiformer_energy(cfg, rules, None, big)
-                out["big"] = None
-            except NotImplementedError as e:
-                out["big"] = str(e)
+        cfg = registry.get_arch("equiformer-v2").smoke()
+        params = interop.gnn_params_from_numpy(inputs["gnn"]["equiformer-v2"]["params"], "cpu")
+        calls.clear()
+        real_big = gnn.equiformer_energy_big
+        gnn.equiformer_energy_big = lambda *a: calls.append("big") or real_big(*a)
+        try:
+            out["big"] = (_np_out(gnn.equiformer_energy(cfg, rules, params, {k: _t(v) for k, v in inputs["big"].items()})),
+                          list(calls))
+        finally:
+            gnn.equiformer_energy_big = real_big
+        if mesh is None:  # the large-graph path's own function, plain, on one card
+            big = {k: _t(v) for k, v in inputs["big"].items()}
+            out["big_plain"] = _np_out(gnn.equiformer_atoms_big_plain(cfg, params, big).sum()[None])
     return out
 
 
@@ -377,15 +396,23 @@ def test_gnn_forwards_equal_one_card(spawned, one_card, shape, arch, masked):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_gcn_degrees_exact_and_big_equiformer_raises(spawned, one_card, shape):
     """GCN's in- and out-degrees over ranks are the one-card degrees bit
-    for bit; each rank scatters its block of the edges; and
-    ``equiformer_energy_big``, ``repro``'s mesh path from 150,000 nodes,
-    raises, naming the slice that ports it."""
+    for bit; each rank scatters its block of the edges; and at 150,000
+    nodes ``equiformer_energy`` takes ``equiformer_energy_big``, as
+    ``repro``'s does on a mesh with a model axis (the one-card run keeps
+    the small-graph branch), whose energy is the same on every rank and
+    within BIG_TOL of its plain twin's on one card
+    (``equiformer_atoms_big_plain``)."""
+    got = []
     for r in _ranks_of(spawned, shape):
-        for got, want in zip(r["degrees"], one_card["degrees"]):
-            assert _bits(got) == _bits(want)
+        for g, want in zip(r["degrees"], one_card["degrees"]):
+            assert _bits(g) == _bits(want)
         assert r["edges_held"] == 64 // (shape[0] * shape[1])
-        assert r["big"] is not None and "slice 18" in r["big"]
+        energy, calls = r["big"]
+        assert calls == ["big"] and energy.shape == (1,) and np.isfinite(energy).all()
+        _close(energy, one_card["big_plain"], BIG_TOL, shape)
+        got.append(_bits(energy))
         assert r["wire"]["all_reduces"] > 0
+    assert one_card["big"][1] == [] and len(set(got)) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +455,8 @@ REPRO_SCRIPT = textwrap.dedent(
             for masked in (False, True):
                 batch = tree(case["masked" if masked else "batch"])
                 out["gnn", arch, masked] = np.asarray(step(tree(case["params"]), batch))
+        big = jax.jit(gnn.make_gnn_serve_step(registry.get_arch("equiformer-v2").smoke(), rules))
+        out["big"] = np.asarray(big(tree(inputs["gnn"]["equiformer-v2"]["params"]), tree(inputs["big"])))
     with open(sys.argv[2], "wb") as f:
         pickle.dump(out, f)
     """
@@ -468,7 +497,8 @@ def repro_8_devices(inputs_path):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_ranks_equal_repro_on_8_devices(repro_8_devices, spawned, one_card, inputs, shape):
     """``repro``'s row-sharded bags (bit for bit at ``multi_hot`` 1), its
-    serve probabilities and retrieval scores, and its four GNN forwards
+    serve probabilities and retrieval scores, its four GNN forwards and
+    its EquiformerV2 energy at 150,000 nodes (``equiformer_energy_big``)
     on a (4, 2) mesh against every rank, at the tolerances above."""
     want = repro_8_devices()
     all_scores = {hot: one_card["all_scores", hot] for hot in HOTS}
@@ -489,3 +519,4 @@ def test_ranks_equal_repro_on_8_devices(repro_8_devices, spawned, one_card, inpu
             for masked in (False, True):
                 _close(r["gnn", arch, masked], want["gnn", arch, masked],
                        1e-4 if arch == "equiformer-v2" else 1e-5, (shape, arch, masked))
+        _close(r["big"][0], want["big"], BIG_TOL, (shape, "big"))

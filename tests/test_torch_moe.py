@@ -182,14 +182,24 @@ def test_apply_moe_with_experts_left_without_rows():
 
 
 def test_apply_moe_refuses_a_model_axis():
+    """Rules with a model axis but no installed mesh run the one-card
+    layer, as ``repro``'s ``apply_moe`` does (``mesh is None``): the
+    expert-parallel program runs only on an installed ``DeviceMesh``
+    (``tests/test_torch_mesh_lm.py``)."""
     _, (p, x) = _moe_inputs("f32", 0)
     layout = type("Layout", (), {"axis_names": ("data", "model"), "shape": {"data": 2, "model": 2}})
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        layers.apply_moe(p, x, n_experts=6, top_k=2, rules=shd.Rules.from_mesh(layout))
+    want = layers.moe_dense(p, x, n_experts=6, top_k=2)
+    got = layers.apply_moe(p, x, n_experts=6, top_k=2, rules=shd.Rules.from_mesh(layout))
+    _close(got, want, 1e-6)
+    # repro's own apply_moe takes the same branch for these rules and no mesh
+    (rp, jx), _ = _moe_inputs("f32", 0)
+    layout_r = type("Layout", (), {"axis_names": ("data", "model"), "shape": {"data": 2, "model": 2}})
+    r_got = r_layers.apply_moe(rp, jx, n_experts=6, top_k=2, rules=r_shd.Rules.from_mesh(layout_r))
+    _close(got, r_got, 1e-5)
     # a layout without a model axis runs the one-card layer, as repro's
     data_only = type("Layout", (), {"axis_names": ("data",), "shape": {"data": 4}})
     got = layers.apply_moe(p, x, n_experts=6, top_k=2, rules=shd.Rules.from_mesh(data_only))
-    _close(got, layers.moe_dense(p, x, n_experts=6, top_k=2), 1e-6)
+    _close(got, want, 1e-6)
 
 
 # ---------------------------------------------------------------------------
