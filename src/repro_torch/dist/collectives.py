@@ -51,9 +51,33 @@ every rank's ``n`` send blocks, ``n`` times the tensor, where NCCL's
 ``all_to_all_single`` moves each block once.  Native NCCL collectives
 are speed work for a multi-card cell.
 
+Under autograd each collective is a ``torch.autograd.Function`` whose
+backward is the transpose ``repro``'s ``shard_map`` gives it when a value
+is either the same on every rank of an axis (invariant) or the rank's own
+(varying):
+
+* :func:`psum` turns varying values into an invariant one; every rank
+  that holds the sum runs the work downstream again, so its cotangent is
+  already the same on each of them and the backward is the identity;
+* :func:`gather_rows` (a ``shard_map`` output gathered over axes): the
+  rank's own block of the cotangent, no bytes moved;
+* :func:`all_gather` (whose result each rank uses on its own data):
+  :func:`psum_scatter` of the cotangents, as JAX transposes it;
+* :func:`psum_scatter`: :func:`all_gather`; :func:`all_to_all` (tiled,
+  equal blocks): :func:`all_to_all` again;
+* :func:`pmax`: no gradient (``repro``'s ``stop_gradient``);
+* :func:`enter`: the identity forward, a :func:`psum` backward, where an
+  invariant value is used on varying data (the transpose of a
+  ``shard_map`` input that is not mapped over the axes: a replicated
+  parameter or node state on the rank's block of a batch or of edges).
+
+A backward over axes of size 1 moves nothing.  Every rank must build
+the same graph around each collective, so no rank may add or drop one on
+its data: the collectives here never branch on values.
+
 :data:`WIRE_COUNTERS` counts the ``all_reduce`` calls and the bytes of
 the tensors they carry, per process, and the calls of each collective
-above by its name.
+above by its name, the backward calls under ``<name>_backward``.
 """
 
 from __future__ import annotations
@@ -145,14 +169,17 @@ def _all_reduce(x: torch.Tensor, op, axes, mesh) -> torch.Tensor:
 
 def pmax(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     """``lax.pmax(x, axes)``: the elementwise max over the ranks along
-    ``axes`` (``mesh``: the installed one when ``None``)."""
-    return _all_reduce(x, dist.ReduceOp.MAX, axes, mesh)
+    ``axes`` (``mesh``: the installed one when ``None``); cut from the
+    gradient."""
+    return _all_reduce(x.detach(), dist.ReduceOp.MAX, axes, mesh)
 
 
 def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     """``lax.psum(x, axes)``: the sum over the ranks along ``axes``.
     Floating sums are in the backend's order: exact for integers in f32
-    below 2^24."""
+    below 2^24.  Its backward is the identity (the sum is invariant)."""
+    if _records(x):
+        return _PSum.apply(x, _axes(axes), mesh)
     return _all_reduce(x, dist.ReduceOp.SUM, axes, mesh)
 
 
@@ -183,11 +210,18 @@ def gather_rows(local: torch.Tensor, axes, n_total: int, mesh=None, dim: int = 0
     over ``axes`` (:func:`block_of`), from each rank's ``local`` block, on
     every rank: each rank writes its rows into a zeroed global buffer and
     the buffers are summed (``all_reduce(SUM)``).  One value plus zeros
-    is exact in any dtype; booleans travel as uint8."""
+    is exact in any dtype; booleans travel as uint8.  The backward is the
+    rank's own rows of the (invariant) cotangent."""
     mesh = _mesh(mesh)
     lo, hi = block_of(n_total, axes, mesh)
     if local.shape[dim] != hi - lo:
         raise ValueError(f"this rank holds rows [{lo}, {hi}) of {n_total}, got {local.shape[dim]}")
+    if _records(local):
+        return _GatherRows.apply(local, _axes(axes), n_total, mesh, dim)
+    return _gather_rows(local, axes, n_total, mesh, dim, lo, hi)
+
+
+def _gather_rows(local, axes, n_total: int, mesh, dim: int, lo: int, hi: int) -> torch.Tensor:
     src = local.to(torch.uint8) if local.dtype == torch.bool else local
     shape = list(src.shape)
     shape[dim] = n_total
@@ -231,12 +265,20 @@ def all_gather(x: torch.Tensor, axes, dim: int = 0, mesh=None) -> torch.Tensor:
     a zeroed buffer ``n`` times as long along ``dim``, which is summed:
     exact in any dtype, ``n`` times ``x``'s bytes on the wire.  Over axes
     of size 1 it is ``x`` itself: no copy (kimi-k2's experts gathered over
-    a one-rank data axis would be a second 33.8 GB)."""
+    a one-rank data axis would be a second 33.8 GB).  Its backward is
+    :func:`psum_scatter` of the cotangents: each rank used the gathered
+    tensor on its own data."""
     mesh = _mesh(mesh)
     WIRE_COUNTERS["all_gather"] += 1
     n, me = axis_size(mesh, axes), axis_index(mesh, axes)
     if n == 1:
         return x
+    if _records(x):
+        return _AllGather.apply(x, _axes(axes), dim, mesh)
+    return _all_gather(x, axes, dim, mesh, n, me)
+
+
+def _all_gather(x, axes, dim: int, mesh, n: int, me: int) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] *= n
     buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
@@ -251,11 +293,13 @@ def psum_scatter(x: torch.Tensor, axes, dim: int = 0, mesh=None) -> torch.Tensor
     keeps block :func:`axis_index` of ``n`` along ``dim`` (which ``n``
     must divide).  One ``all_reduce(SUM)`` of the whole of ``x``, then
     the block: the sums of :func:`psum`, ``n`` times the bytes a
-    reduce-scatter would reduce."""
+    reduce-scatter would reduce.  Its backward is :func:`all_gather`."""
     mesh = _mesh(mesh)
     WIRE_COUNTERS["psum_scatter"] += 1
     _, k = _block(x, axes, mesh, dim)
-    return psum(x, axes, mesh).narrow(dim, axis_index(mesh, axes) * k, k).contiguous()
+    if _records(x):
+        return _PSumScatter.apply(x, _axes(axes), dim, mesh)
+    return _all_reduce(x, dist.ReduceOp.SUM, axes, mesh).narrow(dim, axis_index(mesh, axes) * k, k).contiguous()
 
 
 def all_to_all(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
@@ -267,17 +311,173 @@ def all_to_all(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
     reads its own block of every row: exact in any dtype (one value plus
     zeros), ``n`` times ``x``'s bytes on the wire where NCCL's
     ``all_to_all_single`` moves ``x`` once.  Over axes of size 1 it is
-    ``x`` itself."""
+    ``x`` itself.  Its backward is :func:`all_to_all` of the cotangent
+    (block ``i`` of rank ``j``'s output came from block ``j`` of rank
+    ``i``'s input)."""
     mesh = _mesh(mesh)
     WIRE_COUNTERS["all_to_all"] += 1
     n, k = _block(x, axes, mesh, 0)
     if n == 1:
         return x
+    if _records(x):
+        return _AllToAll.apply(x, _axes(axes), mesh)
+    return _all_to_all(x, axes, mesh, n, k)
+
+
+def _all_to_all(x, axes, mesh, n: int, k: int) -> torch.Tensor:
     me = axis_index(mesh, axes)
     buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     buf[me].copy_(x)
     _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
     return buf[:, me * k : (me + 1) * k].reshape(x.shape)
+
+
+def enter(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """``x``, an invariant value about to be used on data that varies
+    over ``axes`` (a replicated parameter or node state on the rank's
+    block of a batch or of edges): the identity forward, whose backward
+    sums the ranks' cotangents over ``axes`` (:func:`psum`).  The
+    transpose of a ``shard_map`` input that is not mapped over
+    ``axes``.  ``x`` itself when autograd does not record it, off a mesh
+    or over no axes."""
+    axes = _axes(axes)
+    if not axes or not _records(x) or (mesh is None and shd.get_mesh() is None):
+        return x
+    return _Enter.apply(x, axes, _mesh(mesh))
+
+
+def enter_tree(tree, axes, mesh=None):
+    """:func:`enter` on every tensor leaf of a tree of dictionaries and
+    lists."""
+    if isinstance(tree, dict):
+        return {k: enter_tree(v, axes, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(enter_tree(v, axes, mesh) for v in tree)
+    return enter(tree, axes, mesh) if isinstance(tree, torch.Tensor) else tree
+
+
+def _records(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _moves(mesh, axes) -> bool:
+    """Whether a collective over ``axes`` involves more than this rank."""
+    return axis_size(mesh, axes) > 1
+
+
+def _counted(name: str) -> None:
+    WIRE_COUNTERS[f"{name}_backward"] += 1
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return _all_reduce(x, dist.ReduceOp.SUM, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        _counted("psum")
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        _counted("enter")
+        if not _moves(ctx.mesh, ctx.axes):
+            return g, None, None
+        return _all_reduce(g, dist.ReduceOp.SUM, ctx.axes, ctx.mesh), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, axes, n_total, mesh, dim):
+        lo, hi = block_of(n_total, axes, mesh)
+        ctx.lo, ctx.hi, ctx.dim = lo, hi, dim
+        return _gather_rows(local, axes, n_total, mesh, dim, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        _counted("gather_rows")
+        return g.narrow(ctx.dim, ctx.lo, ctx.hi - ctx.lo), None, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
+        return _all_gather(x, axes, dim, mesh, axis_size(mesh, axes), axis_index(mesh, axes))
+
+    @staticmethod
+    def backward(ctx, g):
+        _counted("all_gather")
+        return psum_scatter(g.contiguous(), ctx.axes, ctx.dim, ctx.mesh), None, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
+        _, k = _block(x, axes, mesh, dim)
+        return _all_reduce(x, dist.ReduceOp.SUM, axes, mesh).narrow(dim, axis_index(mesh, axes) * k, k).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        _counted("psum_scatter")
+        return all_gather(g.contiguous(), ctx.axes, ctx.dim, ctx.mesh), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        n, k = _block(x, axes, mesh, 0)
+        return _all_to_all(x, axes, mesh, n, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        _counted("all_to_all")
+        return all_to_all(g.contiguous(), ctx.axes, ctx.mesh), None, None
+
+
+def leaf_block(x: torch.Tensor, placement, mesh=None) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` under ``placement`` (one
+    entry a dimension: ``None``, an axis or a tuple of axes), fitted on
+    ``x``'s shape (:func:`sharding.fit_spec`): each placed dimension cut
+    to the rank's block over its axes (:func:`block_of`, which the axes'
+    size must divide).  A view of ``x``."""
+    mesh = _mesh(mesh)
+    for dim, entry in enumerate(shd.fit_spec(mesh, placement, tuple(x.shape))):
+        if entry is not None:
+            lo, hi = block_of(x.shape[dim], entry_axes(entry), mesh, even=True)
+            x = x.narrow(dim, lo, hi - lo)
+    return x
+
+
+def _whole_shape(block_shape, placement, mesh) -> tuple[int, ...]:
+    """The shape of the leaf whose blocks under ``placement`` (taken as it
+    is, not fitted) have ``block_shape``."""
+    entries = tuple(placement) + (None,) * (len(block_shape) - len(tuple(placement)))
+    return tuple(int(d) * axis_size(mesh, entry_axes(e)) for d, e in zip(block_shape, entries))
+
+
+def assemble_leaf(block: torch.Tensor, placement, mesh=None) -> torch.Tensor:
+    """The inverse of :func:`leaf_block`: the whole leaf, on every rank,
+    from each rank's ``block`` under ``placement`` (taken as it is: each
+    placed dimension's blocks equal), one :func:`gather_rows` a placed
+    dimension."""
+    mesh = _mesh(mesh)
+    shape = _whole_shape(block.shape, placement, mesh)
+    for dim, entry in enumerate(tuple(placement)):
+        if entry is not None and shape[dim] != block.shape[dim]:
+            block = gather_rows(block.contiguous(), entry_axes(entry), shape[dim], mesh, dim)
+    return block
 
 
 def mesh_axes(mesh) -> Axes:
@@ -329,6 +529,6 @@ def agree(flags, mesh=None, device=None) -> list[bool]:
     return [bool(v) for v in x.cpu().tolist()]
 
 
-__all__ = ["WIRE_COUNTERS", "agree", "all_gather", "all_to_all", "axis_index", "axis_size", "batch_block",
-           "block_of", "broadcast_bytes", "entry_axes", "gather_rows", "group", "mesh_axes", "mesh_rank", "pmax", "psum",
-           "psum_scatter", "site_block"]
+__all__ = ["WIRE_COUNTERS", "agree", "all_gather", "all_to_all", "assemble_leaf", "axis_index", "axis_size",
+           "batch_block", "block_of", "broadcast_bytes", "enter", "enter_tree", "entry_axes", "gather_rows", "group",
+           "leaf_block", "mesh_axes", "mesh_rank", "pmax", "psum", "psum_scatter", "site_block"]

@@ -135,6 +135,25 @@ def fit_spec(mesh, spec, shape) -> Placement:
     return _fit(mesh_sizes(mesh), spec, shape)
 
 
+def is_placement(x) -> bool:
+    """Whether ``x`` is one placement (a tuple of ``None``, axis names and
+    tuples of names), not a container of them."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def placement_leaves(tree) -> list:
+    """A tree of placements' leaves (placements, or ``None``) in ``jax``'s
+    leaf order: a dictionary's keys sorted, a list's or a container
+    tuple's items in order."""
+    if tree is None or is_placement(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in placement_leaves(tree[k])]
+    return [x for v in tree for x in placement_leaves(v)]
+
+
 def constrain(x, rule):
     """A sharding constraint: the identity.  ``repro``'s is a GSPMD hint
     (the identity off-mesh); the port's mesh programs hold local shards

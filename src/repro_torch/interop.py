@@ -34,6 +34,7 @@ from repro_torch.kernels.frontier.ops import (
     work_chunk,
 )
 from repro_torch.models import dlrm
+from repro_torch.training.tree import leaves, unflatten
 
 
 def graph_from_numpy(
@@ -300,6 +301,24 @@ def gnn_params_from_numpy(params: dict, device: str | torch.device | None = None
     if set(params) not in GNN_PARAM_KEYS:
         raise KeyError(f"GNN params have keys {sorted(params)}, expected one of {GNN_PARAM_KEYS}")
     return _carry_tree(params, resolve_device(device))
+
+def rank_shard_from_numpy(tree, placements, device: str | torch.device | None = None):
+    """This rank's blocks of a tree of ``repro``'s numpy arrays (parameters
+    or optimizer state) on the installed mesh, as the port's tensors on
+    ``device`` (``None``: the GPU): each leaf cut by its placement in
+    ``placements`` (a tree of ``tree``'s structure; ``collectives.leaf_block``,
+    as ``checkpoint.restore(shardings=...)`` cuts a whole leaf).  Only the
+    blocks are copied to the device."""
+    device = resolve_device(device)
+    mesh = shd.get_mesh()
+    out = []
+    for a, place in zip(leaves(tree), shd.placement_leaves(placements)):
+        t = _tensor(a, torch.device("cpu"))
+        if mesh is not None and place:
+            t = collectives.leaf_block(t, place, mesh).contiguous()
+        out.append(t.to(device))
+    return unflatten(tree, out)
+
 
 def opt_state_from_numpy(state: dict, device: str | torch.device | None = None) -> dict:
     """``repro``'s optimizer state (``training/optimizer.py``: AdamW's

@@ -23,7 +23,12 @@ under a layout's ``Rules`` for ``launch/``.  Training differentiates the bags th
 ``embedbag.embedding_bag_sorted_grad``: a table's gradient is B6 again
 over the lookups sorted by row, dense (zero rows where no lookup
 reads), as ``repro``'s transpose of ``jnp.take``; AdamW then moves every
-row, as ``repro``'s does.
+row, as ``repro``'s does.  Over ranks the train step differentiates the
+rank's program: the logits' gather gives each rank its block's
+cotangent, B6's backward runs on the rank's lookups re-based to its
+shard, and every gradient is the rank's block's part, reduced over the
+axes the batch was blocked over by :func:`optimizer_for`'s optimizer
+(ZeRO-1 AdamW by default); a row shard's gradient stays on its rank.
 """
 
 from __future__ import annotations
@@ -274,14 +279,46 @@ def loss_fn(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: dict) -> tor
     return torch.mean(torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit))))
 
 
+def held_placements(cfg: DLRMConfig, rules: shd.Rules, batch: int) -> dict:
+    """The placement each rank holds its parameters under on the installed
+    mesh (:func:`shard_params` at ``batch``): a sharded table's rows over
+    the model axis, every other leaf whole."""
+    mesh = shd.get_mesh()
+    n_dev = 1 if mesh is None else math.prod(shd.mesh_sizes(mesh).values())
+    modes = cfg.table_modes(n_dev, batch)
+    rows = rules.model_axis if mesh is not None and rules.model_axis else None
+    mlp = [{"w": (None, None), "b": (None,)}]
+    return {"bot": mlp * len(cfg.bot_mlp), "top": mlp * len(cfg.top_mlp),
+            "tables": {f"t{i}": (rows if modes[i] == "shard" else None, None) for i in range(cfg.n_sparse)}}
+
+
+def optimizer_for(cfg: DLRMConfig, rules: shd.Rules, params: dict, batch: int):
+    """The train step's optimizer: ``cfg.optimizer`` on one card; on the
+    installed mesh the rank's (``optimizer.on_ranks``, ZeRO-1 AdamW) for
+    ``params`` as :func:`shard_params` cut them at ``batch``.
+    Its ``init`` makes the rank's state."""
+    if shd.get_mesh() is None:
+        return opt_lib.get(cfg.optimizer)
+    return opt_lib.on_ranks(cfg.optimizer, params, held_placements(cfg, rules, batch))
+
+
 def make_train_step(cfg: DLRMConfig, rules: shd.Rules):
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
-    loss): the loss's gradients, then one optimizer update (in place)."""
+    loss): the loss's gradients, then one optimizer update (in place).  On
+    the installed mesh each rank's gradients, of its block of the batch,
+    are reduced over the axes the block was cut over, by the rank's
+    optimizer (:func:`optimizer_for`; ZeRO-1)."""
     optimizer = opt_lib.get(cfg.optimizer)
 
     def train_step(params: dict, opt_state: dict, batch: dict):
         loss, grads = value_and_grad(lambda p: loss_fn(cfg, rules, p, batch))(params)
-        params, opt_state = optimizer.update(params, grads, opt_state)
+        if shd.get_mesh() is None:
+            params, opt_state = optimizer.update(params, grads, opt_state)
+        else:
+            n = batch["dense"].shape[0]
+            axes = collectives.batch_block(rules, n)[2]
+            rank_opt = optimizer_for(cfg, rules, params, n)
+            params, opt_state = rank_opt.update(params, grads, opt_state, [axes] * len(rank_opt.placements))
         return params, opt_state, loss
 
     return train_step

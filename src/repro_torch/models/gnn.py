@@ -49,8 +49,18 @@ and the per-graph readouts, over replicated atoms, stay local.
 runs per rank too: node state sharded over the model axis and resting
 sharded over the batch axes in bf16, edges over the batch axes, chunked
 per-edge work with masked-``psum`` gathers and an online segment
-softmax merged across ranks.  Forward only: gradients over ranks are
-training's mesh half.
+softmax merged across ranks.
+
+Gradients over ranks are ``repro``'s transposes of those ``shard_map``
+bodies: the node state and the parameters that come into a rank's edge
+block, the same on every rank, go through :func:`edge_enter`
+(``collectives.enter``: their cotangents summed over the edge axes), a
+scatter's ``psum`` passes its cotangent through, so every rank ends with
+the whole gradient of every parameter and the train step reduces
+nothing.  The large-graph path recomputes each chunk's contribution and
+each layer under ``torch.utils.checkpoint``, as ``repro`` does under
+``jax.checkpoint``; every rank recomputes the same collectives in the
+same order.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.dist import collectives
@@ -69,7 +80,7 @@ from repro_torch.dist import sharding as shd
 from repro_torch.kernels.embedbag.embedbag import embedding_bag_sorted_grad, transpose_lookups
 from repro_torch.models.layers import normal, silu
 from repro_torch.training import optimizer as opt_lib
-from repro_torch.training.tree import value_and_grad
+from repro_torch.training.tree import tree_map, value_and_grad
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +132,18 @@ def edge_psum(x: torch.Tensor, rules: shd.Rules | None, op=collectives.psum) -> 
     for ax in _edge_axes(rules):
         x = op(x, ax, mesh)
     return x
+
+
+def edge_enter(x, rules: shd.Rules | None):
+    """``x`` (a tensor or a tree of them: node state or parameters, the
+    same on every rank) as it enters this rank's edge block on the
+    installed mesh: ``collectives.enter`` over the edge axes, whose
+    backward sums the ranks' cotangents (``repro``'s transpose of
+    ``edge_shard_map``'s replicated inputs); ``x`` off-mesh."""
+    mesh = shd.get_mesh()
+    if mesh is None or rules is None:
+        return x
+    return collectives.enter_tree(x, _edge_axes(rules), mesh)
 
 
 def scatter_sum(
@@ -235,8 +258,8 @@ def gcn_forward(cfg: GCNConfig, rules: shd.Rules, params: dict, batch: dict) -> 
 
     for i, layer in enumerate(params["layers"]):
         h = x @ layer["w"] + layer["b"]
-        agg = edge_psum(embedding_bag_sorted_grad((h * s_out).contiguous(), kept_src, kept.sorted_dst, n,
-                                                  by_src), rules) * s_in
+        rows = edge_enter((h * s_out).contiguous(), rules)
+        agg = edge_psum(embedding_bag_sorted_grad(rows, kept_src, kept.sorted_dst, n, by_src), rules) * s_in
         x = agg + h * torch.rsqrt(din * dout)[:, None]  # self loop
         if i + 1 < len(params["layers"]):
             x = torch.relu(x)
@@ -297,9 +320,10 @@ def schnet_energy(cfg: SchNetConfig, rules: shd.Rules, params: dict, batch: dict
     mask = emask[:, None].to(h.dtype)
 
     for blk in params["inter"]:
-        f0, f1 = blk["filter"]
+        f0, f1 = edge_enter(blk["filter"], rules)
+        ip = edge_enter(blk["in_proj"][0], rules)
         filt = silu(rbf @ f0["w"] + f0["b"]) @ f1["w"] + f1["b"]  # (E, D)
-        hj = h[src.long()] @ blk["in_proj"][0]["w"] + blk["in_proj"][0]["b"]
+        hj = edge_enter(h, rules)[src.long()] @ ip["w"] + ip["b"]
         agg = scatter_sum(hj * filt * mask, edges, n, rules)
         h = h + _mlp_apply(blk["out"], agg)
 
@@ -378,10 +402,11 @@ def nequip_energy(cfg: NequIPConfig, rules: shd.Rules, params: dict, batch: dict
     isrc = src.long()
 
     for blk in params["layers"]:
-        r0, r1 = blk["radial"]
+        r0, r1 = edge_enter(blk["radial"], rules)
         w = (silu(rbf @ r0["w"] + r0["b"]) @ r1["w"] + r1["b"]).reshape(-1, _N_PATHS, C)
         w = w * emask[:, None, None].to(w.dtype)
-        sj, vj, tj = s[isrc], v[isrc], t[isrc]  # (E,C) (E,C,3) (E,C,3,3)
+        s_e, v_e, t_e = edge_enter((s, v, t), rules)
+        sj, vj, tj = s_e[isrc], v_e[isrc], t_e[isrc]  # (E,C) (E,C,3) (E,C,3,3)
         # --- the 10 CG paths for l<=2 in Cartesian form -------------------
         m_s = (
             w[:, 0] * sj  # s⊗Y0→s
@@ -669,9 +694,19 @@ def equiformer_atoms_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, 
       batch axes to the resting rows.
     * The mixing and the gate on the resting rows, the residual in bf16.
 
-    B6 launches 2 × chunks × layers.  The per-edge geometry is made again
-    in every chunk of every layer, as ``repro`` makes it: kept, it would
-    be the (E, ncoef, ncoef) Wigner blocks of every edge at once."""
+    B6 launches 2 × chunks × layers forward.  The per-edge geometry is
+    made again in every chunk of every layer, as ``repro`` makes it: kept,
+    it would be the (E, ncoef, ncoef) Wigner blocks of every edge at once.
+
+    Under autograd each layer and each chunk's contribution run under
+    ``torch.utils.checkpoint`` (``repro``'s ``jax.checkpoint``): a layer
+    keeps its input, a chunk its output, and the backward recomputes them,
+    collectives included, in the same order on every rank.  The
+    parameters, the same on every rank, enter over every axis; a row
+    gathered over the model axis enters it again (its cotangent summed
+    over the model axis, then scattered to the rank that holds the row);
+    pass 1's running max has no gradient; ``l`` merged over the batch
+    axes enters them before pass 2 reads it on the rank's edges."""
     mesh = shd.get_mesh()
     if mesh is None or rules.model_axis is None:
         raise ValueError("equiformer_energy_big runs on an installed mesh with a model axis")
@@ -690,8 +725,7 @@ def equiformer_atoms_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, 
     n_rest = n_m // D
     lo = collectives.axis_index(mesh, model) * n_m
     d_idx = collectives.axis_index(mesh, data_axes) if data_axes else 0
-    species_m, pos_m = species[lo : lo + n_m], pos[lo : lo + n_m]
-    nmask_m = batch["node_mask"][lo : lo + n_m]
+    pos_m = pos[lo : lo + n_m]
     src, dst, emask = batch["edge_src"], batch["edge_dst"], batch["edge_mask"]
     if data_axes:
         e_lo, e_hi = collectives.block_of(src.shape[0], data_axes, mesh, even=True)
@@ -701,6 +735,11 @@ def equiformer_atoms_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, 
     if e_loc % n_chunks:
         raise ValueError(f"{e_loc} edges a rank do not cut into {n_chunks} equal chunks")
     chunk = e_loc // n_chunks
+    params = collectives.enter_tree(params, data_axes + (model,), mesh)
+    grad = torch.is_grad_enabled()
+
+    def ckpt(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if grad else fn(*args)
 
     def gather(arr_m: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Rows of a model-sharded (n_m, ...) array at global indices."""
@@ -708,7 +747,7 @@ def equiformer_atoms_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, 
         rows = arr_m[torch.where(inr, idx - lo, 0)]
         rows = torch.where(inr.reshape(inr.shape + (1,) * (rows.dim() - 1)), rows,
                            torch.zeros((), dtype=rows.dtype, device=dev))
-        return collectives.psum(rows, model, mesh)
+        return collectives.enter(collectives.psum(rows, model, mesh), model, mesh)
 
     def data_reduce(x: torch.Tensor, op) -> torch.Tensor:
         for ax in data_axes:
@@ -726,12 +765,11 @@ def equiformer_atoms_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, 
         chunks.append((s_idx, dd, em, inr, d_local, sort_edges(d_local)))
     repeats = torch.tensor([2 * l + 1 for l in range(cfg.l_max + 1)], device=dev)
 
-    h0 = torch.zeros((n_m, C, ncoef), dtype=torch.bfloat16, device=dev)
-    h0[:, :, 0] = params["embed"][species_m.long()].to(torch.bfloat16)
-    h_rest = h0[d_idx * n_rest : (d_idx + 1) * n_rest].clone()
-    del h0
+    rest = slice(lo + d_idx * n_rest, lo + (d_idx + 1) * n_rest)
+    e0 = params["embed"][species[rest].long()].to(torch.bfloat16)
+    h_rest = torch.cat([e0[:, :, None], torch.zeros((n_rest, C, ncoef - 1), dtype=torch.bfloat16, device=dev)], 2)
 
-    for blk in params["layers"]:
+    def layer_fn(h_rest: torch.Tensor, blk: dict) -> torch.Tensor:
         h_m = collectives.all_gather(h_rest, data_axes, 0, mesh) if data_axes else h_rest
         h_scal = h_m[:, :, 0].float()
 
@@ -745,39 +783,54 @@ def equiformer_atoms_big(cfg: EquiformerConfig, rules: shd.Rules, params: dict, 
             rw = _radial(cfg, blk, gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff))
             return _so2_messages(cfg, blk, gather(h_m, s_idx).float(), Dw, rw, midx)
 
+        def stats(c: int, m_run: torch.Tensor):
+            """Chunk c's running max (no gradient) and its softmax sums."""
+            s_idx, dd, em, inr, d_local, order = chunks[c]
+            logits = edge_logits(s_idx, em)
+            m_chunk = torch.full((n_m + 1, heads), -1e30, device=dev).scatter_reduce(
+                0, d_local[:, None].expand_as(logits), logits.detach(), "amax")[:n_m]
+            m_new = torch.maximum(m_run, m_chunk)
+            # another rank's destination: exp of -1e30, so that neither the
+            # value nor the gradient (0 × exp of a huge number) overflows
+            arg = torch.where(inr[:, None], logits - m_new[torch.clamp(d_local, max=n_m - 1)], -1e30)
+            w_edge = torch.exp(arg) * em[:, None]
+            return m_new, scatter_sum(w_edge, order, n_m + 1)[:n_m]
+
+        def contrib(c: int, m_g: torch.Tensor, l_g: torch.Tensor):
+            """Chunk c's normalised messages summed into bf16 rows."""
+            s_idx, dd, em, inr, d_local, order = chunks[c]
+            row = torch.clamp(d_local, max=n_m - 1)
+            arg = torch.where(inr[:, None], edge_logits(s_idx, em) - m_g[row], -1e30)
+            alpha = torch.exp(arg) / l_g[row] * em[:, None]
+            w_c = torch.repeat_interleave(alpha, C // heads, dim=-1, output_size=C)
+            rows = (edge_messages(s_idx, dd) * w_c[:, :, None]).to(torch.bfloat16)
+            return scatter_sum(rows, order, n_m + 1)[:n_m]
+
         # pass 1: the softmax's running max and sum per destination row
         m_run = torch.full((n_m, heads), -1e30, device=dev)
         l_run = torch.zeros((n_m, heads), device=dev)
-        for s_idx, dd, em, inr, d_local, order in chunks:
-            logits = edge_logits(s_idx, em)
-            m_chunk = torch.full((n_m + 1, heads), -1e30, device=dev).scatter_reduce(
-                0, d_local[:, None].expand_as(logits), logits, "amax")[:n_m]
-            m_new = torch.maximum(m_run, m_chunk)
-            w_edge = torch.exp(logits - m_new[torch.clamp(d_local, max=n_m - 1)])
-            w_edge = torch.where(inr[:, None], w_edge, 0.0) * em[:, None]
-            l_chunk = scatter_sum(w_edge, order, n_m + 1)[:n_m]
+        for c in range(n_chunks):
+            m_new, l_chunk = ckpt(stats, c, m_run)
             l_run = l_run * torch.exp(m_run - m_new) + l_chunk
             m_run = m_new
         # the flash merge across the batch axes, which saw other edges
         m_g = data_reduce(m_run, collectives.pmax)
         l_g = torch.clamp(data_reduce(l_run * torch.exp(m_run - m_g), collectives.psum), min=1e-20)
+        l_g = collectives.enter(l_g, data_axes, mesh)
 
         # pass 2: the normalised messages into the bf16 accumulator
         acc = torch.zeros((n_m, C, ncoef), dtype=torch.bfloat16, device=dev)
-        for s_idx, dd, em, inr, d_local, order in chunks:
-            row = torch.clamp(d_local, max=n_m - 1)
-            alpha = torch.exp(edge_logits(s_idx, em) - m_g[row]) / l_g[row]
-            alpha = torch.where(inr[:, None], alpha, 0.0) * em[:, None]
-            w_c = torch.repeat_interleave(alpha, C // heads, dim=-1, output_size=C)
-            rows = (edge_messages(s_idx, dd) * w_c[:, :, None]).to(torch.bfloat16)
-            acc = acc + scatter_sum(rows, order, n_m + 1)[:n_m]
+        for c in range(n_chunks):
+            acc = acc + ckpt(contrib, c, m_g, l_g)
         # combine across the batch axes and drop to the resting rows at once
         agg = (collectives.psum_scatter(acc, data_axes, 0, mesh) if data_axes else acc).float()
-        del acc, h_m
-        h_rest = h_rest + _gated_update(cfg, blk, agg, repeats).to(torch.bfloat16)
-        del agg
+        del acc  # h_m stays: a chunk's backward recomputes from it
+        return h_rest + _gated_update(cfg, blk, agg, repeats).to(torch.bfloat16)
 
-    nmask_rest = nmask_m[d_idx * n_rest : (d_idx + 1) * n_rest]
+    for blk in params["layers"]:
+        h_rest = ckpt(layer_fn, h_rest, blk)
+
+    nmask_rest = batch["node_mask"][rest]
     return _mlp_apply(params["readout"], h_rest[:, :, 0].float())[:, 0] * nmask_rest.to(torch.float32)
 
 
@@ -800,7 +853,10 @@ def equiformer_atoms_big_plain(cfg: EquiformerConfig, params: dict, batch: dict)
     state is stored in bf16 where the large-graph path stores it (the
     embedding, each residual, the aggregate once summed) and the weighted
     messages are rounded to bf16 rows; the sums run in f32, where the
-    path adds chunk by chunk into a bf16 accumulator."""
+    path adds chunk by chunk into a bf16 accumulator.  Differentiable, the
+    segment max cut from the gradient as the path cuts its running max,
+    each layer recomputed in the backward (``torch.utils.checkpoint``):
+    the card's reference for the path's gradient."""
     species, pos = batch["species"], batch["positions"]
     n = species.shape[0]
     C, ncoef, heads = cfg.channels, cfg.n_coef, cfg.n_heads
@@ -814,18 +870,22 @@ def equiformer_atoms_big_plain(cfg: EquiformerConfig, params: dict, batch: dict)
     Dw = wigner_d(edge_rotation(rel / dist[:, None]), cfg.l_max, pts, pinv_y)
     rbf = gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff)
     repeats = torch.tensor([2 * l + 1 for l in range(cfg.l_max + 1)], device=dev)
-    h = torch.zeros((n, C, ncoef), dtype=torch.bfloat16, device=dev)
-    h[:, :, 0] = params["embed"][species.long()].to(torch.bfloat16)
-    for blk in params["layers"]:
+    e0 = params["embed"][species.long()].to(torch.bfloat16)
+    h = torch.cat([e0[:, :, None], torch.zeros((n, C, ncoef - 1), dtype=torch.bfloat16, device=dev)], 2)
+
+    def layer(h: torch.Tensor, blk: dict) -> torch.Tensor:
         logits = _source_logits(blk, h[:, :, 0].float()[src], em)
         z = torch.full((n, heads), -1e30, device=dev).scatter_reduce(
-            0, dst[:, None].expand_as(logits), logits, "amax")
+            0, dst[:, None].expand_as(logits), logits.detach(), "amax")
         ex = torch.exp(logits - z[dst]) * em[:, None]
         alpha = ex / torch.clamp(torch.zeros((n, heads), device=dev).index_add_(0, dst, ex), min=1e-20)[dst]
         w_c = torch.repeat_interleave(alpha, C // heads, dim=-1, output_size=C)
         rows = (_so2_messages(cfg, blk, h[src].float(), Dw, _radial(cfg, blk, rbf), midx) * w_c[:, :, None])
         agg = torch.zeros((n, C, ncoef), device=dev).index_add_(0, dst, rows.to(torch.bfloat16).float())
-        h = h + _gated_update(cfg, blk, agg.to(torch.bfloat16).float(), repeats).to(torch.bfloat16)
+        return h + _gated_update(cfg, blk, agg.to(torch.bfloat16).float(), repeats).to(torch.bfloat16)
+
+    for blk in params["layers"]:
+        h = checkpoint(layer, h, blk, use_reentrant=False) if torch.is_grad_enabled() else layer(h, blk)
     return _mlp_apply(params["readout"], h[:, :, 0].float())[:, 0] * batch["node_mask"].to(torch.float32)
 
 
@@ -861,8 +921,9 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
     repeats = torch.tensor([2 * l + 1 for l in range(cfg.l_max + 1)], device=dev)
 
     for blk in params["layers"]:
-        a0, a1 = blk["attn"]
-        msg = _so2_messages(cfg, blk, h[isrc], D, _radial(cfg, blk, rbf), midx)
+        eblk = edge_enter({k: blk[k] for k in ("so2", "radial", "attn")}, rules)
+        a0, a1 = eblk["attn"]
+        msg = _so2_messages(cfg, eblk, edge_enter(h, rules)[isrc], D, _radial(cfg, eblk, rbf), midx)
 
         # graph attention on the scalar channel (segment softmax)
         scal = msg[:, :, 0]  # (E, C)
@@ -874,7 +935,7 @@ def equiformer_energy(cfg: EquiformerConfig, rules: shd.Rules, params: dict, bat
             0, idst[:, None].expand_as(logits), logits.detach(), "amax", include_self=False
         ), rules, collectives.pmax)
         ex = torch.exp(logits - zmax[idst]) * emask_f[:, None]
-        denom = scatter_sum(ex, edges, n, rules)
+        denom = edge_enter(scatter_sum(ex, edges, n, rules), rules)  # summed, then read on the rank's edges
         alpha = ex / torch.clamp(denom[idst], min=1e-20)  # (E, heads)
         alpha_c = torch.repeat_interleave(alpha, C // cfg.n_heads, dim=-1, output_size=C)  # (E, C)
         msg = msg * alpha_c[:, :, None] * emask_f[:, None, None]
@@ -919,16 +980,38 @@ FWD_FNS = {
 }
 
 
+def held_placements(params: dict):
+    """The placement each rank holds a GNN's parameters under: every leaf
+    whole (``repro`` replicates them)."""
+    return tree_map(lambda t: (None,) * t.dim(), params)
+
+
+def optimizer_for(cfg, rules: shd.Rules, params: dict):
+    """The train step's optimizer: ``cfg.optimizer`` on one card; on the
+    installed mesh the rank's (``optimizer.on_ranks``, ZeRO-1 AdamW).
+    Its ``init`` makes the rank's state."""
+    if shd.get_mesh() is None:
+        return opt_lib.get(cfg.optimizer)
+    return opt_lib.on_ranks(cfg.optimizer, params, held_placements(params))
+
+
 def make_gnn_train_step(cfg, rules: shd.Rules):
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
     loss): the config's loss and its gradients, then one optimizer
-    update (in place)."""
+    update (in place).  On the installed mesh each rank's gradients are
+    already whole (the edge blocks' inputs enter over the edge axes), so
+    the rank's optimizer (:func:`optimizer_for`; ZeRO-1)
+    reduces none of them."""
     loss_fn = LOSS_FNS[cfg.name]
     optimizer = opt_lib.get(cfg.optimizer)
 
     def train_step(params: dict, opt_state: dict, batch: dict):
         loss, grads = value_and_grad(lambda p: loss_fn(cfg, rules, p, batch))(params)
-        params, opt_state = optimizer.update(params, grads, opt_state)
+        if shd.get_mesh() is None:
+            params, opt_state = optimizer.update(params, grads, opt_state)
+        else:
+            rank_opt = optimizer_for(cfg, rules, params)
+            params, opt_state = rank_opt.update(params, grads, opt_state, [()] * len(rank_opt.placements))
         return params, opt_state, loss
 
     return train_step

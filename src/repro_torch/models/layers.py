@@ -17,8 +17,12 @@ dispatch with static capacities (GShard drops) and two ``all_to_all``s
 its experts' d_ff block over the batch axes and gathers it for the
 layer.  A rank holds its share of the experts (:func:`moe_shard`).
 :func:`moe_capacity_plain` is its one-card reference: the kept
-assignments, worked out from the global routing, summed.  Forward only:
-the expert-parallel layer's gradient over ranks is training's mesh half.
+assignments, worked out from the global routing, summed.  Its gradient
+over ranks runs the three ``all_to_all``s in reverse, gives the dropped
+slots zero, returns an ``fsdp`` gather's gradient to the rank's d_ff
+slice as a ``psum_scatter``, and sums the cotangents of the inputs that
+every rank of an axis holds alike (x, the router) over the axes the
+rank's tokens were cut over (``collectives.enter``).
 
 Promotions follow ``repro``'s: norms and RoPE compute in f32 and cast
 back to the input's dtype; products of bf16 tensors are bf16.
@@ -448,6 +452,10 @@ def _moe_ep(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: shd.
     model = rules.model_axis
     b_lo, b_hi = collectives.block_of(B, plan.batch_axes, mesh) if plan.batch_axes else (0, B)
     s_lo, s_hi = collectives.block_of(S, plan.seq_axes, mesh) if plan.seq_axes else (0, S)
+    # this rank's tokens vary over these axes, where x and the router are
+    # the same on every rank: their cotangents are summed over them
+    vary = (plan.batch_axes if batch is None else ()) + plan.seq_axes
+    x = collectives.enter(x, vary, mesh)
     if batch is None:
         x = x[b_lo:b_hi]
     elif Bx != b_hi - b_lo:
@@ -459,14 +467,24 @@ def _moe_ep(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, rules: shd.
     if w_gate.shape[0] != e_loc:
         raise ValueError(f"this rank holds {e_loc} of {n_experts} experts (moe_shard), got {w_gate.shape[0]}")
     if fsdp and rules.batch_axes:
-        # the experts rest on their d_ff block over the batch axes; gathered for this layer
-        w_gate = collectives.all_gather(w_gate, rules.batch_axes, 2, mesh)
-        w_up = collectives.all_gather(w_up, rules.batch_axes, 2, mesh)
-        w_down = collectives.all_gather(w_down, rules.batch_axes, 1, mesh)
+        # the experts rest on their d_ff block over the batch axes; gathered
+        # for this layer.  Used on tokens that vary over those axes, the
+        # gather's backward sums the ranks' cotangents onto the block (a
+        # psum_scatter); on tokens every rank shares, it keeps its own rows
+        if set(rules.batch_axes) <= set(plan.batch_axes):
+            gather = collectives.all_gather
+        else:
+            def gather(w, axes, dim, mesh):
+                return collectives.gather_rows(w, axes, w.shape[dim] * collectives.axis_size(mesh, axes), mesh, dim)
+        w_gate = gather(w_gate, rules.batch_axes, 2, mesh)
+        w_up = gather(w_up, rules.batch_axes, 2, mesh)
+        w_down = gather(w_down, rules.batch_axes, 1, mesh)
+    elif batch is None:
+        w_gate, w_up, w_down = (collectives.enter(w, plan.batch_axes, mesh) for w in (w_gate, w_up, w_down))
 
     xt = x.reshape(bl * sl, D)
     T = xt.shape[0]
-    weights, gate_idx = _route(p, xt, top_k)
+    weights, gate_idx = _route({"router": collectives.enter(p["router"], vary, mesh)}, xt, top_k)
     dev = x.device
     a_tok = torch.arange(T, device=dev).repeat_interleave(top_k)
     a_exp = gate_idx.reshape(-1)

@@ -44,8 +44,12 @@ B7's split kernel on its shard (``flash_decode_gqa_partials``, the
 global ``kv_len`` and its offset), and the ranks' partials, gathered
 over the model axis and laid out rank-major, are merged by B7's
 combine kernel.  ``repro`` gets there from a sharding constraint and
-GSPMD.  Forward and serving only: gradients over ranks are training's
-mesh half.
+GSPMD.  Training over ranks: :func:`loss_fn` takes each rank's block's
+token losses, ``psum``-ed into the global mean; the train step takes
+``repro``'s microbatches, slices of the global batch, each rank its
+block of each, and its rank optimizer (:func:`optimizer_for`) reduces
+every gradient over the axes the batch was blocked over, but an
+``fsdp`` expert slice's, which the ``all_gather``'s backward has summed.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ from repro_torch.dist import sharding as shd
 from repro_torch.kernels.decode_attn import decode_attn as da
 from repro_torch.models import layers as L
 from repro_torch.training import optimizer as opt_lib
-from repro_torch.training.tree import leaves, tree_map, value_and_grad
+from repro_torch.training.tree import leaves, leaves_with_paths, tree_map, value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,24 +303,42 @@ def hidden_states(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.T
     """Final-norm hidden states (B, S, D): forward() without the lm_head.
     Under autograd with ``cfg.remat``, each layer is checkpointed.  On a
     mesh, this rank's block of the batch, gathered over the batch axes."""
+    x, (lo, hi, axes) = _hidden_block(cfg, rules, params, tokens)
+    return _gather(x, axes, tokens.shape[0])
+
+
+def _hidden_block(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor):
+    """This rank's block of the final-norm hidden states, and (lo, hi,
+    axes), the block's rows and the axes they are blocked over."""
     B, S = tokens.shape
     lo, hi, axes, batch = _rows(rules, B)
     x = _embed(cfg, params, tokens[lo:hi])
     positions = torch.arange(S, device=x.device)[None].expand(hi - lo, S)
     remat = cfg.remat and torch.is_grad_enabled()
+    mesh = shd.get_mesh()
     for i in range(cfg.n_layers):
 
         def layer(x, i=i):
-            return _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S), batch)[0]
+            # a CUDA backward recomputes the layer on autograd's device
+            # thread, where the installed mesh (a context variable) is unset
+            with shd.use_mesh(mesh):
+                return _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S), batch)[0]
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
-    return _gather(L.rmsnorm(x, params["final_norm"]), axes, B)
+    return L.rmsnorm(x, params["final_norm"]), (lo, hi, axes)
 
 
 def loss_fn(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor, labels: torch.Tensor):
-    """Token-mean next-token cross entropy, the vocab's padding masked."""
-    x = hidden_states(cfg, rules, params, tokens)
-    return L.chunked_cross_entropy(x, params["lm_head"], labels, rules, n_valid=cfg.vocab)
+    """Token-mean next-token cross entropy, the vocab's padding masked.
+    On a mesh whose batch axes block the batch, each rank's block's mean
+    times its tokens, ``psum``-ed over those axes, over the batch's
+    tokens: the global mean on every rank."""
+    x, (lo, hi, axes) = _hidden_block(cfg, rules, params, tokens)
+    ce = L.chunked_cross_entropy(x, params["lm_head"], labels[lo:hi], rules, n_valid=cfg.vocab)
+    if not axes:
+        return ce
+    B, S = tokens.shape
+    return collectives.psum(ce * ((hi - lo) * S), axes, shd.get_mesh()) / (B * S)
 
 
 # ---------------------------------------------------------------------------
@@ -324,12 +346,56 @@ def loss_fn(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def held_placements(cfg: LMConfig, rules: shd.Rules) -> dict:
+    """The placement each rank holds its parameters under on the installed
+    mesh (:func:`shard_params`): a MoE config's experts over the model
+    axis (with ``cfg.fsdp_experts``, d_ff over the batch axes too), every
+    other leaf whole."""
+    def whole(t):
+        return tuple(None for _ in t.shape)
+
+    out = tree_map(whole, param_shapes(cfg))
+    if cfg.is_moe and shd.get_mesh() is not None and rules.model_axis is not None:
+        ff = _entry(rules.batch_axes) if cfg.fsdp_experts and rules.batch_axes else None
+        m = rules.model_axis
+        out["layers"]["moe"].update({"w_gate": (None, m, None, ff), "w_up": (None, m, None, ff),
+                                     "w_down": (None, m, ff, None)})
+    return out
+
+
+def _entry(axes: tuple[str, ...]):
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def optimizer_for(cfg: LMConfig, rules: shd.Rules, params: dict):
+    """The train step's optimizer: ``cfg.optimizer`` on one card; on the
+    installed mesh the rank's (``optimizer.on_ranks``: ZeRO-1 AdamW,
+    Adafactor's means over a leaf's shards) for ``params`` as
+    :func:`shard_params` cut them.  Its ``init`` makes the rank's state."""
+    if shd.get_mesh() is None:
+        return opt_lib.get(cfg.optimizer)
+    return opt_lib.on_ranks(cfg.optimizer, params, held_placements(cfg, rules))
+
+
+def _reduce_axes(cfg: LMConfig, rules: shd.Rules, params: dict, axes) -> list:
+    """Each leaf's axes to sum its gradient over: the batch block's, but
+    for an ``fsdp`` expert slice, which the layer's ``all_gather``
+    backward has summed (a ``psum_scatter``)."""
+    fsdp = cfg.is_moe and cfg.fsdp_experts and bool(rules.batch_axes) and rules.model_axis is not None
+    return [() if fsdp and "['moe']" in path and "['router']" not in path else tuple(axes)
+            for path, _ in leaves_with_paths(params)]
+
+
 def make_train_step(cfg: LMConfig, rules: shd.Rules):
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
     mean loss): ``cfg.microbatches`` equal slices of the batch, each
     one's gradients added into f32 accumulators, their sum divided by
     the slice count, then one optimizer update (in place).  One slice
-    takes the gradients in the parameters' dtype, as ``repro``'s."""
+    takes the gradients in the parameters' dtype, as ``repro``'s.  On the
+    installed mesh the slices are of the global batch (each rank runs its
+    block of each) and the rank's optimizer (:func:`optimizer_for`;
+    ZeRO-1) reduces the gradients over the axes the slice was
+    blocked over."""
     optimizer = opt_lib.get(cfg.optimizer)
 
     def train_step(params: dict, opt_state: dict, batch: dict):
@@ -351,7 +417,12 @@ def make_train_step(cfg: LMConfig, rules: shd.Rules):
                 del g
             for acc in leaves(grads):
                 acc.div_(n_micro)
-        params, opt_state = optimizer.update(params, grads, opt_state)
+        if shd.get_mesh() is None:
+            params, opt_state = optimizer.update(params, grads, opt_state)
+        else:
+            axes = collectives.batch_block(rules, mb)[2]
+            rank_opt = optimizer_for(cfg, rules, params)
+            params, opt_state = rank_opt.update(params, grads, opt_state, _reduce_axes(cfg, rules, params, axes))
         return params, opt_state, torch.stack(losses).mean()
 
     return train_step

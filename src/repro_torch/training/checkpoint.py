@@ -18,9 +18,17 @@ and :func:`restore` rebuilds every leaf by the manifest's dtype.
 a bf16 leaf (ROADMAP §C).
 
 Restore is elastic: leaves are saved whole with their logical shapes
-and placed on the devices of the tree they are restored into.  Placing
-them on several cards (``repro``'s ``shardings``) waits for the
-multi-GPU item.
+and placed on the devices of the tree they are restored into.  Over
+ranks (an installed ``DeviceMesh``, one process a rank) ``save`` takes
+the placement each rank holds its leaves under (``shardings``): the
+leaves are gathered whole (``collectives.assemble_leaf``), rank 0 writes
+them, and ``COMMIT`` is written only once every rank has agreed
+(``collectives.agree``), so a checkpoint written over ranks is
+``repro``'s layout, whole leaves, and restores on one card.
+``restore(shardings=...)`` is ``repro``'s ``device_put`` onto the
+current mesh: each rank reads the whole leaf and keeps its block
+(``collectives.leaf_block``), so a checkpoint saved on one layout
+restores on another.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.training.tree import leaves_with_paths, unflatten
 
 _COMMIT = "COMMIT"
@@ -66,35 +76,73 @@ def _from_numpy(a: np.ndarray, dtype: str, device) -> torch.Tensor:
     return (t.view(torch.bfloat16) if torch_dtype == torch.bfloat16 else t).to(device)
 
 
-def save(ckpt_dir: str, step: int, tree) -> str:
+def save(ckpt_dir: str, step: int, tree, shardings=None) -> str:
     """Write a step-atomic checkpoint of a tree of tensors; returns the
-    step directory."""
+    step directory.  On an installed mesh, ``shardings`` (a tree of
+    ``tree``'s structure, or a list in leaf order, of the placements this
+    rank holds each leaf under; ``None``: every leaf whole) gathers each
+    leaf whole, rank 0 writes, and ``COMMIT`` follows every rank's
+    agreement; every rank calls it."""
+    mesh = shd.get_mesh()
+    flat = leaves_with_paths(tree)
+    places = _placements(shardings, len(flat))
+    writer = mesh is None or collectives.mesh_rank(mesh) == 0
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp_dir = step_dir + ".tmp"
-    if os.path.exists(tmp_dir):
-        shutil.rmtree(tmp_dir)
-    os.makedirs(tmp_dir, exist_ok=True)
-
-    flat = leaves_with_paths(tree)
-    manifest = {
-        "step": step,
-        "leaves": [{"path": p, "shape": list(leaf.shape), "dtype": _NAMES[leaf.dtype]} for p, leaf in flat],
-        "n_shards": -(-len(flat) // _CHUNK),
-    }
-    for si in range(manifest["n_shards"]):
-        chunk = flat[si * _CHUNK : (si + 1) * _CHUNK]
-        np.savez(
-            os.path.join(tmp_dir, f"shard_{si}.npz"),
-            **{f"a{si * _CHUNK + j}": _to_numpy(leaf) for j, (_, leaf) in enumerate(chunk)},
-        )
-    with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    with open(os.path.join(tmp_dir, _COMMIT), "w") as f:
-        f.write("ok")
-    if os.path.exists(step_dir):
-        shutil.rmtree(step_dir)
-    os.rename(tmp_dir, step_dir)
+    err = None
+    try:
+        if writer:
+            if os.path.exists(tmp_dir):
+                shutil.rmtree(tmp_dir)
+            os.makedirs(tmp_dir, exist_ok=True)
+        manifest = {"step": step, "leaves": [], "n_shards": -(-len(flat) // _CHUNK)}
+        for si in range(manifest["n_shards"]):
+            chunk = [(p, _whole(leaf, place, mesh))
+                     for (p, leaf), place in zip(flat[si * _CHUNK : (si + 1) * _CHUNK],
+                                                 places[si * _CHUNK : (si + 1) * _CHUNK])]
+            manifest["leaves"] += [{"path": p, "shape": list(leaf.shape), "dtype": _NAMES[leaf.dtype]}
+                                   for p, leaf in chunk]
+            if writer:
+                np.savez(
+                    os.path.join(tmp_dir, f"shard_{si}.npz"),
+                    **{f"a{si * _CHUNK + j}": _to_numpy(leaf) for j, (_, leaf) in enumerate(chunk)},
+                )
+        if writer:
+            with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+    except Exception as exc:  # every rank must reach the agreement
+        if mesh is None:
+            raise
+        err = exc
+    if mesh is not None and collectives.agree([err is not None], mesh)[0]:
+        raise RuntimeError(f"a rank failed to save step {step}: no COMMIT written") from err
+    if writer:
+        with open(os.path.join(tmp_dir, _COMMIT), "w") as f:
+            f.write("ok")
+        if os.path.exists(step_dir):
+            shutil.rmtree(step_dir)
+        os.rename(tmp_dir, step_dir)
+    if mesh is not None:
+        collectives.agree([False], mesh)  # every rank sees the committed step
     return step_dir
+
+
+def _placements(shardings, n: int) -> list:
+    """``shardings`` as one placement a leaf, in leaf order (``None``:
+    every leaf whole)."""
+    if shardings is None:
+        return [None] * n
+    out = shd.placement_leaves(shardings)
+    if len(out) != n:
+        raise ValueError(f"{len(out)} placements for {n} leaves")
+    return out
+
+
+def _whole(leaf: torch.Tensor, place, mesh) -> torch.Tensor:
+    """The whole leaf of this rank's block ``leaf`` under ``place``."""
+    if mesh is None or not place:
+        return leaf
+    return collectives.assemble_leaf(leaf, place, mesh)
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -114,13 +162,12 @@ def restore(ckpt_dir: str, step: int, like_tree, shardings=None, device=None):
     meta tensors (the port's stand-in for ``jax.eval_shape``).  Each leaf
     is found by its path, rebuilt by the manifest's dtype and shape and
     put on its ``like_tree`` leaf's device; a meta leaf goes to
-    ``device`` (None: the GPU).  ``shardings`` places leaves on several
-    cards in ``repro``; here anything but None raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh of several cards is ROADMAP's multi-GPU item: the port "
-            "restores onto one device"
-        )
+    ``device`` (None: the GPU).  ``shardings`` (a tree of ``like_tree``'s
+    structure, or a list in leaf order, of placements; ``None`` entries
+    whole) keeps this rank's block of each whole leaf on the installed
+    mesh (``collectives.leaf_block``), ``repro``'s ``device_put`` onto
+    the current mesh."""
+    mesh = shd.get_mesh()
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
@@ -132,13 +179,17 @@ def restore(ckpt_dir: str, step: int, like_tree, shardings=None, device=None):
                 flat_arrays[int(name[1:])] = z[name]
 
     saved_by_path = {m["path"]: i for i, m in enumerate(manifest["leaves"])}
+    like = leaves_with_paths(like_tree)
+    places = _placements(shardings, len(like))
     out = []
-    for p, leaf in leaves_with_paths(like_tree):
+    for (p, leaf), place in zip(like, places):
         i = saved_by_path[p]
         meta = manifest["leaves"][i]
         dev = leaf.device if leaf.device.type != "meta" else resolve_device(device)
-        t = _from_numpy(flat_arrays[i], meta["dtype"], dev)
-        out.append(t.reshape(meta["shape"]))
+        t = _from_numpy(flat_arrays[i], meta["dtype"], "cpu").reshape(meta["shape"])
+        if place and mesh is not None:
+            t = collectives.leaf_block(t, place, mesh).contiguous()
+        out.append(t.to(dev))
     return unflatten(like_tree, out)
 
 

@@ -4,14 +4,15 @@ Port of ``repro/training/compression.py``: per-tensor symmetric int8
 quantization with *error feedback* (the residual carried across steps,
 Seide et al. '14 / Karimireddy et al. '19).  ``compress`` and
 ``decompress`` serve the checkpoint-size and unit-test paths;
-``compressed_psum`` sums over an axis of devices and waits for the
-multi-GPU item.
+``compressed_psum`` is the error-feedback mean over an axis of ranks
+(``torch.distributed``, on the installed mesh).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.training.tree import tree_map
 
 
@@ -27,14 +28,19 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compressed_psum(g: torch.Tensor, residual: torch.Tensor, axis: str):
-    """``repro``'s error-feedback int8 psum over a mesh axis.  It needs an
-    axis of devices: ROADMAP's multi-GPU item ports it over
-    ``torch.distributed``; here it raises."""
-    raise NotImplementedError(
-        f"compressed_psum sums over the device axis {axis!r}: ROADMAP's multi-GPU item; "
-        "the port trains on one card"
-    )
+def compressed_psum(g: torch.Tensor, residual: torch.Tensor, axis, mesh=None):
+    """``repro``'s error-feedback int8 psum over the mesh axis ``axis``,
+    run by each rank of the installed mesh (or ``mesh``): the rank's
+    gradient plus its residual quantized (:func:`compress`), the
+    dequantized tensor's bf16 payload summed over the axis
+    (``collectives.psum``) and divided by the axis's size.  Returns (the
+    f32 mean, the rank's new residual: what quantization lost)."""
+    g_fb = g.float() + residual
+    q, scale = compress(g_fb)
+    new_residual = g_fb - decompress(q, scale)
+    summed = collectives.psum(decompress(q, scale).to(torch.bfloat16), axis, mesh)
+    n = collectives.psum(torch.ones((), dtype=torch.float32, device=g.device), axis, mesh)
+    return summed.float() / n, new_residual
 
 
 def init_residuals(params):

@@ -14,6 +14,13 @@ port's initialisers draw from a generator on their device, which has no
 shape-only evaluation, so the loop restores into ``init_fn()``'s own
 tree: its structure and each leaf's device (``checkpoint.restore`` also
 takes a meta tree).
+
+Over ranks (an installed ``DeviceMesh``, every rank calling ``run``):
+rank 0 picks ``latest_step`` and broadcasts it, each rank restores its
+block of each whole leaf (``shardings``: the placements it holds
+``(params, opt_state)`` under), and a save gathers the leaves whole,
+rank 0 writes them and prunes, and ``COMMIT`` follows every rank's
+agreement (``checkpoint.save``).
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as shd
 from repro_torch.training import checkpoint
 
 
@@ -44,15 +53,19 @@ def run(
     keep: int = 3,
     crash_at_step: int | None = None,
     log_every: int = 0,
+    shardings=None,
 ) -> TrainLoopResult:
     """Run (or resume) training.  ``crash_at_step`` simulates a node
-    failure (raises) for the fault-tolerance tests."""
+    failure (raises) for the fault-tolerance tests.  ``shardings``: on a
+    mesh, the placements of this rank's ``(params, opt_state)`` leaves
+    (``None``: whole)."""
+    mesh = shd.get_mesh()
     start = 0
     params = opt_state = None
     if ckpt_dir is not None:
-        latest = checkpoint.latest_step(ckpt_dir)
+        latest = _latest(ckpt_dir, mesh)
         if latest is not None:
-            params, opt_state = checkpoint.restore(ckpt_dir, latest, init_fn())
+            params, opt_state = checkpoint.restore(ckpt_dir, latest, init_fn(), shardings=shardings)
             start = latest
     if params is None:
         params, opt_state = init_fn()
@@ -67,9 +80,23 @@ def run(
         if log_every and step % log_every == 0:
             print(f"step {step}: loss {float(loss):.4f}", flush=True)
         if ckpt_dir is not None and (step + 1) % ckpt_every == 0:
-            checkpoint.save(ckpt_dir, step + 1, (params, opt_state))
-            checkpoint.prune(ckpt_dir, keep=keep)
+            _save(ckpt_dir, step + 1, (params, opt_state), shardings, keep, mesh)
     if ckpt_dir is not None:
-        checkpoint.save(ckpt_dir, n_steps, (params, opt_state))
-        checkpoint.prune(ckpt_dir, keep=keep)
+        _save(ckpt_dir, n_steps, (params, opt_state), shardings, keep, mesh)
     return TrainLoopResult(params, opt_state, losses, start, n_steps)
+
+
+def _latest(ckpt_dir: str, mesh) -> int | None:
+    """``checkpoint.latest_step``, read by rank 0 and broadcast on a mesh."""
+    if mesh is None:
+        return checkpoint.latest_step(ckpt_dir)
+    mine = collectives.mesh_rank(mesh) == 0
+    step = checkpoint.latest_step(ckpt_dir) if mine else None
+    got = collectives.broadcast_bytes(str(-1 if step is None else step).encode() if mine else None, mesh)
+    return None if int(got) < 0 else int(got)
+
+
+def _save(ckpt_dir: str, step: int, tree, shardings, keep: int, mesh) -> None:
+    checkpoint.save(ckpt_dir, step, tree, shardings=shardings if mesh is not None else None)
+    if mesh is None or collectives.mesh_rank(mesh) == 0:
+        checkpoint.prune(ckpt_dir, keep=keep)

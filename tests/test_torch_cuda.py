@@ -26,6 +26,7 @@ is held to ``repro``'s own tolerances (2e-5 f32, 2e-2 bf16,
 
 import asyncio
 import dataclasses
+import functools
 import gc
 import math
 
@@ -1553,3 +1554,116 @@ def test_one_rank_nccl_expert_parallel_moe_equals_capacity_plain(cuda, tmp_path)
         assert float((got.float() - one.float()).abs().max()) <= 2e-2 * float(one.float().abs().max())
     finally:
         dist.destroy_process_group()
+
+
+def test_one_rank_nccl_train_step_equals_one_card(cuda, tmp_path):
+    """GCN's and DLRM's train steps (AdamW, ZeRO-1) on a (1, 1) mesh of one
+    NCCL rank: the loss, every parameter and every moment after two steps
+    ``torch.equal`` to the one-card step's (a one-rank program is the
+    one-card program: its reductions and gathers move nothing); a smoke
+    MoE LM's loss and gradient with remat, expert-parallel on the rank,
+    within 1e-5 and 1e-4 of the one-card layer's (f32: GShard slots
+    against routed rows sum in other orders)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+    from repro_torch.training.tree import leaves, value_and_grad
+
+    gcfg = registry.get_arch("gcn-cora").smoke()
+    gbatch = gnn_common.gnn_smoke_batch(True, seed=3, device=cuda)
+    dcfg = dlrm_mlperf.smoke()
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    dbatch = {"dense": torch.randn((16, dcfg.n_dense), generator=gen, device=cuda),
+              "sparse": torch.randint(0, 32, (16, dcfg.n_sparse, 1), generator=gen, device=cuda, dtype=torch.int32),
+              "labels": (torch.rand(16, generator=gen, device=cuda) < 0.5).float()}
+
+    def run(mesh):
+        rules = shd.Rules.from_mesh(mesh)
+        out = []
+        with shd.use_mesh(mesh):
+            params = gnn.gcn_init(gcfg, seed=1, device=cuda)
+            state = gnn.optimizer_for(gcfg, rules, params).init(params)
+            step = gnn.make_gnn_train_step(gcfg, rules)
+            for _ in range(2):
+                params, state, loss = step(params, state, gbatch)
+            out += [loss] + leaves((params, state))
+            params = dlrm_model.shard_params(dcfg, rules, dlrm_model.init_params(dcfg, seed=2, device=cuda), 16)
+            state = dlrm_model.optimizer_for(dcfg, rules, params, 16).init(params)
+            step = dlrm_model.make_train_step(dcfg, rules)
+            for _ in range(2):
+                params, state, loss = step(params, state, dbatch)
+            out += [loss] + leaves((params, state))
+        return out
+
+    lcfg = dataclasses.replace(registry.get_arch("granite-moe-1b-a400m").smoke(), remat=True)
+    tokens = torch.randint(0, lcfg.vocab, (4, 33), generator=gen, device=cuda, dtype=torch.int32)
+    lbatch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    def lm_loss(mesh):
+        """The MoE LM's loss and gradient with each layer recomputed in the
+        backward, which CUDA runs on autograd's device thread: the
+        expert-parallel layer there must see the installed mesh."""
+        rules = transformer.rules_for(lcfg, mesh)
+        with shd.use_mesh(mesh):
+            params = transformer.shard_params(lcfg, rules, transformer.init_params(lcfg, seed=3, device=cuda))
+            return value_and_grad(lambda p: transformer.loss_fn(lcfg, rules, p, lbatch["tokens"],
+                                                                lbatch["labels"]))(params)
+
+    want = run(None)
+    want_lm = lm_loss(None)
+    real_moe = layers.apply_moe
+    layers.apply_moe = functools.partial(real_moe, capacity_factor=4.0)  # nothing drops
+    ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
+    try:
+        mesh = lmesh.make_test_mesh(1, 1)
+        got = run(mesh)
+        got_lm = lm_loss(mesh)
+    finally:
+        layers.apply_moe = real_moe
+        dist.destroy_process_group()
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    assert abs(float(got_lm[0]) - float(want_lm[0])) <= 1e-5 * abs(float(want_lm[0]))
+    for a, b in zip(leaves(got_lm[1]), leaves(want_lm[1])):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-6)
+
+
+def test_big_equiformer_gradient_equals_plain_twin(cuda, tmp_path, monkeypatch):
+    """``equiformer_energy_big``'s gradient on a (1, 1) mesh of one NCCL
+    rank, on a graph of 4 chunks of 1,024 edges (the last partly masked),
+    every layer and chunk recomputed in the backward: every leaf finite
+    and within 2e-2 of its plain twin's (``equiformer_atoms_big_plain``,
+    f32 sums where the path adds chunk by chunk into bf16), each leaf
+    held to the larger of its largest and 1e-3 of the model's largest."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+    from repro_torch.training.tree import leaves, value_and_grad
+
+    cfg = registry.get_arch("equiformer-v2").smoke()
+    n, e = 512, 4096
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    batch = {"species": torch.randint(0, cfg.n_species, (n,), generator=gen, device=cuda, dtype=torch.int32),
+             "positions": torch.rand((n, 3), generator=gen, device=cuda) * 4.0,
+             "node_mask": torch.ones(n, dtype=torch.bool, device=cuda),
+             "edge_src": torch.randint(0, n, (e,), generator=gen, device=cuda, dtype=torch.int32),
+             "edge_dst": torch.randint(0, n, (e,), generator=gen, device=cuda, dtype=torch.int32),
+             "edge_mask": torch.arange(e, device=cuda) < e - 700}
+    params = gnn.equiformer_init(cfg, seed=3, device=cuda)
+    monkeypatch.setattr(gnn, "_BIG_CHUNK", 1024)
+    _, want = value_and_grad(lambda p: gnn.equiformer_atoms_big_plain(cfg, p, batch).sum())(params)
+    ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
+    try:
+        mesh = lmesh.make_test_mesh(1, 1)
+        with shd.use_mesh(mesh):
+            rules = shd.Rules.from_mesh(mesh)
+            _, got = value_and_grad(lambda p: gnn.equiformer_energy_big(cfg, rules, p, batch)[0])(params)
+    finally:
+        dist.destroy_process_group()
+    floor = 1e-3 * max(float(w.abs().max()) for w in leaves(want))
+    for i, (g, w) in enumerate(zip(leaves(got), leaves(want))):
+        assert bool(torch.isfinite(g).all()), i
+        assert float((g - w).abs().max()) <= 2e-2 * max(float(w.abs().max()), floor), i

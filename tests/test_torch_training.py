@@ -116,12 +116,18 @@ def test_checkpoint_prune(tmp_path):
 
 
 def test_restore_onto_a_mesh_raises(tmp_path):
+    """Off a mesh ``shardings`` of ``None`` entries restores whole leaves;
+    a placement tree that does not match the leaves raises (the placed
+    restore over ranks: ``tests/test_torch_mesh_train.py``)."""
     init_fn, _, _ = _setup()
     state = init_fn()
     d = str(tmp_path / "ck")
     checkpoint.save(d, 1, state)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        checkpoint.restore(d, 1, state, shardings=tree_map(lambda t: None, state))
+    got = checkpoint.restore(d, 1, state, shardings=tree_map(lambda t: None, state))
+    for a, b in zip(leaves(got), leaves(state)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="placements"):
+        checkpoint.restore(d, 1, state, shardings=[None])
 
 
 def test_compression_error_feedback_converges():
@@ -159,7 +165,9 @@ def test_compress_equals_repro():
 
 
 def test_compressed_psum_waits_for_the_mesh_and_residuals_are_zero():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """``compressed_psum`` sums over an axis of ranks: without a mesh it
+    raises (over ranks: ``tests/test_torch_mesh_train.py``)."""
+    with pytest.raises(ValueError, match="DeviceMesh"):
         compression.compressed_psum(torch.ones(3), torch.zeros(3), "data")
     params = {"w": torch.ones(2, 3, dtype=torch.bfloat16), "b": [torch.ones(4)]}
     res = compression.init_residuals(params)
