@@ -367,19 +367,28 @@ Phases, each of which raises on failure (the run then exits non-zero):
              the CPU at (2, 1), (4, 1), (2, 2) and (1, 4);
 * dryrun   — the port's dry run (``repro_torch.launch``): (a) every cell
              of ``all_cells()`` but the LMs' train_4k and prefill_32k at
-             the (16, 16) and (2, 16, 16) layouts on the meta device, one
-             line a cell (argument GiB a device, the roofline's compute
-             and memory terms, the bottleneck), each evaluated or failing
-             only on a mesh program the port lacks; (b) qwen3-14b
-             decode_32k with 2 layers (B7), dlrm-mlperf serve_bulk (B6)
-             and a gcn-cora train step at ogb_products (B6 forward and
-             backward), each counted by ``analysis.count_step`` on meta
-             twins and then on the real arguments on the card: FLOPs
-             equal (GCN's meta count larger by exactly its 188 padded
-             edges' B6 work), the meta argument bytes equal to the
-             allocator's requested bytes while the arguments are made,
-             the meta peak beside ``max_memory_allocated``, and the
-             step's ms (CUDA events) beside its roofline bound and share.
+             the (16, 16) and (2, 16, 16) layouts (EquiformerV2 at
+             ogb_products at the second only) on the meta device, each
+             the program rank 0 runs there under a fake process group
+             of 256 or 512 ranks, one line a cell (the rank's argument GiB, the roofline's compute,
+             memory and collective terms, the bottleneck, the logical and
+             wire collective bytes); (b) qwen3-14b decode_32k with 2
+             layers (B7), dlrm-mlperf serve_bulk (B6) and a gcn-cora train
+             step at ogb_products (B6 forward and backward), each counted
+             by ``analysis.count_step`` on meta twins and then on the real
+             arguments on the card: FLOPs equal (GCN's meta count larger
+             by exactly its 188 padded edges' B6 work), the meta argument
+             bytes equal to the allocator's requested bytes while the
+             arguments are made, the meta peak beside
+             ``max_memory_allocated``, and the step's ms (CUDA events)
+             beside its roofline bound and share; (c) the gcn-cora train
+             step at ogb_products as rank 0 of a (1, 1) mesh, counted on
+             meta under a fake group and on the card under a one-rank
+             NCCL group: the same collectives by kind, the card's c10d
+             bytes equal to the run's ``WIRE_COUNTERS``, B6 equal to its
+             plain version on the rank's degree scatter; (d) each kernel
+             custom op's host µs a call against its CUDA implementation
+             called directly, 1,000 calls each on small inputs.
 
 The embedbag, decode, dlrm, lm, moe, gnn, train, mesh_train and dryrun
 phases take their shapes from the port's configs (``configs/dlrm_mlperf.py``, ``qwen3_14b.py``,
@@ -454,7 +463,7 @@ from repro_torch.serve.aio import AdmissionRejected, AioConfig, AsyncQueryServic
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.launch import analysis, dryrun, ranks  # noqa: E402
+from repro_torch.launch import analysis, cells, dryrun, ranks  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.kernels.decode_attn import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attn import ops as da_ops  # noqa: E402
@@ -625,15 +634,22 @@ TRAIN_GCN_STEPS, TRAIN_CKPT_EVERY, TRAIN_CRASH_AT, OGB_TRAIN_NODES = 6, 2, 3, 19
 TRAIN_TABLE_CAP, TRAIN_DLRM_STEPS, TRAIN_DLRM_CHECK_BATCH, TRAIN_SAMPLED_ROWS = 2**22, 3, 4096, 4096
 TRAIN_LM_LAYERS, TRAIN_LM_SEQS, TRAIN_LM_STEPS, TRAIN_LM_CHECK = 2, 4, 2, 256
 GRAD_TOL = 1e-5
-# the dryrun phase: (a) the port's dry run over every cell of all_cells()
-# at both production layouts but the LMs' train_4k and prefill_32k, whose
-# meta counts take 17 s to minutes of host time each (their ~10^6 plain
-# ops a step: PERF.md §4; `python -m repro_torch.launch.dryrun` runs
-# them); (b) three steps the phases run, each counted on meta tensors and
+# the dryrun phase: (a) the port's dry run, rank 0's program, over every
+# cell of all_cells() at both production layouts but the LMs' train_4k and
+# prefill_32k, whose meta counts take 17 s to minutes of host time each
+# (their ~10^6 plain ops a step: PERF.md §4), and EquiformerV2 at
+# ogb_products counted at (2, 16, 16) only, whose rank program
+# (equiformer_energy_big on 59 chunks of edges a layer there, 118 at
+# (16, 16)) takes a minute or more a layout; `python -m
+# repro_torch.launch.dryrun` counts them all at both; (b) three steps the
+# phases run, each counted on meta tensors and
 # on the card, then timed: DRYRUN_STEPS steps after the one that reads
-# its peak, which is their warmup
+# its peak, which is their warmup; (d) each custom op's host cost:
+# DRYRUN_OP_CALLS calls of it and of its CUDA implementation
 DRYRUN_LEFT_OUT_SHAPES = ("train_4k", "prefill_32k")
+DRYRUN_MULTI_ONLY_CELLS = (("equiformer-v2", "ogb_products"),)
 DRYRUN_STEPS = 5
+DRYRUN_OP_CALLS = 1000
 # B7 against its plain version: max |diff| at most BF16_TOL (the bf16
 # tolerance of tests/test_kernels.py:140) times the largest |output|.  The
 # outputs average ~kv_len V rows, so their size falls as 1/sqrt(kv_len)
@@ -875,7 +891,10 @@ def events_ms(fn, iters: int, flush: torch.Tensor) -> float:
 def device_trace(fn) -> dict:
     """``fn()`` traced with ``torch.profiler``: the traced wall ms, device
     busy ms (the union of the device events' intervals) and each device
-    kernel's count and µs, the costliest first."""
+    kernel's count and µs, the costliest first.  The device records are
+    read from the profiler's raw results: ``prof.events()`` would build a
+    Python event tree of every host and device record first, seconds for
+    the ~10^4 launches of a query's level loop."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -885,13 +904,14 @@ def device_trace(fn) -> dict:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     spans, per_kernel = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        spans.append((e.time_range.start, e.time_range.end))
-        k = per_kernel.setdefault(e.name, {"count": 0, "us": 0.0})
+        lo, hi = e.start_ns() / 1e3, e.end_ns() / 1e3
+        spans.append((lo, hi))
+        k = per_kernel.setdefault(e.name(), {"count": 0, "us": 0.0})
         k["count"] += 1
-        k["us"] += e.time_range.end - e.time_range.start
+        k["us"] += hi - lo
     if not spans:
         raise AssertionError("the trace holds no device event")
     busy_us, end = 0.0, float("-inf")
@@ -5616,37 +5636,40 @@ def phase_mesh_train(dev, handoff: dict, record) -> int:
 
 def dryrun_sweep(rec: dict) -> None:
     """(a) The dry run over every cell of ``all_cells()`` but the left-out
-    LM shapes, at the (16, 16) and (2, 16, 16) layouts, on the meta
-    device: one line a cell.  A cell may fail only on a mesh program the
-    port lacks (the multi-GPU item); any other error raises."""
+    ones, at the (16, 16) and (2, 16, 16) layouts (``DRYRUN_MULTI_ONLY_CELLS``
+    at the second only), on the meta device: the program rank 0 runs
+    there, counted under a fake process group of the layout's ranks (no
+    even split: the CLI reports it), one line a cell.  Any error raises."""
     t0 = time.perf_counter()
-    cells = [(a, s) for a, s in dryrun.all_cells()
-             if not (registry.get_arch(a).family == "lm" and s in DRYRUN_LEFT_OUT_SHAPES)]
-    left_out = [f"{a} x {s}" for a, s in dryrun.all_cells() if (a, s) not in cells]
-    out = rec["sweep"] = {"cells": {}, "left_out": left_out}
-    ok, failed, counts = 0, [], {}
+    todo = [(a, s) for a, s in dryrun.all_cells()
+            if not (registry.get_arch(a).family == "lm" and s in DRYRUN_LEFT_OUT_SHAPES)]
+    left_out = [f"{a} x {s}" for a, s in dryrun.all_cells() if (a, s) not in todo]
+    out = rec["sweep"] = {"cells": {}, "left_out": left_out,
+                          "multi_only": [f"{a} x {s}" for a, s in DRYRUN_MULTI_ONLY_CELLS]}
     for multi in (False, True):
-        for arch, shape in cells:
-            key = f"{arch}|{shape}|{'multi' if multi else 'single'}"
-            try:
-                st = dryrun.run_cell(arch, shape, multi, counts, verbose=False)
-            except NotImplementedError as e:
-                if "multi-GPU" not in str(e):
-                    raise
-                failed.append(key)
-                log("dryrun", f"(a) {key}: not evaluated, {e}")
-                continue
-            r = st["roofline"]
-            out["cells"][key] = {"argument_bytes": st["memory"]["argument_bytes"],
-                                 "flops": st["cost"]["flops"], "bytes": st["cost"]["bytes"],
-                                 "roofline": r, "count_s": st["times"]["count_s"]}
-            ok += 1
-            log("dryrun", f"(a) {key}: args {st['memory']['argument_bytes'] / 2**30:.3f} GiB/device; "
-                f"compute {r['compute_s'] * 1e3:.4f} ms, memory {r['memory_s'] * 1e3:.4f} ms -> "
-                f"{r['bottleneck']}-bound (H100, even split)")
-    out.update({"ok": ok, "failed_mesh_only": failed, "seconds": time.perf_counter() - t0})
-    log("dryrun", f"(a) {ok} cells ok of {2 * len(cells)}, {len(failed)} not evaluated (mesh programs), "
-        f"in {out['seconds']:.1f} s on the meta device; left out: {', '.join(left_out)}")
+        with mesh_lib.fake_mesh(mesh_lib.make_production_mesh(multi_pod=multi)) as fm:
+            for arch, shape in todo:
+                if not multi and (arch, shape) in DRYRUN_MULTI_ONLY_CELLS:
+                    continue
+                key = f"{arch}|{shape}|{'multi' if multi else 'single'}"
+                st = dryrun.run_cell(arch, shape, multi, {}, verbose=False, mesh=fm, even_split=False)
+                r, coll, c = st["roofline"], st["collectives"], st["cost"]
+                out["cells"][key] = {"argument_bytes": st["memory"]["argument_bytes"],
+                                     "rank_argument_bytes": c["rank_argument_bytes"],
+                                     "peak_bytes": st["memory"]["program_peak_bytes"], "flops": c["flops"],
+                                     "bytes": c["bytes"], "collectives": coll, "roofline": r,
+                                     "count_s": st["times"]["count_s"]}
+                coll_txt = "no collective" if coll is None else (
+                    f"{coll['n_ops']} collectives, {coll['bytes'] / 2**20:.3f} MiB logical, "
+                    f"{coll['wire_bytes'] / 2**20:.3f} MiB on the wire")
+                coll_ms = "-" if r["collective_s"] is None else f"{r['collective_s'] * 1e3:.4f} ms"
+                log("dryrun", f"(a) {key}: rank holds {c['rank_argument_bytes'] / 2**30:.3f} GiB; compute "
+                    f"{r['compute_s'] * 1e3:.4f} ms, memory {r['memory_s'] * 1e3:.4f} ms, collective {coll_ms} -> "
+                    f"{r['bottleneck']}-bound (H100, rank 0); {coll_txt}")
+    out.update({"ok": len(out["cells"]), "seconds": time.perf_counter() - t0})
+    n_todo = 2 * len(todo) - len(DRYRUN_MULTI_ONLY_CELLS)
+    log("dryrun", f"(a) {len(out['cells'])} cells ok of {n_todo} in {out['seconds']:.1f} s on the meta "
+        f"device; left out: {', '.join(left_out)}; at (2, 16, 16) only: {', '.join(out['multi_only'])}")
 
 
 def requested_bytes() -> int:
@@ -5704,7 +5727,7 @@ def dryrun_case(what: str, step_of, meta_args: tuple, make_args, kernel: str, pe
     r, _ = timed_steps("dryrun", what, lambda _: step(*args), [None] * DRYRUN_STEPS, kernel,
                        per_step, 0)
     launches += r["launches"]
-    roof = meta.roofline(1)
+    roof = meta.roofline()
     bound_ms = roof.bound_s * 1e3
     out = {"flops": meta.flops, "tensor_core_flops": meta.tensor_core_flops, "bytes": meta.bytes,
            "flops_difference": diff, "argument_bytes": meta.argument_bytes, "requested_growth": grown,
@@ -5727,10 +5750,12 @@ def dryrun_case(what: str, step_of, meta_args: tuple, make_args, kernel: str, pe
 
 
 def phase_dryrun(dev, gen, record) -> dict[str, int]:
-    """(a) the dry run's sweep; (b) qwen3-14b decode_32k (LM_LAYERS
-    layers, B7), DLRM serve_bulk (B6) and a GCN train step at ogb_products
-    (B6 forward and backward), each counted on meta tensors and on the
-    card.  Returns the card's B6 and B7 launches."""
+    """(a) the dry run's sweep of rank programs; (b) qwen3-14b decode_32k
+    (LM_LAYERS layers, B7), DLRM serve_bulk (B6) and a GCN train step at
+    ogb_products (B6 forward and backward), each counted on meta tensors
+    and on the card; (c) that GCN step as rank 0 of a one-rank mesh, on
+    meta under a fake group and on the card under NCCL; (d) the custom
+    ops' host cost.  Returns the card's B6 and B7 launches."""
     rec = record["dryrun"] = {}
     dryrun_sweep(rec)
     rules = shd.Rules.from_mesh(None)
@@ -5817,10 +5842,141 @@ def phase_dryrun(dev, gen, record) -> dict[str, int]:
     steps["gcn-cora ogb_products train"] = dryrun_case(
         "gcn-cora ogb_products train step", lambda: gnn.make_gnn_train_step(gcfg, rules), gcn_meta, gcn_args,
         "embedding_bag_sorted", 2 + 2 * gcfg.n_layers, padded_edges)
+    steps["gcn-cora ogb_products train, rank 0 of (1, 1)"] = dryrun_rank_case(
+        "gcn-cora ogb_products train step, rank 0 of (1, 1)", gcfg, gparams_meta, spec, gcn_args, n,
+        2 + 2 * gcfg.n_layers, padded_edges, dev)
+    rec["op_overhead"] = op_overhead(dev)
 
     return {"embedding_bag_sorted": steps["dlrm-mlperf serve_bulk"]["launches"]
-            + steps["gcn-cora ogb_products train"]["launches"],
+            + steps["gcn-cora ogb_products train"]["launches"]
+            + steps["gcn-cora ogb_products train, rank 0 of (1, 1)"]["launches"],
             "flash_decode_gqa": steps["qwen3-14b decode_32k"]["launches"]}
+
+
+def dryrun_rank_case(what: str, cfg, params_meta, spec: dict, make_args, n_nodes: int, per_step: int,
+                     flops_differ, dev) -> dict:
+    """(c) The GCN train step as rank 0 of a (1, 1) mesh: counted on meta
+    twins under a fake process group, then on the card under a one-rank
+    NCCL group.  The collectives must be the same by kind (logical bytes,
+    wire bytes, one-rank calls), the card's c10d bytes must equal the
+    growth of ``WIRE_COUNTERS`` over the count, the FLOPs equal but for
+    ``flops_differ``'s padded edges, B6 launched ``per_step`` times and
+    nothing else; then B6 on the rank's degree scatter against its plain
+    version (that launch counts in no path).  Returns the record, with
+    the count's B6 launches."""
+    layout = mesh_lib.MeshLayout(("data", "model"), (1, 1))
+    with mesh_lib.fake_mesh(layout) as fm:
+        frules = shd.Rules.from_mesh(fm)
+        with shd.use_mesh(fm):
+            state = gnn.optimizer_for(cfg, frules, params_meta).init(params_meta)
+        meta = analysis.count_step(cells.on_mesh(fm, gnn.make_gnn_train_step(cfg, frules)), (params_meta, state, spec))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    ranks.init_rank(0, 1, os.path.join(tmp, "nccl-store"), device=dev, timeout_s=MESH_TIMEOUT_S)
+    try:
+        m = mesh_lib.make_test_mesh(1, 1)
+        rules = shd.Rules.from_mesh(m)
+        params, _, batch = make_args()
+        with shd.use_mesh(m):
+            state = gnn.optimizer_for(cfg, rules, params).init(params)
+        torch.cuda.synchronize()
+        reset_launches()
+        w0, calls0 = collectives.WIRE_COUNTERS["bytes"], collectives.WIRE_COUNTERS["all_reduces"]
+        card = analysis.count_step(cells.on_mesh(m, gnn.make_gnn_train_step(cfg, rules)), (params, state, batch))
+        torch.cuda.synchronize()
+        wire, calls = collectives.WIRE_COUNTERS["bytes"] - w0, collectives.WIRE_COUNTERS["all_reduces"] - calls0
+        launches = only_launched("embedding_bag_sorted", f"dryrun {what}")
+        if launches != per_step:
+            raise AssertionError(f"dryrun {what}: {launches} B6 launches, {per_step} expected")
+        if card.wire.get("allreduce_") != {"calls": calls, "bytes": wire, "one_rank_calls": calls} or not calls:
+            raise AssertionError(f"dryrun {what}: the card's c10d ops {card.wire} against WIRE_COUNTERS "
+                                 f"{calls} all_reduces of {wire} bytes")
+        if (meta.collectives, meta.wire) != (card.collectives, card.wire):
+            raise AssertionError(f"dryrun {what}: collectives {meta.collectives} {meta.wire} on meta, "
+                                 f"{card.collectives} {card.wire} on the card")
+        diff, allowed = meta.flops - card.flops, flops_differ(meta, card)
+        if diff != allowed:
+            raise AssertionError(f"dryrun {what}: {meta.flops} FLOPs on meta, {card.flops} on the card "
+                                 f"(a difference of {diff}, {allowed} allowed)")
+        with shd.use_mesh(m):
+            _, dst, emask = gnn.edge_block(rules, batch["edge_src"], batch["edge_dst"], batch["edge_mask"])
+        edges = gnn.sort_edges(dst)
+        ones = emask.to(torch.float32)[:, None].contiguous()
+        got = embedbag.embedding_bag_sorted(ones, edges.order, edges.sorted_dst, n_nodes)
+        if not torch.equal(got, embedbag.embedding_bag_sorted_plain(ones, edges.order, edges.sorted_dst, n_nodes)):
+            raise AssertionError(f"dryrun {what}: B6 on the rank's degree scatter differs from its plain version")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"flops": card.flops, "flops_difference": diff, "collectives": card.collectives, "wire": card.wire,
+           "wire_counter_bytes": wire, "all_reduces": calls, "launches": launches}
+    log("dryrun", f"(c) {what}: {card.flops:.6e} FLOPs on the card, on meta less {diff:.0f} (the padded "
+        f"edges); collectives equal on meta and on the card: {calls} all_reduces over one rank, {wire} bytes "
+        f"== WIRE_COUNTERS, logical {card.collective_bytes:.0f} bytes; {launches} B6 launches; B6 == plain on "
+        "the rank's degree scatter")
+    del params, state, batch, card, meta
+    free()
+    return out
+
+
+def op_overhead(dev) -> dict:
+    """(d) Each kernel entry's custom op, called as the path calls it,
+    against its CUDA implementation called directly (the ctypes launch
+    the op dispatches to) on the same small inputs, and B6's op also
+    through its autograd kernel: DRYRUN_OP_CALLS calls, then one
+    synchronize, twice each in turn; host µs a call, the lesser of the
+    two.  Both must give equal outputs; the launches made here count in
+    no path."""
+    saved = launch_counts()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    table = torch.randn((4096, 64), generator=gen, device=dev)
+    idx = torch.randint(0, 4096, (8192,), generator=gen, device=dev, dtype=torch.int32)
+    bags = torch.sort(torch.randint(0, 1024, (8192,), generator=gen, device=dev, dtype=torch.int32)).values
+    q = torch.randn((1, 16, 128), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, 2048, 2, 128), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    kv_len = torch.tensor(2000, dtype=torch.int32, device=dev)
+    part = decode_attn.flash_decode_gqa_partials(q, k, v, kv_len, 0)
+    cases = {
+        "embedding_bag_sorted": (lambda: embedbag.embedding_bag_sorted(table, idx, bags, 1024),
+                                 lambda: embedbag._launch(table, idx, bags, 1024)),
+        # the op called as a grad-recording call would be, through the
+        # Python autograd kernel that the wrapper's calls without a
+        # gradient go past
+        "embedding_bag_sorted, autograd kernel": (
+            lambda: torch.ops.repro_torch.embedding_bag_sorted(table, idx, bags, 1024),
+            lambda: embedbag._launch(table, idx, bags, 1024)),
+        "flash_decode_gqa": (lambda: decode_attn.flash_decode_gqa(q, k, v, kv_len),
+                             lambda: decode_attn._launch(q, k, v, kv_len, 512)),
+        "flash_decode_gqa_partials": (
+            lambda: torch.ops.repro_torch.flash_decode_gqa_partials(q, k, v, kv_len, 0, 512),
+            lambda: decode_attn._launch_partials(q, k, v, kv_len, 0, 512)),
+        "flash_decode_combine": (
+            lambda: torch.ops.repro_torch.flash_decode_combine(part.buf, *part.shape, torch.bfloat16),
+            lambda: decode_attn._launch_combine(part.buf, *part.shape, torch.bfloat16)),
+    }
+    out = {}
+    for name, (op, direct) in cases.items():
+        if not torch.equal(op(), direct()):
+            raise AssertionError(f"dryrun (d) {name}: the custom op and its CUDA implementation differ")
+        us = {}
+        for label, fn in (("direct", direct), ("op", op), ("direct", direct), ("op", op)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DRYRUN_OP_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            us[label] = min(us.get(label, math.inf), (time.perf_counter() - t0) / DRYRUN_OP_CALLS * 1e6)
+        out[name] = {"op_us": us["op"], "direct_us": us["direct"], "overhead_us": us["op"] - us["direct"]}
+        log("dryrun", f"(d) {name}: {us['op']:.2f} us a call through the custom op, {us['direct']:.2f} us "
+            f"calling its CUDA implementation directly: {us['op'] - us['direct']:.2f} us of dispatch "
+            f"({DRYRUN_OP_CALLS} calls, one synchronize)")
+    embedbag.LAUNCHES = saved["embedding_bag_sorted"]
+    decode_attn.LAUNCHES = saved["flash_decode_gqa"]
+    decode_attn.PARTIAL_LAUNCHES = saved["flash_decode_gqa_partials"]
+    decode_attn.COMBINE_LAUNCHES = saved["flash_decode_combine"]
+    del table, idx, bags, q, k, v, part
+    free()
+    return out
 
 
 def main() -> int:

@@ -759,7 +759,9 @@ def _make_reference_step_fn(
     ``psum``-ed at the end (f32, exact below 2^24), and the starts are
     split over the batch axis in contiguous blocks whose outputs are
     gathered back.  The chunk size comes from the widest run over the
-    site group (a ``pmax``), so its ranks run the same fixpoints."""
+    site group (a ``pmax``), so its ranks run the same fixpoints; a
+    shape-only run issues the ``pmax`` and keeps its own widest run (every
+    padded slot matches on every rank alike)."""
     witness = semantics == "witness"
     n_states = ca.n_states
     levels = max_levels if max_levels is not None else n_states * n_nodes
@@ -817,7 +819,9 @@ def _make_reference_step_fn(
         run_edges, group_degs = _reference_edge_sets(ca, runs, sgroups, site_arrays, n_nodes)
         widest = max([len(e) for e, _ in run_edges], default=0)
         if ranks is not None:
-            widest = int(ranks.pmax(torch.tensor([widest], device=dev))[0])
+            agreed = ranks.pmax(torch.tensor([widest], device=dev))
+            if not agreed.is_meta:  # a shape-only run: every rank's widest is its own
+                widest = int(agreed[0])
         chunk = max(1, REFERENCE_CHUNK_BYTES // max(_REFERENCE_BYTES_PER_PAIR * widest, 1))
         if isinstance(starts, torch.Tensor):
             starts = starts.to(device=dev, dtype=torch.int64)

@@ -78,6 +78,15 @@ its data: the collectives here never branch on values.
 :data:`WIRE_COUNTERS` counts the ``all_reduce`` calls and the bytes of
 the tensors they carry, per process, and the calls of each collective
 above by its name, the backward calls under ``<name>_backward``.
+
+Each ``all_reduce`` also notes itself, under the kind of ``repro``'s HLO
+collective it stands for (``all-reduce`` for :func:`psum`, :func:`pmax`
+and :func:`agree`, ``all-gather``, ``reduce-scatter``, ``all-to-all``;
+``broadcast`` for :func:`broadcast_bytes`, which ``repro``'s single
+controller has no need of), with the bytes of that collective's result,
+to any counter on the dispatch-mode stack that takes notes
+(``launch/analysis.py``'s ``count_step``): so a count sees both what the
+port's program moves and what a native collective of the kind would.
 """
 
 from __future__ import annotations
@@ -87,6 +96,7 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.dist import sharding as shd
 
@@ -150,20 +160,34 @@ def group(mesh, axes):
     return _GROUPS[key][1]
 
 
-def _reduce_(buf: torch.Tensor, op, axes, mesh) -> None:
-    """``all_reduce`` ``buf`` in place with ``op`` over ``axes``, counted."""
+def _note(kind: str, nbytes: int, wire_bytes: int, n_ranks: int) -> None:
+    """Tell every counter on the dispatch-mode stack that takes notes of
+    one collective of ``repro``'s ``kind``."""
+    for mode in _get_current_dispatch_mode_stack():
+        note = getattr(mode, "note_collective", None)
+        if note is not None:
+            note(kind, nbytes, wire_bytes, n_ranks)
+
+
+def _reduce_(buf: torch.Tensor, op, axes, mesh, kind: str = "all-reduce", result_bytes: int | None = None) -> None:
+    """``all_reduce`` ``buf`` in place with ``op`` over ``axes``, counted;
+    it stands for a collective of ``repro``'s ``kind`` whose result holds
+    ``result_bytes`` (default: ``buf``'s)."""
     axes = _axes(axes)
     if axes:
+        nbytes = buf.numel() * buf.element_size()
         WIRE_COUNTERS["all_reduces"] += 1
-        WIRE_COUNTERS["bytes"] += buf.numel() * buf.element_size()
+        WIRE_COUNTERS["bytes"] += nbytes
+        _note(kind, nbytes if result_bytes is None else result_bytes, nbytes, axis_size(mesh, axes))
         dist.all_reduce(buf, op=op, group=group(mesh, axes))
 
 
-def _all_reduce(x: torch.Tensor, op, axes, mesh) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, op, axes, mesh, kind: str = "all-reduce",
+                result_bytes: int | None = None) -> torch.Tensor:
     """``x`` reduced with ``op`` over ``axes``, in a new tensor; bool
     travels as uint8."""
     out = x.to(torch.uint8) if x.dtype == torch.bool else x.clone()
-    _reduce_(out, op, axes, _mesh(mesh))
+    _reduce_(out, op, axes, _mesh(mesh), kind, result_bytes)
     return out.bool() if x.dtype == torch.bool else out
 
 
@@ -227,7 +251,7 @@ def _gather_rows(local, axes, n_total: int, mesh, dim: int, lo: int, hi: int) ->
     shape[dim] = n_total
     buf = torch.zeros(shape, dtype=src.dtype, device=src.device)
     buf.narrow(dim, lo, hi - lo).copy_(src)
-    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh, "all-gather")
     return buf.bool() if local.dtype == torch.bool else buf
 
 
@@ -283,7 +307,7 @@ def _all_gather(x, axes, dim: int, mesh, n: int, me: int) -> torch.Tensor:
     shape[dim] *= n
     buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
     buf.narrow(dim, me * x.shape[dim], x.shape[dim]).copy_(x)
-    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh, "all-gather")
     return buf
 
 
@@ -299,7 +323,13 @@ def psum_scatter(x: torch.Tensor, axes, dim: int = 0, mesh=None) -> torch.Tensor
     _, k = _block(x, axes, mesh, dim)
     if _records(x):
         return _PSumScatter.apply(x, _axes(axes), dim, mesh)
-    return _all_reduce(x, dist.ReduceOp.SUM, axes, mesh).narrow(dim, axis_index(mesh, axes) * k, k).contiguous()
+    return _psum_scatter(x, axes, dim, mesh, k)
+
+
+def _psum_scatter(x, axes, dim: int, mesh, k: int) -> torch.Tensor:
+    block_bytes = x.numel() // x.shape[dim] * k * x.element_size()
+    summed = _all_reduce(x, dist.ReduceOp.SUM, axes, mesh, "reduce-scatter", block_bytes)
+    return summed.narrow(dim, axis_index(mesh, axes) * k, k).contiguous()
 
 
 def all_to_all(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
@@ -328,7 +358,7 @@ def _all_to_all(x, axes, mesh, n: int, k: int) -> torch.Tensor:
     me = axis_index(mesh, axes)
     buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     buf[me].copy_(x)
-    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh, "all-to-all", x.numel() * x.element_size())
     return buf[:, me * k : (me + 1) * k].reshape(x.shape)
 
 
@@ -425,7 +455,7 @@ class _PSumScatter(torch.autograd.Function):
     def forward(ctx, x, axes, dim, mesh):
         ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
         _, k = _block(x, axes, mesh, dim)
-        return _all_reduce(x, dist.ReduceOp.SUM, axes, mesh).narrow(dim, axis_index(mesh, axes) * k, k).contiguous()
+        return _psum_scatter(x, axes, dim, mesh, k)
 
     @staticmethod
     def backward(ctx, g):
@@ -510,11 +540,11 @@ def broadcast_bytes(payload: bytes | None, mesh=None, root: int = 0, device=None
     axes, dev = mesh_axes(mesh), _device(mesh, device)
     mine = mesh_rank(mesh) == root
     n = torch.tensor([len(payload) if mine else 0], dtype=torch.int64, device=dev)
-    _reduce_(n, dist.ReduceOp.SUM, axes, mesh)
+    _reduce_(n, dist.ReduceOp.SUM, axes, mesh, "broadcast")
     buf = torch.zeros(int(n[0]), dtype=torch.uint8, device=dev)
     if mine and len(payload):
         buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
-    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh)
+    _reduce_(buf, dist.ReduceOp.SUM, axes, mesh, "broadcast")
     return buf.cpu().numpy().tobytes()
 
 

@@ -15,12 +15,21 @@ combine kernel that merges the splits' f32 partials in a fixed order.
 stays on the device.  On CPU tensors it runs
 :func:`flash_decode_gqa_plain`, the same online softmax over
 ``block_kv`` blocks in plain PyTorch; there is no fallback from the one
-to the other.  On meta tensors (a shape-only run, ``launch/``) it
-checks its inputs and returns an empty meta output of the kernel's shape
-and dtype, launching nothing; ``kv_len`` may then lie on the CPU.  On
-every device type the call reports its work to an installed counter
-(``kernels/work.py``): 4·B·H·kv_len·Dh FLOPs (the scores and P·V), and
-as bytes K and V up to ``kv_len``, q and the output.
+to the other.
+
+Its three entries call custom operators defined with ``torch.library``
+(``Library.define`` and ``impl``, as B6's: ``torch.ops.repro_torch``'s
+``flash_decode_gqa``, ``flash_decode_gqa_partials``,
+``flash_decode_combine``), each with the launch as its CUDA kernel and
+the plain version as its CPU kernel, and a fake: on meta tensors (a
+shape-only run, ``launch/``) it checks the inputs and returns an empty
+meta output of the kernel's shape and dtype, launching nothing; a
+``kv_len`` may then lie on the CPU.  A dispatch mode sees one call an
+entry.  Their FLOPs are registered with ``torch.utils.flop_counter``
+and ``launch/analysis.py`` charges their bytes, by :func:`decode_work`
+(4·B·H·kv_len·Dh FLOPs, the scores and P·V; as bytes K and V up to
+``kv_len``, q and the output), :func:`partials_work` and
+:func:`combine_work`.
 
 The two agree to rounding, not bit for bit: the kernel walks other kv
 tiles than ``block_kv`` (16 positions per warp in bf16) and merges
@@ -36,8 +45,9 @@ and :func:`flash_decode_combine`, the combine kernel over any number of
 splits: the ranks' partials, gathered and laid out rank-major as one
 split axis (:func:`ranks_major`).  A shard wholly past ``kv_len`` gives (-1e30, 0, 0), weight
 0 in the merge; a global ``kv_len <= 0`` gives every position -1e30, so
-the merge is V's mean over every shard, as ``flash_decode_gqa``.  Their
-plain twins take the shard as one split: the plain online softmax of
+the merge is V's mean over every shard, as ``flash_decode_gqa``.  The
+partials cross the op boundary as the buffer and the five sizes of
+their shape.  Their plain twins take the shard as one split: the plain online softmax of
 :func:`flash_decode_gqa_plain`, stopped before its division, so that on
 one shard at offset 0 partials then combine equal it bit for bit.  On
 CUDA tensors, at one shard and offset 0 the two entries are
@@ -52,8 +62,10 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
-from repro_torch.kernels import _build, work
+from repro_torch.kernels import _build
 
 LAUNCHES = 0  # B7: flash_decode_gqa
 PARTIAL_LAUNCHES = 0  # B7's split kernel through flash_decode_gqa_partials
@@ -231,29 +243,50 @@ def _check(q, k, v, kv_len, h, g, dh) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary (cp.async)")
 
 
+def _check_meta(q, k, v, kv_len, block_kv: int):
+    """The fakes' checks: shapes, devices and dtypes."""
+    shapes = _shapes(q, k, v, block_kv)
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"k is on {k.device}, v on {v.device}, q on {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if kv_len.dtype != torch.int32 or kv_len.numel() != 1 or kv_len.device.type not in ("meta", "cpu"):
+        raise TypeError("kv_len must be a one-element int32 tensor on the meta device or the CPU")
+    return shapes
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_decode_gqa(Tensor q, Tensor k, Tensor v, Tensor kv_len, SymInt block_kv=512) -> Tensor")
+_LIB.define("flash_decode_gqa_partials(Tensor q, Tensor k, Tensor v, Tensor kv_len, SymInt kv_offset, "
+            "SymInt block_kv) -> Tensor")
+_LIB.define("flash_decode_combine(Tensor buf, SymInt b, SymInt g, SymInt n_split, SymInt r, SymInt dh, "
+            "ScalarType dtype) -> Tensor")
+
+
 def flash_decode_gqa(
-    q: torch.Tensor,  # (B, H, Dh)
-    k: torch.Tensor,  # (B, S, G, Dh)
-    v: torch.Tensor,  # (B, S, G, Dh)
-    kv_len: torch.Tensor,  # () int32 — valid prefix length
+    q: Tensor,  # (B, H, Dh)
+    k: Tensor,  # (B, S, G, Dh)
+    v: Tensor,  # (B, S, G, Dh)
+    kv_len: Tensor,  # () int32 — valid prefix length
     block_kv: int = 512,
-) -> torch.Tensor:
+) -> Tensor:
     """(B, H, Dh) attention output of one query token per sequence, in
     q's dtype.  Requires ``S % block_kv == 0``, as ``repro`` does.  On
     CPU tensors this is :func:`flash_decode_gqa_plain`; on CUDA tensors it
     launches B7 (its split kernel, then, with more than one split, its
     combine kernel: one launch in :data:`LAUNCHES`) or raises; on meta
     tensors it returns an empty meta output."""
-    with work.kernel("flash_decode_gqa", lambda: decode_work(q, k, kv_len)):
-        return _flash_decode_gqa(q, k, v, kv_len, block_kv)
+    return torch.ops.repro_torch.flash_decode_gqa.default(q, k, v, kv_len, block_kv)
 
 
-def decode_work(q: torch.Tensor, k: torch.Tensor, kv_len: torch.Tensor) -> tuple[float, float, int, bool]:
-    """B7's work by formula: (4·B·H·kv_len·Dh FLOPs, bytes of K and V up
-    to ``kv_len``, q and the output, kv_len, whether the products run on
-    the tensor cores: bf16).  Reads ``kv_len`` on the
-    host (a sync for a CUDA tensor); a meta ``kv_len`` has no value."""
-    if isinstance(kv_len, torch.Tensor) and kv_len.is_meta:
+def decode_work(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor, block_kv: int = 512
+                ) -> tuple[float, float, int, bool]:
+    """B7's work by formula, from :func:`flash_decode_gqa`'s arguments:
+    (4·B·H·kv_len·Dh FLOPs, bytes of K and V up to ``kv_len``, q and the
+    output, kv_len, whether the products run on the tensor cores: bf16).
+    Reads ``kv_len`` on the host (a sync for a CUDA tensor); a meta
+    ``kv_len`` has no value."""
+    if kv_len.is_meta:
         raise ValueError("counting B7's work needs kv_len's value: pass it as a CPU tensor")
     b, h, dh = q.shape
     g, n = k.shape[2], int(kv_len)
@@ -262,21 +295,21 @@ def decode_work(q: torch.Tensor, k: torch.Tensor, kv_len: torch.Tensor) -> tuple
     return float(4 * b * h * n * dh), float(nbytes), n, q.dtype == torch.bfloat16
 
 
-def _flash_decode_gqa(q, k, v, kv_len, block_kv: int) -> torch.Tensor:
+@torch.library.register_fake("repro_torch::flash_decode_gqa")
+def _(q, k, v, kv_len, block_kv=512):
+    _check_meta(q, k, v, kv_len, block_kv)
+    return torch.empty_like(q)
+
+
+@torch.library.impl(_LIB, "flash_decode_gqa", "CPU")
+def _(q, k, v, kv_len, block_kv=512):
+    return flash_decode_gqa_plain(q, k, v, kv_len, block_kv)
+
+
+@torch.library.impl(_LIB, "flash_decode_gqa", "CUDA")
+def _launch(q, k, v, kv_len, block_kv=512):
+    """The op's CUDA kernel: the ctypes launch of B7."""
     global LAUNCHES
-    if q.device.type == "cpu":
-        return flash_decode_gqa_plain(q, k, v, kv_len, block_kv)
-    if q.device.type == "meta":
-        _shapes(q, k, v, block_kv)
-        if k.device != q.device or v.device != q.device:
-            raise ValueError(f"k is on {k.device}, v on {v.device}, q on {q.device}")
-        if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-            raise TypeError(f"q, k, v must all be float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-        if kv_len.dtype != torch.int32 or kv_len.numel() != 1 or kv_len.device.type not in ("meta", "cpu"):
-            raise TypeError("kv_len must be a one-element int32 tensor on the meta device or the CPU")
-        return torch.empty_like(q)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_gqa runs on cuda, cpu or meta tensors, got {q.device}")
     b, h, dh, s, g = _shapes(q, k, v, block_kv)
     _check(q, k, v, kv_len, h, g, dh)
     n_split, split_len = decode_splits(b, g, s)
@@ -316,6 +349,16 @@ def _lib_fn(name: str):
     return fn
 
 
+def partial_splits(q: Tensor, k: Tensor) -> int:
+    """The splits of :func:`flash_decode_gqa_partials` on ``q``'s device:
+    one on the CPU (the plain twin takes the shard as one split), else the
+    card's (:func:`decode_splits`, which a meta run counts).  Both are 1
+    where the shard holds at most :data:`SPLIT_ALIGN` positions."""
+    if q.device.type == "cpu":
+        return 1
+    return decode_splits(q.shape[0], k.shape[2], k.shape[1])[0]
+
+
 def flash_decode_gqa_partials(
     q: torch.Tensor,  # (B, H, Dh)
     k: torch.Tensor,  # (B, S, G, Dh): global positions [kv_offset, kv_offset + S)
@@ -330,12 +373,46 @@ def flash_decode_gqa_partials(
     global position ``kv_offset + p`` against the global ``kv_len``.  On
     CPU tensors this is :func:`flash_decode_gqa_partials_plain` (one
     split); on CUDA tensors it launches the kernel (one launch in
-    :data:`PARTIAL_LAUNCHES`) or raises."""
+    :data:`PARTIAL_LAUNCHES`) or raises.  The operator
+    ``repro_torch::flash_decode_gqa_partials`` returns the buffer; the
+    split count is read back from its length."""
+    buf = torch.ops.repro_torch.flash_decode_gqa_partials.default(q, k, v, kv_len, kv_offset, block_kv)
+    b, h, dh = q.shape
+    g = k.shape[2]
+    return Partials(buf, (b, g, buf.shape[0] // (b * h * (dh + 2)), h // g, dh))
+
+
+def partials_work(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor, kv_offset: int, block_kv: int
+                  ) -> tuple[float, float, int, bool]:
+    """The split kernel's work by formula: (4·B·H·n·Dh FLOPs over the n
+    positions of the shard below ``kv_len``, bytes of K and V at those
+    positions, q and the f32 partials written, n, bf16)."""
+    if kv_len.is_meta:
+        raise ValueError("counting B7's work needs kv_len's value: pass it as a CPU tensor")
+    b, h, dh = q.shape
+    s, g = k.shape[1], k.shape[2]
+    n = min(max(int(kv_len) - kv_offset, 0), s)
+    nbytes = (2 * b * n * g * dh + b * h * dh) * q.element_size() + b * h * partial_splits(q, k) * (dh + 2) * 4
+    return float(4 * b * h * n * dh), float(nbytes), n, q.dtype == torch.bfloat16
+
+
+@torch.library.register_fake("repro_torch::flash_decode_gqa_partials")
+def _(q, k, v, kv_len, kv_offset, block_kv):
+    b, h, dh, _, _ = _check_meta(q, k, v, kv_len, block_kv)
+    if kv_offset < 0:
+        raise ValueError(f"kv_offset must be >= 0, got {kv_offset}")
+    return q.new_empty((b * h * partial_splits(q, k) * (dh + 2),), dtype=torch.float32)
+
+
+@torch.library.impl(_LIB, "flash_decode_gqa_partials", "CPU")
+def _(q, k, v, kv_len, kv_offset, block_kv):
+    return flash_decode_gqa_partials_plain(q, k, v, kv_len, kv_offset, block_kv).buf
+
+
+@torch.library.impl(_LIB, "flash_decode_gqa_partials", "CUDA")
+def _launch_partials(q, k, v, kv_len, kv_offset, block_kv):
+    """The op's CUDA kernel: the ctypes launch of B7's split kernel."""
     global PARTIAL_LAUNCHES
-    if q.device.type == "cpu":
-        return flash_decode_gqa_partials_plain(q, k, v, kv_len, kv_offset, block_kv)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_gqa_partials runs on cuda or cpu tensors, got {q.device}")
     b, h, dh, s, g = _shapes(q, k, v, block_kv)
     _check(q, k, v, kv_len, h, g, dh)
     if kv_offset < 0:
@@ -350,7 +427,7 @@ def flash_decode_gqa_partials(
     if err != 0:
         raise RuntimeError(f"decode partials launch failed with CUDA error {err}")
     PARTIAL_LAUNCHES += 1
-    return Partials(part, (b, g, n_split, r, dh))
+    return part
 
 
 def flash_decode_combine(part: Partials, dtype: torch.dtype) -> torch.Tensor:
@@ -359,19 +436,48 @@ def flash_decode_combine(part: Partials, dtype: torch.dtype) -> torch.Tensor:
     ``dtype`` (float32 or bfloat16).  On CPU tensors this is
     :func:`flash_decode_combine_plain`; on CUDA tensors it launches the
     kernel on the partials' buffer (one launch in
-    :data:`COMBINE_LAUNCHES`), or raises."""
-    global COMBINE_LAUNCHES
-    buf = part.buf
-    if buf.device.type == "cpu":
-        return flash_decode_combine_plain(part, dtype)
-    if buf.device.type != "cuda":
-        raise ValueError(f"flash_decode_combine runs on cuda or cpu tensors, got {buf.device}")
+    :data:`COMBINE_LAUNCHES`), or raises.  The operator
+    ``repro_torch::flash_decode_combine`` takes the buffer and the
+    partials' shape."""
+    return torch.ops.repro_torch.flash_decode_combine.default(part.buf, *part.shape, dtype)
+
+
+def combine_work(buf: Tensor, b: int, g: int, n_split: int, r: int, dh: int, dtype: torch.dtype
+                 ) -> tuple[float, float, int, bool]:
+    """The combine kernel's work by formula: (2·(Dh + 1) FLOPs a row and
+    split, l's and acc's weighted sums, bytes of the partials read and
+    the output written, n_split, False: f32 on the CUDA cores)."""
+    rows = b * g * r
+    out_bytes = rows * dh * torch.empty((), dtype=dtype, device="meta").element_size()
+    return float(rows * n_split * 2 * (dh + 1)), float(buf.numel() * 4 + out_bytes), n_split, False
+
+
+def _check_partials(buf, shape, dtype) -> None:
+    b, g, n_split, r, dh = shape
     if dtype not in _DTYPES:
         raise TypeError(f"the output must be float32 or bfloat16, got {dtype}")
-    b, g, n_split, r, dh = part.shape
-    if buf.dtype != torch.float32 or not buf.is_contiguous() or buf.numel() != part.rows * (dh + 2):
-        raise ValueError(f"partials of shape {part.shape} need a contiguous f32 buffer of {part.rows * (dh + 2)} "
+    rows = b * g * n_split * r
+    if buf.dtype != torch.float32 or not buf.is_contiguous() or buf.numel() != rows * (dh + 2):
+        raise ValueError(f"partials of shape {shape} need a contiguous f32 buffer of {rows * (dh + 2)} "
                          f"values, got {buf.dtype} {tuple(buf.shape)}")
+
+
+@torch.library.register_fake("repro_torch::flash_decode_combine")
+def _(buf, b, g, n_split, r, dh, dtype):
+    _check_partials(buf, (b, g, n_split, r, dh), dtype)
+    return buf.new_empty((b, g * r, dh), dtype=dtype)
+
+
+@torch.library.impl(_LIB, "flash_decode_combine", "CPU")
+def _(buf, b, g, n_split, r, dh, dtype):
+    return flash_decode_combine_plain(Partials(buf, (b, g, n_split, r, dh)), dtype)
+
+
+@torch.library.impl(_LIB, "flash_decode_combine", "CUDA")
+def _launch_combine(buf, b, g, n_split, r, dh, dtype):
+    """The op's CUDA kernel: the ctypes launch of B7's combine kernel."""
+    global COMBINE_LAUNCHES
+    _check_partials(buf, (b, g, n_split, r, dh), dtype)
     if r > MAX_GROUP_ROWS or dh not in HEAD_DIMS:
         raise ValueError(f"the kernel takes up to {MAX_GROUP_ROWS} q-heads per kv group and Dh in {HEAD_DIMS}")
     out = torch.empty((b, g * r, dh), dtype=dtype, device=buf.device)
@@ -382,3 +488,12 @@ def flash_decode_combine(part: Partials, dtype: torch.dtype) -> torch.Tensor:
         raise RuntimeError(f"decode combine launch failed with CUDA error {err}")
     COMBINE_LAUNCHES += 1
     return out
+
+
+# FLOPs of the three entries for torch.utils.flop_counter, by their formulas
+for _op, _work in ((torch.ops.repro_torch.flash_decode_gqa, decode_work),
+                   (torch.ops.repro_torch.flash_decode_gqa_partials, partials_work),
+                   (torch.ops.repro_torch.flash_decode_combine, combine_work)):
+    if _op not in flop_registry:
+        register_flop_formula(_op, get_raw=True)(
+            lambda *args, out_val=None, _work=_work, **kwargs: _work(*args, **kwargs)[0])

@@ -21,19 +21,31 @@ of a lane's load, the lanes of a row and the lookups of a range from the
 shapes.  The gathered rows bound its time where the table is many times
 the L2, as at ogb_products.  On a CPU tensor it runs
 :func:`embedding_bag_sorted_plain`; there is no fallback from the one to
-the other.  On a meta tensor (a shape-only run, ``launch/``) it checks
-its inputs and returns an empty meta output of the kernel's shape and
-dtype; that launches nothing and adds nothing to :data:`LAUNCHES`.  On
-every device type the call reports its work to an installed counter
-(``kernels/work.py``): N·D adds over N lookups of D columns, and the
-gathered rows and the output as bytes.
+the other.
 
-:func:`embedding_bag_sorted_grad` makes the sum differentiable in the
-table.  ``repro`` gets that gradient from XLA (the transpose of
-``jnp.take`` + ``segment_sum``: a scatter-add of the cotangent's bag rows
-into a zero table); here it is B6 itself on the transposed lookups,
-sorted by row, so the backward launches the same kernel, writes the
-dense gradient (zeros where no lookup reads) and uses no atomics.
+:func:`embedding_bag_sorted` calls the custom operator
+``torch.ops.repro_torch.embedding_bag_sorted``, defined with
+``torch.library``: its CUDA kernel is the launch (:func:`_launch`), its
+CPU kernel the plain version, and its fake (the meta device, a
+shape-only run of ``launch/``) checks the inputs and gives the kernel's
+output shape and dtype, launching nothing and adding nothing to
+:data:`LAUNCHES`.  A dispatch mode sees one call a launch.  Its FLOPs
+are registered with ``torch.utils.flop_counter`` (:func:`bag_work`: N·D
+adds over N lookups of D columns), and ``launch/analysis.py`` charges
+its bytes by the same formula, the gathered rows and the output.  The
+operator is defined with ``Library.define`` and ``impl``, not the
+``custom_op`` decorator, whose kernels run under a wrapper that imports
+``torch._dynamo`` at a process's first call (~2 s in every spawned rank)
+and adds host time to every launch.
+
+The op is differentiable in the table (``register_autograd``).
+``repro`` gets that gradient from XLA (the transpose of ``jnp.take`` +
+``segment_sum``: a scatter-add of the cotangent's bag rows into a zero
+table); here it is B6 itself on the transposed lookups, sorted by row
+(:func:`transpose_lookups`), so the backward launches the same kernel,
+writes the dense gradient (zeros where no lookup reads) and uses no
+atomics.  :func:`embedding_bag_sorted_grad` lets a caller give the
+backward's lookups itself.
 """
 
 from __future__ import annotations
@@ -41,8 +53,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
-from repro_torch.kernels import _build, work
+from repro_torch.kernels import _build
 
 LAUNCHES = 0  # B6: embedding_bag_sorted
 
@@ -128,37 +142,59 @@ def _check(table, idx, bags) -> None:
         raise ValueError(f"{idx.shape[0]} lookups exceed the kernel's {MAX_LOOKUPS}")
 
 
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("embedding_bag_sorted(Tensor table, Tensor idx, Tensor bags, SymInt n_bags) -> Tensor")
+
+
 def embedding_bag_sorted(
-    table: torch.Tensor,  # (R, D) float32 or bfloat16
-    idx: torch.Tensor,  # (N,) int32 — row per lookup, lookups sorted by bag
-    bags: torch.Tensor,  # (N,) int32 — non-decreasing bag ids in [0, n_bags)
+    table: Tensor,  # (R, D) float32 or bfloat16
+    idx: Tensor,  # (N,) int32 — row per lookup, lookups sorted by bag
+    bags: Tensor,  # (N,) int32 — non-decreasing bag ids in [0, n_bags)
     n_bags: int,
-) -> torch.Tensor:
+) -> Tensor:
     """(n_bags, D) bag sums in the table's dtype.  Bags no lookup visits
     are zero, where ``repro``'s kernel leaves them unwritten.  On CPU
     tensors this is :func:`embedding_bag_sorted_plain`; on CUDA tensors
     it launches B6 or raises; on meta tensors it returns an empty meta
-    output."""
-    with work.kernel("embedding_bag_sorted", lambda: bag_work(table, idx, n_bags)):
-        return _embedding_bag_sorted(table, idx, bags, n_bags)
+    output.  Differentiable in ``table``.  A call that records no
+    gradient (a serve step, a backward) dispatches below autograd, past
+    the op's Python autograd kernel and its host time."""
+    op = torch.ops.repro_torch.embedding_bag_sorted.default
+    if torch.is_grad_enabled() and table.requires_grad:
+        return op(table, idx, bags, n_bags)
+    with torch._C._AutoDispatchBelowAutograd():
+        return op(table, idx, bags, n_bags)
 
 
-def bag_work(table: torch.Tensor, idx: torch.Tensor, n_bags: int) -> tuple[float, float, int, bool]:
-    """B6's work by formula: (N·D adds, bytes of the N gathered rows and
-    the (n_bags, D) output, N, False: the adds run on the CUDA cores)."""
+def bag_work(table: Tensor, idx: Tensor, bags: Tensor, n_bags: int) -> tuple[float, float, int, bool]:
+    """B6's work by formula, from the op's arguments: (N·D adds, bytes of
+    the N gathered rows and the (n_bags, D) output, N, False: the adds
+    run on the CUDA cores)."""
     n, d = idx.shape[0], table.shape[1]
     return float(n * d), float((n + n_bags) * d * table.element_size()), n, False
 
 
-def _embedding_bag_sorted(table, idx, bags, n_bags: int) -> torch.Tensor:
+if torch.ops.repro_torch.embedding_bag_sorted not in flop_registry:
+    @register_flop_formula(torch.ops.repro_torch.embedding_bag_sorted, get_raw=True)
+    def _bag_flops(table, idx, bags, n_bags, *args, out_val=None, **kwargs) -> float:
+        return bag_work(table, idx, bags, n_bags)[0]
+
+
+@torch.library.register_fake("repro_torch::embedding_bag_sorted")
+def _(table, idx, bags, n_bags):
+    _check(table, idx, bags)
+    return table.new_empty((n_bags, table.shape[1]))
+
+
+@torch.library.impl(_LIB, "embedding_bag_sorted", "CPU")
+def _(table, idx, bags, n_bags):
+    return embedding_bag_sorted_plain(table, idx, bags, n_bags)
+
+
+@torch.library.impl(_LIB, "embedding_bag_sorted", "CUDA")
+def _launch(table, idx, bags, n_bags):
+    """The op's CUDA kernel: the ctypes launch of B6."""
     global LAUNCHES
-    if table.device.type == "cpu":
-        return embedding_bag_sorted_plain(table, idx, bags, n_bags)
-    if table.device.type == "meta":
-        _check(table, idx, bags)
-        return torch.empty((n_bags, table.shape[1]), dtype=table.dtype, device="meta")
-    if table.device.type != "cuda":
-        raise ValueError(f"embedding_bag_sorted runs on cuda, cpu or meta tensors, got {table.device}")
     _check(table, idx, bags)
     d = table.shape[1]
     out = torch.empty((n_bags, d), dtype=table.dtype, device=table.device)
@@ -196,40 +232,42 @@ def transpose_lookups(idx: torch.Tensor, bags: torch.Tensor) -> tuple[torch.Tens
     return bags[order].contiguous(), rows.contiguous()
 
 
-class EmbeddingBagSorted(torch.autograd.Function):
-    """:func:`embedding_bag_sorted` with its table's gradient.  The
-    forward is B6 as it is (the kernel on a CUDA tensor, the plain
-    version on a CPU one); the backward is B6 again on the transposed
-    lookups, ``grad_table[r] = Σ grad_out[bags[i]]`` over the lookups
-    ``i`` of row ``r``, in the table's dtype.  Rows no lookup visits get
-    exact zeros, the dense gradient that ``repro``'s ``take`` transposes
-    to.  ``transpose`` is a callable giving (``idx_T``, ``bags_T``), called
-    in the backward, so that a caller can share one sort between calls or
-    know the transpose without one."""
+def _setup_backward(ctx, inputs, output) -> None:
+    table, idx, bags, _ = inputs
+    ctx.n_rows = table.shape[0]
+    # the lookups held as they are, not saved for backward: under
+    # torch.utils.checkpoint a saved tensor would make the backward's
+    # recomputation run on to this launch again
+    ctx.lookups = (idx, bags)
+    ctx.transpose = None  # embedding_bag_sorted_grad may set it on the output's grad_fn
 
-    @staticmethod
-    def forward(ctx, table, idx, bags, n_bags, transpose):
-        ctx.n_rows, ctx.transpose = table.shape[0], transpose
-        return embedding_bag_sorted(table, idx, bags, n_bags)
 
-    @staticmethod
-    def backward(ctx, grad_out):
+def _backward(ctx, grad_out):
+    """B6 again on the transposed lookups, ``grad_table[r] = Σ
+    grad_out[bags[i]]`` over the lookups ``i`` of row ``r``, in the
+    table's dtype; rows no lookup visits get exact zeros, the dense
+    gradient that ``repro``'s ``take`` transposes to."""
+    if ctx.transpose is None:
+        idx_t, bags_t = transpose_lookups(*ctx.lookups)
+    else:
         idx_t, bags_t = ctx.transpose()
-        grad = embedding_bag_sorted(grad_out.contiguous(), idx_t, bags_t, ctx.n_rows)
-        return grad, None, None, None, None
+    return embedding_bag_sorted(grad_out.contiguous(), idx_t, bags_t, ctx.n_rows), None, None, None
+
+
+torch.library.register_autograd("repro_torch::embedding_bag_sorted", _backward, setup_context=_setup_backward)
 
 
 def embedding_bag_sorted_grad(
     table: torch.Tensor, idx: torch.Tensor, bags: torch.Tensor, n_bags: int, transpose=None
 ) -> torch.Tensor:
-    """:func:`embedding_bag_sorted`, differentiable in ``table``: through
-    :class:`EmbeddingBagSorted` when autograd records and the table needs
-    a gradient, else the plain call, so a serve step launches what it
-    launched before.  ``transpose`` (default: :func:`transpose_lookups`
-    of ``idx`` and ``bags``) gives the backward's lookups."""
-    if not (torch.is_grad_enabled() and table.requires_grad):
-        return embedding_bag_sorted(table, idx, bags, n_bags)
-    if transpose is None:
-        def transpose():
-            return transpose_lookups(idx, bags)
-    return EmbeddingBagSorted.apply(table, idx, bags, n_bags, transpose)
+    """:func:`embedding_bag_sorted`, whose backward takes its lookups from
+    ``transpose``, a callable giving (``idx_T``, ``bags_T``) called in the
+    backward, so that a caller can share one sort between calls or know
+    the transpose without one (default: :func:`transpose_lookups` of
+    ``idx`` and ``bags``).  A table that needs no gradient, or a call
+    under ``no_grad``, records nothing: a serve step launches what it
+    launched before."""
+    out = embedding_bag_sorted(table, idx, bags, n_bags)
+    if transpose is not None and out.grad_fn is not None:
+        out.grad_fn.transpose = transpose
+    return out

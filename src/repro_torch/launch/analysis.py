@@ -8,19 +8,33 @@ step itself, eagerly, and counts what it does (:func:`count_step`):
 * FLOPs: ``torch.utils.flop_counter``'s formulas, the table that
   ``FlopCounterMode`` counts by (the matrix products and attention ops;
   element-wise ops count none, as in that table), applied to every op
-  that reaches the dispatch mode, plus the kernels' work by formula
-  (``kernels/work.py``: B6's adds, B7's products).  The ops inside a
-  kernel wrapper (its plain version on a CPU tensor) are the kernel's
-  and are not counted again.
+  that reaches the dispatch mode.  The kernels B6 and B7 are custom ops
+  (``torch.ops.repro_torch``) whose formulas their modules register
+  there (B6's adds, B7's products); the dispatch mode sees one call a
+  launch, and never the ops of the plain version inside it.
 * Bytes: a ``TorchDispatchMode`` adds up every op's operand and result
-  bytes, a view's none, plus each kernel's bytes by formula.  A gather
-  (indexing, ``embedding``, ``index_select``, ``gather``) reads the rows
-  it selects, the bytes of its output, and not its whole source; an
-  indexed write in place (``index_put_``, ``index_copy_``, ``index_add_``,
-  ``scatter_``, ``scatter_add_``) reads its indices and values and writes
-  the values' bytes, reading as many of the destination first where it
-  accumulates.  This is an unfused count: an intermediate that a fused
-  kernel would keep on chip is counted once written and once per read.
+  bytes, a view's none, and each kernel's bytes by its formula
+  (:data:`KERNELS`).  A gather (indexing, ``embedding``,
+  ``index_select``, ``gather``) reads the rows it selects, the bytes of
+  its output, and not its whole source; an indexed write in place
+  (``index_put_``, ``index_copy_``, ``index_add_``, ``scatter_``,
+  ``scatter_add_``) reads its indices and values and writes the values'
+  bytes, reading as many of the destination first where it accumulates.
+  This is an unfused count: an intermediate that a fused kernel would
+  keep on chip is counted once written and once per read.
+* Collectives: a c10d ``allreduce_``, the one c10d op the port issues
+  (another raises), adds no HBM bytes: it is counted by kind, its
+  calls and the bytes of the tensors it carries (the *wire* bytes, what
+  the port's program issues), and whether its group holds one rank.  Beside it, each collective of
+  ``dist/collectives.py`` notes itself to the counter (its
+  ``note_collective``, found on the dispatch-mode stack) under
+  ``repro``'s HLO kind (``all-reduce``, ``all-gather``,
+  ``reduce-scatter``, ``all-to-all``) with its *result* bytes, as
+  ``repro``'s ``collective_bytes`` reads them: the *logical* bytes, which
+  a native NCCL collective of that kind would produce.  The port rides
+  every collective on ``all_reduce``, so its wire bytes are n times the
+  logical ones for a gather or an all-to-all.  A collective over a
+  one-rank group is noted apart and adds no logical bytes.
 * Peak: the largest sum of live bytes of the storages the step made,
   its arguments' excluded (a storage is live from the op that makes it
   until the last tensor on it dies, autograd's saved ones included).
@@ -33,16 +47,13 @@ from meta inputs (no view, no in-place write, no aliased return) is run
 once per key (the op, each tensor input's shape, strides, offset and
 dtype, every other argument's value) and answered from the cache
 afterwards with new empty meta tensors of the same layout, as
-``FakeTensorMode``'s dispatch cache does.
+``FakeTensorMode``'s dispatch cache does.  One count is one rank's
+program, so the cache never holds two ranks' ops.
 
 On meta tensors this runs no arithmetic and allocates nothing, which is
-how ``launch/dryrun.py`` evaluates a cell at its full shapes; on CUDA
+how ``launch/dryrun.py`` evaluates a cell at its full shapes, a rank's
+program under a ``fake`` process group (``launch/mesh.py``); on CUDA
 tensors it counts the same step as it runs on the card.
-
-``collective_bytes`` is not ported: it parses XLA's optimized HLO text,
-which the port never produces, and the one-card program a cell runs has
-no collective.  ``Roofline.collective_s`` is ``None`` until the port has
-``torch.distributed`` calls of its own to count (ROADMAP item 4).
 
 Hardware model: one NVIDIA H100 80GB HBM3 (SXM) at its 700.00 W power
 limit, the data sheet's dense rates: 989 TFLOP/s on the tensor cores
@@ -56,10 +67,12 @@ import dataclasses
 import weakref
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.kernels import work
+from repro_torch.kernels.decode_attn import decode_attn
+from repro_torch.kernels.embedbag import embedbag
 from repro_torch.training.tree import leaves
 
 PEAK_FLOPS = 989e12  # bf16 / fp16 on the tensor cores, dense
@@ -88,6 +101,21 @@ _INDEX_WRITES = {
     torch.ops.aten.index_add_.default: True,
     torch.ops.aten.scatter_add_.default: True,
 }
+# the kernels' custom ops: name and work formula (flops, bytes, n,
+# tensor_core) of the op's arguments, which charges its bytes
+KERNELS = {
+    torch.ops.repro_torch.embedding_bag_sorted.default: ("embedding_bag_sorted", embedbag.bag_work),
+    torch.ops.repro_torch.flash_decode_gqa.default: ("flash_decode_gqa", decode_attn.decode_work),
+    torch.ops.repro_torch.flash_decode_gqa_partials.default: ("flash_decode_gqa_partials",
+                                                             decode_attn.partials_work),
+    torch.ops.repro_torch.flash_decode_combine.default: ("flash_decode_combine", decode_attn.combine_work),
+}
+# the c10d ops the port issues (every collective rides on all_reduce), by
+# the argument that holds the tensors each carries; another raises
+_C10D = {torch.ops.c10d.allreduce_.default: 0}
+# repro's HLO kinds that the port's collectives note, as repro's
+# collective_bytes reports them
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
 
 
 def tensor_leaves(tree) -> list[torch.Tensor]:
@@ -117,10 +145,12 @@ class StepCount:
     the kernels' (``kernels``: one (name, flops, bytes, n) a call);
     ``tensor_core_flops`` is the part on bf16/fp16 operands;
     ``argument_bytes`` the arguments' bytes; ``peak_bytes`` the peak of
-    live bytes beyond them; ``output`` the step's return value, and
-    ``output_args`` for each of its tensors (:func:`tensor_leaves` order)
-    the index of the argument leaf it shares storage with (an update in
-    place), or None."""
+    live bytes beyond them; ``output`` the step's return value.
+    ``collectives``: per ``repro`` kind the calls over
+    more than one rank and their logical (result) bytes, and the calls
+    over one rank; ``wire``: per c10d op the calls, the bytes of the
+    tensors they carried and the calls over one rank.  Both empty when
+    the step issued no collective."""
 
     flops: float
     tensor_core_flops: float
@@ -129,12 +159,22 @@ class StepCount:
     peak_bytes: int
     kernels: list
     output: object
-    output_args: list
+    collectives: dict = dataclasses.field(default_factory=dict)
+    wire: dict = dataclasses.field(default_factory=dict)
 
-    def roofline(self, n_devices: int = 1) -> "Roofline":
-        """The step's roofline with its work split evenly over ``n_devices``."""
-        return Roofline(self.flops / n_devices, self.bytes / n_devices, n_devices,
-                        tensor_core_flops_per_device=self.tensor_core_flops / n_devices)
+    @property
+    def collective_bytes(self) -> float | None:
+        """The logical bytes of every collective, or None when the step
+        issued none."""
+        if not (self.collectives or self.wire):
+            return None
+        return float(sum(c["bytes"] for c in self.collectives.values()))
+
+    def roofline(self) -> "Roofline":
+        """The step's roofline: its own work on one device (a rank's count
+        is that rank's)."""
+        return Roofline(self.flops, self.bytes, 1, tensor_core_flops_per_device=self.tensor_core_flops,
+                        collective_bytes_per_device=self.collective_bytes)
 
 
 _CACHEABLE: dict = {}  # op -> whether its meta results can be cached
@@ -168,8 +208,9 @@ def _key(x):
 class _StepCounter(TorchDispatchMode):
     """:func:`count_step`'s dispatch mode: every op's FLOPs by
     ``torch.utils.flop_counter``'s formulas, its operand and result
-    bytes, the live storages; and the counter that ``kernels/work.py``
-    reports to."""
+    bytes, the live storages, the kernels' calls by formula, the c10d
+    ops by kind; and the logical collectives that ``dist/collectives.py``
+    notes (:meth:`note_collective`)."""
 
     def __init__(self, arg_storages: set[int]):
         super().__init__()
@@ -178,16 +219,25 @@ class _StepCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.kernels: list[tuple[str, float, float, int]] = []
         self.kernel_tc_flops = 0.0
+        self.collectives: dict[str, dict] = {}
+        self.wire: dict[str, dict] = {}
         self.live = self.peak = 0
         self._storages: dict[int, int] = {}
         self._meta_cache: dict = {}
 
-    # -- kernels/work.py's counter interface ---------------------------------
+    # -- dist/collectives.py's record of each logical collective --------------
 
-    def add_kernel(self, name: str, flops: float, nbytes: float, n: int, tensor_core: bool) -> None:
-        self.kernels.append((name, flops, nbytes, n))
-        if tensor_core:
-            self.kernel_tc_flops += flops
+    def note_collective(self, kind: str, nbytes: int, wire_bytes: int, n_ranks: int) -> None:
+        """One collective of ``repro``'s ``kind`` over ``n_ranks`` ranks,
+        whose result holds ``nbytes`` and whose ``all_reduce`` carries
+        ``wire_bytes``."""
+        c = self.collectives.setdefault(kind, {"calls": 0, "bytes": 0, "wire_bytes": 0, "one_rank_calls": 0})
+        c["wire_bytes"] += wire_bytes
+        if n_ranks > 1:
+            c["calls"] += 1
+            c["bytes"] += nbytes
+        else:
+            c["one_rank_calls"] += 1
 
     # -- the dispatch mode -----------------------------------------------------
 
@@ -225,6 +275,29 @@ class _StepCounter(TorchDispatchMode):
                 for shape, stride, dtype in layouts]
         return tuple(outs) if is_seq else outs[0]
 
+    def _kernel(self, func, args, kwargs, out) -> None:
+        """One call of a kernel's custom op: its FLOPs by the formula its
+        module registered with ``torch.utils.flop_counter``, its bytes by
+        :data:`KERNELS`' formula."""
+        name, work = KERNELS[func]
+        _, nbytes, n, tensor_core = work(*args, **kwargs)
+        flops = flop_registry[func._overloadpacket](*args, **kwargs, out_val=out)
+        self.kernels.append((name, flops, nbytes, n))
+        if tensor_core:
+            self.kernel_tc_flops += flops
+
+    def _c10d(self, func, args) -> None:
+        """One c10d op: its calls, the bytes it carries, and its group's
+        size; no HBM bytes."""
+        carried = args[_C10D[func]]
+        tensors = [t for t in (carried if isinstance(carried, (list, tuple)) else [carried])
+                   for t in (t if isinstance(t, (list, tuple)) else [t])]
+        group = next(a for a in args if isinstance(a, torch.ScriptObject))
+        w = self.wire.setdefault(func._schema.name.split("::")[-1], {"calls": 0, "bytes": 0, "one_rank_calls": 0})
+        w["calls"] += 1
+        w["bytes"] += sum(_nbytes(t) for t in tensors)
+        w["one_rank_calls"] += dist.ProcessGroup.unbox(group).size() == 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = self._run(func, args, kwargs)
@@ -232,7 +305,15 @@ class _StepCounter(TorchDispatchMode):
         for t in outs:
             if isinstance(t, torch.Tensor):
                 self._track(t)
-        if work.hidden() or func.is_view or func in _NO_TRAFFIC:
+        if func in KERNELS:
+            self._kernel(func, args, kwargs, out)
+            return out
+        if func in _C10D:
+            self._c10d(func, args)
+            return out
+        if func.namespace == "c10d":
+            raise NotImplementedError(f"count_step counts no {func}: the port's collectives ride on all_reduce")
+        if func.is_view or func in _NO_TRAFFIC:
             return out
         ins = list(_op_tensors(args, kwargs))
         self.bytes += _traffic(func, args, kwargs, ins, outs)
@@ -260,14 +341,13 @@ def _traffic(func, args, kwargs, ins: list, outs) -> int:
 
 
 def count_step(fn, args: tuple) -> StepCount:
-    """Run ``fn(*args)`` once and count its FLOPs, bytes and peak live
-    bytes (see the module docstring).  ``args`` is a tuple of trees of
-    tensors; on meta tensors nothing is computed or allocated."""
+    """Run ``fn(*args)`` once and count its FLOPs, bytes, peak live bytes
+    and collectives (see the module docstring).  ``args`` is a tuple of
+    trees of tensors; on meta tensors nothing is computed or allocated."""
     arg_tensors = tensor_leaves(args)
     counter = _StepCounter({t.untyped_storage()._cdata for t in arg_tensors})
-    with work.counting(counter), counter:
+    with counter:
         out = fn(*args)
-    arg_index = {t.untyped_storage()._cdata: i for i, t in enumerate(arg_tensors)}
     return StepCount(
         flops=counter.flops + sum(k[1] for k in counter.kernels),
         tensor_core_flops=float(counter.tc_flops + counter.kernel_tc_flops),
@@ -276,22 +356,25 @@ def count_step(fn, args: tuple) -> StepCount:
         peak_bytes=counter.peak,
         kernels=counter.kernels,
         output=out,
-        output_args=[arg_index.get(t.untyped_storage()._cdata) for t in tensor_leaves(out)],
+        collectives=counter.collectives,
+        wire=counter.wire,
     )
 
 
 @dataclasses.dataclass
 class Roofline:
-    """``repro``'s roofline at the H100's rates.  The compute term takes
-    the tensor-core FLOPs at :data:`PEAK_FLOPS` and the rest at
-    :data:`PEAK_FLOPS_F32`; the collective term is ``None`` (no
-    collective is counted yet), and ``bottleneck`` is taken over the
-    terms that exist."""
+    """``repro``'s three-term roofline at the H100's rates.  The compute
+    term takes the tensor-core FLOPs at :data:`PEAK_FLOPS` and the rest
+    at :data:`PEAK_FLOPS_F32`; the collective term the logical collective
+    bytes at :data:`LINK_BW`, the least time a native collective over
+    NVLink could take (``None`` for a program that issues no
+    collective); ``bottleneck`` is taken over the terms that exist."""
 
     flops_per_device: float
     hbm_bytes_per_device: float
     n_devices: int
     tensor_core_flops_per_device: float | None = None  # None: every FLOP on the tensor cores
+    collective_bytes_per_device: float | None = None  # None: no collective issued
 
     @property
     def compute_s(self) -> float:
@@ -305,7 +388,9 @@ class Roofline:
 
     @property
     def collective_s(self) -> float | None:
-        return None
+        if self.collective_bytes_per_device is None:
+            return None
+        return self.collective_bytes_per_device / LINK_BW
 
     def _terms(self) -> dict[str, float]:
         terms = {"compute": self.compute_s, "memory": self.memory_s}
@@ -372,24 +457,58 @@ def argument_bytes(plan, layout) -> int:
     return sum(_nbytes(t) // _shards(layout, p) for t, p in _placed(plan.args, plan.in_placements))
 
 
-def analyze_cell(plan, layout, count: StepCount | None = None) -> dict:
-    """One cell on one layout: per-device argument and output bytes from
-    the placements, the one-card program's counted work (``count``, or
-    :func:`count_step` of the plan), its roofline with the work split
-    evenly over the layout's devices, and the model FLOPs."""
+def collectives_record(count: StepCount) -> dict | None:
+    """A count's collectives as the dry run reports them: per ``repro``
+    kind the calls over more than one rank, their logical bytes, the
+    port's wire bytes and the calls over one rank; ``n_ops``, ``bytes``
+    and ``wire_bytes`` over every kind; ``wire``, per c10d op.  None when
+    the program issued no collective."""
+    if count.collective_bytes is None:
+        return None
+    out: dict = {k: dict(count.collectives.get(k, {"calls": 0, "bytes": 0, "wire_bytes": 0,
+                                                   "one_rank_calls": 0})) for k in KINDS}
+    for k, c in count.collectives.items():
+        out.setdefault(k, dict(c))
+    kinds = list(out.values())
+    out.update({"n_ops": sum(c["calls"] for c in kinds), "bytes": sum(c["bytes"] for c in kinds),
+                "wire_bytes": sum(c["wire_bytes"] for c in kinds), "wire": count.wire})
+    return out
+
+
+def even_split(count: StepCount, one_card: StepCount, n_devices: int) -> dict:
+    """The one-card program's counts, its FLOPs and bytes split evenly
+    over ``n_devices``, and the ratio of the rank's FLOPs to that split."""
+    even_flops = one_card.flops / n_devices
+    return {
+        "flops": one_card.flops,
+        "tensor_core_flops": one_card.tensor_core_flops,
+        "bytes": one_card.bytes,
+        "kernel_calls": _kernel_calls(one_card.kernels),
+        "flops_per_device": even_flops,
+        "bytes_per_device": one_card.bytes / n_devices,
+        "flops_ratio": count.flops / even_flops if even_flops else None,
+    }
+
+
+def analyze_cell(plan, layout, count: StepCount | None = None, one_card: StepCount | None = None) -> dict:
+    """One cell on one layout.  ``count`` is the rank's program
+    (default: :func:`count_step` of ``plan.rank``, or of the one-card
+    program where the plan has none, as on a described layout),
+    ``one_card`` the one-card program at the global shapes (``None``: no
+    even split is reported).  Reports per device: ``repro``'s argument
+    bytes from its placements, the rank's argument, output and peak
+    bytes, its FLOPs, bytes and collectives, its three-term roofline, the
+    one-card program's even split over the layout's devices with the
+    ratio of the rank's FLOPs to it, and the model FLOPs."""
     if count is None:
-        count = count_step(plan.fn, plan.args)
+        count = count_step(plan.fn, plan.args) if plan.rank is None else count_step(plan.rank.fn, plan.rank.args)
     n_devices = layout.size
-    arg_shards = [_shards(layout, p) for _, p in _placed(plan.args, plan.in_placements)]
-    out_bytes = 0
-    for t, i in zip(tensor_leaves(count.output), count.output_args):
-        out_bytes += _nbytes(t) // (1 if i is None else arg_shards[i])  # in place: the argument's placement
-    roof = count.roofline(n_devices)
+    roof = count.roofline()
     mf = model_flops("", plan.kind, plan.n_params, plan.n_active, plan.tokens)
     return {
         "memory": {
             "argument_bytes": argument_bytes(plan, layout),
-            "output_bytes": out_bytes,
+            "output_bytes": sum(_nbytes(t) for t in tensor_leaves(count.output)),
             "program_peak_bytes": count.peak_bytes,
         },
         "cost": {
@@ -399,11 +518,13 @@ def analyze_cell(plan, layout, count: StepCount | None = None) -> dict:
             "flops_per_device": roof.flops_per_device,
             "bytes_per_device": roof.hbm_bytes_per_device,
             "kernel_calls": _kernel_calls(count.kernels),
+            "rank_argument_bytes": count.argument_bytes,
+            "even_split": None if one_card is None else even_split(count, one_card, n_devices),
         },
-        "collectives": None,
+        "collectives": collectives_record(count),
         "roofline": roof.as_dict(),
         "model_flops": mf,
-        "useful_flops_ratio": (mf / count.flops) if count.flops else None,
+        "useful_flops_ratio": (mf / (count.flops * n_devices)) if count.flops else None,
     }
 
 
@@ -418,26 +539,34 @@ def _kernel_calls(kernels) -> dict[str, dict]:
 
 
 FIELDS = {
-    "memory.argument_bytes": "bytes of the arguments on one device: each leaf's bytes over the "
-    "shard count of its fitted placement",
-    "memory.output_bytes": "bytes of the outputs on one device: an output updated in place "
-    "keeps its argument's placement, any other is counted whole (no output placement is "
-    "declared)",
-    "memory.program_peak_bytes": "the one-card program's peak of live bytes beyond its "
-    "arguments, at the cell's global shapes; not divided by the device count",
-    "cost.flops": "the one-card program's FLOPs at the global shapes: torch.utils.flop_counter's "
+    "memory.argument_bytes": "bytes of the arguments on one device under repro's placements: each "
+    "leaf's bytes over the shard count of its fitted placement",
+    "memory.output_bytes": "bytes of the rank's outputs (a leaf updated in place is the rank's "
+    "own block)",
+    "memory.program_peak_bytes": "the rank's program's peak of live bytes beyond its arguments "
+    "(the schema keeps memory to these three keys: the rank's argument bytes are "
+    "cost.rank_argument_bytes)",
+    "cost.flops": "FLOPs of the program that rank 0 runs at the layout: torch.utils.flop_counter's "
     "formulas plus the kernels' by formula (element-wise ops count none)",
     "cost.tensor_core_flops": "the part of cost.flops on bf16/fp16 operands",
-    "cost.bytes": "the one-card program's bytes, unfused: every op's operands and results "
-    "(a gather's source by the rows it reads, an indexed write by its values), plus the "
-    "kernels' by formula",
-    "cost.flops_per_device": "cost.flops over the device count (an even split)",
-    "cost.bytes_per_device": "cost.bytes over the device count (an even split)",
-    "collectives": "not counted: the one-card program has none (ROADMAP item 4)",
-    "roofline": "compute (tensor-core FLOPs at 989 TFLOP/s, the rest at 67) and memory "
-    "(3.35 TB/s) terms per device of one NVIDIA H100 80GB HBM3 at 700 W; no collective term",
+    "cost.bytes": "the rank's bytes, unfused: every op's operands and results (a gather's source "
+    "by the rows it reads, an indexed write by its values), plus the kernels' by formula; "
+    "collectives move none",
+    "cost.flops_per_device": "cost.flops: the rank's own work",
+    "cost.bytes_per_device": "cost.bytes: the rank's own work",
+    "cost.kernel_calls": "the rank's kernel calls, FLOPs and bytes by kernel",
+    "cost.rank_argument_bytes": "bytes of the arguments the rank's program holds: its own blocks "
+    "under the placements the program reads, and what it takes whole",
+    "cost.even_split": "the one-card program at the cell's global shapes (flops, bytes, "
+    "kernel_calls), its FLOPs and bytes over the device count, and flops_ratio, the rank's "
+    "FLOPs over that even split (above 1: work a rank repeats)",
+    "collectives": "per repro HLO kind (all-reduce, all-gather, reduce-scatter, all-to-all): calls over more than one rank, bytes (logical: the collective's result, "
+    "as repro's collective_bytes reads it), wire_bytes (what the port's all_reduce carries) and "
+    "one_rank_calls; n_ops, bytes and wire_bytes over the kinds; wire, per c10d op (calls, bytes, "
+    "one_rank_calls); null when the rank's program issues no collective",
+    "roofline": "compute (tensor-core FLOPs at 989 TFLOP/s, the rest at 67), memory (3.35 TB/s) "
+    "and collective (the logical bytes at NVLink's 450 GB/s; null without a collective) terms of "
+    "the rank on one NVIDIA H100 80GB HBM3 at 700 W",
     "model_flops": "6·N_active·tokens for training, 2·N_active·tokens for serving",
-    "useful_flops_ratio": "model_flops over cost.flops",
+    "useful_flops_ratio": "model_flops over cost.flops times the device count",
 }
-
-

@@ -8,10 +8,14 @@ sizes, which is all ``dist/sharding.py``'s ``Rules.from_mesh`` and
 ``DeviceMesh`` of ranks when a process group is up (one process per
 rank, :mod:`repro_torch.launch.ranks`), which ``use_mesh`` installs and
 the mesh programs run on; without one it describes the layout.
+:func:`fake_mesh` builds a layout's ``DeviceMesh`` in one process over
+a ``fake`` process group of all its ranks, whose collectives return at
+once and move nothing: the dry run counts rank 0's program on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -61,3 +65,26 @@ def make_test_mesh(n_data: int = 1, n_model: int = 1, device: str | torch.device
 
     return init_device_mesh(resolve_device(device).type, (n_data, n_model),
                             mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_mesh(layout: MeshLayout, rank: int = 0):
+    """The ``DeviceMesh`` of ``layout`` (on the CPU device type) over a
+    ``fake`` process group of ``layout.size`` ranks in this process, as
+    ``rank``: collectives on it, meta tensors' included, return without
+    moving anything.  The group is destroyed when the block ends.  Raises
+    when a process group is already up, or when ``torch.distributed``
+    cannot register the ``fake`` backend."""
+    if not dist.is_available():
+        raise RuntimeError("torch.distributed is not available: the dry run needs its fake backend")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up: the dry run's fake group needs a process of its own")
+    # registers the "fake" c10d backend; torch ships it with its tests
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=layout.size)
+    try:
+        yield init_device_mesh("cpu", layout.sizes, mesh_dim_names=layout.axis_names)
+    finally:
+        dist.destroy_process_group()

@@ -206,7 +206,9 @@ def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rul
     the rank's rows, re-based to the shard (``repro`` masks the others
     to zero rows, which adds zeros; a bag no lookup visits is zero), and
     one ``psum`` over the model axis sums the shards.  Returns the
-    block's bags, (hi - lo, D)."""
+    block's bags, (hi - lo, D).  A shape-only run (meta ``idx``), which
+    cannot count the rank's lookups, takes an even share of them,
+    ⌈N/M⌉ of the block's N over the model axis's M ranks."""
     B, hot = idx.shape
     mesh = shd.get_mesh()
     if mesh is None or rules.model_axis is None:
@@ -222,7 +224,12 @@ def embedding_bag_sharded(table: torch.Tensor, idx: torch.Tensor, rules: shd.Rul
     bag_ids = torch.arange(hi - lo, dtype=torch.int32, device=idx.device).repeat_interleave(
         hot, output_size=(hi - lo) * hot
     )
-    out = embedding_bag_local(table, (flat[mine] - first).to(torch.int32), bag_ids[mine], hi - lo)
+    if flat.is_meta:  # a shape-only run: an even share of the lookups falls in each shard
+        n = -(-flat.shape[0] // rules.model_size)
+        rows, bags = flat[:n], bag_ids[:n]
+    else:
+        rows, bags = flat[mine], bag_ids[mine]
+    out = embedding_bag_local(table, (rows - first).to(torch.int32), bags, hi - lo)
     return collectives.psum(out, rules.model_axis, mesh)
 
 
