@@ -173,7 +173,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
              equiformer-v2 ``full()`` at molecule on (2, 2), each against
              the one-card run of the same weights and inputs (DLRM's bags
              bit for bit, probabilities 1e-6; GNNs 1e-5, equiformer-v2
-             1e-4), B6 launches a step as on one card; the all_reduces a
+             1e-4), B6 launches a step as on one card; the capped DLRM's
+             retrieval_cand step on (2, 2) over 1,000,000 candidates,
+             each rank handed its block over every axis as ``repro``
+             fits it (250,000), its top 64 gathered: the scores within
+             1e-6 of the largest of the one-card top 64's, the indices
+             equal up to ties; the all_reduces a
              step, their bytes and the ms a step logged per rank; (e)
              ``equiformer_energy_big`` at full width: on one NCCL rank
              in this process, ``equiformer_energy`` on a uniform graph of
@@ -200,11 +205,19 @@ Phases, each of which raises on failure (the run then exits non-zero):
              131,072 positions of the same cache (drawn from the seed
              block by block), the same steps within BF16_TOL of the
              largest |logit| of one card's, all_reduced bytes a step
-             logged; (c) 4 ``gloo`` ranks on (2, 2): granite-moe-1b-a400m
-             expert-parallel, the request run at capacity 1.25 (every MoE
+             logged, each rank holding its tensor-parallel blocks (its
+             dense weights exactly the whole's over 4); (c) 4 ``gloo``
+             ranks on (2, 2): granite-moe-1b-a400m expert-parallel, its
+             attention and vocab tensor-parallel (the dense weights the
+             whole's over 2, a rank's heads reading their kv groups of
+             the cache in place: B7's kv-head offset), the request run at
+             capacity 1.25 (every MoE
              call within BF16_TOL of ``moe_capacity_plain``, drops logged)
              and at 2.0 (no drop, every call also within BF16_TOL of the
-             one-card layer), then decode_32k at 2 layers on each rank's
+             one-card layer), at 2.0 again fed the moe phase's one-card
+             tokens and experts (a token may take others only at a near
+             tie), its prefill and last logits within BF16_TOL of the
+             largest |logit| of one card's, then decode_32k at 2 layers on each rank's
              block of the batch (ms a step, all_to_all bytes); (d) one
              NCCL rank: kimi-k2 at full width with 1 layer, its experts
              expert-parallel with ``fsdp_experts``, the request run with
@@ -265,6 +278,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
              largest |output|, which an all-zero output and the kernel on
              half the cache must both miss) and SDPA; each shape's
              kv split (n_split, split length, partials' bytes) is logged;
+             then B7 on a kv-head offset, read in place, at the shapes
+             mesh_lm (c) gives a granite rank (its 8 of 16 q heads on
+             kv groups [0, 4) and [4, 8) of the whole 8-group cache,
+             Dh 64: decode_32k's 64 rows, the request run's 4 rows of
+             1,040) against its plain version at the same offset, to
+             the same limit, which the other half's groups must miss;
 * dlrm     — dlrm-mlperf ``full()`` whole on the card (26 bf16 tables,
              48.07 GB; f32 MLPs 13-512-256-128 and 479-1024-1024-512-
              256-1) through ``models/dlrm.py``'s serve and retrieval
@@ -534,7 +553,7 @@ MESH_B_STARTS = 64
 # MESH_DLRM_CAP rows (4 ranks' shards and the one-card reference on one
 # card), MESH_DLRM_STEPS steps timed a rank; gcn-cora at ogb_products on
 # MESH_I_SHAPE; the molecular GNNs at molecule on MESH_II_SHAPE
-MESH_DLRM_CAP, MESH_DLRM_STEPS = 2**22, 10
+MESH_DLRM_CAP, MESH_DLRM_STEPS, MESH_RETRIEVAL_STEPS = 2**22, 10, 5
 # its (e), equiformer_energy_big at full width: on one NCCL rank on a uniform
 # graph of EQ_BIG_NODES nodes (repro's _BIG_GRAPH_NODES, so that
 # equiformer_energy dispatches to it) at ogb_products' mean degree, and on
@@ -2544,12 +2563,60 @@ def phase_mesh_dlrm(params: dict, dev, record) -> int:
     return n
 
 
+def mesh_retrieval_case(what: str, cfg, params: dict, batch: dict, mesh, want: tuple, rec: dict) -> int:
+    """dlrm retrieval_cand on ``mesh``: the rank's shard of the tables at
+    batch 1 and its block of the candidates over every axis, fitted as
+    ``repro`` fits them (``collectives.flat_block``), handed as that block
+    (``batch``, the whole query, is emptied);
+    MESH_RETRIEVAL_STEPS steps timed by CUDA events, B6 26 times a step;
+    the gathered top 64's scores within 1e-6 of the largest of ``want``'s
+    (the one-card (scores, indices, every candidate's score)) and its
+    indices equal up to ties.  Returns B6's launches."""
+    n = batch["candidates"].shape[0]
+    with shd.use_mesh(mesh):
+        rules = shd.Rules.from_mesh(mesh)
+        mine = dlrm.shard_params(cfg, rules, params, 1)
+        lo, hi, axes = collectives.flat_block(rules, n)
+        block = dict(batch, candidates=batch["candidates"][lo:hi].clone())
+        batch.clear()  # the whole candidates: the rank holds its block alone
+        free()
+        step = dlrm.make_retrieval_step(cfg, rules, n)
+        collectives.WIRE_COUNTERS.clear()
+        r, outs = timed_steps("mesh", what, lambda b: step(mine, b), [block] * (MESH_RETRIEVAL_STEPS + DLRM_WARMUP),
+                              "embedding_bag_sorted", cfg.n_sparse, DLRM_WARMUP)
+    w_scores, w_idx, all_scores = (t.cpu() for t in want)
+    scores, idx = (t.cpu() for t in outs[0])
+    err, scale = float((scores - w_scores).abs().max()), float(w_scores.abs().max())
+    gap = float((all_scores[idx] - all_scores[w_idx]).abs().max())
+    if err > 1e-6 * scale or gap > 1e-6 * float(all_scores.abs().max()) or any(
+            not torch.equal(o[1], outs[0][1]) for o in outs):
+        raise AssertionError(f"mesh {what}: the top 64 differ from the one-card top 64 (scores {err}, tied "
+                             f"scores {gap}; limit 1e-6 x {scale})")
+    steps = MESH_RETRIEVAL_STEPS + DLRM_WARMUP
+    free_b, total_b = torch.cuda.mem_get_info()
+    r.update({"candidates": n, "block": [lo, hi], "axes": list(axes), "max_abs_err": err,
+              "rank_peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card_free_gb": free_b / 1e9,
+              "card_gb": total_b / 1e9,
+              "indices_equal": bool(torch.equal(idx, w_idx)),
+              "all_gathers_per_step": collectives.WIRE_COUNTERS["all_gather"] // steps,
+              "bytes_per_step": collectives.WIRE_COUNTERS["bytes"] // steps})
+    rec[what] = r
+    log("mesh", f"(d) {what}: candidates [{lo}, {hi}) of {n} over {list(axes)} (repro's fit of (data, model)); "
+        f"{r['steps']} steps, {r['launches']} B6 launches = 26 a step, {r['all_gathers_per_step']} all_gathers and "
+        f"{r['bytes_per_step']} bytes a step, median {r['median_ms']:.3f} ms; the top 64's scores within {err} of "
+        f"the one-card top 64 (limit 1e-6 x {scale}), indices {'equal' if r['indices_equal'] else 'equal up to ties'}; "
+        f"{r['rank_peak_gb']:.2f} GB peak allocated by the rank so far, {r['card_free_gb']:.2f} of the card's "
+        f"{r['card_gb']:.2f} GB free after its steps (every process)")
+    return r["launches"]
+
+
 def mesh_model_inputs(dev) -> dict:
     """The (d) spawn's models, rebuilt from the seed on every rank and in
-    the parent: dlrm-mlperf with tables capped at MESH_DLRM_CAP rows and a
-    serve_p99 batch; gcn-cora at ogb_products on edges drawn from a
-    generator seeded SEED + 11; schnet, nequip and equiformer-v2 ``full()``
-    at molecule."""
+    the parent: dlrm-mlperf with tables capped at MESH_DLRM_CAP rows, a
+    serve_p99 batch and a retrieval_cand query with its 1,000,000 f32
+    candidates drawn from a generator seeded SEED + 23; gcn-cora at
+    ogb_products on edges drawn from a generator seeded SEED + 11;
+    schnet, nequip and equiformer-v2 ``full()`` at molecule."""
     cfg = dataclasses.replace(DLRM, table_sizes=tuple(min(r, MESH_DLRM_CAP) for r in DLRM.table_sizes))
     shape = registry.GNN_SHAPES["ogb_products"]
     gcn_cfg = gnn_common.gcn_for_shape(registry.get_arch("gcn-cora").full(), shape)
@@ -2564,10 +2631,15 @@ def mesh_model_inputs(dev) -> dict:
                  "edge_src": src, "edge_dst": dst, "edge_mask": torch.arange(e_pad, device=dev) < e,
                  "node_mask": torch.ones(n, dtype=torch.bool, device=dev)}
     d = registry.GNN_SHAPES["molecule"].dims
+    query = pipeline.dlrm_batch(cfg.table_sizes, cfg.n_dense, cfg.multi_hot, 1, 40_000, seed=SEED, device=dev)
+    gen.manual_seed(SEED + 23)
+    n_cand = registry.RECSYS_SHAPES["retrieval_cand"].dims["n_candidates"]
+    query["candidates"] = torch.randn((n_cand, cfg.embed_dim), generator=gen, device=dev)
     return {
         "dlrm": (cfg, pipeline.dlrm_batch(cfg.table_sizes, cfg.n_dense, cfg.multi_hot,
                                           registry.RECSYS_SHAPES["serve_p99"].dims["batch"], 30_000, seed=SEED,
                                           device=dev)),
+        "retrieval": query,
         "gcn": (gcn_cfg, gcn_batch),
         "molecule": pipeline.molecules_batch(d["batch"], d["n_nodes"], d["n_edges"], seed=SEED, device=dev),
     }
@@ -2751,10 +2823,12 @@ def mesh_models_rank(rank: int, world: int, tmp: str) -> None:
         rec = {"rank": rank}
         t0 = time.perf_counter()
         cfg, batch = inputs.pop("dlrm")
-        launches = mesh_dlrm_case(f"dlrm serve_p99 capped, rank {rank} of {MESH_II_SHAPE}", cfg,
-                                  dlrm.init_params(cfg, seed=SEED, device=dev), batch, m22, refs["dlrm_embs"],
-                                  refs["dlrm_probs"], rec)
-        del batch
+        params = dlrm.init_params(cfg, seed=SEED, device=dev)
+        launches = mesh_dlrm_case(f"dlrm serve_p99 capped, rank {rank} of {MESH_II_SHAPE}", cfg, params, batch, m22,
+                                  refs["dlrm_embs"], refs["dlrm_probs"], rec)
+        launches += mesh_retrieval_case(f"dlrm retrieval_cand capped, rank {rank} of {MESH_II_SHAPE}", cfg, params,
+                                        inputs.pop("retrieval"), m22, refs["retrieval"], rec)
+        del batch, params
         free()
         cfg, batch = inputs.pop("gcn")
         params = gnn.gcn_init(cfg, seed=SEED, device=dev)
@@ -2797,7 +2871,8 @@ def mesh_models_rank(rank: int, world: int, tmp: str) -> None:
                                  "all_reduces": collectives.WIRE_COUNTERS["all_reduces"],
                                  "bytes": collectives.WIRE_COUNTERS["bytes"]}
         launches += n
-        rec.update(b6_launches=launches, wall_s=time.perf_counter() - t0)
+        rec.update(b6_launches=launches, wall_s=time.perf_counter() - t0,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -2820,6 +2895,12 @@ def phase_mesh_models(dev, record) -> int:
     params = dlrm.init_params(cfg, seed=SEED, device=dev)
     refs = {"dlrm_embs": [e.cpu() for e in dlrm.embedding_bags(cfg, none, params, batch["sparse"])],
             "dlrm_probs": dlrm.make_serve_step(cfg, none)(params, batch).cpu()}
+    query = inputs.pop("retrieval")
+    user = torch.stack([dlrm._mlp_apply(params["bot"], query["dense"])[0]] + [
+        e[0].float() for e in dlrm.embedding_bags(cfg, none, params, query["sparse"][:1])]).mean(0)
+    scores, idx = dlrm.make_retrieval_step(cfg, none)(params, query)
+    refs["retrieval"] = (scores.cpu(), idx.cpu(), (query["candidates"] @ user).cpu())
+    del query, user
     rec["dlrm_tables"] = {"rows": sum(cfg.padded_table_sizes), "bytes": tree_bytes(params["tables"]),
                           "cap": MESH_DLRM_CAP}
     del params
@@ -2876,11 +2957,13 @@ def phase_mesh_models(dev, record) -> int:
             f"{be['energy']:.6f} (rel {be['rel_err']:.2e} from one NCCL rank's, limit {EQ_TOL}); "
             f"{be['b6_launches']} B6 launches; {be['all_reduces']} all_reduces, {be['bytes']} bytes; "
             f"{be['wall_s']:.1f} s (not a multi-card time)")
-    log("mesh", f"(d) {MESH_RANKS} gloo ranks sharing one card: dlrm serve_p99 capped at {MESH_DLRM_CAP} rows on "
-        f"{MESH_II_SHAPE}, gcn ogb_products on {MESH_I_SHAPE} (degrees exact), schnet, nequip, equiformer-v2 at "
+    log("mesh", f"(d) {MESH_RANKS} gloo ranks sharing one card: dlrm serve_p99 and retrieval_cand capped at "
+        f"{MESH_DLRM_CAP} rows on {MESH_II_SHAPE}, gcn ogb_products on {MESH_I_SHAPE} (degrees exact), schnet, nequip, "
+        "equiformer-v2 at "
         f"molecule and (e) equiformer_energy_big on {MESH_II_SHAPE}: every output within tolerance of the one-card "
         f"run on every rank; {launches} B6 "
-        f"launches; {rec['b_s']:.1f} s wall (spawn included; not a multi-card time)")
+        f"launches; {rec['b_s']:.1f} s wall (spawn included; not a multi-card time); the ranks' peaks allocated "
+        f"{[round(rr['peak_gb'], 2) for rr in rec['ranks']]} GB, this process's {torch.cuda.max_memory_allocated() / 1e9:.2f}")
     return launches
 
 
@@ -3460,14 +3543,62 @@ def phase_decode(dev, gen, flush, record) -> dict:
             f"cache {controls['half_cache']}); {t['ms']:.4f} ms (L2 flushed; "
             f"{t['warm_ms']:.4f} warm; {t['events_ms']:.4f} one call), plain {t['plain_ms']:.4f} ms, "
             f"SDPA {t['library_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by {t['bound_by']}")
+    offset_err = check_b7_kv_head_offset(dev, gen, record)
     t = rec["decode_32k"]
     return {"name": "flash_decode_gqa", "route": "cuda",
             "source": "src/repro_torch/kernels/decode_attn/csrc/decode_attn.cu",
             "replaces": "src/repro/kernels/decode_attn/decode_attn.py:61",
             "launches": sum(r["launches"] for r in rec.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in rec.values()), "ms": t["ms"],
+            "max_abs_err": max(offset_err, *(r["max_abs_err"] for r in rec.values())), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]}
+
+
+def check_b7_kv_head_offset(dev, gen, record) -> float:
+    """B7 on a kv-head offset at a granite rank's shapes in mesh_lm (c) (a
+    (2, 2) mesh: the rank's GRANITE.n_q_heads / 2 q heads read kv groups
+    [m * G / 2, (m + 1) * G / 2) of the whole cache, in place): decode_32k's
+    batch block at kv_len S - 17 and the request run's block (LM_REQUESTS
+    / 2 rows of S = LM_PROMPT + LM_NEW) at kv_len S - 10, block_kv as
+    ``layers.decode_attention`` picks it, against ``flash_decode_gqa_plain`` at the same offset;
+    max |diff| at most BF16_TOL of the largest |output|, which the other
+    half's groups must miss.  Returns the largest max |diff|."""
+    cfg, m = GRANITE, 2
+    heads, groups = cfg.n_q_heads // m, cfg.n_kv_heads // m
+    batch, seq = DECODE_SHAPES["decode_32k"]
+    cases = {"decode_32k": (batch // m, seq, seq - 17),
+             "request": (LM_REQUESTS // m, LM_PROMPT + LM_NEW, LM_PROMPT + LM_NEW - 10)}
+    out = record["decode_kv_head_offset"] = {}
+    for name, (b, s, kv) in cases.items():
+        block = math.gcd(s, 512)
+        q = torch.randn((b, heads, cfg.d_head), generator=gen, device=dev, dtype=cfg.dtype)
+        k = torch.randn((b, s, cfg.n_kv_heads, cfg.d_head), generator=gen, device=dev, dtype=cfg.dtype)
+        v = torch.randn((b, s, cfg.n_kv_heads, cfg.d_head), generator=gen, device=dev, dtype=cfg.dtype)
+        kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+        got, want = {}, {}
+        for off in (0, groups):
+            got[off] = decode_attn.flash_decode_gqa(q, k, v, kv_len, block, off, groups)
+            want[off] = decode_attn.flash_decode_gqa_plain(q, k, v, kv_len, block, off, groups)
+        for off in got:
+            scale = float(want[off].float().abs().max())
+            err = float((got[off].float() - want[off].float()).abs().max())
+            other = float((got[groups - off].float() - want[off].float()).abs().max())
+            if not torch.isfinite(got[off].float()).all() or err > BF16_TOL * scale:
+                raise AssertionError(f"B7 at kv-head offset {off} ({name}): max |diff| {err} > {BF16_TOL} x {scale}")
+            if other <= BF16_TOL * scale:
+                raise AssertionError(f"B7 at kv-head offset {off} ({name}): the other groups' output passes "
+                                     f"({other} <= {BF16_TOL} x {scale})")
+            out[f"{name}_off{off}"] = {"max_abs_err": err, "largest_abs_out": scale, "limit": BF16_TOL * scale,
+                                       "other_groups_diff": other}
+        log("decode", f"B7 on a kv-head offset, in place, at a granite (2, 2) rank's {name} shape (B {b}, S {s}, "
+            f"kv_len {kv}, H {heads} on kv groups [0, {groups}) and [{groups}, {cfg.n_kv_heads}) of "
+            f"{cfg.n_kv_heads}, Dh {cfg.d_head}, block_kv {block}, {cfg.dtype}) ~= plain at the same offset: "
+            + "; ".join(f"offset {off}: max |diff| {out[f'{name}_off{off}']['max_abs_err']} <= "
+                        f"{out[f'{name}_off{off}']['limit']}, the other groups' output "
+                        f"{out[f'{name}_off{off}']['other_groups_diff']}" for off in got))
+        del q, k, v, got, want
+        free()
+    return max(r["max_abs_err"] for r in out.values())
 
 
 def timed_steps(phase: str, what: str, fn, inputs: list, kernel: str, per_step: int,
@@ -3616,8 +3747,8 @@ def phase_dlrm(dev, gen, record) -> tuple[int, dict]:
     user = torch.stack([q] + [
         embedbag.embedding_bag_sorted_plain(params["tables"][f"t{i}"], b["sparse"][0, i].contiguous(), hot0, 1)[0].float()
         for i in range(DLRM.n_sparse)]).mean(0)
-    want = torch.topk(cands @ user, 64)
     all_scores = cands @ user
+    want = torch.topk(all_scores, 64)
     if not (torch.equal(scores, want.values) and torch.equal(all_scores[top], want.values)):
         raise AssertionError("dlrm retrieval_cand: the top 64 differ from plain bags' (beyond ties)")
     r.update({"n_candidates": n_cand, "top": 64})
@@ -3908,15 +4039,35 @@ class RouteTape:
             if bool((gap > 2 * row_diff[differ]).any()):
                 raise AssertionError("a token chose other experts than its logits' own top k allows")
 
-    @contextlib.contextmanager
     def replay(self, batch: int, row: int = 0):
-        route, calls = lm_layers._route, iter(self.calls)
+        return self._feed(lambda t, xt: t.reshape(batch, -1, t.shape[-1])[row])
+
+    def replay_blocks(self, rules, mesh, batch: int, n_experts: int):
+        """:meth:`replay` on a rank of ``mesh``'s expert-parallel run: each
+        call is fed the recorded experts of the rank's (batch, sequence)
+        block of the whole batch's tokens (``layers.moe_plan``'s blocks)."""
+
+        def mine(t, xt):
+            seq = t.shape[0] // batch
+            plan = lm_layers.moe_plan(rules, (batch, seq, xt.shape[1]), n_experts, t.shape[-1])
+            b_lo, b_hi = collectives.block_of(batch, plan.batch_axes, mesh) if plan.batch_axes else (0, batch)
+            s_lo, s_hi = collectives.block_of(seq, plan.seq_axes, mesh) if plan.seq_axes else (0, seq)
+            return t.reshape(batch, seq, -1)[b_lo:b_hi, s_lo:s_hi].reshape(-1, t.shape[-1])
+
+        return self._feed(mine)
+
+    @contextlib.contextmanager
+    def _feed(self, select):
+        """``layers._route`` fed, call for call, ``select(recorded, xt)``:
+        the recorded (tokens, k) experts and (tokens, experts) logits of
+        the tokens ``xt`` holds."""
+        calls = iter(self.calls)
 
         def fed(p, xt, top_k):
             want, _, idx = next(calls)
-            idx = idx.reshape(batch, -1, top_k)[row].to(xt.device)
+            idx = select(idx, xt).to(xt.device)
             logits = xt.float() @ p["router"]
-            self.check(logits, want.reshape(batch, -1, want.shape[-1])[row], idx, top_k)
+            self.check(logits, select(want, xt), idx, top_k)
             return torch.softmax(torch.gather(logits, 1, idx), dim=-1), idx
 
         with patched(lm_layers, "_route", fed):
@@ -3997,13 +4148,15 @@ def moe_decode_32k(phase: str, what: str, cfg, params, gen, dev) -> dict:
     return r
 
 
-def phase_moe(dev, gen, record) -> int:
+def phase_moe(dev, gen, record) -> tuple[int, dict]:
     """granite-moe-1b-a400m whole and kimi-k2-1t-a32b at full width with
     one layer: a request run each, held to the port's CPU replay of one
     prompt (granite) or to a token-by-token recomputation of 64 routed
     MoE outputs and B7 at Dh 112 against plain (kimi), then decode_32k
     steps (granite cut to MOE_DECODE_LAYERS layers).  Returns B7's
-    launches."""
+    launches and granite's request run for mesh_lm (c) (host copies of
+    its prefill and last logits, its tokens, and each MoE call's router
+    logits and experts)."""
     rules = shd.Rules.from_mesh(None)
     rec = record["moe"] = {}
     launches = 0
@@ -4062,6 +4215,8 @@ def phase_moe(dev, gen, record) -> int:
         f"{tape.audit['largest_abs_logit']:.3f}); the replay's own top-{cfg.top_k} differs from the fed on "
         f"{tape.audit['differ']} of {tape.audit['tokens']} tokens, each a near tie (largest k-th to (k+1)-th "
         f"gap there {tape.audit['max_gap_where_differ']:.5f})")
+    granite = {"first": first.cpu(), "last": last.cpu(), "fed": [t.cpu() for t in fed],
+               "routes": [(w.cpu(), idx.cpu()) for w, _, idx in tape.calls]}
     del first, last, fed, c_first, c_last, prompts, tape
     free()
     # (b) decode_32k, n_layers cut: the first MOE_DECODE_LAYERS layers
@@ -4150,7 +4305,29 @@ def phase_moe(dev, gen, record) -> int:
     launches += k["decode_32k"]["launches"]
     del params
     free()
-    return launches
+    return launches, granite
+
+
+DENSE_LEAVES = ("['wq']", "['wk']", "['wv']", "['wo']", "['w_gate']", "['w_up']", "['w_down']", "['embed']",
+                "['lm_head']")
+
+
+def dense_bytes(params: dict) -> int:
+    """Bytes of an LM's dense weights, the leaves tensor parallelism cuts
+    over the model axis: the attention projections, the dense FFN, embed
+    and lm_head (not the experts or the norms)."""
+    return sum(t.numel() * t.element_size() for path, t in leaves_with_paths(params)
+               if path.endswith(DENSE_LEAVES) and "['moe']" not in path)
+
+
+def check_dense_share(what: str, whole: dict, mine: dict, model_size: int) -> dict:
+    """A rank's dense weights under tensor parallelism: every dense leaf
+    of the LMs run here divides over the model axis, so the rank holds
+    exactly the whole's bytes over ``model_size``."""
+    held, total = dense_bytes(mine), dense_bytes(whole)
+    if held * model_size != total:
+        raise AssertionError(f"{what}: the rank holds {held} bytes of dense weights, not {total} / {model_size}")
+    return {"dense_bytes": held, "dense_bytes_whole": total, "model_size": model_size}
 
 
 def _first_layers(tree: dict, n: int) -> dict:
@@ -4346,11 +4523,17 @@ class MoECheck:
 
 def mesh_lm_rank(rank: int, world: int, tmp: str) -> None:
     """One of the MESH_RANKS ``gloo`` ranks of the mesh_lm phase's (b) and
-    (c): (b) qwen3-14b long_500k on MESH_LM_SHAPE, the rank's shard of the
-    cache drawn from the seed, the steps' logits held to the parent's
-    one-card run; (c) granite-moe-1b-a400m expert-parallel on
-    MESH_II_SHAPE: the request run at capacity 1.25 and MESH_MOE_NO_DROP,
-    every MoE call held by :class:`MoECheck`, then decode_32k at
+    (c): (b) qwen3-14b long_500k on MESH_LM_SHAPE, the rank's
+    tensor-parallel blocks of the weights (:func:`check_dense_share`) and
+    its shard of the cache drawn from the seed, the steps' logits held to
+    the parent's one-card run; (c) granite-moe-1b-a400m expert-parallel,
+    its attention and vocab tensor-parallel, on MESH_II_SHAPE: the request
+    run at capacity 1.25 and MESH_MOE_NO_DROP,
+    every MoE call held by :class:`MoECheck`; at MESH_MOE_NO_DROP again,
+    fed the moe phase's one-card tokens and experts (``RouteTape``: a
+    token may take other experts only at a near tie), its prefill and
+    last logits held to that run's within BF16_TOL of the largest |logit|
+    with no assignment dropped; then decode_32k at
     MESH_MOE_DECODE_LAYERS layers on the rank's block of a random cache.
     Writes its counts to ``rank{rank}.json``."""
     torch.set_num_threads(2)
@@ -4364,10 +4547,14 @@ def mesh_lm_rank(rank: int, world: int, tmp: str) -> None:
         _, seq = DECODE_SHAPES["long_500k"]
         mesh = mesh_lib.make_test_mesh(*MESH_LM_SHAPE)
         t0 = time.perf_counter()
-        params = transformer.init_params(cfg, seed=SEED, device=dev)
+        whole = transformer.init_params(cfg, seed=SEED, device=dev)
         with shd.use_mesh(mesh):
             rules = transformer.rules_for(cfg, mesh)
             m, M = collectives.axis_index(mesh, rules.model_axis), rules.model_size
+            params = transformer.shard_params(cfg, rules, whole)  # the rank's tensor-parallel blocks
+            dense = check_dense_share(f"mesh_lm (b) rank {rank}", whole, params, M)
+            del whole
+            free()
             shard = {**long_cache_part(cfg, seq, m * seq // M, (m + 1) * seq // M, dev),
                      "len": torch.tensor(seq - 17, dtype=torch.int32, device=dev)}
             step = transformer.make_decode_step(cfg, rules, seq_sharded=True)
@@ -4379,10 +4566,11 @@ def mesh_lm_rank(rank: int, world: int, tmp: str) -> None:
         if any(n != cfg.n_layers * steps for n in counts.values()):
             raise AssertionError(f"mesh_lm (b) rank {rank}: B7 entries {counts}, expected layers x steps")
         errs = check_long_logits(got, refs["long"], f"mesh_lm (b) rank {rank}", exact=False)
+        largest = max(float(w.float().abs().max()) for w in refs["long"])
         rec["b"] = {"launches": counts, "max_abs_err": errs, "ms": ms, "wall_s": time.perf_counter() - t0,
                     "all_reduces_per_step": collectives.WIRE_COUNTERS["all_reduces"] / steps,
                     "bytes_per_step": collectives.WIRE_COUNTERS["bytes"] / steps,
-                    "shard_positions": seq // M}
+                    "shard_positions": seq // M, "largest_abs_logit": largest, **dense}
         del params, shard, got, step
         free()
         # (c) granite-moe-1b-a400m, experts over the model axis
@@ -4394,6 +4582,7 @@ def mesh_lm_rank(rank: int, world: int, tmp: str) -> None:
         with shd.use_mesh(mesh):
             rules = transformer.rules_for(cfg, mesh)
             mine = transformer.shard_params(cfg, rules, params)
+            dense = check_dense_share(f"mesh_lm (c) rank {rank}", params, mine, rules.model_size)
             check = MoECheck(cfg, params["layers"]["moe"], rules.model_size,
                              collectives.axis_index(mesh, rules.model_axis))
             prompts = pipeline.lm_batch(cfg.vocab, LM_REQUESTS, LM_PROMPT, step=0, seed=SEED, device=dev)["tokens"]
@@ -4411,6 +4600,25 @@ def mesh_lm_rank(rank: int, world: int, tmp: str) -> None:
                         raise AssertionError(f"mesh_lm (c) rank {rank}: logits not finite or of the wrong shape")
                 check.stats[cf].update(all_to_alls=collectives.WIRE_COUNTERS["all_to_all"],
                                        bytes=collectives.WIRE_COUNTERS["bytes"])
+            # the whole model through the tensor-parallel attention and vocab,
+            # held to one card's: fed its tokens and its experts
+            want = refs["granite"]
+            tape, drops = RouteTape(), {}
+            tape.calls = [(w, None, idx) for w, idx in want["routes"]]
+            moe = functools.partial(lm_layers.apply_moe, capacity_factor=MESH_MOE_NO_DROP)
+            reset_launches()
+            with counted_drops(drops), patched(lm_layers, "apply_moe", moe), \
+                    tape.replay_blocks(rules, mesh, LM_REQUESTS, cfg.n_experts):
+                first, last, _ = lm_request_run(cfg, rules, mine, prompts, want["fed"])
+            n = only_launched("flash_decode_gqa", f"mesh_lm (c) rank {rank} request run held to one card's")
+            if n != cfg.n_layers * LM_NEW or drops["dropped"]:
+                raise AssertionError(f"mesh_lm (c) rank {rank}: {n} B7 launches, {drops} at {MESH_MOE_NO_DROP}")
+            b7 += n
+            one_card = {"max_abs_err": check_long_logits([first, last], [want["first"], want["last"]],
+                                                         f"mesh_lm (c) rank {rank} request run", exact=False),
+                        "largest_abs_logit": [float(w.float().abs().max()) for w in (want["first"], want["last"])],
+                        "route_audit": tape.audit, **drops}
+            del want, tape
             # decode_32k on MESH_MOE_DECODE_LAYERS layers, the rank's block of the batch
             del first, last
             free()
@@ -4442,21 +4650,23 @@ def mesh_lm_rank(rank: int, world: int, tmp: str) -> None:
                      all_to_alls_per_step=collectives.WIRE_COUNTERS["all_to_all"] / steps,
                      bytes_per_step=collectives.WIRE_COUNTERS["bytes"] / steps)
             b7 += r["launches"]
-        rec["c"] = {"request": {str(cf): st for cf, st in check.stats.items()}, "decode_32k": r, "b7_launches": b7,
-                    "wall_s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        rec["c"] = {"request": {str(cf): st for cf, st in check.stats.items()}, "one_card": one_card,
+                    "decode_32k": r, "b7_launches": b7,
+                    "wall_s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **dense}
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
         dist.destroy_process_group()
 
 
-def phase_mesh_lm(dev, flush, record) -> tuple[int, float]:
+def phase_mesh_lm(dev, flush, record, granite: dict) -> tuple[int, float]:
     """The models' last mesh programs on the card: qwen3-14b long_500k
     decode over a cache sharded along the sequence (B7's partials and
     combine entries, held to their plain twins first) on one NCCL rank (a)
     and MESH_RANKS ``gloo`` ranks (b); granite-moe-1b-a400m expert-parallel
     on MESH_RANKS ``gloo`` ranks (c); kimi-k2 at full width, one layer,
-    expert-parallel with ``fsdp_experts`` on one NCCL rank (d).  Returns
+    expert-parallel with ``fsdp_experts`` on one NCCL rank (d).  ``granite``
+    is the moe phase's one-card request run, which (c) is held to.  Returns
     (B7's launches over its entries, every rank's summed, and the entries'
     largest |diff| from plain)."""
     rec = record["mesh_lm"] = {}
@@ -4509,7 +4719,7 @@ def phase_mesh_lm(dev, flush, record) -> tuple[int, float]:
         launches += mesh_kimi(dev, mesh, rec)
     finally:
         dist.destroy_process_group()
-    torch.save({"long": [w.cpu() for w in want]}, os.path.join(tmp, "refs.pt"))
+    torch.save({"long": [w.cpu() for w in want], "granite": granite}, os.path.join(tmp, "refs.pt"))
     del want
     free()
     t0 = time.perf_counter()
@@ -4524,21 +4734,31 @@ def phase_mesh_lm(dev, flush, record) -> tuple[int, float]:
         b, c = rr["b"], rr["c"]
         launches += sum(b["launches"].values()) + c["b7_launches"]
         log("mesh_lm", f"(b) rank {rr['rank']} of {MESH_LM_SHAPE} ({b['shard_positions']} positions): logits "
-            f"within {max(b['max_abs_err'])} of one card's (limit {BF16_TOL} x largest |logit|), the step at len "
+            f"within {max(b['max_abs_err'])} of one card's (limit {BF16_TOL} x largest |logit| "
+            f"{b['largest_abs_logit']}), the step at len "
             f"{MESH_LM_LOW} {b['max_abs_err'][-1]}; B7 entries {b['launches']}; {b['all_reduces_per_step']} "
             f"all_reduces, {b['bytes_per_step']:.0f} bytes a step; ms a step {[round(x, 2) for x in b['ms']]} "
-            "(4 ranks on one card through gloo: not a multi-card time)")
+            "(4 ranks on one card through gloo: not a multi-card time); tensor-parallel: "
+            f"{b['dense_bytes']} bytes of dense weights = {b['dense_bytes_whole']} / {b['model_size']}")
         for cf, st in c["request"].items():
             log("mesh_lm", f"(c) rank {rr['rank']} of {MESH_II_SHAPE} granite request run at capacity {cf}: "
                 f"{st['calls']} MoE calls held to moe_capacity_plain{' and the one-card layer' if float(cf) == MESH_MOE_NO_DROP else ''} "
                 f"(max |diff| {st['max_abs_err']}, largest |out| {st['largest_abs_out']}); {st['dropped']} of "
                 f"{st['assignments']} assignments dropped; {st['all_to_alls']} all_to_alls, {st['bytes']} bytes")
+        o, a = c["one_card"], c["one_card"]["route_audit"]
+        log("mesh_lm", f"(c) rank {rr['rank']} granite request run at capacity {MESH_MOE_NO_DROP}, fed one card's "
+            f"tokens and experts: prefill and last-step logits within {o['max_abs_err']} of one card's (limit "
+            f"{BF16_TOL} x largest |logit| {o['largest_abs_logit']}); {o['dropped']} of {o['slotted']} slotted "
+            f"assignments dropped; router logits within {a['max_abs_logit_diff']:.5f} of one card's, the rank's own "
+            f"top-{GRANITE.top_k} differs on {a['differ']} of {a['tokens']} tokens, each a near tie (largest gap "
+            f"there {a['max_gap_where_differ']:.5f})")
         d = c["decode_32k"]
         log("mesh_lm", f"(c) rank {rr['rank']} decode_32k ({MESH_MOE_DECODE_LAYERS} layers, rows {d['block']}, cap_send "
             f"{d['cap_send']}): median {d['median_ms']:.3f} ms a step, {d['launches']} B7 launches = layers x "
             f"steps; {d['check']['dropped']} of {d['check']['assignments']} dropped in the checked step; "
             f"{d['all_to_alls_per_step']} all_to_alls, {d['bytes_per_step']:.0f} bytes a step; {c['peak_gb']:.2f} GB "
-            "peak on the rank")
+            f"peak on the rank; tensor-parallel attention and vocab: {c['dense_bytes']} bytes of dense weights = "
+            f"{c['dense_bytes_whole']} / {c['model_size']}")
     log("mesh_lm", f"(b) and (c): {MESH_RANKS} gloo ranks sharing one card, {rec['bc_s']:.1f} s wall (spawn "
         "included; not a multi-card time)")
     return launches, entries_err
@@ -6218,9 +6438,11 @@ def main() -> int:
     n, finish_lm = phase_lm(dev, gen, record)
     new_kernels[2]["launches"] += n
     phase_end("lm")
-    new_kernels[2]["launches"] += phase_moe(dev, gen, record)
+    n, granite = phase_moe(dev, gen, record)
+    new_kernels[2]["launches"] += n
     phase_end("moe")
-    n, err = phase_mesh_lm(dev, flush, record)
+    n, err = phase_mesh_lm(dev, flush, record, granite)
+    del granite
     new_kernels[2]["launches"] += n
     new_kernels[2]["max_abs_err"] = max(new_kernels[2]["max_abs_err"], err)
     phase_end("mesh_lm")

@@ -20,6 +20,9 @@ bodies call:
   coordinate ``d`` of ``n`` holds rows ``[d·k, (d+1)·k)``,
   ``k = ⌈rows / n⌉`` (``rows / n`` for the sites, which must divide);
   :func:`batch_block`, a batch's rows under ``P(rules.batch)``;
+  :func:`fitted_block`, a dimension of a leaf under a fitted placement
+  (the LMs' tensor-parallel blocks); :func:`flat_block`, rows over every
+  axis as ``repro`` fits them (retrieval's candidates);
 * ``lax.all_gather(x, axes, axis=dim, tiled=True)`` — :func:`all_gather`;
 * ``lax.psum_scatter(x, axes, scatter_dimension=dim, tiled=True)`` —
   :func:`psum_scatter`: the ``psum``, of which a rank keeps its block;
@@ -266,6 +269,34 @@ def batch_block(rules: shd.Rules, n: int) -> tuple[int, int, Axes]:
         return 0, n, ()
     axes = entry_axes(rules.fit((rules.batch, None), (n, 1))[0])
     return (*block_of(n, axes, mesh), axes)
+
+
+def fitted_block(placement, shape, dim: int, mesh=None) -> tuple[int, int, Axes]:
+    """The rows ``[lo, hi)`` of dimension ``dim`` that this rank holds of a
+    leaf of global ``shape`` under ``placement`` fitted as ``repro`` fits
+    it (:func:`sharding.fit_spec`: a dimension the axes do not divide
+    stays whole), and the axes they are blocked over: :func:`leaf_block`'s
+    cut of that dimension.  ``(0, shape[dim], ())`` off-mesh or where the
+    fit leaves the dimension whole."""
+    mesh = shd.get_mesh() if mesh is None else mesh
+    if mesh is None:
+        return 0, shape[dim], ()
+    axes = entry_axes(shd.fit_spec(mesh, placement, tuple(shape))[dim])
+    if not axes:
+        return 0, shape[dim], ()
+    return (*block_of(shape[dim], axes, mesh, even=True), axes)
+
+
+def flat_block(rules: shd.Rules, n: int) -> tuple[int, int, Axes]:
+    """The rows ``[lo, hi)`` of ``n`` that this rank holds when they lie
+    over every axis of the installed mesh (the batch axes, then the model
+    axis), fitted as ``repro`` fits ``P((batch axes…, model))``: axes
+    dropped innermost first until their size divides ``n`` (1,000,000
+    retrieval candidates lie over ``data`` at (16, 16) and over ``(pod,
+    data)`` at (2, 16, 16)), and the axes kept.  ``(0, n, ())``
+    off-mesh."""
+    flat = tuple(rules.batch_axes) + ((rules.model_axis,) if rules.model_axis else ())
+    return fitted_block((flat,), (n,), 0)
 
 
 def entry_axes(entry) -> Axes:
@@ -560,5 +591,6 @@ def agree(flags, mesh=None, device=None) -> list[bool]:
 
 
 __all__ = ["WIRE_COUNTERS", "agree", "all_gather", "all_to_all", "assemble_leaf", "axis_index", "axis_size",
-           "batch_block", "block_of", "broadcast_bytes", "enter", "enter_tree", "entry_axes", "gather_rows", "group",
+           "batch_block", "block_of", "broadcast_bytes", "enter", "enter_tree", "entry_axes", "fitted_block",
+           "flat_block", "gather_rows", "group",
            "leaf_block", "mesh_axes", "mesh_rank", "pmax", "psum", "psum_scatter", "site_block"]

@@ -82,6 +82,13 @@
 // gathered and laid out as one split axis, rank-major.  At kv_offset 0
 // and one rank, partials then combine are this file's own two launches.
 //
+// A rank of a tensor-parallel layer (models/transformer.py) holds some
+// of the q heads and the whole cache: its heads read kv groups
+// [g_offset, g_offset + n_groups) of the cache's kv_groups.  The grid and
+// the q rows are the rank's (B * n_groups CTAs, r rows each); a CTA of
+// group g reads cache group g_offset + g, whose positions lie
+// kv_groups * Dh elements apart.  No slice of the cache is copied.
+//
 // Offsets: B * S * G * Dh reaches 4.3e9 at decode_32k, so element
 // offsets are 64-bit.
 
@@ -152,8 +159,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 
 // What CTA (bg, split) reads and how it scores.
 struct Split {
-  int64_t row_stride;  // elements between kv positions: G * Dh
-  int64_t kv_off;      // element offset of (b, position 0, g, 0)
+  int64_t row_stride;  // elements between kv positions: kv_groups * Dh
+  int64_t kv_off;      // element offset of (b, position 0, g_offset + g, 0)
   int64_t q_off;       // element offset of q row g * r of batch b, = bg * r * Dh
   int p_lo;            // first position of the split
   int valid_end;       // positions at or past it are absent
@@ -161,12 +168,12 @@ struct Split {
 };
 
 __device__ __forceinline__ Split split_of(int seq, int n_groups, int r, int dh, int split_len,
-                                          int kv_len, int kv_offset) {
+                                          int kv_len, int kv_offset, int kv_groups, int g_offset) {
   Split s;
   const int bg = blockIdx.x;
   const int b = bg / n_groups, g = bg % n_groups;
-  s.row_stride = (int64_t)n_groups * dh;
-  s.kv_off = ((int64_t)b * seq * n_groups + g) * dh;
+  s.row_stride = (int64_t)kv_groups * dh;
+  s.kv_off = ((int64_t)b * seq * kv_groups + g_offset + g) * dh;
   s.q_off = (int64_t)bg * r * dh;
   s.p_lo = blockIdx.y * split_len;
   const int p_hi = min(seq, s.p_lo + split_len);
@@ -235,13 +242,15 @@ __global__ void __launch_bounds__(kThreads) decode_bf16_kernel(
     const int32_t* __restrict__ kv_len_ptr,
     __nv_bfloat16* __restrict__ out,      // (B, H, Dh), when part is null
     float* __restrict__ part,             // split partials, or null
-    int seq, int n_groups, int r, int split_len, int kv_offset, float scale) {
+    int seq, int n_groups, int r, int split_len, int kv_offset, int kv_groups, int g_offset,
+    float scale) {
   constexpr int kTileElems = kTile * kRowElems<Dh>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // stages x (K, V)
   __nv_bfloat16* q_s = ring + kStages * 2 * kTileElems;               // 16 rows
 
-  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr, kv_offset);
+  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr, kv_offset, kv_groups,
+                            g_offset);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
   // q rows 0 .. r-1 of the group, zero rows up to 16
@@ -417,7 +426,8 @@ template <int Dh>
 __global__ void __launch_bounds__(kThreads) decode_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int32_t* __restrict__ kv_len_ptr, float* __restrict__ out, float* __restrict__ part,
-    int seq, int n_groups, int r, int split_len, int kv_offset, float scale) {
+    int seq, int n_groups, int r, int split_len, int kv_offset, int kv_groups, int g_offset,
+    float scale) {
   constexpr int kKs = Dh + 4;                       // padded K row
   constexpr int kStageFloats = kTile32 * (kKs + Dh);
   constexpr int kDims = (Dh + kThreads - 1) / kThreads;
@@ -430,7 +440,8 @@ __global__ void __launch_bounds__(kThreads) decode_f32_kernel(
   float* m_s = corr_s + kMaxR;                       // 16
   float* l_s = m_s + kMaxR;                          // 16
 
-  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr, kv_offset);
+  const Split sp = split_of(seq, n_groups, r, Dh, split_len, *kv_len_ptr, kv_offset, kv_groups,
+                            g_offset);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   for (int i = tid; i < r * Dh; i += kThreads) q_s[i] = q[sp.q_off + i];
 
@@ -611,7 +622,8 @@ int launch_combine(const void* part, void* out, int batch_groups, int n_split, i
 template <typename T, int Dh>
 int launch_dh(const void* q, const void* k, const void* v, const void* kv_len, void* out,
               void* part, int batch, int seq, int n_groups, int r, int n_split, int split_len,
-              int kv_offset, bool partials_only, float scale, cudaStream_t stream) {
+              int kv_offset, int kv_groups, int g_offset, bool partials_only, float scale,
+              cudaStream_t stream) {
   const dim3 grid(batch * n_groups, n_split);
   float* partials = n_split > 1 || partials_only ? (float*)part : nullptr;
   static size_t allowed[kMaxDevices] = {};
@@ -622,14 +634,14 @@ int launch_dh(const void* q, const void* k, const void* v, const void* kv_len, v
     decode_bf16_kernel<Dh><<<grid, kThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
         (const int32_t*)kv_len, (__nv_bfloat16*)out, partials, seq, n_groups, r, split_len,
-        kv_offset, scale);
+        kv_offset, kv_groups, g_offset, scale);
   } else {
     const size_t smem = sizeof(float) * (kStages * kTile32 * (2 * Dh + 4) + kMaxR * Dh +
                                          kMaxR * kTile32 + 3 * kMaxR);
     if ((err = allow_smem(decode_f32_kernel<Dh>, smem, allowed)) != cudaSuccess) return (int)err;
     decode_f32_kernel<Dh><<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const int32_t*)kv_len, (float*)out,
-        partials, seq, n_groups, r, split_len, kv_offset, scale);
+        partials, seq, n_groups, r, split_len, kv_offset, kv_groups, g_offset, scale);
   }
   if ((err = cudaGetLastError()) != cudaSuccess || partials == nullptr || partials_only)
     return (int)err;
@@ -639,24 +651,26 @@ int launch_dh(const void* q, const void* k, const void* v, const void* kv_len, v
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, void* out, void* part,
            int batch, int seq, int n_groups, int r, int dh, int n_split, int split_len,
-           int kv_offset, bool partials_only, float scale, void* stream) {
+           int kv_offset, int kv_groups, int g_offset, bool partials_only, float scale,
+           void* stream) {
   if (r < 1 || r > kMaxR || n_split < 1 || split_len < 1 || split_len % kTile ||
-      kv_offset < 0 || ((n_split > 1 || partials_only) && part == nullptr))
+      kv_offset < 0 || g_offset < 0 || n_groups < 1 || g_offset + n_groups > kv_groups ||
+      ((n_split > 1 || partials_only) && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (dh) {
     case 64:
       return launch_dh<T, 64>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                              split_len, kv_offset, partials_only, scale, s);
+                              split_len, kv_offset, kv_groups, g_offset, partials_only, scale, s);
     case 112:
       return launch_dh<T, 112>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                               split_len, kv_offset, partials_only, scale, s);
+                               split_len, kv_offset, kv_groups, g_offset, partials_only, scale, s);
     case 128:
       return launch_dh<T, 128>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                               split_len, kv_offset, partials_only, scale, s);
+                               split_len, kv_offset, kv_groups, g_offset, partials_only, scale, s);
     case 256:
       return launch_dh<T, 256>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, n_split,
-                               split_len, kv_offset, partials_only, scale, s);
+                               split_len, kv_offset, kv_groups, g_offset, partials_only, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -673,21 +687,25 @@ int combine(const void* part, void* out, int batch, int n_groups, int r, int dh,
 }  // namespace
 
 // B7 on float32 q, k, v.  part: B * G * n_split * r * (Dh + 2) f32 of
-// scratch when n_split > 1.  Returns cudaGetLastError() after the launches.
+// scratch when n_split > 1.  The heads read groups [g_offset, g_offset +
+// n_groups) of a cache of kv_groups.  Returns cudaGetLastError() after
+// the launches.
 extern "C" int decode_attn_f32(const void* q, const void* k, const void* v, const void* kv_len,
                                void* out, void* part, int batch, int seq, int n_groups, int r,
-                               int dh, int n_split, int split_len, float scale, void* stream) {
+                               int dh, int n_split, int split_len, int kv_groups, int g_offset,
+                               float scale, void* stream) {
   return launch<float>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, dh, n_split,
-                       split_len, 0, false, scale, stream);
+                       split_len, 0, kv_groups, g_offset, false, scale, stream);
 }
 
 // B7 on bfloat16 q, k, v: tensor-core products, f32 statistics and
 // accumulator, output in bf16.
 extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, const void* kv_len,
                                 void* out, void* part, int batch, int seq, int n_groups, int r,
-                                int dh, int n_split, int split_len, float scale, void* stream) {
+                                int dh, int n_split, int split_len, int kv_groups, int g_offset,
+                                float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, kv_len, out, part, batch, seq, n_groups, r, dh, n_split,
-                               split_len, 0, false, scale, stream);
+                               split_len, 0, kv_groups, g_offset, false, scale, stream);
 }
 
 // B7's split kernel alone on a cache that holds the global positions
@@ -697,17 +715,20 @@ extern "C" int decode_attn_bf16(const void* q, const void* k, const void* v, con
 extern "C" int decode_partials_f32(const void* q, const void* k, const void* v,
                                    const void* kv_len, void* part, int batch, int seq,
                                    int n_groups, int r, int dh, int n_split, int split_len,
-                                   int kv_offset, float scale, void* stream) {
+                                   int kv_offset, int kv_groups, int g_offset, float scale,
+                                   void* stream) {
   return launch<float>(q, k, v, kv_len, nullptr, part, batch, seq, n_groups, r, dh, n_split,
-                       split_len, kv_offset, true, scale, stream);
+                       split_len, kv_offset, kv_groups, g_offset, true, scale, stream);
 }
 
 extern "C" int decode_partials_bf16(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* part, int batch, int seq,
                                     int n_groups, int r, int dh, int n_split, int split_len,
-                                    int kv_offset, float scale, void* stream) {
+                                    int kv_offset, int kv_groups, int g_offset, float scale,
+                                    void* stream) {
   return launch<__nv_bfloat16>(q, k, v, kv_len, nullptr, part, batch, seq, n_groups, r, dh,
-                               n_split, split_len, kv_offset, true, scale, stream);
+                               n_split, split_len, kv_offset, kv_groups, g_offset, true, scale,
+                               stream);
 }
 
 // B7's combine kernel alone: n_split partials per (batch, group) in

@@ -52,6 +52,15 @@ their shape.  Their plain twins take the shard as one split: the plain online so
 one shard at offset 0 partials then combine equal it bit for bit.  On
 CUDA tensors, at one shard and offset 0 the two entries are
 ``flash_decode_gqa``'s own two launches where it splits.
+
+A rank of a tensor-parallel layer holds some of the q heads and the
+whole cache (``repro``'s ``cache/kv`` keeps the kv heads whole over the
+model axis): ``flash_decode_gqa`` and ``flash_decode_gqa_partials`` take
+``kv_head_offset`` and ``kv_heads``, and q's H heads read the cache's kv
+groups ``[kv_head_offset, kv_head_offset + kv_heads)`` (``kv_heads`` 0:
+every group from the offset on).  The kernel reads them in place, at the
+whole cache's row stride; the plain twins slice a view; the formulas
+count those groups' bytes only.
 """
 
 from __future__ import annotations
@@ -91,16 +100,29 @@ def decode_splits(batch: int, n_groups: int, seq: int) -> tuple[int, int]:
     return -(-seq // split_len), split_len
 
 
-def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_kv: int):
+def _groups(k: torch.Tensor, kv_head_offset: int, kv_heads: int) -> int:
+    """The kv groups q's heads read: ``kv_heads``, or with 0 every group of
+    ``k`` from ``kv_head_offset`` on; the range must lie in ``k``."""
+    g_all = k.shape[2]
+    g = kv_heads or g_all - kv_head_offset
+    if kv_head_offset < 0 or g < 1 or kv_head_offset + g > g_all:
+        raise ValueError(f"kv groups [{kv_head_offset}, {kv_head_offset + g}) do not lie in the cache's {g_all}")
+    return g
+
+
+def _shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_kv: int, kv_head_offset: int = 0,
+            kv_heads: int = 0):
+    """(B, H, Dh, S, G): G the kv groups q's heads read (:func:`_groups`)."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"need q (B, H, Dh) and k, v (B, S, G, Dh); got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, h, dh = q.shape
-    kb, s, g, kdh = k.shape
+    kb, s, _, kdh = k.shape
+    g = _groups(k, kv_head_offset, kv_heads)
     if (kb, kdh) != (b, dh) or h % g:
-        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)} in GQA")
+        raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}'s {g} groups in GQA")
     if s % block_kv:
         raise ValueError(f"S={s} must be a multiple of block_kv={block_kv}")
     return b, h, dh, s, g
@@ -149,14 +171,18 @@ def ranks_major(bufs: torch.Tensor, shape: tuple[int, int, int, int, int]) -> Pa
     return whole
 
 
-def _online_softmax(q, k, v, kv_len, block_kv: int, kv_offset: int = 0, absent_past_len: bool = False):
+def _online_softmax(q, k, v, kv_len, block_kv: int, kv_offset: int = 0, absent_past_len: bool = False,
+                    kv_head_offset: int = 0, kv_heads: int = 0):
     """``repro``'s online softmax over ``k``, ``v``'s positions, block by
     block, as (m, l) (B, G, r, 1) and acc (B, G, r, Dh), f32; position
-    ``p`` is ``kv_offset + p`` of the global cache.  Past ``kv_len`` a
-    score is -1e30; with ``absent_past_len`` and ``kv_len >= 1`` such a
-    position is also absent (weight 0), as in the kernel, which changes
-    nothing once a valid position has been seen."""
-    b, h, dh, s, g = _shapes(q, k, v, block_kv)
+    ``p`` is ``kv_offset + p`` of the global cache, G the groups
+    ``[kv_head_offset, kv_head_offset + kv_heads)`` (a view).  Past
+    ``kv_len`` a score is -1e30; with ``absent_past_len`` and ``kv_len >=
+    1`` such a position is also absent (weight 0), as in the kernel, which
+    changes nothing once a valid position has been seen."""
+    b, h, dh, s, g = _shapes(q, k, v, block_kv, kv_head_offset, kv_heads)
+    if g != k.shape[2]:
+        k, v = k[:, :, kv_head_offset : kv_head_offset + g], v[:, :, kv_head_offset : kv_head_offset + g]
     scale = 1.0 / math.sqrt(dh)
     dev = q.device
     qg = q.reshape(b, g, h // g, dh).float()
@@ -181,27 +207,29 @@ def _online_softmax(q, k, v, kv_len, block_kv: int, kv_offset: int = 0, absent_p
 
 
 def flash_decode_gqa_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, block_kv: int = 512
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, block_kv: int = 512,
+    kv_head_offset: int = 0, kv_heads: int = 0,
 ) -> torch.Tensor:
     """:func:`flash_decode_gqa` in plain PyTorch: ``repro``'s online
     softmax, block by block of ``block_kv`` positions, f32 statistics and
     accumulator, p rounded to V's dtype before P·V."""
     b, h, dh = q.shape
-    _, l, acc = _online_softmax(q, k, v, kv_len, block_kv)
+    _, l, acc = _online_softmax(q, k, v, kv_len, block_kv, kv_head_offset=kv_head_offset, kv_heads=kv_heads)
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype).reshape(b, h, dh)
 
 
 def flash_decode_gqa_partials_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, kv_offset: int = 0,
-    block_kv: int = 512,
+    block_kv: int = 512, kv_head_offset: int = 0, kv_heads: int = 0,
 ) -> Partials:
     """:func:`flash_decode_gqa_partials` in plain PyTorch, the shard as one
     split: :func:`flash_decode_gqa_plain`'s online softmax over global
     positions ``kv_offset + [0, S)``, stopped before the division, with
     positions past a ``kv_len >= 1`` absent as in the kernel (a shard
     wholly past it gives (-1e30, 0, 0))."""
-    b, h, dh, _, g = _shapes(q, k, v, block_kv)
-    m, l, acc = _online_softmax(q, k, v, kv_len, block_kv, kv_offset, absent_past_len=True)
+    b, h, dh, _, g = _shapes(q, k, v, block_kv, kv_head_offset, kv_heads)
+    m, l, acc = _online_softmax(q, k, v, kv_len, block_kv, kv_offset, absent_past_len=True,
+                                kv_head_offset=kv_head_offset, kv_heads=kv_heads)
     return Partials(torch.cat([m.reshape(-1), l.reshape(-1), acc.reshape(-1)]), (b, g, 1, h // g, dh))
 
 
@@ -243,9 +271,9 @@ def _check(q, k, v, kv_len, h, g, dh) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary (cp.async)")
 
 
-def _check_meta(q, k, v, kv_len, block_kv: int):
+def _check_meta(q, k, v, kv_len, block_kv: int, kv_head_offset: int = 0, kv_heads: int = 0):
     """The fakes' checks: shapes, devices and dtypes."""
-    shapes = _shapes(q, k, v, block_kv)
+    shapes = _shapes(q, k, v, block_kv, kv_head_offset, kv_heads)
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"k is on {k.device}, v on {v.device}, q on {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -256,9 +284,10 @@ def _check_meta(q, k, v, kv_len, block_kv: int):
 
 
 _LIB = torch.library.Library("repro_torch", "FRAGMENT")
-_LIB.define("flash_decode_gqa(Tensor q, Tensor k, Tensor v, Tensor kv_len, SymInt block_kv=512) -> Tensor")
+_LIB.define("flash_decode_gqa(Tensor q, Tensor k, Tensor v, Tensor kv_len, SymInt block_kv=512, "
+            "SymInt kv_head_offset=0, SymInt kv_heads=0) -> Tensor")
 _LIB.define("flash_decode_gqa_partials(Tensor q, Tensor k, Tensor v, Tensor kv_len, SymInt kv_offset, "
-            "SymInt block_kv) -> Tensor")
+            "SymInt block_kv, SymInt kv_head_offset=0, SymInt kv_heads=0) -> Tensor")
 _LIB.define("flash_decode_combine(Tensor buf, SymInt b, SymInt g, SymInt n_split, SymInt r, SymInt dh, "
             "ScalarType dtype) -> Tensor")
 
@@ -269,48 +298,52 @@ def flash_decode_gqa(
     v: Tensor,  # (B, S, G, Dh)
     kv_len: Tensor,  # () int32 — valid prefix length
     block_kv: int = 512,
+    kv_head_offset: int = 0,
+    kv_heads: int = 0,
 ) -> Tensor:
     """(B, H, Dh) attention output of one query token per sequence, in
-    q's dtype.  Requires ``S % block_kv == 0``, as ``repro`` does.  On
-    CPU tensors this is :func:`flash_decode_gqa_plain`; on CUDA tensors it
-    launches B7 (its split kernel, then, with more than one split, its
-    combine kernel: one launch in :data:`LAUNCHES`) or raises; on meta
-    tensors it returns an empty meta output."""
-    return torch.ops.repro_torch.flash_decode_gqa.default(q, k, v, kv_len, block_kv)
+    q's dtype; q's heads read the kv groups ``[kv_head_offset,
+    kv_head_offset + kv_heads)`` of the cache (``kv_heads`` 0: every
+    group from the offset on).  Requires ``S % block_kv == 0``, as
+    ``repro`` does.  On CPU tensors this is :func:`flash_decode_gqa_plain`;
+    on CUDA tensors it launches B7 (its split kernel, then, with more than
+    one split, its combine kernel: one launch in :data:`LAUNCHES`) or
+    raises; on meta tensors it returns an empty meta output."""
+    return torch.ops.repro_torch.flash_decode_gqa.default(q, k, v, kv_len, block_kv, kv_head_offset, kv_heads)
 
 
-def decode_work(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor, block_kv: int = 512
-                ) -> tuple[float, float, int, bool]:
+def decode_work(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor, block_kv: int = 512, kv_head_offset: int = 0,
+                kv_heads: int = 0) -> tuple[float, float, int, bool]:
     """B7's work by formula, from :func:`flash_decode_gqa`'s arguments:
-    (4·B·H·kv_len·Dh FLOPs, bytes of K and V up to ``kv_len``, q and the
-    output, kv_len, whether the products run on the tensor cores: bf16).
-    Reads ``kv_len`` on the host (a sync for a CUDA tensor); a meta
-    ``kv_len`` has no value."""
+    (4·B·H·kv_len·Dh FLOPs, bytes of K and V up to ``kv_len`` in the
+    groups q's heads read, q and the output, kv_len, whether the products
+    run on the tensor cores: bf16).  Reads ``kv_len`` on the host (a sync
+    for a CUDA tensor); a meta ``kv_len`` has no value."""
     if kv_len.is_meta:
         raise ValueError("counting B7's work needs kv_len's value: pass it as a CPU tensor")
     b, h, dh = q.shape
-    g, n = k.shape[2], int(kv_len)
+    g, n = _groups(k, kv_head_offset, kv_heads), int(kv_len)
     item = q.element_size()
     nbytes = (2 * b * n * g * dh + 2 * b * h * dh) * item
     return float(4 * b * h * n * dh), float(nbytes), n, q.dtype == torch.bfloat16
 
 
 @torch.library.register_fake("repro_torch::flash_decode_gqa")
-def _(q, k, v, kv_len, block_kv=512):
-    _check_meta(q, k, v, kv_len, block_kv)
+def _(q, k, v, kv_len, block_kv=512, kv_head_offset=0, kv_heads=0):
+    _check_meta(q, k, v, kv_len, block_kv, kv_head_offset, kv_heads)
     return torch.empty_like(q)
 
 
 @torch.library.impl(_LIB, "flash_decode_gqa", "CPU")
-def _(q, k, v, kv_len, block_kv=512):
-    return flash_decode_gqa_plain(q, k, v, kv_len, block_kv)
+def _(q, k, v, kv_len, block_kv=512, kv_head_offset=0, kv_heads=0):
+    return flash_decode_gqa_plain(q, k, v, kv_len, block_kv, kv_head_offset, kv_heads)
 
 
 @torch.library.impl(_LIB, "flash_decode_gqa", "CUDA")
-def _launch(q, k, v, kv_len, block_kv=512):
+def _launch(q, k, v, kv_len, block_kv=512, kv_head_offset=0, kv_heads=0):
     """The op's CUDA kernel: the ctypes launch of B7."""
     global LAUNCHES
-    b, h, dh, s, g = _shapes(q, k, v, block_kv)
+    b, h, dh, s, g = _shapes(q, k, v, block_kv, kv_head_offset, kv_heads)
     _check(q, k, v, kv_len, h, g, dh)
     n_split, split_len = decode_splits(b, g, s)
     out = torch.empty_like(q)
@@ -323,7 +356,7 @@ def _launch(q, k, v, kv_len, block_kv=512):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), b, s, g, h // g, dh, n_split, split_len,
-            1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream,
+            k.shape[2], kv_head_offset, 1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{_DTYPES[q.dtype]} launch failed with CUDA error {err}")
@@ -333,8 +366,8 @@ def _launch(q, k, v, kv_len, block_kv=512):
 
 # the argument types of the library's entries, by the entry's prefix
 _ARGTYPES = {
-    "decode_attn": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-    "decode_partials": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
+    "decode_attn": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p],
+    "decode_partials": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p],
     "decode_combine": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 
@@ -349,14 +382,15 @@ def _lib_fn(name: str):
     return fn
 
 
-def partial_splits(q: Tensor, k: Tensor) -> int:
-    """The splits of :func:`flash_decode_gqa_partials` on ``q``'s device:
-    one on the CPU (the plain twin takes the shard as one split), else the
+def partial_splits(q: Tensor, k: Tensor, groups: int | None = None) -> int:
+    """The splits of :func:`flash_decode_gqa_partials` on ``q``'s device
+    for q's heads on ``groups`` kv groups (``None``: all of ``k``'s): one
+    on the CPU (the plain twin takes the shard as one split), else the
     card's (:func:`decode_splits`, which a meta run counts).  Both are 1
     where the shard holds at most :data:`SPLIT_ALIGN` positions."""
     if q.device.type == "cpu":
         return 1
-    return decode_splits(q.shape[0], k.shape[2], k.shape[1])[0]
+    return decode_splits(q.shape[0], k.shape[2] if groups is None else groups, k.shape[1])[0]
 
 
 def flash_decode_gqa_partials(
@@ -366,54 +400,60 @@ def flash_decode_gqa_partials(
     kv_len: torch.Tensor,  # () int32 — the global valid prefix
     kv_offset: int = 0,
     block_kv: int = 512,
+    kv_head_offset: int = 0,
+    kv_heads: int = 0,
 ) -> Partials:
     """B7's split kernel alone on a shard of the cache: every split's f32
     partials (:class:`Partials`), the split :func:`decode_splits` picks
-    from B, G and this shard's S.  A position of the shard counts as
+    from B, G and this shard's S (G the groups q's heads read:
+    ``kv_head_offset``, ``kv_heads`` as :func:`flash_decode_gqa`'s).  A
+    position of the shard counts as
     global position ``kv_offset + p`` against the global ``kv_len``.  On
     CPU tensors this is :func:`flash_decode_gqa_partials_plain` (one
     split); on CUDA tensors it launches the kernel (one launch in
     :data:`PARTIAL_LAUNCHES`) or raises.  The operator
     ``repro_torch::flash_decode_gqa_partials`` returns the buffer; the
     split count is read back from its length."""
-    buf = torch.ops.repro_torch.flash_decode_gqa_partials.default(q, k, v, kv_len, kv_offset, block_kv)
+    buf = torch.ops.repro_torch.flash_decode_gqa_partials.default(q, k, v, kv_len, kv_offset, block_kv,
+                                                                  kv_head_offset, kv_heads)
     b, h, dh = q.shape
-    g = k.shape[2]
+    g = _groups(k, kv_head_offset, kv_heads)
     return Partials(buf, (b, g, buf.shape[0] // (b * h * (dh + 2)), h // g, dh))
 
 
-def partials_work(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor, kv_offset: int, block_kv: int
-                  ) -> tuple[float, float, int, bool]:
+def partials_work(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor, kv_offset: int, block_kv: int,
+                  kv_head_offset: int = 0, kv_heads: int = 0) -> tuple[float, float, int, bool]:
     """The split kernel's work by formula: (4·B·H·n·Dh FLOPs over the n
     positions of the shard below ``kv_len``, bytes of K and V at those
-    positions, q and the f32 partials written, n, bf16)."""
+    positions in the groups q's heads read, q and the f32 partials
+    written, n, bf16)."""
     if kv_len.is_meta:
         raise ValueError("counting B7's work needs kv_len's value: pass it as a CPU tensor")
     b, h, dh = q.shape
-    s, g = k.shape[1], k.shape[2]
+    s, g = k.shape[1], _groups(k, kv_head_offset, kv_heads)
     n = min(max(int(kv_len) - kv_offset, 0), s)
-    nbytes = (2 * b * n * g * dh + b * h * dh) * q.element_size() + b * h * partial_splits(q, k) * (dh + 2) * 4
+    nbytes = (2 * b * n * g * dh + b * h * dh) * q.element_size() + b * h * partial_splits(q, k, g) * (dh + 2) * 4
     return float(4 * b * h * n * dh), float(nbytes), n, q.dtype == torch.bfloat16
 
 
 @torch.library.register_fake("repro_torch::flash_decode_gqa_partials")
-def _(q, k, v, kv_len, kv_offset, block_kv):
-    b, h, dh, _, _ = _check_meta(q, k, v, kv_len, block_kv)
+def _(q, k, v, kv_len, kv_offset, block_kv, kv_head_offset=0, kv_heads=0):
+    b, h, dh, _, g = _check_meta(q, k, v, kv_len, block_kv, kv_head_offset, kv_heads)
     if kv_offset < 0:
         raise ValueError(f"kv_offset must be >= 0, got {kv_offset}")
-    return q.new_empty((b * h * partial_splits(q, k) * (dh + 2),), dtype=torch.float32)
+    return q.new_empty((b * h * partial_splits(q, k, g) * (dh + 2),), dtype=torch.float32)
 
 
 @torch.library.impl(_LIB, "flash_decode_gqa_partials", "CPU")
-def _(q, k, v, kv_len, kv_offset, block_kv):
-    return flash_decode_gqa_partials_plain(q, k, v, kv_len, kv_offset, block_kv).buf
+def _(q, k, v, kv_len, kv_offset, block_kv, kv_head_offset=0, kv_heads=0):
+    return flash_decode_gqa_partials_plain(q, k, v, kv_len, kv_offset, block_kv, kv_head_offset, kv_heads).buf
 
 
 @torch.library.impl(_LIB, "flash_decode_gqa_partials", "CUDA")
-def _launch_partials(q, k, v, kv_len, kv_offset, block_kv):
+def _launch_partials(q, k, v, kv_len, kv_offset, block_kv, kv_head_offset=0, kv_heads=0):
     """The op's CUDA kernel: the ctypes launch of B7's split kernel."""
     global PARTIAL_LAUNCHES
-    b, h, dh, s, g = _shapes(q, k, v, block_kv)
+    b, h, dh, s, g = _shapes(q, k, v, block_kv, kv_head_offset, kv_heads)
     _check(q, k, v, kv_len, h, g, dh)
     if kv_offset < 0:
         raise ValueError(f"kv_offset must be >= 0, got {kv_offset}")
@@ -423,7 +463,8 @@ def _launch_partials(q, k, v, kv_len, kv_offset, block_kv):
     fn = _lib_fn(_DTYPES[q.dtype].replace("attn", "partials"))
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), part.data_ptr(), b, s, g, r,
-                 dh, n_split, split_len, kv_offset, 1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
+                 dh, n_split, split_len, kv_offset, k.shape[2], kv_head_offset, 1.0 / math.sqrt(dh),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode partials launch failed with CUDA error {err}")
     PARTIAL_LAUNCHES += 1

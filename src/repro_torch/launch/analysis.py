@@ -7,8 +7,10 @@ step itself, eagerly, and counts what it does (:func:`count_step`):
 
 * FLOPs: ``torch.utils.flop_counter``'s formulas, the table that
   ``FlopCounterMode`` counts by (the matrix products and attention ops;
-  element-wise ops count none, as in that table), applied to every op
-  that reaches the dispatch mode.  The kernels B6 and B7 are custom ops
+  element-wise ops count none, as in that table), and 2·N·D for a
+  matrix-vector product (``aten.mv``, which that table lacks:
+  retrieval's candidate scores, the reference executor's meters),
+  applied to every op that reaches the dispatch mode.  The kernels B6 and B7 are custom ops
   (``torch.ops.repro_torch``) whose formulas their modules register
   there (B6's adds, B7's products); the dispatch mode sees one call a
   launch, and never the ops of the plain version inside it.
@@ -110,6 +112,8 @@ KERNELS = {
                                                              decode_attn.partials_work),
     torch.ops.repro_torch.flash_decode_combine.default: ("flash_decode_combine", decode_attn.combine_work),
 }
+# FLOP formulas of the ops that torch.utils.flop_counter's table lacks
+_FLOPS = {torch.ops.aten.mv: lambda a, v, **_: 2 * a.shape[0] * a.shape[1]}
 # the c10d ops the port issues (every collective rides on all_reduce), by
 # the argument that holds the tensors each carries; another raises
 _C10D = {torch.ops.c10d.allreduce_.default: 0}
@@ -317,7 +321,7 @@ class _StepCounter(TorchDispatchMode):
             return out
         ins = list(_op_tensors(args, kwargs))
         self.bytes += _traffic(func, args, kwargs, ins, outs)
-        formula = flop_registry.get(func._overloadpacket)
+        formula = _FLOPS.get(func._overloadpacket) or flop_registry.get(func._overloadpacket)
         if formula is not None:
             flops = formula(*args, **kwargs, out_val=out)
             self.flops += flops

@@ -15,17 +15,20 @@ Given the layout's ``DeviceMesh`` (``launch/mesh.py``'s ``fake_mesh``),
 a plan also holds ``rank`` (:class:`RankPlan`): the program that rank 0
 runs there, ``repro``'s mesh programs per rank over ``torch.distributed``
 (PRs 26-29: the LMs' batch blocks, the expert-parallel MoE and the
-sequence-sharded decode; DLRM's row-sharded ``embedding_bag_sharded``;
+sequence-sharded decode, and their dense layers tensor-parallel;
+DLRM's row-sharded ``embedding_bag_sharded`` and retrieval's candidate
+blocks;
 the GNNs on their edge blocks and ``equiformer_energy_big``; the
 ``reference`` S2 executor on its sites; ``estimate``'s rollouts in its
 block), its rank optimizer (ZeRO-1 AdamW) on a train step, run under
 ``shd.use_mesh``.  Its arguments are rank 0's blocks as meta tensors:
 ``collectives.leaf_block`` of each leaf under the placement the program
-itself holds it by (its ``held_placements``: the LMs' dense weights and
-the GNNs' parameters whole, the MoE experts and DLRM's sharded tables
-cut), the rank's optimizer state as its ``init`` makes it, the cache
-and sites as the program's ``cache_shard`` and site blocks cut them, and
-what the program takes whole and blocks itself (the LM tokens, the DLRM
+itself holds it by (its ``held_placements``: the LMs' dense layers'
+tensor-parallel blocks, the MoE experts and DLRM's sharded tables cut,
+the GNNs' parameters whole), the rank's optimizer state as its ``init``
+makes it, the cache and sites as the program's ``cache_shard`` and site
+blocks cut them, retrieval's candidates as its fitted block, and what
+the program takes whole and blocks itself (the LM tokens, the DLRM
 batch, the GNN edges, the starts).  Rank 0 holds the fullest block under
 ``block_of``'s ⌈n/k⌉.
 
@@ -185,9 +188,10 @@ def lm_cell(arch: str, shape_name: str, layout, mesh=None) -> CellPlan:
 
 def _lm_rank(cfg: tr.LMConfig, shape, inputs: dict, mesh, seq_sharded: bool = False) -> RankPlan | None:
     """Rank 0's LM program: its held parameters (``tr.held_placements``:
-    the experts cut, the dense weights whole), its rank optimizer's state,
-    the tokens whole (the program runs its batch block), a decode step's
-    cache share (``tr.cache_shard``)."""
+    ``repro``'s placements fitted, the dense layers' tensor-parallel
+    blocks and the experts cut), its rank optimizer's state, the tokens
+    whole (the program runs its batch block), a decode step's cache share
+    (``tr.cache_shard``)."""
     if mesh is None:
         return None
     rules = tr.rules_for(cfg, mesh)
@@ -287,7 +291,7 @@ def _dlrm_rank(cfg: dlrm.DLRMConfig, shape, pshapes: dict, inputs: dict, mesh) -
     """Rank 0's DLRM program: its row shard of each table the rule shards
     at the step's batch (``dlrm.held_placements``), the MLPs and the other
     tables whole, its rank optimizer's state, the batch whole (the program
-    runs its block)."""
+    runs its block); a retrieval step's block of the candidates."""
     rules = shd.Rules.from_mesh(mesh)
     batch = inputs["dense"].shape[0]
     with shd.use_mesh(mesh):
@@ -295,8 +299,13 @@ def _dlrm_rank(cfg: dlrm.DLRMConfig, shape, pshapes: dict, inputs: dict, mesh) -
         if shape.kind == "train":
             state = dlrm.optimizer_for(cfg, rules, params, batch).init(params)
             return RankPlan(on_mesh(mesh, dlrm.make_train_step(cfg, rules)), (params, state, inputs))
-    step = dlrm.make_retrieval_step if shape.kind == "retrieval" else dlrm.make_serve_step
-    return RankPlan(on_mesh(mesh, step(cfg, rules)), (params, inputs))
+        if shape.kind == "retrieval":  # the rank's block of the candidates, fitted as repro's
+            n = inputs["candidates"].shape[0]
+            lo, hi, _ = collectives.flat_block(rules, n)
+            inputs = dict(inputs, candidates=_meta((hi - lo,) + tuple(inputs["candidates"].shape[1:]),
+                                                   inputs["candidates"].dtype))
+            return RankPlan(on_mesh(mesh, dlrm.make_retrieval_step(cfg, rules, n)), (params, inputs))
+    return RankPlan(on_mesh(mesh, dlrm.make_serve_step(cfg, rules)), (params, inputs))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,9 @@ its row shard of every sharded table (:func:`shard_params`) and the
 replicated ones whole, takes its block of the batch over the batch axes,
 runs B6 on the lookups of its block that fall in its rows, one ``psum``
 over the model axis a sharded table, and the step's output is gathered
-over the batch axes.  :func:`param_specs` gives the tables' placements
+over the batch axes; the retrieval step scores the rank's block of the
+candidates over every axis, fitted as ``repro`` fits them, and gathers
+the ranks' top 64.  :func:`param_specs` gives the tables' placements
 under a layout's ``Rules`` for ``launch/``.  Training differentiates the bags through
 ``embedbag.embedding_bag_sorted_grad``: a table's gradient is B6 again
 over the lookups sorted by row, dense (zero rows where no lookup
@@ -338,16 +340,40 @@ def make_serve_step(cfg: DLRMConfig, rules: shd.Rules):
     return serve_step
 
 
-def make_retrieval_step(cfg: DLRMConfig, rules: shd.Rules):
+def make_retrieval_step(cfg: DLRMConfig, rules: shd.Rules, n_candidates: int | None = None):
     """retrieval_cand: one query (dense + sparse) scored against the
     candidate item embeddings, a batched dot; the top 64 as (scores,
-    indices)."""
+    indices).
+
+    On the installed mesh the candidates lie over every axis as
+    ``repro`` fits ``P((batch axes…, model), None)``
+    (``collectives.flat_block``: 62,500 of 1,000,000 a rank at (16, 16),
+    over ``data``): a rank scores its block and takes its top 64 (all of
+    a smaller block), the ranks' (score, global index) pairs are gathered
+    over those axes (``all_gather``), and their top 64 is the answer on
+    every rank, the one-card top 64 up to ties.  ``batch["candidates"]``
+    is the whole tensor, or with ``n_candidates`` the rank's block of
+    that many."""
 
     def retrieval_step(params: dict, batch: dict):
         dense, sparse, cand = batch["dense"], batch["sparse"], batch["candidates"]
         q = _mlp_apply(params["bot"], dense)  # (1, D)
         embs = [q[0]] + [e[0].float() for e in embedding_bags(cfg, rules, params, sparse[:1])]
         user = torch.stack(embs).mean(dim=0)  # (D,)
-        return torch.topk(cand @ user, 64)
+        if shd.get_mesh() is None:
+            return torch.topk(cand @ user, 64)
+        n = cand.shape[0] if n_candidates is None else n_candidates
+        lo, hi, axes = collectives.flat_block(rules, n)
+        if n_candidates is None:
+            cand = cand[lo:hi]
+        elif cand.shape[0] != hi - lo:
+            raise ValueError(f"this rank's block of {n_candidates} candidates is [{lo}, {hi}), got {cand.shape[0]}")
+        scores, idx = torch.topk(cand @ user, min(64, hi - lo))
+        if hi - lo == n:  # the block is every candidate
+            return scores, idx
+        scores = collectives.all_gather(scores, axes)
+        idx = collectives.all_gather(idx + lo, axes)
+        top, pos = torch.topk(scores, 64)
+        return top, idx[pos]
 
     return retrieval_step

@@ -24,6 +24,21 @@ slice as a ``psum_scatter``, and sums the cotangents of the inputs that
 every rank of an axis holds alike (x, the router) over the axes the
 rank's tokens were cut over (``collectives.enter``).
 
+:class:`TensorParallel` (from :func:`tensor_parallel`) is a rank's
+share of an LM's dense layers on an installed mesh with a model axis,
+``repro``'s placements fitted (``dist/sharding.py``'s table): q, k and v
+column-parallel, k and v gathered whole (``repro`` constrains them
+whole), q's heads over the model axis where ``act/bthd`` fits them (else
+gathered), ``wo`` row-parallel then a ``psum``; the SwiGLU FFN
+column-parallel then row-parallel, then a ``psum``
+(:func:`apply_mlp`); the loss over the rank's vocab columns, its max by
+``pmax`` and its sums by ``psum`` (:func:`chunked_cross_entropy`).  A
+dimension the model axis does not divide stays whole, and a layer whose
+blocks are all whole runs the one-card code.  Where a replicated value
+meets column-parallel weights it passes ``collectives.enter``, so its
+cotangent (and the norms' gradients behind it) is summed over the model
+axis.
+
 Promotions follow ``repro``'s: norms and RoPE compute in f32 and cast
 back to the input's dtype; products of bf16 tensors are bf16.
 :func:`decode_attention` runs B7 (``kernels/decode_attn/ops.py``), where
@@ -94,6 +109,87 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class Block(NamedTuple):
+    """The indices ``[lo, hi)`` of a dimension of ``n`` that a rank holds."""
+
+    lo: int
+    hi: int
+    n: int
+
+    @property
+    def whole(self) -> bool:
+        return self.hi - self.lo == self.n
+
+    def cut(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x``'s indices ``[lo, hi)`` along ``dim``; ``x`` itself when the
+        block is whole."""
+        return x if self.whole else x.narrow(dim, self.lo, self.hi - self.lo)
+
+
+class TensorParallel(NamedTuple):
+    """A rank's blocks of an LM's dense layers over the model axis
+    (:func:`tensor_parallel`).  ``axis`` is the model axis when some block
+    is cut, else ``None``: every block whole, no collective."""
+
+    axis: str | None
+    q: Block  # wq's columns held
+    kv: Block  # wk's and wv's columns held
+    heads: Block  # the q heads the rank's attention runs
+    groups: Block  # the kv groups those heads read
+    o: Block  # wo's rows held
+    ff: Block  # w_gate's and w_up's columns, w_down's rows
+    vocab: Block  # embed's rows, lm_head's columns
+
+
+def tensor_parallel(rules: shd.Rules, d_model: int, n_q: int, n_kv: int, d_head: int, d_ff: int, vocab: int,
+                    whole_heads: bool = False) -> TensorParallel:
+    """This rank's :class:`TensorParallel` on the installed mesh: each
+    parameter's block under ``rules``' placement fitted to its global
+    shape (``collectives.fitted_block``), and q's heads under ``act/bthd``
+    fitted.  The heads stay whole (q gathered after its column-parallel
+    projection) where ``act/bthd`` does not divide them, where they would
+    straddle kv groups unevenly, or with ``whole_heads`` (the
+    sequence-sharded decode, whose ranks each attend with every head).
+    Every block whole off-mesh or without a model axis."""
+    hq, hkv = n_q * d_head, n_kv * d_head
+
+    def blk(spec, shape, dim) -> Block:
+        lo, hi, _ = collectives.fitted_block(spec, shape, dim)
+        return Block(lo, hi, shape[dim])
+
+    if shd.get_mesh() is None or rules.model_axis is None:
+        parts = [Block(0, n, n) for n in (hq, hkv, n_q, n_kv, hq, d_ff, vocab)]
+        return TensorParallel(None, *parts)
+    heads = Block(0, n_q, n_q) if whole_heads else blk(rules.act_bthd(), (1, 1, n_q, d_head), 2)
+    groups = _kv_groups(heads, n_q // n_kv, n_kv)
+    if groups is None:
+        heads, groups = Block(0, n_q, n_q), Block(0, n_kv, n_kv)
+    tp = TensorParallel(
+        rules.model_axis,
+        blk(rules.p_attn_in(), (1, d_model, hq), 2), blk(rules.p_attn_in(), (1, d_model, hkv), 2), heads, groups,
+        blk(rules.p_attn_out(), (1, hq, d_model), 1), blk(rules.p_mlp_in(), (1, d_model, d_ff), 2),
+        blk(rules.p_embed(), (vocab, d_model), 0))
+    cut = not all(b.whole for b in (tp.q, tp.kv, tp.heads, tp.o, tp.ff, tp.vocab))
+    return tp if cut else tp._replace(axis=None)
+
+
+def _kv_groups(heads: Block, r: int, n_kv: int) -> Block | None:
+    """The kv groups q heads ``heads`` read (r heads a group): whole groups,
+    or one group the heads lie in; ``None`` when they straddle groups
+    unevenly."""
+    if heads.lo % r == 0 and (heads.hi - heads.lo) % r == 0:
+        return Block(heads.lo // r, heads.hi // r, n_kv)
+    if heads.lo // r == (heads.hi - 1) // r:
+        return Block(heads.lo // r, heads.lo // r + 1, n_kv)
+    return None
+
+
+def _enter(x: torch.Tensor, tp: TensorParallel | None) -> torch.Tensor:
+    """``x`` (the same on every rank of the model axis) about to meet the
+    rank's blocks: its cotangent summed over the axis."""
+    return x if tp is None or tp.axis is None else collectives.enter(x, tp.axis)
+
+
 def cross_entropy(
     logits: torch.Tensor, labels: torch.Tensor, rules: shd.Rules, n_valid: int | None = None
 ) -> torch.Tensor:
@@ -118,7 +214,8 @@ def _shard_chunks(v_shard: int, target: int = 1024) -> int:
 
 
 def chunked_cross_entropy(
-    x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, rules: shd.Rules, n_valid: int
+    x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, rules: shd.Rules, n_valid: int,
+    tp: TensorParallel | None = None,
 ) -> torch.Tensor:
     """Token-mean cross entropy computed in vocab chunks, ``repro``'s
     layout: the head viewed as (D, M, n2, vc2), M the model axis's shard
@@ -127,17 +224,28 @@ def chunked_cross_entropy(
     ``repro``'s ``stop_gradient``), then the exp-sums and the gold logit,
     each chunk's body under ``torch.utils.checkpoint`` (``repro``'s
     ``jax.checkpoint``), so neither pass keeps a chunk's logits and the
-    (B, S, V) logits never exist.  Running statistics are (B, S) f32."""
+    (B, S, V) logits never exist.  Running statistics are (B, S) f32.
+
+    With ``tp`` cutting the vocab, ``lm_head`` is the rank's shard of
+    columns ``[tp.vocab.lo, tp.vocab.hi)``: the rank walks its own
+    chunks, the running max is ``pmax``-ed and the exp-sums and gold
+    logits ``psum``-ed over the model axis.  A vocab a cutting ``tp``
+    leaves whole (one the model axis does not divide) is one shard."""
     B, S, D = x.shape
     V = lm_head.shape[1]
-    M = max(rules.model_size, 1)
+    sharded = tp is not None and not tp.vocab.whole
+    M = 1 if tp is not None and tp.axis is not None else max(rules.model_size, 1)
     assert V % M == 0, (V, M)
     v_shard = V // M
     n2 = _shard_chunks(v_shard)
     vc2 = v_shard // n2
+    if sharded:
+        x = _enter(x, tp)
     heads = lm_head.reshape(D, M, n2, vc2)
-    # global column id of (m, ci, c2) is m*v_shard + ci*vc2 + c2
+    # global column id of (m, ci, c2) is m*v_shard + ci*vc2 + c2 (+ the shard's offset)
     m_ids = torch.arange(M, device=x.device)[:, None] * v_shard
+    if sharded:
+        m_ids = m_ids + tp.vocab.lo
     c2_ids = torch.arange(vc2, device=x.device)[None, :]
     labels = labels.long()
 
@@ -150,6 +258,8 @@ def chunked_cross_entropy(
         m = torch.full((B, S), -math.inf, device=x.device)
         for ci in range(n2):
             m = torch.maximum(m, logits_chunk(ci)[0].amax(dim=(-1, -2)))
+        if sharded:
+            m = collectives.pmax(m, tp.axis)
 
     def chunk_contrib(ci: int):
         lg, col = logits_chunk(ci)
@@ -162,6 +272,8 @@ def chunked_cross_entropy(
     for ci in range(n2):
         se_c, gold_c = checkpoint(chunk_contrib, ci, use_reentrant=False)
         se, gold = se + se_c, gold + gold_c
+    if sharded:
+        se, gold = collectives.psum(torch.stack([se, gold]), tp.axis)
     lse = m + torch.log(se)
     return torch.mean(lse - gold)
 
@@ -233,16 +345,18 @@ def chunked_attention(
 
 
 def decode_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor, groups: Block | None = None
 ) -> torch.Tensor:
     """Single-position attention against the KV cache, on B7.  q: (B, 1,
     H, Dh); k, v: (B, S, G, Dh), contiguous; kv_len: the valid prefix, a
-    () int32 tensor on q's device.  B7's plain version walks blocks of
-    ``gcd(S, 512)`` positions (its block must divide S); the kernel picks
-    its own tiles and splits."""
+    () int32 tensor on q's device; ``groups``: the kv groups q's heads
+    read (a tensor-parallel rank's, read in place; ``None``: all).  B7's
+    plain version walks blocks of ``gcd(S, 512)`` positions (its block
+    must divide S); the kernel picks its own tiles and splits."""
     B, _, H, Dh = q.shape
+    offset = {} if groups is None or groups.whole else {"kv_head_offset": groups.lo, "kv_heads": groups.hi - groups.lo}
     out = decode_ops.decode_attention(
-        q.reshape(B, H, Dh), k, v, kv_len, block_kv=math.gcd(k.shape[1], 512)
+        q.reshape(B, H, Dh), k, v, kv_len, block_kv=math.gcd(k.shape[1], 512), **offset
     )
     return out.reshape(B, 1, H, Dh)
 
@@ -273,17 +387,55 @@ def init_attention(
 
 def apply_attention_proj(
     p: dict, x: torch.Tensor, n_q: int, n_kv: int, d_head: int, positions: torch.Tensor,
-    rules: shd.Rules, rope_theta: float = 1e6,
+    rules: shd.Rules, rope_theta: float = 1e6, tp: TensorParallel | None = None,
 ):
-    """QKV projection + qk-norm + rope.  Returns (q, k, v)."""
+    """QKV projection + qk-norm + rope.  Returns (q, k, v).  With ``tp``
+    the projections are the rank's column blocks: k and v are gathered
+    whole over the model axis, q to its heads ``tp.heads`` (gathered whole
+    where its columns do not match them)."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, n_q, d_head)
-    k = (x @ p["wk"]).reshape(B, S, n_kv, d_head)
-    v = (x @ p["wv"]).reshape(B, S, n_kv, d_head)
-    if "q_norm" in p:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+    if tp is None or tp.q.whole:  # (k's columns divide wherever q's do)
+        q = (x @ p["wq"]).reshape(B, S, n_q, d_head)
+        k = (x @ p["wk"]).reshape(B, S, n_kv, d_head)
+        v = (x @ p["wv"]).reshape(B, S, n_kv, d_head)
+        q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    else:
+        x = _enter(x, tp)
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        if not tp.kv.whole:
+            k, v = (collectives.all_gather(t, tp.axis, 2) for t in (k, v))
+        if (tp.q.lo, tp.q.hi) != (tp.heads.lo * d_head, tp.heads.hi * d_head):
+            q = collectives.all_gather(q, tp.axis, 2)
+        q = q.reshape(B, S, tp.heads.hi - tp.heads.lo, d_head)
+        k, v = k.reshape(B, S, n_kv, d_head), v.reshape(B, S, n_kv, d_head)
+        # replicated, applied to values whose cotangents are the rank's part
+        q_norm, k_norm = (None if n not in p else _enter(p[n], tp) for n in ("q_norm", "k_norm"))
+    if q_norm is not None:
+        q = rmsnorm(q, q_norm)
+        k = rmsnorm(k, k_norm)
     return rope(q, positions, rope_theta), rope(k, positions, rope_theta), v
+
+
+def lm_logits(x: torch.Tensor, lm_head: torch.Tensor, tp: TensorParallel | None = None) -> torch.Tensor:
+    """``x @ lm_head``: the logits over the padded vocab.  With ``tp``
+    cutting the vocab, the rank's columns gathered whole over the model
+    axis (``repro``'s ``act/logits`` shards them; its step returns them
+    whole)."""
+    if tp is None or tp.vocab.whole:
+        return x @ lm_head
+    return collectives.all_gather(_enter(x, tp) @ lm_head, tp.axis, x.dim() - 1)
+
+
+def attention_out(o: torch.Tensor, wo: torch.Tensor, tp: TensorParallel | None = None) -> torch.Tensor:
+    """The attention output (B, S, heads·Dh) through ``wo``.  With ``tp``
+    cutting ``wo``'s rows: the rank's rows of ``o`` (all of it when its
+    heads are the rank's) against its block, then a ``psum`` over the
+    model axis."""
+    if tp is None or tp.o.whole:
+        return o @ wo
+    if o.shape[-1] != tp.o.hi - tp.o.lo:
+        o = tp.o.cut(o, o.dim() - 1)
+    return collectives.psum(o @ wo, tp.axis)
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +454,14 @@ def init_mlp(
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor, rules: shd.Rules) -> torch.Tensor:
-    return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def apply_mlp(p: dict, x: torch.Tensor, rules: shd.Rules, tp: TensorParallel | None = None) -> torch.Tensor:
+    """The SwiGLU FFN.  With ``tp`` cutting d_ff: the rank's columns of
+    ``w_gate`` and ``w_up`` and rows of ``w_down`` (``act/ffn``), the
+    partial outputs ``psum``-ed over the model axis."""
+    if tp is None or tp.ff.whole:
+        return (silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    x = _enter(x, tp)
+    return collectives.psum((silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"], tp.axis)
 
 
 # ---------------------------------------------------------------------------

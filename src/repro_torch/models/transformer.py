@@ -32,24 +32,40 @@ layouts.
 
 Over ranks (an installed ``DeviceMesh``, one process a rank): the
 tokens are the whole batch on every rank; each rank runs its block of
-the batch over the batch axes (``collectives.batch_block``) with the
-dense weights whole, the MoE layer expert-parallel on its share of the
-experts (:func:`shard_params`), and the logits gathered over the batch
-axes; a prefill's cache and a decode step's cache hold the rank's block
-of the batch.  ``make_decode_step(seq_sharded=True)`` is ``repro``'s
+the batch over the batch axes (``collectives.batch_block``) and holds
+what ``repro``'s placements fitted give it (:func:`held_placements`,
+:func:`shard_params`): the dense layers tensor-parallel over the model
+axis (``layers.TensorParallel``: q, k and v column-parallel, k and v
+gathered whole, q's heads over the axis where ``act/bthd`` fits them,
+``wo`` and the FFN's ``w_down`` row-parallel, each then a ``psum``),
+``embed`` by vocab rows (a masked local gather, then a ``psum``: one
+value and zeros, exact), ``lm_head`` by vocab columns (the loss's max by
+``pmax`` and its sums by ``psum``; the logits gathered whole), the MoE
+layer expert-parallel on its share of the experts, and a dimension the
+axis does not divide whole (qwen3-14b's 40 heads at 16 ranks: q is
+gathered and every rank attends with every head, as ``repro``'s
+whole-head constraint has it, then takes its rows of ``wo``).  The
+logits are gathered over the batch axes; a prefill's cache and a decode
+step's cache hold the rank's block of the batch with every kv head
+(``cache/kv``), and a rank's heads read their kv groups of it in place
+(B7's ``kv_head_offset``).  ``make_decode_step(seq_sharded=True)`` is ``repro``'s
 ``long_500k`` decode on a cache whose sequence lies over the model axis
 (``cache/kv_seq``): a rank holds positions ``[m·S/M, (m+1)·S/M)``
 (:func:`cache_shard`), writes a new position only if it owns it, runs
 B7's split kernel on its shard (``flash_decode_gqa_partials``, the
 global ``kv_len`` and its offset), and the ranks' partials, gathered
 over the model axis and laid out rank-major, are merged by B7's
-combine kernel.  ``repro`` gets there from a sharding constraint and
-GSPMD.  Training over ranks: :func:`loss_fn` takes each rank's block's
+combine kernel; its q is gathered whole, and each rank takes its rows of
+the output for ``wo``.  ``repro`` gets there from a sharding constraint
+and GSPMD.  Training over ranks: :func:`loss_fn` takes each rank's block's
 token losses, ``psum``-ed into the global mean; the train step takes
 ``repro``'s microbatches, slices of the global batch, each rank its
 block of each, and its rank optimizer (:func:`optimizer_for`) reduces
 every gradient over the axes the batch was blocked over, but an
-``fsdp`` expert slice's, which the ``all_gather``'s backward has summed.
+``fsdp`` expert slice's, which the ``all_gather``'s backward has summed;
+a model-sharded leaf's gradient is the rank's block and never crosses
+the model axis, and the replicated leaves (norms, the router, qk-norm)
+get the same gradient on every model rank through ``collectives.enter``.
 """
 
 from __future__ import annotations
@@ -228,14 +244,26 @@ def rules_for(cfg: LMConfig, mesh=None) -> shd.Rules:
 
 
 def shard_params(cfg: LMConfig, rules: shd.Rules, params: dict) -> dict:
-    """This rank's parameters on the installed mesh: a MoE config's
-    experts cut to the rank's share (``layers.moe_shard``: its experts
-    over the model axis and, with ``cfg.fsdp_experts``, its d_ff block
-    over the batch axes); every other leaf whole.  ``params`` off-mesh."""
-    if not cfg.is_moe or shd.get_mesh() is None or rules.model_axis is None:
+    """This rank's parameters on the installed mesh: each leaf's block
+    under :func:`held_placements` (``collectives.leaf_block``), a copy
+    where it is cut, the leaf itself where it is whole.  ``params``
+    off-mesh."""
+    if shd.get_mesh() is None:
         return params
-    moe = L.moe_shard(params["layers"]["moe"], rules, cfg.fsdp_experts)
-    return {**params, "layers": {**params["layers"], "moe": moe}}
+
+    def block(place, t: torch.Tensor) -> torch.Tensor:
+        mine = collectives.leaf_block(t, place)
+        return t if mine.shape == t.shape else mine.clone()
+
+    return opt_lib.map_specs(block, held_placements(cfg, rules), params)
+
+
+def tensor_parallel(cfg: LMConfig, rules: shd.Rules, whole_heads: bool = False) -> L.TensorParallel:
+    """This rank's blocks of the dense layers on the installed mesh
+    (``layers.tensor_parallel``; every block whole off-mesh).  A MoE
+    config has no dense FFN to cut."""
+    return L.tensor_parallel(rules, cfg.d_model, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head,
+                             0 if cfg.is_moe else cfg.d_ff, cfg.padded_vocab, whole_heads)
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -248,31 +276,46 @@ def _layer(tree: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _block(cfg: LMConfig, rules: shd.Rules, x, lp: dict, positions, attend, batch: int | None = None):
-    """One layer: attention (``attend(q, k, v)`` -> (B, S, H, Dh)), then
-    the MLP or the MoE, each added to the residual stream.  ``batch``:
-    the global batch when ``x`` is this rank's block of it."""
+def _block(cfg: LMConfig, rules: shd.Rules, x, lp: dict, positions, attend, batch: int | None = None,
+           tp: L.TensorParallel | None = None):
+    """One layer: attention (``attend(q, k, v)`` -> (B, S, heads, Dh), q
+    the rank's heads ``tp.heads``, k and v every kv head), then the MLP or
+    the MoE, each added to the residual stream.  ``batch``: the global
+    batch when ``x`` is this rank's block of it; ``tp``: the rank's
+    tensor-parallel blocks (:func:`tensor_parallel`)."""
     B, S, _ = x.shape
     h = L.rmsnorm(x, lp["ln1"])
     q, k, v = L.apply_attention_proj(
-        lp["attn"], h, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head, positions, rules, cfg.rope_theta
+        lp["attn"], h, cfg.n_q_heads, cfg.n_kv_heads, cfg.d_head, positions, rules, cfg.rope_theta, tp
     )
-    x = x + (attend(q, k, v).reshape(B, S, -1) @ lp["attn"]["wo"])
+    x = x + L.attention_out(attend(q, k, v).reshape(B, S, -1), lp["attn"]["wo"], tp)
     h = L.rmsnorm(x, lp["ln2"])
     if cfg.is_moe:
         y = L.apply_moe(lp["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k, rules=rules,
                         fsdp=cfg.fsdp_experts, batch=batch)
     else:
-        y = L.apply_mlp(lp["mlp"], h, rules)
+        y = L.apply_mlp(lp["mlp"], h, rules, tp)
     return x + y, k, v
 
 
-def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.dtype)
+def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor, tp: L.TensorParallel | None = None) -> torch.Tensor:
+    """The tokens' rows of ``embed``.  With ``tp`` cutting the vocab, the
+    rank's rows of its block (zeros for a token outside it), ``psum``-ed
+    over the model axis: one value and zeros, exact."""
+    table = params["embed"]
+    if tp is None or tp.vocab.whole:
+        return table[tokens.long()].to(cfg.dtype)
+    local = tokens.long() - tp.vocab.lo
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return collectives.psum(rows, tp.axis).to(cfg.dtype)
 
 
-def _causal(cfg: LMConfig, S: int):
+def _causal(cfg: LMConfig, S: int, tp: L.TensorParallel | None = None):
     def attend(q, k, v):
+        if tp is not None:  # the kv groups the rank's heads read
+            k, v = tp.groups.cut(k, 2), tp.groups.cut(v, 2)
         return L.chunked_attention(
             q, k, v, causal=True, q_chunk=min(cfg.q_chunk, S), kv_chunk=min(cfg.kv_chunk, S)
         )
@@ -296,7 +339,7 @@ def _gather(x: torch.Tensor, axes, B: int) -> torch.Tensor:
 
 def forward(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab)."""
-    return hidden_states(cfg, rules, params, tokens) @ params["lm_head"]
+    return L.lm_logits(hidden_states(cfg, rules, params, tokens), params["lm_head"], tensor_parallel(cfg, rules))
 
 
 def hidden_states(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -312,7 +355,8 @@ def _hidden_block(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.T
     axes), the block's rows and the axes they are blocked over."""
     B, S = tokens.shape
     lo, hi, axes, batch = _rows(rules, B)
-    x = _embed(cfg, params, tokens[lo:hi])
+    tp = tensor_parallel(cfg, rules)
+    x = _embed(cfg, params, tokens[lo:hi], tp)
     positions = torch.arange(S, device=x.device)[None].expand(hi - lo, S)
     remat = cfg.remat and torch.is_grad_enabled()
     mesh = shd.get_mesh()
@@ -322,7 +366,8 @@ def _hidden_block(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.T
             # a CUDA backward recomputes the layer on autograd's device
             # thread, where the installed mesh (a context variable) is unset
             with shd.use_mesh(mesh):
-                return _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S), batch)[0]
+                return _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S, tp), batch,
+                              tp)[0]
 
         x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
     return L.rmsnorm(x, params["final_norm"]), (lo, hi, axes)
@@ -334,7 +379,8 @@ def loss_fn(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor,
     times its tokens, ``psum``-ed over those axes, over the batch's
     tokens: the global mean on every rank."""
     x, (lo, hi, axes) = _hidden_block(cfg, rules, params, tokens)
-    ce = L.chunked_cross_entropy(x, params["lm_head"], labels[lo:hi], rules, n_valid=cfg.vocab)
+    ce = L.chunked_cross_entropy(x, params["lm_head"], labels[lo:hi], rules, n_valid=cfg.vocab,
+                                 tp=tensor_parallel(cfg, rules))
     if not axes:
         return ce
     B, S = tokens.shape
@@ -348,14 +394,19 @@ def loss_fn(cfg: LMConfig, rules: shd.Rules, params: dict, tokens: torch.Tensor,
 
 def held_placements(cfg: LMConfig, rules: shd.Rules) -> dict:
     """The placement each rank holds its parameters under on the installed
-    mesh (:func:`shard_params`): a MoE config's experts over the model
-    axis (with ``cfg.fsdp_experts``, d_ff over the batch axes too), every
-    other leaf whole."""
-    def whole(t):
-        return tuple(None for _ in t.shape)
-
-    out = tree_map(whole, param_shapes(cfg))
-    if cfg.is_moe and shd.get_mesh() is not None and rules.model_axis is not None:
+    mesh (:func:`shard_params`): ``repro``'s placements
+    (:func:`param_specs`) fitted to each leaf's shape, so the dense
+    layers' leaves lie over the model axis where it divides them and stay
+    whole where it does not; a MoE config's experts over the model axis
+    (with ``cfg.fsdp_experts``, d_ff over the batch axes too).  Every leaf
+    whole off-mesh."""
+    mesh = shd.get_mesh()
+    shapes = param_shapes(cfg)
+    if mesh is None:
+        return tree_map(lambda t: tuple(None for _ in t.shape), shapes)
+    out = opt_lib.map_specs(lambda spec, t: shd.fit_spec(mesh, spec, tuple(t.shape)),
+                            param_specs(cfg, rules), shapes)
+    if cfg.is_moe and rules.model_axis is not None:
         ff = _entry(rules.batch_axes) if cfg.fsdp_experts and rules.batch_axes else None
         m = rules.model_axis
         out["layers"]["moe"].update({"w_gate": (None, m, None, ff), "w_up": (None, m, None, ff),
@@ -484,20 +535,22 @@ def make_prefill(cfg: LMConfig, rules: shd.Rules):
     """tokens (B, S) -> (last-token logits (B, padded_vocab), KV cache
     exactly S long with len S).  A caller that decodes after it copies
     the cache into an ``init_cache(max_len)`` buffer.  On a mesh the
-    cache holds this rank's block of the batch."""
+    cache holds this rank's block of the batch, every kv head, and the
+    logits are whole."""
 
     def prefill(params: dict, tokens: torch.Tensor):
         B, S = tokens.shape
         lo, hi, axes, batch = _rows(rules, B)
-        x = _embed(cfg, params, tokens[lo:hi])
+        tp = tensor_parallel(cfg, rules)
+        x = _embed(cfg, params, tokens[lo:hi], tp)
         positions = torch.arange(S, device=x.device)[None].expand(hi - lo, S)
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            x, k, v = _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S), batch)
+            x, k, v = _block(cfg, rules, x, _layer(params["layers"], i), positions, _causal(cfg, S, tp), batch, tp)
             ks.append(k)
             vs.append(v)
         x = L.rmsnorm(x[:, -1:], params["final_norm"])
-        logits = _gather(x @ params["lm_head"], axes, B)
+        logits = _gather(L.lm_logits(x, params["lm_head"], tp), axes, B)
         cache = {
             "k": torch.stack(ks),
             "v": torch.stack(vs),
@@ -525,7 +578,12 @@ def make_decode_step(cfg: LMConfig, rules: shd.Rules, seq_sharded: bool = False)
     on its shard against the global ``kv_len``, and the partials,
     gathered over the model axis (one ``all_gather`` a layer), are merged
     by B7's combine kernel.  Off a mesh ``seq_sharded`` changes nothing,
-    as ``repro``'s constraint is the identity there."""
+    as ``repro``'s constraint is the identity there.  Under tensor
+    parallelism every model rank writes the same new keys and values into
+    its copy of the cache; a rank's heads read their kv groups of it
+    (``layers.decode_attention``'s ``groups``); the logits are whole.
+    The seq-sharded decode attends with every head on each rank's
+    positions and cuts the output to the rank's ``wo`` rows."""
 
     def decode_step(params: dict, cache: dict, tokens: torch.Tensor):
         B = tokens.shape[0]
@@ -542,7 +600,8 @@ def make_decode_step(cfg: LMConfig, rules: shd.Rules, seq_sharded: bool = False)
             )
         if cache["k"].shape[1] != hi - lo:
             raise ValueError(f"the cache holds {cache['k'].shape[1]} rows; this rank's block is [{lo}, {hi})")
-        x = _embed(cfg, params, tokens[lo:hi]).reshape(hi - lo, 1, cfg.d_model)
+        tp = tensor_parallel(cfg, rules, whole_heads=sharded is not None)
+        x = _embed(cfg, params, tokens[lo:hi], tp).reshape(hi - lo, 1, cfg.d_model)
         positions = torch.full((hi - lo, 1), pos, dtype=torch.int32, device=x.device)
         kv_len = cache["len"] + 1
         mine = m * s_loc <= pos < (m + 1) * s_loc
@@ -555,12 +614,12 @@ def make_decode_step(cfg: LMConfig, rules: shd.Rules, seq_sharded: bool = False)
                     k_cache[:, pos - m * s_loc] = k[:, 0]
                     v_cache[:, pos - m * s_loc] = v[:, 0]
                 if sharded is None:
-                    return L.decode_attention(q, k_cache, v_cache, kv_len)
+                    return L.decode_attention(q, k_cache, v_cache, kv_len, tp.groups)
                 return _seq_sharded_attention(rules, q, k_cache, v_cache, kv_len, m * s_loc)
 
-            x, _, _ = _block(cfg, rules, x, _layer(params["layers"], i), positions, attend, batch)
+            x, _, _ = _block(cfg, rules, x, _layer(params["layers"], i), positions, attend, batch, tp)
         x = L.rmsnorm(x, params["final_norm"])
-        logits = _gather((x @ params["lm_head"])[:, 0], axes, B)
+        logits = _gather(L.lm_logits(x, params["lm_head"], tp)[:, 0], axes, B)
         return logits, {"k": cache["k"], "v": cache["v"], "len": kv_len}
 
     return decode_step

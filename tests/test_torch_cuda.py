@@ -713,6 +713,36 @@ def test_decode_kernel_equals_plain(cuda, shape, block, kv_len, dtype):
     assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh, n_q, offset, heads, s", [(128, 5, 3, 1, 16384), (128, 10, 2, 2, 1024),
+                                                       (112, 4, 7, 1, 16384), (112, 8, 4, 4, 2048),
+                                                       (64, 8, 0, 4, 16384), (64, 8, 4, 4, 2048)])
+def test_decode_kernel_on_kv_head_offset_equals_plain(cuda, dh, n_q, offset, heads, s, dtype):
+    """B7 and its split kernel on kv groups [offset, offset + heads) of a
+    whole 8-group cache, read in place (a tensor-parallel rank's heads:
+    qwen3-14b's 5 a group at Dh 128, kimi-k2's at 112, granite-moe's 2 at
+    64 on half the groups, as at (2, 2)), equal their plain
+    versions within B7's tolerances and the kernel on a contiguous copy
+    of the groups bit for bit; one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(dh + offset)
+    k = torch.randn((2, s, 8, dh), device=cuda, generator=gen).to(dtype)
+    v = torch.randn((2, s, 8, dh), device=cuda, generator=gen).to(dtype)
+    q = torch.randn((2, n_q, dh), device=cuda, generator=gen).to(dtype)
+    ks, vs = k[:, :, offset : offset + heads].contiguous(), v[:, :, offset : offset + heads].contiguous()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for kv in (s, s - 77, 300):
+        n = torch.tensor(kv, dtype=torch.int32, device=cuda)
+        before = decode_attn.LAUNCHES
+        got = decode_attn.flash_decode_gqa(q, k, v, n, 512, offset, heads)
+        want = decode_attn.flash_decode_gqa_plain(q, k, v, n, 512, offset, heads)
+        torch.cuda.synchronize()
+        assert decode_attn.LAUNCHES == before + 1
+        assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max()), kv
+        assert torch.equal(got, decode_attn.flash_decode_gqa(q, ks, vs, n, 512)), kv
+        part = decode_attn.flash_decode_gqa_partials(q, k, v, n, 0, 512, offset, heads)
+        assert torch.equal(part.buf, decode_attn.flash_decode_gqa_partials(q, ks, vs, n, 0, 512).buf), kv
+
+
 def test_decode_wrapper_refuses(cuda):
     q, k, v = _qkv((1, 8, 2, 64, 256), torch.float32, cuda, 0)
     n = torch.tensor(100, dtype=torch.int32, device=cuda)

@@ -9,9 +9,10 @@ bf16 sum after every lookup, as ``repro``'s ``segment_sum`` does on the
 CPU (lookups are sorted stably by bag, so at ``multi_hot`` > 1 the order
 is the same).  The f32 MLPs, the interaction and the retrieval's
 candidate product sum in another order than XLA's, so logits,
-probabilities and retrieval scores are held to 1e-6 of the largest
-|repro| value; the retrieval's user vector is exact and its top-64
-indices equal ``repro``'s up to ties."""
+probabilities, retrieval scores and the bottom MLP's output are held
+to 1e-6 of the largest |repro| value; the retrieval's user vector is
+exact when fed ``repro``'s MLP row, and its top-64 indices equal
+``repro``'s up to ties."""
 
 import dataclasses
 
@@ -140,7 +141,8 @@ def test_retrieval_step_matches_repro(multi_hot):
     scores, idx = dlrm.make_retrieval_step(cfg, RULES)(p, b)
     assert scores.shape == idx.shape == (64,)
     _close(scores, w_scores)
-    all_scores = (b["candidates"] @ _user(cfg, p, b)).numpy()
+    user = _user(dlrm._mlp_apply(p["bot"], b["dense"])[0], dlrm.embedding_bags(cfg, RULES, p, b["sparse"][:1]))
+    all_scores = (b["candidates"] @ user).numpy()
     differ = idx.numpy() != w_idx
     # a differing index is a tie: its score equals the one repro ranked there
     assert np.abs(all_scores[idx.numpy()[differ]] - all_scores[w_idx[differ]]).max(initial=0.0) <= (
@@ -148,23 +150,31 @@ def test_retrieval_step_matches_repro(multi_hot):
     )
 
 
-def _user(cfg, p, b) -> torch.Tensor:
-    q = dlrm._mlp_apply(p["bot"], b["dense"])[0]
-    embs = [q] + [e[0].float() for e in dlrm.embedding_bags(cfg, RULES, p, b["sparse"])]
-    return torch.stack(embs).mean(0)
+def _user(q: torch.Tensor, embs: list) -> torch.Tensor:
+    """The retrieval step's user vector from the bottom MLP's row and the
+    bags, as ``make_retrieval_step`` forms it."""
+    return torch.stack([q] + [e[0].float() for e in embs]).mean(0)
 
 
 def test_retrieval_user_vector_exact():
+    """The bags and the mean are bit-exact; the bottom MLP's output is an
+    f32 GEMM that each host's BLAS sums in its own order (1-2 ulp apart
+    on some), so it is held to ``TOL`` as every DLRM MLP is, and the mean
+    is fed ``repro``'s MLP row to stay exact."""
     rcfg, cfg, rp, p = _models(1)
     rb = r_dlrm_cfg.smoke_batch(rcfg, "retrieval")
     b = _batch(rb)
     r_q = r_dlrm._mlp_apply(rp["bot"], rb["dense"])
-    r_embs = [r_q[0]] + [
-        r_dlrm.embedding_bag_local(rp["tables"][f"t{i}"], rb["sparse"][0, i, :], jnp.zeros(1, jnp.int32), 1)[0]
+    r_bags = [
+        r_dlrm.embedding_bag_local(rp["tables"][f"t{i}"], rb["sparse"][0, i, :], jnp.zeros(1, jnp.int32), 1)
         for i in range(rcfg.n_sparse)
     ]
-    want = jnp.mean(jnp.stack(r_embs, 0), 0)
-    assert np.array_equal(_bits(_user(cfg, p, b)), _bits(want))
+    bags = dlrm.embedding_bags(cfg, RULES, p, b["sparse"][:1])
+    for got, want in zip(bags, r_bags):
+        assert np.array_equal(_bits(got), _bits(want))
+    _close(dlrm._mlp_apply(p["bot"], b["dense"]), r_q)
+    want = jnp.mean(jnp.stack([r_q[0]] + [e[0] for e in r_bags], 0), 0)
+    assert np.array_equal(_bits(_user(torch.from_numpy(np.array(r_q[0])), bags)), _bits(want))
 
 
 def test_sharded_table_runs_locally_off_mesh(monkeypatch):

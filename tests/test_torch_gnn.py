@@ -178,10 +178,16 @@ def test_real_sph_harm_matches_repro(l_max):
     v = rng.normal(size=(200, 3)).astype(np.float32)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
     v[0] = (0.0, 0.0, 1.0)  # a pole: rho is the 1e-20 floor
-    want = jax.jit(lambda u: r_gnn.real_sph_harm(u, l_max))(jnp.asarray(v))
+    want = np.asarray(jax.jit(lambda u: r_gnn.real_sph_harm(u, l_max))(jnp.asarray(v)))
     got = gnn.real_sph_harm(torch.from_numpy(v), l_max)
     assert got.dtype == torch.float32
-    _close(got, want, 1e-6)
+    # rho and cos(phi) may differ by an ulp (torch's vectorised CPU sqrt is
+    # not correctly rounded on every host, XLA's is), and each order of the
+    # Legendre and Chebyshev recurrences adds to it: degree l is held to
+    # 4 ulps (2^-24) an order of its largest value
+    for l in range(l_max + 1):
+        cols = slice(l * l, (l + 1) ** 2)
+        _close(got[:, cols], want[:, cols], 4 * max(l, 1) * 2.0**-24)
 
 
 @pytest.mark.parametrize("l_max", [2, 3, 6])

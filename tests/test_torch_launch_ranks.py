@@ -302,13 +302,20 @@ def test_closed_form_collectives_single_pod():
                              "all-gather": (1, B * 4)}
 
         # qwen3-14b long_500k: a layer's B7 partials, (B, H, n_split, Dh + 2)
-        # f32 of the rank's S/M positions, gathered over the model axis
+        # f32 of the rank's S/M positions, gathered over the model axis; the
+        # rank's tensor-parallel blocks: q's, k's and v's bf16 columns
+        # gathered (every head attends on the rank's positions), wo's and
+        # w_down's partial outputs and the embedding psum-ed, the logits'
+        # vocab columns gathered
         qcfg = registry.get_arch("qwen3-14b").full()
         plan, c = _rank_count("qwen3-14b", "long_500k", layout, m)
         dims = registry.LM_SHAPES["long_500k"].dims
         n_split = decode_attn.decode_splits(dims["batch"], qcfg.n_kv_heads, dims["seq"] // M)[0]
         part = dims["batch"] * qcfg.n_q_heads * n_split * (qcfg.d_head + 2) * 4
-        assert _kinds(c) == {"all-gather": (qcfg.n_layers, qcfg.n_layers * M * part)}
+        L, b = qcfg.n_layers, dims["batch"]
+        qkv = b * (qcfg.n_q_heads + 2 * qcfg.n_kv_heads) * qcfg.d_head * 2
+        assert _kinds(c) == {"all-gather": (4 * L + 1, L * (M * part + qkv) + b * qcfg.padded_vocab * 2),
+                             "all-reduce": (2 * L + 1, (2 * L + 1) * b * qcfg.d_model * 2)}
         assert [k[0] for k in c.kernels] == ["flash_decode_gqa_partials", "flash_decode_combine"] * qcfg.n_layers
 
         # GCN full_graph_sm train: the degrees' and each layer's scatters

@@ -77,6 +77,7 @@ COMPRESS_STEPS, COMPRESS_LEN = 3, 40
 LOOP_STEPS, LOOP_EVERY, LOOP_CRASH = 4, 2, 3
 TOL_F32, TOL_EQ, TOL_BF16 = 1e-5, 1e-4, 2e-2
 FLOOR = 1e-3
+ADAM_B1, ADAM_B2 = 0.9, 0.95  # opt_lib.adamw's and repro's defaults
 
 
 # ---------------------------------------------------------------------------
@@ -628,6 +629,27 @@ def _tol(key: str, a: np.ndarray) -> float:
     return TOL_EQ if key == "equiformer-v2" else TOL_F32
 
 
+def _check_moments(key: str, got: dict, m_want: list, v_want: list, what) -> None:
+    """AdamW's first-step moments against ``repro``'s.  m = (1 - b1)·g is
+    held to 2 × the leaf's tolerance of its largest |m| (floored as
+    ``_floor``): so the gradient may be off by ε_g = that limit over
+    (1 - b1), and v = (1 - b2)·g² by (1 - b2)·(2·max|g| + ε_g)·ε_g
+    (|a² - b²| = |a - b|·|a + b|), g the gradient the rank's optimizer
+    received: v's relative error is twice g's, plus its own rounding."""
+    n = len(got["params"])
+    m_got, v_got = got["state"][:n], got["state"][n:]
+    m_floor = _floor(m_want)
+    for i, (mg, mw, vg, vw) in enumerate(zip(m_got, m_want, v_got, v_want)):
+        tol = 2 * _tol(key, np.asarray(got["params"][i]))
+        _close(mg, mw, tol, what + ("m", i), floor=m_floor)
+        eps_g = tol * max(np.abs(np.asarray(mw, np.float64)).max(initial=0.0), m_floor) / (1 - ADAM_B1)
+        g_max = np.abs(np.asarray(got["grads"][i], np.float64)).max(initial=0.0)
+        vw = np.asarray(vw, np.float64)
+        bound = (1 - ADAM_B2) * (2 * g_max + eps_g) * eps_g + 2.0**-22 * np.abs(vw)
+        diff = np.abs(np.asarray(vg, np.float64) - vw)
+        assert (diff <= bound).all(), (what, "v", i, float((diff / bound).max()))
+
+
 def _adamw_reference(params0: list, grads: list) -> tuple[list, list]:
     """The one-card AdamW step on whole leaves: (parameters, m and v)."""
     p = [_t(a) for a in params0]
@@ -762,12 +784,12 @@ def test_train_step_equals_repro(repro_8_devices, spawned, shape, key):
         got = r[key]
         assert abs(got["loss"] - loss) <= TOL_F32 * abs(loss), (shape, key, got["loss"], loss)
         n = len(got["params"])
-        parts = (slice(0, n), slice(n, None)) if got["optimizer"] == "adamw" else (slice(None),)
-        for part in parts:  # m, then v; or Adafactor's factors
-            floor = _floor(state[part])
-            for i, (s, w) in enumerate(zip(got["state"][part], state[part])):
-                tol = _tol(key, np.asarray(got["params"][i])) if got["optimizer"] == "adamw" else TOL_F32
-                _close(s, w, 2 * tol, (shape, key, "state", part, i), floor=floor)
+        if got["optimizer"] == "adamw":
+            _check_moments(key, got, state[:n], state[n:], (shape, key))
+        else:  # Adafactor's factors
+            floor = _floor(state)
+            for i, (s, w) in enumerate(zip(got["state"], state)):
+                _close(s, w, 2 * TOL_F32, (shape, key, "state", i), floor=floor)
         g_floor = _floor(got["grads"])
         for i, (p, w) in enumerate(zip(got["params"], params)):
             where = None
