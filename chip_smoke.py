@@ -19,6 +19,15 @@ backend                    tiles     kernel
 ``frontier_kernel_packed`` uint32    B4 ``packed_level_blocks_u32``
 =========================  ========  =================================
 
+Every one-card fixpoint runs on ``ops.LevelLoop``: LEVELS_PER_CHECK
+levels a body, gated on the device, the body captured once per executor
+in a CUDA graph and replayed, the host reading the loop's flag once a
+body.  So a one-card run's level kernel launches bodies x
+LEVELS_PER_CHECK x buckets times exactly (levels after convergence
+launch on an empty frontier), its BFS levels come from the device
+counter, and its host syncs are its bodies; a rank's fixpoint over a
+mesh still reads its frontier every level and launches once a level.
+
 Phases, each of which raises on failure (the run then exits non-zero):
 
 * env      — the card's name and power limit, torch and CUDA versions;
@@ -52,10 +61,17 @@ Phases, each of which raises on failure (the run then exits non-zero):
              after; answers must equal the device-BFS oracle for every
              start, the §4.2 meters must equal the host meter on 32
              sampled starts, the path's kernel launches must equal its
-             BFS levels and be nonzero, and no other kernel may launch;
+             bodies x LEVELS_PER_CHECK and be nonzero, and no other kernel
+             may launch; host syncs are logged beside the per-level
+             loop's (levels + fixpoints).  Then q1 on each path, and
+             under witness semantics on the f32 store, replayed from the
+             executor's graph (two calls: capture, replay) against the
+             eager one-level loop (``ops.EAGER``): answers, meters,
+             witness planes and BFS levels equal bit for bit;
 * trace    — each query again on each path, its per-call set-up
              (``make_s2_step_fn``: Stage B and the meters' degree
-             vectors) timed apart from a warm run, and the run traced
+             vectors) timed apart from its first run (the capture) and a
+             warm run, and a third run traced
              with ``torch.profiler``: device busy time, idle share,
              device time per kernel, and the path's level kernel looked
              up by pieces of its device symbol, which must match exactly
@@ -71,7 +87,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
              Answers of both must equal the device-BFS oracle, S1's
              deduped subgraph must be the graph's edges of the query's
              labels and its cost ``s1_costs``, B1's launches must equal
-             the S2 levels, and no other kernel may launch; each
+             the S2 bodies x LEVELS_PER_CHECK, and no other kernel may
+             launch; each
              strategy's observed ``cost_of`` is logged beside the plan's
              forecast (whether the choice was the cheaper one is not
              checked: the plan is an estimate);
@@ -87,7 +104,7 @@ Phases, each of which raises on failure (the run then exits non-zero):
              product BFS (``witness.host_levels``), and 8 witnesses per
              query walked back from the levels must pass the label-store
              check and the automaton re-match; each run must launch its
-             kernel once a level and nothing else.  q1 again asks for the
+             kernel LEVELS_PER_CHECK times a body and nothing else.  q1 again asks for the
              uint32 store without a Stage A: it must restage f32 and
              launch B1, not B3.  ``count_paths_bounded`` on q1 (8 levels,
              4 starts) must equal the host DP exactly, and B1 on a count
@@ -102,7 +119,8 @@ Phases, each of which raises on failure (the run then exits non-zero):
              timed, bytes and bucket shapes logged); q1, q9, q12 over all
              valid starts at both group counts: answers == the device
              BFS, q_bc and n_bc == the host meter on the path phase's 32
-             sampled starts, B3 launches == levels x buckets, per-site
+             sampled starts, B3 launches == bodies x LEVELS_PER_CHECK x
+             buckets, per-site
              meters equal at 1 and 4; (iv) B3 on the 4-row bucket of q1's
              plan ``torch.equal`` to the members' plain levels summed,
              and q1's per-site meters unchanged with ``allow_tf32 =
@@ -160,6 +178,12 @@ Phases, each of which raises on failure (the run then exits non-zero):
              (h)'s or (g)'s, on every rank (the async answers run (h)'s,
              and the same on every rank), B3 launching once a level a
              rank;
+* examples — after mesh_serve, the port's example scripts on the card
+             through their ``main(argv)``: ``examples/torch_quickstart.py``
+             and ``examples/torch_plan_and_serve_rpq.py --small --queries
+             q1,q6`` (an 8,000-node twin, its one-card service on the
+             default backend, every start's answers held to the PAA
+             oracle): no ``MISMATCH``, every start ``OK``;
 * mesh_dlrm — (d), after dlrm, on one NCCL rank: dlrm-mlperf ``full()``
              at serve_p99 on a (1, 1) mesh on the dlrm phase's
              parameters: the bags bit for bit the one-card ones, each B6
@@ -242,12 +266,14 @@ Phases, each of which raises on failure (the run then exits non-zero):
              ``ServeConfig`` (the reference backend, no kernel launched),
              the first window forced to S1; (h) the first 48 on
              ``frontier_kernel_sharded`` over the bit-plane store on the
-             sharded phase's 16-site placement (B3, launches == levels x
-             buckets), its per-site Stage A saved and restored into a
+             sharded phase's 16-site placement (B3, launches == bodies x
+             LEVELS_PER_CHECK x buckets), its per-site Stage A saved and
+             restored into a
              fresh service whose first S2 request must pack no tile.
              Every answer == the device BFS;
-             each run's level kernel launches once a level and no other
-             kernel; the summary's keys == ``repro``'s schema
+             each run's level kernel launches LEVELS_PER_CHECK times a
+             body and no other kernel; a third warm run of (a) is traced
+             (device busy ms, idle share); the summary's keys == ``repro``'s schema
              (``SUMMARY_KEYS``).  Each run logs q/s, latency p50 and p99
              and the host ms of the service's layers;
 * baseline — the per-transition baseline path, carried by B5
@@ -441,6 +467,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import io
 import json
 import math
 import os
@@ -952,8 +979,65 @@ def kernel_share(tr: dict, pieces: tuple[str, ...]) -> dict:
             "device_ms": total_us / 1e3}
 
 
+def check_captured_against_eager(placement, ca, starts, stores, dev) -> dict:
+    """q1 on the four path kinds (f32 rows and lane words, each on the f32
+    and the bit-plane store): the executor's fixpoints replayed from its
+    CUDA graph, LEVELS_PER_CHECK levels a host check, against the eager
+    loop of one level a check (``ops.EAGER``, ``LEVELS_PER_CHECK = 1``), bit
+    for bit: answers, meters and BFS levels, and on the f32 store the
+    witness plane too.  The captured executor runs twice: the first call
+    captures (after one eager body), the second replays only.  Launches
+    here are not the path's: the counts are set to 0 before each run."""
+    k, out = fops.LEVELS_PER_CHECK, {}
+    for name, kk in KERNELS.items():
+        td = kk["tile_dtype"]
+        for sem in ("pairs", "witness") if td == "f32" else ("pairs",):
+            runs = []
+            for eager, per_check, calls in ((True, 1, 1), (False, k, 2)):
+                fops.EAGER, fops.LEVELS_PER_CHECK = eager, per_check
+                try:
+                    step = strategies.make_s2_step_fn(
+                        ca, placement.graph.n_nodes, backend=kk["backend"], graph=placement.graph,
+                        replication_factor=placement.replication_factor, tile_dtype=td, staged=stores[td],
+                        device=dev, semantics=sem)
+                    for _ in range(calls):
+                        reset_launches()
+                        fops.FIXPOINT_COUNTERS.clear()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        res = strategies.s2_execute(placement, ca, starts, step_fn=step, semantics=sem)
+                        torch.cuda.synchronize()
+                        c = fops.FIXPOINT_COUNTERS
+                        runs.append({"digest": run_digest(res), "levels": c["levels"], "bodies": c["bodies"],
+                                     "host_syncs": c["host_syncs"], "replays": c["replays"],
+                                     "captures": c["captures"], "launches": only_launched(name, "q1, " + sem),
+                                     "wall_ms": (time.perf_counter() - t0) * 1e3})
+                        del res
+                    step.release()
+                finally:
+                    fops.EAGER, fops.LEVELS_PER_CHECK = False, k
+            eager, first, second = runs
+            if not eager["digest"] == first["digest"] == second["digest"]:
+                raise AssertionError(f"{name} q1 {sem}: the captured replay differs from the eager loop")
+            if not eager["levels"] == first["levels"] == second["levels"] == eager["launches"] > 0:
+                raise AssertionError(f"{name} q1 {sem}: BFS levels {eager['levels']} eager, "
+                                     f"{first['levels']} and {second['levels']} captured")
+            if (first["captures"], second["captures"], second["replays"]) != (1, 0, second["bodies"]) \
+                    or any(r["launches"] != r["bodies"] * k for r in (first, second)):
+                raise AssertionError(f"{name} q1 {sem}: captures, replays or launches off: {first} {second}")
+            out[f"{name}/{sem}"] = {"eager": eager, "captured_first": first, "captured": second}
+            log("path", f"{name} q1 {sem}: captured replay == the eager one-level loop bit for bit (answers, "
+                f"meters{', witness plane' if sem == 'witness' else ''}), {eager['levels']} BFS levels both; "
+                f"host syncs {eager['host_syncs']} eager, {second['host_syncs']} captured; launches "
+                f"{eager['launches']} eager, {second['launches']} captured ({second['bodies']} bodies of {k}); "
+                f"{eager['wall_ms']:.1f} ms eager, {first['wall_ms']:.1f} ms capturing, {second['wall_ms']:.1f} "
+                "ms replaying")
+    return out
+
+
 def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[str, ...]) -> dict:
-    """One query's per-call set-up timed apart from its run, and the run
+    """One query's per-call set-up timed apart from its first run (which
+    captures the executor's CUDA graph) and a warm run, and a third run
     traced with ``torch.profiler``: device busy time (the union of the
     device events' intervals), its share of the traced wall time, the
     device time and count of each kernel, and those of the path's level
@@ -969,10 +1053,13 @@ def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[
     )
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    strategies.s2_execute(placement, ca, starts, step_fn=step)
-    torch.cuda.synchronize()
-    run_ms = (time.perf_counter() - t0) * 1e3
+    run_ms = []
+    for _ in range(2):  # the first run captures the executor's graph, the second replays it only
+        t0 = time.perf_counter()
+        strategies.s2_execute(placement, ca, starts, step_fn=step)
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    first_run_ms, run_ms = run_ms
     tr = device_trace(lambda: strategies.s2_execute(placement, ca, starts, step_fn=step))
     per_kernel, traced_ms, busy_us = tr["kernels"], tr["traced_ms"], tr["device_busy_ms"] * 1e3
 
@@ -986,7 +1073,7 @@ def trace_query(placement, ca, starts, staged, dev, backend: str, symbol: tuple[
     return {
         "level_kernel": {**total(lambda name: name == names[0]), "name": names[0]},
         "fills": total(lambda name: "FillFunctor" in name),
-        "setup_ms": setup_ms, "run_ms": run_ms, "traced_ms": traced_ms,
+        "setup_ms": setup_ms, "first_run_ms": first_run_ms, "run_ms": run_ms, "traced_ms": traced_ms,
         "device_busy_ms": busy_us / 1e3,
         "idle_share": 1.0 - busy_us / 1e3 / traced_ms,
         "idle_share_of_untraced_run": 1.0 - busy_us / 1e3 / run_ms,
@@ -1120,6 +1207,27 @@ def only_launched(name: str, what: str) -> int:
     """The launches of kernel ``name`` since the last reset; raises if it
     launched none or another kernel launched."""
     return launched((name,), what)[name]
+
+
+def loop_launches(buckets: int = 1) -> int:
+    """The level kernel's launches that the one-card fixpoints made since
+    the counters' reset: each body of LEVELS_PER_CHECK levels (the eager
+    first one and every graph replay) launches each level's kernel once
+    per shape bucket, on an empty frontier after convergence too."""
+    return fops.FIXPOINT_COUNTERS["bodies"] * fops.LEVELS_PER_CHECK * buckets
+
+
+def check_loop_launches(n: int, what: str, buckets: int = 1) -> None:
+    """``n`` level-kernel launches since the counters' reset, each held
+    exactly: launches = bodies x LEVELS_PER_CHECK x buckets, one host sync
+    a body, and the BFS levels (the device counter) within the bodies'
+    levels and past all but each fixpoint's last body."""
+    c, k = fops.FIXPOINT_COUNTERS, fops.LEVELS_PER_CHECK
+    if n != loop_launches(buckets) or c["host_syncs"] != c["bodies"] or not (
+            0 < c["levels"] and (c["bodies"] - c["fixpoints"]) * k <= c["levels"] <= c["bodies"] * k):
+        raise AssertionError(f"{what}: {n} launches for {c['bodies']} bodies of {k} levels x {buckets} "
+                             f"bucket(s), {c['levels']} BFS levels in {c['fixpoints']} fixpoints, "
+                             f"{c['host_syncs']} host syncs")
 
 
 def free() -> None:
@@ -1417,20 +1525,21 @@ def plan_query_phase(q, g, placement, net, model, arrays, dg, staged, dev, rng) 
     s2_ms = (time.perf_counter() - t0) * 1e3
     n = only_launched("fused_level_blocks", f"the plan phase's S2 leg of {q}")
     levels = fops.FIXPOINT_COUNTERS["levels"]
-    if n != levels:
-        raise AssertionError(f"{q}: {n} B1 launches for {levels} levels")
+    check_loop_launches(n, f"the plan phase's S2 leg of {q}")
     for i, want in enumerate(oracle):
         if set(np.nonzero(acc2[i])[0].tolist()) != want:
             raise AssertionError(f"{q} start {sample[i]}: S2 answers differ from the oracle and S1")
     obs_s1 = cost_model.cost_of(net, want_cost)
     obs_s2 = [cost_model.cost_of(net, c2) for c2 in costs]
     cheaper = "S1" if obs_s1 < np.mean(obs_s2) else "S2"
-    r["s2"] = {"levels": levels, "launches": n, "max_levels": cap, "states": exec_ca.n_states,
-               "wall_ms": s2_ms}
+    r["s2"] = {"levels": levels, "launches": n, "bodies": fops.FIXPOINT_COUNTERS["bodies"],
+               "host_syncs": fops.FIXPOINT_COUNTERS["host_syncs"], "max_levels": cap,
+               "states": exec_ca.n_states, "wall_ms": s2_ms}
     r["observed_cost"] = {"S1": obs_s1, "S2_mean": float(np.mean(obs_s2)), "S2_max": max(obs_s2),
                           "cheaper": cheaper, "choice_matches": cheaper == c.strategy}
     log("plan", f"{q}: S2 (frontier_kernel/f32, {exec_ca.n_states} states, max_levels {cap}) on the "
-        f"same starts: {levels} levels = {n} B1 launches, no other kernel, {s2_ms:.1f} ms; answers == "
+        f"same starts: {levels} levels, {r['s2']['bodies']} bodies = {n} B1 launches, no other kernel, "
+        f"{r['s2']['host_syncs']} host syncs, {s2_ms:.1f} ms; answers == "
         f"oracle == S1; observed cost_of S1 {obs_s1:.1f}, S2 mean {np.mean(obs_s2):.1f} (max "
         f"{max(obs_s2):.1f}) against the forecast S1 {plan.forecast_symbols['S1']:.1f}, S2 "
         f"{plan.forecast_symbols['S2']:.1f}: cheaper observed {cheaper}, plan chose {c.strategy}")
@@ -1503,8 +1612,10 @@ def check_counts_at_bound(dev) -> float:
 
 
 def witness_run(placement, ca, starts, dev, **kw) -> tuple:
-    """One ``s2_execute`` of ``starts`` with its wall ms, levels and launches."""
-    lev0, launch0 = fops.FIXPOINT_COUNTERS["levels"], launch_counts()
+    """One ``s2_execute`` of ``starts`` with its wall ms, levels, the
+    launches its bodies of LEVELS_PER_CHECK levels must make, and its
+    launches."""
+    lev0, body0, launch0 = fops.FIXPOINT_COUNTERS["levels"], fops.FIXPOINT_COUNTERS["bodies"], launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = strategies.s2_execute(placement, ca, starts, device=dev, **kw)
@@ -1512,7 +1623,8 @@ def witness_run(placement, ca, starts, dev, **kw) -> tuple:
     wall_ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
     launched = {k: counts[k] - launch0[k] for k in counts if counts[k] != launch0[k]}
-    return out, wall_ms, fops.FIXPOINT_COUNTERS["levels"] - lev0, launched
+    bodies = fops.FIXPOINT_COUNTERS["bodies"] - body0
+    return out, wall_ms, fops.FIXPOINT_COUNTERS["levels"] - lev0, bodies * fops.LEVELS_PER_CHECK, launched
 
 
 def witness_breakdown(placement, ca, starts, backend, staged, dev) -> dict[str, float]:
@@ -1590,17 +1702,17 @@ def phase_witness(g, placement, cas, truth, staged, dev, record) -> dict[str, in
         for q in QUERIES:
             ca, t = cas[q], truth[q]
             kw = {"backend": backend, "tile_dtype": "f32", "staged": staged}
-            (p_ans, p_costs), pairs_ms, _, _ = witness_run(placement, ca, t["starts"], dev, **kw)
-            (ans, costs, levels), wit_ms, levels_run, launched = witness_run(
+            (p_ans, p_costs), pairs_ms, _, _, _ = witness_run(placement, ca, t["starts"], dev, **kw)
+            (ans, costs, levels), wit_ms, levels_run, body_launches, launched = witness_run(
                 placement, ca, t["starts"], dev, semantics="witness", **kw)
             bs, vs = np.nonzero(ans)
             got = np.unique(np.stack([t["starts"][bs], vs]).T, axis=0)
             if not np.array_equal(got, t["pairs"]) or not np.array_equal(ans, p_ans) or costs != p_costs:
                 raise AssertionError(f"{backend} {q}: witness answers or meters differ from the pairs "
                                      "run or the device BFS")
-            if launched != {name: levels_run}:
-                raise AssertionError(f"{backend} {q}: the witness run launched {launched} in "
-                                     f"{levels_run} levels")
+            if launched != {name: body_launches}:
+                raise AssertionError(f"{backend} {q}: the witness run launched {launched}, its bodies "
+                                     f"{body_launches} levels ({levels_run} BFS levels)")
             if levels.shape != (len(t["starts"]), ca.n_states, g.n_nodes) or levels.dtype != np.float32:
                 raise AssertionError(f"{backend} {q}: levels of shape {levels.shape} {levels.dtype}")
             if name == "fused_level_blocks":
@@ -1616,8 +1728,9 @@ def phase_witness(g, placement, cas, truth, staged, dev, record) -> dict[str, in
                 **witness_breakdown(placement, ca, t["starts"], backend, staged, dev),
             }
             log("witness", f"{backend}/f32 {q}: {r['starts']} starts; witness run {wit_ms:.1f} ms against "
-                f"{pairs_ms:.1f} ms for pairs ({r['levels']} levels = {r['launches']} {name} launches, no "
-                f"other kernel); answers and meters == pairs run == device BFS; levels "
+                f"{pairs_ms:.1f} ms for pairs ({r['levels']} BFS levels, {r['launches']} {name} launches = "
+                f"bodies x {fops.LEVELS_PER_CHECK}, no other kernel); answers and meters == pairs run == "
+                f"device BFS; levels "
                 f"{levels.shape} ({levels.nbytes / 1e6:.1f} MB, deepest {r['deepest_level']:.0f})"
                 f"{' == the f32 executor' if name != 'fused_level_blocks' else ''} == host_levels on 4 "
                 f"starts with answers; {min(N_WITNESSES, len(bs))} witnesses ({length} hops) valid and "
@@ -1627,24 +1740,22 @@ def phase_witness(g, placement, cas, truth, staged, dev, record) -> dict[str, in
                 f"memory {r['copy_ms']:.1f} ms ({levels.nbytes / r['copy_ms'] / 1e6:.2f} GB/s), to pinned "
                 f"host memory {r['pinned_copy_ms']:.1f} ms")
         launches[name] = only_launched(name, f"the witness phase on {backend}")
-        if launches[name] != fops.FIXPOINT_COUNTERS["levels"]:
-            raise AssertionError(f"{launches[name]} {name} launches for "
-                                 f"{fops.FIXPOINT_COUNTERS['levels']} levels")
+        check_loop_launches(launches[name], f"the witness phase on {backend}")
 
     # a uint32 request without a Stage A restages f32 and launches B1, not B3
     reset_launches()
     fops.FIXPOINT_COUNTERS.clear()
-    (ans, _, levels), ms, levels_run, launched = witness_run(
+    (ans, _, levels), ms, levels_run, body_launches, launched = witness_run(
         placement, cas["q1"], truth["q1"]["starts"], dev, backend="frontier_kernel",
         tile_dtype="uint32", semantics="witness")
-    if launched != {"fused_level_blocks": levels_run} or not np.array_equal(levels, f32_levels["q1"]):
-        raise AssertionError(f"q1 asking for uint32 tiles: launched {launched} in {levels_run} levels, "
-                             "or levels differ from the f32 store's")
+    if launched != {"fused_level_blocks": body_launches} or not np.array_equal(levels, f32_levels["q1"]):
+        raise AssertionError(f"q1 asking for uint32 tiles: launched {launched} for {body_launches} body "
+                             f"levels ({levels_run} BFS levels), or levels differ from the f32 store's")
     launches["fused_level_blocks"] += launched["fused_level_blocks"]
     rec["restaged_q1"] = {"ms": ms, "levels": levels_run}
     log("witness", f"frontier_kernel q1 asking for tile_dtype='uint32', no Stage A: restaged f32 and ran "
-        f"{levels_run} levels = B1 launches, no B3, in {ms:.1f} ms (Stage A of the f32 store inside); "
-        "levels == the f32 run's")
+        f"{levels_run} BFS levels in {body_launches} B1 launches (bodies x {fops.LEVELS_PER_CHECK}), no B3, in "
+        f"{ms:.1f} ms (Stage A of the f32 store inside); levels == the f32 run's")
     del ans, levels, f32_levels
     free()
 
@@ -1720,7 +1831,8 @@ def sharded_run(what, placement, ca, starts, t, store, dev, axis_size, tile_dtyp
     """``s2_execute`` on the sharded backend over ``store``'s Stage A, with
     the launch counts set to 0 just before and read just after: answers
     and broadcast meters checked against ``t``, and the level kernel's
-    launches == levels x buckets, no other kernel launched."""
+    launches == bodies x LEVELS_PER_CHECK x buckets, no other kernel
+    launched."""
     name = "fused_level_blocks_u32" if tile_dtype == "uint32" else "fused_level_blocks"
     reset_launches()
     fops.FIXPOINT_COUNTERS.clear()
@@ -1735,11 +1847,11 @@ def sharded_run(what, placement, ca, starts, t, store, dev, axis_size, tile_dtyp
     n_buckets = len(store.tile_buckets(placement, 128, axis_size, tile_dtype=staged_dtype).buckets)
     levels = fops.FIXPOINT_COUNTERS["levels"]
     n = only_launched(name, what)
-    if n != levels * n_buckets:
-        raise AssertionError(f"{what}: {n} {name} launches for {levels} levels x {n_buckets} buckets")
+    check_loop_launches(n, what, n_buckets)
     pairs = check_answers_and_meters(what, starts, t, out[0], out[1])
     return out, {"kernel": name, "starts": len(starts), "pairs": pairs, "levels": levels,
-                 "buckets": n_buckets, "launches": n, "host_syncs": fops.FIXPOINT_COUNTERS["host_syncs"],
+                 "buckets": n_buckets, "launches": n, "bodies": fops.FIXPOINT_COUNTERS["bodies"],
+                 "host_syncs": fops.FIXPOINT_COUNTERS["host_syncs"],
                  "wall_ms": wall * 1e3, "queries_per_s": len(starts) / wall}
 
 
@@ -1845,8 +1957,9 @@ def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dic
             site_meters[(ax, q)] = [c.site_unicast_symbols for c in costs]
             rec[f"i_axis{ax}_{q}"] = r
             log("sharded", f"(i) uint32 axis {ax} {q}: {r['starts']} starts, {r['pairs']} pairs == oracle, "
-                f"q_bc/n_bc == host on {len(t['meters'])}; {r['levels']} levels x {r['buckets']} bucket(s) = "
-                f"{r['launches']} B3 launches, {r['host_syncs']} host syncs, {r['wall_ms']:.1f} ms, "
+                f"q_bc/n_bc == host on {len(t['meters'])}; {r['levels']} BFS levels, {r['bodies']} bodies x "
+                f"{fops.LEVELS_PER_CHECK} x {r['buckets']} bucket(s) = {r['launches']} B3 launches, "
+                f"{r['host_syncs']} host syncs, {r['wall_ms']:.1f} ms, "
                 f"{r['queries_per_s']:.1f} queries/s")
     for q in QUERIES:
         if site_meters[(1, q)] != site_meters[(SHARD_AXES[-1], q)]:
@@ -1951,8 +2064,9 @@ def phase_sharded(g, placement, cas, truth, dg, dev, flush, record) -> tuple[dic
             r["witness"] = {k: rw[k] for k in ("levels", "launches", "wall_ms")} | {"hops": hops}
             rec[f"ii_axis{ax}_{q}"] = r
             log("sharded", f"(ii) f32 axis {ax} {q}: {r['starts']} starts, {r['pairs']} pairs == oracle; "
-                f"{r['levels']} levels x {r['buckets']} bucket(s) = {r['launches']} B1 launches, "
-                f"{r['wall_ms']:.1f} ms, {r['queries_per_s']:.1f} queries/s; witness run {rw['wall_ms']:.1f} ms, "
+                f"{r['levels']} BFS levels, {r['bodies']} bodies x {fops.LEVELS_PER_CHECK} x {r['buckets']} "
+                f"bucket(s) = {r['launches']} B1 launches, {r['wall_ms']:.1f} ms, {r['queries_per_s']:.1f} "
+                f"queries/s; witness run {rw['wall_ms']:.1f} ms, "
                 f"levels == host_levels on 4 starts, {N_WITNESSES} witnesses ({hops} hops) valid")
     rec["ii_pad"] = store.pad_stats()
     rec["iv_b1"] = check_bucket_launch("(iv) q1 axis 4 f32", store, pl2, cas2["q1"], SHARD_AXES[-1], "f32",
@@ -2008,8 +2122,8 @@ def mesh_s2(what, placement, ca, starts, dev, backend, tile_dtype="f32", semanti
     """``s2_execute`` on the sharded or reference backend, on one card
     (``mesh=None``) or per rank, with the launch, level and wire counts set
     to 0 just before and read just after: the sharded path must launch its
-    kernel once a level (one bucket per rank, or the one-card plan's
-    buckets), the reference path none.  Returns the result's digest and
+    kernel once a level on a rank (one bucket), LEVELS_PER_CHECK times a
+    body and bucket on one card, the reference path none.  Returns the result's digest and
     the counts."""
     name = "fused_level_blocks_u32" if tile_dtype == "uint32" else "fused_level_blocks"
     reset_launches()
@@ -2039,9 +2153,10 @@ def mesh_s2(what, placement, ca, starts, dev, backend, tile_dtype="f32", semanti
         n_buckets = 1 if mesh is not None else len(store.tile_buckets(
             placement, 128, axis_size, tile_dtype="f32" if semantics == "witness" else tile_dtype).buckets)
         r["launches"] = only_launched(name, what)
-        if r["launches"] != levels * n_buckets:
-            raise AssertionError(f"{what}: {r['launches']} {name} launches for {levels} levels x {n_buckets} "
-                                 "bucket(s)")
+        if mesh is None:  # one card: the device loop, LEVELS_PER_CHECK levels a body
+            check_loop_launches(r["launches"], what, n_buckets)
+        elif r["launches"] != levels:  # a rank's host loop: one launch a level
+            raise AssertionError(f"{what}: {r['launches']} {name} launches for {levels} levels")
         r["kernel"] = name
     return run_digest(out), r
 
@@ -2293,8 +2408,9 @@ def mesh_serve_run(what: str, svc, stream, refs: list | None, kernel: str | None
     """One serve run of the mesh phase's (c), on one card or per rank, the
     launch, level and wire counts set to 0 just before and read just
     after: each request's digest must equal ``refs``' (when given), and
-    ``kernel`` launch once a level and bucket (``None``: no kernel at
-    all).  Returns the answers and the counts."""
+    ``kernel`` launch once a level on a rank, LEVELS_PER_CHECK times a body
+    and bucket on one card (``None``: no kernel at all).  Returns the
+    answers and the counts."""
     reset_launches()
     fops.FIXPOINT_COUNTERS.clear()
     collectives.WIRE_COUNTERS.clear()
@@ -2316,7 +2432,9 @@ def mesh_serve_run(what: str, svc, stream, refs: list | None, kernel: str | None
         r["launches"] = 0
     else:
         r["kernel"], r["launches"] = kernel, only_launched(kernel, f"mesh {what}")
-        if r["launches"] != r["levels"] * run_buckets(svc):
+        if svc.mesh is None:  # one card: the device loop, LEVELS_PER_CHECK levels a body and bucket
+            check_loop_launches(r["launches"], f"mesh {what}", run_buckets(svc))
+        elif r["launches"] != r["levels"]:  # a rank's host loop: one launch a level
             raise AssertionError(f"mesh {what}: {r['launches']} {kernel} launches for {r['levels']} levels")
     log("mesh", f"{what}: {r['requests']} requests, strategies {r['strategies']}, {r['levels']} levels, "
         f"{r['launches']} {kernel or 'kernel'} launches, {r['all_reduces']} all_reduces, {r['wire_bytes']} bytes "
@@ -3080,22 +3198,24 @@ def serve_sync(svc, stream, first_window: dict | None = None, **kw) -> tuple[lis
 
 
 def serve_launched(name: str, what: str, buckets: int = 1) -> dict:
-    """The run's launches of level kernel ``name``: nonzero, one per
-    fixpoint level (and per shape bucket, on the sharded backend), and no
-    other kernel."""
+    """The run's launches of level kernel ``name``: nonzero,
+    LEVELS_PER_CHECK per body of the one-card fixpoints (and per shape
+    bucket, on the sharded backend), and no other kernel."""
     n = only_launched(name, what)
-    levels = fops.FIXPOINT_COUNTERS["levels"]
-    if n != levels * buckets:
-        raise AssertionError(f"{what}: {n} {name} launches for {levels} levels x {buckets} buckets")
-    return {"kernel": name, "launches": n, "levels": levels}
+    check_loop_launches(n, what, buckets)
+    c = fops.FIXPOINT_COUNTERS
+    return {"kernel": name, "launches": n, "levels": c["levels"], "bodies": c["bodies"],
+            "host_syncs": c["host_syncs"], "fixpoints": c["fixpoints"]}
 
 
 def log_serve(run: str, r: dict) -> None:
     lay = r.get("layers_ms", {})
     log("serve", f"({run}): {r['requests']} requests in {r['wall_s']:.2f} s = {r['queries_per_s']:.2f} q/s, "
         f"latency p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms; strategies {r['strategies']}, "
-        f"{r['plan_cache_hits']} plan-cache hits; {r.get('launches', 0)} {r.get('kernel', '-')} launches = "
-        f"levels; host ms: plan {lay.get('plan', 0):.1f}, Stage A {lay.get('stage_a', 0):.1f} "
+        f"{r['plan_cache_hits']} plan-cache hits; {r.get('launches', 0)} {r.get('kernel', '-')} launches "
+        f"({r.get('levels', 0)} BFS levels, {r.get('bodies', 0)} bodies of {fops.LEVELS_PER_CHECK}, "
+        f"{r.get('host_syncs', 0)} host syncs); host ms: plan {lay.get('plan', 0):.1f}, Stage A "
+        f"{lay.get('stage_a', 0):.1f} "
         f"({lay.get('staged_bytes', 0) / 1e9:.3f} GB staged), S2 batch {lay.get('s2_batch', 0):.1f}, "
         f"S2 execute {lay.get('s2_execute', 0):.1f}, S1 gather {lay.get('s1_gather', 0):.1f}, "
         f"feedback {lay.get('feedback', 0):.1f}")
@@ -3157,6 +3277,44 @@ def answers_digest(a) -> str:
     return digest([sorted(s) for s in a.answers])
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module (its
+    ``main(argv)`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples(record) -> None:
+    """The port's example scripts on the card (their default device):
+    the quickstart, and the plan-and-serve driver at ``--small`` on q1 and
+    q6, whose every start must print ``OK`` against the PAA oracle and
+    none ``MISMATCH``.  Their output is logged line by line."""
+    rec = record["examples"] = {}
+    for name, argv in (("torch_quickstart", []),
+                       ("torch_plan_and_serve_rpq", ["--small", "--queries", "q1,q6"])):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            load_example(name).main(argv)
+        torch.cuda.synchronize()
+        text = out.getvalue()
+        for line in text.splitlines():
+            log("examples", f"{name}: {line}")
+        rec[name] = {"argv": argv, "wall_s": time.perf_counter() - t0, "ok": text.count("[OK]"),
+                     "mismatch": text.count("MISMATCH")}
+        if "MISMATCH" in text:
+            raise AssertionError(f"{name} {argv}: an answer differs from the PAA oracle")
+        if name == "torch_plan_and_serve_rpq" and text.count("[OK]") != 8:  # 2 queries x 2 starts x 2 replays
+            raise AssertionError(f"{name}: {text.count('[OK]')} starts answered OK, want 8")
+        if name == "torch_quickstart" and "pairs [(1, 5), (1, 8), (2, 7), (9, 5), (9, 8)]" not in text:
+            raise AssertionError(f"{name}: Q2's pairs differ from the paper's worked example")
+        log("examples", f"{name} {' '.join(argv)}: {rec[name]['ok']} OK, 0 MISMATCH, {rec[name]['wall_s']:.1f} s")
+
+
 def phase_serve(g, placement, pl16, dg, dev, record) -> tuple[dict[str, int], dict]:
     """The serving runtime on the full twin (ROADMAP A10, A11, A12): a
     144-request stream through ``QueryService`` on B4, its first 48 on B1
@@ -3197,6 +3355,25 @@ def phase_serve(g, placement, pl16, dg, dev, record) -> tuple[dict[str, int], di
     rec["a_warm"] = r
     launches[r["kernel"]] += r["launches"] + rec["a_cold"]["launches"]
     log_serve("a, packed/uint32, warm", r)
+    # a third warm run traced: how far the host holds the card back while serving
+    reset_launches()
+    fops.FIXPOINT_COUNTERS.clear()
+    traced_answers = []
+    tr = device_trace(lambda: traced_answers.extend(serve_sync(svc, stream)[0]))
+    check_serve_answers(traced_answers, stream, oracle, "serve run (a), traced")
+    b4 = [n for n in tr["kernels"] if all(p in n for p in KERNELS["packed_level_blocks_u32"]["symbol"])]
+    lk = kernel_share(tr, tuple(b4))
+    rec["a_traced"] = {"traced_ms": tr["traced_ms"], "device_busy_ms": tr["device_busy_ms"],
+                       "idle_share": 1.0 - tr["device_busy_ms"] / tr["traced_ms"],
+                       "idle_share_of_warm_run": 1.0 - tr["device_busy_ms"] / (rec["a_warm"]["wall_s"] * 1e3),
+                       "level_kernel": lk, "kernels": dict(list(tr["kernels"].items())[:12])}
+    launches["packed_level_blocks_u32"] += only_launched("packed_level_blocks_u32", "serve run (a), traced")
+    log("serve", f"(a) warm, traced: {tr['traced_ms']:.1f} ms traced, device busy {tr['device_busy_ms']:.1f} ms, "
+        f"idle share {rec['a_traced']['idle_share']:.4f} of the traced run, "
+        f"{rec['a_traced']['idle_share_of_warm_run']:.4f} of the untraced warm run; B4 {lk['ms']:.3f} ms in "
+        f"{lk['count']} launches ({100 * lk['share']:.2f}% of device time)")
+    for kname, kt in list(tr["kernels"].items())[:6]:
+        log("serve", f"  {kt['us'] / 1e3:9.3f} ms {kt['count']:6d}x  {kname[:90]}")
 
     # (d) witness requests on the packed backend: they restage f32 and run B2
     witness_stream = stream[:SERVE_WITNESS]
@@ -6311,7 +6488,7 @@ def main() -> int:
         fops.FIXPOINT_COUNTERS.clear()
         for q in QUERIES:
             ca, t = cas[q], truth[q]
-            lev0, sync0 = fops.FIXPOINT_COUNTERS["levels"], fops.FIXPOINT_COUNTERS["host_syncs"]
+            c0 = dict(fops.FIXPOINT_COUNTERS)
             launch0 = launch_counts()[name]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -6323,12 +6500,14 @@ def main() -> int:
             wall = time.perf_counter() - t0
             r = per_query[q] = {
                 "starts": len(t["starts"]),
-                "levels": fops.FIXPOINT_COUNTERS["levels"] - lev0,
+                **{k: fops.FIXPOINT_COUNTERS[k] - c0.get(k, 0)
+                   for k in ("levels", "host_syncs", "bodies", "fixpoints", "replays", "captures")},
                 "launches": launch_counts()[name] - launch0,
-                "host_syncs": fops.FIXPOINT_COUNTERS["host_syncs"] - sync0,
                 "wall_ms": wall * 1e3,
                 "queries_per_s": len(t["starts"]) / wall,
             }
+            # the per-level loop read the frontier before every level and once more at each fixpoint's end
+            r["host_syncs_per_level_loop"] = r["levels"] + r["fixpoints"]
             bs, vs = np.nonzero(answers)
             got = np.unique(np.stack([t["starts"][bs], vs]).T, axis=0)
             if not np.array_equal(got, t["pairs"]):
@@ -6343,15 +6522,17 @@ def main() -> int:
             r["pairs"] = int(len(got))
             paper_pairs, paper_starts = TABLE2_PAPER[q]
             log("path", f"{backend}/{td} {q}: {r['starts']} starts (paper {paper_starts}), {r['pairs']} "
-                f"answer pairs (paper {paper_pairs}, for information); {r['levels']} levels, "
-                f"{r['launches']} launches, {r['host_syncs']} host syncs, {r['wall_ms']:.1f} ms, "
-                f"{r['queries_per_s']:.1f} queries/s; answers == oracle, meters == host meter on "
-                f"{len(t['meters'])} starts")
+                f"answer pairs (paper {paper_pairs}, for information); {r['levels']} BFS levels in "
+                f"{r['fixpoints']} fixpoints, {r['bodies']} bodies of {fops.LEVELS_PER_CHECK} levels "
+                f"({r['replays']} replayed, {r['captures']} capture) = {r['launches']} launches, "
+                f"{r['host_syncs']} host syncs ({r['host_syncs_per_level_loop']} on the per-level loop: "
+                f"levels + fixpoints), {r['wall_ms']:.1f} ms, {r['queries_per_s']:.1f} queries/s; answers "
+                f"== oracle, meters == host meter on {len(t['meters'])} starts")
         n = only_launched(name, f"the {backend}/{td} path")
-        levels = fops.FIXPOINT_COUNTERS["levels"]
-        if n != levels:
-            raise AssertionError(f"{n} {name} launches for {levels} BFS levels")
+        check_loop_launches(n, f"the {backend}/{td} path")
         launches[name] = n
+    record["captured_vs_eager"] = check_captured_against_eager(placement, cas["q1"], truth["q1"]["starts"],
+                                                               stores, dev)
     phase_end("path")
 
     record["trace"] = {}
@@ -6371,11 +6552,12 @@ def main() -> int:
                 tr["first_trace_count"] = lost
             record["trace"][f"{backend}/{td}/{q}"] = tr
             lk = tr["level_kernel"]
-            if not lk["count"] == path_q["launches"] == path_q["levels"]:
+            if not lk["count"] == path_q["launches"] == path_q["bodies"] * fops.LEVELS_PER_CHECK:
                 raise AssertionError(f"{backend}/{td} {q}: the trace holds {lk['count']} launches of "
                                      f"the level kernel {lk['name']}, the path phase "
-                                     f"{path_q['launches']} in {path_q['levels']} levels")
-            log("trace", f"{backend}/{td} {q}: set-up {tr['setup_ms']:.1f} ms, run {tr['run_ms']:.1f} ms "
+                                     f"{path_q['launches']} in {path_q['bodies']} bodies")
+            log("trace", f"{backend}/{td} {q}: set-up {tr['setup_ms']:.1f} ms, first run (capture) "
+                f"{tr['first_run_ms']:.1f} ms, warm run {tr['run_ms']:.1f} ms "
                 f"= {len(truth[q]['starts']) / tr['run_ms'] * 1e3:.1f} queries/s "
                 f"({tr['traced_ms']:.1f} ms traced); device busy {tr['device_busy_ms']:.1f} ms, "
                 f"idle share {tr['idle_share']:.4f} of the traced run, "
@@ -6419,6 +6601,8 @@ def main() -> int:
         launches[name] += n
     del serve_handoff, pl16
     phase_end("mesh_serve")
+    phase_examples(record)
+    phase_end("examples")
 
     new_kernels = [phase_baseline(g, cas, dg, stores, dev, gen, flush, record)]
     del stores, dg

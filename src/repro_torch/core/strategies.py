@@ -732,11 +732,15 @@ def _make_reference_step_fn(
     Each call batches its starts, in chunks sized so that the (chunk,
     edges) temporaries of the largest transition run stay under
     :data:`REFERENCE_CHUNK_BYTES` (edges: the run's matching valid edges,
-    compacted once per call), and runs one fixpoint per chunk, with one
-    host sync per level.  On meta site arrays (a shape-only run,
+    compacted once per site arrays: a call on the same tensors, unchanged,
+    reuses them), and runs one fixpoint per chunk on a
+    :class:`~repro_torch.kernels.frontier.ops.LevelLoop` (on a card one
+    graph per chunk height: a chunk's rows pad to a power of two, the
+    padded rows empty), or per rank on the host loop, one host sync per
+    level.  On meta site arrays (a shape-only run,
     ``launch/``) every padded slot stands for a matching edge, the
     degree vectors are empty, and each fixpoint takes one level
-    (:func:`_reference_continues`).  A level gathers, per transition run, the
+    (:func:`~repro_torch.kernels.frontier.ops.host_loop`).  A level gathers, per transition run, the
     frontier at one end of the run's edges and OR-scatters it into the
     other with an int32 ``scatter_add_`` (a count, never a wrapping
     uint8 sum), thresholded ``> 0``.
@@ -767,29 +771,26 @@ def _make_reference_step_fn(
     levels = max_levels if max_levels is not None else n_states * n_nodes
     runs = transition_runs(ca)
     sgroups = symbol_set_groups(ca)
+    n_groups = len(sgroups)
 
-    def fixpoint(starts: torch.Tensor, run_edges, group_degs):
-        dev, b = starts.device, starts.shape[0]
-        rows = torch.arange(b, device=dev)
-        visited = torch.zeros((b, n_states, n_nodes), dtype=torch.bool, device=dev)
-        visited[rows, ca.start, starts] = True
-        frontier = visited
-        done = [torch.zeros((b, n_nodes), dtype=torch.bool, device=dev) for _ in sgroups]
-        q_bc = torch.zeros(b, device=dev)
-        d_s2 = torch.zeros(b, device=dev)
-        n_bc = torch.zeros(b, dtype=torch.int64, device=dev)
-        levmap = fops.initial_levels(visited) if witness else None
-        lev = 0
-        while _reference_continues(frontier, lev, levels):
-            for gi, (symset, states) in enumerate(sgroups):
-                now_g = frontier[:, list(states)].any(dim=1)
-                new_g = now_g & ~done[gi]
+    def level_on(run_edges, group_degs, state_idx):
+        """One level over these edge sets: the meters on the frontier,
+        then the expansion (a :class:`~repro_torch.kernels.frontier.ops.LevelLoop`
+        level)."""
+
+        def level(state, lev):  # frontier, visited, q_bc, d_s2, n_bc, *done[, levmap]
+            frontier, visited, q_bc, d_s2, n_bc, *rest = state
+            b, dev = frontier.shape[0], frontier.device
+            done = []
+            for gi, (symset, _) in enumerate(sgroups):
+                now_g = frontier[:, state_idx[gi]].any(dim=1)
+                new_g = now_g & ~rest[gi]
                 n_new = new_g.sum(dim=1)
                 q_bc = q_bc + (1 + len(symset)) * n_new.float()
                 n_bc = n_bc + n_new
                 for deg in group_degs[gi]:
                     d_s2 = d_s2 + EDGE_SYMBOLS * (new_g.double() @ deg).float()
-                done[gi] = done[gi] | now_g
+                done.append(rest[gi] | now_g)
             nxt = torch.zeros_like(frontier)
             for (s_st, d_st, direction, _, _), (e_src, e_dst) in zip(runs, run_edges):
                 at, to = (e_src, e_dst) if direction == FWD else (e_dst, e_src)
@@ -799,24 +800,55 @@ def _make_reference_step_fn(
             if ranks is not None:  # unicast-response combine: OR over every site
                 nxt = ranks.pmax(nxt)
             new = nxt & ~visited
-            if witness:
-                levmap.masked_fill_(new, lev + 2.0)
-            visited = visited | new
-            frontier = new
-            lev += 1
-            fops.FIXPOINT_COUNTERS["levels"] += 1
+            out = (new, visited | new, q_bc, d_s2, n_bc, *done)
+            return out + (fops.stamp_levels(rest[-1], new, lev),) if witness else out
+
+        return level
+
+    def fixpoint(starts: torch.Tensor, rows_pad: int, level, loop):
+        dev, b = starts.device, starts.shape[0]
+        visited = torch.zeros((rows_pad, n_states, n_nodes), dtype=torch.bool, device=dev)
+        visited[torch.arange(b, device=dev), ca.start, starts] = True
+        state = (visited, visited, torch.zeros(rows_pad, device=dev), torch.zeros(rows_pad, device=dev),
+                 torch.zeros(rows_pad, dtype=torch.int64, device=dev),
+                 *(torch.zeros((rows_pad, n_nodes), dtype=torch.bool, device=dev) for _ in range(n_groups)))
+        if witness:
+            state += (fops.initial_levels(visited),)
+        state = loop.run(state) if loop is not None else fops.host_loop(level, state, levels)
+        _, visited, q_bc, d_s2, n_bc, *rest = state
         acc = visited[:, list(ca.accepting)].any(dim=1)
         if ranks is not None:  # every site holding a matching edge answered
             d_s2 = ranks.psum(d_s2)
-        out = (acc, q_bc, d_s2, n_bc.to(torch.int32))
-        return out + (levmap,) if witness else out
+        out = (acc, q_bc, d_s2, n_bc.to(torch.int32)) + ((rest[-1],) if witness else ())
+        return out if rows_pad == b else tuple(x[:b] for x in out)
+
+    # the last call's site arrays (their tensors and versions), their edge
+    # sets and the LevelLoop of each chunk height run on them
+    held: dict = {}
+
+    def release() -> None:
+        for loop in held.get("loops", {}).values():
+            loop.release()
+        held.clear()
+
+    def edge_sets(site_arrays: dict[str, torch.Tensor], dev):
+        arrays = tuple(site_arrays[k] for k in ("src", "lbl", "dst", "mask"))
+        # a shape-only run counts one call's work: its edge sets every call
+        key = None if dev.type == "meta" else tuple((id(a), a._version) for a in arrays)
+        if key is None or held.get("key") != key:
+            release()
+            run_edges, group_degs = _reference_edge_sets(ca, runs, sgroups, site_arrays, n_nodes)
+            state_idx = [torch.tensor(states, device=dev) for _, states in sgroups]
+            held.update(key=key, arrays=arrays, run_edges=run_edges, loops={},
+                        level=level_on(run_edges, group_degs, state_idx))
+        return held["run_edges"], held["level"], held["loops"]
 
     def fn(starts, site_arrays=None) -> tuple[torch.Tensor, ...]:
         if site_arrays is None:
             raise ValueError("backend='reference' reads the placement's padded site arrays: "
                              "pass site_arrays (stage_site_arrays, or s2_execute's device_arrays=)")
         dev = site_arrays["src"].device
-        run_edges, group_degs = _reference_edge_sets(ca, runs, sgroups, site_arrays, n_nodes)
+        run_edges, level, loops = edge_sets(site_arrays, dev)
         widest = max([len(e) for e, _ in run_edges], default=0)
         if ranks is not None:
             agreed = ranks.pmax(torch.tensor([widest], device=dev))
@@ -830,27 +862,29 @@ def _make_reference_step_fn(
         n = starts.shape[0]
         if ranks is not None:
             starts = starts[slice(*ranks.batch_block(n))]
-        outs = [fixpoint(starts[lo : lo + chunk], run_edges, group_degs)
-                for lo in range(0, starts.shape[0], chunk)]
+
+        def run(part: torch.Tensor):
+            b = part.shape[0]
+            if ranks is not None or part.is_meta:  # a pmax a level, or no values: the host loop
+                return fixpoint(part, b, level, None)
+            # on a card a chunk's rows pad to a power of two (at most the
+            # chunk), so few heights share the captured graphs
+            rows_pad = min(1 << max(b - 1, 0).bit_length(), chunk) if dev.type == "cuda" else b
+            loop = loops.get(rows_pad)
+            if loop is None:
+                loop = loops[rows_pad] = fops.LevelLoop(level, levels)
+            return fixpoint(part, rows_pad, level, loop)
+
+        outs = [run(starts[lo : lo + chunk]) for lo in range(0, starts.shape[0], chunk)]
         if not outs:
-            outs = [fixpoint(starts, run_edges, group_degs)]
+            outs = [run(starts)]
         result = tuple(torch.cat(col) for col in zip(*outs))
         if ranks is not None:
             result = tuple(ranks.gather_batch(x, n) for x in result)
         return result
 
+    fn.release = release
     return fn
-
-
-def _reference_continues(frontier: torch.Tensor, lev: int, levels: int) -> bool:
-    """Whether the reference fixpoint takes another level: below
-    ``levels`` and with a frontier, read on the host.  A shape-only run
-    (a meta frontier, which has no values) takes exactly one level, as
-    XLA's cost analysis counts a ``while`` body once
-    (``tests/test_torch_launch.py`` checks it)."""
-    if frontier.is_meta:
-        return lev < min(levels, 1)
-    return lev < levels and fops.frontier_nonempty(frontier)
 
 
 def _fetch_staged_graph(
@@ -950,9 +984,12 @@ def _make_frontier_step_fn(
     """The fused-kernel S2 executor (``backend="frontier_kernel"``).
 
     Each call stacks the start batch into chunks of ``QPAD`` (=8) queries
-    and runs one fixpoint per chunk: one kernel launch and one host sync
-    per BFS level (``repro`` runs the chunks under ``lax.map`` and each
-    fixpoint in a ``lax.while_loop``).  Rows of a last, short chunk stay
+    and runs one fixpoint per chunk on one
+    :class:`~repro_torch.kernels.frontier.ops.LevelLoop`: one kernel
+    launch per level, ``LEVELS_PER_CHECK`` levels per host check, on a
+    card one captured graph replayed for every chunk (``repro`` runs the
+    chunks under ``lax.map`` and each fixpoint in a ``lax.while_loop``).
+    ``fn.release()`` frees the graph.  Rows of a last, short chunk stay
     empty, where ``repro`` starts them at node 0 and discards them: the
     answers and meters of the real rows are the same.
 
@@ -976,39 +1013,40 @@ def _make_frontier_step_fn(
     levels = max_levels if max_levels is not None else n_states * n_nodes
     rep = torch.tensor(replication_factor, dtype=torch.float32, device=dev)
 
+    n_groups = len(sgroups)
+
+    def level(state, lev):  # frontier, visited, q_bc, d_s2, n_bc, *done[, levmap]
+        frontier, visited, q_bc, d_s2, n_bc, *rest = state
+        fr3 = frontier.reshape(n_states, q_pad, v_pad)
+        done = []
+        for gi, (_, states) in enumerate(sgroups):
+            now_g = functools.reduce(torch.maximum, (fr3[s] for s in states))
+            new_g = now_g * (1.0 - rest[gi])
+            cnt = new_g.sum(dim=1)
+            q_bc = q_bc + pay_c[gi] * cnt
+            n_bc = n_bc + cnt
+            d_s2 = d_s2 + EDGE_SYMBOLS * (new_g * deg_c[gi]).sum(dim=1)
+            done.append(torch.maximum(rest[gi], now_g))
+        new = fops.expand_level_fused(plan, frontier) * (1.0 - visited)
+        out = (new, torch.maximum(visited, new), q_bc, d_s2, n_bc, *done)
+        return out + (fops.stamp_levels(rest[-1], new > 0, lev),) if witness else out
+
+    loop = fops.LevelLoop(level, levels)
+
     def fixpoint(f0: torch.Tensor):  # (n_states, q_pad, v_pad) f32 0/1
-        visited = frontier = f0.reshape(n_states * q_pad, v_pad)
-        done = [torch.zeros((q_pad, v_pad), device=dev) for _ in sgroups]
-        q_bc = torch.zeros(q_pad, device=dev)
-        d_s2 = torch.zeros(q_pad, device=dev)
-        n_bc = torch.zeros(q_pad, device=dev)
-        levmap = fops.initial_levels(visited > 0) if witness else None
-        lev = 0
-        while lev < levels and fops.frontier_nonempty(frontier):
-            fr3 = frontier.reshape(n_states, q_pad, v_pad)
-            for gi, (_, states) in enumerate(sgroups):
-                now_g = functools.reduce(torch.maximum, (fr3[s] for s in states))
-                new_g = now_g * (1.0 - done[gi])
-                cnt = new_g.sum(dim=1)
-                q_bc = q_bc + pay_c[gi] * cnt
-                n_bc = n_bc + cnt
-                d_s2 = d_s2 + EDGE_SYMBOLS * (new_g * deg_c[gi]).sum(dim=1)
-                done[gi] = torch.maximum(done[gi], now_g)
-            nxt = fops.expand_level_fused(plan, frontier)
-            new = nxt * (1.0 - visited)
-            if witness:
-                levmap.masked_fill_(new > 0, lev + 2.0)
-            visited = torch.maximum(visited, new)
-            frontier = new
-            lev += 1
-            fops.FIXPOINT_COUNTERS["levels"] += 1
+        visited = f0.reshape(n_states * q_pad, v_pad)
+        state = (visited, visited, *(torch.zeros(q_pad, device=dev) for _ in range(3)),
+                 *(torch.zeros((q_pad, v_pad), device=dev) for _ in range(n_groups)))
+        if witness:
+            state += (fops.initial_levels(visited > 0),)
+        _, visited, q_bc, d_s2, n_bc, *rest = loop.run(state)
         vis3 = visited.reshape(n_states, q_pad, v_pad)
         acc = torch.zeros((q_pad, v_pad), device=dev)
         for qf in ca.accepting:
             acc = torch.maximum(acc, vis3[qf])
         out = (acc[:, :n_nodes] > 0, q_bc, d_s2 * rep, n_bc)
         if witness:  # (n_states, q_pad, v_pad) -> (q_pad, n_states, n_nodes)
-            out += (levmap.reshape(n_states, q_pad, v_pad).transpose(0, 1)[:, :, :n_nodes],)
+            out += (rest[-1].reshape(n_states, q_pad, v_pad).transpose(0, 1)[:, :, :n_nodes],)
         return out
 
     def fn(starts) -> tuple[torch.Tensor, ...]:
@@ -1032,6 +1070,7 @@ def _make_frontier_step_fn(
         result = (acc, q_bc, d_s2, n_bc.to(torch.int32))
         return result + (lev_out,) if witness else result
 
+    fn.release = loop.release
     return fn
 
 
@@ -1055,7 +1094,8 @@ def _make_frontier_packed_step_fn(
     Same Stage A and Stage B as :func:`_make_frontier_step_fn`, but the
     frontier is int32 lane words: chunk lane ``q`` lives in word row
     ``q // 32``, bit ``q % 32``, so one fixpoint answers ``QPACK`` = 256
-    starts, one packed kernel launch and one host sync per BFS level.
+    starts, one packed kernel launch per BFS level, on the same
+    :class:`~repro_torch.kernels.frontier.ops.LevelLoop` form.
     The start words are built on the host in numpy uint32
     (:func:`~repro_torch.kernels.frontier.ops.stack_start_nodes_packed`)
     and viewed as int32.  Lanes of a last, short chunk stay empty, where
@@ -1082,38 +1122,41 @@ def _make_frontier_packed_step_fn(
     levels = max_levels if max_levels is not None else n_states * n_nodes
     rep = torch.tensor(replication_factor, dtype=torch.float32, device=dev)
 
+    n_groups = len(sgroups)
+
+    def level(state, lev):  # frontier, visited, q_bc, d_s2, n_bc, *done[, levmap]
+        frontier, visited, q_bc, d_s2, n_bc, *rest = state
+        fr3 = frontier.reshape(n_states, q_pad, v_pad)
+        done = []
+        for gi, (_, states) in enumerate(sgroups):
+            now_g = functools.reduce(torch.bitwise_or, (fr3[s] for s in states))
+            bits = fkernel.unpack_lane_rows(now_g & ~rest[gi])  # (q_pack, v_pad)
+            cnt = bits.sum(dim=1)
+            q_bc = q_bc + pay_c[gi] * cnt
+            n_bc = n_bc + cnt
+            d_s2 = d_s2 + EDGE_SYMBOLS * (bits * deg_c[gi]).sum(dim=1)
+            done.append(rest[gi] | now_g)
+        new = fops.expand_level_packed(plan, frontier) & ~visited
+        out = (new, visited | new, q_bc, d_s2, n_bc, *done)
+        if witness:
+            out += (fops.stamp_levels(rest[-1], fops.lane_states(new, n_states), lev),)
+        return out
+
+    loop = fops.LevelLoop(level, levels)
+
     def fixpoint(f0: torch.Tensor):  # (n_states * q_pad, v_pad) int32 lane words
-        visited = frontier = f0
-        done = [torch.zeros((q_pad, v_pad), dtype=torch.int32, device=dev) for _ in sgroups]
-        q_bc = torch.zeros(q_pack, device=dev)
-        d_s2 = torch.zeros(q_pack, device=dev)
-        n_bc = torch.zeros(q_pack, device=dev)
-        levmap = fops.initial_levels(fops.lane_states(f0, n_states)) if witness else None
-        lev = 0
-        while lev < levels and fops.frontier_nonempty(frontier):
-            fr3 = frontier.reshape(n_states, q_pad, v_pad)
-            for gi, (_, states) in enumerate(sgroups):
-                now_g = functools.reduce(torch.bitwise_or, (fr3[s] for s in states))
-                bits = fkernel.unpack_lane_rows(now_g & ~done[gi])  # (q_pack, v_pad)
-                cnt = bits.sum(dim=1)
-                q_bc = q_bc + pay_c[gi] * cnt
-                n_bc = n_bc + cnt
-                d_s2 = d_s2 + EDGE_SYMBOLS * (bits * deg_c[gi]).sum(dim=1)
-                done[gi] = done[gi] | now_g
-            new = fops.expand_level_packed(plan, frontier) & ~visited
-            if witness:
-                levmap.masked_fill_(fops.lane_states(new, n_states), lev + 2.0)
-            visited = visited | new
-            frontier = new
-            lev += 1
-            fops.FIXPOINT_COUNTERS["levels"] += 1
+        state = (f0, f0, *(torch.zeros(q_pack, device=dev) for _ in range(3)),
+                 *(torch.zeros((q_pad, v_pad), dtype=torch.int32, device=dev) for _ in range(n_groups)))
+        if witness:
+            state += (fops.initial_levels(fops.lane_states(f0, n_states)),)
+        _, visited, q_bc, d_s2, n_bc, *rest = loop.run(state)
         vis3 = visited.reshape(n_states, q_pad, v_pad)
         acc = torch.zeros((q_pad, v_pad), dtype=torch.int32, device=dev)
         for qf in ca.accepting:
             acc = acc | vis3[qf]
         out = (fkernel.unpack_lane_rows(acc)[:, :n_nodes] > 0, q_bc, d_s2 * rep, n_bc)
         if witness:  # (n_states, q_pack, v_pad) -> (q_pack, n_states, n_nodes)
-            out += (levmap.transpose(0, 1)[:, :, :n_nodes],)
+            out += (rest[-1].transpose(0, 1)[:, :, :n_nodes],)
         return out
 
     def fn(starts) -> tuple[torch.Tensor, ...]:
@@ -1136,6 +1179,7 @@ def _make_frontier_packed_step_fn(
         result = (acc, q_bc, d_s2, n_bc.to(torch.int32))
         return result + (lev_out,) if witness else result
 
+    fn.release = loop.release
     return fn
 
 
@@ -1167,7 +1211,10 @@ def _make_frontier_sharded_step_fn(
     sizes, and the sites block over it the same way, so the merged grids
     and buckets are ``repro``'s.
 
-    One level (:func:`~repro_torch.kernels.frontier.ops.expand_level_sharded`):
+    The fixpoint runs on a
+    :class:`~repro_torch.kernels.frontier.ops.LevelLoop` on one device,
+    and per rank on the host loop (a level holds a ``pmax``).  One level
+    (:func:`~repro_torch.kernels.frontier.ops.expand_level_sharded`):
     the frontier is extended once, each bucket is one B1 or B3 launch
     over its members' work list, and the buckets are max-merged and
     clamped — a synchronous OR merge, where ``repro`` forwards each
@@ -1253,39 +1300,43 @@ def _make_frontier_sharded_step_fn(
     pay_c = torch.from_numpy(payloads).to(dev)
     n_sites = len(site_graphs)
 
+    n_groups = len(sgroups)
+
+    def level(state, lev):  # frontier, visited, q_bc, n_bc, d_site, *done[, levmap]
+        frontier, visited, q_bc, n_bc, d_site, *rest = state
+        fr3 = frontier.reshape(n_states, q_pad, v_pad)
+        done = []
+        for gi, (_, states) in enumerate(sgroups):
+            now_g = functools.reduce(torch.maximum, (fr3[s] for s in states))
+            new_g = now_g * (1.0 - rest[gi])
+            cnt = new_g.sum(dim=1)
+            q_bc = q_bc + pay_c[gi] * cnt
+            n_bc = n_bc + cnt
+            d_site = d_site + EDGE_SYMBOLS * (deg64[:, gi] @ new_g.double().T).float()
+            done.append(torch.maximum(rest[gi], now_g))
+        new = fops.expand_level_sharded(plan, frontier, mesh, site_axes) * (1.0 - visited)
+        out = (new, torch.maximum(visited, new), q_bc, n_bc, d_site, *done)
+        return out + (fops.stamp_levels(rest[-1], new > 0, lev),) if witness else out
+
+    # over ranks a level holds a pmax, which no graph captures: the host loop
+    loop = fops.LevelLoop(level, levels) if ranks is None else None
+
     def fixpoint(f0: torch.Tensor):  # (n_states, q_pad, v_pad) f32 0/1
-        visited = frontier = f0.reshape(n_states * q_pad, v_pad)
-        done = [torch.zeros((q_pad, v_pad), device=dev) for _ in sgroups]
-        q_bc = torch.zeros(q_pad, device=dev)
-        n_bc = torch.zeros(q_pad, device=dev)
-        d_site = torch.zeros((n_sites, q_pad), device=dev)
-        levmap = fops.initial_levels(visited > 0) if witness else None
-        lev = 0
-        while lev < levels and fops.frontier_nonempty(frontier):
-            fr3 = frontier.reshape(n_states, q_pad, v_pad)
-            for gi, (_, states) in enumerate(sgroups):
-                now_g = functools.reduce(torch.maximum, (fr3[s] for s in states))
-                new_g = now_g * (1.0 - done[gi])
-                cnt = new_g.sum(dim=1)
-                q_bc = q_bc + pay_c[gi] * cnt
-                n_bc = n_bc + cnt
-                d_site = d_site + EDGE_SYMBOLS * (deg64[:, gi] @ new_g.double().T).float()
-                done[gi] = torch.maximum(done[gi], now_g)
-            nxt = fops.expand_level_sharded(plan, frontier, mesh, site_axes)
-            new = nxt * (1.0 - visited)
-            if witness:
-                levmap.masked_fill_(new > 0, lev + 2.0)
-            visited = torch.maximum(visited, new)
-            frontier = new
-            lev += 1
-            fops.FIXPOINT_COUNTERS["levels"] += 1
+        visited = f0.reshape(n_states * q_pad, v_pad)
+        state = (visited, visited, torch.zeros(q_pad, device=dev), torch.zeros(q_pad, device=dev),
+                 torch.zeros((n_sites, q_pad), device=dev),
+                 *(torch.zeros((q_pad, v_pad), device=dev) for _ in range(n_groups)))
+        if witness:
+            state += (fops.initial_levels(visited > 0),)
+        state = loop.run(state) if loop is not None else fops.host_loop(level, state, levels)
+        _, visited, q_bc, n_bc, d_site, *rest = state
         vis3 = visited.reshape(n_states, q_pad, v_pad)
         acc = torch.zeros((q_pad, v_pad), device=dev)
         for qf in ca.accepting:
             acc = torch.maximum(acc, vis3[qf])
         out = (acc[:, :n_nodes] > 0, q_bc, n_bc, d_site)
         if witness:  # (n_states, q_pad, v_pad) -> (q_pad, n_states, n_nodes)
-            out += (levmap.reshape(n_states, q_pad, v_pad).transpose(0, 1)[:, :, :n_nodes],)
+            out += (rest[-1].reshape(n_states, q_pad, v_pad).transpose(0, 1)[:, :, :n_nodes],)
         return out
 
     def fn(starts) -> tuple[torch.Tensor, ...]:
@@ -1316,6 +1367,7 @@ def _make_frontier_sharded_step_fn(
         result = (acc, q_bc, d_site.sum(dim=0), n_bc.to(torch.int32), d_site)
         return result + (lev,) if witness else result
 
+    fn.release = loop.release if loop is not None else lambda: None
     return fn
 
 

@@ -50,7 +50,10 @@ two combine policies), B3 and B4 on bit-planes (one body on the two
 policies); they raise on anything the kernels do not take.  For CPU
 tensors they run the plain PyTorch versions.  There is no fallback from
 the one to the other.  Each kernel has its own launch count
-(:func:`launch_counts`).
+(:func:`launch_counts`).  A call inside a CUDA graph capture records its
+kernel into the graph and launches nothing: it adds one to the
+capturing thread's tally (:func:`recording_launches`), and the graph's
+owner adds that tally at each replay (:func:`add_launches`).
 
 Exact: every kernel puts its chunks' results into a zeroed output with
 atomics, in no fixed order.  B2 and B4 OR lane words, which is exact in
@@ -66,7 +69,10 @@ bound keeps them below 2^24.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -79,6 +85,17 @@ LAUNCHES_U32 = 0  # B3: fused_level_blocks on bit-plane tiles
 PACKED_LAUNCHES = 0  # B2: packed_level_blocks on f32 tiles
 PACKED_LAUNCHES_U32 = 0  # B4: packed_level_blocks on bit-plane tiles
 STEP_LAUNCHES = 0  # B5: frontier_step_blocks
+
+# the module counter of each kernel, by the name launch_counts() gives it
+_COUNTERS = {
+    "fused_level_blocks": "LAUNCHES",
+    "fused_level_blocks_u32": "LAUNCHES_U32",
+    "packed_level_blocks": "PACKED_LAUNCHES",
+    "packed_level_blocks_u32": "PACKED_LAUNCHES_U32",
+    "frontier_step_blocks": "STEP_LAUNCHES",
+}
+# per thread: the tally of the graph capture recording_launches() opened
+_RECORDING = threading.local()
 
 _I32 = ("firsts", "valids", "tile_ids", "f_rows", "f_cols", "o_rows", "o_cols")
 
@@ -93,6 +110,39 @@ def launch_counts() -> dict[str, int]:
         "packed_level_blocks_u32": PACKED_LAUNCHES_U32,
         "frontier_step_blocks": STEP_LAUNCHES,
     }
+
+
+def _count(kernel: str) -> None:
+    """One launch of ``kernel``.  Under a CUDA graph capture the call only
+    records the kernel into the graph, so it goes to the capturing
+    thread's tally (:func:`recording_launches`; none outside one) and not
+    to the count."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_RECORDING, "tally", None)
+        if tally is not None:
+            tally[kernel] += 1
+        return
+    globals()[_COUNTERS[kernel]] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """The kernels that the calls in this block record into a CUDA graph
+    capture, by :func:`launch_counts`' names: a ``Counter`` that the
+    graph's owner hands :func:`add_launches` at each replay."""
+    prev = getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = tally = collections.Counter()
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = prev
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (a replayed graph's recorded kernels) to the launch
+    counts."""
+    for kernel, n in counts.items():
+        globals()[_COUNTERS[kernel]] += n
 
 
 def reset_launches() -> None:
@@ -350,7 +400,6 @@ def fused_level_blocks(
     is a non-negative integer and every output sum is below 2^24: the
     kernels add their chunks' sums with atomics, in no fixed order, and
     f32 adds integers below 2^24 exactly in any order."""
-    global LAUNCHES, LAUNCHES_U32
     n_out_rows = n_out_rows or frontier.shape[0]
     if frontier.device.type == "cpu":
         return fused_level_blocks_plain(
@@ -365,10 +414,8 @@ def fused_level_blocks(
         "fused_level_f32_u32tiles" if bits else "fused_level_f32", torch.float32, frontier,
         tiles, ints, block_size, q_pad, n_out_rows, run_ptr, work,
     )
-    if launched and bits:
-        LAUNCHES_U32 += 1
-    elif launched:
-        LAUNCHES += 1
+    if launched:
+        _count("fused_level_blocks_u32" if bits else "fused_level_blocks")
     return out
 
 
@@ -399,7 +446,6 @@ def packed_level_blocks(
     :func:`packed_level_blocks_plain`; on CUDA tensors it launches the
     kernel or raises.  The kernels OR their chunks' words into a zeroed
     output with atomics: exact in any order."""
-    global PACKED_LAUNCHES, PACKED_LAUNCHES_U32
     n_out_rows = n_out_rows or frontier.shape[0]
     if frontier.device.type == "cpu":
         return packed_level_blocks_plain(
@@ -414,10 +460,8 @@ def packed_level_blocks(
         "packed_level_u32tiles" if bits else "packed_level_f32tiles", torch.int32, frontier,
         tiles, ints, block_size, q_pad, n_out_rows, run_ptr, work,
     )
-    if launched and bits:
-        PACKED_LAUNCHES_U32 += 1
-    elif launched:
-        PACKED_LAUNCHES += 1
+    if launched:
+        _count("packed_level_blocks_u32" if bits else "packed_level_blocks")
     return out
 
 
@@ -489,7 +533,6 @@ def bucket_level_blocks(
     Exact, as the plain version is, while every sum is an integer below
     2^24 (see :func:`fused_level_blocks`); the sharded executor passes
     {0,1} operands, so a sum is at most the member count."""
-    global LAUNCHES, LAUNCHES_U32
     n_out_rows = n_out_rows or frontier.shape[0]
     if frontier.device.type == "cpu":
         return bucket_level_blocks_plain(
@@ -511,10 +554,8 @@ def bucket_level_blocks(
         tiles.reshape(-1, *tiles.shape[2:]), ints, block_size, q_pad, n_out_rows, run_ptr, work,
         rows=rows,
     )
-    if launched and bits:
-        LAUNCHES_U32 += 1
-    elif launched:
-        LAUNCHES += 1
+    if launched:
+        _count("fused_level_blocks_u32" if bits else "fused_level_blocks")
     return out
 
 
@@ -598,7 +639,6 @@ def frontier_step_blocks(
     Exact, as the plain version is, while every frontier and tile entry
     is a non-negative integer and every output sum is below 2^24: the
     kernel adds its chunks' sums with atomics, in no fixed order."""
-    global STEP_LAUNCHES
     if frontier.device.type == "cpu":
         return frontier_step_blocks_plain(frontier, tiles, block_rows, block_cols, block_size)
     if frontier.device.type != "cuda":
@@ -617,5 +657,5 @@ def frontier_step_blocks(
         )
     if err != 0:
         raise RuntimeError(f"frontier_step_f32 launch failed with CUDA error {err}")
-    STEP_LAUNCHES += 1
+    _count("frontier_step_blocks")
     return out

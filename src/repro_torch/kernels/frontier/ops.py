@@ -47,9 +47,11 @@ their variant off the tile dtype.
 The fixpoints (:func:`reach_fixpoint` on f32 rows of 8 stacked queries,
 :func:`reach_fixpoint_packed` on int32 lane words of 256) run one fused
 level launch per BFS level.  ``repro`` runs them in a
-``lax.while_loop`` with no host sync; here a Python loop reads
-``frontier.any()`` once per level, and :data:`FIXPOINT_COUNTERS` counts
-the levels and those host syncs.  Their witness forms
+``lax.while_loop`` with no host sync; here a :class:`LevelLoop` keeps the
+loop's state on the device and runs :data:`LEVELS_PER_CHECK` levels, each
+gated by an "active" flag on the device, per host check: on a card
+captured once in a CUDA graph and replayed.  :data:`FIXPOINT_COUNTERS`
+counts the levels and those host syncs.  Their witness forms
 (:func:`reach_fixpoint_levels`, :func:`reach_fixpoint_packed_levels`)
 also carry each product state's discovery level, and
 :func:`count_paths_bounded` runs the same level on run counts (the
@@ -66,6 +68,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
+import threading
 
 import numpy as np
 
@@ -76,6 +80,7 @@ from repro_torch.core.automaton import FWD, INV, CompiledAutomaton
 from repro_torch.core.witness import INF_LEVEL
 from repro_torch.dist import collectives
 from repro_torch.graph.structure import LabeledGraph
+from repro_torch.kernels.frontier import frontier as fkernel
 from repro_torch.kernels.frontier.frontier import (
     bucket_level_blocks,
     frontier_step_blocks,
@@ -95,6 +100,19 @@ from repro_torch.kernels.frontier.ref import (
 QPAD = 8
 # query lanes of the packed path: QPAD word rows of 32 bits per state
 QPACK = QPAD * 32
+# BFS levels a fixpoint runs on the device per host check (LevelLoop).  A
+# Table-2 query's fixpoints take 6 (q1, f32 rows) to 12.5 (q12) levels on
+# the f32 paths and 9 to 18 on the packed ones, a served request's 3.1 on
+# average; each body costs a capture's worth of host work once per
+# executor and up to k - 1 levels past convergence, which launch on an
+# empty frontier (an empty packed level still unpacks its meters' 256
+# lanes).  4 reads a served fixpoint about once and a path's every 4
+# levels.
+LEVELS_PER_CHECK = 4
+# Run the level bodies eagerly on a card as on the CPU, with no CUDA
+# graph: the loop that the graphs are held to (chip_smoke.py, the card
+# tests).  False on every path a caller runs.
+EAGER = False
 
 # offset-table key for the any-label union store (wildcard transitions);
 # real label ids are >= 0 so the key space is disjoint.
@@ -109,8 +127,13 @@ BUCKET_FLOOR = 8
 # Stage-B schedule construction bumps a counter (same keys as ``repro``).
 BUILD_COUNTERS: collections.Counter = collections.Counter()
 
-# Fixpoint instrumentation: "levels" counts BFS levels run (one fused
-# kernel launch each), "host_syncs" the frontier.any() reads.
+# Fixpoint instrumentation: "levels" counts BFS levels run (one level
+# kernel launch each on a host loop; read from the device counter when a
+# LevelLoop's fixpoint ends), "host_syncs" the reads of a frontier or of
+# a loop's flag, "fixpoints" the fixpoints a LevelLoop ran, "bodies" the
+# LEVELS_PER_CHECK-level bodies they ran (each launches its levels'
+# kernels, converged or not), "replays" those replayed from a CUDA graph,
+# "captures" the graphs captured.
 FIXPOINT_COUNTERS: collections.Counter = collections.Counter()
 
 
@@ -891,6 +914,14 @@ class FusedLevelPlan:
     # dtype of the aliased tile store ("f32" or "uint32"); the kernels
     # dispatch off the tensor's dtype, executors check it against theirs
     tile_dtype: str = "f32"
+    # the reach_fixpoint* functions' LevelLoops on this plan, with their graphs
+    loops: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    def release(self) -> None:
+        """Free the graphs of this plan's fixpoint loops."""
+        for loop in self.loops.values():
+            loop.release()
+        self.loops.clear()
 
 
 def required_offset_keys(ca: CompiledAutomaton) -> tuple[tuple[int, int], ...]:
@@ -1375,22 +1406,179 @@ def frontier_nonempty(frontier: torch.Tensor) -> bool:
     return bool(frontier.any())
 
 
+def stamp_levels(levmap: torch.Tensor, new: torch.Tensor, lev) -> torch.Tensor:
+    """The witness plane with the states in ``new`` (a bool mask) stamped
+    at ``lev + 2``: level 1 is the start, so the expansion after ``lev``
+    levels reaches level ``lev + 2``.  ``lev`` is a host int (a host
+    loop: filled in place) or a device int32 0-d tensor (a
+    :class:`LevelLoop` body: a new plane, no host read)."""
+    if isinstance(lev, torch.Tensor):
+        return torch.where(new, (lev + 2).to(levmap.dtype), levmap)
+    return levmap.masked_fill_(new, lev + 2.0)
+
+
+def host_loop(level, state: tuple, levels: int) -> tuple:
+    """A fixpoint's levels from the host, ``state[0]`` (the frontier) read
+    before each one (:func:`frontier_nonempty`): the loop of the per-rank
+    executors, whose levels hold collectives that no graph captures.
+    ``level(state, lev)`` is a :class:`LevelLoop` level, ``lev`` a host
+    int here.  A shape-only run (a meta frontier, which has no values)
+    takes exactly one level, as XLA's cost analysis counts a ``while``
+    body once (``tests/test_torch_launch.py`` checks it)."""
+    meta = state[0].is_meta
+    lev = 0
+    while lev < (min(levels, 1) if meta else levels) and (meta or frontier_nonempty(state[0])):
+        state = level(state, lev)
+        lev += 1
+        FIXPOINT_COUNTERS["levels"] += 1
+    return state
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: torch.cuda.CUDAGraph
+    static: tuple  # the body's carry, read and written in place by each replay
+    launches: dict  # the level kernels the body launches, by launch_counts() name
+
+
+class LevelLoop:
+    """A fixpoint's level loop with its state on the device, read by the
+    host once per :data:`LEVELS_PER_CHECK` levels: ``repro``'s
+    ``lax.while_loop``.
+
+    ``level(state, lev)`` runs one BFS level: ``state`` is a tuple of
+    tensors whose first is the frontier, ``lev`` the levels run before
+    it (an int32 0-d tensor on the device), and it returns the next
+    state and reads nothing on the host.  A body runs k levels, each
+    gated by an "active" flag on the device, "the frontier is nonempty
+    and ``lev < levels``": the frontier is multiplied by the flag before
+    the level and ``lev`` grows by it, so a level after convergence or
+    past ``levels`` expands an empty frontier and adds nothing (no new
+    state, no meter count, no witness stamp).  After each body the host
+    reads the flag and ``lev`` in one sync and stops when the flag is
+    down; ``lev`` is then the fixpoint's BFS levels, at most ``levels``.
+    A fixpoint of L levels reads max(1, ⌈L / k⌉) times.
+
+    On a CUDA device the body is captured once per k in a CUDA graph, on
+    a side stream (``capture_error_mode="thread_local"``: another
+    thread's CUDA calls do not break it; the thread's cyclic garbage
+    collector is off meanwhile), after one eager body that loads
+    the kernels and raises their shared-memory limits; each run copies
+    its start state into the graph's static carry and replays, and
+    returns copies of the final state.  A capture or a replay that fails
+    raises: there is no fallback.  The launches a capture records count
+    at each replay (``frontier.add_launches``).  On the CPU, and on a
+    card under :data:`EAGER`, the same body runs eagerly.  A lock
+    serialises runs (one static carry per graph); :meth:`release` frees
+    the graphs and their static carries."""
+
+    def __init__(self, level, levels: int):
+        self.level = level
+        self.levels = min(int(levels), 2**31 - 1)
+        self._graphs: dict[int, _Captured] = {}
+        self._lock = threading.Lock()
+
+    def _body(self, k: int, carry: tuple) -> tuple:
+        act, lev, *state = carry
+        for _ in range(k):
+            state = self.level((state[0] * act.to(state[0].dtype), *state[1:]), lev)
+            lev = lev + act.to(lev.dtype)
+            act = state[0].ne(0).any() & (lev < self.levels)
+        return (act, lev, *state)
+
+    def _capture(self, k: int, carry: tuple) -> _Captured:
+        dev = carry[0].device
+        static = tuple(t.clone() for t in carry)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        # no cyclic garbage collection in this thread while it captures: a
+        # collected executor's graph would be destroyed inside the capture,
+        # which invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with fkernel.recording_launches() as launches, torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    for s, o in zip(static, self._body(k, static)):
+                        if o is not s:
+                            s.copy_(o)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        FIXPOINT_COUNTERS["captures"] += 1
+        return _Captured(graph, static, dict(launches))
+
+    def run(self, state: tuple) -> tuple:
+        """The fixpoint from ``state``: the final state, the same layout."""
+        dev = state[0].device
+        act = (state[0].ne(0).any() if self.levels > 0
+               else torch.zeros((), dtype=torch.bool, device=dev))
+        carry = (act, torch.zeros((), dtype=torch.int32, device=dev), *state)
+        k = LEVELS_PER_CHECK
+        graphed = dev.type == "cuda" and not EAGER
+        with self._lock:
+            entry = self._graphs.get(k) if graphed else None
+            if entry is not None:
+                for s, c in zip(entry.static, carry):
+                    s.copy_(c)
+                carry = entry.static
+            while True:
+                if entry is not None:
+                    entry.graph.replay()
+                    fkernel.add_launches(entry.launches)
+                    FIXPOINT_COUNTERS["replays"] += 1
+                else:
+                    carry = self._body(k, carry)
+                    if graphed:
+                        entry = self._graphs[k] = self._capture(k, carry)
+                        carry = entry.static
+                FIXPOINT_COUNTERS["bodies"] += 1
+                FIXPOINT_COUNTERS["host_syncs"] += 1
+                active, lev = torch.stack((carry[0].to(torch.int32), carry[1])).tolist()
+                if not active:
+                    break
+            FIXPOINT_COUNTERS["levels"] += lev
+            FIXPOINT_COUNTERS["fixpoints"] += 1
+            final = carry[2:]
+            return tuple(t.clone() for t in final) if entry is not None else tuple(final)
+
+    def release(self) -> None:
+        """Free the CUDA graphs and their static carries."""
+        with self._lock:
+            for entry in self._graphs.values():
+                entry.graph.reset()
+            self._graphs.clear()
+
+
+def _plan_loop(plan: "FusedLevelPlan", kind: str, level, levels: int) -> LevelLoop:
+    """The plan's :class:`LevelLoop` of fixpoint ``kind`` at ``levels``,
+    made at first use and kept on the plan, with its graphs."""
+    key = (kind, levels)
+    loop = plan.loops.get(key)
+    if loop is None:
+        loop = plan.loops[key] = LevelLoop(level, levels)
+    return loop
+
+
 def reach_fixpoint(
     plan: FusedLevelPlan,
     frontier0: torch.Tensor,  # (n_states * q_pad, v_pad) f32 0/1
     max_levels: int = 64,
 ) -> torch.Tensor:
-    """Visited product states (same layout as ``frontier0``) at fixpoint."""
-    visited = frontier = frontier0
-    level = 0
-    while level < max_levels and frontier_nonempty(frontier):
-        nxt = expand_level_fused(plan, frontier)
-        new = nxt * (1.0 - visited)  # exact on {0,1} floats
-        visited = torch.maximum(visited, new)
-        frontier = new
-        level += 1
-        FIXPOINT_COUNTERS["levels"] += 1
-    return visited
+    """Visited product states (same layout as ``frontier0``) at fixpoint,
+    on the plan's :class:`LevelLoop`."""
+
+    def level(state, lev):
+        frontier, visited = state
+        new = expand_level_fused(plan, frontier) * (1.0 - visited)  # exact on {0,1} floats
+        return new, torch.maximum(visited, new)
+
+    return _plan_loop(plan, "reach", level, max_levels).run((frontier0, frontier0))[1]
 
 
 def _require_f32_tiles(plan: FusedLevelPlan, what: str) -> None:
@@ -1426,18 +1614,14 @@ def reach_fixpoint_levels(
     level ``i + 1``.  Refuses a ``tile_dtype="uint32"`` plan
     (boolean-only store)."""
     _require_f32_tiles(plan, "reach_fixpoint_levels")
-    visited = frontier = frontier0
-    levels = initial_levels(frontier0 > 0)
-    level = 0
-    while level < max_levels and frontier_nonempty(frontier):
-        nxt = expand_level_fused(plan, frontier)
-        new = nxt * (1.0 - visited)  # exact on {0,1} floats
-        levels.masked_fill_(new > 0, level + 2.0)
-        visited = torch.maximum(visited, new)
-        frontier = new
-        level += 1
-        FIXPOINT_COUNTERS["levels"] += 1
-    return visited, levels
+
+    def level(state, lev):
+        frontier, visited, levels = state
+        new = expand_level_fused(plan, frontier) * (1.0 - visited)  # exact on {0,1} floats
+        return new, torch.maximum(visited, new), stamp_levels(levels, new > 0, lev)
+
+    state = (frontier0, frontier0, initial_levels(frontier0 > 0))
+    return _plan_loop(plan, "levels", level, max_levels).run(state)[1:]
 
 
 def count_paths_bounded(
@@ -1646,15 +1830,13 @@ def reach_fixpoint_packed(
     """Visited lane words (same layout as ``frontier0``) at fixpoint: all
     256 lanes advance together, ``new = nxt & ~visited`` per bit, and the
     loop ends when every word of the frontier is zero."""
-    visited = frontier = frontier0
-    level = 0
-    while level < max_levels and frontier_nonempty(frontier):
+
+    def level(state, lev):
+        frontier, visited = state
         new = expand_level_packed(plan, frontier) & ~visited
-        visited = visited | new
-        frontier = new
-        level += 1
-        FIXPOINT_COUNTERS["levels"] += 1
-    return visited
+        return new, visited | new
+
+    return _plan_loop(plan, "packed", level, max_levels).run((frontier0, frontier0))[1]
 
 
 def lane_states(words: torch.Tensor, n_states: int) -> torch.Tensor:
@@ -1678,17 +1860,14 @@ def reach_fixpoint_packed_levels(
     ``tile_dtype="uint32"`` plan (witness levels are contracted to the
     f32 store)."""
     _require_f32_tiles(plan, "reach_fixpoint_packed_levels")
-    visited = frontier = frontier0
-    levels = initial_levels(lane_states(frontier0, plan.n_states))
-    level = 0
-    while level < max_levels and frontier_nonempty(frontier):
+
+    def level(state, lev):
+        frontier, visited, levels = state
         new = expand_level_packed(plan, frontier) & ~visited
-        levels.masked_fill_(lane_states(new, plan.n_states), level + 2.0)
-        visited = visited | new
-        frontier = new
-        level += 1
-        FIXPOINT_COUNTERS["levels"] += 1
-    return visited, levels
+        return new, visited | new, stamp_levels(levels, lane_states(new, plan.n_states), lev)
+
+    state = (frontier0, frontier0, initial_levels(lane_states(frontier0, plan.n_states)))
+    return _plan_loop(plan, "packed_levels", level, max_levels).run(state)[1:]
 
 
 def multi_query_reach_packed(

@@ -298,10 +298,11 @@ class _ExecEntry:
     """One built executor and the keys it lives under.  ``anchor`` pins
     the placement/graph whose ``id()`` is in ``graph_key``, so a
     collected placement cannot hand its address to a new object and
-    alias a stale executor.  ``release()`` drops the executor's closure
-    (its Stage-B plan, degree vectors and staged tensors), so an evicted
-    signature's device memory frees once the shared Stage-A entry in the
-    plan store is dropped too."""
+    alias a stale executor.  ``release()`` frees the executor's fixpoint
+    loops (``fn.release()``: their CUDA graphs and static state) and drops
+    its closure (its Stage-B plan, degree vectors and staged tensors), so
+    an evicted signature's device memory frees once the shared Stage-A
+    entry in the plan store is dropped too."""
 
     graph_key: tuple
     sig: Signature
@@ -309,6 +310,8 @@ class _ExecEntry:
     anchor: Any = None
 
     def release(self) -> None:
+        if self.fn is not None and hasattr(self.fn, "release"):
+            self.fn.release()
         self.fn = None
 
 

@@ -4,7 +4,8 @@ baseline step B5 (``frontier_step_blocks``), EmbeddingBag B6 and flash
 decode B7 against their plain PyTorch versions (B1 and B3 also on a
 sharded shape bucket, ``bucket_level_blocks``), the wrappers' refusals,
 and the S1 and S2 executors (the reference and sharded backends, witness
-semantics and bounded counting too), the branching estimator, the baseline fixpoint and the serving
+semantics and bounded counting too), their fixpoints replayed from CUDA
+graphs against the eager loop, the branching estimator, the baseline fixpoint and the serving
 runtime (``QueryService``, its plan store's device memory,
 ``AsyncQueryService``'s flush worker) on the GPU against the same code
 on the CPU, and the mesh programs on a one-rank NCCL group against
@@ -45,7 +46,7 @@ from repro_torch.kernels.decode_attn import decode_attn
 from repro_torch.kernels.embedbag import embedbag
 from repro_torch.kernels.embedbag import ops as eb_ops
 from repro_torch.kernels.frontier import frontier, ops
-from repro_torch.serve import AsyncQueryService, QueryService, ServeConfig
+from repro_torch.serve import AsyncQueryService, QueryService, ServeConfig, plancache
 
 pytestmark = pytest.mark.gpu
 
@@ -851,9 +852,10 @@ def test_service_on_gpu_equals_cpu(cuda, backend, tile_dtype):
                              [dataclasses.astuple(c) for c in a.observed]) for a in res]
         out[str(device) + "/batches"] = [r.exec_batch_size for r in svc.metrics.records]
         counts = frontier.launch_counts()
-        if device == cuda:
+        if device == cuda:  # each body of LEVELS_PER_CHECK levels launches every one of them
             name = SERVE_KERNEL[(backend, tile_dtype)]
-            assert counts[name] == ops.FIXPOINT_COUNTERS["levels"] > 0
+            assert counts[name] == ops.FIXPOINT_COUNTERS["bodies"] * ops.LEVELS_PER_CHECK > 0
+            assert ops.FIXPOINT_COUNTERS["levels"] > 0
             assert sum(counts.values()) == counts[name]
     assert out["cpu"] == out["cuda"]
     assert out["cpu/batches"] == out["cuda/batches"]
@@ -902,7 +904,8 @@ def test_async_flush_on_the_worker_thread_launches_the_kernel(cuda, backend, til
     got = asyncio.run(drive())
     counts = frontier.launch_counts()
     name = SERVE_KERNEL[(backend, tile_dtype)]
-    assert counts[name] == ops.FIXPOINT_COUNTERS["levels"] > 0
+    assert counts[name] == ops.FIXPOINT_COUNTERS["bodies"] * ops.LEVELS_PER_CHECK > 0
+    assert ops.FIXPOINT_COUNTERS["captures"] > 0  # on the flush worker's thread
     for (q, s), a in zip(queries, got):
         assert a.answers == want.submit(q, s, strategy="S2").answers
 
@@ -975,8 +978,8 @@ def test_sharded_and_reference_executors_on_gpu_equal_cpu(cuda, backend, tile_dt
         counts = frontier.launch_counts()
         if backend == "reference":
             assert sum(counts.values()) == 0
-        else:
-            assert counts[name] == ops.FIXPOINT_COUNTERS["levels"] > 0
+        else:  # one bucket here: LEVELS_PER_CHECK launches a body
+            assert counts[name] == ops.FIXPOINT_COUNTERS["bodies"] * ops.LEVELS_PER_CHECK > 0
             assert sum(counts.values()) == counts[name]
         (a_cpu, c_cpu), (a_gpu, c_gpu) = run["cpu"], run["cuda"]
         assert (a_cpu == a_gpu).all() and c_cpu == c_gpu, expr
@@ -1007,6 +1010,122 @@ def test_sharded_site_meter_is_exact_with_tf32_on(cuda):
     want = strategies.s2_execute(placement, ca, np.array([0]), backend="frontier_kernel_sharded",
                                  block_size=128, device="cpu")[1][0]
     assert got == want and sum(got.site_unicast_symbols) == 3 * (n - 1)
+
+
+# ---------------------------------------------------------------------------
+# the fixpoints on the card: CUDA graphs replayed against the eager loop
+# ---------------------------------------------------------------------------
+
+LOOP_PATHS = [("reference", "f32", "pairs"), ("reference", "f32", "witness"),
+              ("frontier_kernel", "f32", "witness"), ("frontier_kernel", "uint32", "pairs"),
+              ("frontier_kernel_packed", "f32", "witness"), ("frontier_kernel_packed", "uint32", "pairs"),
+              ("frontier_kernel_sharded", "uint32", "pairs"), ("frontier_kernel_sharded", "f32", "witness")]
+
+
+def _loop_run(step, placement, ca, starts, arrays, semantics):
+    frontier.reset_launches()
+    ops.FIXPOINT_COUNTERS.clear()
+    out = strategies.s2_execute(placement, ca, starts, step_fn=step, device_arrays=arrays, semantics=semantics)
+    return (out[0].tobytes(), [dataclasses.astuple(c) for c in out[1]], *(x.tobytes() for x in out[2:])), \
+        ops.FIXPOINT_COUNTERS.copy(), sum(frontier.launch_counts().values())
+
+
+@pytest.mark.parametrize("max_levels", [None, 2])
+@pytest.mark.parametrize("backend, tile_dtype, semantics", LOOP_PATHS)
+def test_replayed_graph_equals_eager_loop(cuda, monkeypatch, backend, tile_dtype, semantics, max_levels):
+    """Each one-card executor's fixpoints replayed from its captured CUDA
+    graph (``LEVELS_PER_CHECK`` levels a replay) equal the eager loop of
+    one level a check bit for bit: answers, meters, witness planes and BFS
+    levels, at ``max_levels`` too; the first call captures once, a second
+    replays only; the level kernel launches ``LEVELS_PER_CHECK`` times per
+    body and bucket."""
+    g, placement = _sharded_setup()
+    arrays = strategies.stage_site_arrays(placement, cuda) if backend == "reference" else None
+    kw = {"placement": placement, "axis_size": 3} if backend == "frontier_kernel_sharded" else {}
+    for expr in ("l0 (l1|l2)* l3", "(l0|l4)+"):
+        ca = paa.compile_query(expr, g)
+        starts = paa.valid_start_nodes(ca, g)[:40]
+
+        def step():
+            return strategies.make_s2_step_fn(
+                ca, g.n_nodes, max_levels, backend=backend, graph=g, tile_dtype=tile_dtype,
+                semantics=semantics, block_size=32, replication_factor=placement.replication_factor,
+                device=cuda, **kw)
+
+        monkeypatch.setattr(ops, "EAGER", True)
+        monkeypatch.setattr(ops, "LEVELS_PER_CHECK", 1)
+        want, want_c, want_n = _loop_run(step(), placement, ca, starts, arrays, semantics)
+        monkeypatch.setattr(ops, "EAGER", False)
+        monkeypatch.setattr(ops, "LEVELS_PER_CHECK", 8)
+        fn = step()
+        for call in range(2):
+            got, c, n = _loop_run(fn, placement, ca, starts, arrays, semantics)
+            assert got == want, (expr, backend, call)
+            assert c["levels"] == want_c["levels"] > 0 and c["host_syncs"] == c["bodies"] <= want_c["bodies"]
+            assert c["captures"] == (1 if call == 0 else 0)
+            assert c["replays"] == c["bodies"] - (1 if call == 0 else 0)  # the first body ran eagerly
+            if backend == "reference":
+                assert n == want_n == 0
+            else:  # the eager loop: one launch a level and bucket
+                assert n == c["bodies"] * 8 * (want_n // want_c["levels"]) > 0
+        fn.release()
+
+
+FIXPOINTS = ["reach_fixpoint", "reach_fixpoint_levels", "reach_fixpoint_packed", "reach_fixpoint_packed_levels"]
+
+
+@pytest.mark.parametrize("name", FIXPOINTS)
+def test_reach_fixpoints_replayed_equal_eager(cuda, monkeypatch, name):
+    """``ops.reach_fixpoint*`` replayed from the plan's graphs equal the
+    eager one-level loop bit for bit, and the same BFS levels."""
+    plan = _plan(1, cuda)
+    masks = np.zeros((8, plan.n_nodes), np.float32)
+    masks[np.arange(8), np.arange(0, 48, 6)] = 1.0
+    packed = "packed" in name
+    f0 = (ops.stack_start_masks_packed(plan, 0, masks).view(np.int32) if packed
+          else ops.stack_start_masks(plan, 0, masks))
+    f0 = torch.from_numpy(f0).to(cuda)
+
+    def run():
+        ops.FIXPOINT_COUNTERS.clear()
+        out = getattr(ops, name)(plan, f0)
+        return [t.cpu().numpy().tobytes() for t in (out if isinstance(out, tuple) else (out,))], \
+            ops.FIXPOINT_COUNTERS["levels"]
+
+    monkeypatch.setattr(ops, "EAGER", True)
+    monkeypatch.setattr(ops, "LEVELS_PER_CHECK", 1)
+    want = run()
+    monkeypatch.setattr(ops, "EAGER", False)
+    monkeypatch.setattr(ops, "LEVELS_PER_CHECK", 8)
+    assert run() == run() == want and want[1] > 0
+    plan.release()
+
+
+def test_an_evicted_executor_returns_its_graph_memory(cuda):
+    """An executor evicted from the cache (``_ExecEntry.release``) frees its
+    graphs, their static state and its plan: ``memory_allocated`` comes
+    back to its level before the build."""
+    g, placement = _sharded_setup()
+    ca = paa.compile_query("l0 (l1|l2)* l3", g)
+    starts = paa.valid_start_nodes(ca, g)[:40]
+    staged = ops.stage_graph(g, 32, device=cuda)
+    for i, backend in enumerate(("frontier_kernel", "frontier_kernel", "frontier_kernel_packed")):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        step = strategies.make_s2_step_fn(ca, g.n_nodes, backend=backend, graph=g, staged=staged,
+                                          block_size=32, replication_factor=placement.replication_factor,
+                                          device=cuda)
+        ops.FIXPOINT_COUNTERS.clear()
+        strategies.s2_execute(placement, ca, starts, step_fn=step)
+        assert ops.FIXPOINT_COUNTERS["captures"] == 1 and torch.cuda.memory_allocated() > base
+        entry = plancache._ExecEntry(graph_key=(), sig=None, fn=step)
+        del step
+        entry.release()
+        gc.collect()
+        torch.cuda.synchronize()
+        if i:  # the first build is the warm-up: whatever it allocates for good
+            assert torch.cuda.memory_allocated() == base, backend
 
 
 # ---------------------------------------------------------------------------
@@ -1392,13 +1511,15 @@ def test_one_rank_nccl_mesh_equals_no_mesh(cuda, tmp_path):
                     out = strategies.s2_execute(placement, ca, starts, backend=backend, tile_dtype=tile_dtype,
                                                 semantics=sem, block_size=32, device=cuda, mesh=m)
                     run.append((out[0], out[1]) + tuple(x.tobytes() for x in out[2:]))
-                    launches.append((sum(frontier.launch_counts().values()), ops.FIXPOINT_COUNTERS["levels"]))
+                    launches.append((sum(frontier.launch_counts().values()), ops.FIXPOINT_COUNTERS["levels"],
+                                     ops.FIXPOINT_COUNTERS["bodies"]))
                 assert run[0][0].tobytes() == run[1][0].tobytes() and run[0][1:] == run[1][1:], (expr, backend)
-                assert launches[0] == launches[1], (expr, backend)
+                assert launches[0][1] == launches[1][1] > 0, (expr, backend)  # the same BFS levels
                 if backend == "reference":
-                    assert launches[0][0] == 0
-                else:
-                    assert launches[0][0] == launches[0][1] > 0
+                    assert launches[0][0] == launches[1][0] == 0
+                else:  # a rank's host loop launches once a level, one card's loop k levels a body
+                    assert launches[0][0] == launches[0][1]
+                    assert launches[1][0] == launches[1][2] * ops.LEVELS_PER_CHECK
     finally:
         dist.destroy_process_group()
 
@@ -1422,6 +1543,7 @@ def test_one_rank_nccl_service_equals_no_mesh(cuda, tmp_path):
     def serve(mesh):
         svc = QueryService(placement, NetworkParams(150, 450, 0.2), config=cfg, device=cuda, mesh=mesh)
         frontier.reset_launches()
+        ops.FIXPOINT_COUNTERS.clear()
         tickets = [svc.enqueue(w.query, w.starts, strategy="S2") for w in stream[:6]]
         svc.flush()
         tickets += [svc.enqueue(w.query, w.starts, strategy="S1") for w in stream[:3]]
@@ -1429,9 +1551,11 @@ def test_one_rank_nccl_service_equals_no_mesh(cuda, tmp_path):
         tickets += [svc.enqueue(w.query, w.starts, strategy="S2", semantics="witness") for w in stream[6:]]
         svc.flush()
         svc.stop_followers()
+        counts = dict(frontier.launch_counts(), levels=ops.FIXPOINT_COUNTERS["levels"],
+                      bodies=ops.FIXPOINT_COUNTERS["bodies"])
         return [(a.query, a.strategy, a.answers, [dataclasses.astuple(c) for c in a.observed],
                  None if a.levels is None else a.levels.tobytes())
-                for a in (t.result() for t in tickets)], dict(frontier.launch_counts())
+                for a in (t.result() for t in tickets)], counts
 
     want, want_launches = serve(None)
     ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
@@ -1441,8 +1565,12 @@ def test_one_rank_nccl_service_equals_no_mesh(cuda, tmp_path):
         got, launches = serve(mesh)
     finally:
         dist.destroy_process_group()
-    assert got == want and launches == want_launches
+    assert got == want and launches["levels"] == want_launches["levels"]
     assert launches["fused_level_blocks_u32"] > 0 and launches["fused_level_blocks"] > 0  # witness: f32
+    # the rank's host loop launches once a level, one card's loop (one bucket) k levels a body
+    kernels = ("fused_level_blocks_u32", "fused_level_blocks")
+    assert sum(launches[k] for k in kernels) == launches["levels"]
+    assert sum(want_launches[k] for k in kernels) == want_launches["bodies"] * ops.LEVELS_PER_CHECK
 
 
 @pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])

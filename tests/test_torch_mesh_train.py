@@ -225,13 +225,16 @@ def _train_case(key: str, case: dict, mesh) -> dict:
     handed, the parameters and the state before and after, each gathered
     whole; on a rank also its state blocks' shapes and ZeRO dims."""
     box: list = []
-    real_get, real_moe = opt_lib.get, layers.apply_moe
+    real_get, real_moe, real_norm = opt_lib.get, layers.apply_moe, layers.rmsnorm
     opt_lib.get = _recording_get(real_get, box)
     cap = CAP_DROP if key == "granite_drop" else CAP_NO_DROP
     layers.apply_moe = functools.partial(real_moe, capacity_factor=cap)
+    terms: dict = {}
     try:
         with shd.use_mesh(mesh):
             params, step, opt, batch, held = _setup("granite" if key == "granite_drop" else key, case, mesh)
+            if mesh is not None and (key in LMS or key == "granite_drop"):
+                layers.rmsnorm = _recording_norm(real_norm, leaves(params), terms)
             state = opt.init(params)
             if mesh is None:
                 p_place = g_place = s_place = [None] * len(leaves(params))
@@ -255,9 +258,37 @@ def _train_case(key: str, case: dict, mesh) -> dict:
                 out["blocks"] = [tuple(t.shape) for t in state_leaves]
                 out["zero_dims"] = list(opt.zero_dims)
                 out["held"], out["held_shapes"], out["interop_agrees"] = p_place, held_shapes, interop_agrees
+                out["norm_terms"] = {i: (acc.numpy(), n) for i, (acc, n) in terms.items()}
     finally:
-        opt_lib.get, layers.apply_moe = real_get, real_moe
+        opt_lib.get, layers.apply_moe, layers.rmsnorm = real_get, real_moe, real_norm
     return out
+
+
+def _recording_norm(real_norm, flat: list, terms: dict):
+    """``layers.rmsnorm`` that also sums, per element of a scale lying in
+    leaf ``i`` of ``flat``, the |terms| its gradient adds: Σ |x̂ · dy| over
+    every normalised row (float64), with the number of rows, into
+    ``terms[i]``.  Each recorded forward's hook fires once in the backward
+    (a checkpointed layer's recomputation is not backpropagated)."""
+    def norm(x, scale, eps=1e-6):
+        out = real_norm(x, scale, eps)
+        hit = [i for i, t in enumerate(flat) if t.dtype == torch.float32 and
+               t.data_ptr() <= scale.data_ptr() < t.data_ptr() + t.numel() * 4]
+        if hit and out.requires_grad:
+            i, d = hit[0], scale.numel()
+            off = (scale.data_ptr() - flat[i].data_ptr()) // 4
+            xf = x.detach().double()
+            xh = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+
+            def hook(g):
+                acc, n = terms.get(i, (torch.zeros(flat[i].numel(), dtype=torch.float64), 0))
+                acc[off : off + d] += (xh * g.double()).abs().reshape(-1, d).sum(dim=0)
+                terms[i] = (acc, max(n, x.numel() // d))
+
+            out.register_hook(hook)
+        return out
+
+    return norm
 
 
 def _big_grad(inputs: dict, mesh) -> dict:
@@ -629,25 +660,51 @@ def _tol(key: str, a: np.ndarray) -> float:
     return TOL_EQ if key == "equiformer-v2" else TOL_F32
 
 
-def _check_moments(key: str, got: dict, m_want: list, v_want: list, what) -> None:
+def _check_moments(key: str, got: dict, m_want: list, v_want: list, what, terms: dict | None = None) -> None:
     """AdamW's first-step moments against ``repro``'s.  m = (1 - b1)·g is
     held to 2 × the leaf's tolerance of its largest |m| (floored as
-    ``_floor``): so the gradient may be off by ε_g = that limit over
-    (1 - b1), and v = (1 - b2)·g² by (1 - b2)·(2·max|g| + ε_g)·ε_g
-    (|a² - b²| = |a - b|·|a + b|), g the gradient the rank's optimizer
-    received: v's relative error is twice g's, plus its own rounding."""
+    ``_floor``) or, on a norm scale's element whose gradient sums ``n``
+    terms of Σ|terms| = T (``terms[i]``: the ranks' recorded sums,
+    :func:`_recording_norm`), to (1 - b1)·2·n·2^-24·T + 2^-23·|m|: two f32
+    sums of the same terms in any order lie within n·2^-24·T of the exact
+    one each, so a gradient whose terms cancel is held to what was
+    summed, not to its own size.  So the gradient may be off by ε_g = that
+    limit over (1 - b1), and v = (1 - b2)·g² by (1 - b2)·(2·max|g| +
+    ε_g)·ε_g (|a² - b²| = |a - b|·|a + b|), g the gradient the rank's
+    optimizer received: v's relative error is twice g's, plus its own
+    rounding."""
     n = len(got["params"])
     m_got, v_got = got["state"][:n], got["state"][n:]
     m_floor = _floor(m_want)
     for i, (mg, mw, vg, vw) in enumerate(zip(m_got, m_want, v_got, v_want)):
         tol = 2 * _tol(key, np.asarray(got["params"][i]))
-        _close(mg, mw, tol, what + ("m", i), floor=m_floor)
-        eps_g = tol * max(np.abs(np.asarray(mw, np.float64)).max(initial=0.0), m_floor) / (1 - ADAM_B1)
+        mw64 = np.asarray(mw, np.float64)
+        limit = np.full(mw64.shape, tol * max(np.abs(mw64).max(initial=0.0), m_floor))
+        if terms and i in terms:
+            total, n_terms = terms[i]
+            summed = (1 - ADAM_B1) * 2 * n_terms * 2.0**-24 * total.reshape(mw64.shape) + 2.0**-23 * np.abs(mw64)
+            limit = np.maximum(limit, summed)
+        diff_m = np.abs(np.asarray(mg, np.float64) - mw64)
+        assert (diff_m <= limit).all(), (what, "m", i, float((diff_m / limit).max()))
+        eps_g = limit / (1 - ADAM_B1)
         g_max = np.abs(np.asarray(got["grads"][i], np.float64)).max(initial=0.0)
         vw = np.asarray(vw, np.float64)
         bound = (1 - ADAM_B2) * (2 * g_max + eps_g) * eps_g + 2.0**-22 * np.abs(vw)
         diff = np.abs(np.asarray(vg, np.float64) - vw)
         assert (diff <= bound).all(), (what, "v", i, float((diff / bound).max()))
+
+
+def _norm_terms(rs: list, key: str) -> dict:
+    """Each norm scale leaf's Σ|terms| and term count over the ranks of a
+    mesh (:func:`_recording_norm`): every rank sums its own rows (its
+    block of the batch, its heads), so together they are every term the
+    reduced gradient adds."""
+    out: dict = {}
+    for r in rs:
+        for i, (total, n) in r[key].get("norm_terms", {}).items():
+            t0, n0 = out.get(i, (0.0, 0))
+            out[i] = (t0 + total, n0 + n)
+    return out
 
 
 def _adamw_reference(params0: list, grads: list) -> tuple[list, list]:
@@ -785,7 +842,7 @@ def test_train_step_equals_repro(repro_8_devices, spawned, shape, key):
         assert abs(got["loss"] - loss) <= TOL_F32 * abs(loss), (shape, key, got["loss"], loss)
         n = len(got["params"])
         if got["optimizer"] == "adamw":
-            _check_moments(key, got, state[:n], state[n:], (shape, key))
+            _check_moments(key, got, state[:n], state[n:], (shape, key), _norm_terms(_ranks_of(spawned, shape), key))
         else:  # Adafactor's factors
             floor = _floor(state)
             for i, (s, w) in enumerate(zip(got["state"], state)):
