@@ -571,6 +571,11 @@ MESH_RANKS, MESH_I_SHAPE, MESH_II_SHAPE, MESH_TIMEOUT_S = 4, (4, 1), (2, 2), 400
 # (a) no longer on all of them) keeps the script, (c) and (d) added,
 # inside its time limit on a slow host
 MESH_B_STARTS = 64
+# (b)'s S1 gathers the label masks of the first MESH_B_S1_QUERIES Table-2
+# queries on its gloo ranks ((a) gathers all 12 on NCCL): one code path
+# whatever the mask, and half of (b)'s ~9.5 s of gathers on an H100 host,
+# room for (a)'s captured-against-eager check of the rank loops
+MESH_B_S1_QUERIES = 6
 # its (c), the service over ranks: serve run (h) (the first SERVE_PREFIX
 # requests on sharded/uint32 over the 16 sites) on one card at the ranks'
 # axis sizes, on one NCCL rank, and on MESH_RANKS gloo ranks at
@@ -1209,21 +1214,32 @@ def only_launched(name: str, what: str) -> int:
     return launched((name,), what)[name]
 
 
-def loop_launches(buckets: int = 1) -> int:
-    """The level kernel's launches that the one-card fixpoints made since
-    the counters' reset: each body of LEVELS_PER_CHECK levels (the eager
-    first one and every graph replay) launches each level's kernel once
-    per shape bucket, on an empty frontier after convergence too."""
-    return fops.FIXPOINT_COUNTERS["bodies"] * fops.LEVELS_PER_CHECK * buckets
+def loop_k(mesh=None) -> int:
+    """The levels of a fixpoint body on ``mesh``: LEVELS_PER_CHECK on one
+    card and on an NCCL rank (a captured body), LEVELS_PER_CHECK_GLOO on a
+    ``gloo`` rank (an eager one)."""
+    if mesh is not None and collectives.backend(mesh, ("data",)) != "nccl":
+        return fops.LEVELS_PER_CHECK_GLOO
+    return fops.LEVELS_PER_CHECK
 
 
-def check_loop_launches(n: int, what: str, buckets: int = 1) -> None:
-    """``n`` level-kernel launches since the counters' reset, each held
-    exactly: launches = bodies x LEVELS_PER_CHECK x buckets, one host sync
-    a body, and the BFS levels (the device counter) within the bodies'
-    levels and past all but each fixpoint's last body."""
-    c, k = fops.FIXPOINT_COUNTERS, fops.LEVELS_PER_CHECK
-    if n != loop_launches(buckets) or c["host_syncs"] != c["bodies"] or not (
+def loop_launches(buckets: int = 1, k: int | None = None) -> int:
+    """The level kernel's launches that the fixpoints made since the
+    counters' reset: each body of k levels (default LEVELS_PER_CHECK; the
+    eager first one and every graph replay) launches each level's kernel
+    once per shape bucket, on an empty frontier after convergence too."""
+    return fops.FIXPOINT_COUNTERS["bodies"] * (fops.LEVELS_PER_CHECK if k is None else k) * buckets
+
+
+def check_loop_launches(n: int | None, what: str, buckets: int = 1, k: int | None = None) -> None:
+    """``n`` level-kernel launches since the counters' reset (``None``: a
+    path with no kernel, not held), each held exactly: launches = bodies x
+    k x buckets (k: LEVELS_PER_CHECK unless given, a rank's
+    :func:`loop_k`), one host sync a body, and the BFS levels (the device
+    counter) within the bodies' levels and past all but each fixpoint's
+    last body."""
+    c, k = fops.FIXPOINT_COUNTERS, fops.LEVELS_PER_CHECK if k is None else k
+    if (n is not None and n != loop_launches(buckets, k)) or c["host_syncs"] != c["bodies"] or not (
             0 < c["levels"] and (c["bodies"] - c["fixpoints"]) * k <= c["levels"] <= c["bodies"] * k):
         raise AssertionError(f"{what}: {n} launches for {c['bodies']} bodies of {k} levels x {buckets} "
                              f"bucket(s), {c['levels']} BFS levels in {c['fixpoints']} fixpoints, "
@@ -1474,7 +1490,7 @@ def plan_query_phase(q, g, placement, net, model, arrays, dg, staged, dev, rng) 
     truth_edges = set(zip(truth.src.tolist(), truth.lbl.tolist(), truth.dst.tolist()))
     max_e = arrays["src"].shape[1]
     gather_ms, dedup_ms, bfs_ms, exec_ms = [], [], [], []
-    bfs_levels = bfs_syncs = 0
+    bfs_levels = bfs_syncs = bfs_bodies = 0
     for s, want in zip(sample.tolist(), oracle):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1483,11 +1499,17 @@ def plan_query_phase(q, g, placement, net, model, arrays, dg, staged, dev, rng) 
         t1 = time.perf_counter()
         sub = strategies.gathered_subgraph(g, src, lbl, dst, valid)
         t2 = time.perf_counter()
-        lev0, sync0 = paa.BFS_COUNTERS["levels"], paa.BFS_COUNTERS["host_syncs"]
+        paa.BFS_COUNTERS.clear()
         acc = paa.answers_single_source(ca, paa.device_form(sub, dev), s).cpu().numpy()
         t3 = time.perf_counter()
-        bfs_levels += paa.BFS_COUNTERS["levels"] - lev0
-        bfs_syncs += paa.BFS_COUNTERS["host_syncs"] - sync0
+        bc, k = paa.BFS_COUNTERS, fops.LEVELS_PER_CHECK
+        # the BFS on its uncaptured gated loop: one host sync a body of k levels
+        if not bc["host_syncs"] == bc["bodies"] == max(1, -(-bc["levels"] // k)) or bc["fixpoints"] != 1:
+            raise AssertionError(f"{q} start {s}: S1's BFS took {bc['levels']} levels in {bc['bodies']} bodies "
+                                 f"of {k}, {bc['host_syncs']} host syncs")
+        bfs_levels += bc["levels"]
+        bfs_syncs += bc["host_syncs"]
+        bfs_bodies += bc["bodies"]
         gather_ms.append((t1 - t0) * 1e3)
         dedup_ms.append((t2 - t1) * 1e3)
         bfs_ms.append((t3 - t2) * 1e3)
@@ -1505,12 +1527,13 @@ def plan_query_phase(q, g, placement, net, model, arrays, dg, staged, dev, rng) 
             raise AssertionError(f"{q}: S1 cost {cost} != s1_costs {want_cost}")
     r["s1"] = {"starts": len(sample), "gathered": gathered, "edges": sub.n_edges, "gather_ms": gather_ms,
                "dedup_ms": dedup_ms, "bfs_ms": bfs_ms, "execute_ms": exec_ms,
-               "bfs_levels": bfs_levels, "bfs_host_syncs": bfs_syncs}
+               "bfs_levels": bfs_levels, "bfs_host_syncs": bfs_syncs, "bfs_bodies": bfs_bodies}
     log("plan", f"{q}: S1 on {len(sample)} starts: gather {np.median(gather_ms):.2f} ms (median; "
         f"{gathered} matching copies from {placement.n_sites} sites), dedup {np.median(dedup_ms):.2f} ms "
         f"(host, to {sub.n_edges} edges == the graph's edges of its labels == s1_costs), device form + "
-        f"BFS {np.median(bfs_ms):.2f} ms ({r['s1']['bfs_levels']} levels, {r['s1']['bfs_host_syncs']} "
-        f"host syncs over the starts); s1_execute {np.median(exec_ms):.2f} ms; answers == oracle")
+        f"BFS {np.median(bfs_ms):.2f} ms ({r['s1']['bfs_levels']} levels, {bfs_bodies} bodies of "
+        f"{fops.LEVELS_PER_CHECK}, {r['s1']['bfs_host_syncs']} host syncs over the starts); s1_execute "
+        f"{np.median(exec_ms):.2f} ms; answers == oracle")
 
     # S2 on B1, at the query class's fast path
     exec_ca, cap = planner.reduce_automaton(ca, qc), planner.fast_path_max_levels(qc)
@@ -2117,46 +2140,79 @@ def bucket_row_digest(b, row: int) -> str:
                   work, flat.astype(np.int32))
 
 
+def mesh_step(placement, ca, dev, backend, tile_dtype="f32", semantics="pairs", store=None, mesh=None,
+              axis_size=None):
+    """The mesh phase's S2 executor, built apart from its run (a rank's
+    build agrees its shape classes with an ``all_reduce`` or two, which a
+    run does not repeat)."""
+    return strategies.make_s2_step_fn(
+        ca, placement.graph.n_nodes, backend=backend, graph=placement.graph,
+        replication_factor=placement.replication_factor, tile_dtype=tile_dtype, semantics=semantics,
+        device=dev, plan_store=store, placement=placement, axis_size=axis_size, mesh=mesh)
+
+
 def mesh_s2(what, placement, ca, starts, dev, backend, tile_dtype="f32", semantics="pairs", store=None,
-            mesh=None, axis_size=None, arrays=None) -> tuple[str, dict]:
+            mesh=None, axis_size=None, arrays=None, step=None) -> tuple[str, dict]:
     """``s2_execute`` on the sharded or reference backend, on one card
-    (``mesh=None``) or per rank, with the launch, level and wire counts set
-    to 0 just before and read just after: the sharded path must launch its
-    kernel once a level on a rank (one bucket), LEVELS_PER_CHECK times a
-    body and bucket on one card, the reference path none.  Returns the result's digest and
-    the counts."""
+    (``mesh=None``) or per rank, through ``step`` (built here when
+    ``None``, and released after), with the launch, level and wire counts
+    set to 0 just before the run and read just after.  Each loop's
+    identity holds exactly (:func:`check_loop_launches`): the sharded
+    path launches its kernel bodies x k x buckets (one card: k =
+    LEVELS_PER_CHECK and the plan's buckets; a rank: its :func:`loop_k`
+    and one bucket), the reference path none; one host sync a body.  On a
+    rank the ``all_reduce`` calls are, exactly, the bodies' (one ``pmax``
+    of the merged frontier a level: bodies x k) plus the call's own: the
+    reference path's widest-run ``pmax``, one ``psum`` of ``d_s2`` a
+    fixpoint and the 4 outputs gathered over the batch axis (5 with the
+    witness plane); the sharded path's per-site meters gathered over the
+    site axes, and its 4 outputs (5) over the batch axis.  On one card
+    none.  Returns the result's digest and the counts."""
     name = "fused_level_blocks_u32" if tile_dtype == "uint32" else "fused_level_blocks"
+    built = step is None
+    if built:
+        step = mesh_step(placement, ca, dev, backend, tile_dtype, semantics, store, mesh, axis_size)
     reset_launches()
     fops.FIXPOINT_COUNTERS.clear()
     collectives.WIRE_COUNTERS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = strategies.s2_execute(placement, ca, starts, backend=backend, tile_dtype=tile_dtype,
-                                semantics=semantics, plan_store=store, device=dev, mesh=mesh,
-                                axis_size=axis_size, device_arrays=arrays)
+    out = strategies.s2_execute(placement, ca, starts, step_fn=step, semantics=semantics, device_arrays=arrays)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    levels = fops.FIXPOINT_COUNTERS["levels"]
+    if built:
+        step.release()
+    c = fops.FIXPOINT_COUNTERS
+    k = loop_k(mesh)
     # one level's pmax: the merged frontier as uint8, (n_states, QPAD, v_pad)
     # a chunk on the sharded path, (starts, n_states, n_nodes) on the reference
     v_pad = -(-placement.graph.n_nodes // 128) * 128
     frontier_bytes = (len(starts) * ca.n_states * placement.graph.n_nodes if backend == "reference"
                       else ca.n_states * fops.QPAD * v_pad)
-    r = {"starts": len(starts), "levels": levels, "wall_ms": wall * 1e3,
-         "all_reduces": collectives.WIRE_COUNTERS["all_reduces"], "wire_bytes": collectives.WIRE_COUNTERS["bytes"],
+    r = {"starts": len(starts), "levels": c["levels"], "bodies": c["bodies"], "host_syncs": c["host_syncs"],
+         "fixpoints": c["fixpoints"], "captures": c["captures"], "replays": c["replays"], "k": k,
+         "wall_ms": wall * 1e3, "all_reduces": collectives.WIRE_COUNTERS["all_reduces"],
+         "loop_all_reduces": c["all_reduces"], "wire_bytes": collectives.WIRE_COUNTERS["bytes"],
          "frontier_bytes_per_level": frontier_bytes if mesh is not None else 0}
+    if mesh is None:
+        own = loop = 0
+    else:
+        batch = 4 + (semantics == "witness")  # the outputs gathered over the batch axis
+        own = 1 + batch + (c["fixpoints"] if backend == "reference" else 0)
+        loop = c["bodies"] * k
+    if (r["loop_all_reduces"], r["all_reduces"]) != (loop, loop + own):
+        raise AssertionError(f"{what}: {r['all_reduces']} all_reduces, {r['loop_all_reduces']} of them the "
+                             f"bodies', for {c['bodies']} bodies of {k} levels and {own} of the call's own")
     if backend == "reference":
         if sum(launch_counts().values()):
             raise AssertionError(f"{what}: kernels launched: {launch_counts()}")
         r["launches"] = 0
+        check_loop_launches(None, what, k=k)
     else:
         n_buckets = 1 if mesh is not None else len(store.tile_buckets(
             placement, 128, axis_size, tile_dtype="f32" if semantics == "witness" else tile_dtype).buckets)
         r["launches"] = only_launched(name, what)
-        if mesh is None:  # one card: the device loop, LEVELS_PER_CHECK levels a body
-            check_loop_launches(r["launches"], what, n_buckets)
-        elif r["launches"] != levels:  # a rank's host loop: one launch a level
-            raise AssertionError(f"{what}: {r['launches']} {name} launches for {levels} levels")
+        check_loop_launches(r["launches"], what, n_buckets, k)
         r["kernel"] = name
     return run_digest(out), r
 
@@ -2184,9 +2240,11 @@ def mesh_cases(ctx: dict, dev, meshes: dict, tag: str, rec: dict, refs: dict | N
 
     def record(key, r):
         rec[key] = r
-        log("mesh", f"{tag} {key}: {r['starts']} starts, {r['levels']} levels, {r['launches']} launches, "
-            f"{r['all_reduces']} all_reduces, {r['wire_bytes']} bytes all_reduced (the frontier "
-            f"{r['frontier_bytes_per_level']} a level), {r['wall_ms']:.1f} ms")
+        log("mesh", f"{tag} {key}: {r['starts']} starts, {r['levels']} levels in {r['bodies']} bodies of "
+            f"{r['k']} ({r['host_syncs']} host syncs, {r['captures']} captures, {r['replays']} replays), "
+            f"{r['launches']} launches, {r['all_reduces']} all_reduces ({r['loop_all_reduces']} in the bodies), "
+            f"{r['wire_bytes']} bytes all_reduced (the frontier {r['frontier_bytes_per_level']} a level), "
+            f"{r['wall_ms']:.1f} ms")
 
     for part, placement, store_key, tile_dtype, sems in (
         ("i", ctx["pl16"], "store16", "uint32", ("pairs",)),
@@ -2196,7 +2254,9 @@ def mesh_cases(ctx: dict, dev, meshes: dict, tag: str, rec: dict, refs: dict | N
             continue
         mesh = meshes.get(part)
         axis = ctx["axis"][part] if mesh is None else collectives.axis_size(mesh, ("data",))
-        store = ctx[store_key] if mesh is None else plans.GraphPlanStore(device=dev)
+        store = ctx[store_key] if mesh is None else ctx.get(f"rank_{store_key}")
+        if store is None:  # a rank's own share, staged here
+            store = plans.GraphPlanStore(device=dev)
         for q in QUERIES:
             ca = ctx[f"cas_{part}"][q]
             for sem in sems:
@@ -2251,6 +2311,56 @@ def mesh_cases(ctx: dict, dev, meshes: dict, tag: str, rec: dict, refs: dict | N
     return got
 
 
+def check_rank_captured_against_eager(ctx: dict, dev, mesh, refs: dict) -> dict:
+    """On the one NCCL rank of the mesh phase's (a): the sharded (i) on B3
+    (pairs) and the reference backend (pairs and witness), every query,
+    with the rank's fixpoints replayed from CUDA graphs that hold their
+    ``pmax`` (LEVELS_PER_CHECK levels a body) against the eager gated body
+    of one level a check (``ops.EAGER``, ``LEVELS_PER_CHECK = 1``), bit for
+    bit, and both equal to the ``mesh=None`` digest in ``refs``.  The
+    captured executor runs twice: the first call captures once (after one
+    eager body), the second replays only.  Every run holds
+    :func:`mesh_s2`'s identities (launches, host syncs, levels,
+    ``all_reduce`` calls) at its own k.  Launches here are not the path's:
+    the counts are set to 0 before each run."""
+    k, out = fops.LEVELS_PER_CHECK, {}
+    arrays = strategies.stage_site_arrays(ctx["placement"], dev, mesh)
+    cases = [("i", ctx["pl16"], "frontier_kernel_sharded", "uint32", "pairs", ctx["rank_store16"], None)]
+    cases += [("ref", ctx["placement"], "reference", "f32", sem, None, arrays) for sem in ("pairs", "witness")]
+    for part, placement, backend, tile_dtype, sem, store, arr in cases:
+        for q in QUERIES:
+            ca, what = ctx["cas_i"][q], f"mesh (a) {part} {q} {sem}"
+            runs = []
+            for eager, per_check, calls in ((True, 1, 1), (False, k, 2)):
+                fops.EAGER, fops.LEVELS_PER_CHECK = eager, per_check
+                try:
+                    step = mesh_step(placement, ca, dev, backend, tile_dtype, sem, store, mesh)
+                    runs += [mesh_s2(what, placement, ca, ctx[f"starts_{part}"][q], dev, backend, tile_dtype, sem,
+                                     store, mesh, arrays=arr, step=step) for _ in range(calls)]
+                    step.release()
+                finally:
+                    fops.EAGER, fops.LEVELS_PER_CHECK = False, k
+            (d0, eager), (d1, first), (d2, second) = runs
+            if not d0 == d1 == d2 == refs[f"{part}/{q}/{sem}"]:
+                raise AssertionError(f"{what}: the captured replay, the eager gated body and the one-card run "
+                                     "differ")
+            if not eager["levels"] == first["levels"] == second["levels"]:
+                raise AssertionError(f"{what}: BFS levels {eager['levels']} eager, {first['levels']} and "
+                                     f"{second['levels']} captured")
+            if (first["captures"], first["replays"], second["captures"], second["replays"]) != (
+                    1, first["bodies"] - 1, 0, second["bodies"]) or eager["captures"] or eager["replays"]:
+                raise AssertionError(f"{what}: captures or replays off: {eager} {first} {second}")
+            out[f"{part}/{q}/{sem}"] = {"eager": eager, "captured_first": first, "captured": second}
+            log("mesh", f"{what}: captured replay == the eager gated body == the one-card run, bit for bit; "
+                f"{eager['levels']} BFS levels; host syncs {eager['host_syncs']} eager, {second['host_syncs']} "
+                f"captured; all_reduces {eager['all_reduces']} eager, {second['all_reduces']} captured "
+                f"({second['loop_all_reduces']} in {second['bodies']} bodies of {k}, counted at replay); launches "
+                f"{eager['launches']} eager, {second['launches']} captured; {eager['wall_ms']:.1f} ms eager, "
+                f"{first['wall_ms']:.1f} ms capturing, {second['wall_ms']:.1f} ms replaying")
+    del arrays
+    return out
+
+
 def mesh_context(g, placement, cas, handoff, parts, n_starts=None) -> dict:
     """What every rank rebuilds from the seed, as the parent holds it;
     ``n_starts`` cuts (i)'s and (ii)'s valid starts to their first ones."""
@@ -2288,6 +2398,7 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
         placement = distribute(g, n_sites=RPQ.n_sites, replication_rate=RPQ.replication_rate, seed=SEED)
         cas = {q: paa.compile_query(TABLE2_QUERIES[q], g) for q in QUERIES}
         ctx = mesh_context(g, placement, cas, {}, ("i", "ii", "ref"), MESH_B_STARTS)
+        ctx["lmasks"] = dict(list(ctx["lmasks"].items())[:MESH_B_S1_QUERIES])
         rec = {"rank": rank, "coords": {k: list(m.get_coordinate()) for k, m in meshes.items()}}
         t0 = time.perf_counter()
         mesh_cases(ctx, dev, meshes, f"(b) rank {rank}", rec, refs)
@@ -2337,16 +2448,22 @@ def phase_mesh(g, placement, cas, handoff, dev, record) -> dict[str, int]:
             raise AssertionError(f"(a) runs on {dist.get_backend()}, not NCCL")
         mesh = mesh_lib.make_test_mesh(1, 1)
         rec["a"] = {}
+        ctx["rank_store16"] = plans.GraphPlanStore(device=dev)  # the rank's share, for (a) and its check
         t0 = time.perf_counter()
         mesh_cases(ctx, dev, {"i": mesh, "ref": mesh}, "(a) NCCL 1 rank", rec["a"], refs["a"])
         rec["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["a_captured"] = check_rank_captured_against_eager(ctx, dev, mesh, refs["a"])
+        rec["a_captured_s"] = time.perf_counter() - t0
+        del ctx["rank_store16"]
     finally:
         dist.destroy_process_group()
     for r in (*rec["one_card_a"].values(), *rec["one_card_b"].values(), *rec["a"].values()):
         if isinstance(r, dict) and r.get("kernel"):
             launches[r["kernel"]] += r["launches"]
     log("mesh", f"(a) one NCCL rank on a (1, 1) mesh: (i) on B3, the reference backend and S1 == the one-card "
-        f"runs, bit for bit, bucket arrays == the one-card plan's; {rec['a_s']:.1f} s")
+        f"runs, bit for bit, bucket arrays == the one-card plan's; {rec['a_s']:.1f} s; the rank's captured "
+        f"fixpoints == its eager gated body == one card, {rec['a_captured_s']:.1f} s")
     free()
 
     # (b) MESH_RANKS gloo ranks sharing the card
@@ -2367,7 +2484,7 @@ def phase_mesh(g, placement, cas, handoff, dev, record) -> dict[str, int]:
     log("mesh", f"(b) {MESH_RANKS} gloo ranks sharing one card: (i) on a {MESH_I_SHAPE} mesh (B3), (ii) on a "
         f"{MESH_II_SHAPE} mesh (B1, pairs and witness), the reference backend and S1 on {MESH_I_SHAPE}: every "
         f"digest == the one-card run's, every rank's bucket arrays its rows of the one-card plan, launches == "
-        f"levels on every rank; {rec['b_s']:.1f} s wall for 4 ranks sharing one card (spawn included; not a "
+        f"bodies x {fops.LEVELS_PER_CHECK_GLOO} on every rank; {rec['b_s']:.1f} s wall for 4 ranks sharing one card (spawn included; not a "
         "multi-card time)")
     return dict(launches)
 
@@ -2408,9 +2525,13 @@ def mesh_serve_run(what: str, svc, stream, refs: list | None, kernel: str | None
     """One serve run of the mesh phase's (c), on one card or per rank, the
     launch, level and wire counts set to 0 just before and read just
     after: each request's digest must equal ``refs``' (when given), and
-    ``kernel`` launch once a level on a rank, LEVELS_PER_CHECK times a body
-    and bucket on one card (``None``: no kernel at all).  Returns the
-    answers and the counts."""
+    each loop's identity holds exactly (:func:`check_loop_launches`):
+    ``kernel`` launches bodies x k x buckets (one card: LEVELS_PER_CHECK
+    and the plan's buckets; a rank: its :func:`loop_k` and one bucket;
+    ``None``: no kernel at all), one host sync a body, and on a rank the
+    bodies' ``all_reduce`` calls are one ``pmax`` a level, bodies x k (the
+    service's own collectives come on top).  Returns the answers and the
+    counts."""
     reset_launches()
     fops.FIXPOINT_COUNTERS.clear()
     collectives.WIRE_COUNTERS.clear()
@@ -2418,10 +2539,17 @@ def mesh_serve_run(what: str, svc, stream, refs: list | None, kernel: str | None
     t0 = time.perf_counter()
     answers = serve_windows(svc, stream, first_window)
     torch.cuda.synchronize()
+    c, k = fops.FIXPOINT_COUNTERS, loop_k(svc.mesh)
     r = {"requests": len(answers), "wall_s": time.perf_counter() - t0,
-         "levels": fops.FIXPOINT_COUNTERS["levels"], "flushes": -(-len(stream) // SERVE_WINDOW),
-         "all_reduces": collectives.WIRE_COUNTERS["all_reduces"], "wire_bytes": collectives.WIRE_COUNTERS["bytes"],
+         "levels": c["levels"], "bodies": c["bodies"], "host_syncs": c["host_syncs"], "k": k,
+         "flushes": -(-len(stream) // SERVE_WINDOW),
+         "all_reduces": collectives.WIRE_COUNTERS["all_reduces"], "loop_all_reduces": c["all_reduces"],
+         "wire_bytes": collectives.WIRE_COUNTERS["bytes"],
          "strategies": dict(collections.Counter(a.strategy for a in answers))}
+    if r["loop_all_reduces"] != (c["bodies"] * k if svc.mesh is not None else 0) \
+            or r["all_reduces"] < r["loop_all_reduces"]:
+        raise AssertionError(f"mesh {what}: {r['loop_all_reduces']} all_reduces in {c['bodies']} bodies of {k} "
+                             f"levels, {r['all_reduces']} in all")
     if refs is not None:
         differ = sum(answer_digest(a) != d for a, d in zip(answers, refs, strict=True))
         if differ:
@@ -2432,12 +2560,12 @@ def mesh_serve_run(what: str, svc, stream, refs: list | None, kernel: str | None
         r["launches"] = 0
     else:
         r["kernel"], r["launches"] = kernel, only_launched(kernel, f"mesh {what}")
-        if svc.mesh is None:  # one card: the device loop, LEVELS_PER_CHECK levels a body and bucket
-            check_loop_launches(r["launches"], f"mesh {what}", run_buckets(svc))
-        elif r["launches"] != r["levels"]:  # a rank's host loop: one launch a level
-            raise AssertionError(f"mesh {what}: {r['launches']} {kernel} launches for {r['levels']} levels")
-    log("mesh", f"{what}: {r['requests']} requests, strategies {r['strategies']}, {r['levels']} levels, "
-        f"{r['launches']} {kernel or 'kernel'} launches, {r['all_reduces']} all_reduces, {r['wire_bytes']} bytes "
+    if r["levels"]:  # one card: k levels a body and bucket; a rank: its k, one bucket
+        check_loop_launches(r["launches"] if kernel else None, f"mesh {what}", run_buckets(svc) if kernel else 1,
+                            k)
+    log("mesh", f"{what}: {r['requests']} requests, strategies {r['strategies']}, {r['levels']} levels in "
+        f"{r['bodies']} bodies of {k} ({r['host_syncs']} host syncs), {r['launches']} {kernel or 'kernel'} "
+        f"launches, {r['all_reduces']} all_reduces ({r['loop_all_reduces']} in the bodies), {r['wire_bytes']} bytes "
         f"all_reduced ({r['wire_bytes'] / r['flushes']:.0f} a flush), {r['wall_s']:.2f} s"
         + ("; every request == the one-card service's" if refs is not None else ""))
     return answers, r
@@ -2510,15 +2638,21 @@ def mesh_serve_rank(rank: int, world: int, tmp: str) -> None:
             rec["async_stats"] = {"rejected": dict(rejected), "wall_s": wall, "batch_window": stats["batch_window"]}
         else:
             done = [t.result() for t in svc.follow()]
-        r = {"requests": len(done), "wall_s": time.perf_counter() - t1, "levels": fops.FIXPOINT_COUNTERS["levels"],
-             "launches": launch_counts()[b3], "all_reduces": collectives.WIRE_COUNTERS["all_reduces"],
+        c = fops.FIXPOINT_COUNTERS
+        r = {"requests": len(done), "wall_s": time.perf_counter() - t1, "levels": c["levels"],
+             "bodies": c["bodies"], "host_syncs": c["host_syncs"], "launches": launch_counts()[b3],
+             "all_reduces": collectives.WIRE_COUNTERS["all_reduces"], "loop_all_reduces": c["all_reduces"],
              "wire_bytes": collectives.WIRE_COUNTERS["bytes"], "kernel": b3,
              "digests": sorted(answer_digest(a) for a in done)}
-        if r["levels"] and r["launches"] != r["levels"]:
-            raise AssertionError(f"mesh (c) rank {rank} async: {r['launches']} B3 launches for {r['levels']} levels")
+        if r["levels"]:  # the flushes ran on the front end's worker thread, on the gloo loop
+            check_loop_launches(r["launches"], f"mesh (c) rank {rank} async", 1, loop_k(m41))
+        if r["loop_all_reduces"] != r["bodies"] * loop_k(m41):
+            raise AssertionError(f"mesh (c) rank {rank} async: {r['loop_all_reduces']} all_reduces in "
+                                 f"{r['bodies']} bodies")
         rec["async"] = r
         log("mesh", f"(c) rank {rank} async on {MESH_I_SHAPE}: {r['requests']} requests resolved, {r['levels']} "
-            f"levels = B3 launches, {r['all_reduces']} all_reduces, {r['wall_s']:.2f} s")
+            f"levels in {r['bodies']} bodies = B3 launches, {r['host_syncs']} host syncs, {r['all_reduces']} "
+            f"all_reduces ({r['loop_all_reduces']} in the bodies), {r['wall_s']:.2f} s")
         rec["wall_s"] = time.perf_counter() - t0
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)

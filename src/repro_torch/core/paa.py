@@ -8,10 +8,13 @@ Port of ``repro/core/paa.py``.  Two implementations with one semantics:
   in the batch, automaton state, graph node); one BFS level applies every
   grounded NFA transition as a gather over the label's contiguous edge
   slice followed by ``scatter_reduce(amax)`` onto the edge destinations.
-  The level loop runs in Python and reads ``frontier.any()`` once per
-  level (:data:`BFS_COUNTERS` counts the levels and those host syncs).
-  It shares no code with the frontier kernel path, so it is that path's
-  oracle on the card, and it is S1's local PAA.
+  The level loop is ``repro``'s ``lax.while_loop`` on the device: an
+  ``ops.LevelLoop`` that runs ``LEVELS_PER_CHECK`` gated levels per host
+  check, never captured (S1 builds a new device graph every request, so
+  a CUDA graph would be captured once per run).  :data:`BFS_COUNTERS`
+  counts the levels (from the device counter) and the host syncs, one a
+  body.  Its levels share no code with the frontier kernel path, so it is
+  that path's oracle on the card, and it is S1's local PAA.
 
 * :func:`run_instrumented` — a host (numpy) BFS that additionally performs
   the paper's §4.2 message accounting for strategy S2: per-product-state
@@ -42,7 +45,9 @@ from repro_torch.graph.structure import DeviceGraph, LabeledGraph, to_device_gra
 # Device frontier-expansion PAA
 # ---------------------------------------------------------------------------
 
-# levels expanded and ``frontier.any()`` host reads, over every device BFS
+# over every device BFS: "levels" expanded (from the loop's device
+# counter), "host_syncs" the reads of the loop's flag (one a body),
+# "bodies" and "fixpoints" (ops.LevelLoop's counts)
 BFS_COUNTERS: collections.Counter = collections.Counter()
 
 
@@ -72,9 +77,24 @@ def _expand_once(
     return nxt
 
 
-def _nonempty(frontier: torch.Tensor) -> bool:
-    BFS_COUNTERS["host_syncs"] += 1
-    return bool(frontier.any())
+def _reach(ca: CompiledAutomaton, g: DeviceGraph, visited: torch.Tensor, max_levels: int | None) -> torch.Tensor:
+    """Fixpoint of frontier expansion from ``visited`` (B, n_states, V)
+    int32 0/1, on an uncaptured ``ops.LevelLoop``: the visited set.
+    ``max_levels`` defaults to the product-state count m·V (the BFS-depth
+    bound guaranteeing termination, §2.7); the loop exits early on
+    fixpoint."""
+    # imported here: ops imports core.witness, which imports this module
+    from repro_torch.kernels.frontier import ops as fops
+
+    if max_levels is None:
+        max_levels = ca.n_states * g.n_nodes
+
+    def level(state, lev):
+        frontier, seen = state
+        new = _expand_once(ca, g, frontier) * (1 - seen)
+        return new, seen | new
+
+    return fops.LevelLoop(level, max_levels, "eager", BFS_COUNTERS).run((visited, visited))[1]
 
 
 def _accepted(
@@ -83,29 +103,26 @@ def _accepted(
     starts: torch.Tensor,  # (B,) int64 start nodes
     max_levels: int | None = None,
 ) -> torch.Tensor:
-    """Fixpoint of frontier expansion from one start node per batch row;
-    returns (B, V) bool: the nodes reached in an accepting state.
-    ``max_levels`` defaults to the product-state count m·V (the BFS-depth
-    bound guaranteeing termination, §2.7); the loop exits early on
-    fixpoint."""
-    n_states, v = ca.n_states, g.n_nodes
-    if max_levels is None:
-        max_levels = n_states * v
+    """Fixpoint of frontier expansion from one start node per batch row
+    (:func:`_reach`); returns (B, V) bool: the nodes reached in an
+    accepting state."""
     b = starts.shape[0]
-    visited = torch.zeros((b, n_states, v), dtype=torch.int32, device=g.device)
+    visited = torch.zeros((b, ca.n_states, g.n_nodes), dtype=torch.int32, device=g.device)
     visited[torch.arange(b, device=g.device), ca.start, starts] = 1
-    frontier = visited
-    level = 0
-    while level < max_levels and _nonempty(frontier):
-        new = _expand_once(ca, g, frontier) * (1 - visited)
-        visited = visited | new
-        frontier = new
-        level += 1
-        BFS_COUNTERS["levels"] += 1
-    acc = torch.zeros((b, v), dtype=torch.bool, device=g.device)
+    visited = _reach(ca, g, visited, max_levels)
+    acc = torch.zeros((b, g.n_nodes), dtype=torch.bool, device=g.device)
     for qf in ca.accepting:
         acc |= visited[:, qf] > 0
     return acc
+
+
+def reachable(ca: CompiledAutomaton, g: DeviceGraph, start_mask) -> torch.Tensor:
+    """Visited product states from an initial node mask (V,): (n_states,
+    V) bool, the start state's row seeded with the mask."""
+    mask = torch.as_tensor(start_mask, device=g.device).bool()
+    visited = torch.zeros((1, ca.n_states, g.n_nodes), dtype=torch.int32, device=g.device)
+    visited[0, ca.start] = mask.int()
+    return _reach(ca, g, visited, None)[0] > 0
 
 
 def answers_single_source(

@@ -673,6 +673,14 @@ class _RankAxes:
             return x
         return collectives.gather_rows(x, (self.batch_axis,), n, self.mesh, dim)
 
+    def loop_mode(self) -> str:
+        """The :class:`~repro_torch.kernels.frontier.ops.LevelLoop` mode of
+        this rank's fixpoints, from its site group's backend when the
+        executor is built: ``"graph"`` on NCCL, whose ``all_reduce`` a CUDA
+        graph captures with the level's launches, else ``"gloo"``: the
+        same gated body run eagerly (``gloo`` cannot be captured)."""
+        return "graph" if collectives.backend(self.mesh, self.site_axes) == "nccl" else "gloo"
+
 
 # the reference executor's budget for its (query chunk, matched edge)
 # temporaries: a bool gather and an int32 scatter operand per pair
@@ -734,12 +742,11 @@ def _make_reference_step_fn(
     :data:`REFERENCE_CHUNK_BYTES` (edges: the run's matching valid edges,
     compacted once per site arrays: a call on the same tensors, unchanged,
     reuses them), and runs one fixpoint per chunk on a
-    :class:`~repro_torch.kernels.frontier.ops.LevelLoop` (on a card one
-    graph per chunk height: a chunk's rows pad to a power of two, the
-    padded rows empty), or per rank on the host loop, one host sync per
-    level.  On meta site arrays (a shape-only run,
-    ``launch/``) every padded slot stands for a matching edge, the
-    degree vectors are empty, and each fixpoint takes one level
+    :class:`~repro_torch.kernels.frontier.ops.LevelLoop` (where it is
+    captured, one graph per chunk height: on a card a chunk's rows pad to
+    a power of two, the padded rows empty).  On meta site arrays (a
+    shape-only run, ``launch/``) every padded slot stands for a matching
+    edge, the degree vectors are empty, and each fixpoint takes one level
     (:func:`~repro_torch.kernels.frontier.ops.host_loop`).  A level gathers, per transition run, the
     frontier at one end of the run's edges and OR-scatters it into the
     other with an int32 ``scatter_add_`` (a count, never a wrapping
@@ -759,7 +766,9 @@ def _make_reference_step_fn(
     are the rank's sites, whose edges alone it scans; each level's
     expansion is ``pmax``-ed over the site axes (so the frontier, the
     broadcast meters and the witness plane are one on every rank of the
-    site group, and its ranks leave the loop together), ``d_s2`` is
+    site group, and its ranks read the same flag and leave the loop after
+    the same body), the loop captured with its ``pmax`` on an NCCL group
+    and run eagerly on a ``gloo`` one (:meth:`_RankAxes.loop_mode`), ``d_s2`` is
     ``psum``-ed at the end (f32, exact below 2^24), and the starts are
     split over the batch axis in contiguous blocks whose outputs are
     gathered back.  The chunk size comes from the widest run over the
@@ -769,6 +778,7 @@ def _make_reference_step_fn(
     witness = semantics == "witness"
     n_states = ca.n_states
     levels = max_levels if max_levels is not None else n_states * n_nodes
+    mode = "graph" if ranks is None else ranks.loop_mode()
     runs = transition_runs(ca)
     sgroups = symbol_set_groups(ca)
     n_groups = len(sgroups)
@@ -865,14 +875,17 @@ def _make_reference_step_fn(
 
         def run(part: torch.Tensor):
             b = part.shape[0]
-            if ranks is not None or part.is_meta:  # a pmax a level, or no values: the host loop
+            if part.is_meta:  # no values: one level
                 return fixpoint(part, b, level, None)
-            # on a card a chunk's rows pad to a power of two (at most the
-            # chunk), so few heights share the captured graphs
-            rows_pad = min(1 << max(b - 1, 0).bit_length(), chunk) if dev.type == "cuda" else b
+            # where the loop is captured, on a card a chunk's rows pad to a
+            # power of two (at most the chunk), so few heights share the
+            # graphs; the ranks of a site group share their batch block and
+            # so their heights
+            captured = dev.type == "cuda" and mode == "graph"
+            rows_pad = min(1 << max(b - 1, 0).bit_length(), chunk) if captured else b
             loop = loops.get(rows_pad)
             if loop is None:
-                loop = loops[rows_pad] = fops.LevelLoop(level, levels)
+                loop = loops[rows_pad] = fops.LevelLoop(level, levels, mode)
             return fixpoint(part, rows_pad, level, loop)
 
         outs = [run(starts[lo : lo + chunk]) for lo in range(0, starts.shape[0], chunk)]
@@ -1212,8 +1225,9 @@ def _make_frontier_sharded_step_fn(
     and buckets are ``repro``'s.
 
     The fixpoint runs on a
-    :class:`~repro_torch.kernels.frontier.ops.LevelLoop` on one device,
-    and per rank on the host loop (a level holds a ``pmax``).  One level
+    :class:`~repro_torch.kernels.frontier.ops.LevelLoop`, on one device
+    and per rank (captured with the level's ``pmax`` on an NCCL group,
+    eagerly on a ``gloo`` one: :meth:`_RankAxes.loop_mode`).  One level
     (:func:`~repro_torch.kernels.frontier.ops.expand_level_sharded`):
     the frontier is extended once, each bucket is one B1 or B3 launch
     over its members' work list, and the buckets are max-merged and
@@ -1240,9 +1254,10 @@ def _make_frontier_sharded_step_fn(
     ``build_rank_level_schedule``; from ``plan_store`` keyed by its share
     when one is passed) and the degree vectors of its own sites.  A level
     is its launch, clamped, then a ``pmax`` over the site axes, so the
-    merged frontier is the same on every rank of the site group and
-    ``fops.frontier_nonempty`` gives each the same answer with no other
-    collective: a rank that left the loop alone would hang the others.
+    merged frontier is the same on every rank of the site group and the
+    loop's flag, read from it after each body, gives each the same answer
+    with no other collective: a rank that left the loop alone would hang
+    the others.
     ``q_bc`` and ``n_bc`` come from that replicated frontier; the rank's
     sites' meters are gathered into ``(n_sites, B)`` at the end, and the
     starts are split over the batch axis, as ``repro`` splits them."""
@@ -1318,8 +1333,7 @@ def _make_frontier_sharded_step_fn(
         out = (new, torch.maximum(visited, new), q_bc, n_bc, d_site, *done)
         return out + (fops.stamp_levels(rest[-1], new > 0, lev),) if witness else out
 
-    # over ranks a level holds a pmax, which no graph captures: the host loop
-    loop = fops.LevelLoop(level, levels) if ranks is None else None
+    loop = fops.LevelLoop(level, levels, "graph" if ranks is None else ranks.loop_mode())
 
     def fixpoint(f0: torch.Tensor):  # (n_states, q_pad, v_pad) f32 0/1
         visited = f0.reshape(n_states * q_pad, v_pad)
@@ -1328,8 +1342,7 @@ def _make_frontier_sharded_step_fn(
                  *(torch.zeros((q_pad, v_pad), device=dev) for _ in range(n_groups)))
         if witness:
             state += (fops.initial_levels(visited > 0),)
-        state = loop.run(state) if loop is not None else fops.host_loop(level, state, levels)
-        _, visited, q_bc, n_bc, d_site, *rest = state
+        _, visited, q_bc, n_bc, d_site, *rest = loop.run(state)
         vis3 = visited.reshape(n_states, q_pad, v_pad)
         acc = torch.zeros((q_pad, v_pad), device=dev)
         for qf in ca.accepting:
@@ -1367,7 +1380,7 @@ def _make_frontier_sharded_step_fn(
         result = (acc, q_bc, d_site.sum(dim=0), n_bc.to(torch.int32), d_site)
         return result + (lev,) if witness else result
 
-    fn.release = loop.release if loop is not None else lambda: None
+    fn.release = loop.release
     return fn
 
 

@@ -80,7 +80,11 @@ its data: the collectives here never branch on values.
 
 :data:`WIRE_COUNTERS` counts the ``all_reduce`` calls and the bytes of
 the tensors they carry, per process, and the calls of each collective
-above by its name, the backward calls under ``<name>_backward``.
+above by its name, the backward calls under ``<name>_backward``.  An
+``all_reduce`` recorded into a CUDA graph (a fixpoint body on an NCCL
+rank, ``kernels/frontier/ops.py``'s ``LevelLoop``) counts at each replay
+of the graph, not at its capture (:func:`recording_wire`,
+:func:`add_wire`).
 
 Each ``all_reduce`` also notes itself, under the kind of ``repro``'s HLO
 collective it stands for (``all-reduce`` for :func:`psum`, :func:`pmax`
@@ -95,7 +99,10 @@ port's program moves and what a native collective of the kind would.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import math
+import threading
 
 import torch
 import torch.distributed as dist
@@ -163,6 +170,14 @@ def group(mesh, axes):
     return _GROUPS[key][1]
 
 
+def backend(mesh, axes) -> str:
+    """The backend of this rank's groups over ``axes`` (``dist.get_backend``
+    of the mesh's group of the first axis; a mesh's groups share one
+    backend): ``"nccl"``, whose collectives a CUDA graph captures, or
+    ``"gloo"``, whose ``all_reduce`` waits on the host."""
+    return dist.get_backend(_mesh(mesh).get_group(_axes(axes)[0]))
+
+
 def _note(kind: str, nbytes: int, wire_bytes: int, n_ranks: int) -> None:
     """Tell every counter on the dispatch-mode stack that takes notes of
     one collective of ``repro``'s ``kind``."""
@@ -172,16 +187,61 @@ def _note(kind: str, nbytes: int, wire_bytes: int, n_ranks: int) -> None:
             note(kind, nbytes, wire_bytes, n_ranks)
 
 
+@dataclasses.dataclass
+class Recorded:
+    """The ``all_reduce`` calls that a CUDA graph capture recorded: their
+    :data:`WIRE_COUNTERS` counts and their notes, added at each replay
+    (:func:`add_wire`)."""
+
+    counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    notes: list = dataclasses.field(default_factory=list)
+
+
+# per thread: the record of the graph capture recording_wire() opened
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording_wire():
+    """The collectives that the calls in this block record into a CUDA
+    graph capture: a :class:`Recorded` that the graph's owner hands
+    :func:`add_wire` at each replay.  A captured call only enqueues its
+    ``all_reduce`` into the graph, so it counts there and not at the
+    capture."""
+    prev = getattr(_RECORDING, "record", None)
+    _RECORDING.record = record = Recorded()
+    try:
+        yield record
+    finally:
+        _RECORDING.record = prev
+
+
+def add_wire(record: Recorded) -> None:
+    """Count ``record``'s collectives (a replayed graph's) once more."""
+    WIRE_COUNTERS.update(record.counts)
+    for note in record.notes:
+        _note(*note)
+
+
 def _reduce_(buf: torch.Tensor, op, axes, mesh, kind: str = "all-reduce", result_bytes: int | None = None) -> None:
     """``all_reduce`` ``buf`` in place with ``op`` over ``axes``, counted;
     it stands for a collective of ``repro``'s ``kind`` whose result holds
-    ``result_bytes`` (default: ``buf``'s)."""
+    ``result_bytes`` (default: ``buf``'s).  Under a CUDA graph capture the
+    count and the note go to the capturing thread's record
+    (:func:`recording_wire`)."""
     axes = _axes(axes)
     if axes:
         nbytes = buf.numel() * buf.element_size()
-        WIRE_COUNTERS["all_reduces"] += 1
-        WIRE_COUNTERS["bytes"] += nbytes
-        _note(kind, nbytes if result_bytes is None else result_bytes, nbytes, axis_size(mesh, axes))
+        note = (kind, nbytes if result_bytes is None else result_bytes, nbytes, axis_size(mesh, axes))
+        record = getattr(_RECORDING, "record", None) if buf.is_cuda and torch.cuda.is_current_stream_capturing() \
+            else None
+        counts, notes = (record.counts, record.notes) if record is not None else (WIRE_COUNTERS, None)
+        counts["all_reduces"] += 1
+        counts["bytes"] += nbytes
+        if notes is None:
+            _note(*note)
+        else:
+            notes.append(note)
         dist.all_reduce(buf, op=op, group=group(mesh, axes))
 
 

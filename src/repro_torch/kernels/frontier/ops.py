@@ -50,8 +50,11 @@ level launch per BFS level.  ``repro`` runs them in a
 ``lax.while_loop`` with no host sync; here a :class:`LevelLoop` keeps the
 loop's state on the device and runs :data:`LEVELS_PER_CHECK` levels, each
 gated by an "active" flag on the device, per host check: on a card
-captured once in a CUDA graph and replayed.  :data:`FIXPOINT_COUNTERS`
-counts the levels and those host syncs.  Their witness forms
+captured once in a CUDA graph and replayed.  The per-rank S2 fixpoints
+(``core/strategies.py``) run on the same loop: captured with their
+``pmax`` on an NCCL rank, eagerly at :data:`LEVELS_PER_CHECK_GLOO`
+levels a check on a ``gloo`` one.  :data:`FIXPOINT_COUNTERS` counts the
+levels and those host syncs.  Their witness forms
 (:func:`reach_fixpoint_levels`, :func:`reach_fixpoint_packed_levels`)
 also carry each product state's discovery level, and
 :func:`count_paths_bounded` runs the same level on run counts (the
@@ -109,6 +112,12 @@ QPACK = QPAD * 32
 # lanes).  4 reads a served fixpoint about once and a path's every 4
 # levels.
 LEVELS_PER_CHECK = 4
+# BFS levels a per-rank fixpoint runs per host check where its site group
+# is a gloo group (the CPU ranks, ranks sharing a card).  gloo's
+# all_reduce already waits on the host every level, so a level past
+# convergence saves no sync and still puts a whole merged frontier on the
+# wire (1.6 MB a level on the twin's sharded (i)): one level a body.
+LEVELS_PER_CHECK_GLOO = 1
 # Run the level bodies eagerly on a card as on the CPU, with no CUDA
 # graph: the loop that the graphs are held to (chip_smoke.py, the card
 # tests).  False on every path a caller runs.
@@ -131,9 +140,10 @@ BUILD_COUNTERS: collections.Counter = collections.Counter()
 # kernel launch each on a host loop; read from the device counter when a
 # LevelLoop's fixpoint ends), "host_syncs" the reads of a frontier or of
 # a loop's flag, "fixpoints" the fixpoints a LevelLoop ran, "bodies" the
-# LEVELS_PER_CHECK-level bodies they ran (each launches its levels'
-# kernels, converged or not), "replays" those replayed from a CUDA graph,
-# "captures" the graphs captured.
+# k-level bodies they ran (each launches its levels' kernels, converged or
+# not), "replays" those replayed from a CUDA graph, "captures" the graphs
+# captured, "all_reduces" the collectives the bodies made (a per-rank
+# level's pmax: k a body, captured or not).
 FIXPOINT_COUNTERS: collections.Counter = collections.Counter()
 
 
@@ -1400,7 +1410,7 @@ def expand_level_sharded(
 def frontier_nonempty(frontier: torch.Tensor) -> bool:
     """``(frontier != 0).any()`` read on the host — f32 0/1 rows and int32
     lane words alike (a word with only bit 31 set is negative): the
-    fixpoint's one host sync per level, counted in
+    per-transition baseline's one host sync per level, counted in
     :data:`FIXPOINT_COUNTERS`."""
     FIXPOINT_COUNTERS["host_syncs"] += 1
     return bool(frontier.any())
@@ -1409,27 +1419,24 @@ def frontier_nonempty(frontier: torch.Tensor) -> bool:
 def stamp_levels(levmap: torch.Tensor, new: torch.Tensor, lev) -> torch.Tensor:
     """The witness plane with the states in ``new`` (a bool mask) stamped
     at ``lev + 2``: level 1 is the start, so the expansion after ``lev``
-    levels reaches level ``lev + 2``.  ``lev`` is a host int (a host
-    loop: filled in place) or a device int32 0-d tensor (a
-    :class:`LevelLoop` body: a new plane, no host read)."""
+    levels reaches level ``lev + 2``.  ``lev`` is a host int (a
+    shape-only level, :func:`host_loop`: filled in place) or a device
+    int32 0-d tensor (a :class:`LevelLoop` body: a new plane, no host
+    read)."""
     if isinstance(lev, torch.Tensor):
         return torch.where(new, (lev + 2).to(levmap.dtype), levmap)
     return levmap.masked_fill_(new, lev + 2.0)
 
 
 def host_loop(level, state: tuple, levels: int) -> tuple:
-    """A fixpoint's levels from the host, ``state[0]`` (the frontier) read
-    before each one (:func:`frontier_nonempty`): the loop of the per-rank
-    executors, whose levels hold collectives that no graph captures.
-    ``level(state, lev)`` is a :class:`LevelLoop` level, ``lev`` a host
-    int here.  A shape-only run (a meta frontier, which has no values)
-    takes exactly one level, as XLA's cost analysis counts a ``while``
-    body once (``tests/test_torch_launch.py`` checks it)."""
-    meta = state[0].is_meta
-    lev = 0
-    while lev < (min(levels, 1) if meta else levels) and (meta or frontier_nonempty(state[0])):
-        state = level(state, lev)
-        lev += 1
+    """A shape-only fixpoint (a meta frontier, which has no values):
+    exactly one level, as XLA's cost analysis counts a ``while`` body once
+    (``tests/test_torch_launch.py`` checks it), ``lev`` the host int 0.
+    Every fixpoint with values runs on a :class:`LevelLoop`."""
+    if not state[0].is_meta:
+        raise ValueError("host_loop runs shape-only (meta) fixpoints; a fixpoint with values runs on a LevelLoop")
+    if levels > 0:
+        state = level(state, 0)
         FIXPOINT_COUNTERS["levels"] += 1
     return state
 
@@ -1439,12 +1446,18 @@ class _Captured:
     graph: torch.cuda.CUDAGraph
     static: tuple  # the body's carry, read and written in place by each replay
     launches: dict  # the level kernels the body launches, by launch_counts() name
+    wire: collectives.Recorded  # the all_reduces the body makes (a per-rank level's pmax)
+
+
+# LevelLoop modes: "graph" captures the body in a CUDA graph on a card;
+# "eager" never captures; "gloo" never captures and runs
+# LEVELS_PER_CHECK_GLOO levels a body
+LOOP_MODES = ("graph", "eager", "gloo")
 
 
 class LevelLoop:
     """A fixpoint's level loop with its state on the device, read by the
-    host once per :data:`LEVELS_PER_CHECK` levels: ``repro``'s
-    ``lax.while_loop``.
+    host once per k levels: ``repro``'s ``lax.while_loop``.
 
     ``level(state, lev)`` runs one BFS level: ``state`` is a tuple of
     tensors whose first is the frontier, ``lev`` the levels run before
@@ -1459,22 +1472,49 @@ class LevelLoop:
     down; ``lev`` is then the fixpoint's BFS levels, at most ``levels``.
     A fixpoint of L levels reads max(1, ⌈L / k⌉) times.
 
-    On a CUDA device the body is captured once per k in a CUDA graph, on
-    a side stream (``capture_error_mode="thread_local"``: another
-    thread's CUDA calls do not break it; the thread's cyclic garbage
-    collector is off meanwhile), after one eager body that loads
-    the kernels and raises their shared-memory limits; each run copies
-    its start state into the graph's static carry and replays, and
-    returns copies of the final state.  A capture or a replay that fails
-    raises: there is no fallback.  The launches a capture records count
-    at each replay (``frontier.add_launches``).  On the CPU, and on a
-    card under :data:`EAGER`, the same body runs eagerly.  A lock
-    serialises runs (one static carry per graph); :meth:`release` frees
-    the graphs and their static carries."""
+    A per-rank level (``repro``'s ``shard_map`` body) ends in a ``pmax``
+    of the frontier over the site axes, so the flag, read from the merged
+    frontier, is the same on every rank of the site group: its ranks run
+    the same bodies and leave after the same one, with no collective for
+    the flag, as ``repro``'s ``cond`` reads the merged frontier.
 
-    def __init__(self, level, levels: int):
+    ``mode`` (:data:`LOOP_MODES`) says how a body runs:
+
+    * ``"graph"`` (k = :data:`LEVELS_PER_CHECK`): on a CUDA device the
+      body is captured once per k in a CUDA graph, on a side stream
+      (``capture_error_mode="thread_local"``: another thread's CUDA calls
+      do not break it; the thread's cyclic garbage collector is off
+      meanwhile), after one eager body that loads the kernels, raises
+      their shared-memory limits and, on an NCCL rank, makes the
+      communicator and the cached groups of the level's collectives (no
+      ``new_group`` runs inside a capture); each run copies its start
+      state into the graph's static carry and replays, and returns copies
+      of the final state.  A capture or a replay that fails raises: there
+      is no fallback.  The launches and the ``all_reduce`` calls that a
+      capture records count at each replay (``frontier.add_launches``,
+      ``collectives.add_wire``).  On the CPU, and on a card under
+      :data:`EAGER`, the same body runs eagerly.
+    * ``"eager"`` (k = :data:`LEVELS_PER_CHECK`): the body runs eagerly on
+      a card too, for a loop whose graph would be captured once per run
+      (S1's BFS, on a new device graph every request).
+    * ``"gloo"`` (k = :data:`LEVELS_PER_CHECK_GLOO`): eagerly, for a
+      per-rank level whose ``pmax`` runs on a ``gloo`` group, which no
+      CUDA graph captures and whose ``all_reduce`` waits on the host.
+
+    The per-rank executors pick ``"graph"`` or ``"gloo"`` from their site
+    group's backend when they are built.  ``counters`` takes the loop's
+    counts (:data:`FIXPOINT_COUNTERS`: ``levels``, ``bodies``,
+    ``host_syncs``, ``fixpoints``, ``replays``, ``captures``,
+    ``all_reduces``).  A lock serialises runs (one static carry per
+    graph); :meth:`release` frees the graphs and their static carries."""
+
+    def __init__(self, level, levels: int, mode: str = "graph", counters: collections.Counter | None = None):
+        if mode not in LOOP_MODES:
+            raise ValueError(f"mode {mode!r} is not one of {LOOP_MODES}")
         self.level = level
         self.levels = min(int(levels), 2**31 - 1)
+        self.mode = mode
+        self.counters = FIXPOINT_COUNTERS if counters is None else counters
         self._graphs: dict[int, _Captured] = {}
         self._lock = threading.Lock()
 
@@ -1498,7 +1538,8 @@ class LevelLoop:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with fkernel.recording_launches() as launches, torch.cuda.stream(stream):
+            with fkernel.recording_launches() as launches, collectives.recording_wire() as wire, \
+                    torch.cuda.stream(stream):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     for s, o in zip(static, self._body(k, static)):
@@ -1510,8 +1551,8 @@ class LevelLoop:
             if collecting:
                 gc.enable()
         torch.cuda.current_stream(dev).wait_stream(stream)
-        FIXPOINT_COUNTERS["captures"] += 1
-        return _Captured(graph, static, dict(launches))
+        self.counters["captures"] += 1
+        return _Captured(graph, static, dict(launches), wire)
 
     def run(self, state: tuple) -> tuple:
         """The fixpoint from ``state``: the final state, the same layout."""
@@ -1519,9 +1560,11 @@ class LevelLoop:
         act = (state[0].ne(0).any() if self.levels > 0
                else torch.zeros((), dtype=torch.bool, device=dev))
         carry = (act, torch.zeros((), dtype=torch.int32, device=dev), *state)
-        k = LEVELS_PER_CHECK
-        graphed = dev.type == "cuda" and not EAGER
+        k = LEVELS_PER_CHECK_GLOO if self.mode == "gloo" else LEVELS_PER_CHECK
+        graphed = self.mode == "graph" and dev.type == "cuda" and not EAGER
+        counters = self.counters
         with self._lock:
+            wire0 = collectives.WIRE_COUNTERS["all_reduces"]
             entry = self._graphs.get(k) if graphed else None
             if entry is not None:
                 for s, c in zip(entry.static, carry):
@@ -1531,19 +1574,22 @@ class LevelLoop:
                 if entry is not None:
                     entry.graph.replay()
                     fkernel.add_launches(entry.launches)
-                    FIXPOINT_COUNTERS["replays"] += 1
+                    collectives.add_wire(entry.wire)
+                    counters["replays"] += 1
                 else:
                     carry = self._body(k, carry)
                     if graphed:
                         entry = self._graphs[k] = self._capture(k, carry)
                         carry = entry.static
-                FIXPOINT_COUNTERS["bodies"] += 1
-                FIXPOINT_COUNTERS["host_syncs"] += 1
+                counters["bodies"] += 1
+                counters["host_syncs"] += 1
                 active, lev = torch.stack((carry[0].to(torch.int32), carry[1])).tolist()
                 if not active:
                     break
-            FIXPOINT_COUNTERS["levels"] += lev
-            FIXPOINT_COUNTERS["fixpoints"] += 1
+            counters["levels"] += lev
+            counters["fixpoints"] += 1
+            if collectives.WIRE_COUNTERS["all_reduces"] > wire0:
+                counters["all_reduces"] += collectives.WIRE_COUNTERS["all_reduces"] - wire0
             final = carry[2:]
             return tuple(t.clone() for t in final) if entry is not None else tuple(final)
 

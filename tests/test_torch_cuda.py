@@ -1479,7 +1479,8 @@ def test_one_rank_nccl_mesh_equals_no_mesh(cuda, tmp_path):
     """A (1, 1) mesh of one NCCL rank on the card: S1's gather and the
     reference and sharded executors (both tile stores, witness levels on
     f32) equal ``mesh=None`` on the card, and the sharded path launches its
-    kernel once per level (one bucket) on the rank as on one card."""
+    kernel k levels a body (one bucket) on the rank, whose loop is
+    captured with its pmax, as on one card."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as lmesh
@@ -1517,8 +1518,8 @@ def test_one_rank_nccl_mesh_equals_no_mesh(cuda, tmp_path):
                 assert launches[0][1] == launches[1][1] > 0, (expr, backend)  # the same BFS levels
                 if backend == "reference":
                     assert launches[0][0] == launches[1][0] == 0
-                else:  # a rank's host loop launches once a level, one card's loop k levels a body
-                    assert launches[0][0] == launches[0][1]
+                else:  # a rank's loop and one card's (one bucket) launch k levels a body
+                    assert launches[0][0] == launches[0][2] * ops.LEVELS_PER_CHECK
                     assert launches[1][0] == launches[1][2] * ops.LEVELS_PER_CHECK
     finally:
         dist.destroy_process_group()
@@ -1567,10 +1568,101 @@ def test_one_rank_nccl_service_equals_no_mesh(cuda, tmp_path):
         dist.destroy_process_group()
     assert got == want and launches["levels"] == want_launches["levels"]
     assert launches["fused_level_blocks_u32"] > 0 and launches["fused_level_blocks"] > 0  # witness: f32
-    # the rank's host loop launches once a level, one card's loop (one bucket) k levels a body
+    # the rank's loop and one card's (one bucket) launch k levels a body
     kernels = ("fused_level_blocks_u32", "fused_level_blocks")
-    assert sum(launches[k] for k in kernels) == launches["levels"]
+    assert sum(launches[k] for k in kernels) == launches["bodies"] * ops.LEVELS_PER_CHECK
     assert sum(want_launches[k] for k in kernels) == want_launches["bodies"] * ops.LEVELS_PER_CHECK
+
+
+RANK_LOOP_PATHS = [("reference", "f32", "pairs"), ("reference", "f32", "witness"),
+                   ("frontier_kernel_sharded", "uint32", "pairs"), ("frontier_kernel_sharded", "f32", "witness")]
+
+
+@pytest.mark.parametrize("backend, tile_dtype, semantics", RANK_LOOP_PATHS)
+def test_one_rank_nccl_replay_equals_eager_and_no_mesh(cuda, monkeypatch, tmp_path, backend, tile_dtype, semantics):
+    """On a (1, 1) mesh of one NCCL rank, a per-rank executor's fixpoints
+    replayed from CUDA graphs that hold their ``pmax`` (``LEVELS_PER_CHECK``
+    levels a replay) equal the eager gated body of one level a check
+    (``ops.EAGER``) and ``mesh=None`` bit for bit: answers, meters, witness
+    planes and BFS levels.  The first call captures once (one chunk
+    height), a second replays only; one host sync a body; the bodies'
+    ``all_reduce`` calls are one a level, k a body, counted at each
+    replay; the sharded path's kernel launches k a body."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+
+    g, placement = _sharded_setup()
+    ca = paa.compile_query("l0 (l1|l2)* l3", g)
+    starts = paa.valid_start_nodes(ca, g)[:40]
+    kw = {"placement": placement} if backend == "frontier_kernel_sharded" else {}
+    one_card = strategies.make_s2_step_fn(ca, g.n_nodes, backend=backend, tile_dtype=tile_dtype, semantics=semantics,
+                                          block_size=32, device=cuda, **kw)
+    arrays = strategies.stage_site_arrays(placement, cuda) if backend == "reference" else None
+    want = _loop_run(one_card, placement, ca, starts, arrays, semantics)[0]
+    ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
+    try:
+        mesh = lmesh.make_test_mesh(1, 1)
+        arrays = strategies.stage_site_arrays(placement, cuda, mesh) if backend == "reference" else None
+
+        def step():
+            return strategies.make_s2_step_fn(ca, g.n_nodes, backend=backend, tile_dtype=tile_dtype,
+                                              semantics=semantics, block_size=32, device=cuda, mesh=mesh, **kw)
+
+        monkeypatch.setattr(ops, "EAGER", True)
+        monkeypatch.setattr(ops, "LEVELS_PER_CHECK", 1)
+        eager, eager_c, _ = _loop_run(step(), placement, ca, starts, arrays, semantics)
+        monkeypatch.setattr(ops, "EAGER", False)
+        monkeypatch.setattr(ops, "LEVELS_PER_CHECK", 4)
+        fn = step()
+        for call in range(2):
+            got, c, n = _loop_run(fn, placement, ca, starts, arrays, semantics)
+            assert got == eager == want, (backend, semantics, call)
+            assert c["levels"] == eager_c["levels"] > 0 and c["host_syncs"] == c["bodies"] <= eager_c["bodies"]
+            assert c["captures"] == (1 if call == 0 else 0)
+            assert c["replays"] == c["bodies"] - c["captures"]  # the first body ran eagerly
+            assert c["all_reduces"] == c["bodies"] * 4 and eager_c["all_reduces"] == eager_c["bodies"]
+            assert n == (c["bodies"] * 4 if backend == "frontier_kernel_sharded" else 0)
+        fn.release()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_an_evicted_rank_executor_returns_its_graph_memory(cuda, tmp_path):
+    """A per-rank executor on an NCCL rank, evicted from the cache
+    (``_ExecEntry.release``), frees its graphs, their static state and its
+    plan: ``memory_allocated`` comes back to its level before the build."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import ranks
+
+    g, placement = _sharded_setup()
+    ca = paa.compile_query("l0 (l1|l2)* l3", g)
+    starts = paa.valid_start_nodes(ca, g)[:40]
+    ranks.init_rank(0, 1, str(tmp_path / "store"), device=cuda, timeout_s=120)
+    try:
+        mesh = lmesh.make_test_mesh(1, 1)
+        arrays = strategies.stage_site_arrays(placement, cuda, mesh)
+        for i, backend in enumerate(("frontier_kernel_sharded", "frontier_kernel_sharded", "reference")):
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            step = strategies.make_s2_step_fn(ca, g.n_nodes, backend=backend, placement=placement, block_size=32,
+                                              device=cuda, mesh=mesh)
+            ops.FIXPOINT_COUNTERS.clear()
+            strategies.s2_execute(placement, ca, starts, step_fn=step, device_arrays=arrays)
+            assert ops.FIXPOINT_COUNTERS["captures"] == 1 and torch.cuda.memory_allocated() > base
+            entry = plancache._ExecEntry(graph_key=(), sig=None, fn=step)
+            del step
+            entry.release()
+            gc.collect()
+            torch.cuda.synchronize()
+            if i:  # the first build is the warm-up: whatever it allocates for good
+                assert torch.cuda.memory_allocated() == base, backend
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("table_dtype", [torch.bfloat16, torch.float32])

@@ -8,10 +8,10 @@
   equal; the wire bytes are the rank's ``WIRE_COUNTERS["bytes"]`` growth;
   HBM bytes are equal but for exactly the shape-only stand-ins' own ops
   (DLRM's mask of a shard's lookups, GCN's edge mask, the reference
-  executor's edge sets and its level's host read, counted apart) and the
-  host values the meta run uploads as the card would (a CPU tensor or a
-  Python scalar made a device tensor), which a CPU run does not
-  dispatch.
+  executor's edge sets and its fixpoint loop's flag and gate, counted
+  apart) and the host values the meta run uploads as the card would (a
+  CPU tensor or a Python scalar made a device tensor), which a CPU run
+  does not dispatch.
 * (b) At the (16, 16) layout, one cell per family: the logical
   collective bytes against a closed form of the shapes.
 * (c) A mesh of one rank: the rank's FLOPs are the one-card program's,
@@ -51,6 +51,7 @@ from repro_torch.dist import sharding as shd
 from repro_torch.graph import generators
 from repro_torch.kernels.decode_attn import decode_attn
 from repro_torch.kernels.embedbag import embedbag
+from repro_torch.kernels.frontier import ops as fops
 from repro_torch.launch import analysis, cells, dryrun, mesh, ranks
 from repro_torch.models import dlrm, gnn
 from repro_torch.models import transformer as tr
@@ -163,11 +164,19 @@ def _program(name: str, m) -> tuple:
         return fn(starts, {"src": src, "lbl": lbl, "dst": dst, "mask": mask})
 
     args = tuple(arrays[k] for k in ("src", "lbl", "dst", "mask")) + (starts,)
-    # the real run reads its first level's frontier on the host (an `any`
-    # over the rank's (starts, states, nodes) bools), the meta run takes one
-    # level without it
-    read = starts.shape[0] // SHAPE[1] * ca.n_states * g.n_nodes + 1
-    return step, args, (edge_sets, args[:4], read)
+
+    def loop():
+        # the real run's fixpoint is an ops.LevelLoop (one gated body at
+        # max_levels 1): its flag, gate and level counter around the level,
+        # on the rank's (starts, states, nodes) bools, are ops of its own,
+        # counted here on a level that changes nothing; the meta run takes
+        # one level without them
+        frontier = torch.zeros((starts.shape[0] // SHAPE[1], ca.n_states, g.n_nodes), dtype=torch.bool)
+        frontier[0, ca.start, 0] = True
+        run = fops.LevelLoop(lambda state, lev: state, 1, "gloo").run
+        return analysis.count_step(lambda f: run((f,)), (frontier,)).bytes
+
+    return step, args, (edge_sets, args[:4], loop)
 
 
 def _meta(tree):
@@ -221,9 +230,9 @@ def _count_cases(rank: int, m, real: bool) -> dict:
         r = _summary(c)
         r["uploads"] = sum(uploads)
         r["wire_counter"] = collectives.WIRE_COUNTERS["bytes"] - w0
-        if isinstance(stand_in, tuple):  # the edge sets, counted apart, and the level's host read
-            fn, a, read = stand_in
-            r["stand_in"] = analysis.count_step(fn, a if real else _meta(a)).bytes + (read if real else 0)
+        if isinstance(stand_in, tuple):  # the edge sets, counted apart, and the loop's own ops
+            fn, a, loop = stand_in
+            r["stand_in"] = analysis.count_step(fn, a if real else _meta(a)).bytes + (loop() if real else 0)
         elif stand_in is not None:
             r["stand_in"] = stand_in() if real else 0
         out[name] = r
